@@ -6,13 +6,15 @@
 Needs one CUDA device (an H100: the kernels build for sm_90a) and
 ``nvcc``; imports nothing of JAX or of the JAX package.  It
 
-1. builds every CUDA kernel of the serving path from ``mxnet_tpu_torch/
-   csrc`` (one ``nvcc`` per source, in parallel) and prints the card's
-   name and power limit, the build time and the TF32 flags;
+1. builds every CUDA kernel of the serving and training paths from
+   ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
+   prints the card's name and power limit, the build time and the TF32
+   flags;
 2. holds each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it (and one odd shape), in float32
-   and bfloat16, for every activation, and times kernel, plain version,
-   a one-call PyTorch yardstick and the memory-traffic bound;
+   every shape the serving and training paths give it (and one odd shape),
+   in float32 and bfloat16, for every activation — the ``bn_act`` forward
+   and its backward (dx, dscale, dshift) — and times kernel, plain
+   version, a PyTorch yardstick and the memory-traffic bound;
 3. serves ResNet-50 (3x224x224, 1000 classes, float32) through
    ``Predictor`` on ``gpu(0)`` from a checkpoint of seeded random weights:
    8 requests at batch 32, then a reshape to batch 1 and back; checks
@@ -22,7 +24,22 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
    ``MXTPU_FUSED_KERNELS=0``;
 4. times fused against ``MXTPU_FUSED_KERNELS=0`` serving in turns and
    traces where a fused forward's device time goes (``torch.profiler``);
-5. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+5. trains ResNet-50 at batch 32 through ``SPMDTrainer`` on ``gpu(0)``
+   (bench.py's sgd settings, seeded Xavier init, seeded batches on the
+   device): exactly 50 ``bn_act`` forward and 50 backward launches per
+   step, finite losses, a cross-entropy that falls on a fixed batch, no
+   skipped step, moved params and moving statistics; steady ms/step,
+   img/s and peak memory;
+6. holds one batch-4 ``simple_bind`` -> ``forward(is_train=True)`` ->
+   ``backward()`` on the card (fused, and with ``MXTPU_FUSED_KERNELS=0``,
+   which must launch no ``bn_act`` kernel) against the port's CPU path:
+   outputs and moving statistics against its float32 run, every
+   gradient against its float64 run, as close as its own float32
+   gradients come (see ``GRAD_L2_FACTOR``);
+7. traces a few training steps (``torch.profiler``): idle share, kernel
+   launches per step and device time by class, ``bn_act`` forward and
+   backward and the optimizer update each a class of its own;
+8. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
    "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -44,17 +61,35 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet, 700 W) — the bound's denominator
 HBM_BYTES_PER_S = 3.35e12
-#: the five bn_act site shapes of ResNet-50 at batch 32, 224x224
-SITE_SHAPES_B32 = {(32, 64, 56, 56), (32, 256, 56, 56), (32, 512, 28, 28),
-                   (32, 1024, 14, 14), (32, 2048, 7, 7)}
+#: the five bn_act site shapes of ResNet-50 serving at batch 32, 224x224
+SERVING_SHAPES_B32 = {(32, 64, 56, 56), (32, 256, 56, 56), (32, 512, 28, 28),
+                      (32, 1024, 14, 14), (32, 2048, 7, 7)}
+#: the twelve fused BatchNorm site shapes of one ResNet-50 training step
+TRAINING_SHAPES_B32 = SERVING_SHAPES_B32 | {
+    (32, 64, 112, 112), (32, 128, 56, 56), (32, 128, 28, 28),
+    (32, 256, 28, 28), (32, 256, 14, 14), (32, 512, 14, 14),
+    (32, 512, 7, 7)}
 ODD_SHAPE = (3, 5, 7, 3)
 IMAGE = (3, 224, 224)
-BATCH = 32          # requests per forward on the serving path
+BATCH = 32          # requests per forward, images per training step
 FORWARDS = 8        # batch-32 requests served on the main path
 PROFILE_FORWARDS = 5
+TRAIN_STEPS = 4     # training steps on distinct seeded batches
+FIXED_STEPS = 10    # then steps on one fixed batch, whose loss must fall
+PROFILE_STEPS = 3
+AGREE_BATCH = 4     # the GPU-vs-CPU training agreement's batch
 ACTS = ("relu", "sigmoid", "tanh", None)
-F32_TOL = 1e-5      # max abs error, float32 kernel vs plain
+F32_TOL = 1e-5      # max abs error, float32 kernel vs plain (y, dx)
 BF16_REL_TOL = 1e-2  # max abs error / max |plain|, bfloat16
+SUM_F32_REL_TOL = 1e-4  # dscale/dshift: max abs error / max |plain|, f32
+AGREE_REL_TOL = 1e-3  # GPU vs CPU training: max abs diff / max |cpu|
+# The gradients of a float32 ResNet-50 step at batch 4 are ill-conditioned:
+# a ReLU whose input lies within rounding of 0 takes the other branch under
+# another summation order, which moves a late-stage weight gradient by
+# several percent.  So the card's gradients are held, with the CPU float32
+# path's, against a float64 CPU run of the same step:
+GRAD_L2_FACTOR = 3.0  # all gradients: relative L2 error <= 3x the CPU's
+GRAD_TENSOR_L2_TOL = 0.1  # and each gradient tensor's under this
 
 
 class SmokeFailure(Exception):
@@ -138,52 +173,89 @@ def phase_setup(torch, mx):
 
 
 def bn_act_sites(mx, symbol, data_shape):
-    """The data shapes the serving plan hands ``fused_bn_act``, one per
-    call site, read from the fused plan and the graph's inferred shapes."""
+    """The data shapes the fused plan hands ``fused_bn_act``, one per call
+    site: ``(serving, training)``.  Serving calls it at the ``bn_act``
+    entries (the ``bn_fold`` entries fold into their convolution);
+    training calls it at both."""
     plan = mx.executor._build_eval(symbol).plan
     sites = mx.mxfuse.bn_sites(plan)
     internals = symbol.get_internals()
     _, out_shapes, _ = internals.infer_shape(data=data_shape)
     shape_of = {(id(n), i): s for (n, i), s in
                 zip(internals._outputs, out_shapes)}
-    return [shape_of[(id(n.inputs[0][0]), n.inputs[0][1])]
-            for n in sites["bn_act"]], len(sites["bn_fold"])
+
+    def shapes(nodes):
+        return [tuple(shape_of[(id(n.inputs[0][0]), n.inputs[0][1])])
+                for n in nodes]
+    return shapes(sites["bn_act"]), shapes(sites["bn_act"] + sites["bn_fold"])
 
 
-def phase_kernels(torch, mx, site_counts, seed):
-    """bn_act kernel vs its plain version at every site shape and the odd
-    shape, float32 and bfloat16, every activation; times at relu."""
+def _bwd_error(torch, got, ref, f32):
+    """Worst of (dx, dscale, dshift) against the plain backward, each
+    against its tolerance: ``(ratio, dx max abs err)``, ratio <= 1 passes."""
+    worst, dx_err = 0.0, 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise SmokeFailure("bn_act backward: output %d shape/dtype %s %s "
+                               "!= %s %s" % (i, tuple(g.shape), g.dtype,
+                                             tuple(r.shape), r.dtype))
+        err = (g.float() - r.float()).abs().max().item()
+        top = max(r.float().abs().max().item(), 1e-30)
+        if i == 0:
+            dx_err = err
+            tol = F32_TOL if f32 else BF16_REL_TOL * top
+        else:
+            tol = (SUM_F32_REL_TOL if f32 else BF16_REL_TOL) * top
+        worst = max(worst, err / tol)
+    return worst, dx_err
+
+
+def phase_kernels(torch, mx, serving_counts, training_counts, seed):
+    """The bn_act forward and backward kernels against their plain
+    versions at every site shape of both paths and the odd shape, float32
+    and bfloat16, every activation; times at relu."""
     ba = mx.kernels.bn_act
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    shapes = sorted(site_counts, key=lambda s: -s[1]) + [ODD_SHAPE]
+    shapes = sorted(training_counts, key=lambda s: (-s[1], s)) + [ODD_SHAPE]
     per_shape = {}
-    max_err_f32 = 0.0
+    max_err = {"fwd": 0.0, "bwd": 0.0}
     for shape in shapes:
         c = shape[1]
         x32 = torch.randn(shape, generator=gen, device=dev) * 2.0
         scale32 = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
         shift32 = torch.randn(c, generator=gen, device=dev) * 0.5
+        dy32 = torch.randn(shape, generator=gen, device=dev)
         row = {}
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            x, scale, shift = (t.to(dtype) for t in (x32, scale32, shift32))
+            x, scale, shift, dy = (t.to(dtype)
+                                   for t in (x32, scale32, shift32, dy32))
+            f32 = tag == "f32"
             for act in ACTS:
                 y = ba.norm_act(x, scale, shift, act)
                 ref = ba.norm_act_plain(x, scale, shift, act)
+                got_b = ba.norm_act_bwd(x, scale, shift, dy, act)
+                ref_b = ba.norm_act_bwd_plain(x, scale, shift, dy, act)
                 torch.cuda.synchronize()
                 check(y.shape == ref.shape and y.dtype == ref.dtype,
                       "bn_act %s %s: shape/dtype differ" % (shape, tag))
                 err = (y.float() - ref.float()).abs().max().item()
-                if tag == "f32":
+                if f32:
                     check(err <= F32_TOL, "bn_act f32 %s act=%s: max abs err "
                           "%.3g > %g" % (shape, act, err, F32_TOL))
-                    max_err_f32 = max(max_err_f32, err)
+                    max_err["fwd"] = max(max_err["fwd"], err)
                 else:
                     rel = err / max(ref.float().abs().max().item(), 1e-30)
                     check(rel <= BF16_REL_TOL, "bn_act bf16 %s act=%s: rel "
                           "err %.3g > %g" % (shape, act, rel, BF16_REL_TOL))
+                ratio, dx_err = _bwd_error(torch, got_b, ref_b, f32)
+                check(ratio <= 1.0, "bn_act backward %s %s act=%s: error "
+                      "%.3g x its tolerance" % (tag, shape, act, ratio))
+                if f32:
+                    max_err["bwd"] = max(max_err["bwd"], dx_err)
                 row["%s_%s_err" % (tag, act or "none")] = err
+                row["%s_%s_bwd_ratio" % (tag, act or "none")] = ratio
             s4 = scale.reshape(1, c, 1, 1)
             b4 = shift.reshape(1, c, 1, 1)
             row[tag + "_ms"] = device_ms(
@@ -194,16 +266,35 @@ def phase_kernels(torch, mx, site_counts, seed):
                 torch, lambda: torch.relu(torch.addcmul(b4, x, s4)))
             row[tag + "_bound_ms"] = 2 * x.numel() * x.element_size() \
                 / HBM_BYTES_PER_S * 1e3
+            row[tag + "_bwd_ms"] = device_ms(
+                torch, lambda: ba.norm_act_bwd(x, scale, shift, dy, "relu"))
+            row[tag + "_bwd_plain_ms"] = device_ms(
+                torch, lambda: ba.norm_act_bwd_plain(x, scale, shift, dy,
+                                                     "relu"))
+            xl, sl, bl = (t.detach().requires_grad_(True)
+                          for t in (x, s4, b4))
+            row[tag + "_bwd_library_ms"] = device_ms(
+                torch, lambda: torch.autograd.grad(
+                    torch.relu(torch.addcmul(bl, xl, sl)), (xl, sl, bl), dy))
+            # reads x and dy, writes dx (the (C,) sums are negligible)
+            row[tag + "_bwd_bound_ms"] = 3 * x.numel() * x.element_size() \
+                / HBM_BYTES_PER_S * 1e3
         per_shape[shape] = row
-        log("bn_act %-18s sites=%d f32: err %.2e ms %.4f plain %.4f "
-            "library %.4f bound %.4f | bf16: err %.2e ms %.4f plain %.4f "
-            "library %.4f bound %.4f" % (
-                str(shape), site_counts.get(shape, 0), row["f32_relu_err"],
+        log("bn_act %-19s sites serve=%d train=%d | fwd f32: err %.2e ms "
+            "%.4f plain %.4f library %.4f bound %.4f; bf16: ms %.4f bound "
+            "%.4f | bwd f32: ms %.4f plain %.4f library %.4f bound %.4f; "
+            "bf16: ms %.4f bound %.4f" % (
+                str(shape), serving_counts.get(shape, 0),
+                training_counts.get(shape, 0), row["f32_relu_err"],
                 row["f32_ms"], row["f32_plain_ms"], row["f32_library_ms"],
-                row["f32_bound_ms"], row["bf16_relu_err"], row["bf16_ms"],
-                row["bf16_plain_ms"], row["bf16_library_ms"],
-                row["bf16_bound_ms"]))
-    return per_shape, max_err_f32
+                row["f32_bound_ms"], row["bf16_ms"], row["bf16_bound_ms"],
+                row["f32_bwd_ms"], row["f32_bwd_plain_ms"],
+                row["f32_bwd_library_ms"], row["f32_bwd_bound_ms"],
+                row["bf16_bwd_ms"], row["bf16_bwd_bound_ms"]))
+    log("bn_act kernels: forward max abs err %.3g (f32), backward dx max "
+        "abs err %.3g (f32); every shape, dtype and act within tolerance"
+        % (max_err["fwd"], max_err["bwd"]))
+    return per_shape, max_err
 
 
 def draw_weights(symbol, data_shape, seed):
@@ -270,8 +361,9 @@ def phase_serving(torch, mx, seed, card):
     batch = BATCH
     symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
                                   image_shape=image)
-    sites, n_fold = bn_act_sites(mx, symbol, (batch,) + image)
+    sites, train_sites = bn_act_sites(mx, symbol, (batch,) + image)
     per_fwd = len(sites)
+    n_fold = len(train_sites) - per_fwd
     log("resnet-50 serving plan: %d bn_act sites, %d bn_fold sites"
         % (per_fwd, n_fold))
     check(per_fwd == 17 and n_fold == 33, "unexpected fused plan")
@@ -358,9 +450,9 @@ def phase_serving(torch, mx, seed, card):
 # ---------------------------------------------------------------------------
 
 _KERNEL_CLASSES = (
-    ("bn_act", ("bn_act_fwd_kernel",)),
+    ("bn_act", ("bn_act_fwd_kernel", "bn_act_bwd_kernel")),
     ("conv/gemm", ("conv", "xmma", "gemm", "implicit", "cudnn", "sm90",
-                   "winograd", "fft")),
+                   "winograd", "fft", "wgrad", "dgrad")),
     ("copy", ("memcpy", "memset", "copy")),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "pooling",
@@ -450,10 +542,319 @@ def phase_profile(torch, mx, net, params, card):
             ms / forwards, count // forwards, key[:110]))
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _cross_entropy(torch, probs, label):
+    """Mean -log p[label] of softmax outputs, on the device."""
+    p = probs.float().gather(1, label.long().reshape(-1, 1))
+    return -torch.log(p.clamp_min(1e-30)).mean()
+
+
+def make_trainer(torch, mx, seed):
+    """ResNet-50 with bench.py's trainer settings (bench.py:105-115, float
+    compute, no mesh) and a seeded Xavier init, on gpu(0)."""
+    symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                  image_shape=IMAGE)
+    mx.random.seed(seed)
+    tr = mx.parallel.SPMDTrainer(
+        symbol, "sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+                        "rescale_grad": 1.0 / BATCH},
+        mesh=None, compute_dtype=None, ctx=mx.gpu(0))
+    tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    tr.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                         factor_type="in", magnitude=2))
+    return tr
+
+
+def phase_training(torch, mx, seed, card, per_step_sites):
+    import numpy as np
+    ba = mx.kernels.bn_act
+    tr = make_trainer(torch, mx, seed)
+    dev = torch.device("cuda", 0)
+    rs = np.random.RandomState(seed + 2)
+    batches = [(torch.from_numpy(rs.standard_normal((BATCH,) + IMAGE)
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(rs.randint(0, 1000, BATCH)
+                                 .astype(np.float32)).to(dev))
+               for _ in range(TRAIN_STEPS)]
+    fixed = batches[0]
+    params0 = {k: v.clone() for k, v in tr.params.items()}
+    aux0 = {k: v.clone() for k, v in tr.aux.items()}
+    ce_before = _cross_entropy(torch, tr.forward_only(*fixed)[0], fixed[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan = [batches[i] for i in range(TRAIN_STEPS)] + [fixed] * FIXED_STEPS
+    n_steps = len(plan)
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    ba.BWD_LAUNCHES = 0
+    stamps, losses = [], []
+    for x, y in plan:
+        stamps.append(time.perf_counter())
+        out = tr.step(x, y)[0]
+        losses.append(_cross_entropy(torch, out, y))
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    skipped = tr.skipped_steps
+    fwd_launches, bwd_launches = ba.LAUNCHES, ba.BWD_LAUNCHES
+    # ----------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated()
+    ce_after = _cross_entropy(torch, tr.forward_only(*fixed)[0], fixed[1])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    ce_before, ce_after = float(ce_before), float(ce_after)
+    log("training: bn_act launches over %d steps: forward %d, backward %d "
+        "(expected %d each)" % (n_steps, fwd_launches, bwd_launches,
+                                per_step_sites * n_steps))
+    check(fwd_launches == per_step_sites * n_steps
+          and bwd_launches == per_step_sites * n_steps,
+          "bn_act training launches %d / %d != %d" % (
+              fwd_launches, bwd_launches, per_step_sites * n_steps))
+    log("training: per-step loss %s" % " ".join("%.4f" % v for v in losses))
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    log("training: cross-entropy on the fixed batch %.4f before, %.4f after "
+        "%d steps on it" % (ce_before, ce_after, FIXED_STEPS))
+    check(np.isfinite(ce_after) and ce_after < ce_before,
+          "the fixed batch's cross-entropy did not fall")
+    check(skipped == 0, "%d guard-skipped steps" % skipped)
+    moved = sum(not torch.equal(v, params0[k]) for k, v in tr.params.items())
+    aux_moved = sum(not torch.equal(v, aux0[k]) for k, v in tr.aux.items())
+    log("training: %d of %d params and %d of %d moving statistics changed"
+        % (moved, len(params0), aux_moved, len(aux0)))
+    check(moved == len(params0) and aux_moved == len(aux0),
+          "params or moving statistics did not change")
+    steady_s = (stamps[-1] - stamps[2]) / (n_steps - 2)
+    log("training: first step %.1f ms, steady %.2f ms/step at batch %d -> "
+        "%.1f img/s, peak memory %.2f GiB (max_memory_allocated) on %s" % (
+            (stamps[1] - stamps[0]) * 1e3, steady_s * 1e3, BATCH,
+            BATCH / steady_s, peak / 2 ** 30, card))
+    return tr, batches, fwd_launches, bwd_launches
+
+
+def _executor_step(mx, symbol, weights, x, y, ctx):
+    """One batch through forward(is_train=True) -> backward() in x's
+    dtype: outputs, every gradient and the moving statistics, as float64
+    numpy.  float32 binds through simple_bind; float64 (the CPU
+    reference) through bind with float64 arrays, since simple_bind
+    allocates float32 gradients."""
+    import numpy as np
+    w_args, w_aux = weights
+    if x.dtype == np.float32:
+        ex = symbol.simple_bind(ctx, grad_req="write", data=x.shape)
+        for n, v in w_args.items():
+            ex.arg_dict[n][:] = v
+        for n, v in w_aux.items():
+            ex.aux_dict[n][:] = v
+    else:
+        arg_shapes, _, _ = symbol.infer_shape(data=x.shape)
+
+        def arr(v):
+            return mx.nd.array(v, ctx=ctx, dtype=x.dtype)
+        names = symbol.list_arguments()
+        ex = symbol.bind(
+            ctx, {n: arr(w_args[n] if n in w_args else np.zeros(s))
+                  for n, s in zip(names, arg_shapes)},
+            args_grad={n: arr(np.zeros(s)) for n, s in zip(names, arg_shapes)},
+            grad_req="write",
+            aux_states={n: arr(v) for n, v in w_aux.items()})
+    ex.forward(is_train=True, data=x, softmax_label=y)
+    ex.backward()
+    out = {"output": ex.outputs[0].asnumpy()}
+    out.update({"grad:" + k: v.asnumpy() for k, v in ex.grad_dict.items()})
+    out.update({"aux:" + k: v.asnumpy() for k, v in ex.aux_dict.items()})
+    return {k: v.astype(np.float64) for k, v in out.items()}
+
+
+def _worst_max_rel(np, got, ref, keys):
+    """``(max |diff| / max |ref|, key)`` of the worst tensor among keys."""
+    worst = (-1.0, "")
+    for k in keys:
+        diff = float(np.abs(got[k] - ref[k]).max()) if ref[k].size else 0.0
+        top = float(np.abs(ref[k]).max()) if ref[k].size else 0.0
+        ratio = diff / top if top > 0 else (0.0 if diff == 0 else np.inf)
+        worst = max(worst, (ratio, k))
+    return worst
+
+
+def _rel_l2(np, got, ref, keys):
+    """Relative L2 error of the tensors under keys taken together."""
+    num = sum(float(np.sum((got[k] - ref[k]) ** 2)) for k in keys)
+    den = sum(float(np.sum(ref[k] ** 2)) for k in keys)
+    return (num / den) ** 0.5 if den > 0 else (0.0 if num == 0 else np.inf)
+
+
+def _compare_train(np, got, ref, exact, cpu_l2, what):
+    """Outputs and moving statistics against the port's CPU float32 path,
+    each within AGREE_REL_TOL x its max |cpu|.  Gradients against the
+    float64 CPU run: together within max(AGREE_REL_TOL, GRAD_L2_FACTOR x
+    the CPU float32 path's own relative L2 error ``cpu_l2``), each tensor
+    within GRAD_TENSOR_L2_TOL; the worst tensor by max |diff| / max |cpu|
+    is printed beside them."""
+    for k, r in ref.items():
+        check(got[k].shape == r.shape and np.isfinite(got[k]).all(),
+              "%s: %s shape %s / not finite" % (what, k, got[k].shape))
+    grads = [k for k in ref if k.startswith("grad:")]
+    state = [k for k in ref if not k.startswith("grad:")]
+    s_ratio, s_key = _worst_max_rel(np, got, ref, state)
+    log("%s: outputs and moving statistics (%d tensors), worst %s: max "
+        "|diff| / max |cpu| %.3g (bound %g)" % (what, len(state), s_key,
+                                                s_ratio, AGREE_REL_TOL))
+    check(s_ratio <= AGREE_REL_TOL,
+          what + ": outputs or moving statistics disagree with the CPU path")
+    g_l2 = _rel_l2(np, got, exact, grads)
+    bound = max(AGREE_REL_TOL, GRAD_L2_FACTOR * cpu_l2)
+    t_l2, t_key = max((_rel_l2(np, got, exact, [k]), k) for k in grads)
+    m_ratio, m_key = _worst_max_rel(np, got, ref, grads)
+    log("%s: %d gradients, relative L2 error against float64 %.3g (bound "
+        "%.3g); worst tensor %s %.3g (bound %g); worst by max |diff| / max "
+        "|cpu float32|: %s %.3g" % (what, len(grads), g_l2, bound, t_key,
+                                    t_l2, GRAD_TENSOR_L2_TOL, m_key, m_ratio))
+    check(g_l2 <= bound and t_l2 <= GRAD_TENSOR_L2_TOL,
+          what + ": gradients disagree with the float64 CPU run")
+
+
+def phase_train_agreement(torch, mx, seed):
+    """One batch-4 training forward/backward on the card, fused and with
+    MXTPU_FUSED_KERNELS=0, against the port's CPU path (float32, and
+    float64 as the exact reference for the gradients)."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                  image_shape=IMAGE)
+    shape = (AGREE_BATCH,) + IMAGE
+    weights = draw_weights(symbol, shape, seed)
+    rs = np.random.RandomState(seed + 3)
+    x = rs.standard_normal(shape).astype(np.float32)
+    y = rs.randint(0, 1000, AGREE_BATCH).astype(np.float32)
+    t0 = time.perf_counter()
+    ref = _executor_step(mx, symbol, weights, x, y, mx.cpu())
+    exact = _executor_step(mx, symbol, weights, x.astype(np.float64),
+                           y.astype(np.float64), mx.cpu())
+    grads = [k for k in ref if k.startswith("grad:")]
+    cpu_l2 = _rel_l2(np, ref, exact, grads)
+    c_ratio, c_key = _worst_max_rel(np, ref, exact, grads)
+    log("training agreement: CPU float32 and float64 forward+backward at "
+        "batch %d took %.1f s; the CPU float32 gradients' relative L2 error "
+        "against float64 is %.3g, worst by max |diff| / max |ref|: %s %.3g "
+        "(ReLU masks that flip between roundings)" % (
+            AGREE_BATCH, time.perf_counter() - t0, cpu_l2, c_key, c_ratio))
+    before = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+    got = _executor_step(mx, symbol, weights, x, y, mx.gpu(0))
+    launched = (ba.LAUNCHES - before[0], ba.BWD_LAUNCHES - before[1])
+    check(launched == (50, 50), "fused executor step launched %s bn_act "
+          "kernels, not (50, 50)" % (launched,))
+    _compare_train(np, got, ref, exact, cpu_l2, "training gpu fused")
+    before = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+    old = os.environ.get("MXTPU_FUSED_KERNELS")
+    os.environ["MXTPU_FUSED_KERNELS"] = "0"
+    try:
+        unfused = _executor_step(mx, symbol, weights, x, y, mx.gpu(0))
+    finally:
+        if old is None:
+            del os.environ["MXTPU_FUSED_KERNELS"]
+        else:
+            os.environ["MXTPU_FUSED_KERNELS"] = old
+    check((ba.LAUNCHES, ba.BWD_LAUNCHES) == before,
+          "MXTPU_FUSED_KERNELS=0 training still launched bn_act")
+    _compare_train(np, unfused, ref, exact, cpu_l2,
+                   "training gpu MXTPU_FUSED_KERNELS=0")
+
+
+def _trace_classes(path, update_range):
+    """Device time by class from a chrome trace: ``bn_act_fwd``,
+    ``bn_act_bwd``, ``optimizer update`` (kernels whose launch lies inside
+    the trainer's update range) and the serving classes.  Returns
+    ``(busy_us, {class: us}, kernels, top [(us, count, name)])``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == update_range
+             and e.get("cat") == "user_annotation"]
+    launch_ts = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is not None and e.get("cat") in ("cuda_runtime",
+                                                 "cuda_driver"):
+            launch_ts[corr] = e["ts"]
+    by_class = collections.Counter()
+    by_name = collections.Counter()
+    counts = collections.Counter()
+    n = 0
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name, dur = e.get("name", ""), float(e.get("dur", 0))
+        n += 1
+        if "bn_act_fwd_kernel" in name:
+            cls = "bn_act_fwd"
+        elif "bn_act_bwd_kernel" in name:
+            cls = "bn_act_bwd"
+        else:
+            ts = launch_ts.get((e.get("args") or {}).get("correlation"))
+            if ts is not None and any(a <= ts <= b for a, b in spans):
+                cls = "optimizer update"
+            else:
+                cls = _kernel_class(name)
+        by_class[cls] += dur
+        by_name[name] += dur
+        counts[name] += 1
+    top = sorted(((us, counts[k], k) for k, us in by_name.items()),
+                 reverse=True)
+    return sum(by_class.values()), by_class, n, top, len(spans)
+
+
+def phase_train_profile(torch, mx, tr, batches, card):
+    """A torch.profiler trace of a few training steps: idle share, kernel
+    launches per step, device time per step by class."""
+    from mxnet_tpu_torch.parallel.trainer import UPDATE_RANGE
+    steps = PROFILE_STEPS
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="train-trace-", suffix=".json",
+                                dir=build_dir)
+    os.close(fd)
+    try:
+        tr.step(*batches[1])          # flush the previous phase's state
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                tr.step(*batches[i % len(batches)])
+            tr.flush_step_guard()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(path)
+        busy_us, by_class, n_kernels, top, n_spans = _trace_classes(
+            path, UPDATE_RANGE)
+    finally:
+        os.remove(path)
+    busy_ms = busy_us / 1e3
+    check(busy_ms > 0, "training profile saw no device time")
+    check(n_spans == steps, "training profile saw %d update ranges, not %d"
+          % (n_spans, steps))
+    for cls in ("bn_act_fwd", "bn_act_bwd", "optimizer update"):
+        check(by_class.get(cls, 0) > 0, "training profile: no %s time" % cls)
+    log("train profile: %d steps at batch %d, wall %.2f ms, device busy "
+        "%.2f ms, idle share %.3f, %.1f kernels per step, on %s" % (
+            steps, BATCH, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
+            n_kernels / steps, card))
+    for cls, us in by_class.most_common():
+        log("train profile: class %-16s %8.3f ms/step  %5.1f%%" % (
+            cls, us / 1e3 / steps, 100 * us / busy_us))
+    for us, count, key in top[:12]:
+        log("train profile: kernel %8.3f ms/step x%-4d %s" % (
+            us / 1e3 / steps, count // steps, key[:110]))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the weights and requests")
+                        help="seed of the weights, requests and batches")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -469,29 +870,63 @@ def main(argv=None):
     card = phase_setup(torch, mx)
     symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
                                   image_shape=IMAGE)
-    sites, _ = bn_act_sites(mx, symbol, (BATCH,) + IMAGE)
-    site_counts = collections.Counter(tuple(s) for s in sites)
-    check(set(site_counts) == SITE_SHAPES_B32,
-          "bn_act site shapes %s" % sorted(site_counts))
-    per_shape, max_err = phase_kernels(torch, mx, site_counts, args.seed)
+    serving, training = bn_act_sites(mx, symbol, (BATCH,) + IMAGE)
+    serving_counts = collections.Counter(serving)
+    training_counts = collections.Counter(training)
+    check(set(serving_counts) == SERVING_SHAPES_B32,
+          "bn_act serving site shapes %s" % sorted(serving_counts))
+    check(set(training_counts) == TRAINING_SHAPES_B32 and len(training) == 50,
+          "bn_act training site shapes %s" % sorted(training_counts))
+    per_shape, max_err = phase_kernels(torch, mx, serving_counts,
+                                       training_counts, args.seed)
     launches, net, params = phase_serving(torch, mx, args.seed, card)
     phase_profile(torch, mx, net, params, card)
+    tr, batches, train_fwd, train_bwd = phase_training(
+        torch, mx, args.seed, card, len(training))
+    phase_train_agreement(torch, mx, args.seed)
+    phase_train_profile(torch, mx, tr, batches, card)
 
-    def per_forward(key):
-        return sum(per_shape[s][key] * n for s, n in site_counts.items())
+    def total(counts, key):
+        return sum(per_shape[s][key] * n for s, n in counts.items())
+    log("bn_act float32 relu per serving forward (%d launches): kernel %.4f "
+        "plain %.4f library %.4f bound %.4f ms" % (
+            len(serving), total(serving_counts, "f32_ms"),
+            total(serving_counts, "f32_plain_ms"),
+            total(serving_counts, "f32_library_ms"),
+            total(serving_counts, "f32_bound_ms")))
+    for d in ("", "bwd_"):
+        log("bn_act %s float32 relu per training step (%d launches): "
+            "kernel %.4f plain %.4f library %.4f bound %.4f ms" % (
+                "backward" if d else "forward", len(training),
+                total(training_counts, "f32_%sms" % d),
+                total(training_counts, "f32_%splain_ms" % d),
+                total(training_counts, "f32_%slibrary_ms" % d),
+                total(training_counts, "f32_%sbound_ms" % d)))
+    # times: the float32 relu launches of one batch-32 training step
     kernels = [{
         "name": "bn_act_fwd",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/bn_act.cu",
         "replaces": "mxnet_tpu/kernels/bn_act.py:109",
-        "launches": launches,
-        "max_abs_err": max_err,
-        # times: the 17 float32 relu launches of one batch-32 forward
-        "ms": per_forward("f32_ms"),
-        "plain_ms": per_forward("f32_plain_ms"),
-        "bound_ms": per_forward("f32_bound_ms"),
+        "launches": launches + train_fwd,
+        "max_abs_err": max_err["fwd"],
+        "ms": total(training_counts, "f32_ms"),
+        "plain_ms": total(training_counts, "f32_plain_ms"),
+        "bound_ms": total(training_counts, "f32_bound_ms"),
         "bound_by": "bytes",
-        "library_ms": per_forward("f32_library_ms"),
+        "library_ms": total(training_counts, "f32_library_ms"),
+    }, {
+        "name": "bn_act_bwd",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/bn_act.cu",
+        "replaces": "mxnet_tpu/kernels/bn_act.py:113",
+        "launches": train_bwd,
+        "max_abs_err": max_err["bwd"],
+        "ms": total(training_counts, "f32_bwd_ms"),
+        "plain_ms": total(training_counts, "f32_bwd_plain_ms"),
+        "bound_ms": total(training_counts, "f32_bwd_bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": total(training_counts, "f32_bwd_library_ms"),
     }]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 ``import mxnet_tpu_torch as mx`` gives the same surface as ``mxnet_tpu``
 for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
-``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.cpu()``, ``mx.gpu(i)``,
-``mx.current_context()``.  This package imports ``torch``, ``numpy`` and
+``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.optimizer``,
+``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io``,
+``mx.parallel``, ``mx.cpu()``, ``mx.gpu(i)``, ``mx.current_context()``.  This package imports ``torch``, ``numpy`` and
 the standard library only; it never imports ``jax`` or ``mxnet_tpu``.
 
 Its entry points run on ``gpu(0)`` unless the caller passes ``mx.cpu()``;
@@ -27,11 +28,19 @@ from . import predict
 from . import convert
 from . import name
 from . import attribute
+from . import random
+from . import io
+from . import lr_scheduler
+from . import optimizer
+from . import initializer
+from . import parallel
 
 symbol._init_symbol_module()
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd", "ndarray", "sym", "symbol", "kernels",
-           "mxfuse", "executor", "model", "models", "predict", "convert",
-           "name", "attribute"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
+           "ndarray", "sym", "symbol", "kernels", "mxfuse", "executor",
+           "model", "models", "predict", "convert", "name", "attribute",
+           "random", "io", "lr_scheduler", "optimizer", "initializer",
+           "parallel"]

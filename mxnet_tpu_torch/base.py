@@ -12,7 +12,8 @@ import os
 from collections import namedtuple
 
 __all__ = ["MXNetError", "get_env", "register_env", "ENV_REGISTRY",
-           "parse_attr_value", "attr_to_string", "ENV_FUSED_KERNELS"]
+           "parse_attr_value", "attr_to_string", "Registry",
+           "ENV_FUSED_KERNELS", "ENV_STEP_GUARD", "ENV_MAX_BAD_STEPS"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -72,6 +73,40 @@ def get_env(name, default=None, typ=None):
     return raw
 
 
+class Registry(object):
+    """Generic name -> object registry (dmlc registry analog), used for
+    optimizers and initializers (``mxnet_tpu/base.py:158``)."""
+
+    def __init__(self, kind):
+        self._kind = kind
+        self._entries = {}
+
+    def register(self, obj=None, name=None, aliases=()):
+        def _do(o):
+            key = (name or o.__name__).lower()
+            self._entries[key] = o
+            for a in aliases:
+                self._entries[a.lower()] = o
+            return o
+        if obj is None:
+            return _do
+        return _do(obj)
+
+    def get(self, name):
+        key = name.lower()
+        if key not in self._entries:
+            raise MXNetError(
+                "Cannot find %s %r. Registered: %s"
+                % (self._kind, name, sorted(self._entries)))
+        return self._entries[key]
+
+    def list(self):
+        return sorted(self._entries)
+
+    def create(self, name, *args, **kwargs):
+        return self.get(name)(*args, **kwargs)
+
+
 def parse_attr_value(value):
     """Parse a string attribute into a Python value: ``"(2, 2)"`` ->
     (2, 2), ``"1"`` -> 1, ``"True"`` -> True, ``"relu"`` -> "relu"."""
@@ -107,3 +142,11 @@ ENV_FUSED_KERNELS = register_env(
     doc="Fused-kernel + plan-optimizer routing: 1 = everything on "
         "(default), 0 = exact pre-fusion graphs, or a comma list of "
         "kernel names (kernels.KNOWN_KERNELS) to enable individually")
+
+#: the JAX package's step-guard knobs (``mxnet_tpu/resilience.py:94-99``)
+ENV_MAX_BAD_STEPS = register_env(
+    "MXTPU_MAX_BAD_STEPS", default=10,
+    doc="Consecutive guard-skipped steps before the divergence abort")
+ENV_STEP_GUARD = register_env(
+    "MXTPU_STEP_GUARD", default=1,
+    doc="0 disables the in-step NaN/Inf gradient guard")

@@ -1,10 +1,13 @@
-"""Weight carry from numpy into the port.
+"""Weight carry between numpy and the port.
 
 ``params_from_numpy`` takes the arrays a checkpoint holds as numpy
 (``{name: np.ndarray}`` with ``arg:``/``aux:`` prefixes, or a pair of
 dicts ``(arg, aux)``) — what the JAX package's NDArrays give through
 ``.asnumpy()`` — and returns the port's ``(arg_params, aux_params)``.
-Files carry weights too, through the shared ``.params`` format
+The result feeds ``Predictor``, ``Executor.copy_params_from`` and
+``SPMDTrainer.init_params``.  ``params_to_numpy`` goes back: NDArrays or
+tensors (a trainer's ``get_params()``, an executor's ``arg_dict``) to
+numpy.  Files carry weights too, through the shared ``.params`` format
 (:func:`ndarray.save` / :func:`ndarray.load`).
 """
 from __future__ import annotations
@@ -13,7 +16,7 @@ from .base import MXNetError
 from .context import current_context
 from .ndarray import NDArray, tensor_from_numpy
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy"]
 
 
 def params_from_numpy(arrays, ctx=None):
@@ -35,3 +38,14 @@ def params_from_numpy(arrays, ctx=None):
             (args if kind == "arg" else auxs)[name] = value
     return ({k: NDArray(tensor_from_numpy(v), ctx=ctx) for k, v in args.items()},
             {k: NDArray(tensor_from_numpy(v), ctx=ctx) for k, v in auxs.items()})
+
+
+def params_to_numpy(*dicts):
+    """numpy copies of dicts of NDArrays or tensors, one dict per dict
+    given (bfloat16 comes back as float32, exactly)."""
+    out = []
+    for d in dicts:
+        out.append({k: (v if isinstance(v, NDArray)
+                        else NDArray._from_torch(v, None)).asnumpy()
+                    for k, v in (d or {}).items()})
+    return out[0] if len(out) == 1 else tuple(out)

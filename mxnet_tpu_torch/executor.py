@@ -1,27 +1,33 @@
 """Executor — bound graph execution (port of ``mxnet_tpu/executor.py``
-:58-280, 356-520, inference only).
+:58-280, 356-711).
 
 The Symbol DAG becomes a node plan (:func:`_node_plan`), the mxfuse
-passes fill its override slots, and ``forward``
-interprets the plan eagerly: one PyTorch call per node, on the bound
-context's device, under ``torch.no_grad``.  Training (``forward(
-is_train=True)``, ``backward``) comes with the training slice and raises
-here.
+passes fill its override slots, and ``forward`` interprets the plan
+eagerly: one PyTorch call per node, on the bound context's device.
+
+Training is torch autograd over the same interpretation.
+``forward(is_train=True)`` runs the plan with the arguments whose
+``grad_req`` is not ``null`` (and that have a gradient array) as the
+only leaves that require grad, applies the aux (BatchNorm moving-stat)
+updates, and keeps the graph; ``backward()`` differentiates it with ones
+head gradients (the loss-layer convention: SoftmaxOutput ignores them) or
+with the given ``out_grads``, and writes or adds the gradients into
+``grad_dict``.  Where the JAX package computes the gradients inside the
+forward's one compiled program, the port computes them at the first
+``backward()`` and keeps them, so a second ``backward()`` with no heads
+writes the same gradients again.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .context import Context
-from .ndarray import NDArray
+from .ndarray import NDArray, tensor_from_numpy, zeros as nd_zeros
 from .ops.registry import fn_signature_info
 
 __all__ = ["Executor"]
-
-_TRAINING_NOT_PORTED = ("training is not ported yet: this slice of "
-                        "mxnet_tpu_torch serves inference only "
-                        "(forward(is_train=False))")
 
 
 def _filter_attrs(op, attrs):
@@ -120,7 +126,7 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates):
 
 
 class Executor(object):
-    """Bound executor (parity: python/mxnet/executor.py), inference only.
+    """Bound executor (parity: python/mxnet/executor.py).
 
     Arrays given as NDArrays on the executor's context are bound as they
     are (shared with the caller, as in the JAX package); anything else is
@@ -136,36 +142,270 @@ class Executor(object):
         self.aux_dict = _to_dict("aux_states", aux_states, aux_names,
                                  self._ctx, allow_missing=not aux_names)
         self.grad_req = _req_dict(grad_req, arg_names)
-        if args_grad is not None and any(
-                r != "null" for r in self.grad_req.values()):
-            raise MXNetError(_TRAINING_NOT_PORTED)
+        if args_grad is None:
+            self.grad_dict = {}
+        else:
+            self.grad_dict = _to_dict("args_grad", args_grad, arg_names,
+                                      self._ctx, allow_missing=True)
+        self._diff_names = tuple(
+            n for n in arg_names
+            if self.grad_req.get(n, "null") != "null" and n in self.grad_dict)
         self._eval = _build_eval(symbol)
-        self._outputs = None
+        self._outputs = None      # list[NDArray]
+        self._graph = None        # (outputs, leaves) of the last train forward
+        self._grads = None        # name -> gradient tensor, once computed
+
+    # -- construction helpers --------------------------------------------
+    @staticmethod
+    def _simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                     shapes=None):
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**(shapes or {}))
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+        arg_types, _, aux_types = symbol.infer_type(**(type_dict or {}))
+        args = {name: nd_zeros(shape, ctx=ctx, dtype=np.dtype(typ))
+                for name, shape, typ in zip(arg_names, arg_shapes, arg_types)}
+        aux = {name: nd_zeros(shape, ctx=ctx, dtype=np.dtype(typ))
+               for name, shape, typ in zip(aux_names, aux_shapes, aux_types)}
+        req = _req_dict(grad_req, arg_names)
+        grads = {name: nd_zeros(shape, ctx=ctx)
+                 for name, shape in zip(arg_names, arg_shapes)
+                 if req.get(name, "null") != "null"}
+        return Executor(symbol, ctx, args, args_grad=grads, grad_req=grad_req,
+                        aux_states=aux)
+
+    # -- dict/list views ---------------------------------------------------
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._symbol.list_arguments()]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n)
+                for n in self._symbol.list_arguments()]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._symbol.list_auxiliary_states()]
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    # -- execution ---------------------------------------------------------
+    @staticmethod
+    def _raw(d):
+        return {k: v._data for k, v in d.items()}
 
     def forward(self, is_train=False, **kwargs):
-        """Run the graph in inference mode; ``kwargs`` are written into
-        the bound arguments first (``arg_dict[k][:] = v``)."""
-        if is_train:
-            raise MXNetError(_TRAINING_NOT_PORTED)
+        """Run the graph; ``kwargs`` are bound first (an NDArray's tensor
+        is bound as it is, anything else is written into the bound array,
+        ``arg_dict[k][:] = v``).  ``is_train=True`` also applies the aux
+        updates and keeps the graph for :meth:`backward`."""
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward argument %r" % k)
-            self.arg_dict[k][:] = v
-        args = {k: v._data for k, v in self.arg_dict.items()}
-        aux = {k: v._data for k, v in self.aux_dict.items()}
-        with torch.no_grad():
-            outs, _aux_updates = self._eval(args, aux, False)
-        self._outputs = [NDArray._from_torch(o, self._ctx) for o in outs]
+            if isinstance(v, NDArray):
+                self.arg_dict[k]._data = v.as_in_context(self._ctx)._data
+            else:
+                self.arg_dict[k][:] = v
+        args, aux = self._raw(self.arg_dict), self._raw(self.aux_dict)
+        self._graph = None
+        self._grads = None
+        if is_train and self._diff_names:
+            outs, leaves, auxu = self._train_forward(args, aux)
+            self._graph = (outs, leaves)
+        else:
+            with torch.no_grad():
+                outs, auxu = self._eval(args, aux, is_train)
+        self._set_outputs(outs)
+        if is_train:
+            self._apply_aux(auxu)
         return self._outputs
 
+    def _set_outputs(self, outs):
+        self._outputs = [NDArray._from_torch(o.detach(), self._ctx)
+                         for o in outs]
+
+    def _train_forward(self, args, aux):
+        """The plan in train mode with the ``_diff_names`` arguments as
+        the only leaves that require grad."""
+        leaves = {k: args[k].detach().requires_grad_(True)
+                  for k in self._diff_names}
+        merged = dict(args)
+        merged.update(leaves)
+        with torch.enable_grad():
+            outs, auxu = self._eval(merged, aux, True)
+        return outs, leaves, auxu
+
+    @staticmethod
+    def _ones_heads(outs):
+        """Ones head gradients in each output's dtype (the JAX package's
+        ``_ones_heads`` :516, which loss layers ignore)."""
+        return [torch.ones_like(o) for o in outs]
+
+    @staticmethod
+    def _differentiate(graph, heads):
+        """name -> gradient of every leaf; a leaf the outputs do not
+        depend on (a ``fix_gamma`` gamma) gets zeros, as ``jax.vjp``
+        gives."""
+        outs, leaves = graph
+        names = list(leaves)
+        pairs = [(o, h.to(o.device, o.dtype)) for o, h in zip(outs, heads)
+                 if o.requires_grad]
+        grads = [None] * len(names)
+        if pairs:
+            grads = torch.autograd.grad(
+                [o for o, _ in pairs], [leaves[n] for n in names],
+                [h for _, h in pairs], allow_unused=True)
+        return {n: (g if g is not None else torch.zeros_like(leaves[n]))
+                for n, g in zip(names, grads)}
+
+    def _apply_aux(self, auxu):
+        for name, arr in auxu.items():
+            if name in self.aux_dict:
+                self.aux_dict[name]._data = arr.detach()
+
+    #: ops whose backward supplies its OWN head gradient (their backward
+    #: ignores the incoming one) — loss layers, which need no entry in a
+    #: user-passed out_grads list
+    _SELF_GRAD_OPS = frozenset((
+        "MakeLoss", "make_loss", "SoftmaxOutput", "softmax_output",
+        "LinearRegressionOutput", "MAERegressionOutput",
+        "LogisticRegressionOutput", "SVMOutput", "BlockGrad", "stop_gradient",
+    ))
+
+    def _pad_out_grads(self, heads):
+        """Match user heads to outputs the way the JAX package does
+        (:541-586): loss outputs (self-gradient ops) are skipped; the
+        given heads fill the remaining outputs in order; anything left
+        unmatched gets zeros, silently."""
+        n_out = len(self._symbol._outputs)
+        if len(heads) == n_out:
+            return heads
+        # zero cotangents match each output's shape and dtype: the
+        # freshest forward outputs, else inferred shapes at float32
+        if self._outputs is not None and len(self._outputs) == n_out:
+            out_avals = [(o._data.shape, o._data.dtype)
+                         for o in self._outputs]
+        else:
+            _, out_shapes, _ = self._symbol.infer_shape_partial(
+                **{k: v.shape for k, v in self.arg_dict.items()})
+            out_avals = [(s or (), torch.float32) for s in out_shapes]
+        device = self._ctx.torch_device
+        it = iter(heads)
+        full = []
+        for (node, _idx), (shape, dtype) in zip(self._symbol._outputs,
+                                                out_avals):
+            op_name = getattr(node.op, "name", None) if node.op else None
+            if op_name in self._SELF_GRAD_OPS:
+                full.append(torch.zeros(shape, dtype=dtype, device=device))
+            else:
+                g = next(it, None)
+                full.append(torch.zeros(shape, dtype=dtype, device=device)
+                            if g is None else g)
+        leftover = list(it)
+        if leftover:
+            raise MXNetError(
+                "backward: %d out_grads given but only %d outputs "
+                "accept head gradients" % (len(heads),
+                                           len(heads) - len(leftover)))
+        return full
+
     def backward(self, out_grads=None):
-        raise MXNetError(_TRAINING_NOT_PORTED)
+        """Write gradients into the grad arrays (``grad_req`` write or
+        add).  Without ``out_grads`` the gradients of the last train
+        forward, with ones heads, are computed once and kept; with
+        ``out_grads`` they are computed anew for those heads (re-running
+        the train forward, without its aux update, when its graph was
+        already used)."""
+        if not self._diff_names:
+            return
+        if out_grads is not None:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            heads = [g._data if isinstance(g, NDArray) else
+                     g if isinstance(g, torch.Tensor) else
+                     tensor_from_numpy(np.asarray(g)) for g in out_grads]
+            heads = self._pad_out_grads(heads)
+            graph = self._graph
+            if graph is None:
+                args, aux = self._raw(self.arg_dict), self._raw(self.aux_dict)
+                outs, leaves, _auxu = self._train_forward(args, aux)
+                self._set_outputs(outs)
+                graph = (outs, leaves)
+            self._grads = self._differentiate(graph, heads)
+            self._graph = None
+        if self._grads is None:
+            graph = self._graph
+            if graph is None:
+                # forward(is_train=True) was not called — run it now
+                args, aux = self._raw(self.arg_dict), self._raw(self.aux_dict)
+                outs, leaves, auxu = self._train_forward(args, aux)
+                self._set_outputs(outs)
+                self._apply_aux(auxu)
+                graph = (outs, leaves)
+            self._grads = self._differentiate(graph,
+                                              self._ones_heads(graph[0]))
+            self._graph = None
+        for name in self._diff_names:
+            garr = self.grad_dict[name]
+            g = self._grads[name].to(garr._data.dtype)
+            if self.grad_req[name] == "add":
+                garr._data = garr._data + g
+            else:
+                garr._data = g
 
     @property
     def outputs(self):
         if self._outputs is None:
             self.forward()
         return self._outputs
+
+    # -- misc ---------------------------------------------------------------
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        for name, arr in arg_params.items():
+            if name in self.arg_dict:
+                dst = self.arg_dict[name]
+                dst._data = arr._data.to(dst._data.device, dst._data.dtype)
+            elif not allow_extra_params:
+                raise MXNetError("unknown argument %r" % name)
+        if aux_params:
+            for name, arr in aux_params.items():
+                if name in self.aux_dict:
+                    dst = self.aux_dict[name]
+                    dst._data = arr._data.to(dst._data.device,
+                                             dst._data.dtype)
+                elif not allow_extra_params:
+                    raise MXNetError("unknown aux state %r" % name)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **new_shapes):
+        """A new executor for new input shapes, sharing the parameter
+        arrays whose shapes stay (executor.py:reshape)."""
+        arg_shapes, _, _ = self._symbol.infer_shape(**new_shapes)
+        arg_names = self._symbol.list_arguments()
+        new_args, new_grads = {}, {}
+        for name, shape in zip(arg_names, arg_shapes):
+            cur = self.arg_dict[name]
+            if cur.shape == tuple(shape):
+                new_args[name] = cur
+                if name in self.grad_dict:
+                    new_grads[name] = self.grad_dict[name]
+            else:
+                if name not in new_shapes and not partial_shaping:
+                    raise MXNetError(
+                        "reshape changes the shape of parameter %r from %s to "
+                        "%s; pass partial_shaping=True to allow reallocating "
+                        "it (contents are NOT preserved)"
+                        % (name, cur.shape, tuple(shape)))
+                new_args[name] = nd_zeros(shape, ctx=self._ctx)
+                if name in self.grad_dict:
+                    new_grads[name] = nd_zeros(shape, ctx=self._ctx)
+        return Executor(self._symbol, self._ctx, new_args,
+                        args_grad=new_grads or None, grad_req=self.grad_req,
+                        aux_states=self.aux_dict)
 
 
 def _as_bound(v, ctx):

@@ -1,8 +1,9 @@
 """NDArray — the imperative tensor type, over a ``torch.Tensor``.
 
-Port of the parts of ``mxnet_tpu/ndarray.py`` the serving slice needs:
-the array type (a mutable cell holding one tensor on its context's
-device), ``array``/``zeros``/``empty``, and ``.params`` serialization
+Port of the parts of ``mxnet_tpu/ndarray.py`` the serving and training
+slices need: the array type (a mutable cell holding one tensor on its
+context's device), ``array``/``zeros``/``ones``/``empty``, and ``.params``
+serialization
 byte-identical to ``mxnet_tpu/ndarray.py:501-575`` (the reference's
 format, src/ndarray/ndarray.cc:593-676, kMXAPINDArrayListMagic=0x112), so
 a file written by either package loads in the other.
@@ -17,7 +18,7 @@ import torch
 from .base import MXNetError
 from .context import Context, cpu, current_context
 
-__all__ = ["NDArray", "array", "empty", "zeros", "load", "save",
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "load", "save",
            "tensor_from_numpy"]
 
 # torch dtype <-> reference mshadow type_flag (mshadow/base.h kFloat32=0 ...)
@@ -113,6 +114,10 @@ class NDArray(object):
             return NDArray(self._data, ctx=other)
         raise TypeError("copyto does not support type " + str(type(other)))
 
+    def copy(self):
+        """A new NDArray holding a copy, on the same context."""
+        return NDArray._from_torch(self._data.clone(), self._ctx)
+
     def as_in_context(self, context):
         if context == self._ctx:
             return self
@@ -176,6 +181,15 @@ def zeros(shape, ctx=None, dtype="float32"):
     return NDArray._from_torch(
         torch.zeros(tuple(shape), dtype=_torch_dtype(dtype),
                     device=ctx.torch_device), ctx)
+
+
+def ones(shape, ctx=None, dtype="float32"):
+    if isinstance(shape, int):
+        shape = (shape,)
+    ctx = ctx if ctx is not None else current_context()
+    return NDArray._from_torch(
+        torch.ones(tuple(shape), dtype=_torch_dtype(dtype),
+                   device=ctx.torch_device), ctx)
 
 
 # ---------------------------------------------------------------------------

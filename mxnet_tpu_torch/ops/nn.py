@@ -1,10 +1,12 @@
-"""Neural-network layer ops, forward only (port of ``mxnet_tpu/ops/nn.py``).
+"""Neural-network layer ops (port of ``mxnet_tpu/ops/nn.py``).
 
 The attributes, their defaults and the shape inference are the JAX
 package's; the lowerings are PyTorch: ``F.conv{1,2,3}d`` for Convolution,
 ``F.max_pool``/``F.avg_pool`` over an explicitly padded input for Pooling,
-``torch.matmul`` for FullyConnected.  SoftmaxOutput's custom backward
-comes with the training slice.
+``torch.matmul`` for FullyConnected.  They differentiate through torch
+autograd as they are, except SoftmaxOutput, whose hand backward
+``(p - onehot(label)) * grad_scale`` is a ``torch.autograd.Function``
+(the JAX package's ``custom_vjp``, :618-668).
 """
 from __future__ import annotations
 
@@ -237,8 +239,11 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=0.001,
     if is_train and not use_global_stats:
         mean = torch.mean(data, dim=axes)
         var = torch.var(data, dim=axes, unbiased=False)
-        new_moving_mean = moving_mean * momentum + mean * (1 - momentum)
-        new_moving_var = moving_var * momentum + var * (1 - momentum)
+        # state, not a differentiable output (the JAX package's has_aux)
+        new_moving_mean = (moving_mean * momentum
+                           + mean * (1 - momentum)).detach()
+        new_moving_var = (moving_var * momentum
+                          + var * (1 - momentum)).detach()
     else:
         mean, var = moving_mean, moving_var
         new_moving_mean, new_moving_var = moving_mean, moving_var
@@ -251,8 +256,66 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=0.001,
 
 
 # ---------------------------------------------------------------------------
-# SoftmaxOutput — src/operator/softmax_output-inl.h (forward only)
+# SoftmaxOutput — src/operator/softmax_output-inl.h
 # ---------------------------------------------------------------------------
+
+def _softmax_fwd_only(data, multi_output):
+    if multi_output and data.ndim > 2:
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data, dim=-1)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward is the loss gradient
+    ``(p - onehot(label)) * grad_scale``, normalized as asked, and
+    ignores the incoming head gradient unless ``out_grad`` (the JAX
+    package's ``_softmax_output_bwd``, :636-665).  The label's gradient is
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                multi_output, normalization, out_grad):
+        out = _softmax_fwd_only(data, multi_output)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, multi_output,
+                     normalization, out_grad)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, multi_output, normalization, \
+            out_grad = ctx.attrs
+        axis = 1 if (multi_output and out.ndim > 2) else out.ndim - 1
+        if label.shape == out.shape:
+            grad = out - label
+            valid = float(out.shape[0])
+        else:
+            idx = label.to(torch.int32)
+            # jax.nn.one_hot: an out-of-range class (ignore_label -1) is
+            # all zeros, where F.one_hot would raise
+            classes = torch.arange(out.shape[axis], device=out.device)
+            classes = classes.reshape([-1 if d == axis else 1
+                                       for d in range(out.ndim)])
+            onehot = (torch.unsqueeze(idx, axis) == classes).to(out.dtype)
+            grad = out - onehot
+            if use_ignore:
+                mask = (idx != int(ignore_label)).to(out.dtype)
+                grad = grad * torch.unsqueeze(mask, axis)
+                valid = torch.clamp(torch.sum(mask), min=1.0)
+            else:
+                valid = float(_prod(label.shape))
+        if normalization == "batch":
+            grad = grad * (grad_scale / out.shape[0])
+        elif normalization == "valid":
+            grad = grad * grad_scale / valid
+        else:
+            grad = grad * grad_scale
+        if out_grad:
+            grad = grad * g
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, dlabel, None, None, None, None, None, None
+
 
 def _softmax_label_infer(attrs, in_shapes):
     data = in_shapes[0]
@@ -273,8 +336,9 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                    multi_output=False, use_ignore=False, preserve_shape=False,
                    normalization="null", out_grad=False, smooth_alpha=0.0):
     """Softmax forward over the last axis (axis 1 with ``multi_output``);
-    the label is read only by the backward, which the training slice
-    brings."""
-    if multi_output and data.ndim > 2:
-        return torch.softmax(data, dim=1)
-    return torch.softmax(data, dim=-1)
+    backward = (p - onehot(label)) * grad_scale, ignoring the incoming
+    head gradient — reference src/operator/softmax_output-inl.h."""
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(use_ignore),
+                                bool(multi_output), str(normalization),
+                                bool(out_grad))

@@ -18,7 +18,7 @@ from . import attribute, name as _name_mod
 from .base import MXNetError, attr_to_string, parse_attr_value
 from .ops.registry import OP_REGISTRY, fn_signature_info, get_op
 
-__all__ = ["Symbol", "Variable", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 # attrs that belong to the framework, not to the op's kernel
 _RESERVED_ATTRS = frozenset((
@@ -131,6 +131,16 @@ class Symbol(object):
             return self._outputs[0][0].name
         return None
 
+    def attr_dict(self):
+        """``{node name: {attr: string value}}`` for every node with attrs
+        (the optimizer reads ``lr_mult``/``wd_mult`` here)."""
+        out = {}
+        for node in self._nodes():
+            if node.attrs:
+                out[node.name] = {k: attr_to_string(v)
+                                  for k, v in node.attrs.items()}
+        return out
+
     def get_internals(self):
         outs = []
         for node in self._nodes():
@@ -223,6 +233,21 @@ class Symbol(object):
         out_shapes = [shapes[id(n)][i] for n, i in self._outputs]
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """Basic dtype inference, as in the JAX package: float32 unless a
+        hint or a ``Variable(dtype=...)`` declaration says otherwise."""
+        if args:
+            kwargs = dict(zip(self.list_arguments(), args))
+        dt = {k: np.dtype(v) for k, v in kwargs.items() if v is not None}
+        for node in self._nodes():
+            if node.is_variable and "__dtype__" in node.attrs:
+                dt.setdefault(node.name, np.dtype(str(node.attrs["__dtype__"])))
+        arg_types = [np.dtype(dt.get(n, np.float32)).type
+                     for n in self.list_arguments()]
+        aux_types = [np.float32 for _ in self.list_auxiliary_states()]
+        out_types = [np.float32 for _ in self._outputs]
+        return arg_types, out_types, aux_types
+
     # -- serialization ----------------------------------------------------
     def tojson(self):
         nodes = self._nodes()
@@ -250,6 +275,13 @@ class Symbol(object):
             f.write(self.tojson())
 
     # -- binding ----------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+        """Bind with every argument, gradient and aux state allocated
+        (zeros) from the shapes in ``kwargs``."""
+        from .executor import Executor
+        return Executor._simple_bind(self, ctx, grad_req=grad_req,
+                                     type_dict=type_dict, shapes=kwargs)
+
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
         from .executor import Executor
@@ -309,6 +341,14 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
         attrs["wd_mult"] = str(wd_mult)
     attrs.update({k: str(v) for k, v in kwargs.items()})
     return Symbol([(_Node(None, name, attrs), 0)])
+
+
+def Group(symbols):
+    """One symbol whose outputs are all the given symbols' outputs."""
+    outs = []
+    for s in symbols:
+        outs.extend(s._outputs)
+    return Symbol(outs)
 
 
 def _create(op_name, input_syms, attrs, name=None, extra_attr=None,

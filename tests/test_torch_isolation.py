@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and no
 line of ``chip_smoke.py`` imports JAX or the JAX package, the port
-imports and builds a model with JAX made unimportable, and the chip smoke
-test refuses to run without CUDA."""
+imports, builds a model and takes an ``SPMDTrainer`` step on the CPU with
+JAX made unimportable, and the chip smoke test refuses to run without
+CUDA."""
 import ast
 import os
 import subprocess
@@ -60,6 +61,15 @@ def test_port_runs_with_jax_unimportable():
         " image_shape=(3, 64, 64))\n"
         "args, outs, aux = s.infer_shape(data=(1, 3, 64, 64))\n"
         "assert outs == [(1, 4)], outs\n"
+        "s = mx.models.get_symbol('resnet', num_layers=8, num_classes=4,"
+        " image_shape=(3, 8, 8))\n"
+        "tr = mx.parallel.SPMDTrainer(s, 'sgd', {'learning_rate': 0.1,"
+        " 'momentum': 0.9, 'rescale_grad': 0.5}, ctx=mx.cpu())\n"
+        "tr.bind([('data', (2, 3, 8, 8))], [('softmax_label', (2,))])\n"
+        "tr.init_params(mx.initializer.Xavier())\n"
+        "out = tr.step(np.ones((2, 3, 8, 8), np.float32),"
+        " np.zeros(2, np.float32))[0]\n"
+        "assert out.shape == (2, 4) and tr.skipped_steps == 0\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', "
         "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
         "print('ok', len(args))\n")

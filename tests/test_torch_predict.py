@@ -147,7 +147,9 @@ def test_predictor_lifecycle(tmp_path):
     assert (pred.forward(data=x).get_output(0).argmax(1) == 3).all()
     with pytest.raises(mxt.MXNetError):
         pred.set_params({"arg:fc1_bias": np.zeros(11, np.float32)})
-    with pytest.raises(mxt.MXNetError, match="training is not ported"):
-        pred._exec.forward(is_train=True)
-    with pytest.raises(mxt.MXNetError, match="training is not ported"):
-        pred._exec.backward()
+    # the serving executor binds no gradients: a train-mode forward runs
+    # and backward() has nothing to write, as in the JAX package
+    assert not pred._exec.grad_dict
+    assert pred._exec.forward(is_train=True)[0].shape == (2, 10)
+    pred._exec.backward()
+    assert not pred._exec.grad_dict
