@@ -39,8 +39,32 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
 7. traces a few training steps (``torch.profiler``): idle share, kernel
    launches per step and device time by class, ``bn_act`` forward and
    backward and the optimizer update each a class of its own;
-8. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-   "device": {...}}``.
+8. holds the ``lstm_cell`` forward and backward kernels against their
+   plain versions at (B, H) = (32, 200), (4, 200), (7, 13) and
+   (128, 1024), float32 and bfloat16, and times kernel, plain version,
+   PyTorch's own fused LSTM cell (a yardstick the port never calls) and
+   the memory-traffic bound;
+9. trains the 2-layer LSTM language model (``models/lstm_lm``: vocab
+   10000, embed and hidden 200, 32 steps, batch 32) through
+   ``SPMDTrainer`` with bench.py's ``_lstm_bench`` settings on ``gpu(0)``,
+   float32: exactly 64 ``lstm_cell`` forward and 64 backward launches per
+   step, finite losses, a cross-entropy that falls on a fixed batch, no
+   skipped step, moved params; steady ms/step, tokens/s and peak memory;
+   then a few steps of the bench's own ``compute_dtype="bfloat16"``;
+10. runs the example's unrolled graph (``rnn.SequentialRNNCell`` of two
+    ``rnn.LSTMCell``s, which emit ``_FusedLSTMCell``) through
+    ``simple_bind`` -> ``forward(is_train=True)`` -> ``backward()`` at
+    batch 32 (64 + 64 launches) and holds it against the ``FusedRNNCell``
+    graph (the fused ``RNN`` op) given the same weights by
+    ``pack_weights``;
+11. holds one batch-4 LM forward/backward on the card (fused, and with
+    ``MXTPU_FUSED_KERNELS=0``, which must launch no ``lstm_cell`` kernel)
+    against the port's CPU path, and both against a float64 CPU run;
+12. serves the LM through ``Predictor`` from a checkpoint at batch 32 (64
+    forward launches and no backward one per forward), and traces a few
+    LM training steps (``torch.profiler``);
+13. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+    "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
 run from a directory without the package, it fails at once.
@@ -79,6 +103,19 @@ FIXED_STEPS = 10    # then steps on one fixed batch, whose loss must fall
 PROFILE_STEPS = 3
 AGREE_BATCH = 4     # the GPU-vs-CPU training agreement's batch
 ACTS = ("relu", "sigmoid", "tanh", None)
+# the LSTM language model of bench.py's _lstm_bench (bench.py:1532-1566)
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 200, 200, 2
+LM_SEQ, LM_BATCH = 32, 32
+LM_PER_PASS = LM_LAYERS * LM_SEQ  # lstm_cell launches per forward/backward
+LM_TRAIN_STEPS = 4  # distinct seeded batches, then LM_FIXED_STEPS on one
+LM_FIXED_STEPS = 10
+LM_BF16_STEPS = 6
+LM_FORWARDS = 6     # Predictor forwards served at batch 32
+LM_AGREE_BATCH = 4
+#: (B, H) of the lstm_cell checks: the bench's, the agreement batch's, an
+#: odd one, and one large enough for bytes to count
+LSTM_SHAPES = ((32, 200), (4, 200), (7, 13), (128, 1024))
+LSTM_F32_TOL = (2e-6, 1e-5)  # max abs error: (h, c), (dgates, dc_prev)
 F32_TOL = 1e-5      # max abs error, float32 kernel vs plain (y, dx)
 BF16_REL_TOL = 1e-2  # max abs error / max |plain|, bfloat16
 SUM_F32_REL_TOL = 1e-4  # dscale/dshift: max abs error / max |plain|, f32
@@ -451,12 +488,19 @@ def phase_serving(torch, mx, seed, card):
 
 _KERNEL_CLASSES = (
     ("bn_act", ("bn_act_fwd_kernel", "bn_act_bwd_kernel")),
+    ("lstm_cell", ("lstm_cell_fwd_kernel", "lstm_cell_bwd_kernel")),
+    ("embedding", ("embedding", "indexselect", "index_select",
+                   "indexfuncsmall", "indexfunclarge", "segment",
+                   "grad_weight", "sum_and_scatter", "index_put",
+                   "indexing_backward", "radixsort")),
+    ("softmax", ("softmax",)),
     ("conv/gemm", ("conv", "xmma", "gemm", "implicit", "cudnn", "sm90",
-                   "winograd", "fft", "wgrad", "dgrad")),
+                   "winograd", "fft", "wgrad", "dgrad", "cutlass",
+                   "ampere", "splitk")),
     ("copy", ("memcpy", "memset", "copy")),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "pooling",
-                     "softmax", "max_pool", "avg_pool")),
+                     "max_pool", "avg_pool")),
 )
 
 
@@ -643,13 +687,15 @@ def _executor_step(mx, symbol, weights, x, y, ctx):
     import numpy as np
     w_args, w_aux = weights
     if x.dtype == np.float32:
-        ex = symbol.simple_bind(ctx, grad_req="write", data=x.shape)
+        ex = symbol.simple_bind(ctx, grad_req="write", data=x.shape,
+                                softmax_label=y.shape)
         for n, v in w_args.items():
             ex.arg_dict[n][:] = v
         for n, v in w_aux.items():
             ex.aux_dict[n][:] = v
     else:
-        arg_shapes, _, _ = symbol.infer_shape(data=x.shape)
+        arg_shapes, _, _ = symbol.infer_shape(data=x.shape,
+                                              softmax_label=y.shape)
 
         def arr(v):
             return mx.nd.array(v, ctx=ctx, dtype=x.dtype)
@@ -763,11 +809,19 @@ def phase_train_agreement(torch, mx, seed):
                    "training gpu MXTPU_FUSED_KERNELS=0")
 
 
+#: kernels with a class of their own in a training trace
+_OWN_CLASSES = (("bn_act_fwd_kernel", "bn_act_fwd"),
+                ("bn_act_bwd_kernel", "bn_act_bwd"),
+                ("lstm_cell_fwd_kernel", "lstm_cell_fwd"),
+                ("lstm_cell_bwd_kernel", "lstm_cell_bwd"))
+
+
 def _trace_classes(path, update_range):
-    """Device time by class from a chrome trace: ``bn_act_fwd``,
-    ``bn_act_bwd``, ``optimizer update`` (kernels whose launch lies inside
-    the trainer's update range) and the serving classes.  Returns
-    ``(busy_us, {class: us}, kernels, top [(us, count, name)])``."""
+    """Device time by class from a chrome trace: the port's kernels
+    (``bn_act_fwd``, ``bn_act_bwd``, ``lstm_cell_fwd``, ``lstm_cell_bwd``),
+    ``optimizer update`` (kernels whose launch lies inside the trainer's
+    update range) and the serving classes.  Returns ``(busy_us, {class:
+    us}, kernels, top [(us, count, name)], update ranges)``."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -788,11 +842,8 @@ def _trace_classes(path, update_range):
             continue
         name, dur = e.get("name", ""), float(e.get("dur", 0))
         n += 1
-        if "bn_act_fwd_kernel" in name:
-            cls = "bn_act_fwd"
-        elif "bn_act_bwd_kernel" in name:
-            cls = "bn_act_bwd"
-        else:
+        cls = next((c for key, c in _OWN_CLASSES if key in name), None)
+        if cls is None:
             ts = launch_ts.get((e.get("args") or {}).get("correlation"))
             if ts is not None and any(a <= ts <= b for a, b in spans):
                 cls = "optimizer update"
@@ -806,9 +857,12 @@ def _trace_classes(path, update_range):
     return sum(by_class.values()), by_class, n, top, len(spans)
 
 
-def phase_train_profile(torch, mx, tr, batches, card):
+def phase_train_profile(torch, mx, tr, batches, card, what="train",
+                        need=("bn_act_fwd", "bn_act_bwd"), unit="batch %d"
+                        % BATCH):
     """A torch.profiler trace of a few training steps: idle share, kernel
-    launches per step, device time per step by class."""
+    launches per step, device time per step by class; each class in
+    ``need`` and the optimizer update must show device time."""
     from mxnet_tpu_torch.parallel.trainer import UPDATE_RANGE
     steps = PROFILE_STEPS
     build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
@@ -837,37 +891,451 @@ def phase_train_profile(torch, mx, tr, batches, card):
     check(busy_ms > 0, "training profile saw no device time")
     check(n_spans == steps, "training profile saw %d update ranges, not %d"
           % (n_spans, steps))
-    for cls in ("bn_act_fwd", "bn_act_bwd", "optimizer update"):
-        check(by_class.get(cls, 0) > 0, "training profile: no %s time" % cls)
-    log("train profile: %d steps at batch %d, wall %.2f ms, device busy "
-        "%.2f ms, idle share %.3f, %.1f kernels per step, on %s" % (
-            steps, BATCH, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
+    for cls in tuple(need) + ("optimizer update",):
+        check(by_class.get(cls, 0) > 0, "%s profile: no %s time"
+              % (what, cls))
+    log("%s profile: %d steps at %s, wall %.2f ms, device busy %.2f ms, "
+        "idle share %.3f, %.1f kernels per step, on %s" % (
+            what, steps, unit, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
             n_kernels / steps, card))
     for cls, us in by_class.most_common():
-        log("train profile: class %-16s %8.3f ms/step  %5.1f%%" % (
-            cls, us / 1e3 / steps, 100 * us / busy_us))
+        log("%s profile: class %-16s %8.3f ms/step  %5.1f%%" % (
+            what, cls, us / 1e3 / steps, 100 * us / busy_us))
     for us, count, key in top[:12]:
-        log("train profile: kernel %8.3f ms/step x%-4d %s" % (
-            us / 1e3 / steps, count // steps, key[:110]))
+        log("%s profile: kernel %8.3f ms/step x%-4d %s" % (
+            what, us / 1e3 / steps, count // steps, key[:110]))
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the weights, requests and batches")
-    args = parser.parse_args(argv)
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+# ---------------------------------------------------------------------------
+# the LSTM language model: lstm_cell kernels, training, serving
+# ---------------------------------------------------------------------------
+
+def phase_lstm_kernels(torch, mx, seed):
+    """The lstm_cell forward and backward kernels against their plain
+    versions at LSTM_SHAPES, float32 and bfloat16; times in float32 and
+    bfloat16, library yardstick in float32."""
+    lc = mx.kernels.lstm_cell
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    rows = {}
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for b, h in LSTM_SHAPES:
+        g32 = torch.randn((b, 4 * h), generator=gen, device=dev) * 2.0
+        c32, dh32, dc32 = (torch.randn((b, h), generator=gen, device=dev)
+                           for _ in range(3))
+        row = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            g, c, dh, dc = (t.to(dtype) for t in (g32, c32, dh32, dc32))
+            got = lc.lstm_cell_fwd(g, c) + lc.lstm_cell_bwd(g, c, dh, dc)
+            ref = lc.lstm_cell_plain(g, c) + \
+                lc.lstm_cell_bwd_plain(g, c, dh, dc)
+            torch.cuda.synchronize()
+            for k, (a, r) in enumerate(zip(got, ref)):
+                check(a.shape == r.shape and a.dtype == r.dtype,
+                      "lstm_cell %s %s output %d: shape/dtype differ"
+                      % ((b, h), tag, k))
+                err = (a.float() - r.float()).abs().max().item()
+                which = "fwd" if k < 2 else "bwd"
+                if tag == "f32":
+                    tol = LSTM_F32_TOL[0 if k < 2 else 1]
+                    check(err <= tol, "lstm_cell %s f32 %s output %d: max "
+                          "abs err %.3g > %g" % (which, (b, h), k, err, tol))
+                    max_err[which] = max(max_err[which], err)
+                else:
+                    rel = err / max(r.float().abs().max().item(), 1e-30)
+                    check(rel <= BF16_REL_TOL, "lstm_cell %s bf16 %s output "
+                          "%d: rel err %.3g > %g" % (which, (b, h), k, rel,
+                                                     BF16_REL_TOL))
+                row["%s_%d_err" % (tag, k)] = err
+            row[tag + "_ms"] = device_ms(torch, lambda: lc.lstm_cell_fwd(g, c))
+            row[tag + "_plain_ms"] = device_ms(
+                torch, lambda: lc.lstm_cell_plain(g, c))
+            row[tag + "_bwd_ms"] = device_ms(
+                torch, lambda: lc.lstm_cell_bwd(g, c, dh, dc))
+            row[tag + "_bwd_plain_ms"] = device_ms(
+                torch, lambda: lc.lstm_cell_bwd_plain(g, c, dh, dc))
+            size = g.element_size()
+            # forward reads gates (4H) and c_prev, writes h and c; backward
+            # reads gates, c_prev, dh, dc, writes dgates (4H) and dc_prev
+            row[tag + "_bound_ms"] = 7 * b * h * size / HBM_BYTES_PER_S * 1e3
+            row[tag + "_bwd_bound_ms"] = 12 * b * h * size \
+                / HBM_BYTES_PER_S * 1e3
+            if tag == "f32":
+                # PyTorch's own fused LSTM cell on the same function (gate
+                # order [i, f, g, o], as MXNet's), a yardstick the port
+                # never calls; its hidden-gates input is allocated once,
+                # so only the cell itself is timed
+                fused_cell = torch.ops.aten._thnn_fused_lstm_cell
+                zeros = torch.zeros_like(g)
+                hy, cy, ws = fused_cell(g, zeros, c)
+                row["f32_library_ms"] = device_ms(
+                    torch, lambda: fused_cell(g, zeros, c))
+                row["f32_bwd_library_ms"] = device_ms(
+                    torch, lambda: torch.ops.aten
+                    ._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws,
+                                                         False))
+        rows[(b, h)] = row
+        log("lstm_cell (B, H)=%-11s fwd f32: err h %.2e c %.2e, ms %.5f "
+            "plain %.5f library %.5f bound %.5f; bf16 ms %.5f bound %.5f | "
+            "bwd f32: err dgates %.2e dc_prev %.2e, ms %.5f plain %.5f "
+            "library %.5f bound %.5f; bf16 ms %.5f bound %.5f" % (
+                str((b, h)), row["f32_0_err"], row["f32_1_err"],
+                row["f32_ms"], row["f32_plain_ms"], row["f32_library_ms"],
+                row["f32_bound_ms"], row["bf16_ms"], row["bf16_bound_ms"],
+                row["f32_2_err"], row["f32_3_err"], row["f32_bwd_ms"],
+                row["f32_bwd_plain_ms"], row["f32_bwd_library_ms"],
+                row["f32_bwd_bound_ms"], row["bf16_bwd_ms"],
+                row["bf16_bwd_bound_ms"]))
+    log("lstm_cell kernels: forward max abs err %.3g, backward %.3g "
+        "(float32); every shape and dtype within tolerance"
+        % (max_err["fwd"], max_err["bwd"]))
+    return rows, max_err
+
+
+def lm_symbol(mx):
+    sym, _, _ = mx.models.lstm_lm.lstm_lm_sym(LM_SEQ, LM_VOCAB, LM_EMBED,
+                                              LM_HIDDEN, LM_LAYERS)
+    return sym
+
+
+def _lm_cross_entropy(torch, probs, label):
+    """Mean -log p of the (T*N, V) time-major softmax at the (N, T)
+    labels."""
+    return _cross_entropy(torch, probs, label.t().reshape(-1))
+
+
+def _lm_batches(torch, n, seed):
+    """``n`` seeded (tokens, labels) pairs of shape (batch, seq), as float
+    ids on the card."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    dev = torch.device("cuda", 0)
+    shape = (LM_BATCH, LM_SEQ)
+    return [tuple(torch.from_numpy(rs.randint(0, LM_VOCAB, shape)
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2)) for _ in range(n)]
+
+
+def make_lm_trainer(torch, mx, seed, compute_dtype=None):
+    """The LM with bench.py's _lstm_bench trainer settings (sgd lr 0.1,
+    momentum 0.9, wd 0, rescale_grad 1/batch, Xavier()) on gpu(0)."""
+    mx.random.seed(seed)
+    tr = mx.parallel.SPMDTrainer(
+        lm_symbol(mx), "sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                               "wd": 0.0, "rescale_grad": 1.0 / LM_BATCH},
+        mesh=None, compute_dtype=compute_dtype, ctx=mx.gpu(0))
+    shape = (LM_BATCH, LM_SEQ)
+    tr.bind([("data", shape)], [("softmax_label", shape)])
+    tr.init_params(mx.initializer.Xavier())
+    return tr
+
+
+def _lm_steps(torch, mx, tr, plan):
+    """The main path: ``tr.step`` over ``plan`` with the lstm_cell counts
+    zeroed just before and read just after; per-step losses and host
+    stamps."""
+    lc = mx.kernels.lstm_cell
+    lc.LAUNCHES = 0
+    lc.BWD_LAUNCHES = 0
+    stamps, losses = [], []
+    for x, y in plan:
+        stamps.append(time.perf_counter())
+        losses.append(_lm_cross_entropy(torch, tr.step(x, y)[0], y))
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    skipped = tr.skipped_steps
+    return lc.LAUNCHES, lc.BWD_LAUNCHES, stamps, losses, skipped
+
+
+def phase_lm_training(torch, mx, seed, card):
+    import numpy as np
+    tr = make_lm_trainer(torch, mx, seed)
+    batches = _lm_batches(torch, LM_TRAIN_STEPS, seed + 20)
+    fixed = batches[0]
+    params0 = {k: v.clone() for k, v in tr.params.items()}
+    ce_before = _lm_cross_entropy(torch, tr.forward_only(*fixed)[0],
+                                  fixed[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan = batches + [fixed] * LM_FIXED_STEPS
+    n = len(plan)
+    fwd, bwd, stamps, losses, skipped = _lm_steps(torch, mx, tr, plan)
+    peak = torch.cuda.max_memory_allocated()
+    ce_after = float(_lm_cross_entropy(torch, tr.forward_only(*fixed)[0],
+                                       fixed[1]))
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    ce_before = float(ce_before)
+    log("lm training: lstm_cell launches over %d steps: forward %d, "
+        "backward %d (expected %d each)" % (n, fwd, bwd, LM_PER_PASS * n))
+    check(fwd == LM_PER_PASS * n and bwd == LM_PER_PASS * n,
+          "lm lstm_cell launches %d / %d != %d" % (fwd, bwd,
+                                                   LM_PER_PASS * n))
+    log("lm training: per-step loss %s" % " ".join("%.4f" % v
+                                                   for v in losses))
+    check(all(np.isfinite(losses)), "non-finite LM training loss")
+    log("lm training: cross-entropy on the fixed batch %.4f before, %.4f "
+        "after %d steps on it" % (ce_before, ce_after, LM_FIXED_STEPS))
+    check(np.isfinite(ce_after) and ce_after < ce_before,
+          "the LM's fixed-batch cross-entropy did not fall")
+    check(skipped == 0, "%d guard-skipped LM steps" % skipped)
+    moved = sorted(k for k, v in tr.params.items()
+                   if not torch.equal(v, params0[k]))
+    log("lm training: %d of %d params changed (%s)" % (
+        len(moved), len(params0), ", ".join(moved)))
+    check(len(moved) == len(params0), "LM params did not all change")
+    tokens = LM_BATCH * LM_SEQ
+    steady_s = (stamps[-1] - stamps[2]) / (n - 2)
+    log("lm training float32: first step %.1f ms, steady %.2f ms/step at "
+        "batch %d x %d tokens -> %.0f tokens/s, peak memory %.3f GiB "
+        "(max_memory_allocated) on %s" % (
+            (stamps[1] - stamps[0]) * 1e3, steady_s * 1e3, LM_BATCH, LM_SEQ,
+            tokens / steady_s, peak / 2 ** 30, card))
+
+    # the bench's own configuration: compute_dtype bfloat16 (token ids
+    # are rounded to bfloat16 on the way in, as in the JAX package)
+    tr16 = make_lm_trainer(torch, mx, seed, compute_dtype="bfloat16")
+    plan16 = _lm_batches(torch, LM_BF16_STEPS, seed + 21)
+    fwd16, bwd16, stamps16, losses16, skipped16 = _lm_steps(
+        torch, mx, tr16, plan16)
+    losses16 = [float(v) for v in torch.stack(losses16).cpu()]
+    n16 = len(plan16)
+    check(fwd16 == LM_PER_PASS * n16 and bwd16 == LM_PER_PASS * n16,
+          "bf16 lm lstm_cell launches %d / %d != %d" % (
+              fwd16, bwd16, LM_PER_PASS * n16))
+    check(all(np.isfinite(losses16)) and skipped16 == 0,
+          "bf16 LM loss not finite or steps skipped")
+    steady16 = (stamps16[-1] - stamps16[2]) / (n16 - 2)
+    log("lm training bfloat16 (the bench's compute_dtype): %d steps, "
+        "launches %d / %d, loss %s, steady %.2f ms/step -> %.0f tokens/s "
+        "on %s" % (n16, fwd16, bwd16, " ".join("%.3f" % v for v in losses16),
+                   steady16 * 1e3, tokens / steady16, card))
+    tr16.close()
+    return tr, batches, fwd + fwd16, bwd + bwd16
+
+
+def route_b_symbol(mx):
+    """The example's default sym_gen (example/rnn/lstm_bucketing.py,
+    ``--fused 0``): a SequentialRNNCell of LSTMCells, unrolled."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(LM_LAYERS):
+        stack.add(mx.rnn.LSTMCell(num_hidden=LM_HIDDEN,
+                                  prefix="lstm_l%d_" % i))
+    return _lm_head(mx, stack, LM_SEQ)
+
+
+def _lm_head(mx, cell, seq):
+    """Embedding -> ``cell`` unrolled over ``seq`` steps with merged
+    outputs -> Reshape -> FullyConnected -> SoftmaxOutput."""
+    data = mx.sym.Variable("data")
+    label = mx.sym.Variable("softmax_label")
+    embed = mx.sym.Embedding(data=data, input_dim=LM_VOCAB,
+                             output_dim=LM_EMBED, name="embed")
+    cell.reset()
+    outputs, _ = cell.unroll(seq, inputs=embed, merge_outputs=True)
+    pred = mx.sym.Reshape(outputs, shape=(-1, LM_HIDDEN))
+    pred = mx.sym.FullyConnected(data=pred, num_hidden=LM_VOCAB, name="pred")
+    label = mx.sym.Reshape(label, shape=(-1,))
+    return mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+
+
+def _route_step(mx, symbol, weights, x, y):
+    ex = symbol.simple_bind(mx.gpu(0), grad_req="write", data=x.shape,
+                            softmax_label=y.shape)
+    for n, v in weights.items():
+        ex.arg_dict[n][:] = v
+    ex.forward(is_train=True, data=x, softmax_label=y)
+    ex.backward()
+    return ex
+
+
+def phase_route_b(torch, mx, seed):
+    """Route B (unrolled LSTMCells emitting _FusedLSTMCell) at batch 32 on
+    the card: launches, and agreement with the FusedRNNCell graph given
+    the same weights through pack_weights."""
+    import numpy as np
+    lc = mx.kernels.lstm_cell
+    sym_b = route_b_symbol(mx)
+    shape = (LM_BATCH, LM_SEQ)
+    arg_shapes, _, _ = sym_b.infer_shape(data=shape, softmax_label=shape)
+    rs = np.random.RandomState(seed + 30)
+    w_b = {n: rs.uniform(-0.1, 0.1, s).astype(np.float32)
+           for n, s in zip(sym_b.list_arguments(), arg_shapes)
+           if n not in ("data", "softmax_label")}
+    x = rs.randint(0, LM_VOCAB, shape).astype(np.float32)
+    y = rs.randint(0, LM_VOCAB, shape).astype(np.float32)
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    lc.LAUNCHES = 0
+    lc.BWD_LAUNCHES = 0
+    ex_b = _route_step(mx, sym_b, w_b, x, y)
+    out_b = ex_b.outputs[0].asnumpy()
+    launched = (lc.LAUNCHES, lc.BWD_LAUNCHES)
+    # ----------------------------------------------------------------------
+    log("route B (unrolled LSTMCells -> _FusedLSTMCell): one forward/"
+        "backward at batch %d launched %d forward and %d backward lstm_cell "
+        "kernels (expected %d each)" % (LM_BATCH, launched[0], launched[1],
+                                        LM_PER_PASS))
+    check(launched == (LM_PER_PASS, LM_PER_PASS),
+          "route B launched %s lstm_cell kernels" % (launched,))
+
+    fused = mx.rnn.FusedRNNCell(LM_HIDDEN, num_layers=LM_LAYERS,
+                                mode="lstm", prefix="lstm_")
+    sym_a = _lm_head(mx, fused, LM_SEQ)
+    cpu = mx.cpu()
+    cells = {k: mx.nd.array(v, ctx=cpu) for k, v in w_b.items()
+             if k.startswith("lstm_")}
+    packed = fused.pack_weights(fused.unfuse().unpack_weights(cells))
+    w_a = {k: v for k, v in w_b.items() if not k.startswith("lstm_")}
+    w_a["lstm_parameters"] = packed["lstm_parameters"].asnumpy()
+    ex_a = _route_step(mx, sym_a, w_a, x, y)
+    ref = {"output": ex_a.outputs[0].asnumpy()}
+    grads_a = {n: mx.nd.array(g.asnumpy(), ctx=cpu)
+               for n, g in ex_a.grad_dict.items()}
+    per_cell = fused.unfuse().pack_weights(fused.unpack_weights(
+        {"lstm_parameters": grads_a["lstm_parameters"]}))
+    got = {"output": out_b}
+    for k in w_b:
+        got[k] = ex_b.grad_dict[k].asnumpy()
+        ref[k] = (per_cell[k] if k.startswith("lstm_")
+                  else grads_a[k]).asnumpy()
+    ratio, key = _worst_max_rel(np, got, ref, list(ref))
+    log("route B vs the FusedRNNCell graph (fused RNN op, pack_weights): "
+        "output and %d gradients, worst %s max |diff| / max |ref| %.3g "
+        "(bound 1e-4)" % (len(ref) - 1, key, ratio))
+    check(ratio <= 1e-4, "route B disagrees with the fused RNN op")
+    return launched
+
+
+def _lm_weights(symbol, batch, seed):
+    """Seeded numpy weights of the LM (uniform, about Xavier's scale);
+    the init states small and non-zero."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    shape = (batch, LM_SEQ)
+    arg_shapes, _, _ = symbol.infer_shape(data=shape, softmax_label=shape)
+    out = {}
+    for n, s in zip(symbol.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        scale = 0.1 if n.endswith(("_weight", "_parameters")) else 0.05
+        out[n] = rs.uniform(-scale, scale, s).astype(np.float32)
+    return out, {}
+
+
+def phase_lm_agreement(torch, mx, seed):
+    """One batch-4 LM forward/backward on the card, fused and with
+    MXTPU_FUSED_KERNELS=0, against the port's CPU path: the output and
+    every gradient within AGREE_REL_TOL x max |cpu|; both also against a
+    float64 CPU run, to say which path is off if the bound is missed."""
+    import numpy as np
+    lc = mx.kernels.lstm_cell
+    symbol = lm_symbol(mx)
+    weights = _lm_weights(symbol, LM_AGREE_BATCH, seed + 40)
+    rs = np.random.RandomState(seed + 41)
+    shape = (LM_AGREE_BATCH, LM_SEQ)
+    x = rs.randint(0, LM_VOCAB, shape).astype(np.float32)
+    y = rs.randint(0, LM_VOCAB, shape).astype(np.float32)
+    ref = _executor_step(mx, symbol, weights, x, y, mx.cpu())
+    exact = _executor_step(mx, symbol, weights, x.astype(np.float64),
+                           y.astype(np.float64), mx.cpu())
+    c_ratio, c_key = _worst_max_rel(np, ref, exact, list(ref))
+    results = {}
+    for fused in ("1", "0"):
+        before = (lc.LAUNCHES, lc.BWD_LAUNCHES)
+        old = os.environ.get("MXTPU_FUSED_KERNELS")
+        os.environ["MXTPU_FUSED_KERNELS"] = fused
+        try:
+            got = _executor_step(mx, symbol, weights, x, y, mx.gpu(0))
+        finally:
+            if old is None:
+                del os.environ["MXTPU_FUSED_KERNELS"]
+            else:
+                os.environ["MXTPU_FUSED_KERNELS"] = old
+        launched = (lc.LAUNCHES - before[0], lc.BWD_LAUNCHES - before[1])
+        want = (LM_PER_PASS, LM_PER_PASS) if fused == "1" else (0, 0)
+        check(launched == want, "LM agreement MXTPU_FUSED_KERNELS=%s "
+              "launched %s lstm_cell kernels, not %s" % (fused, launched,
+                                                         want))
+        for k, r in ref.items():
+            check(got[k].shape == r.shape and np.isfinite(got[k]).all(),
+                  "LM agreement: %s shape %s / not finite" % (k,
+                                                              got[k].shape))
+        ratio, key = _worst_max_rel(np, got, ref, list(ref))
+        e_ratio, e_key = _worst_max_rel(np, got, exact, list(ref))
+        results[fused] = ratio
+        log("lm agreement gpu %s vs cpu: output and %d gradients, worst %s "
+            "max |diff| / max |cpu| %.3g (bound %g); against float64: gpu "
+            "worst %s %.3g, cpu float32 worst %s %.3g" % (
+                "fused" if fused == "1" else "MXTPU_FUSED_KERNELS=0",
+                len(ref) - 1, key, ratio, AGREE_REL_TOL, e_key, e_ratio,
+                c_key, c_ratio))
+        check(ratio <= AGREE_REL_TOL, "LM gpu (MXTPU_FUSED_KERNELS=%s) "
+              "disagrees with the CPU path (%s %.3g); float64 says gpu %.3g, "
+              "cpu %.3g" % (fused, key, ratio, e_ratio, c_ratio))
+    return results
+
+
+def phase_lm_serving(torch, mx, tr, seed, card):
+    """Serve the trained LM through Predictor from a checkpoint at batch
+    32: exactly 64 forward launches and no backward launch per forward;
+    finite probabilities; tokens/s."""
+    import numpy as np
+    lc = mx.kernels.lstm_cell
+    args, aux = tr.get_params()
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="smoke-lm-", dir=build_dir)
     try:
-        import mxnet_tpu_torch as mx
-    except ImportError as e:
-        print("chip_smoke: cannot import mxnet_tpu_torch: %s" % e,
-              file=sys.stderr)
-        return 2
-    card = phase_setup(torch, mx)
+        prefix = os.path.join(ckpt_dir, "lstm_lm")
+        mx.model.save_checkpoint(prefix, 0, tr.symbol, args, aux)
+        net, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    shape = (LM_BATCH, LM_SEQ)
+    pred = mx.predict.Predictor(net, _with_prefixes(arg_params, aux_params),
+                                {"data": shape, "softmax_label": shape},
+                                ctx=mx.gpu(0))
+    rs = np.random.RandomState(seed + 50)
+    requests = [rs.randint(0, LM_VOCAB, shape).astype(np.float32)
+                for _ in range(LM_FORWARDS)]
+    labels = np.zeros(shape, np.float32)
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    lc.LAUNCHES = 0
+    lc.BWD_LAUNCHES = 0
+    times, outs = [], []
+    for x in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.forward(data=x, softmax_label=labels)
+                    .get_output(0))
+        times.append(time.perf_counter() - t0)
+    launched = (lc.LAUNCHES, lc.BWD_LAUNCHES)
+    # ----------------------------------------------------------------------
+    log("lm serving: lstm_cell launches over %d Predictor forwards: "
+        "forward %d (expected %d), backward %d" % (
+            LM_FORWARDS, launched[0], LM_PER_PASS * LM_FORWARDS,
+            launched[1]))
+    check(launched == (LM_PER_PASS * LM_FORWARDS, 0),
+          "lm serving launches %s" % (launched,))
+    for out in outs:
+        check(out.shape == (LM_SEQ * LM_BATCH, LM_VOCAB)
+              and np.isfinite(out).all(), "lm serving output bad")
+        check(np.allclose(out.sum(1), 1.0, atol=1e-4),
+              "lm serving softmax rows do not sum to 1")
+    steady = times[1:]
+    log("lm serving: first forward %.1f ms, steady %.2f ms/forward at "
+        "batch %d x %d tokens -> %.0f tokens/s (get_output copies the "
+        "%s probabilities to the host) on %s" % (
+            times[0] * 1e3, 1e3 * sum(steady) / len(steady), LM_BATCH,
+            LM_SEQ, LM_BATCH * LM_SEQ * len(steady) / sum(steady),
+            outs[0].shape, card))
+    return launched[0]
+
+
+def resnet_paths(torch, mx, seed, card):
+    """Phases 2-7: the bn_act kernels, ResNet-50 serving and training.
+    Returns the bn_act entries of the kernels line."""
     symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
                                   image_shape=IMAGE)
     serving, training = bn_act_sites(mx, symbol, (BATCH,) + IMAGE)
@@ -878,13 +1346,14 @@ def main(argv=None):
     check(set(training_counts) == TRAINING_SHAPES_B32 and len(training) == 50,
           "bn_act training site shapes %s" % sorted(training_counts))
     per_shape, max_err = phase_kernels(torch, mx, serving_counts,
-                                       training_counts, args.seed)
-    launches, net, params = phase_serving(torch, mx, args.seed, card)
+                                       training_counts, seed)
+    launches, net, params = phase_serving(torch, mx, seed, card)
     phase_profile(torch, mx, net, params, card)
     tr, batches, train_fwd, train_bwd = phase_training(
-        torch, mx, args.seed, card, len(training))
-    phase_train_agreement(torch, mx, args.seed)
+        torch, mx, seed, card, len(training))
+    phase_train_agreement(torch, mx, seed)
     phase_train_profile(torch, mx, tr, batches, card)
+    tr.close()
 
     def total(counts, key):
         return sum(per_shape[s][key] * n for s, n in counts.items())
@@ -903,7 +1372,7 @@ def main(argv=None):
                 total(training_counts, "f32_%slibrary_ms" % d),
                 total(training_counts, "f32_%sbound_ms" % d)))
     # times: the float32 relu launches of one batch-32 training step
-    kernels = [{
+    return [{
         "name": "bn_act_fwd",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/bn_act.cu",
@@ -928,6 +1397,70 @@ def main(argv=None):
         "bound_by": "bytes",
         "library_ms": total(training_counts, "f32_bwd_library_ms"),
     }]
+
+
+def lm_paths(torch, mx, seed, card):
+    """Phases 8-12: the lstm_cell kernels, the LSTM language model's
+    training (both routes), agreement, serving and profile.  Returns the
+    lstm_cell entries of the kernels line."""
+    lstm_rows, lstm_err = phase_lstm_kernels(torch, mx, seed)
+    lm_tr, lm_batches, lm_fwd, lm_bwd = phase_lm_training(torch, mx, seed,
+                                                          card)
+    route_b = phase_route_b(torch, mx, seed)
+    phase_lm_agreement(torch, mx, seed)
+    lm_serve = phase_lm_serving(torch, mx, lm_tr, seed, card)
+    phase_train_profile(torch, mx, lm_tr, lm_batches, card, what="lm train",
+                        need=("lstm_cell_fwd", "lstm_cell_bwd"),
+                        unit="batch %d x %d tokens" % (LM_BATCH, LM_SEQ))
+    # times: float32 at the bench's (32, 200), summed over the 64 launches
+    # of one LM training step's forward (or backward)
+    bench = lstm_rows[(LM_BATCH, LM_HIDDEN)]
+    kernels = []
+    for name, key, launched, line in (
+            ("lstm_cell_fwd", "", lm_fwd + route_b[0] + lm_serve, 57),
+            ("lstm_cell_bwd", "bwd_", lm_bwd + route_b[1], 70)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+            "replaces": "mxnet_tpu/kernels/lstm_cell.py:%d" % line,
+            "launches": launched,
+            "max_abs_err": lstm_err["fwd" if not key else "bwd"],
+            "ms": LM_PER_PASS * bench["f32_%sms" % key],
+            "plain_ms": LM_PER_PASS * bench["f32_%splain_ms" % key],
+            "bound_ms": LM_PER_PASS * bench["f32_%sbound_ms" % key],
+            "bound_by": "bytes",
+            "library_ms": LM_PER_PASS * bench["f32_%slibrary_ms" % key],
+        })
+    fwd, bwd = kernels
+    log("lstm_cell float32 per LM training step (%d launches each at (%d, "
+        "%d)): forward kernel %.4f plain %.4f library %.4f bound %.4f ms; "
+        "backward kernel %.4f plain %.4f library %.4f bound %.4f ms" % (
+            LM_PER_PASS, LM_BATCH, LM_HIDDEN, fwd["ms"], fwd["plain_ms"],
+            fwd["library_ms"], fwd["bound_ms"], bwd["ms"], bwd["plain_ms"],
+            bwd["library_ms"], bwd["bound_ms"]))
+    return kernels
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the weights, requests and batches")
+    args = parser.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import mxnet_tpu_torch as mx
+    except ImportError as e:
+        print("chip_smoke: cannot import mxnet_tpu_torch: %s" % e,
+              file=sys.stderr)
+        return 2
+    card = phase_setup(torch, mx)
+    kernels = resnet_paths(torch, mx, args.seed, card)
+    kernels += lm_paths(torch, mx, args.seed, card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

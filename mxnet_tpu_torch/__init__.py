@@ -4,7 +4,7 @@
 for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.optimizer``,
 ``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io``,
-``mx.parallel``, ``mx.cpu()``, ``mx.gpu(i)``, ``mx.current_context()``.  This package imports ``torch``, ``numpy`` and
+``mx.parallel``, ``mx.rnn``, ``mx.cpu()``, ``mx.gpu(i)``, ``mx.current_context()``.  This package imports ``torch``, ``numpy`` and
 the standard library only; it never imports ``jax`` or ``mxnet_tpu``.
 
 Its entry points run on ``gpu(0)`` unless the caller passes ``mx.cpu()``;
@@ -34,6 +34,7 @@ from . import lr_scheduler
 from . import optimizer
 from . import initializer
 from . import parallel
+from . import rnn
 
 symbol._init_symbol_module()
 
@@ -43,4 +44,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "kernels", "mxfuse", "executor",
            "model", "models", "predict", "convert", "name", "attribute",
            "random", "io", "lr_scheduler", "optimizer", "initializer",
-           "parallel"]
+           "parallel", "rnn"]

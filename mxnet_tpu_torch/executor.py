@@ -3,7 +3,12 @@
 
 The Symbol DAG becomes a node plan (:func:`_node_plan`), the mxfuse
 passes fill its override slots, and ``forward`` interprets the plan
-eagerly: one PyTorch call per node, on the bound context's device.
+eagerly: one PyTorch call per node, on the bound context's device.  An
+op that draws random numbers (Dropout, RNN's inter-layer dropout) gets a
+``torch.Generator`` seeded from the forward's seed and the node's plan
+position, the JAX package's ``fold_in(rng, rng_ix)``; each forward takes
+a new seed from :func:`random.next_seed`.  The streams are not the JAX
+package's.
 
 Training is torch autograd over the same interpretation.
 ``forward(is_train=True)`` runs the plan with the arguments whose
@@ -22,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .context import Context
 from .ndarray import NDArray, tensor_from_numpy, zeros as nd_zeros
@@ -42,9 +48,9 @@ def _filter_attrs(op, attrs):
 def _node_plan(symbol):
     """The per-node execution plan: ``(node, call_attrs, n_out,
     aux_var_names, rng_ix, override)`` in topological order — the JAX
-    package's layout.  Slot 4 is the node's position (the JAX package's
-    per-node RNG fold constant; no op of this slice draws random
-    numbers); slot 5 is the fusion override mxfuse fills, ``None`` here."""
+    package's layout.  Slot 4 is the node's position, which offsets the
+    forward's seed for a ``needs_rng`` op; slot 5 is the fusion override
+    mxfuse fills, ``None`` here."""
     plan = []
     for ix, node in enumerate(symbol._nodes()):
         if node.is_variable:
@@ -65,17 +71,19 @@ def _node_plan(symbol):
 
 
 def _build_eval(symbol):
-    """Return ``eval_fn(args, aux, is_train) -> (outputs, aux_updates)``
-    over name -> tensor dicts, interpreting the plan as the mxfuse passes
-    rewrote it (``MXTPU_FUSED_KERNELS=0`` skips them)."""
+    """Return ``eval_fn(args, aux, is_train, rng) -> (outputs,
+    aux_updates)`` over name -> tensor dicts, interpreting the plan as the
+    mxfuse passes rewrote it (``MXTPU_FUSED_KERNELS=0`` skips them).
+    ``rng`` is the forward's integer seed."""
     from . import mxfuse
     out_refs = [(id(n), i) for n, i in symbol._outputs]
     fused_plan = mxfuse.optimize_plan(_node_plan(symbol), out_refs)
 
-    def eval_fn(args, aux, is_train):
+    def eval_fn(args, aux, is_train, rng):
         env = {}
         aux_updates = {}
-        _run_plan_nodes(fused_plan, env, args, aux, is_train, aux_updates)
+        _run_plan_nodes(fused_plan, env, args, aux, is_train, aux_updates,
+                        rng)
         return [env[nid][i] for nid, i in out_refs], aux_updates
     eval_fn.plan = fused_plan
     return eval_fn
@@ -89,10 +97,10 @@ def _bind_variable(node, args, aux):
     raise MXNetError("unbound variable %r" % node.name)
 
 
-def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates):
+def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng):
     """Interpret a slice of the node plan against ``env`` (id -> outputs
-    tuple)."""
-    for node, call_attrs, n_out, aux_var_names, _ix, override in chunk:
+    tuple); ``rng`` is the forward's integer seed."""
+    for node, call_attrs, n_out, aux_var_names, ix, override in chunk:
         if node.op is None:
             env[id(node)] = (_bind_variable(node, args, aux),)
             continue
@@ -116,6 +124,9 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates):
         else:
             fn = node.op.fn
             ins = [env[id(src)][idx] for src, idx in node.inputs]
+        if node.op.needs_rng:
+            device = next(t.device for t in ins if t is not None)
+            kw["rng"] = _random.node_generator(rng, ix, device)
         out = fn(*ins, **call_attrs, **kw)
         if not isinstance(out, (tuple, list)):
             out = (out,)
@@ -154,6 +165,7 @@ class Executor(object):
         self._outputs = None      # list[NDArray]
         self._graph = None        # (outputs, leaves) of the last train forward
         self._grads = None        # name -> gradient tensor, once computed
+        self._last_rng = None     # the seed of the last forward
 
     # -- construction helpers --------------------------------------------
     @staticmethod
@@ -212,12 +224,13 @@ class Executor(object):
         args, aux = self._raw(self.arg_dict), self._raw(self.aux_dict)
         self._graph = None
         self._grads = None
+        rng = self._last_rng = _random.next_seed()
         if is_train and self._diff_names:
-            outs, leaves, auxu = self._train_forward(args, aux)
+            outs, leaves, auxu = self._train_forward(args, aux, rng)
             self._graph = (outs, leaves)
         else:
             with torch.no_grad():
-                outs, auxu = self._eval(args, aux, is_train)
+                outs, auxu = self._eval(args, aux, is_train, rng)
         self._set_outputs(outs)
         if is_train:
             self._apply_aux(auxu)
@@ -227,15 +240,15 @@ class Executor(object):
         self._outputs = [NDArray._from_torch(o.detach(), self._ctx)
                          for o in outs]
 
-    def _train_forward(self, args, aux):
+    def _train_forward(self, args, aux, rng):
         """The plan in train mode with the ``_diff_names`` arguments as
-        the only leaves that require grad."""
+        the only leaves that require grad, drawing from seed ``rng``."""
         leaves = {k: args[k].detach().requires_grad_(True)
                   for k in self._diff_names}
         merged = dict(args)
         merged.update(leaves)
         with torch.enable_grad():
-            outs, auxu = self._eval(merged, aux, True)
+            outs, auxu = self._eval(merged, aux, True, rng)
         return outs, leaves, auxu
 
     @staticmethod
@@ -317,8 +330,8 @@ class Executor(object):
         add).  Without ``out_grads`` the gradients of the last train
         forward, with ones heads, are computed once and kept; with
         ``out_grads`` they are computed anew for those heads (re-running
-        the train forward, without its aux update, when its graph was
-        already used)."""
+        the train forward with the last forward's seed, without its aux
+        update, when its graph was already used)."""
         if not self._diff_names:
             return
         if out_grads is not None:
@@ -331,7 +344,10 @@ class Executor(object):
             graph = self._graph
             if graph is None:
                 args, aux = self._raw(self.arg_dict), self._raw(self.aux_dict)
-                outs, leaves, _auxu = self._train_forward(args, aux)
+                if self._last_rng is None:
+                    self._last_rng = _random.next_seed()
+                outs, leaves, _auxu = self._train_forward(args, aux,
+                                                          self._last_rng)
                 self._set_outputs(outs)
                 graph = (outs, leaves)
             self._grads = self._differentiate(graph, heads)
@@ -341,7 +357,8 @@ class Executor(object):
             if graph is None:
                 # forward(is_train=True) was not called — run it now
                 args, aux = self._raw(self.arg_dict), self._raw(self.aux_dict)
-                outs, leaves, auxu = self._train_forward(args, aux)
+                rng = self._last_rng = _random.next_seed()
+                outs, leaves, auxu = self._train_forward(args, aux, rng)
                 self._set_outputs(outs)
                 self._apply_aux(auxu)
                 graph = (outs, leaves)

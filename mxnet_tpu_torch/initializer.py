@@ -17,11 +17,12 @@ import re
 import numpy as np
 
 from .base import MXNetError, Registry
-from .ndarray import NDArray
+from .ndarray import NDArray, zeros as nd_zeros
 from . import random as _random
 
 __all__ = ["Initializer", "Uniform", "Normal", "Xavier", "MSRAPrelu", "One",
-           "Zero", "Constant", "Load", "Mixed", "InitDesc", "register"]
+           "Zero", "Constant", "Load", "Mixed", "LSTMBias", "FusedRNN",
+           "InitDesc", "register"]
 
 init_registry = Registry("initializer")
 register = init_registry.register
@@ -269,3 +270,69 @@ class MSRAPrelu(Xavier):
         magnitude = 2.0 / (1 + slope ** 2)
         super().__init__("gaussian", factor_type, magnitude)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class LSTMBias(Initializer):
+    """Initialize LSTM stacked bias [i,f,c,o] with the forget gate set to
+    ``forget_bias`` and the rest zero (reference initializer.py LSTMBias;
+    ``rnn.LSTMCell``'s ``i2h_bias`` names it in its ``__init__`` attr)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        arr[:] = 0.0
+        num_hidden = int(arr.shape[0] / 4)
+        arr[num_hidden:2 * num_hidden] = self.forget_bias
+
+    _init_bias = _init_weight
+
+
+class FusedRNN(Initializer):
+    """Initialize fused-RNN packed parameter vectors by unpacking into
+    per-layer gate matrices, applying an inner initializer, and re-packing
+    (reference initializer.py FusedRNN; the JAX package's :317-)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__()
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_rnn_parameters(self, name, arr):
+        self._init_weight(name, arr)
+
+    def _init_weight(self, name, arr):
+        from .ops.nn import _RNN_GATES
+        gates = _RNN_GATES[self._mode]
+        dirs = 2 if self._bidirectional else 1
+        h = self._num_hidden
+        flat = np.zeros(arr.size, dtype="float32")
+        # solve input size from total (see rnn_param_size)
+        rest = arr.size - (self._num_layers - 1) * dirs * gates * h * \
+            (dirs * h + h + 2)
+        in_size = rest // (dirs * gates * h) - h - 2
+        p = 0
+        for layer in range(self._num_layers):
+            li = in_size if layer == 0 else h * dirs
+            for _d in range(dirs):
+                for kind_cols in (li, h):
+                    w = nd_zeros((gates * h, kind_cols), ctx=arr.context)
+                    self._init("weight", w)
+                    flat[p:p + w.size] = w.asnumpy().reshape(-1)
+                    p += w.size
+        for layer in range(self._num_layers):
+            for _d in range(dirs):
+                for _kind in range(2):
+                    b = nd_zeros((gates * h,), ctx=arr.context)
+                    if self._mode == "lstm":
+                        LSTMBias(self._forget_bias)._init_bias("bias", b)
+                    flat[p:p + b.size] = b.asnumpy().reshape(-1)
+                    p += b.size
+        arr[:] = flat

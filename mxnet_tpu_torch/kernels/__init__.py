@@ -31,7 +31,7 @@ import time
 from ..base import ENV_FUSED_KERNELS, MXNetError, get_env
 
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
-           "load_library", "BUILD_SECONDS", "bn_act"]
+           "load_library", "BUILD_SECONDS", "bn_act", "lstm_cell"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -163,3 +163,4 @@ def load_library(name):
 
 
 from . import bn_act  # noqa: E402
+from . import lstm_cell  # noqa: E402

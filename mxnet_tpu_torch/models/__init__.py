@@ -1,10 +1,11 @@
 """Model zoo — symbol builders (port of ``mxnet_tpu/models/__init__.py``).
 
-``get_symbol(name, num_classes, **kwargs)`` dispatches by name.  This
-slice ports the ResNet family; the other builders come with the slices
-that serve them.
+``get_symbol(name, num_classes, **kwargs)`` dispatches by name over the
+ResNet family; ``models.lstm_lm`` builds the LSTM language model
+(``lstm_lm_sym``, ``make_sym_gen``).  The other builders come with the
+slices that serve them.
 """
-from . import resnet
+from . import lstm_lm, resnet
 
 _BUILDERS = {
     "resnet": resnet.get_symbol,

@@ -1,8 +1,9 @@
 """NDArray — the imperative tensor type, over a ``torch.Tensor``.
 
-Port of the parts of ``mxnet_tpu/ndarray.py`` the serving and training
-slices need: the array type (a mutable cell holding one tensor on its
-context's device), ``array``/``zeros``/``ones``/``empty``, and ``.params``
+Port of the parts of ``mxnet_tpu/ndarray.py`` the serving, training and
+LSTM slices need: the array type (a mutable cell holding one tensor on its
+context's device; slicing and ``reshape`` give views, ``copy`` a copy),
+``array``/``zeros``/``ones``/``empty``/``concatenate``, and ``.params``
 serialization
 byte-identical to ``mxnet_tpu/ndarray.py:501-575`` (the reference's
 format, src/ndarray/ndarray.cc:593-676, kMXAPINDArrayListMagic=0x112), so
@@ -18,8 +19,8 @@ import torch
 from .base import MXNetError
 from .context import Context, cpu, current_context
 
-__all__ = ["NDArray", "array", "empty", "zeros", "ones", "load", "save",
-           "tensor_from_numpy"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "concatenate",
+           "load", "save", "tensor_from_numpy"]
 
 # torch dtype <-> reference mshadow type_flag (mshadow/base.h kFloat32=0 ...)
 _DTYPE_TO_FLAG = {
@@ -81,6 +82,10 @@ class NDArray(object):
         return tuple(self._data.shape)
 
     @property
+    def size(self):
+        return int(self._data.numel())
+
+    @property
     def dtype(self):
         """The element type as a ``torch.dtype``."""
         return self._data.dtype
@@ -122,6 +127,21 @@ class NDArray(object):
         if context == self._ctx:
             return self
         return self.copyto(context)
+
+    def reshape(self, shape, reverse=False):
+        """A view in a new shape, with the ``Reshape`` op's special codes
+        (0, -1, -2, -3, -4)."""
+        from .ops.tensor import infer_reshape
+        if isinstance(shape, int):
+            shape = (shape,)
+        return NDArray._from_torch(
+            self._data.reshape(infer_reshape(self.shape, tuple(shape),
+                                             reverse)), self._ctx)
+
+    def __getitem__(self, key):
+        """``a[i]``, ``a[i:j]``: a view sharing this array's storage, as
+        the reference's slicing gives."""
+        return NDArray._from_torch(self._data[key], self._ctx)
 
     def __setitem__(self, key, value):
         """``a[:] = v`` writes ``v`` (array, tensor or scalar) into this
@@ -190,6 +210,14 @@ def ones(shape, ctx=None, dtype="float32"):
     return NDArray._from_torch(
         torch.ones(tuple(shape), dtype=_torch_dtype(dtype),
                    device=ctx.torch_device), ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """The arrays joined along ``axis``, on the first one's context."""
+    if len(arrays) == 1 and not always_copy:
+        return arrays[0]
+    return NDArray._from_torch(
+        torch.cat([a._data for a in arrays], dim=axis), arrays[0]._ctx)
 
 
 # ---------------------------------------------------------------------------

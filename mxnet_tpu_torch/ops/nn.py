@@ -3,10 +3,15 @@
 The attributes, their defaults and the shape inference are the JAX
 package's; the lowerings are PyTorch: ``F.conv{1,2,3}d`` for Convolution,
 ``F.max_pool``/``F.avg_pool`` over an explicitly padded input for Pooling,
-``torch.matmul`` for FullyConnected.  They differentiate through torch
-autograd as they are, except SoftmaxOutput, whose hand backward
-``(p - onehot(label)) * grad_scale`` is a ``torch.autograd.Function``
-(the JAX package's ``custom_vjp``, :618-668).
+``torch.matmul`` for FullyConnected, ``F.embedding`` for Embedding, and
+for the fused ``RNN`` op one hoisted input projection per layer and
+direction and a Python loop over time whose LSTM steps call the
+``lstm_cell`` kernel.  They differentiate through torch autograd as they
+are, except SoftmaxOutput, whose hand backward ``(p - onehot(label)) *
+grad_scale`` is a ``torch.autograd.Function`` (the JAX package's
+``custom_vjp``, :618-668), and the LSTM cell (``kernels/lstm_cell.py``).
+Dropout and RNN draw from the ``torch.Generator`` the executor hands
+them as ``rng``.
 """
 from __future__ import annotations
 
@@ -342,3 +347,310 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                                 float(ignore_label), bool(use_ignore),
                                 bool(multi_output), str(normalization),
                                 bool(out_grad))
+
+
+# ---------------------------------------------------------------------------
+# Dropout — src/operator/dropout-inl.h
+# ---------------------------------------------------------------------------
+
+def _keep_mask(shape, keep, rng, device):
+    """Bernoulli(keep) mask drawn from the generator ``rng``."""
+    return torch.rand(shape, generator=rng, device=device) < keep
+
+
+@register("Dropout", needs_is_train=True, needs_rng=True, num_outputs=1)
+def dropout(data, p=0.5, is_train=False, rng=None, mode=None):
+    if not is_train or p <= 0:
+        return data
+    keep = 1.0 - p
+    mask = _keep_mask(data.shape, keep, rng, data.device)
+    return torch.where(mask, data / keep, torch.zeros_like(data))
+
+
+# ---------------------------------------------------------------------------
+# Embedding — src/operator/tensor/indexing_op.h (EmbeddingOp)
+# ---------------------------------------------------------------------------
+
+def _embed_infer(attrs, in_shapes):
+    input_dim = int(attrs["input_dim"])
+    output_dim = int(attrs["output_dim"])
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    return [tuple(data), (input_dim, output_dim)], \
+        [tuple(data) + (output_dim,)], []
+
+
+@register("Embedding", input_names=("data", "weight"),
+          infer_shape=_embed_infer)
+def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32"):
+    """Rows of ``weight`` at the ids in ``data``, with ``jnp.take``'s
+    semantics: float ids truncate toward zero (``astype(int32)``), ids in
+    [-V, 0) count from the end, and an id outside [-V, V) gives a row of
+    NaN (the ``fill`` mode) instead of a device-side fault."""
+    rows = weight.shape[0]
+    idx = data.to(torch.int64)
+    valid = (idx >= -rows) & (idx < rows)
+    idx = torch.remainder(idx, rows)
+    out = F.embedding(idx, weight)
+    return torch.where(valid.unsqueeze(-1), out,
+                       torch.full((), float("nan"), dtype=out.dtype,
+                                  device=out.device))
+
+
+# ---------------------------------------------------------------------------
+# Concat / SliceChannel — src/operator/concat-inl.h, slice_channel-inl.h
+# ---------------------------------------------------------------------------
+
+def _concat_inputs(attrs):
+    n = int(attrs.get("num_args", 1))
+    return tuple("arg%d" % i for i in range(n))
+
+
+def _concat_infer(attrs, in_shapes):
+    dim = int(attrs.get("dim", 1))
+    known = [s for s in in_shapes if s is not None]
+    if not known or any(s is None for s in in_shapes):
+        return in_shapes, [None], []
+    out = list(known[0])
+    out[dim] = sum(s[dim] for s in in_shapes)
+    return [tuple(s) for s in in_shapes], [tuple(out)], []
+
+
+@register("Concat", input_names=_concat_inputs, variable_inputs=True,
+          infer_shape=_concat_infer, aliases=("concat",))
+def concat(*args, num_args=1, dim=1):
+    return torch.cat(args, dim=dim)
+
+
+def _slice_channel_infer(attrs, in_shapes):
+    n = int(attrs.get("num_outputs", 1))
+    axis = int(attrs.get("axis", 1))
+    squeeze = attrs.get("squeeze_axis", False)
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None] * n, []
+    out = list(data)
+    out[axis] //= n
+    if squeeze and out[axis] == 1:
+        out.pop(axis)
+    return [tuple(data)], [tuple(out)] * n, []
+
+
+@register("SliceChannel", aliases=("split",),
+          num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)),
+          infer_shape=_slice_channel_infer)
+def slice_channel(data, num_outputs=1, axis=1, squeeze_axis=False):
+    if data.shape[axis] % num_outputs:
+        raise MXNetError("SliceChannel: axis %d of size %d does not split "
+                         "into %d equal parts" % (axis, data.shape[axis],
+                                                  num_outputs))
+    parts = torch.split(data, data.shape[axis] // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [torch.squeeze(p, axis) for p in parts]
+    return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# Fused RNN — src/operator/rnn-inl.h / cudnn_rnn-inl.h (the JAX package's
+# :862-1052).  Weight layout matches the reference's fused vector format so
+# rnn_cell pack/unpack round-trips (python/mxnet/rnn/rnn_cell.py:541-607):
+# per layer, per direction: all i2h weights (gates stacked), all h2h
+# weights, then per layer/direction all i2h biases, all h2h biases.
+# Gate order: LSTM [i, f, c, o]; GRU [r, z, n].
+# ---------------------------------------------------------------------------
+
+_RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def rnn_param_size(num_layers, input_size, state_size, bidirectional, mode):
+    gates = _RNN_GATES[mode]
+    dirs = 2 if bidirectional else 1
+    size = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * dirs
+        size += dirs * gates * state_size * (in_sz + state_size + 2)
+    return size
+
+
+def _rnn_split_params(params, num_layers, input_size, state_size,
+                      bidirectional, mode):
+    """Split the fused 1-D parameter vector into per-layer weight matrices
+    (views of it, so gradients flow back into the vector)."""
+    gates = _RNN_GATES[mode]
+    dirs = 2 if bidirectional else 1
+    ws, bs = [], []
+    off = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else state_size * dirs
+        layer_w = []
+        for _d in range(dirs):
+            n_i2h = gates * state_size * in_sz
+            w_i2h = params[off:off + n_i2h].reshape(gates * state_size, in_sz)
+            off += n_i2h
+            n_h2h = gates * state_size * state_size
+            w_h2h = params[off:off + n_h2h].reshape(gates * state_size,
+                                                    state_size)
+            off += n_h2h
+            layer_w.append((w_i2h, w_h2h))
+        ws.append(layer_w)
+    for layer in range(num_layers):
+        layer_b = []
+        for _d in range(dirs):
+            b_i2h = params[off:off + gates * state_size]
+            off += gates * state_size
+            b_h2h = params[off:off + gates * state_size]
+            off += gates * state_size
+            layer_b.append((b_i2h, b_h2h))
+        bs.append(layer_b)
+    return ws, bs
+
+
+def _rnn_cell_step(mode):
+    """``step(carry, xb, w_h2h) -> (carry, h)`` for one time step, where
+    ``xb`` is the step's hoisted input projection with both biases added.
+    ``MXTPU_FUSED_KERNELS`` routing is resolved once per op call: the
+    fused LSTM cell does all gate math in one kernel launch
+    (``kernels/lstm_cell.py``), the unfused one splits the gates and
+    chains the activations as the JAX package's :934-937."""
+    fused_lstm = None
+    if mode == "lstm":
+        from ..kernels import fused_enabled
+        if fused_enabled("lstm_cell"):
+            from ..kernels.lstm_cell import lstm_cell as fused_lstm
+
+    def step(carry, xb, w_h2h):
+        h = carry[0]
+        if mode == "lstm":
+            gates = torch.addmm(xb, h, w_h2h.t())
+            if fused_lstm is not None:
+                h, c = fused_lstm(gates, carry[1])
+                return (h, c), h
+            i, f, g, o = torch.chunk(gates, 4, dim=-1)
+            c = torch.sigmoid(f) * carry[1] + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            return (h, c), h
+        if mode == "gru":
+            xr, xz, xn, hb_n = xb
+            hp = torch.matmul(h, w_h2h.t())
+            hr, hz, hn = torch.chunk(hp, 3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * (hn + hb_n))
+            h = (1 - z) * n + z * h
+            return (h,), h
+        pre = torch.addmm(xb, h, w_h2h.t())
+        h = torch.relu(pre) if mode == "rnn_relu" else torch.tanh(pre)
+        return (h,), h
+    return step
+
+
+def _rnn_inputs(attrs):
+    mode = str(attrs.get("mode", "lstm"))
+    if mode == "lstm":
+        return ("data", "parameters", "state", "state_cell")
+    return ("data", "parameters", "state")
+
+
+def _rnn_num_outputs(attrs):
+    if not attrs.get("state_outputs", False):
+        return 1
+    return 3 if str(attrs.get("mode", "lstm")) == "lstm" else 2
+
+
+def _rnn_infer(attrs, in_shapes):
+    mode = str(attrs.get("mode", "lstm"))
+    num_layers = int(attrs.get("num_layers", 1))
+    state_size = int(attrs.get("state_size"))
+    bi = attrs.get("bidirectional", False)
+    dirs = 2 if bi else 1
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None] * _rnn_num_outputs(attrs), []
+    T, N, I = data
+    psize = rnn_param_size(num_layers, I, state_size, bi, mode)
+    sshape = (num_layers * dirs, N, state_size)
+    shapes = [tuple(data), (psize,), sshape]
+    if mode == "lstm":
+        shapes.append(sshape)
+    outs = [(T, N, state_size * dirs)]
+    if attrs.get("state_outputs", False):
+        outs.append(sshape)
+        if mode == "lstm":
+            outs.append(sshape)
+    return shapes, outs, []
+
+
+@register("RNN", input_names=_rnn_inputs, num_outputs=_rnn_num_outputs,
+          infer_shape=_rnn_infer, needs_is_train=True, needs_rng=True)
+def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
+        bidirectional=False, mode="lstm", p=0.0, state_outputs=False,
+        lstm_state_clip_min=None, lstm_state_clip_max=None, is_train=False,
+        rng=None):
+    """Fused multi-layer RNN over time-major data (T, N, I) (reference
+    src/operator/cudnn_rnn-inl.h).
+
+    Per layer and direction, the input projection of the whole sequence
+    is one (T*N, I) x (I, G*H) matmul with both biases added once, hoisted
+    out of the recurrence, as the JAX package hoists it (:1023); the
+    recurrence is a Python loop over T whose step is one ``addmm`` (the
+    h2h product into the hoisted projection) and, for lstm, one
+    ``lstm_cell`` kernel launch.  GRU keeps its h2h bias of the new-gate
+    part inside the reset product, as the reference does.  Between layers
+    a training forward with ``p > 0`` drops units with masks drawn from
+    ``rng``.  The ``lstm_state_clip_*`` attrs are accepted and ignored,
+    as in the JAX package."""
+    T, N, _ = data.shape
+    dirs = 2 if bidirectional else 1
+    ws, bs = _rnn_split_params(parameters, num_layers, data.shape[2],
+                               state_size, bidirectional, mode)
+    step = _rnn_cell_step(mode)
+    h0 = state.reshape(num_layers, dirs, N, state_size)
+    c0 = state_cell.reshape(num_layers, dirs, N, state_size) \
+        if state_cell is not None else None
+
+    layer_in = data
+    h_finals, c_finals = [], []
+    for layer in range(num_layers):
+        outs_dir = []
+        for d in range(dirs):
+            w_i2h, w_h2h = ws[layer][d]
+            b_i2h, b_h2h = bs[layer][d]
+            seq = layer_in if d == 0 else torch.flip(layer_in, dims=(0,))
+            x_proj = torch.matmul(seq, w_i2h.t()) + b_i2h
+            if mode == "gru":
+                # the new gate's h2h bias stays inside r * (...)
+                hb_r, hb_z, hb_n = torch.chunk(b_h2h, 3)
+                xr, xz, xn = torch.chunk(x_proj, 3, dim=-1)
+                xs = [(xr[t] + hb_r, xz[t] + hb_z, xn[t], hb_n)
+                      for t in range(T)]
+            else:
+                xs = torch.unbind(x_proj + b_h2h, dim=0)
+            carry = (h0[layer, d], c0[layer, d]) if mode == "lstm" \
+                else (h0[layer, d],)
+            hs = []
+            for t in range(T):
+                carry, h = step(carry, xs[t], w_h2h)
+                hs.append(h)
+            hs = torch.stack(hs)
+            if d == 1:
+                hs = torch.flip(hs, dims=(0,))
+            outs_dir.append(hs)
+            h_finals.append(carry[0])
+            if mode == "lstm":
+                c_finals.append(carry[1])
+        layer_in = outs_dir[0] if dirs == 1 else torch.cat(outs_dir, dim=-1)
+        if is_train and p > 0 and layer < num_layers - 1:
+            keep = 1.0 - p
+            mask = _keep_mask(layer_in.shape, keep, rng, layer_in.device)
+            layer_in = torch.where(mask, layer_in / keep,
+                                   torch.zeros_like(layer_in))
+
+    if not state_outputs:
+        return layer_in
+    h_out = torch.stack(h_finals).reshape(num_layers * dirs, N, state_size)
+    if mode == "lstm":
+        c_out = torch.stack(c_finals).reshape(num_layers * dirs, N,
+                                              state_size)
+        return layer_in, h_out, c_out
+    return layer_in, h_out

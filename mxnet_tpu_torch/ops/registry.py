@@ -10,6 +10,11 @@ Op conventions (unchanged from the JAX package)
   - inputs are the op's data+parameter inputs, in ``input_names`` order,
     followed by aux states in ``aux_names`` order (BatchNorm moving stats).
   - if ``needs_is_train``: fn must accept keyword ``is_train`` (bool).
+  - if ``needs_rng``: fn must accept keyword ``rng``, a ``torch.Generator``
+    on the op's device (the JAX package passes a PRNG key).
+  - ``variable_inputs`` ops (Concat) take their inputs positionally, as
+    many as the ``num_args`` attr says; ``hidden`` ops (``_FusedLSTMCell``)
+    are emitted by the framework, not written by users.
   - ops with aux states return outputs + updated aux concatenated in one
     flat tuple; the executor splits on ``num_outputs``.
 """
@@ -50,13 +55,14 @@ def fn_signature_info(fn):
 class OpDef(object):
     __slots__ = (
         "name", "fn", "input_names", "aux_names", "num_outputs",
-        "infer_shape", "needs_is_train", "aliases", "output_names", "doc",
-        "_accepted",
+        "infer_shape", "needs_is_train", "needs_rng", "variable_inputs",
+        "aliases", "output_names", "hidden", "doc", "_accepted",
     )
 
     def __init__(self, name, fn, input_names=("data",), aux_names=(),
                  num_outputs=1, infer_shape=None, needs_is_train=False,
-                 aliases=(), output_names=None):
+                 needs_rng=False, variable_inputs=False, aliases=(),
+                 output_names=None, hidden=False):
         self.name = name
         self.fn = fn
         self.input_names = input_names          # tuple | callable(attrs)->tuple
@@ -64,8 +70,11 @@ class OpDef(object):
         self.num_outputs = num_outputs          # int | callable(attrs)->int
         self.infer_shape = infer_shape          # optional custom shape inference
         self.needs_is_train = needs_is_train
+        self.needs_rng = needs_rng
+        self.variable_inputs = variable_inputs
         self.aliases = tuple(aliases)
         self.output_names = output_names        # tuple | callable(attrs)->tuple
+        self.hidden = hidden
         self._accepted = None                   # lazy cache for accepted_attrs()
         self.doc = fn.__doc__
 
@@ -97,14 +106,14 @@ class OpDef(object):
 
     def accepted_attrs(self):
         """The op's declared parameter surface (the lowering function's
-        kwargs minus tensor inputs/aux and the is_train special), or None
-        when the function takes **kwargs."""
+        kwargs minus tensor inputs/aux and the is_train/rng specials), or
+        None when the function takes **kwargs."""
         if self._accepted is None:
             names, has_var_kw = fn_signature_info(self.fn)
             if has_var_kw:
                 self._accepted = "any"
             else:
-                drop = {"is_train"}
+                drop = {"is_train", "rng"}
                 drop |= set(self.get_input_names({}))
                 drop |= set(self.get_aux_names({}))
                 self._accepted = frozenset(names - drop)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
+from .. import random as _random
 from ..base import (ENV_MAX_BAD_STEPS, ENV_STEP_GUARD, MXNetError, get_env,
                     register_env)
 from ..context import Context, cpu, current_context
@@ -326,14 +327,18 @@ class SPMDTrainer(object):
     def step(self, *batch_arrays, key=None):
         """One training step on data+labels in ``input_names`` order
         (numpy, NDArrays, or tensors already on the device).  Returns the
-        outputs as tensors on the device.  ``key`` is accepted for the
-        JAX package's signature; no op of this slice draws random
-        numbers."""
+        outputs as tensors on the device.  ``key`` is the integer seed of
+        the step's random draws (dropout masks), a new one from
+        :func:`random.next_seed` when None: a caller that previewed the
+        step with ``forward_only(key=k)`` passes the same ``k`` so both
+        passes draw the same masks."""
         # consume the PREVIOUS step's guard counters before dispatching
         # this one: a one-deep pipeline (the device runs step N while the
         # host prepares N+1)
         self.flush_step_guard()
         data = self._stage(batch_arrays)
+        if key is None:
+            key = _random.next_seed()
         self._num_update += 1
         lr = self.optimizer.lr if self.optimizer.lr_scheduler is None else \
             self.optimizer.lr_scheduler(self._num_update)
@@ -346,7 +351,7 @@ class SPMDTrainer(object):
         with torch.enable_grad():
             merged = self._xform(data)
             merged.update(self._cast(leaves))
-            outs, auxu = self._eval(merged, self.aux, True)
+            outs, auxu = self._eval(merged, self.aux, True, key)
             diff = [o for o in outs if o.requires_grad]
             grads = [None] * len(self.param_names)
             if diff:
@@ -415,22 +420,26 @@ class SPMDTrainer(object):
             _later("the step watchdog", "resilience")
         return watchdog
 
-    def _forward(self, batch_arrays, is_train):
+    def _forward(self, batch_arrays, is_train, key):
         data = self._stage(batch_arrays)
         with torch.no_grad():
             merged = self._xform(data)
             merged.update(self._cast(self.params))
-            outs, _ = self._eval(merged, self.aux, is_train)
+            outs, _ = self._eval(merged, self.aux, is_train, key)
         return outs
 
     def eval_step(self, *batch_arrays):
         """Inference-mode forward; outputs as tensors on the device."""
-        return self._forward(batch_arrays, False)
+        return self._forward(batch_arrays, False, _random.next_seed())
 
     def forward_only(self, *batch_arrays, key=None):
         """Train-mode forward without the update (and without the aux
-        update), for looking at outputs between steps."""
-        return self._forward(batch_arrays, True)
+        update), for looking at outputs between steps.  With no ``key``
+        it draws with the seed the next ``step`` will take (peeked, not
+        taken), so stochastic layers give that step's masks."""
+        if key is None:
+            key = _random.peek_seed()
+        return self._forward(batch_arrays, True, key)
 
     @property
     def outputs(self):

@@ -1,10 +1,14 @@
 """Random state: :func:`seed` and one seeded ``torch.Generator`` per
-device (port of ``mxnet_tpu/random.py``'s ``seed``/``uniform``/``normal``).
+device (port of ``mxnet_tpu/random.py``'s ``seed``/``uniform``/``normal``/
+``next_key``/``peek_key``).
 
 The JAX package draws from one ``jax.random`` key chain; the port draws
 from an explicit ``torch.Generator`` for each device, made on first use
-and seeded from the last :func:`seed`.  The two give different numbers
-from the same seed: weights cross between the packages as numpy arrays
+and seeded from the last :func:`seed`.  Graph forwards take an integer
+seed each from :func:`next_seed` (the JAX package's ``next_key``), and a
+node that draws gets a generator of its own from
+:func:`node_generator` (``fold_in``).  The two packages give different
+numbers from the same seed: weights cross between them as numpy arrays
 or ``.params`` files, never by matching random streams.
 """
 from __future__ import annotations
@@ -14,12 +18,15 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["seed", "get_seed", "generator", "uniform", "normal"]
+__all__ = ["seed", "get_seed", "generator", "uniform", "normal",
+           "next_seed", "peek_seed", "node_generator"]
 
 _DEFAULT_SEED = 0
 _seed_int = _DEFAULT_SEED
 _generators = {}          # torch.device -> torch.Generator
+_forwards = 0             # seeds handed out by next_seed since seed()
 _lock = threading.Lock()
+_MASK63 = (1 << 63) - 1
 
 
 def seed(seed_state):
@@ -28,9 +35,10 @@ def seed(seed_state):
     RNG is not touched."""
     if not isinstance(seed_state, (int, np.integer)):
         raise ValueError("seed must be an int")
-    global _seed_int
+    global _seed_int, _forwards
     with _lock:
         _seed_int = int(seed_state)
+        _forwards = 0
         _generators.clear()
 
 
@@ -72,3 +80,37 @@ def normal(loc=0, scale=1, shape=(), ctx=None, dtype="float32", out=None):
     out = _out(shape, ctx, dtype, out)
     out._data.normal_(loc, scale, generator=generator(out._data.device))
     return out
+
+
+def _mix(a, b):
+    """A 63-bit seed from two integers (splitmix64's finaliser over
+    ``a * golden + b``), so neighbouring inputs give unrelated seeds."""
+    z = (a * 0x9E3779B97F4A7C15 + b + 1) & ((1 << 64) - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return (z ^ (z >> 31)) & _MASK63
+
+
+def next_seed():
+    """The next forward's integer seed (the JAX package's ``next_key``):
+    a stream that :func:`seed` restarts."""
+    global _forwards
+    with _lock:
+        out = _mix(_seed_int, _forwards)
+        _forwards += 1
+    return out
+
+
+def peek_seed():
+    """The seed :func:`next_seed` would return, without taking it (the
+    JAX package's ``peek_key``)."""
+    with _lock:
+        return _mix(_seed_int, _forwards)
+
+
+def node_generator(seed_value, offset, device):
+    """A ``torch.Generator`` on ``device`` for the node at plan position
+    ``offset`` of a forward seeded ``seed_value`` (``fold_in``)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_mix(int(seed_value), int(offset)))
+    return gen

@@ -158,6 +158,13 @@ class Symbol(object):
             return Symbol(self._outputs[index])
         return Symbol([self._outputs[index]])
 
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        for i in range(len(self._outputs)):
+            yield self[i]
+
     def __repr__(self):
         if len(self._outputs) == 1:
             return "<Symbol %s>" % self._outputs[0][0].name
@@ -184,12 +191,39 @@ class Symbol(object):
 
         return Symbol([rewrite_pair(n, i) for n, i in self._outputs])
 
-    def __add__(self, other):
+    # -- arithmetic (the JAX package's :235-265) -------------------------
+    def _binary(self, other, op_name, scalar_op, reverse=False):
         if isinstance(other, Symbol):
-            return _create("elemwise_add", [self, other], {})
+            a, b = (other, self) if reverse else (self, other)
+            return _create(op_name, [a, b], {})
+        if isinstance(other, (int, float, np.number)):
+            return _create(scalar_op, [self], {"scalar": float(other)})
         return NotImplemented
 
+    def __add__(self, o):
+        return self._binary(o, "elemwise_add", "_plus_scalar")
+
     __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elemwise_sub", "_rminus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elemwise_div", "_rdiv_scalar", reverse=True)
+
+    def __neg__(self):
+        return _create("_mul_scalar", [self], {"scalar": -1.0})
 
     def __hash__(self):
         return id(self)
@@ -353,9 +387,10 @@ def Group(symbols):
 
 def _create(op_name, input_syms, attrs, name=None, extra_attr=None,
             named_inputs=None):
-    """Create an op node.  ``input_syms`` are positional inputs;
-    ``named_inputs`` maps input-name -> Symbol.  Missing parameter/aux
-    inputs are auto-created as Variables named ``{node}_{input}``."""
+    """Create an op node.  ``input_syms`` are positional inputs (all of a
+    ``variable_inputs`` op's); ``named_inputs`` maps input-name -> Symbol.
+    Missing parameter/aux inputs are auto-created as Variables named
+    ``{node}_{input}``."""
     op = get_op(op_name)
     op.validate_attrs(attrs, where="symbol")
     norm = op.normalize_attrs(attrs)
@@ -374,6 +409,12 @@ def _create(op_name, input_syms, attrs, name=None, extra_attr=None,
 
     in_names = op.get_input_names(norm)
     aux_names = op.get_aux_names(norm)
+    if op.variable_inputs:
+        inputs = [head(s) for s in input_syms]
+        for nm in list(in_names)[len(inputs):]:
+            inputs.append(Variable("%s_%s" % (node_name, nm))._outputs[0])
+        node = _Node(op, node_name, node_attrs, inputs)
+        return Symbol([(node, i) for i in range(node.num_outputs())])
     by_name = dict(named_inputs or {})
     for nm, s in zip(in_names, input_syms):
         if nm in by_name:
@@ -408,12 +449,21 @@ def _make_symbol_function(opdef, func_name):
                 sym_kwargs[k] = v
             else:
                 attrs[k] = v
-        for a in args:
-            if not isinstance(a, Symbol):
-                raise TypeError(
-                    "positional args to sym.%s must be Symbols" % func_name)
+        if opdef.variable_inputs:
+            inputs = [a for a in args if isinstance(a, Symbol)]
+            if not inputs and sym_kwargs:
+                inputs = list(sym_kwargs.values())
+            attrs.setdefault("num_args", len(inputs))
+            sym_kwargs = None
+        else:
+            for a in args:
+                if not isinstance(a, Symbol):
+                    raise TypeError(
+                        "positional args to sym.%s must be Symbols"
+                        % func_name)
+            inputs = list(args)
         extra = attribute.current().get(attr)
-        return _create(opdef.name, list(args), attrs, name=name,
+        return _create(opdef.name, inputs, attrs, name=name,
                        extra_attr=extra, named_inputs=sym_kwargs)
 
     creator.__name__ = func_name

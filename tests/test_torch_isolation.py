@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and no
 line of ``chip_smoke.py`` imports JAX or the JAX package, the port
-imports, builds a model and takes an ``SPMDTrainer`` step on the CPU with
-JAX made unimportable, and the chip smoke test refuses to run without
-CUDA."""
+imports, builds a model and takes an ``SPMDTrainer`` step of a ResNet and
+of the LSTM language model on the CPU with JAX made unimportable, and the
+chip smoke test refuses to run without CUDA."""
 import ast
 import os
 import subprocess
@@ -70,6 +70,15 @@ def test_port_runs_with_jax_unimportable():
         "out = tr.step(np.ones((2, 3, 8, 8), np.float32),"
         " np.zeros(2, np.float32))[0]\n"
         "assert out.shape == (2, 4) and tr.skipped_steps == 0\n"
+        "from mxnet_tpu_torch.models import lstm_lm\n"
+        "s, _, _ = lstm_lm.lstm_lm_sym(5, 30, 8, 8, 2)\n"
+        "tr = mx.parallel.SPMDTrainer(s, 'sgd', {'learning_rate': 0.1,"
+        " 'momentum': 0.9, 'rescale_grad': 0.5}, ctx=mx.cpu())\n"
+        "tr.bind([('data', (2, 5))], [('softmax_label', (2, 5))])\n"
+        "tr.init_params(mx.initializer.Xavier())\n"
+        "ids = np.arange(10, dtype=np.float32).reshape(2, 5)\n"
+        "out = tr.step(ids, ids)[0]\n"
+        "assert out.shape == (10, 30) and tr.skipped_steps == 0\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', "
         "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
         "print('ok', len(args))\n")
