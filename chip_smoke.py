@@ -85,6 +85,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet, 700 W) — the bound's denominator
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM peak rates (NVIDIA data sheet, 700 W, dense): float32 outside
+#: the tensor cores, and bf16 on them
+F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 #: the five bn_act site shapes of ResNet-50 serving at batch 32, 224x224
 SERVING_SHAPES_B32 = {(32, 64, 56, 56), (32, 256, 56, 56), (32, 512, 28, 28),
                       (32, 1024, 14, 14), (32, 2048, 7, 7)}
@@ -116,6 +120,33 @@ LM_AGREE_BATCH = 4
 #: odd one, and one large enough for bytes to count
 LSTM_SHAPES = ((32, 200), (4, 200), (7, 13), (128, 1024))
 LSTM_F32_TOL = (2e-6, 1e-5)  # max abs error: (h, c), (dgates, dc_prev)
+# the long-context causal LM of example/long-context/train_lm.py at its
+# published widths, its command-line defaults (train_lm.py:118-127)
+LC_VOCAB, LC_DMODEL, LC_HEADS, LC_LAYERS, LC_DFF = 128, 64, 4, 2, 256
+LC_BATCH, LC_LR, LC_SEQ, LC_MAX_LEN = 4, 0.3, 512, 4096
+LC_STEPS = 40       # seq-512 training steps, as the example runs
+LC_LONG_STEPS = 5   # seq-4096 training steps
+LC_FORWARDS = 4     # seq-4096 serving forwards
+LC_AGREE = (2, 1024)  # (batch, seq) of the GPU-vs-CPU check
+ATT_SHAPE, ATT_HEADS = (4, 512, 64), 4   # the symbolic Attention op's
+#: (B, Tq, Tk, H, D, causal) of the flash kernel checks: the LM at seq 512
+#: and 4096, bench.py's kernel shape causal and not, an odd shape, a
+#: Tq > Tk shape (its first rows see no key), and head dim 128
+FLASH_SHAPES = ((4, 512, 512, 4, 16, True), (4, 4096, 4096, 4, 16, True),
+                (4, 512, 512, 8, 64, True), (4, 512, 512, 8, 64, False),
+                (3, 37, 53, 2, 8, True), (2, 300, 200, 4, 16, True),
+                (2, 512, 512, 4, 128, True))
+FLASH_MODEL_SHAPE = (4, 4096, 4096, 4, 16, True)
+# float32 kernel vs plain: both sum in float32 in other orders (the
+# streaming softmax reassociates its sums), outputs are O(1)
+FLASH_F32_TOL = 2e-5
+# The LM's gradients, like ResNet-50's, move when a ReLU input lies within
+# rounding of 0: at batch 2 x 1024 one of the 1M ff pre-activations of the
+# seeded run is 1.9e-7 from 0 in layer 0, and its flip alone moves the
+# layer-0 and embedding gradients by 1.1e-3 in relative L2 (up to 1.2% of
+# one tensor's max).  So the card's gradients are held to the CPU path's in
+# relative L2, all together and per tensor, and the logits elementwise:
+LC_GRAD_L2_TOL = 1e-2
 F32_TOL = 1e-5      # max abs error, float32 kernel vs plain (y, dx)
 BF16_REL_TOL = 1e-2  # max abs error / max |plain|, bfloat16
 SUM_F32_REL_TOL = 1e-4  # dscale/dshift: max abs error / max |plain|, f32
@@ -813,12 +844,14 @@ def phase_train_agreement(torch, mx, seed):
 _OWN_CLASSES = (("bn_act_fwd_kernel", "bn_act_fwd"),
                 ("bn_act_bwd_kernel", "bn_act_bwd"),
                 ("lstm_cell_fwd_kernel", "lstm_cell_fwd"),
-                ("lstm_cell_bwd_kernel", "lstm_cell_bwd"))
+                ("lstm_cell_bwd_kernel", "lstm_cell_bwd"),
+                ("flash_attention_fwd_kernel", "flash_attention_fwd"))
 
 
 def _trace_classes(path, update_range):
     """Device time by class from a chrome trace: the port's kernels
-    (``bn_act_fwd``, ``bn_act_bwd``, ``lstm_cell_fwd``, ``lstm_cell_bwd``),
+    (``bn_act_fwd``, ``bn_act_bwd``, ``lstm_cell_fwd``, ``lstm_cell_bwd``,
+    ``flash_attention_fwd``),
     ``optimizer update`` (kernels whose launch lies inside the trainer's
     update range) and the serving classes.  Returns ``(busy_us, {class:
     us}, kernels, top [(us, count, name)], update ranges)``."""
@@ -860,10 +893,22 @@ def _trace_classes(path, update_range):
 def phase_train_profile(torch, mx, tr, batches, card, what="train",
                         need=("bn_act_fwd", "bn_act_bwd"), unit="batch %d"
                         % BATCH):
-    """A torch.profiler trace of a few training steps: idle share, kernel
-    launches per step, device time per step by class; each class in
-    ``need`` and the optimizer update must show device time."""
+    """A torch.profiler trace of a few SPMDTrainer steps (see
+    ``profile_steps``)."""
     from mxnet_tpu_torch.parallel.trainer import UPDATE_RANGE
+    tr.step(*batches[1])          # flush the previous phase's state
+    torch.cuda.synchronize()
+    return profile_steps(
+        torch, lambda i: tr.step(*batches[i % len(batches)]),
+        tr.flush_step_guard, UPDATE_RANGE, card, what, need, unit)
+
+
+def profile_steps(torch, run, finish, update_range, card, what, need, unit):
+    """A torch.profiler trace of PROFILE_STEPS calls of ``run(i)`` (then
+    ``finish()``): idle share, kernel launches per step, device time per
+    step by class; each class in ``need`` and the optimizer update (the
+    kernels launched inside ``update_range``) must show device time.
+    Returns ``{kernel name: launches}`` of the window."""
     steps = PROFILE_STEPS
     build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
@@ -871,26 +916,24 @@ def phase_train_profile(torch, mx, tr, batches, card, what="train",
                                 dir=build_dir)
     os.close(fd)
     try:
-        tr.step(*batches[1])          # flush the previous phase's state
-        torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
-                tr.step(*batches[i % len(batches)])
-            tr.flush_step_guard()
+                run(i)
+            finish()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         prof.export_chrome_trace(path)
         busy_us, by_class, n_kernels, top, n_spans = _trace_classes(
-            path, UPDATE_RANGE)
+            path, update_range)
     finally:
         os.remove(path)
     busy_ms = busy_us / 1e3
-    check(busy_ms > 0, "training profile saw no device time")
-    check(n_spans == steps, "training profile saw %d update ranges, not %d"
-          % (n_spans, steps))
+    check(busy_ms > 0, "%s profile saw no device time" % what)
+    check(n_spans == steps, "%s profile saw %d update ranges, not %d"
+          % (what, n_spans, steps))
     for cls in tuple(need) + ("optimizer update",):
         check(by_class.get(cls, 0) > 0, "%s profile: no %s time"
               % (what, cls))
@@ -899,11 +942,12 @@ def phase_train_profile(torch, mx, tr, batches, card, what="train",
             what, steps, unit, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
             n_kernels / steps, card))
     for cls, us in by_class.most_common():
-        log("%s profile: class %-16s %8.3f ms/step  %5.1f%%" % (
+        log("%s profile: class %-20s %8.3f ms/step  %5.1f%%" % (
             what, cls, us / 1e3 / steps, 100 * us / busy_us))
     for us, count, key in top[:12]:
         log("%s profile: kernel %8.3f ms/step x%-4d %s" % (
             what, us / 1e3 / steps, count // steps, key[:110]))
+    return {key: count for _, count, key in top}
 
 
 # ---------------------------------------------------------------------------
@@ -1442,6 +1486,408 @@ def lm_paths(torch, mx, seed, card):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# the long-context causal LM: the flash-attention kernel, training at seq
+# 512 and 4096, serving, the symbolic Attention op
+# ---------------------------------------------------------------------------
+
+def flash_work(B, Tq, Tk, H, D, causal, itemsize, roofline):
+    """``(flops, bytes, full_flops)`` of one flash-attention call, with
+    the ported roofline's coefficients (``roofline.workload``, per score
+    and per position): flops over the (query, key) pairs the mask lets
+    through, bytes for q, k, v read once and the output written once;
+    ``full_flops`` is the reference's count over the whole Tq x Tk
+    square."""
+    unit = roofline.workload("flash_attention", itemsize=itemsize, b=B, t=1,
+                             heads=H, d=D)
+    if causal:
+        off = Tk - Tq
+        pairs = sum(min(max(i + off + 1, 0), Tk) for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    flops = unit["flops"] * pairs
+    nbytes = unit["fused_bytes"] // 4 * (2 * Tq + 2 * Tk)
+    return flops, nbytes, unit["flops"] * Tq * Tk
+
+
+def flash_bound_ms(work, dtype_tag, roofline):
+    """``(bound ms, "operations" or "bytes")`` at the data-sheet rates:
+    float32 FFMA for float32, bf16 tensor cores for bfloat16."""
+    flops, nbytes, _ = work
+    peak = F32_FLOPS_PER_S if dtype_tag == "f32" else BF16_FLOPS_PER_S
+    side = roofline.bound_side(flops, nbytes, peak, HBM_BYTES_PER_S)
+    return (roofline.roofline_seconds(flops, nbytes, peak, HBM_BYTES_PER_S)
+            * 1e3, "operations" if side == "compute" else "bytes")
+
+
+def phase_flash_kernels(torch, mx, seed):
+    """The flash-attention kernel against its plain version at
+    FLASH_SHAPES, float32 and bfloat16, from strided q/k/v views (as the
+    model's split gives them); rows that see no key exactly 0; times of
+    kernel, plain version (key block MXTPU_FLASH_BLOCK), SDPA (a yardstick
+    the port never calls, at Tq == Tk only: its causal mask is top-left
+    aligned) and the roofline bound, per launch."""
+    fa = mx.kernels.flash_attention
+    roofline = mx.kernels.roofline
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 60)
+    rows = {}
+    max_err = 0.0
+    for shape in FLASH_SHAPES:
+        B, Tq, Tk, H, D, causal = shape
+        qsrc = torch.randn((B, Tq, 3, H, D), generator=gen, device=dev)
+        ksrc = torch.randn((B, Tk, 3, H, D), generator=gen, device=dev)
+        row = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            qs, ks = qsrc.to(dtype), ksrc.to(dtype)
+            q, k, v = qs[:, :, 0], ks[:, :, 1], ks[:, :, 2]
+            got = fa.flash_attention_fwd(q, k, v, causal=causal)
+            ref = fa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape and got.dtype == ref.dtype,
+                  "flash %s %s: shape/dtype differ" % (shape, tag))
+            err = (got.float() - ref.float()).abs().max().item()
+            if tag == "f32":
+                check(err <= FLASH_F32_TOL, "flash f32 %s: max abs err %.3g "
+                      "> %g" % (shape, err, FLASH_F32_TOL))
+                max_err = max(max_err, err)
+            else:
+                rel = err / max(ref.float().abs().max().item(), 1e-30)
+                check(rel <= BF16_REL_TOL, "flash bf16 %s: rel err %.3g > "
+                      "%g" % (shape, rel, BF16_REL_TOL))
+            dead = Tq - Tk if causal and Tq > Tk else 0
+            if dead:
+                check(bool((got[:, :dead] == 0).all())
+                      and bool(torch.isfinite(got).all()),
+                      "flash %s %s: rows that see no key are not 0"
+                      % (shape, tag))
+            row[tag + "_err"] = err
+            row[tag + "_ms"] = device_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+            row[tag + "_plain_ms"] = device_ms(
+                torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                        causal=causal),
+                iters=5, reps=2)
+            work = flash_work(B, Tq, Tk, H, D, causal, q.element_size(),
+                              roofline)
+            row[tag + "_bound_ms"], row[tag + "_bound_by"] = flash_bound_ms(
+                work, tag, roofline)
+            row[tag + "_full_bound_ms"], _ = flash_bound_ms(
+                (work[2], work[1], work[2]), tag, roofline)
+            row[tag + "_library_ms"] = None
+            if Tq == Tk:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib = sdpa(qt, kt, vt, is_causal=causal).transpose(1, 2)
+                row[tag + "_library_err"] = (
+                    lib.float() - ref.float()).abs().max().item()
+                row[tag + "_library_ms"] = device_ms(
+                    torch, lambda: sdpa(qt, kt, vt, is_causal=causal))
+        rows[shape] = row
+        lib = lambda tag: ("%.5f (|diff| %.1e)" % (  # noqa: E731
+            row[tag + "_library_ms"], row[tag + "_library_err"])
+            if row[tag + "_library_ms"] is not None else "n/a")
+        log("flash_attention (B, Tq, Tk, H, D)=%s causal=%s | f32: err %.2e "
+            "ms %.5f plain %.5f sdpa %s bound %.5f (%s; full square %.5f) | "
+            "bf16: err %.2e ms %.5f plain %.5f sdpa %s bound %.5f (%s)" % (
+                str(shape[:5]), causal, row["f32_err"], row["f32_ms"],
+                row["f32_plain_ms"], lib("f32"), row["f32_bound_ms"],
+                row["f32_bound_by"], row["f32_full_bound_ms"],
+                row["bf16_err"], row["bf16_ms"], row["bf16_plain_ms"],
+                lib("bf16"), row["bf16_bound_ms"], row["bf16_bound_by"]))
+    log("flash_attention kernel: float32 max abs err %.3g against the plain "
+        "version; every shape and dtype within tolerance, rows without a "
+        "visible key exactly 0" % max_err)
+    return rows, max_err
+
+
+def _lc_params(torch, mx, seed, ctx):
+    lm = mx.models.long_context_lm
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed + 70)
+    return lm.build_params(gen, LC_VOCAB, LC_DMODEL, LC_HEADS, LC_LAYERS,
+                           LC_DFF, max_len=LC_MAX_LEN, ctx=ctx)
+
+
+def _lc_batches(torch, mx, n, seq, seed):
+    """``n`` of the example's Markov batches (its successor table drawn
+    from ``seed``), as int64 tensors on the card."""
+    import numpy as np
+    lm = mx.models.long_context_lm
+    rs = np.random.RandomState(seed)
+    succ = rs.randint(1, LC_VOCAB, size=(LC_VOCAB, 3))
+    dev = torch.device("cuda", 0)
+    out = []
+    for _ in range(n):
+        x, y = lm.markov_batch(rs, succ, LC_BATCH, seq, LC_VOCAB)
+        out.append((torch.from_numpy(x).long().to(dev),
+                    torch.from_numpy(y).long().to(dev)))
+    return out
+
+
+def _lc_train(torch, mx, params, batches, seq, card, what):
+    """The main path: ``make_step`` over ``batches`` with the flash count
+    zeroed just before and read just after.  Checks 2 launches per step,
+    finite losses and a last loss below the first."""
+    import numpy as np
+    fa = mx.kernels.flash_attention
+    step = mx.models.long_context_lm.make_step(None, LC_HEADS, LC_LAYERS,
+                                               LC_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    fa.LAUNCHES = 0
+    stamps, losses = [], []
+    for x, y in batches:
+        stamps.append(time.perf_counter())
+        params, loss = step(params, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    launches = fa.LAUNCHES
+    # ----------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    log("%s: flash_attention launches over %d steps: %d (expected %d)"
+        % (what, n, launches, LC_LAYERS * n))
+    check(launches == LC_LAYERS * n, "%s: flash launches %d != %d"
+          % (what, launches, LC_LAYERS * n))
+    log("%s: per-step loss %s (uniform %.4f)" % (
+        what, " ".join("%.4f" % v for v in losses), np.log(LC_VOCAB)))
+    check(all(np.isfinite(losses)), what + ": non-finite loss")
+    check(losses[-1] < losses[0], "%s: loss did not fall (%.4f -> %.4f)"
+          % (what, losses[0], losses[-1]))
+    tokens = LC_BATCH * seq
+    steady_s = (stamps[-1] - stamps[1]) / (n - 1)
+    log("%s: first step %.1f ms, steady %.2f ms/step at batch %d x %d tokens "
+        "-> %.0f tokens/s, peak memory %.3f GiB (max_memory_allocated) on %s"
+        % (what, (stamps[1] - stamps[0]) * 1e3, steady_s * 1e3, LC_BATCH, seq,
+           tokens / steady_s, peak / 2 ** 30, card))
+    return params, launches
+
+
+def phase_lc_serving(torch, mx, params, seed, card):
+    """``apply_model`` under ``torch.inference_mode()`` at seq 4096, batch
+    4: 2 flash launches per forward, finite logits; tokens/s."""
+    lm = mx.models.long_context_lm
+    fa = mx.kernels.flash_attention
+    requests = [x for x, _ in _lc_batches(torch, mx, LC_FORWARDS, LC_MAX_LEN,
+                                          seed + 80)]
+    torch.cuda.synchronize()
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    fa.LAUNCHES = 0
+    times, outs = [], []
+    with torch.inference_mode():
+        for x in requests:
+            t0 = time.perf_counter()
+            outs.append(lm.apply_model(params, x, None, LC_HEADS, LC_LAYERS))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = fa.LAUNCHES
+    # ----------------------------------------------------------------------
+
+    log("lc serving: flash_attention launches over %d forwards: %d "
+        "(expected %d)" % (LC_FORWARDS, launches, LC_LAYERS * LC_FORWARDS))
+    check(launches == LC_LAYERS * LC_FORWARDS, "lc serving launches %d"
+          % launches)
+    for out in outs:
+        check(tuple(out.shape) == (LC_BATCH, LC_MAX_LEN, LC_VOCAB)
+              and bool(torch.isfinite(out).all()), "lc serving logits bad")
+    steady = times[1:]
+    log("lc serving: first forward %.1f ms, steady %.2f ms/forward at batch "
+        "%d x %d tokens -> %.0f tokens/s (logits stay on the card) on %s" % (
+            times[0] * 1e3, 1e3 * sum(steady) / len(steady), LC_BATCH,
+            LC_MAX_LEN, LC_BATCH * LC_MAX_LEN * len(steady) / sum(steady),
+            card))
+    return launches
+
+
+def phase_attention_op(torch, mx, seed, card):
+    """``mx.sym.contrib.Attention`` at ATT_SHAPE, causal, through
+    ``simple_bind`` -> ``forward(is_train=True)`` -> ``backward()`` and
+    through ``Predictor`` on gpu(0): 1 flash launch per forward (none in
+    the backward, which recomputes through the plain version); output and
+    q/k/v gradients against the port's CPU path."""
+    import numpy as np
+    fa = mx.kernels.flash_attention
+    names = ("query", "key", "value")
+    sym = mx.sym.contrib.Attention(*(mx.sym.Variable(n) for n in names),
+                                   num_heads=ATT_HEADS, causal=True,
+                                   name="att")
+    rs = np.random.RandomState(seed + 90)
+    inputs = {n: rs.standard_normal(ATT_SHAPE).astype(np.float32)
+              for n in names}
+    head = rs.standard_normal(ATT_SHAPE).astype(np.float32)
+
+    def train_pass(ctx):
+        ex = sym.simple_bind(ctx, grad_req="write",
+                             **{n: ATT_SHAPE for n in names})
+        ex.forward(is_train=True, **inputs)
+        ex.backward(out_grads=[mx.nd.array(head, ctx=ctx)])
+        out = {"output": ex.outputs[0].asnumpy()}
+        out.update({"grad:" + n: ex.grad_dict[n].asnumpy() for n in names})
+        return out
+
+    ref = train_pass(mx.cpu())
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    fa.LAUNCHES = 0
+    got = train_pass(mx.gpu(0))
+    train_launches = fa.LAUNCHES
+    pred = mx.predict.Predictor(sym.tojson(), {},
+                                {n: ATT_SHAPE for n in names}, ctx=mx.gpu(0))
+    fa.LAUNCHES = 0
+    served = [pred.forward(**inputs).get_output(0) for _ in range(3)]
+    serve_launches = fa.LAUNCHES
+    # ----------------------------------------------------------------------
+
+    log("attention op: flash launches: %d over one simple_bind forward/"
+        "backward (expected 1), %d over 3 Predictor forwards (expected 3)"
+        % (train_launches, serve_launches))
+    check(train_launches == 1 and serve_launches == 3,
+          "attention op launches %d / %d" % (train_launches, serve_launches))
+    ratio, key = _worst_max_rel(np, got, ref, list(ref))
+    log("attention op gpu vs cpu: output and q/k/v gradients, worst %s max "
+        "|diff| / max |cpu| %.3g (bound %g)" % (key, ratio, AGREE_REL_TOL))
+    check(ratio <= AGREE_REL_TOL, "attention op disagrees with the CPU path")
+    for out in served:
+        check(np.array_equal(out, served[0]) and np.isfinite(out).all(),
+              "Predictor answers differ or are not finite")
+    diff = float(np.abs(served[0] - got["output"]).max())
+    log("attention op: Predictor vs the executor's forward max |diff| %.3g "
+        "on %s" % (diff, card))
+    check(diff <= FLASH_F32_TOL, "Predictor disagrees with the executor")
+    return train_launches + serve_launches
+
+
+def _lc_grads(torch, mx, np_params, x, y, ctx):
+    """Logits and every parameter gradient of the mean NLL of one batch,
+    as float64 numpy keyed by name."""
+    lm = mx.models.long_context_lm
+    params = lm.params_from_numpy(np_params, ctx)
+    names, leaves = [], []
+    for key in sorted(params):
+        sub = params[key] if isinstance(params[key], dict) else \
+            {"": params[key]}
+        for k in sorted(sub):
+            names.append("grad:" + key + ("/" + k if k else ""))
+            leaves.append(sub[k].requires_grad_(True))
+    dev = ctx.torch_device
+    logits = lm.apply_model(params, torch.from_numpy(x).to(dev), None,
+                            LC_HEADS, LC_LAYERS)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -logp.gather(-1, torch.from_numpy(y).long().to(dev)[..., None]) \
+        .mean()
+    grads = torch.autograd.grad(loss, leaves)
+    out = {"logits": logits.detach().double().cpu().numpy()}
+    out.update({n: g.double().cpu().numpy() for n, g in zip(names, grads)})
+    return out
+
+
+def phase_lc_agreement(torch, mx, seed):
+    """One batch-2, seq-1024 LM forward/backward on the card, fused and
+    with MXTPU_FUSED_KERNELS=0 (which must launch no flash kernel),
+    against the port's CPU path: logits within AGREE_REL_TOL x max |cpu|,
+    the gradients within LC_GRAD_L2_TOL in relative L2 together and
+    GRAD_TENSOR_L2_TOL each (see LC_GRAD_L2_TOL)."""
+    import numpy as np
+    fa = mx.kernels.flash_attention
+    lm = mx.models.long_context_lm
+    batch, seq = LC_AGREE
+    np_params = lm.params_to_numpy(_lc_params(torch, mx, seed, mx.cpu()))
+    rs = np.random.RandomState(seed + 100)
+    x, y = lm.markov_batch(rs, rs.randint(1, LC_VOCAB, (LC_VOCAB, 3)), batch,
+                           seq, LC_VOCAB)
+    ref = _lc_grads(torch, mx, np_params, x, y, mx.cpu())
+    for fused in ("1", "0"):
+        before = fa.LAUNCHES
+        old = os.environ.get("MXTPU_FUSED_KERNELS")
+        os.environ["MXTPU_FUSED_KERNELS"] = fused
+        try:
+            got = _lc_grads(torch, mx, np_params, x, y, mx.gpu(0))
+        finally:
+            if old is None:
+                del os.environ["MXTPU_FUSED_KERNELS"]
+            else:
+                os.environ["MXTPU_FUSED_KERNELS"] = old
+        launched = fa.LAUNCHES - before
+        want = LC_LAYERS if fused == "1" else 0
+        check(launched == want, "lc agreement MXTPU_FUSED_KERNELS=%s "
+              "launched %d flash kernels, not %d" % (fused, launched, want))
+        for k, r in ref.items():
+            check(got[k].shape == r.shape and np.isfinite(got[k]).all(),
+                  "lc agreement: %s shape %s / not finite" % (k,
+                                                              got[k].shape))
+        grads = [k for k in ref if k.startswith("grad:")]
+        l_ratio, _ = _worst_max_rel(np, got, ref, ["logits"])
+        g_l2 = _rel_l2(np, got, ref, grads)
+        t_l2, t_key = max((_rel_l2(np, got, ref, [k]), k) for k in grads)
+        m_ratio, m_key = _worst_max_rel(np, got, ref, grads)
+        log("lc agreement gpu %s vs cpu at batch %d x %d: logits max |diff| "
+            "/ max |cpu| %.3g (bound %g); %d gradients, relative L2 %.3g "
+            "(bound %g), worst tensor %s %.3g (bound %g), worst by max "
+            "|diff| / max |cpu|: %s %.3g; %d flash launches" % (
+                "fused" if fused == "1" else "MXTPU_FUSED_KERNELS=0", batch,
+                seq, l_ratio, AGREE_REL_TOL, len(grads), g_l2,
+                LC_GRAD_L2_TOL, t_key, t_l2, GRAD_TENSOR_L2_TOL, m_key,
+                m_ratio, launched))
+        check(l_ratio <= AGREE_REL_TOL and g_l2 <= LC_GRAD_L2_TOL
+              and t_l2 <= GRAD_TENSOR_L2_TOL, "lc gpu (MXTPU_FUSED_KERNELS="
+              "%s) disagrees with the CPU path" % fused)
+
+
+def long_context_paths(torch, mx, seed, card):
+    """The flash kernel, the long-context LM's training at seq 512 and
+    4096, its serving, the symbolic Attention op, GPU-vs-CPU agreement and
+    a profile of seq-4096 training.  Returns the flash entry of the kernels
+    line."""
+    lm = mx.models.long_context_lm
+    flash_rows, flash_err = phase_flash_kernels(torch, mx, seed)
+    params = _lc_params(torch, mx, seed, mx.gpu(0))
+    batches = _lc_batches(torch, mx, LC_STEPS, LC_SEQ, seed + 71)
+    params, short = _lc_train(torch, mx, params, batches, LC_SEQ, card,
+                              "lc train seq %d" % LC_SEQ)
+    long_batches = _lc_batches(torch, mx, LC_LONG_STEPS, LC_MAX_LEN,
+                               seed + 72)
+    params, long_ = _lc_train(torch, mx, params, long_batches, LC_MAX_LEN,
+                              card, "lc train seq %d" % LC_MAX_LEN)
+    served = phase_lc_serving(torch, mx, params, seed, card)
+    op = phase_attention_op(torch, mx, seed, card)
+    phase_lc_agreement(torch, mx, seed)
+    step = lm.make_step(None, LC_HEADS, LC_LAYERS, LC_LR)
+    counts = profile_steps(
+        torch, lambda i: step(params, *long_batches[i % len(long_batches)]),
+        lambda: None, lm.UPDATE_RANGE, card, "lc train seq %d" % LC_MAX_LEN,
+        ("flash_attention_fwd",), "batch %d x %d tokens" % (LC_BATCH,
+                                                           LC_MAX_LEN))
+    per_step = sum(c for k, c in counts.items()
+                   if "flash_attention_fwd_kernel" in k) / PROFILE_STEPS
+    log("lc profile: %.1f flash_attention launches per step (expected %d)"
+        % (per_step, LC_LAYERS))
+    check(per_step == LC_LAYERS, "profiled flash launches per step %.1f"
+          % per_step)
+    model = flash_rows[FLASH_MODEL_SHAPE]
+    return [{
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "mxnet_tpu/kernels/flash_attention.py:214",
+        "launches": short + long_ + served + op,
+        "max_abs_err": flash_err,
+        "ms": model["f32_ms"],
+        "plain_ms": model["f32_plain_ms"],
+        "bound_ms": model["f32_bound_ms"],
+        "bound_by": model["f32_bound_by"],
+        "library_ms": model["f32_library_ms"],
+    }]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1461,6 +1907,7 @@ def main(argv=None):
     card = phase_setup(torch, mx)
     kernels = resnet_paths(torch, mx, args.seed, card)
     kernels += lm_paths(torch, mx, args.seed, card)
+    kernels += long_context_paths(torch, mx, args.seed, card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.optimizer``,
 ``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io``,
-``mx.parallel``, ``mx.rnn``, ``mx.cpu()``, ``mx.gpu(i)``, ``mx.current_context()``.  This package imports ``torch``, ``numpy`` and
+``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
+``mx.nd.contrib``), ``mx.cpu()``, ``mx.gpu(i)``, ``mx.current_context()``.
+This package imports ``torch``, ``numpy`` and
 the standard library only; it never imports ``jax`` or ``mxnet_tpu``.
 
 Its entry points run on ``gpu(0)`` unless the caller passes ``mx.cpu()``;
@@ -38,10 +40,15 @@ from . import rnn
 
 symbol._init_symbol_module()
 
+from . import contrib  # noqa: E402 — after the symbol creators exist
+# both addressing styles work: mx.contrib.symbol.X and mx.sym.contrib.X
+symbol.contrib = contrib.symbol
+ndarray.contrib = contrib.ndarray
+
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "kernels", "mxfuse", "executor",
            "model", "models", "predict", "convert", "name", "attribute",
            "random", "io", "lr_scheduler", "optimizer", "initializer",
-           "parallel", "rnn"]
+           "parallel", "rnn", "contrib"]

@@ -16,6 +16,11 @@ source, all started together.  The hash covers the source bytes and the
 flags, so an edited ``.cu`` is never served from a stale library.
 :func:`load_library` opens the result with ``ctypes``.  A missing
 ``nvcc`` or a failed build raises; nothing falls back.
+
+**Flash block.** ``MXTPU_FLASH_BLOCK`` (registered here, eagerly, as the
+JAX package does) is the routing threshold of ``full_attention`` and the
+key-block length of the plain flash attention and its backward; the CUDA
+kernel's own tiles do not depend on it.
 """
 from __future__ import annotations
 
@@ -28,10 +33,11 @@ import subprocess
 import threading
 import time
 
-from ..base import ENV_FUSED_KERNELS, MXNetError, get_env
+from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
-           "load_library", "BUILD_SECONDS", "bn_act", "lstm_cell"]
+           "load_library", "BUILD_SECONDS", "ENV_FLASH_BLOCK", "bn_act",
+           "lstm_cell", "flash_attention", "roofline"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -39,6 +45,12 @@ _LOG = logging.getLogger(__name__)
 KNOWN_KERNELS = ("bn_act", "bn_fold", "lstm_cell", "flash_attention",
                  "augment", "concat_fuse", "pool_act", "eltwise_chain",
                  "infer_trace")
+
+# registered eagerly at package import, as in the JAX package
+ENV_FLASH_BLOCK = register_env(
+    "MXTPU_FLASH_BLOCK", default=128,
+    doc="Tile size (query and key block length) for the flash-attention "
+        "kernel; sequences at or below one block use plain attention")
 
 _ON = frozenset(("1", "on", "true", "yes", "all"))
 _OFF = frozenset(("", "0", "off", "false", "no", "none"))
@@ -164,3 +176,5 @@ def load_library(name):
 
 from . import bn_act  # noqa: E402
 from . import lstm_cell  # noqa: E402
+from . import flash_attention  # noqa: E402
+from . import roofline  # noqa: E402

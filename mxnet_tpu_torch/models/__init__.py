@@ -2,10 +2,12 @@
 
 ``get_symbol(name, num_classes, **kwargs)`` dispatches by name over the
 ResNet family; ``models.lstm_lm`` builds the LSTM language model
-(``lstm_lm_sym``, ``make_sym_gen``).  The other builders come with the
-slices that serve them.
+(``lstm_lm_sym``, ``make_sym_gen``); ``models.long_context_lm`` is the
+long-context causal LM of example/long-context/train_lm.py (``build_params``,
+``apply_model``, ``make_step``).  The other builders come with the slices
+that serve them.
 """
-from . import lstm_lm, resnet
+from . import long_context_lm, lstm_lm, resnet
 
 _BUILDERS = {
     "resnet": resnet.get_symbol,

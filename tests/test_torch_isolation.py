@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and no
 line of ``chip_smoke.py`` imports JAX or the JAX package, the port
 imports, builds a model and takes an ``SPMDTrainer`` step of a ResNet and
-of the LSTM language model on the CPU with JAX made unimportable, and the
-chip smoke test refuses to run without CUDA."""
+of the LSTM language model and a ``make_step`` step of the long-context LM
+(flash route) on the CPU with JAX made unimportable, and the chip smoke
+test refuses to run without CUDA."""
 import ast
 import os
 import subprocess
@@ -79,6 +80,15 @@ def test_port_runs_with_jax_unimportable():
         "ids = np.arange(10, dtype=np.float32).reshape(2, 5)\n"
         "out = tr.step(ids, ids)[0]\n"
         "assert out.shape == (10, 30) and tr.skipped_steps == 0\n"
+        "import os, torch\n"
+        "os.environ['MXTPU_FLASH_BLOCK'] = '8'\n"
+        "from mxnet_tpu_torch.models import long_context_lm as lc\n"
+        "p = lc.build_params(torch.Generator().manual_seed(0), 16, 8, 2, 1,"
+        " 16, max_len=32, ctx=mx.cpu())\n"
+        "rs = np.random.RandomState(0)\n"
+        "x, y = lc.markov_batch(rs, rs.randint(1, 16, (16, 3)), 2, 20, 16)\n"
+        "p, loss = lc.make_step(None, 2, 1, 0.3)(p, x, y)\n"
+        "assert loss.ndim == 0 and np.isfinite(float(loss))\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', "
         "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
         "print('ok', len(args))\n")
