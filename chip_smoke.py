@@ -63,7 +63,30 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
 12. serves the LM through ``Predictor`` from a checkpoint at batch 32 (64
     forward launches and no backward one per forward), and traces a few
     LM training steps (``torch.profiler``);
-13. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+13. holds the flash-attention forward against its plain version and
+    trains and serves the long-context LM at seq 512 and 4096 (see
+    ``long_context_paths``);
+14. holds the rtc escape hatch's elementwise kernel
+    (``csrc/rtc_elementwise.cu`` with three bodies pasted in: silu, its
+    derivative and the JAX test's ``2x + 1``, all built in parallel with
+    the other kernels) against each body's plain version at
+    (32, 256, 56, 56), (32, 2048), (3, 5, 7, 3), a transposed view and 0
+    elements, float32/bfloat16/float16, times kernel, plain version,
+    bound and, for silu, ``F.silu`` (a yardstick the port never calls),
+    and shows that a second kernel of the same body does not rebuild;
+15. fine-tunes ResNet-50 at batch 32 through ``Module.fit`` with
+    ``fit.py``'s wiring on ``gpu(0)``: a checkpoint of seeded weights is
+    saved, loaded and cut at ``flatten0``, an rtc op (silu, with its
+    derivative kernel as the vjp) and a new 1000-way head are added, and
+    one epoch runs on the fused route (``kvstore='tpu'``) and on the
+    executor route (``'local'``): exactly 50 + 50 ``bn_act`` and 2 rtc
+    launches per batch, finite losses, a moved head, an epoch checkpoint
+    that loads again, the two routes in agreement; then ``score`` and
+    ``predict`` (1 rtc launch per forward), ``SPMDTrainer.step`` on the
+    same symbol for the Module's own overhead, a batch-4 step held
+    against the port's CPU path (float32, and float64 for the
+    gradients), and a profile of a few ``fit`` batches;
+16. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -73,6 +96,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import gc
 import json
 import os
 import shutil
@@ -207,7 +232,12 @@ def device_ms(torch, fn, iters=20, reps=5):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_setup(torch, mx):
+#: the static kernels under mxnet_tpu_torch/csrc/ (rtc_elementwise.cu is the
+#: template the rtc bodies are rendered into, built per body)
+KERNEL_SOURCES = ["bn_act", "flash_attention", "lstm_cell"]
+
+
+def phase_setup(torch, mx, rtc):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -218,16 +248,21 @@ def phase_setup(torch, mx):
     log("torch %s, CUDA %s, device %s, %d device(s)" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
-    names = sorted(f[:-3] for f in os.listdir(
-        os.path.join(ROOT, "mxnet_tpu_torch", "csrc")) if f.endswith(".cu"))
+    names = KERNEL_SOURCES
+    # the rtc bodies rendered into the template build in the same nvcc
+    # batch (one process per source, all started together)
+    sources = {k.name: k.source for k in rtc.values()}
     t0 = time.perf_counter()
-    mx.kernels.build(names)
-    log("kernel build: %s in %.2f s wall (%s)" % (
-        ", ".join(names), time.perf_counter() - t0,
+    mx.kernels.build(names + sorted(sources), sources=sources)
+    log("kernel build: %s and rtc bodies %s in %.2f s wall (%s)" % (
+        ", ".join(names), ", ".join(sorted(rtc)), time.perf_counter() - t0,
         ", ".join("%s %.2f s" % (n, mx.kernels.BUILD_SECONDS[n])
                   for n in names)))
-    for n in names:
-        with open(mx.kernels.library_path(n) + ".log") as f:
+    for tag, k in sorted(rtc.items()):
+        log("rtc body %s (%s) built in %.2f s: %s" % (
+            tag, k.name, mx.kernels.BUILD_SECONDS[k.name], k.body))
+    for n in names + sorted(sources):
+        with open(mx.kernels.library_path(n, sources.get(n)) + ".log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     log("  ptxas %s: %s" % (n, line.strip()))
@@ -845,13 +880,14 @@ _OWN_CLASSES = (("bn_act_fwd_kernel", "bn_act_fwd"),
                 ("bn_act_bwd_kernel", "bn_act_bwd"),
                 ("lstm_cell_fwd_kernel", "lstm_cell_fwd"),
                 ("lstm_cell_bwd_kernel", "lstm_cell_bwd"),
-                ("flash_attention_fwd_kernel", "flash_attention_fwd"))
+                ("flash_attention_fwd_kernel", "flash_attention_fwd"),
+                ("rtc_elementwise_kernel", "rtc"))
 
 
 def _trace_classes(path, update_range):
     """Device time by class from a chrome trace: the port's kernels
     (``bn_act_fwd``, ``bn_act_bwd``, ``lstm_cell_fwd``, ``lstm_cell_bwd``,
-    ``flash_attention_fwd``),
+    ``flash_attention_fwd``, ``rtc``),
     ``optimizer update`` (kernels whose launch lies inside the trainer's
     update range) and the serving classes.  Returns ``(busy_us, {class:
     us}, kernels, top [(us, count, name)], update ranges)``."""
@@ -1888,6 +1924,558 @@ def long_context_paths(torch, mx, seed, card):
     }]
 
 
+# ---------------------------------------------------------------------------
+# the rtc escape hatch: the elementwise kernel with user bodies, and the
+# fine-tune of ResNet-50 through Module.fit that runs one
+# ---------------------------------------------------------------------------
+
+#: the rtc bodies the smoke builds: the fine-tune's silu, its derivative
+#: (the rtc op's vjp) and the JAX package's test body (tests/test_rtc.py)
+RTC_BODIES = (
+    ("silu", "out = in / (1.0f + expf(-in));"),
+    ("dsilu", "float s = 1.0f / (1.0f + expf(-in)); "
+              "out = s * (1.0f + in * (1.0f - s));"),
+    ("affine", "out = 2.0f * in + 1.0f;"),
+)
+#: ResNet-50's largest activation at batch 32, the fine-tune's features,
+#: an odd shape, a transposed (non-contiguous) view of (32, 2048), empty
+RTC_SIZES = ((32, 256, 56, 56), (32, 2048), ODD_SHAPE, "transposed",
+             (0, 2048))
+RTC_MODEL_SIZE = (32, 256, 56, 56)
+#: float32: max |kernel - plain| within this x max |plain| (the same expf
+#: and division, rounded in another order at most); bfloat16 and float16:
+#: every element within one ulp of the working type (the kernel rounds
+#: once from float, as the plain version does)
+RTC_F32_REL_TOL = 2e-6
+FT_LAYER = "flatten0"   # fine-tune.py's default --layer-before-fullc
+FT_BATCHES = 6          # batches of one fit epoch, per route
+FT_SCORE_BATCHES = 2
+FT_LR = 0.01            # fine-tune.py:40-41: sgd, lr 0.01, mom 0, wd 0
+FT_AGREE_LR = 1.0       # the batch-4 check recovers gradients from one update
+#: the two Module routes after the same batches from the same weights,
+#: both fitted with deterministic cuDNN algorithms: the relative L2 of
+#: their parameter updates (all tensors together) and of their moving
+#: statistics.  They run the same ops in the same order and agree bit
+#: for bit on the H100 (PERF.md, Findings).  (With cuDNN's default
+#: algorithms the float32 weight gradients accumulate with atomics in an
+#: order that changes between runs, and a ReLU flip moves single gradient
+#: elements: two fused runs then differ by 2e-2.)
+FT_ROUTE_REL_L2 = 1e-6
+
+
+def rtc_kernels(torch, mx):
+    """The smoke's rtc kernels, name -> ElementwiseKernel, each with its
+    plain version: the body's function in the kernel's math type (float,
+    double for float64), rounded once to the storage type."""
+    def math(x):
+        return x.double() if x.dtype == torch.float64 else x.float()
+
+    def silu(x):
+        m = math(x)
+        return (m / (1.0 + torch.exp(-m))).to(x.dtype)
+
+    def dsilu(x):
+        m = math(x)
+        s = 1.0 / (1.0 + torch.exp(-m))
+        return (s * (1.0 + m * (1.0 - s))).to(x.dtype)
+
+    def affine(x):
+        return (2.0 * math(x) + 1.0).to(x.dtype)
+
+    plains = {"silu": silu, "dsilu": dsilu, "affine": affine}
+    return {name: mx.rtc.elementwise_cuda_kernel(body, plain=plains[name])
+            for name, body in RTC_BODIES}
+
+
+def _rtc_input(torch, size, gen, dev):
+    if size == "transposed":
+        return torch.randn(2048, 32, generator=gen, device=dev).t() * 4.0
+    return torch.randn(size, generator=gen, device=dev) * 4.0
+
+
+def _ulp_ratio(torch, got, ref):
+    """max over elements of |got - ref| / ulp(ref) in ref's (bfloat16 or
+    float16) working type; 0 for empty tensors."""
+    if ref.numel() == 0:
+        return 0.0
+    mbits, tiny = (7, 2.0 ** -133) if ref.dtype == torch.bfloat16 \
+        else (10, 2.0 ** -24)
+    r = ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 1 - mbits)
+    ulp = torch.where(r == 0, torch.full_like(r, tiny), ulp.clamp_min(tiny))
+    return float(((got.float() - r).abs() / ulp).max())
+
+
+def phase_rtc_kernels(torch, mx, rtc, seed):
+    """Each rtc body's kernel against its plain version at RTC_SIZES in
+    float32, bfloat16 and float16; times at every non-empty size.  Also
+    shows that a second kernel of a body reuses its library."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 90)
+    rows = {}
+    max_f32_err = 0.0
+    for name, k in rtc.items():
+        check(k.build() == 0.0, "rtc %s: the library was not built in the "
+              "parallel build" % name)
+        again = mx.rtc.elementwise_cuda_kernel(k.body, plain=k.plain)
+        check(again.build() == 0.0 and again._lib is k._lib,
+              "rtc %s: a second kernel of the same body rebuilt" % name)
+        for size in RTC_SIZES:
+            x32 = _rtc_input(torch, size, gen, dev)
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16"),
+                               (torch.float16, "f16")):
+                x = x32.to(dtype)
+                before = mx.rtc.LAUNCHES
+                y = k(x)
+                ref = k.plain(x)
+                torch.cuda.synchronize()
+                check(mx.rtc.LAUNCHES - before == (1 if x.numel() else 0),
+                      "rtc %s %s %s: %d launches" % (
+                          name, size, tag, mx.rtc.LAUNCHES - before))
+                check(y.shape == ref.shape and y.dtype == dtype,
+                      "rtc %s %s %s: shape/dtype %s %s" % (
+                          name, size, tag, tuple(y.shape), y.dtype))
+                row = rows.setdefault((name, size), {})
+                if x.numel() == 0:
+                    continue
+                if tag == "f32":
+                    err = float((y - ref).abs().max())
+                    top = max(float(ref.abs().max()), 1e-30)
+                    check(err <= RTC_F32_REL_TOL * top, "rtc %s %s f32: max "
+                          "abs err %.3g > %g x %.3g" % (
+                              name, size, err, RTC_F32_REL_TOL, top))
+                    max_f32_err = max(max_f32_err, err)
+                    row["f32_err"] = err
+                else:
+                    ratio = _ulp_ratio(torch, y, ref)
+                    check(ratio <= 1.0, "rtc %s %s %s: %.3g ulp from the "
+                          "plain version" % (name, size, tag, ratio))
+                    row[tag + "_ulps"] = ratio
+                row[tag + "_ms"] = device_ms(torch, lambda: k(x))
+                row[tag + "_plain_ms"] = device_ms(torch, lambda: k.plain(x))
+                row[tag + "_bound_ms"] = 2 * x.numel() * x.element_size() \
+                    / HBM_BYTES_PER_S * 1e3
+                if name == "silu":
+                    row[tag + "_library_ms"] = device_ms(
+                        torch, lambda: F.silu(x))
+            r = rows[(name, size)]
+            if "f32_ms" in r:
+                log("rtc %-6s %-17s f32: err %.2e ms %.4f plain %.4f%s bound "
+                    "%.4f | bf16: %.2g ulp ms %.4f bound %.4f | f16: %.2g "
+                    "ulp ms %.4f bound %.4f" % (
+                        name, size, r["f32_err"], r["f32_ms"],
+                        r["f32_plain_ms"],
+                        " library %.4f" % r["f32_library_ms"]
+                        if "f32_library_ms" in r else "",
+                        r["f32_bound_ms"], r["bf16_ulps"], r["bf16_ms"],
+                        r["bf16_bound_ms"], r["f16_ulps"], r["f16_ms"],
+                        r["f16_bound_ms"]))
+            else:
+                log("rtc %-6s %-17s empty: no launch, shape kept"
+                    % (name, size))
+    log("rtc kernels: float32 max abs err %.3g; every body, size and dtype "
+        "within tolerance; a second kernel of each body reused its library"
+        % max_f32_err)
+    return rows, max_f32_err
+
+
+def _register_rtc_silu(mx, rtc):
+    """``mx.sym.rtc_silu``: silu through the rtc kernel, its derivative
+    kernel times the cotangent as the vjp."""
+    silu, dsilu = rtc["silu"], rtc["dsilu"]
+    if "rtc_silu" in mx.ops.registry.OP_REGISTRY:
+        return
+
+    def rtc_silu(data):
+        """x * sigmoid(x) through the rtc elementwise kernel."""
+        return silu(data)
+
+    mx.rtc.register_kernel("rtc_silu", vjp=lambda x, g: dsilu(x) * g)(
+        rtc_silu)
+
+
+def finetune_symbol(mx, seed, tmp):
+    """fine-tune.py's flow from a checkpoint of seeded random ResNet-50
+    weights: save, load, cut at FT_LAYER, add the rtc op, a new
+    FullyConnected head of 1000 classes and SoftmaxOutput.  Returns the
+    symbol and the loaded params without the old head."""
+    with mx.name.NameManager():     # fresh counters: the Flatten is flatten0
+        body = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                    image_shape=IMAGE)
+    args, aux = draw_weights(body, (BATCH,) + IMAGE, seed)
+    host = mx.cpu()
+    prefix = os.path.join(tmp, "resnet-50")
+    mx.model.save_checkpoint(
+        prefix, 0, body, {k: mx.nd.array(v, ctx=host) for k, v in args.items()},
+        {k: mx.nd.array(v, ctx=host) for k, v in aux.items()})
+    sym, arg_params, aux_params = mx.model.load_checkpoint(prefix, 0)
+    internals = sym.get_internals()
+    layer = FT_LAYER + "_output"
+    check(layer in internals.list_outputs(), "the loaded ResNet-50 has no "
+          "layer %r" % layer)
+    net = mx.sym.rtc_silu(internals[layer], name="rtc_silu0")
+    net = mx.sym.FullyConnected(net, num_hidden=1000, name="fc-new")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    arg_params = {k: v for k, v in arg_params.items() if "fc" not in k}
+    log("fine-tune: checkpoint saved and loaded (%d arg, %d aux params), "
+        "cut at %s, + rtc_silu0 + fc-new (1000) + softmax: %d params"
+        % (len(arg_params), len(aux_params), layer,
+           len(net.list_arguments()) - 2))
+    return net, arg_params, aux_params
+
+
+def _ft_fit(torch, mx, net, arg_params, aux_params, X, y, kvstore, prefix,
+            seed, card, note="cuDNN default algorithms"):
+    """One epoch of Module.fit with fit.py's wiring on gpu(0); the
+    bn_act and rtc counts are zeroed just before and read just after.
+    Returns the module, the initial params it drew and the run's
+    numbers."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    mx.random.seed(seed)            # the same fc-new init on both routes
+    xavier = mx.initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2)
+    drawn = {}
+
+    def initializer(name, arr):
+        xavier(name, arr)
+        drawn[str(name)] = arr.asnumpy().copy()
+
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    train = mx.io.NDArrayIter(X, y, batch_size=BATCH)
+    metric = mx.metric.create(["accuracy", mx.metric.create(
+        "top_k_accuracy", top_k=5)])
+    stamps, losses = [], []
+
+    def on_batch(param):
+        stamps.append(time.perf_counter())
+        out = mod.get_outputs()[0]._data
+        label = param.locals["data_batch"].label[0]._data.to(out.device)
+        losses.append(_cross_entropy(torch, out, label))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    ba.BWD_LAUNCHES = 0
+    mx.rtc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=metric, kvstore=kvstore, optimizer="sgd",
+            optimizer_params={"learning_rate": FT_LR, "momentum": 0.0,
+                              "wd": 0.0},
+            initializer=initializer, arg_params=arg_params,
+            aux_params=aux_params, allow_missing=True,
+            batch_end_callback=[mx.callback.Speedometer(BATCH, 2), on_batch],
+            epoch_end_callback=mx.callback.do_checkpoint(prefix),
+            num_epoch=1)
+    torch.cuda.synchronize()
+    counts = (ba.LAUNCHES, ba.BWD_LAUNCHES, mx.rtc.LAUNCHES)
+    # ----------------------------------------------------------------------
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = len(stamps)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    what = "fine-tune fit kvstore=%r (%s)" % (kvstore, note)
+    log("%s: %s route, %d batches; launches bn_act %d forward / %d "
+        "backward, rtc %d (expected %d / %d / %d)" % (
+            what, "fused SPMDTrainer" if mod._fused is not None
+            else "executor-group", n, counts[0], counts[1], counts[2],
+            50 * n, 50 * n, 2 * n))
+    check(n == FT_BATCHES and (mod._fused is not None) == (kvstore == "tpu"),
+          "%s: %d batches, route %s" % (what, n, mod._fused))
+    check(counts == (50 * n, 50 * n, 2 * n), "%s: launches %s" % (what,
+                                                                  counts))
+    log("%s: per-batch loss %s; Train-%s" % (
+        what, " ".join("%.4f" % v for v in losses),
+        ", ".join("%s=%.4f" % nv for nv in metric.get_name_value())))
+    check(all(np.isfinite(losses)), what + ": non-finite loss")
+    steady = (stamps[-1] - stamps[1]) / (n - 2)
+    log("%s: first batch %.1f ms, steady %.2f ms/batch -> %.1f img/s, fit "
+        "%.2f s in all (checkpoint included), peak memory %.2f GiB on %s" % (
+            what, (stamps[0] - t0) * 1e3, steady * 1e3, BATCH / steady, wall,
+            peak / 2 ** 30, card))
+    args1, _ = mod.get_params()
+    check(not np.allclose(args1["fc-new_weight"].asnumpy(),
+                          drawn["fc-new_weight"]), what + ": fc-new did not "
+          "move")
+    sym_ck, args_ck, _ = mx.model.load_checkpoint(prefix, 1)
+    check(sym_ck.tojson() == net.tojson() and np.array_equal(
+        args_ck["fc-new_weight"].asnumpy(),
+        args1["fc-new_weight"].asnumpy()), what + ": the epoch checkpoint "
+          "does not load back")
+    return mod, drawn, {"launches": counts, "steady_ms": steady * 1e3,
+                        "img_s": BATCH / steady, "peak_gib": peak / 2 ** 30}
+
+
+def _ft_score_predict(torch, mx, mod, X, y, what):
+    """score and predict on FT_SCORE_BATCHES batches: 1 rtc launch per
+    forward, finite probabilities."""
+    import numpy as np
+    it = mx.io.NDArrayIter(X[:FT_SCORE_BATCHES * BATCH],
+                           y[:FT_SCORE_BATCHES * BATCH], batch_size=BATCH)
+    metric = mx.metric.create(["accuracy", mx.metric.create(
+        "top_k_accuracy", top_k=5)])
+    # -- main path: the count zeroed just before each call, read just after
+    mx.rtc.LAUNCHES = 0
+    res = mod.score(it, metric)
+    torch.cuda.synchronize()
+    scored = mx.rtc.LAUNCHES
+    mx.rtc.LAUNCHES = 0
+    preds = mod.predict(it).asnumpy()
+    predicted = mx.rtc.LAUNCHES
+    # ----------------------------------------------------------------------
+    log("%s: score %s, predict %s; rtc launches %d + %d (expected %d + %d)"
+        % (what, ", ".join("%s=%.4f" % nv for nv in res), preds.shape,
+           scored, predicted, FT_SCORE_BATCHES, FT_SCORE_BATCHES))
+    check(scored == predicted == FT_SCORE_BATCHES, what + ": rtc launches")
+    check(preds.shape == (FT_SCORE_BATCHES * BATCH, 1000)
+          and np.isfinite(preds).all()
+          and np.allclose(preds.sum(1), 1.0, atol=1e-4),
+          what + ": predictions are not probability rows")
+    return scored + predicted
+
+
+def _ft_route_agreement(np, mods, start):
+    """``(relative L2 of the two modules' parameter updates from start,
+    all tensors together; (worst tensor's own relative L2, its name);
+    relative L2 of their moving statistics)``."""
+    (a_args, a_aux), (b_args, b_aux) = [m.get_params() for m in mods]
+    num = den = 0.0
+    worst = (0.0, "")
+    for k, w0 in start.items():
+        da = a_args[k].asnumpy().astype(np.float64) - w0
+        db = b_args[k].asnumpy().astype(np.float64) - w0
+        n, d = float(np.sum((da - db) ** 2)), float(np.sum(db ** 2))
+        num, den = num + n, den + d
+        if d > 0:
+            worst = max(worst, ((n / d) ** 0.5, k))
+    upd = (num / den) ** 0.5
+    num = sum(float(np.sum((a_aux[k].asnumpy().astype(np.float64)
+                            - b_aux[k].asnumpy()) ** 2)) for k in b_aux)
+    den = sum(float(np.sum(b_aux[k].asnumpy().astype(np.float64) ** 2))
+              for k in b_aux)
+    return upd, worst, (num / den) ** 0.5
+
+
+def _ft_trainer(torch, mx, net, start, aux_params, X, y, card):
+    """SPMDTrainer.step on the fine-tune symbol with the same weights,
+    optimizer and host batches as the Module: its steady ms per step."""
+    tr = mx.parallel.SPMDTrainer(
+        net, "sgd", {"learning_rate": FT_LR, "momentum": 0.0, "wd": 0.0,
+                     "rescale_grad": 1.0 / BATCH}, ctx=mx.gpu(0))
+    tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    tr.init_params(None, start, aux_params)
+    batches = [(b.data[0], b.label[0]) for b in mx.io.NDArrayIter(
+        X, y, batch_size=BATCH)]
+    ba = mx.kernels.bn_act
+    before = (ba.LAUNCHES, mx.rtc.LAUNCHES)
+    stamps = []
+    for data, label in batches:
+        tr.step(data, label)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    launched = (ba.LAUNCHES - before[0], mx.rtc.LAUNCHES - before[1])
+    n = len(stamps)
+    check(launched == (50 * n, 2 * n), "SPMDTrainer on the fine-tune "
+          "symbol: launches %s" % (launched,))
+    steady = (stamps[-1] - stamps[1]) / (n - 2)
+    log("fine-tune SPMDTrainer.step (same symbol, weights and host batches): "
+        "steady %.2f ms/step -> %.1f img/s on %s" % (
+            steady * 1e3, BATCH / steady, card))
+    tr.close()
+    return steady * 1e3
+
+
+def phase_ft_agreement(torch, mx, net, start, aux_params, seed):
+    """One batch-4 forward_backward + update of the fine-tune Module on
+    the card (fused route, sgd at lr FT_AGREE_LR, so each parameter's
+    update gives back its gradient) against the port's CPU path, where the
+    rtc op takes its plain version: outputs and moving statistics against
+    the CPU float32 run, gradients against its float64 run (as
+    ``phase_train_agreement``)."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    shape = (AGREE_BATCH,) + IMAGE
+    rs = np.random.RandomState(seed + 83)
+    x = rs.standard_normal(shape).astype(np.float32)
+    y = rs.randint(0, 1000, AGREE_BATCH).astype(np.float32)
+    weights = ({k: v.asnumpy() for k, v in start.items()},
+               {k: v.asnumpy() for k, v in aux_params.items()})
+    t0 = time.perf_counter()
+    ref = _executor_step(mx, net, weights, x, y, mx.cpu())
+    exact = _executor_step(mx, net, weights, x.astype(np.float64),
+                           y.astype(np.float64), mx.cpu())
+    keys = ["output"] + ["grad:" + k for k in start] + \
+        ["aux:" + k for k in aux_params]
+    ref = {k: ref[k] for k in keys}
+    exact = {k: exact[k] for k in keys}
+    grads = [k for k in keys if k.startswith("grad:")]
+    cpu_l2 = _rel_l2(np, ref, exact, grads)
+    log("fine-tune agreement: CPU float32 and float64 steps at batch %d "
+        "took %.1f s; CPU float32 gradients' relative L2 error against "
+        "float64 %.3g" % (AGREE_BATCH, time.perf_counter() - t0, cpu_l2))
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind([("data", shape)], [("softmax_label", (AGREE_BATCH,))])
+    mod.init_params(None, arg_params=start, aux_params=aux_params)
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd", optimizer_params={
+        "learning_rate": FT_AGREE_LR, "momentum": 0.0, "wd": 0.0})
+    check(mod._fused is not None, "fine-tune agreement: no fused route")
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                            [mx.nd.array(y, ctx=mx.cpu())])
+    before = (ba.LAUNCHES, ba.BWD_LAUNCHES, mx.rtc.LAUNCHES)
+    mod.forward_backward(batch)
+    mod.update()
+    out = mod.get_outputs()[0].asnumpy()
+    launched = (ba.LAUNCHES - before[0], ba.BWD_LAUNCHES - before[1],
+                mx.rtc.LAUNCHES - before[2])
+    check(launched == (50, 50, 2), "fine-tune agreement step launched %s "
+          "(bn_act fwd, bwd, rtc), not (50, 50, 2)" % (launched,))
+    args1, aux1 = mod.get_params()
+    # w1 = w0 - lr * g / batch: the gradient from the update, summed over
+    # the batch as the executor's backward gives it
+    got = {"output": out.astype(np.float64)}
+    for k, w0 in weights[0].items():
+        got["grad:" + k] = (w0.astype(np.float64) - args1[k].asnumpy()) \
+            * AGREE_BATCH / FT_AGREE_LR
+    for k, v in aux1.items():
+        got["aux:" + k] = v.asnumpy().astype(np.float64)
+    _compare_train(np, got, ref, exact, cpu_l2, "fine-tune gpu Module step")
+
+
+def phase_ft_profile(torch, mx, mod, X, y, card):
+    """A torch.profiler trace of PROFILE_STEPS batches of Module.fit on
+    the fused route (one more epoch of the same module)."""
+    from mxnet_tpu_torch.parallel.trainer import UPDATE_RANGE
+    it = mx.io.NDArrayIter(X[:PROFILE_STEPS * BATCH],
+                           y[:PROFILE_STEPS * BATCH], batch_size=BATCH)
+
+    def run(i):
+        if i == 0:
+            mod.fit(it, eval_metric=mx.metric.create(["accuracy", mx.metric
+                    .create("top_k_accuracy", top_k=5)]), kvstore="tpu",
+                    batch_end_callback=mx.callback.Speedometer(BATCH, 2),
+                    num_epoch=1)
+
+    counts = profile_steps(torch, run, lambda: None, UPDATE_RANGE, card,
+                           "fine-tune fit", ("bn_act_fwd", "bn_act_bwd",
+                                             "rtc"), "batch %d" % BATCH)
+    per_batch = sum(c for k, c in counts.items()
+                    if "rtc_elementwise_kernel" in k) / PROFILE_STEPS
+    log("fine-tune profile: %.1f rtc launches per batch (expected 2)"
+        % per_batch)
+    check(per_batch == 2, "profiled rtc launches per batch %.1f" % per_batch)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn(torch):
+    """cuDNN restricted to deterministic algorithms, as it was after."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def finetune_paths(torch, mx, rtc, seed, card):
+    """The rtc kernels, then the fine-tune through Module.fit on both
+    routes, score/predict, SPMDTrainer for comparison, CPU agreement and
+    a profile.  Returns the rtc entry of the kernels line."""
+    import logging
+    import numpy as np
+    logging.basicConfig(level=logging.INFO, format="  %(message)s",
+                        stream=sys.stdout)
+    rows, max_f32_err = phase_rtc_kernels(torch, mx, rtc, seed)
+    _register_rtc_silu(mx, rtc)
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="finetune-", dir=build_dir)
+    try:
+        net, arg_params, aux_params = finetune_symbol(mx, seed, tmp)
+        rs = np.random.RandomState(seed + 81)
+        X = rs.standard_normal((FT_BATCHES * BATCH,) + IMAGE) \
+            .astype(np.float32)
+        y = rs.randint(0, 1000, FT_BATCHES * BATCH).astype(np.float32)
+        # the routes' agreement, from fits with deterministic cuDNN
+        with _deterministic_cudnn(torch):
+            agree = {kv: _ft_fit(torch, mx, net, arg_params, aux_params, X,
+                                 y, kv, os.path.join(tmp, "det-" + kv), seed,
+                                 card, "deterministic cuDNN")
+                     for kv in ("tpu", "local")}
+        drawn = agree["tpu"][1]
+        check(all(np.array_equal(drawn[k], agree["local"][1][k])
+                  for k in drawn),
+              "the two routes drew different fc-new initial weights")
+        start = {k: v.asnumpy() for k, v in arg_params.items()}
+        start.update(drawn)
+        upd, worst, aux_l2 = _ft_route_agreement(
+            np, (agree["tpu"][0], agree["local"][0]), start)
+        log("fine-tune routes fused vs executor (deterministic cuDNN): "
+            "parameter updates relative L2 %.3g, worst tensor %s %.3g; "
+            "moving statistics relative L2 %.3g (bound %g each)" % (
+                upd, worst[1], worst[0], aux_l2, FT_ROUTE_REL_L2))
+        check(upd <= FT_ROUTE_REL_L2 and aux_l2 <= FT_ROUTE_REL_L2,
+              "the fused and executor routes disagree")
+        main_fit_launches = sum(r[2]["launches"][2] for r in agree.values())
+        del agree
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the timed fits, with cuDNN's default algorithms
+        fused, _, f_run = _ft_fit(torch, mx, net, arg_params, aux_params, X,
+                                  y, "tpu", os.path.join(tmp, "ft-tpu"), seed,
+                                  card)
+        local, _, l_run = _ft_fit(torch, mx, net, arg_params, aux_params, X,
+                                  y, "local", os.path.join(tmp, "ft-local"),
+                                  seed, card)
+        main_fit_launches += f_run["launches"][2] + l_run["launches"][2]
+        served = _ft_score_predict(torch, mx, fused, X, y,
+                                   "fine-tune fused module")
+        served += _ft_score_predict(torch, mx, local, X, y,
+                                    "fine-tune executor module")
+        host = mx.cpu()
+        start_nd = {k: mx.nd.array(v, ctx=host) for k, v in start.items()}
+        del local
+        torch.cuda.empty_cache()
+        tr_ms = _ft_trainer(torch, mx, net, start_nd, aux_params, X, y, card)
+        log("fine-tune: Module.fit %.2f ms/batch fused, %.2f executor route; "
+            "SPMDTrainer.step %.2f ms: the Module's own overhead %.2f ms "
+            "per batch on the fused route, on %s" % (
+                f_run["steady_ms"], l_run["steady_ms"], tr_ms,
+                f_run["steady_ms"] - tr_ms, card))
+        phase_ft_agreement(torch, mx, net, start_nd, aux_params, seed)
+        phase_ft_profile(torch, mx, fused, X, y, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    main_launches = main_fit_launches + served
+    model = rows[("silu", RTC_MODEL_SIZE)]
+    feat = [rows[(n, (BATCH, 2048))] for n in ("silu", "dsilu")]
+    log("rtc float32 per fine-tune batch (silu + dsilu at (%d, 2048)): "
+        "kernel %.4f plain %.4f bound %.4f ms; silu at %s: kernel %.4f "
+        "plain %.4f F.silu %.4f bound %.4f ms" % (
+            BATCH, sum(r["f32_ms"] for r in feat),
+            sum(r["f32_plain_ms"] for r in feat),
+            sum(r["f32_bound_ms"] for r in feat), RTC_MODEL_SIZE,
+            model["f32_ms"], model["f32_plain_ms"],
+            model["f32_library_ms"], model["f32_bound_ms"]))
+    return [{
+        "name": "rtc_elementwise",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/rtc_elementwise.cu",
+        "replaces": "mxnet_tpu/rtc.py:138",
+        "launches": main_launches,
+        "max_abs_err": max_f32_err,
+        "ms": model["f32_ms"],
+        "plain_ms": model["f32_plain_ms"],
+        "bound_ms": model["f32_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": model["f32_library_ms"],
+    }]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1904,10 +2492,12 @@ def main(argv=None):
         print("chip_smoke: cannot import mxnet_tpu_torch: %s" % e,
               file=sys.stderr)
         return 2
-    card = phase_setup(torch, mx)
+    rtc = rtc_kernels(torch, mx)
+    card = phase_setup(torch, mx, rtc)
     kernels = resnet_paths(torch, mx, args.seed, card)
     kernels += lm_paths(torch, mx, args.seed, card)
     kernels += long_context_paths(torch, mx, args.seed, card)
+    kernels += finetune_paths(torch, mx, rtc, args.seed, card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.optimizer``,
 ``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io``,
 ``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
-``mx.nd.contrib``), ``mx.cpu()``, ``mx.gpu(i)``, ``mx.current_context()``.
+``mx.nd.contrib``), ``mx.rtc``, ``mx.mod`` (``mx.module``), ``mx.kv``
+(``mx.kvstore``), ``mx.metric``, ``mx.callback``, ``mx.cpu()``,
+``mx.gpu(i)``, ``mx.current_context()``.
 This package imports ``torch``, ``numpy`` and
 the standard library only; it never imports ``jax`` or ``mxnet_tpu``.
 
@@ -37,8 +39,17 @@ from . import optimizer
 from . import initializer
 from . import parallel
 from . import rnn
+from . import executor_manager
+from . import kvstore
+from . import kvstore as kv
+from . import metric
+from . import callback
+from . import module
+from . import module as mod
+from . import rtc
 
 symbol._init_symbol_module()
+ndarray._init_ndarray_module()
 
 from . import contrib  # noqa: E402 — after the symbol creators exist
 # both addressing styles work: mx.contrib.symbol.X and mx.sym.contrib.X
@@ -51,4 +62,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
            "ndarray", "sym", "symbol", "kernels", "mxfuse", "executor",
            "model", "models", "predict", "convert", "name", "attribute",
            "random", "io", "lr_scheduler", "optimizer", "initializer",
-           "parallel", "rnn", "contrib"]
+           "parallel", "rnn", "contrib", "rtc", "mod", "module", "kv",
+           "kvstore", "metric", "callback", "executor_manager"]

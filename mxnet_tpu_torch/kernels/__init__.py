@@ -15,7 +15,12 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 source, all started together.  The hash covers the source bytes and the
 flags, so an edited ``.cu`` is never served from a stale library.
 :func:`load_library` opens the result with ``ctypes``.  A missing
-``nvcc`` or a failed build raises; nothing falls back.
+``nvcc`` or a failed build raises, with ``nvcc``'s message; nothing falls
+back.  Both also take a GENERATED source (``sources=`` / ``source=``: the
+rtc escape hatch renders a user's body into the template
+``csrc/rtc_elementwise.cu``): it is written to
+``_build/rtc/<name>-<hash>.cu`` and built to ``_build/rtc/lib<name>-<hash>.so``,
+the hash over the rendered text and the flags.
 
 **Flash block.** ``MXTPU_FLASH_BLOCK`` (registered here, eagerly, as the
 JAX package does) is the routing threshold of ``full_attention`` and the
@@ -36,8 +41,8 @@ import time
 from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
-           "load_library", "BUILD_SECONDS", "ENV_FLASH_BLOCK", "bn_act",
-           "lstm_cell", "flash_attention", "roofline"]
+           "load_library", "library_path", "BUILD_SECONDS", "ENV_FLASH_BLOCK",
+           "bn_act", "lstm_cell", "flash_attention", "roofline"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -94,6 +99,7 @@ def fused_enabled(name):
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
+_GENERATED = os.path.join(_BUILD, "rtc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -116,37 +122,68 @@ def _nvcc():
                      "the CUDA kernels cannot be built")
 
 
-def library_path(name):
+def _digest(text_bytes):
+    return hashlib.sha256(text_bytes + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:16]
+
+
+def library_path(name, source=None):
     """Where ``csrc/<name>.cu`` builds to, keyed by a hash of its bytes
-    and the flags."""
+    and the flags; with ``source`` (generated text), where that text
+    builds to under ``_build/rtc/``, keyed by a hash of the text and the
+    flags."""
+    if source is not None:
+        return os.path.join(_GENERATED, "lib%s-%s.so" % (
+            name, _digest(source.encode())))
     src = os.path.join(_CSRC, name + ".cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD, "lib%s-%s.so" % (name, digest.hexdigest()[:16]))
+        digest = _digest(f.read())
+    return os.path.join(_BUILD, "lib%s-%s.so" % (name, digest))
 
 
-def build(names):
+def _source_file(name, out, source):
+    """The ``.cu`` nvcc compiles for ``name``: ``csrc/<name>.cu``, or the
+    generated text written beside its library (temp name, then renamed,
+    so concurrent builders never read a torn file)."""
+    if source is None:
+        return os.path.join(_CSRC, name + ".cu")
+    path = out[:-len(".so")] + ".cu"
+    tmp = "%s.tmp%d" % (path, os.getpid())
+    with open(tmp, "w") as f:
+        f.write(source)
+    os.replace(tmp, path)
+    return path
+
+
+def build(names, sources=None):
     """Compile every named source that has no current library: one
     ``nvcc`` per source, all started together, each written to a
-    temporary name and renamed into place once it succeeded.  The
-    compiler's report (``-Xptxas -v``: registers, spills) is kept beside
-    the library as ``<lib>.log``.  Raises on the first failure."""
+    temporary name and renamed into place once it succeeded.  ``sources``
+    maps a name to its generated text; other names are ``csrc/<name>.cu``.
+    The compiler's report (``-Xptxas -v``: registers, spills) is kept
+    beside the library as ``<lib>.log``.  Returns ``{name: seconds}`` for
+    the sources it compiled (empty when every library existed).  Raises
+    :class:`MXNetError` carrying nvcc's message when a build fails."""
+    sources = sources or {}
     todo = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, sources.get(name))
         if os.path.exists(out):
             BUILD_SECONDS.setdefault(name, 0.0)
         else:
             todo[name] = out
     if not todo:
-        return
+        return {}
     os.makedirs(_BUILD, exist_ok=True)
+    if any(name in sources for name in todo):
+        os.makedirs(_GENERATED, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     start = time.perf_counter()
     for name, out in todo.items():
         tmp = "%s.tmp%d" % (out, os.getpid())
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, name + ".cu")]
+        src = _source_file(name, out, sources.get(name))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
     failed = []
@@ -162,15 +199,19 @@ def build(names):
         os.replace(tmp, out)
     if failed:
         raise MXNetError("CUDA kernel build failed: " + "\n".join(failed))
+    return {name: BUILD_SECONDS[name] for name in todo}
 
 
-def load_library(name):
-    """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use."""
+def load_library(name, source=None):
+    """The ``ctypes.CDLL`` of ``csrc/<name>.cu`` (or of the generated
+    ``source``), built on first use; a library already loaded in this
+    process is returned as it is."""
+    path = library_path(name, source)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(path)
         if lib is None:
-            build([name])
-            lib = _LIBS[name] = ctypes.CDLL(library_path(name))
+            build([name], None if source is None else {name: source})
+            lib = _LIBS[path] = ctypes.CDLL(path)
         return lib
 
 

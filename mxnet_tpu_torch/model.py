@@ -1,5 +1,7 @@
 """Checkpoints: ``save_checkpoint`` / ``load_checkpoint`` (port of
-``mxnet_tpu/model.py:87-140``; reference python/mxnet/model.py).
+``mxnet_tpu/model.py:87-140``; reference python/mxnet/model.py), and the
+Module stack's helpers (``mxnet_tpu/model.py:28-86``): ``BatchEndParam``
+and the kvstore update trio.  ``FeedForward`` comes with a later slice.
 
 The files are the JAX package's: ``prefix-symbol.json`` and
 ``prefix-%04d.params`` with ``arg:``/``aux:`` name prefixes, so a
@@ -9,11 +11,79 @@ from __future__ import annotations
 
 import logging
 import os
+from collections import namedtuple
+
+import numpy as np
 
 from . import ndarray as nd
 from . import symbol as sym_mod
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """Decide kvstore + update_on_kvstore policy (reference model.py:40-77):
+    one device and a 'local'-style name need no store at all; 'tpu' always
+    makes one (the Module's fused route reads its type)."""
+    from . import kvstore as kvs
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore) or hasattr(kvstore, "push"):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore and kvstore != "tpu":
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(np.prod(p.shape) for p in arg_params.values())
+                if max_size < 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """kv.init each param; pull initial weights if updating on kvstore
+    (reference model.py:79-86)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
+    """push grads / pull weights (reference model.py:88-97)."""
+    for index, pair in enumerate(zip(param_arrays, grad_arrays)):
+        arg_list, grad_list = pair
+        if grad_list[0] is None:
+            continue
+        kvstore.push(index, grad_list, priority=-index)
+        kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None):
+    """Aggregate grads (via kvstore if given) and run the local updater per
+    device (reference model.py:99-123)."""
+    for index, pair in enumerate(zip(param_arrays, grad_arrays)):
+        arg_list, grad_list = pair
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            kvstore.push(index, grad_list, priority=-index)
+            kvstore.pull(index, grad_list, priority=-index)
+        for k, p in enumerate(zip(arg_list, grad_list)):
+            w, g = p
+            updater(index * num_device + k, g, w)
 
 
 def _replace_atomically(path, write):
@@ -28,6 +98,14 @@ def _replace_atomically(path, write):
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def write_atomically(path, data):
+    """Write ``data`` (bytes) to ``path`` through a temporary file."""
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            f.write(data)
+    _replace_atomically(path, write)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

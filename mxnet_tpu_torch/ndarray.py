@@ -1,10 +1,12 @@
 """NDArray — the imperative tensor type, over a ``torch.Tensor``.
 
-Port of the parts of ``mxnet_tpu/ndarray.py`` the serving, training and
-LSTM slices need: the array type (a mutable cell holding one tensor on its
-context's device; slicing and ``reshape`` give views, ``copy`` a copy),
-``array``/``zeros``/``ones``/``empty``/``concatenate``, and ``.params``
-serialization
+Port of the parts of ``mxnet_tpu/ndarray.py`` the serving, training,
+LSTM and Module slices need: the array type (a mutable cell holding one
+tensor on its context's device; slicing and ``reshape`` give views,
+``copy`` a copy), ``array``/``zeros``/``ones``/``empty``/``concatenate``,
+``waitall``, the imperative op surface (every registered op as
+``mx.nd.<op>``, :func:`_init_ndarray_module`; ops registered later, such
+as rtc kernels, inject themselves), and ``.params`` serialization
 byte-identical to ``mxnet_tpu/ndarray.py:501-575`` (the reference's
 format, src/ndarray/ndarray.cc:593-676, kMXAPINDArrayListMagic=0x112), so
 a file written by either package loads in the other.
@@ -18,9 +20,10 @@ import torch
 
 from .base import MXNetError
 from .context import Context, cpu, current_context
+from .ops.registry import OP_REGISTRY, fn_signature_info
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "concatenate",
-           "load", "save", "tensor_from_numpy"]
+           "load", "save", "tensor_from_numpy", "waitall"]
 
 # torch dtype <-> reference mshadow type_flag (mshadow/base.h kFloat32=0 ...)
 _DTYPE_TO_FLAG = {
@@ -218,6 +221,100 @@ def concatenate(arrays, axis=0, always_copy=True):
         return arrays[0]
     return NDArray._from_torch(
         torch.cat([a._data for a in arrays], dim=axis), arrays[0]._ctx)
+
+
+def waitall():
+    """Wait until all work queued on the card has finished
+    (``Engine::WaitForAll``); an asynchronous CUDA error surfaces here.
+    A no-op on a host without CUDA."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the imperative op surface: every registered op becomes mx.nd.<op>
+# (the JAX package's _make_ndarray_function, ndarray.py:596-650)
+# ---------------------------------------------------------------------------
+
+def _invoke(opdef, nd_inputs, attrs, is_train=False, ctx=None):
+    """Run ``opdef`` on NDArrays with the given attributes; returns the
+    op's outputs (aux updates dropped) as NDArrays on the first input's
+    context (or ``ctx``)."""
+    from . import random as _random
+    if not nd_inputs:
+        raise MXNetError("%s: needs at least one NDArray input" % opdef.name)
+    if opdef.variable_inputs:
+        attrs.setdefault("num_args", len(nd_inputs))
+    opdef.validate_attrs(attrs, where="imperative call")
+    attrs = opdef.normalize_attrs(attrs)
+    n_out = opdef.get_num_outputs(attrs)
+    names, has_var_kw = fn_signature_info(opdef.fn)
+    if not has_var_kw:
+        attrs = {k: v for k, v in attrs.items() if k in names}
+    ctx = ctx if ctx is not None else nd_inputs[0].context
+    device = ctx.torch_device
+    arrays = [a._data if a._data.device == device else a._data.to(device)
+              for a in nd_inputs]
+    if opdef.needs_is_train:
+        attrs["is_train"] = bool(is_train)
+    if opdef.needs_rng:
+        attrs["rng"] = _random.node_generator(_random.next_seed(), 0, device)
+    out = opdef.fn(*arrays, **attrs)
+    if not isinstance(out, (tuple, list)):
+        out = (out,)
+    return [NDArray._from_torch(o, ctx) for o in out[:n_out]]
+
+
+def _make_ndarray_function(opdef, func_name):
+    """``mx.nd.<func_name>``: NDArray inputs positionally or by input name,
+    attributes as keywords, plus ``out=`` (write the results into these
+    arrays), ``ctx=`` and ``is_train=`` (default: whether the op declares
+    it needs one, as in the JAX package).  A bare number given
+    positionally to an op without tensor inputs is its ``scalar``."""
+    def generic_op(*args, **kwargs):
+        out = kwargs.pop("out", None)
+        kwargs.pop("name", None)
+        ctx = kwargs.pop("ctx", None)
+        if ctx is not None and not isinstance(ctx, Context):
+            ctx = Context(ctx)
+        is_train = kwargs.pop("is_train", bool(opdef.needs_is_train))
+        nd_inputs = []
+        for a in args:
+            if isinstance(a, NDArray):
+                nd_inputs.append(a)
+            elif isinstance(a, (int, float)) and "scalar" not in kwargs \
+                    and not opdef.get_input_names(kwargs):
+                kwargs["scalar"] = a
+            else:
+                nd_inputs.append(array(a, ctx=ctx))
+        in_names = opdef.get_input_names(kwargs) + \
+            opdef.get_aux_names(kwargs)
+        for nm in in_names:
+            if nm in kwargs and isinstance(kwargs[nm], NDArray):
+                nd_inputs.append(kwargs.pop(nm))
+        results = _invoke(opdef, nd_inputs, kwargs, is_train=is_train,
+                          ctx=ctx)
+        if out is not None:
+            outs = out if isinstance(out, (list, tuple)) else (out,)
+            for o, r in zip(outs, results):
+                o._data = r._data.to(o._data.device, o._data.dtype)
+            return out
+        if len(results) == 1:
+            return results[0]
+        return results
+
+    generic_op.__name__ = func_name
+    generic_op.__doc__ = opdef.doc
+    return generic_op
+
+
+def _init_ndarray_module():
+    """One ``mx.nd.<op>`` per registered op name not already defined here
+    (the creation functions ``zeros``/``ones``/... stay as they are)."""
+    module = globals()
+    for reg_name, opdef in list(OP_REGISTRY.items()):
+        if reg_name not in module:
+            module[reg_name] = _make_ndarray_function(opdef, reg_name)
 
 
 # ---------------------------------------------------------------------------

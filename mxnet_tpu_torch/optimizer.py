@@ -236,6 +236,23 @@ class Updater(object):
 
     def set_states(self, states):
         loaded = pickle.loads(states)
+        if isinstance(loaded, dict) and "states" in loaded \
+                and "num_update" in loaded:
+            # a blob of the fused SPMDTrainer ({name: tuple}): convert to
+            # this updater's {index: state}, every index of a name
+            name2indices = {}
+            for i, n in (getattr(self.optimizer, "idx2name", {}) or {}
+                         ).items():
+                name2indices.setdefault(n, []).append(i)
+            self.optimizer.num_update = max(self.optimizer.num_update,
+                                            loaded["num_update"])
+            converted = {}
+            for name, s in loaded["states"].items():
+                val = None if len(s) == 0 else s[0] if len(s) == 1 \
+                    else tuple(s)
+                for key in name2indices.get(name, [name]):
+                    converted[key] = val
+            loaded = converted
         # each state goes where the one it replaces lives (a new key: the
         # current context)
         self.states = {k: _state_from_numpy(v, _context_of(

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import logging
 import math
+import pickle
 
 import numpy as np
 import torch
@@ -130,6 +131,7 @@ class SPMDTrainer(object):
         self.max_consecutive_bad_steps = int(max_consecutive_bad_steps)
         self._skipped_steps = 0           # total guarded skips, ever
         self._consecutive_bad_steps = 0   # current bad-step run length
+        self._skip_base = 0               # host total when counters placed
         self._guard_acc = None            # device (total, consec, trips) i32
         self._guard_pending = False       # unread counters in flight
         self._trips_seen = 0              # abort events already raised
@@ -394,6 +396,7 @@ class SPMDTrainer(object):
         self._guard_pending = False
         acc = self._guard_acc.cpu().numpy()
         total, consec, trips = int(acc[0]), int(acc[1]), int(acc[2])
+        total += self._skip_base
         delta = total - self._skipped_steps
         self.last_step_skipped = consec > 0
         self._consecutive_bad_steps = consec
@@ -471,6 +474,64 @@ class SPMDTrainer(object):
                     v = tensor_from_numpy(np.asarray(v))
                 cur = current[name]
                 current[name] = v.to(cur.device, cur.dtype, copy=True)
+
+    def get_states(self):
+        """Serialized optimizer state (the ``Updater.get_states`` analog):
+        a pickle of ``{"num_update", "states": {name: (numpy, ...)}}``, the
+        JAX package's format."""
+        self.flush_step_guard()
+        host = {k: tuple(v.detach().cpu().numpy() for v in s)
+                for k, s in self.opt_state.items()}
+        return pickle.dumps({"num_update": self._num_update,
+                             "states": host})
+
+    def set_states(self, blob):
+        """Restore optimizer state from :meth:`get_states`'s format, or
+        from an ``Updater`` blob (``{index_or_name: state}``, what the
+        executor route of a Module saves), so a checkpoint resumes across
+        the two routes.  Restored state opens a fresh guard window: the
+        pending counters and the consecutive-bad count are dropped, the
+        lifetime skip total is kept."""
+        self._guard_pending = False
+        self._guard_acc = None
+        self._skip_base = self._skipped_steps
+        self._consecutive_bad_steps = 0
+        payload = pickle.loads(blob)
+        if isinstance(payload, dict) and "states" in payload \
+                and "num_update" in payload:
+            states = payload["states"]
+            self._num_update = payload["num_update"]
+            # this format records every param's slot tuple: a missing
+            # param means the blob belongs to a different model
+            missing = sorted(set(self.params) - set(states))
+            if missing:
+                raise MXNetError(
+                    "optimizer-state blob has no entry for parameter(s) "
+                    "%s — the checkpoint belongs to a different model"
+                    % ", ".join(missing))
+        else:
+            idx2name = getattr(self.optimizer, "idx2name", {}) or {}
+            states = {}
+            for k, v in payload.items():
+                name = idx2name.get(k, k)
+                if v is None:
+                    states[name] = ()
+                elif isinstance(v, (tuple, list)):
+                    states[name] = tuple(np.asarray(x) for x in v)
+                else:
+                    states[name] = (np.asarray(v),)
+        placed = {}
+        for name, s in states.items():
+            if name not in self.params:
+                raise MXNetError(
+                    "optimizer state for unknown parameter %r" % (name,))
+            p = self.params[name]
+            placed[name] = tuple(
+                tensor_from_numpy(np.asarray(x)).to(p.device, p.dtype)
+                for x in s)
+        for name in self.param_names:
+            placed.setdefault(name, self.opt_state[name])
+        self.opt_state = placed
 
     # -- lifecycle --------------------------------------------------------
     def close(self):

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of ``mxnet_tpu_torch`` and no
 line of ``chip_smoke.py`` imports JAX or the JAX package, the port
 imports, builds a model and takes an ``SPMDTrainer`` step of a ResNet and
-of the LSTM language model and a ``make_step`` step of the long-context LM
-(flash route) on the CPU with JAX made unimportable, and the chip smoke
-test refuses to run without CUDA."""
+of the LSTM language model, a ``make_step`` step of the long-context LM
+(flash route) and a ``Module.fit`` through an rtc op on both Module routes
+on the CPU with JAX made unimportable, and the chip smoke test refuses to
+run without CUDA."""
 import ast
 import os
 import subprocess
@@ -89,6 +90,26 @@ def test_port_runs_with_jax_unimportable():
         "x, y = lc.markov_batch(rs, rs.randint(1, 16, (16, 3)), 2, 20, 16)\n"
         "p, loss = lc.make_step(None, 2, 1, 0.3)(p, x, y)\n"
         "assert loss.ndim == 0 and np.isfinite(float(loss))\n"
+        "silu = mx.rtc.elementwise_cuda_kernel('out = in / (1.0f + "
+        "expf(-in));', plain=lambda x: x / (1 + torch.exp(-x)))\n"
+        "mx.rtc.register_kernel('iso_silu', vjp=lambda x, g: g * torch."
+        "sigmoid(x) * (1 + x * (1 - torch.sigmoid(x))))(lambda data: "
+        "silu(data))\n"
+        "net = mx.sym.iso_silu(mx.sym.FullyConnected(mx.sym.Variable("
+        "'data'), num_hidden=8, name='fc1'))\n"
+        "net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(net, "
+        "num_hidden=3, name='fc2'), name='softmax')\n"
+        "X = rs.standard_normal((32, 5)).astype(np.float32)\n"
+        "Y = rs.randint(0, 3, 32).astype(np.float32)\n"
+        "for kv in ('tpu', 'local'):\n"
+        "    m = mx.mod.Module(net, context=mx.cpu())\n"
+        "    m.fit(mx.io.NDArrayIter(X, Y, batch_size=8), num_epoch=1, "
+        "kvstore=kv, eval_metric=['acc', mx.metric.create("
+        "'top_k_accuracy', top_k=2)], batch_end_callback="
+        "mx.callback.Speedometer(8, 2))\n"
+        "    assert (m._fused is not None) == (kv == 'tpu')\n"
+        "    assert m.predict(mx.io.NDArrayIter(X, Y, batch_size=8))"
+        ".shape == (32, 3)\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', "
         "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
         "print('ok', len(args))\n")
