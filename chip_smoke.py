@@ -63,16 +63,22 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
 12. serves the LM through ``Predictor`` from a checkpoint at batch 32 (64
     forward launches and no backward one per forward), and traces a few
     LM training steps (``torch.profiler``);
-13. holds the flash-attention forward against its plain version and
-    trains and serves the long-context LM at seq 512 and 4096 (see
-    ``long_context_paths``);
+13. holds the flash-attention forward against its plain version, on
+    the route ``flash_route`` picks (``mma_bf16`` for bfloat16 and
+    ``tiled_f32`` for float32, every D <= 128) and on the first
+    (``rowwise``) kernel, at eight shapes and from a misaligned view;
+    times both kernels, the plain version, SDPA and the bound (products,
+    exponentials or bytes, whichever binds); and trains and serves the
+    long-context LM at seq 512 and 4096, every launch on ``tiled_f32``
+    with no alignment copy (see ``long_context_paths``);
 14. holds the rtc escape hatch's elementwise kernel
     (``csrc/rtc_elementwise.cu`` with three bodies pasted in: silu, its
     derivative and the JAX test's ``2x + 1``, all built in parallel with
     the other kernels) against each body's plain version at
-    (32, 256, 56, 56), (32, 2048), (3, 5, 7, 3), a transposed view and 0
-    elements, float32/bfloat16/float16, times kernel, plain version,
-    bound and, for silu, ``F.silu`` (a yardstick the port never calls),
+    (32, 256, 56, 56), (32, 2048), (3, 5, 7, 3), a transposed view, a
+    flat input one element off a 16-byte boundary and 0 elements,
+    float32/bfloat16/float16, times kernel, plain version, bound and, for
+    silu, ``F.silu`` in each dtype (a yardstick the port never calls),
     and shows that a second kernel of the same body does not rebuild;
 15. fine-tunes ResNet-50 at batch 32 through ``Module.fit`` with
     ``fit.py``'s wiring on ``gpu(0)``: a checkpoint of seeded weights is
@@ -156,12 +162,19 @@ LC_AGREE = (2, 1024)  # (batch, seq) of the GPU-vs-CPU check
 ATT_SHAPE, ATT_HEADS = (4, 512, 64), 4   # the symbolic Attention op's
 #: (B, Tq, Tk, H, D, causal) of the flash kernel checks: the LM at seq 512
 #: and 4096, bench.py's kernel shape causal and not, an odd shape, a
-#: Tq > Tk shape (its first rows see no key), and head dim 128
+#: Tq > Tk shape (its first rows see no key), head dim 128, and a head dim
+#: above 16 that is not a multiple of 16
 FLASH_SHAPES = ((4, 512, 512, 4, 16, True), (4, 4096, 4096, 4, 16, True),
                 (4, 512, 512, 8, 64, True), (4, 512, 512, 8, 64, False),
                 (3, 37, 53, 2, 8, True), (2, 300, 200, 4, 16, True),
-                (2, 512, 512, 4, 128, True))
+                (2, 512, 512, 4, 128, True), (2, 256, 256, 2, 40, True))
 FLASH_MODEL_SHAPE = (4, 4096, 4096, 4, 16, True)
+#: q, k, v as views one element off a 16-byte boundary: the wrapper copies
+#: each (3 alignment copies) before the tiled route
+FLASH_MISALIGNED_SHAPE = (2, 300, 200, 4, 16, True)
+#: exp2 per clock per SM on the special-function unit (CUDA C Programming
+#: Guide, arithmetic instruction throughput, compute capability 9.0)
+EXP2_PER_CLOCK_PER_SM = 16
 # float32 kernel vs plain: both sum in float32 in other orders (the
 # streaming softmax reassociates its sums), outputs are O(1)
 FLASH_F32_TOL = 2e-5
@@ -875,13 +888,19 @@ def phase_train_agreement(torch, mx, seed):
                    "training gpu MXTPU_FUSED_KERNELS=0")
 
 
+#: the flash kernel's device functions: the tiled_f32 and mma_bf16
+#: routes and the rowwise route (csrc/flash_attention.cu)
+FLASH_KERNEL_NAMES = ("flash_attention_tiled_kernel",
+                      "flash_attention_mma_kernel",
+                      "flash_attention_fwd_kernel")
 #: kernels with a class of their own in a training trace
 _OWN_CLASSES = (("bn_act_fwd_kernel", "bn_act_fwd"),
                 ("bn_act_bwd_kernel", "bn_act_bwd"),
                 ("lstm_cell_fwd_kernel", "lstm_cell_fwd"),
-                ("lstm_cell_bwd_kernel", "lstm_cell_bwd"),
-                ("flash_attention_fwd_kernel", "flash_attention_fwd"),
-                ("rtc_elementwise_kernel", "rtc"))
+                ("lstm_cell_bwd_kernel", "lstm_cell_bwd")) + tuple(
+                    (name, "flash_attention_fwd")
+                    for name in FLASH_KERNEL_NAMES) + (
+                ("rtc_elementwise_kernel", "rtc"),)
 
 
 def _trace_classes(path, update_range):
@@ -1528,12 +1547,12 @@ def lm_paths(torch, mx, seed, card):
 # ---------------------------------------------------------------------------
 
 def flash_work(B, Tq, Tk, H, D, causal, itemsize, roofline):
-    """``(flops, bytes, full_flops)`` of one flash-attention call, with
-    the ported roofline's coefficients (``roofline.workload``, per score
-    and per position): flops over the (query, key) pairs the mask lets
-    through, bytes for q, k, v read once and the output written once;
-    ``full_flops`` is the reference's count over the whole Tq x Tk
-    square."""
+    """``(flops, bytes, full_flops, pairs)`` of one flash-attention call,
+    with the ported roofline's coefficients (``roofline.workload``, per
+    score and per position): flops over the (query, key) pairs the mask
+    lets through, bytes for q, k, v read once and the output written
+    once; ``full_flops`` is the reference's count over the whole Tq x Tk
+    square; ``pairs`` the visible pairs, one exponential each."""
     unit = roofline.workload("flash_attention", itemsize=itemsize, b=B, t=1,
                              heads=H, d=D)
     if causal:
@@ -1543,31 +1562,71 @@ def flash_work(B, Tq, Tk, H, D, causal, itemsize, roofline):
         pairs = Tq * Tk
     flops = unit["flops"] * pairs
     nbytes = unit["fused_bytes"] // 4 * (2 * Tq + 2 * Tk)
-    return flops, nbytes, unit["flops"] * Tq * Tk
+    return flops, nbytes, unit["flops"] * Tq * Tk, B * H * pairs
 
 
-def flash_bound_ms(work, dtype_tag, roofline):
-    """``(bound ms, "operations" or "bytes")`` at the data-sheet rates:
-    float32 FFMA for float32, bf16 tensor cores for bfloat16."""
-    flops, nbytes, _ = work
+def exp2_per_s(torch):
+    """The card's exponential rate: EXP2_PER_CLOCK_PER_SM x its SM count
+    (``torch.cuda.get_device_properties``) x its largest SM clock
+    (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, "nvidia-smi clocks failed: %s" % smi.stderr)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP2_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
+
+
+def flash_bound_ms(work, dtype_tag, exp_rate):
+    """``(bound ms, "operations" or "bytes", the side that binds)``: the
+    largest of the products at the data-sheet rate (float32 FFMA for
+    float32, bf16 tensor cores for bfloat16), one exponential per visible
+    pair at ``exp_rate``, and the bytes at the HBM rate."""
+    flops, nbytes, _, pairs = work
     peak = F32_FLOPS_PER_S if dtype_tag == "f32" else BF16_FLOPS_PER_S
-    side = roofline.bound_side(flops, nbytes, peak, HBM_BYTES_PER_S)
-    return (roofline.roofline_seconds(flops, nbytes, peak, HBM_BYTES_PER_S)
-            * 1e3, "operations" if side == "compute" else "bytes")
+    sides = {"products": flops / peak, "exp": pairs / exp_rate,
+             "bytes": nbytes / HBM_BYTES_PER_S}
+    side = max(sides, key=sides.get)
+    return (sides[side] * 1e3, "bytes" if side == "bytes" else "operations",
+            side)
+
+
+def _flash_check(torch, got, ref, tag, what):
+    """The kernel's output against the plain version's: float32 within
+    FLASH_F32_TOL absolute, bfloat16 within BF16_REL_TOL of max|plain|.
+    Returns the max abs error."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          "flash %s %s: shape/dtype differ" % (what, tag))
+    err = (got.float() - ref.float()).abs().max().item()
+    if tag == "f32":
+        check(err <= FLASH_F32_TOL, "flash f32 %s: max abs err %.3g > %g"
+              % (what, err, FLASH_F32_TOL))
+    else:
+        rel = err / max(ref.float().abs().max().item(), 1e-30)
+        check(rel <= BF16_REL_TOL, "flash bf16 %s: rel err %.3g > %g"
+              % (what, rel, BF16_REL_TOL))
+    return err
 
 
 def phase_flash_kernels(torch, mx, seed):
     """The flash-attention kernel against its plain version at
     FLASH_SHAPES, float32 and bfloat16, from strided q/k/v views (as the
-    model's split gives them); rows that see no key exactly 0; times of
-    kernel, plain version (key block MXTPU_FLASH_BLOCK), SDPA (a yardstick
-    the port never calls, at Tq == Tk only: its causal mask is top-left
-    aligned) and the roofline bound, per launch."""
+    model's split gives them), on the route ``flash_route`` picks (every
+    D <= 128 on a tiled route) and on the rowwise route (the first
+    kernel); rows that see no key exactly 0; a misaligned view, copied by
+    the wrapper.  Times of both kernels, the plain version (key block
+    MXTPU_FLASH_BLOCK), SDPA (a yardstick the port never calls, at Tq ==
+    Tk only: its causal mask is top-left aligned) and the bound with its
+    binding side, per launch."""
     fa = mx.kernels.flash_attention
     roofline = mx.kernels.roofline
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 60)
+    exp_rate, sms, mhz = exp2_per_s(torch)
+    log("flash bound: exponentials at %d/clock/SM x %d SMs x %.0f MHz = "
+        "%.4g/s" % (EXP2_PER_CLOCK_PER_SM, sms, mhz, exp_rate))
     rows = {}
     max_err = 0.0
     for shape in FLASH_SHAPES:
@@ -1578,39 +1637,49 @@ def phase_flash_kernels(torch, mx, seed):
         for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             qs, ks = qsrc.to(dtype), ksrc.to(dtype)
             q, k, v = qs[:, :, 0], ks[:, :, 1], ks[:, :, 2]
+            route = fa.flash_route(dtype, D)
+            check(D > fa.TILED_MAX_HEAD_DIM or route != "rowwise",
+                  "flash %s %s: D %d took the rowwise route" % (shape, tag,
+                                                                D))
+            before = dict(fa.ROUTE_LAUNCHES)
             got = fa.flash_attention_fwd(q, k, v, causal=causal)
+            old = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                         route="rowwise")
             ref = fa.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            check(got.shape == ref.shape and got.dtype == ref.dtype,
-                  "flash %s %s: shape/dtype differ" % (shape, tag))
-            err = (got.float() - ref.float()).abs().max().item()
+            moved = {r: fa.ROUTE_LAUNCHES[r] - before[r] for r in fa.ROUTES}
+            want = {r: 0 for r in fa.ROUTES}
+            want[route] += 1
+            want["rowwise"] += 1
+            check(moved == want, "flash %s %s: route launches %s, expected "
+                  "%s" % (shape, tag, moved, want))
+            err = _flash_check(torch, got, ref, tag, shape)
+            row[tag + "_rowwise_err"] = _flash_check(torch, old, ref, tag,
+                                                     shape)
             if tag == "f32":
-                check(err <= FLASH_F32_TOL, "flash f32 %s: max abs err %.3g "
-                      "> %g" % (shape, err, FLASH_F32_TOL))
-                max_err = max(max_err, err)
-            else:
-                rel = err / max(ref.float().abs().max().item(), 1e-30)
-                check(rel <= BF16_REL_TOL, "flash bf16 %s: rel err %.3g > "
-                      "%g" % (shape, rel, BF16_REL_TOL))
+                max_err = max(max_err, err, row["f32_rowwise_err"])
             dead = Tq - Tk if causal and Tq > Tk else 0
             if dead:
                 check(bool((got[:, :dead] == 0).all())
+                      and bool((old[:, :dead] == 0).all())
                       and bool(torch.isfinite(got).all()),
                       "flash %s %s: rows that see no key are not 0"
                       % (shape, tag))
+            row[tag + "_route"] = route
             row[tag + "_err"] = err
             row[tag + "_ms"] = device_ms(
                 torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+            row[tag + "_rowwise_ms"] = device_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                      route="rowwise"))
             row[tag + "_plain_ms"] = device_ms(
                 torch, lambda: fa.flash_attention_plain(q, k, v,
                                                         causal=causal),
                 iters=5, reps=2)
             work = flash_work(B, Tq, Tk, H, D, causal, q.element_size(),
                               roofline)
-            row[tag + "_bound_ms"], row[tag + "_bound_by"] = flash_bound_ms(
-                work, tag, roofline)
-            row[tag + "_full_bound_ms"], _ = flash_bound_ms(
-                (work[2], work[1], work[2]), tag, roofline)
+            (row[tag + "_bound_ms"], row[tag + "_bound_by"],
+             row[tag + "_bound_side"]) = flash_bound_ms(work, tag, exp_rate)
             row[tag + "_library_ms"] = None
             if Tq == Tk:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
@@ -1622,21 +1691,73 @@ def phase_flash_kernels(torch, mx, seed):
                 row[tag + "_library_ms"] = device_ms(
                     torch, lambda: sdpa(qt, kt, vt, is_causal=causal))
         rows[shape] = row
-        lib = lambda tag: ("%.5f (|diff| %.1e)" % (  # noqa: E731
-            row[tag + "_library_ms"], row[tag + "_library_err"])
-            if row[tag + "_library_ms"] is not None else "n/a")
-        log("flash_attention (B, Tq, Tk, H, D)=%s causal=%s | f32: err %.2e "
-            "ms %.5f plain %.5f sdpa %s bound %.5f (%s; full square %.5f) | "
-            "bf16: err %.2e ms %.5f plain %.5f sdpa %s bound %.5f (%s)" % (
-                str(shape[:5]), causal, row["f32_err"], row["f32_ms"],
-                row["f32_plain_ms"], lib("f32"), row["f32_bound_ms"],
-                row["f32_bound_by"], row["f32_full_bound_ms"],
-                row["bf16_err"], row["bf16_ms"], row["bf16_plain_ms"],
-                lib("bf16"), row["bf16_bound_ms"], row["bf16_bound_by"]))
+        for tag in ("f32", "bf16"):
+            lib = ("%.5f (|diff| %.1e)" % (row[tag + "_library_ms"],
+                                           row[tag + "_library_err"])
+                   if row[tag + "_library_ms"] is not None else "n/a")
+            log("flash_attention (B, Tq, Tk, H, D)=%s causal=%s %-4s | "
+                "route %s: err %.2e ms %.5f | rowwise: err %.2e ms %.5f | "
+                "plain %.5f | sdpa %s | bound %.5f (%s: %s)" % (
+                    str(shape[:5]), causal, tag, row[tag + "_route"],
+                    row[tag + "_err"], row[tag + "_ms"],
+                    row[tag + "_rowwise_err"], row[tag + "_rowwise_ms"],
+                    row[tag + "_plain_ms"], lib, row[tag + "_bound_ms"],
+                    row[tag + "_bound_by"], row[tag + "_bound_side"]))
+    phase_flash_misaligned(torch, mx, gen)
     log("flash_attention kernel: float32 max abs err %.3g against the plain "
-        "version; every shape and dtype within tolerance, rows without a "
-        "visible key exactly 0" % max_err)
+        "version (tiled and rowwise routes); every shape and dtype within "
+        "tolerance on both routes, every D <= %d on a tiled route, rows "
+        "without a visible key exactly 0" % (max_err,
+                                             fa.TILED_MAX_HEAD_DIM))
     return rows, max_err
+
+
+def phase_flash_misaligned(torch, mx, gen):
+    """q, k, v as views one element off a 16-byte boundary (a slice of a
+    flat buffer): the wrapper copies each once for the tiled route's
+    16-byte loads; the result is held to the same tolerances."""
+    fa = mx.kernels.flash_attention
+    B, Tq, Tk, H, D, causal = FLASH_MISALIGNED_SHAPE
+    n = B * Tq * 3 * H * D
+    flat = torch.randn(n + 1, generator=gen, device=gen.device)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        qkv = flat.to(dtype)[1:].view(B, Tq, 3, H, D)
+        q, k, v = qkv[:, :, 0], qkv[:, :Tk, 1], qkv[:, :Tk, 2]
+        check(not any(fa.vector_aligned(t) for t in (q, k, v)),
+              "flash misaligned %s: the views are aligned" % tag)
+        copies = fa.ALIGN_COPIES
+        got = fa.flash_attention_fwd(q, k, v, causal=causal)
+        ref = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = _flash_check(torch, got, ref, tag, "misaligned")
+        check(fa.ALIGN_COPIES - copies == 3, "flash misaligned %s: %d "
+              "alignment copies (expected 3)" % (tag,
+                                                fa.ALIGN_COPIES - copies))
+        check(bool((got[:, :Tq - Tk] == 0).all()),
+              "flash misaligned %s: rows that see no key are not 0" % tag)
+        log("flash_attention misaligned views %s %s: 3 alignment copies, "
+            "err %.2e" % (FLASH_MISALIGNED_SHAPE[:5], tag, err))
+
+
+def _zero_flash_counts(fa):
+    """Every flash count to 0: launches, launches per route, alignment
+    copies."""
+    fa.LAUNCHES = 0
+    fa.ALIGN_COPIES = 0
+    for route in fa.ROUTES:
+        fa.ROUTE_LAUNCHES[route] = 0
+
+
+def _check_flash_route(fa, launches, what):
+    """The main path's launches all took the float32 tiled route, and the
+    model's strided views needed no alignment copy."""
+    log("%s: flash launches by route %s, alignment copies %d" % (
+        what, dict(fa.ROUTE_LAUNCHES), fa.ALIGN_COPIES))
+    check(fa.ROUTE_LAUNCHES["tiled_f32"] == launches,
+          "%s: %d of %d flash launches on the tiled_f32 route" % (
+              what, fa.ROUTE_LAUNCHES["tiled_f32"], launches))
+    check(fa.ALIGN_COPIES == 0, "%s: %d alignment copies of the model's "
+          "views" % (what, fa.ALIGN_COPIES))
 
 
 def _lc_params(torch, mx, seed, ctx):
@@ -1675,7 +1796,7 @@ def _lc_train(torch, mx, params, batches, seq, card, what):
     torch.cuda.reset_peak_memory_stats()
 
     # -- the main path: counts zeroed just before, read just after ---------
-    fa.LAUNCHES = 0
+    _zero_flash_counts(fa)
     stamps, losses = [], []
     for x, y in batches:
         stamps.append(time.perf_counter())
@@ -1685,6 +1806,7 @@ def _lc_train(torch, mx, params, batches, seq, card, what):
     stamps.append(time.perf_counter())
     launches = fa.LAUNCHES
     # ----------------------------------------------------------------------
+    _check_flash_route(fa, launches, what)
 
     peak = torch.cuda.max_memory_allocated()
     n = len(batches)
@@ -1717,7 +1839,7 @@ def phase_lc_serving(torch, mx, params, seed, card):
     torch.cuda.synchronize()
 
     # -- the main path: counts zeroed just before, read just after ---------
-    fa.LAUNCHES = 0
+    _zero_flash_counts(fa)
     times, outs = [], []
     with torch.inference_mode():
         for x in requests:
@@ -1727,6 +1849,7 @@ def phase_lc_serving(torch, mx, params, seed, card):
             times.append(time.perf_counter() - t0)
     launches = fa.LAUNCHES
     # ----------------------------------------------------------------------
+    _check_flash_route(fa, launches, "lc serving")
 
     log("lc serving: flash_attention launches over %d forwards: %d "
         "(expected %d)" % (LC_FORWARDS, launches, LC_LAYERS * LC_FORWARDS))
@@ -1903,7 +2026,7 @@ def long_context_paths(torch, mx, seed, card):
         ("flash_attention_fwd",), "batch %d x %d tokens" % (LC_BATCH,
                                                            LC_MAX_LEN))
     per_step = sum(c for k, c in counts.items()
-                   if "flash_attention_fwd_kernel" in k) / PROFILE_STEPS
+                   if any(n in k for n in FLASH_KERNEL_NAMES)) / PROFILE_STEPS
     log("lc profile: %.1f flash_attention launches per step (expected %d)"
         % (per_step, LC_LAYERS))
     check(per_step == LC_LAYERS, "profiled flash launches per step %.1f"
@@ -1938,9 +2061,12 @@ RTC_BODIES = (
     ("affine", "out = 2.0f * in + 1.0f;"),
 )
 #: ResNet-50's largest activation at batch 32, the fine-tune's features,
-#: an odd shape, a transposed (non-contiguous) view of (32, 2048), empty
+#: an odd shape, a transposed (non-contiguous) view of (32, 2048), a flat
+#: input that starts one element (4 or 2 bytes) off a 16-byte boundary,
+#: empty
 RTC_SIZES = ((32, 256, 56, 56), (32, 2048), ODD_SHAPE, "transposed",
-             (0, 2048))
+             "misaligned", (0, 2048))
+RTC_MISALIGNED_N = 32 * 2048 + 5  # elements after the one-element offset
 RTC_MODEL_SIZE = (32, 256, 56, 56)
 #: float32: max |kernel - plain| within this x max |plain| (the same expf
 #: and division, rounded in another order at most); bfloat16 and float16:
@@ -1988,8 +2114,13 @@ def rtc_kernels(torch, mx):
 
 
 def _rtc_input(torch, size, gen, dev):
+    """The float32 source of an rtc input (for "misaligned", a flat tensor
+    one element longer: the input is its ``[1:]`` in the working dtype)."""
     if size == "transposed":
         return torch.randn(2048, 32, generator=gen, device=dev).t() * 4.0
+    if size == "misaligned":
+        return torch.randn(RTC_MISALIGNED_N + 1, generator=gen,
+                           device=dev) * 4.0
     return torch.randn(size, generator=gen, device=dev) * 4.0
 
 
@@ -2028,6 +2159,10 @@ def phase_rtc_kernels(torch, mx, rtc, seed):
                                (torch.bfloat16, "bf16"),
                                (torch.float16, "f16")):
                 x = x32.to(dtype)
+                if size == "misaligned":
+                    x = x[1:]
+                    check(x.data_ptr() % 16 != 0, "rtc misaligned %s: the "
+                          "input is 16-byte aligned" % tag)
                 before = mx.rtc.LAUNCHES
                 y = k(x)
                 ref = k.plain(x)
@@ -2063,15 +2198,17 @@ def phase_rtc_kernels(torch, mx, rtc, seed):
                         torch, lambda: F.silu(x))
             r = rows[(name, size)]
             if "f32_ms" in r:
+                lib = lambda tag: (  # noqa: E731
+                    " library %.4f" % r[tag + "_library_ms"]
+                    if tag + "_library_ms" in r else "")
                 log("rtc %-6s %-17s f32: err %.2e ms %.4f plain %.4f%s bound "
-                    "%.4f | bf16: %.2g ulp ms %.4f bound %.4f | f16: %.2g "
-                    "ulp ms %.4f bound %.4f" % (
+                    "%.4f | bf16: %.2g ulp ms %.4f plain %.4f%s bound %.4f | "
+                    "f16: %.2g ulp ms %.4f plain %.4f%s bound %.4f" % (
                         name, size, r["f32_err"], r["f32_ms"],
-                        r["f32_plain_ms"],
-                        " library %.4f" % r["f32_library_ms"]
-                        if "f32_library_ms" in r else "",
-                        r["f32_bound_ms"], r["bf16_ulps"], r["bf16_ms"],
-                        r["bf16_bound_ms"], r["f16_ulps"], r["f16_ms"],
+                        r["f32_plain_ms"], lib("f32"), r["f32_bound_ms"],
+                        r["bf16_ulps"], r["bf16_ms"], r["bf16_plain_ms"],
+                        lib("bf16"), r["bf16_bound_ms"], r["f16_ulps"],
+                        r["f16_ms"], r["f16_plain_ms"], lib("f16"),
                         r["f16_bound_ms"]))
             else:
                 log("rtc %-6s %-17s empty: no launch, shape kept"

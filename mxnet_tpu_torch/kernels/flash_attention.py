@@ -17,7 +17,10 @@ in the JAX package.
 - :func:`flash_attention_fwd` — the kernel wrapper: a CPU tensor takes
   the plain version; a CUDA tensor launches ``csrc/flash_attention.cu``
   (which replaces ``_flash_pallas_fwd`` / ``_flash_kernel``, :137-220) or
-  raises.
+  raises.  :func:`flash_route` picks the kernel's route from the dtype and
+  head dim: ``mma_bf16`` (bfloat16 on the tensor cores, D <= 128),
+  ``tiled_f32`` (register-tiled float32, D <= 128) or ``rowwise`` (the
+  first kernel, D up to 256).
 - :class:`FlashAttentionFn` — the port of the ``custom_vjp`` pair
   (:223-244): the forward is the kernel and saves q, k, v only; the
   backward recomputes through :func:`flash_attention_plain` with torch
@@ -42,15 +45,29 @@ import torch.nn.functional as F
 from ..base import get_env
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
-           "FlashAttentionFn", "online_update", "default_block", "LAUNCHES",
-           "MAX_HEAD_DIM"]
+           "FlashAttentionFn", "online_update", "default_block", "flash_route",
+           "vector_aligned", "LAUNCHES", "ROUTE_LAUNCHES", "ALIGN_COPIES",
+           "ROUTES", "MAX_HEAD_DIM", "TILED_MAX_HEAD_DIM"]
 
-#: launches of the CUDA kernel since the process started (or the caller
-#: last reset it); incremented only where the kernel is launched
+#: launches of the CUDA kernel (any route) since the process started (or
+#: the caller last reset it); incremented only where a kernel is launched
 LAUNCHES = 0
+
+#: the kernel's routes: bfloat16 on the tensor cores, register-tiled
+#: float32, and the first kernel (one query row per group of lanes)
+ROUTES = ("mma_bf16", "tiled_f32", "rowwise")
+
+#: launches per route, beside ``LAUNCHES`` (which counts them all)
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+#: tensors the wrapper copied to meet the tiled routes' 16-byte alignment
+ALIGN_COPIES = 0
 
 #: the largest head dim the kernel is instantiated for
 MAX_HEAD_DIM = 256
+
+#: the largest head dim of the tiled routes; above it, ``rowwise``
+TILED_MAX_HEAD_DIM = 128
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -140,20 +157,68 @@ def flash_attention_plain(q, k, v, causal=False, scale=None, block_k=None):
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_FNS = []
+_FNS = {}
+
+_ENTRIES = {"mma_bf16": "mxt_flash_attention_fwd",
+            "tiled_f32": "mxt_flash_attention_fwd",
+            "rowwise": "mxt_flash_attention_fwd_rowwise"}
 
 
-def _kernel():
-    """The C entry point of ``csrc/flash_attention.cu``, built and loaded
-    on first use."""
-    if not _FNS:
+def _kernel(route):
+    """The C entry point of ``csrc/flash_attention.cu`` for ``route``,
+    built and loaded on first use."""
+    entry = _ENTRIES[route]
+    if entry not in _FNS:
         from . import load_library
-        fn = load_library("flash_attention").mxt_flash_attention_fwd
+        fn = getattr(load_library("flash_attention"), entry)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 14 + \
             [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FNS.append(fn)
-    return _FNS[0]
+        _FNS[entry] = fn
+    return _FNS[entry]
+
+
+def flash_route(dtype, head_dim):
+    """The kernel's route for q's ``dtype`` and head dim: ``"mma_bf16"``
+    for bfloat16 and ``"tiled_f32"`` for float32 up to
+    ``TILED_MAX_HEAD_DIM``, ``"rowwise"`` above it."""
+    if head_dim <= TILED_MAX_HEAD_DIM:
+        if dtype == torch.bfloat16:
+            return "mma_bf16"
+        if dtype == torch.float32:
+            return "tiled_f32"
+    return "rowwise"
+
+
+def vector_aligned(t):
+    """Whether the tiled routes stage (B, T, H, D) ``t`` with 16-byte
+    ``cp.async`` copies: its base pointer and its b, t and h strides times
+    the element size are multiples of 16 bytes (a dim of length 1 does not
+    count), and a row of D elements is a whole number of 16-byte chunks.
+    ``csrc/flash_attention.cu`` (``rows_aligned``) decides the same way;
+    where it is False the kernel stages with element loads."""
+    es = t.element_size()
+    if (t.shape[-1] * es) % 16 or t.data_ptr() % 16:
+        return False
+    return all((st * es) % 16 == 0
+               for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _staged(t, route):
+    """``t`` as the kernel takes it: a non-unit head stride is made
+    contiguous; for a tiled route, a view whose rows could take 16-byte
+    copies but whose base or strides are misaligned is copied into a new
+    contiguous tensor (counted in ``ALIGN_COPIES``).  A row that is not a
+    whole number of 16-byte chunks (D 5, D 12 in bfloat16) is not copied:
+    the kernel stages it with element loads."""
+    global ALIGN_COPIES
+    if t.stride(-1) != 1 and t.shape[-1] != 1:
+        t = t.contiguous()
+    if route != "rowwise" and (t.shape[-1] * t.element_size()) % 16 == 0 \
+            and not vector_aligned(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        ALIGN_COPIES += 1
+    return t
 
 
 def _check_cuda_args(q, k, v):
@@ -183,28 +248,40 @@ def _check_cuda_args(q, k, v):
                          "the largest instantiated (%d)" % (D, MAX_HEAD_DIM))
 
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None):
+def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None,
+                        route=None):
     """The kernel's wrapper: softmax attention (B, Tq, H, D) in q's dtype.
 
     A CPU tensor takes :func:`flash_attention_plain` (with ``block`` as
     its key block).  A CUDA tensor launches ``csrc/flash_attention.cu`` on
-    the current stream, or raises (:func:`_check_cuda_args`).  The kernel
-    takes each tensor's strides, so strided views (the model's q, k, v are
-    slices of one qkv product) are passed as they are; only a tensor whose
-    head dim is not contiguous is copied with ``.contiguous()`` first.
-    The output is a new contiguous tensor; nothing synchronises."""
+    the current stream, or raises (:func:`_check_cuda_args`), through the
+    route :func:`flash_route` picks (``route`` names another one for a
+    comparison: ``"rowwise"`` takes any D up to 256, the tiled routes
+    only their own dtype and D up to 128).  The kernel takes each
+    tensor's strides, so strided views (the model's q, k, v are slices of
+    one qkv product) are passed as they are; a tensor whose head dim is
+    not contiguous is copied with ``.contiguous()`` first, and, for a
+    tiled route, a view whose rows are not 16-byte aligned although D
+    elements make whole 16-byte chunks is copied into a new contiguous
+    tensor (``ALIGN_COPIES``; the model's views need no copy).  The
+    output is a new contiguous tensor; nothing synchronises."""
     global LAUNCHES
     scale = _scale(scale, q.shape[-1])
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_k=block)
     _check_cuda_args(q, k, v)
-    q, k, v = (t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
-               for t in (q, k, v))
     B, Tq, H, D = q.shape
+    auto = flash_route(q.dtype, D)
+    route = route or auto
+    if route not in ROUTES or (route != "rowwise" and route != auto):
+        raise ValueError("flash_attention kernel: route %r does not take "
+                         "%s at D=%d (routes: %s; this one: %s)"
+                         % (route, q.dtype, D, ", ".join(ROUTES), auto))
+    q, k, v = (_staged(t, route) for t in (q, k, v))
     Tk = k.shape[1]
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    fn = _kernel()
+    fn = _kernel(route)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -213,9 +290,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None):
                  v.stride(1), v.stride(2), int(bool(causal)), float(scale),
                  _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: CUDA error "
-                           "%d" % err)
+        raise RuntimeError("flash_attention kernel launch failed (route "
+                           "%s): CUDA error %d" % (route, err))
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

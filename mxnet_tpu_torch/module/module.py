@@ -194,14 +194,16 @@ class Module(BaseModule):
         host = cpu()
         if self._arg_params is None:
             self._arg_params = {
-                name: nd_zeros(arr[0].shape, ctx=host, dtype=arr[0].dtype)
+                name: nd_zeros(arr[0].shape, ctx=host,
+                               dtype=arr[0]._data.dtype)
                 for name, arr in zip(
                     [n for n in self._param_names
                      if n in self._symbol.list_arguments()],
                     self._exec_group.param_arrays)}
         if self._aux_params is None:
             self._aux_params = {
-                name: nd_zeros(arr[0].shape, ctx=host, dtype=arr[0].dtype)
+                name: nd_zeros(arr[0].shape, ctx=host,
+                               dtype=arr[0]._data.dtype)
                 for name, arr in zip(self._aux_names,
                                      self._exec_group.aux_arrays)}
         attrs = self._symbol.attr_dict()

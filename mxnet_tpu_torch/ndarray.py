@@ -90,8 +90,15 @@ class NDArray(object):
 
     @property
     def dtype(self):
-        """The element type as a ``torch.dtype``."""
-        return self._data.dtype
+        """The element type as the reference gives it
+        (``mxnet_tpu/ndarray.py:167-169``): the numpy scalar type, such as
+        ``np.float32``, ``np.float16`` or ``np.int32``, so ``a.dtype ==
+        np.float32`` holds.  Divergence: numpy has no bfloat16 and the
+        port does not import ``ml_dtypes``, so a bfloat16 array answers
+        the string ``"bfloat16"`` (the name of the reference's
+        ``ml_dtypes.bfloat16``; every dtype argument of the port takes
+        it).  Internal code reads ``._data.dtype``, the ``torch.dtype``."""
+        return _numpy_type(self._data.dtype)
 
     @property
     def context(self):
@@ -177,6 +184,19 @@ def array(source_array, ctx=None, dtype=None):
     elif not isinstance(source_array, (NDArray, torch.Tensor)):
         src = src.to(torch.float32)
     return NDArray(src.clone(), ctx=ctx)
+
+
+_NUMPY_TYPES = {torch.bfloat16: "bfloat16"}
+
+
+def _numpy_type(torch_dtype):
+    """The numpy scalar type of a torch dtype; ``"bfloat16"`` for
+    bfloat16, which numpy lacks (see :attr:`NDArray.dtype`)."""
+    found = _NUMPY_TYPES.get(torch_dtype)
+    if found is None:
+        found = _NUMPY_TYPES[torch_dtype] = torch.empty(
+            (), dtype=torch_dtype).numpy().dtype.type
+    return found
 
 
 def _torch_dtype(dtype):

@@ -136,7 +136,8 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
-        return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+        return zeros(weight.shape, ctx=weight.context,
+                     dtype=weight._data.dtype)
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -164,8 +165,9 @@ class Adam(Optimizer):
         self.epsilon = epsilon
 
     def create_state(self, index, weight):
-        return (zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
-                zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
+        dtype = weight._data.dtype
+        return (zeros(weight.shape, ctx=weight.context, dtype=dtype),
+                zeros(weight.shape, ctx=weight.context, dtype=dtype))
 
     def update(self, index, weight, grad, state):
         self._update_count(index)

@@ -9,7 +9,9 @@ kernel language:
   (a statement over ``in`` that assigns ``out``) into ``fn(x) -> y``: the
   body is pasted into the template ``csrc/rtc_elementwise.cu``, built with
   ``nvcc`` at the first call on a CUDA tensor and launched on the current
-  stream.  It replaces ``elementwise_pallas_kernel``
+  stream; it moves 16 bytes per load and store over the aligned body of
+  the array, element by element over a scalar head and tail
+  (:func:`vector_split`).  It replaces ``elementwise_pallas_kernel``
   (``mxnet_tpu/rtc.py:124-143``).  A CPU tensor takes the ``plain``
   callable the caller passes; a CUDA tensor always launches the kernel or
   raises.
@@ -33,7 +35,8 @@ from .base import MXNetError
 from .ops.registry import OP_REGISTRY, fn_signature_info, register
 
 __all__ = ["register_kernel", "elementwise_cuda_kernel", "ElementwiseKernel",
-           "MXRtc", "on_gpu", "render", "LAUNCHES"]
+           "MXRtc", "on_gpu", "render", "vector_split", "LAUNCHES",
+           "VECTOR_BYTES"]
 
 #: launches of rtc elementwise kernels since the process started (or the
 #: caller last reset it); incremented only where a kernel is launched
@@ -47,6 +50,38 @@ _ENTRIES = {torch.float32: "mxt_rtc_elementwise_f32",
             torch.bfloat16: "mxt_rtc_elementwise_bf16",
             torch.float16: "mxt_rtc_elementwise_f16",
             torch.float64: "mxt_rtc_elementwise_f64"}
+
+
+#: bytes the kernel moves per vector load and store
+VECTOR_BYTES = 16
+
+
+def vector_split(address, n, itemsize):
+    """``(head, vectors, tail)``: how the kernel covers ``n`` elements of
+    ``itemsize`` bytes that start at byte ``address``.  ``head`` scalar
+    elements run up to the first 16-byte boundary, ``vectors`` aligned
+    16-byte vectors follow, and ``tail`` scalar elements end it (fewer
+    than one vector's worth).  ``csrc/rtc_elementwise.cu`` takes this
+    split and refuses any other."""
+    per = VECTOR_BYTES // itemsize
+    head = min((-address % VECTOR_BYTES) // itemsize, n)
+    vectors = (n - head) // per
+    return head, vectors, n - head - vectors * per
+
+
+def _output_like(x):
+    """An empty contiguous tensor of ``x``'s shape and dtype that starts
+    at ``x``'s offset from a 16-byte boundary, so one :func:`vector_split`
+    serves the input and the output: a fresh tensor when ``x`` is
+    aligned, else a view into a buffer one vector longer."""
+    es = x.element_size()
+    lead = x.data_ptr() % VECTOR_BYTES
+    if lead == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    buf = torch.empty(x.numel() + VECTOR_BYTES // es, dtype=x.dtype,
+                      device=x.device)
+    start = (lead - buf.data_ptr() % VECTOR_BYTES) % VECTOR_BYTES // es
+    return buf[start:start + x.numel()].view(x.shape)
 
 
 def render(body):
@@ -112,8 +147,8 @@ class ElementwiseKernel(object):
         if fn is None:
             self.build()
             fn = getattr(self._lib, _ENTRIES[dtype])
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
+                [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fns[dtype] = fn
         return fn
@@ -141,14 +176,15 @@ class ElementwiseKernel(object):
                              "supported (float32, bfloat16, float16, "
                              "float64)" % x.dtype)
         x = x.detach().contiguous()
-        y = torch.empty_like(x)
         n = x.numel()
         if n == 0:
-            return y
+            return torch.empty_like(x)
+        y = _output_like(x)
+        head, vectors, _ = vector_split(x.data_ptr(), n, x.element_size())
         fn = self._entry(x.dtype)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), y.data_ptr(), n, stream)
+            err = fn(x.data_ptr(), y.data_ptr(), n, head, vectors, stream)
         if err != 0:
             raise MXNetError("rtc elementwise kernel launch failed: CUDA "
                              "error %d" % err)

@@ -187,5 +187,5 @@ def test_cuda_kernel_matches_plain(dtype, shape):
 def test_bf16_numpy_arrays_carry_into_port():
     a = np.arange(6, dtype=np.float32).reshape(2, 3).astype(ml_dtypes.bfloat16)
     t = mxt.nd.array(a, ctx=mxt.cpu(), dtype=a.dtype)
-    assert t.dtype == torch.bfloat16
+    assert t.dtype == "bfloat16" and t._data.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.asnumpy(), a.astype(np.float32))

@@ -11,8 +11,10 @@ Tolerances: float32 rtol/atol 1e-5 forward and 1e-4 for q/k/v gradients
 packages contract in other orders); bfloat16 rtol/atol 5e-2 (the JAX lax
 tier rounds its products to bfloat16 where the port and the Pallas kernel
 compute in float32: ``tests/test_kernels.py``'s bfloat16 tolerance).  The
-roofline accounting is equal.  The CUDA kernel is held against the plain
-version by the ``cuda``-marked test, which skips without a card."""
+roofline accounting is equal.  The route function and the 16-byte
+alignment check (and the copies it asks for) are plain Python, tested
+here; the CUDA kernel's routes are held against the plain version by the
+``cuda``-marked tests, which skip without a card."""
 import types
 
 import jax
@@ -232,6 +234,78 @@ def test_roofline_matches_jax(name, shape, itemsize):
     assert troof.bound_side(*args) == jroof.bound_side(*args)
 
 
+@pytest.mark.parametrize("dtype,D,want", [
+    ("float32", 16, "tiled_f32"), ("bfloat16", 16, "mma_bf16"),
+    ("float32", 64, "tiled_f32"), ("bfloat16", 64, "mma_bf16"),
+    ("float32", 8, "tiled_f32"), ("bfloat16", 8, "mma_bf16"),
+    ("float32", 128, "tiled_f32"), ("bfloat16", 128, "mma_bf16"),
+    ("float32", 40, "tiled_f32"), ("bfloat16", 40, "mma_bf16"),
+    ("float32", 129, "rowwise"), ("bfloat16", 256, "rowwise"),
+    ("float32", 256, "rowwise")])
+def test_flash_route(dtype, D, want):
+    """The kernel's route from (dtype, D): every head dim of the smoke's
+    shapes up to 128 takes a tiled route in both dtypes, above it the
+    rowwise kernel."""
+    assert TFA.flash_route(getattr(torch, dtype), D) == want
+    assert want in TFA.ROUTES
+
+
+def _qkv_views(dtype, D, offset=0):
+    """q, k, v as the model's split gives them: strided views of one
+    (B, T, 3, H, D) product, starting ``offset`` elements into a flat
+    buffer."""
+    B, T, H = 2, 24, 3
+    n = B * T * 3 * H * D
+    flat = torch.arange(n + offset, dtype=torch.float32).to(dtype)
+    qkv = flat[offset:].view(B, T, 3, H, D)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_alignment_check_and_staging_copies(dtype):
+    """16-byte alignment for the tiled routes' cp.async: an aligned
+    strided qkv view is taken as it is; the same view starting one element
+    off is misaligned and copied once per tensor into an aligned
+    contiguous tensor of the same values (counted); a head dim whose row
+    is not whole 16-byte chunks (D 5, or D 12 in bfloat16) is never
+    copied: the kernel stages it with element loads."""
+    dt = getattr(torch, dtype)
+    route = TFA.flash_route(dt, 16)
+    views = _qkv_views(dt, 16)
+    for t in views:
+        assert t.stride() == (24 * 3 * 3 * 16, 3 * 3 * 16, 16, 1)
+        assert TFA.vector_aligned(t)
+        before = TFA.ALIGN_COPIES
+        assert TFA._staged(t, route) is t
+        assert TFA.ALIGN_COPIES == before
+    for t in _qkv_views(dt, 16, offset=1):
+        assert not TFA.vector_aligned(t)
+        before = TFA.ALIGN_COPIES
+        got = TFA._staged(t, route)
+        assert TFA.ALIGN_COPIES == before + 1
+        assert got.is_contiguous() and TFA.vector_aligned(got)
+        assert torch.equal(got, t)
+        # the rowwise kernel takes any alignment: no copy
+        assert TFA._staged(t, "rowwise") is t
+    narrow = [5, 12] if dtype == "bfloat16" else [5, 3]
+    for D in narrow:
+        for t in _qkv_views(dt, D, offset=1) + _qkv_views(dt, D):
+            assert not TFA.vector_aligned(t)
+            before = TFA.ALIGN_COPIES
+            assert TFA._staged(t, TFA.flash_route(dt, D)) is t
+            assert TFA.ALIGN_COPIES == before
+
+
+def test_alignment_ignores_strides_of_length_one_dims():
+    """A dim of length 1 contributes no row start, so its stride does not
+    count (as in the kernel's ``rows_aligned``)."""
+    buf = torch.zeros(1024)
+    t = buf.as_strided((1, 8, 1, 16), (3, 16, 5, 1))
+    assert TFA.vector_aligned(t)
+    u = buf.as_strided((2, 8, 1, 16), (131, 16, 5, 1))
+    assert not TFA.vector_aligned(u)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Tq,Tk,H,D,causal", [
@@ -251,10 +325,13 @@ def test_cuda_kernel_matches_plain(dtype, B, Tq, Tk, H, D, causal):
                       device="cuda").to(dt)
     q, k, v = qkv[:, :Tq, 0], qkv[:, :Tk, 1], qkv[:, :Tk, 2]
     before = TFA.LAUNCHES
+    route = TFA.flash_route(dt, D)
+    route_before = TFA.ROUTE_LAUNCHES[route]
     got = TFA.flash_attention_fwd(q, k, v, causal=causal)
     ref = TFA.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert TFA.LAUNCHES == before + 1
+    assert TFA.ROUTE_LAUNCHES[route] == route_before + 1
     assert got.shape == ref.shape and got.dtype == ref.dtype
     err = (got.float() - ref.float()).abs().max().item()
     if dt == torch.float32:
@@ -270,3 +347,42 @@ def test_cuda_kernel_matches_plain(dtype, B, Tq, Tk, H, D, causal):
     big = torch.zeros((1, 4, 1, 264), device="cuda", dtype=dt)
     with pytest.raises(ValueError, match="D=264"):
         TFA.flash_attention_fwd(big, big, big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,offset", [(40, 0), (5, 0), (12, 0), (16, 1),
+                                      (64, 0)])
+def test_cuda_routes_agree_with_plain(dtype, D, offset):
+    """On a CUDA card: the tiled route and the rowwise route against the
+    plain version at head dims that are not a multiple of 16 (40), not a
+    whole 16-byte row (5, and 12 in bfloat16: element loads), and from a
+    misaligned view (copied once per tensor); causal with Tq > Tk, so the
+    first rows see no key and are exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    B, Tq, Tk, H = 2, 150, 90, 2
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    flat = torch.randn(B * Tq * 3 * H * D + offset, generator=gen,
+                       device="cuda").to(dt)
+    qkv = flat[offset:].view(B, Tq, 3, H, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :Tk, 1], qkv[:, :Tk, 2]
+    ref = TFA.flash_attention_plain(q, k, v, causal=True)
+    top = ref.float().abs().max().item()
+    for route in (TFA.flash_route(dt, D), "rowwise"):
+        copies = TFA.ALIGN_COPIES
+        got = TFA.flash_attention_fwd(q, k, v, causal=True, route=route)
+        torch.cuda.synchronize()
+        expect = 3 if (offset and route != "rowwise"
+                       and D * q.element_size() % 16 == 0) else 0
+        assert TFA.ALIGN_COPIES == copies + expect
+        err = (got.float() - ref.float()).abs().max().item()
+        if dt == torch.float32:
+            assert err <= 2e-5, (route, err)
+        else:
+            assert err <= 1e-2 * top, (route, err)
+        assert (got[:, :Tq - Tk] == 0).all()
+    with pytest.raises(ValueError, match="route"):
+        TFA.flash_attention_fwd(q, k, v, route="mma_bf16" if dt ==
+                                torch.float32 else "tiled_f32")

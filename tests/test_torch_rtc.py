@@ -171,7 +171,7 @@ def test_mxrtc_passes_grid_dims_and_casts():
     tmx.rtc.MXRtc("k", [("a", a)], [("o", out)], kernel).push(
         [a], [out], (2, 1, 1), (3, 1, 1))
     assert seen["dims"] == ((2, 1, 1), (3, 1, 1))
-    assert out.dtype == torch.float64
+    assert out.dtype is np.float64 and out._data.dtype == torch.float64
     np.testing.assert_array_equal(out.asnumpy(), a.asnumpy() * 2.0)
     ek = tmx.rtc.elementwise_cuda_kernel(AFFINE, plain=_affine_plain)
     tmx.rtc.MXRtc("e", [("a", a)], [("o", out)], ek).push([a], [out])
@@ -341,6 +341,57 @@ def test_on_gpu_is_cuda_availability():
     assert tmx.rtc.on_gpu() == torch.cuda.is_available()
 
 
+@pytest.mark.parametrize("address,n,itemsize,want", [
+    (0, 0, 4, (0, 0, 0)),
+    (0, 3, 4, (0, 0, 3)),             # shorter than one vector: all tail
+    (0, 4, 4, (0, 1, 0)),
+    (0, 10, 4, (0, 2, 2)),
+    (4, 10, 4, (3, 1, 3)),            # a float32 x[1:]: 4 bytes off
+    (4, 2, 4, (2, 0, 0)),             # all head
+    (12, 25690112, 4, (1, 6422527, 3)),
+    (0, 25690112, 4, (0, 6422528, 0)),  # (32, 256, 56, 56) float32
+    (2, 17, 2, (7, 1, 2)),            # bfloat16/float16, 8 a vector
+    (14, 9, 2, (1, 1, 0)),
+    (8, 5, 8, (1, 2, 0)),             # float64, 2 a vector
+    (16 * 7 + 4, 1, 4, (1, 0, 0))])
+def test_vector_split(address, n, itemsize, want):
+    """How the kernel covers n elements starting at a byte address: a
+    scalar head up to the first 16-byte boundary, whole 16-byte vectors,
+    a scalar tail of less than one vector; every element exactly once."""
+    head, vectors, tail = trtc.vector_split(address, n, itemsize)
+    assert (head, vectors, tail) == want
+    per = 16 // itemsize
+    assert head + vectors * per + tail == n
+    assert 0 <= head < per and 0 <= tail < per
+    if vectors:
+        assert (address + head * itemsize) % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "float64"])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_output_starts_at_the_inputs_offset(dtype, offset):
+    """The output is allocated at the input's offset from a 16-byte
+    boundary (a view into a slightly longer buffer when it is not 0), so
+    one split serves both; it is contiguous and of the input's shape."""
+    dt = getattr(torch, dtype)
+    x = torch.zeros(40 + offset, dtype=dt)[offset:].view(5, 8)
+    y = trtc._output_like(x)
+    assert y.shape == x.shape and y.dtype == dt and y.is_contiguous()
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    split = trtc.vector_split(x.data_ptr(), x.numel(), x.element_size())
+    assert split == trtc.vector_split(y.data_ptr(), y.numel(),
+                                      y.element_size())
+
+
+def test_render_keeps_one_body_for_every_element_path():
+    """The rendered source holds the body once, in the one per-element
+    function that the vector body, the head and the tail all call."""
+    src = trtc.render(AFFINE)
+    assert src.count(AFFINE) == 1
+    assert src.count("apply(in[") == 2 and src.count("apply(r[u].v[e])") == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
                                    "float64"])
@@ -374,3 +425,30 @@ def test_cuda_kernel_matches_plain(dtype):
     assert trtc.LAUNCHES == before + 1
     with pytest.raises(tmx.MXNetError, match="dtype"):
         k(torch.ones(4, device="cuda", dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("offset,n", [(1, 4099), (3, 4101), (0, 7),
+                                      (1, 2)])
+def test_cuda_kernel_misaligned_input(dtype, offset, n):
+    """On a CUDA card: an input that starts off a 16-byte boundary (a
+    slice of a flat tensor), with a scalar head and tail: float32 silu
+    bit-equal to the plain version, bfloat16/float16 within one ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    k = tmx.rtc.elementwise_cuda_kernel(SILU, plain=_silu_plain)
+    flat = (torch.randn(n + offset, device="cuda") * 4).to(dt)
+    x = flat[offset:]
+    y = k(x)
+    ref = _silu_plain(x.float()).to(dt)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.data_ptr() % 16 == x.data_ptr() % 16
+    if dt == torch.float32:
+        assert torch.equal(y, ref)
+    else:
+        err = (y.double() - ref.double()).abs()
+        mbits = 7 if dt == torch.bfloat16 else 10
+        exp = torch.frexp(ref.float()).exponent.double()
+        assert bool((err <= torch.pow(2.0, exp - 1 - mbits)).all())
