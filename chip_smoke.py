@@ -43,26 +43,41 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
    plain versions at (B, H) = (32, 200), (4, 200), (7, 13) and
    (128, 1024), float32 and bfloat16, and times kernel, plain version,
    PyTorch's own fused LSTM cell (a yardstick the port never calls) and
-   the memory-traffic bound;
+   the memory-traffic bound; then the recurrence of the fused ``RNN``
+   op (``lstm_seq``) at (T, N, H) = (32, 32, 200), (32, 4, 200),
+   (5, 7, 13), the largest H the persistent route takes in float32 at
+   batch 32, and (8, 128, 1024), which takes ``per_step``: the route
+   each shape takes, its forward and backward against the plain
+   versions, the plan's clusters against the ones the card holds at
+   once; and times the persistent kernels, the ``per_step`` route, the
+   plain versions, the bound and cuDNN's one-layer ``torch.nn.LSTM`` (a
+   yardstick the port never calls; it includes the input projection,
+   so the port's projection ``addmm`` plus the kernel is timed beside
+   it);
 9. trains the 2-layer LSTM language model (``models/lstm_lm``: vocab
    10000, embed and hidden 200, 32 steps, batch 32) through
    ``SPMDTrainer`` with bench.py's ``_lstm_bench`` settings on ``gpu(0)``,
-   float32: exactly 64 ``lstm_cell`` forward and 64 backward launches per
-   step, finite losses, a cross-entropy that falls on a fixed batch, no
-   skipped step, moved params; steady ms/step, tokens/s and peak memory;
-   then a few steps of the bench's own ``compute_dtype="bfloat16"``;
+   float32: exactly 2 persistent forward and 2 backward launches per
+   step (one a layer) and no ``lstm_cell`` launch, finite losses, a
+   cross-entropy that falls on a fixed batch, no skipped step, moved
+   params; steady ms/step, tokens/s and peak memory; then a few steps of
+   the bench's own ``compute_dtype="bfloat16"``; then, in float32 and in
+   bfloat16, the step time of both routes in turns (persistent,
+   per_step, per_step, persistent);
 10. runs the example's unrolled graph (``rnn.SequentialRNNCell`` of two
     ``rnn.LSTMCell``s, which emit ``_FusedLSTMCell``) through
     ``simple_bind`` -> ``forward(is_train=True)`` -> ``backward()`` at
-    batch 32 (64 + 64 launches) and holds it against the ``FusedRNNCell``
-    graph (the fused ``RNN`` op) given the same weights by
-    ``pack_weights``;
-11. holds one batch-4 LM forward/backward on the card (fused, and with
-    ``MXTPU_FUSED_KERNELS=0``, which must launch no ``lstm_cell`` kernel)
-    against the port's CPU path, and both against a float64 CPU run;
-12. serves the LM through ``Predictor`` from a checkpoint at batch 32 (64
-    forward launches and no backward one per forward), and traces a few
-    LM training steps (``torch.profiler``);
+    batch 32 (64 + 64 ``lstm_cell`` launches, no persistent one) and
+    holds it against the ``FusedRNNCell`` graph (the fused ``RNN`` op)
+    given the same weights by ``pack_weights``;
+11. holds one batch-4 LM forward/backward on the card (fused: 2 + 2
+    persistent launches; and with ``MXTPU_FUSED_KERNELS=0``, which must
+    launch no LSTM kernel) against the port's CPU path, and both against
+    a float64 CPU run;
+12. serves the LM through ``Predictor`` from a checkpoint at batch 32 (2
+    persistent forward launches per forward, no gate residuals written,
+    no backward), and traces a few LM training steps on each route
+    (``torch.profiler``);
 13. holds the flash-attention forward against its plain version, on
     the route ``flash_route`` picks (``mma_bf16`` for bfloat16 and
     ``tiled_f32`` for float32, every D <= 128) and on the first
@@ -151,6 +166,20 @@ LM_AGREE_BATCH = 4
 #: odd one, and one large enough for bytes to count
 LSTM_SHAPES = ((32, 200), (4, 200), (7, 13), (128, 1024))
 LSTM_F32_TOL = (2e-6, 1e-5)  # max abs error: (h, c), (dgates, dc_prev)
+#: (T, N, H) of the lstm_seq checks: the LM's layer, the agreement batch's,
+#: an odd one, the largest H the persistent route takes in float32 at
+#: batch 32 (None: found from lstm_seq_route), and H = 1024, which must
+#: take per_step
+LSTM_SEQ_SHAPES = ((LM_SEQ, LM_BATCH, LM_HIDDEN),
+                   (LM_SEQ, LM_AGREE_BATCH, LM_HIDDEN), (5, 7, 13), None,
+                   (8, 128, 1024))
+# float32 lstm_seq kernel vs plain, max |diff| / max |plain| of each
+# output: both float32, but the kernel sums each recurrent product (200 to
+# 452 terms) in another order than cuBLAS (split over lanes, added by
+# shuffles), a few ulp a step, which the 32 steps carry forward and back;
+# the same bound as the cell backward's
+LSTM_SEQ_F32_TOL = 1e-5
+LM_TURN_STEPS = 6   # LM training steps a turn of the route comparison
 # the long-context causal LM of example/long-context/train_lm.py at its
 # published widths, its command-line defaults (train_lm.py:118-127)
 LC_VOCAB, LC_DMODEL, LC_HEADS, LC_LAYERS, LC_DFF = 128, 64, 4, 2, 256
@@ -568,6 +597,7 @@ def phase_serving(torch, mx, seed, card):
 _KERNEL_CLASSES = (
     ("bn_act", ("bn_act_fwd_kernel", "bn_act_bwd_kernel")),
     ("lstm_cell", ("lstm_cell_fwd_kernel", "lstm_cell_bwd_kernel")),
+    ("lstm_seq", ("lstm_seq_fwd_kernel", "lstm_seq_bwd_kernel")),
     ("embedding", ("embedding", "indexselect", "index_select",
                    "indexfuncsmall", "indexfunclarge", "segment",
                    "grad_weight", "sum_and_scatter", "index_put",
@@ -897,7 +927,9 @@ FLASH_KERNEL_NAMES = ("flash_attention_tiled_kernel",
 _OWN_CLASSES = (("bn_act_fwd_kernel", "bn_act_fwd"),
                 ("bn_act_bwd_kernel", "bn_act_bwd"),
                 ("lstm_cell_fwd_kernel", "lstm_cell_fwd"),
-                ("lstm_cell_bwd_kernel", "lstm_cell_bwd")) + tuple(
+                ("lstm_cell_bwd_kernel", "lstm_cell_bwd"),
+                ("lstm_seq_fwd_kernel", "lstm_seq_fwd"),
+                ("lstm_seq_bwd_kernel", "lstm_seq_bwd")) + tuple(
                     (name, "flash_attention_fwd")
                     for name in FLASH_KERNEL_NAMES) + (
                 ("rtc_elementwise_kernel", "rtc"),)
@@ -906,7 +938,7 @@ _OWN_CLASSES = (("bn_act_fwd_kernel", "bn_act_fwd"),
 def _trace_classes(path, update_range):
     """Device time by class from a chrome trace: the port's kernels
     (``bn_act_fwd``, ``bn_act_bwd``, ``lstm_cell_fwd``, ``lstm_cell_bwd``,
-    ``flash_attention_fwd``, ``rtc``),
+    ``lstm_seq_fwd``, ``lstm_seq_bwd``, ``flash_attention_fwd``, ``rtc``),
     ``optimizer update`` (kernels whose launch lies inside the trainer's
     update range) and the serving classes.  Returns ``(busy_us, {class:
     us}, kernels, top [(us, count, name)], update ranges)``."""
@@ -1092,6 +1124,248 @@ def phase_lstm_kernels(torch, mx, seed):
     return rows, max_err
 
 
+def _rel_err(a, r):
+    """max |a - r| / max |r|, over float32 copies."""
+    return (a.float() - r.float()).abs().max().item() / max(
+        r.float().abs().max().item(), 1e-30)
+
+
+def event_ms(torch, fn, iters=20):
+    """Time of one ``fn()`` call between CUDA events around ``iters``
+    calls (after a warm-up): for work a CUDA graph does not capture."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def traced_device_ms(torch, fn, iters=10):
+    """Device time of one ``fn()`` call: the summed durations of the
+    kernels, copies and sets a torch.profiler trace of ``iters`` calls
+    records, over ``iters`` (after a warm-up): for work whose host side
+    is as slow as its device side."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="call-trace-", suffix=".json",
+                                dir=build_dir)
+    os.close(fd)
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        busy_us = _trace_classes(path, None)[0]
+    finally:
+        os.remove(path)
+    check(busy_us > 0, "the trace of a timed call saw no device time")
+    return busy_us / 1e3 / iters
+
+
+def _seq_bound_ms(roofline, T, N, H, itemsize, backward=False, keep=True):
+    """The lstm_seq kernel's bound: its products at the float32 (67
+    TFLOP/s) or bf16 (989) peak, or its bytes at 3.35 TB/s, whichever is
+    larger; and which binds."""
+    work = roofline.workload("lstm_seq", itemsize=itemsize, t=T, n=N, h=H,
+                             backward=backward, keep=keep)
+    peak = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    ops = work["flops"] / peak * 1e3
+    mem = work["fused_bytes"] / HBM_BYTES_PER_S * 1e3
+    return max(ops, mem), ("operations" if ops >= mem else "bytes")
+
+
+def phase_lstm_seq_kernels(torch, mx, seed, card):
+    """The recurrence's persistent kernels (``lstm_seq_fwd`` /
+    ``lstm_seq_bwd``) against their plain versions at LSTM_SEQ_SHAPES,
+    float32 and bfloat16, on the route lstm_seq_route picks (per_step only
+    at H = 1024); then times at the LM's layer."""
+    lc = mx.kernels.lstm_cell
+    fns = lc._kernels()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    f32, bf16 = torch.float32, torch.bfloat16
+    limit = max(h for h in range(LM_HIDDEN, 1025)
+                if lc.lstm_seq_route(LM_BATCH, h, f32) == "persistent")
+    shapes = [s or (LM_SEQ, LM_BATCH, limit) for s in LSTM_SEQ_SHAPES]
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    data = {}
+    for T, N, H in shapes:
+        xg32 = torch.randn((T, N, 4 * H), generator=gen, device=dev) * 1.5
+        w32 = (torch.rand((4 * H, H), generator=gen, device=dev) * 2 - 1) \
+            * (6.0 / (5 * H)) ** 0.5
+        h032, c032, dhT32, dcT32 = (
+            0.5 * torch.randn((N, H), generator=gen, device=dev)
+            for _ in range(4))
+        dhs32 = torch.randn((T, N, H), generator=gen, device=dev)
+        for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+            xg, w, h0, c0, dhs, dhT, dcT = (
+                t.to(dtype) for t in (xg32, w32, h032, c032, dhs32, dhT32,
+                                      dcT32))
+            route = lc.lstm_seq_route(N, H, dtype)
+            check(route == ("per_step" if H == 1024 else "persistent"),
+                  "lstm_seq %s %s took route %s" % ((T, N, H), tag, route))
+            plan = lc.lstm_seq_plan(N, H, dtype)
+            note = "route %s" % route
+            if plan is not None:
+                code = 0 if dtype == f32 else 1
+                for bwd, key in ((0, "smem_fwd"), (1, "smem_bwd")):
+                    check(fns["lstm_seq_smem"](H, plan["cluster"],
+                                               plan["rows"], code, bwd)
+                          == plan[key], "lstm_seq %s %s: the C and Python "
+                          "shared-memory sizes differ" % ((T, N, H), tag))
+                resident = [lc.lstm_seq_resident(N, H, dtype, backward=b)
+                            for b in (False, True)]
+                check(min(resident) >= 1, "lstm_seq %s: no cluster fits"
+                      % ((T, N, H),))
+                note += (", %d clusters of %d blocks x %d rows, smem %d / "
+                         "%d B, the card holds %d / %d such clusters at "
+                         "once%s" % (
+                             plan["clusters"], plan["cluster"], plan["rows"],
+                             plan["smem_fwd"], plan["smem_bwd"], resident[0],
+                             resident[1], "" if plan["clusters"] <= min(
+                                 resident) else " (the rest wait)"))
+            got = lc.lstm_seq_fwd(xg, w, h0, c0, keep=True, route=route)
+            ref = lc.lstm_seq_plain(xg, w, h0, c0, keep=True)
+            got_b = lc.lstm_seq_bwd(ref.gates, ref.c_prev, w, dhs, dhT, dcT,
+                                    route=route)
+            ref_b = lc.lstm_seq_bwd_plain(ref.gates, ref.c_prev, w, dhs,
+                                          dhT, dcT)
+            torch.cuda.synchronize()
+            errs = {}
+            for k in ("hs", "cs", "hT", "cT", "gates", "h_prev", "c_prev"):
+                a, r = getattr(got, k), getattr(ref, k)
+                check(a.shape == r.shape and a.dtype == r.dtype,
+                      "lstm_seq %s %s %s: shape/dtype differ" % (
+                          (T, N, H), tag, k))
+                errs[k] = _rel_err(a, r)
+            for k, a, r in zip(("dgates", "dh0", "dc0"), got_b, ref_b):
+                check(a.shape == r.shape and a.dtype == r.dtype,
+                      "lstm_seq %s %s %s: shape/dtype differ" % (
+                          (T, N, H), tag, k))
+                errs[k] = _rel_err(a, r)
+            tol = LSTM_SEQ_F32_TOL if dtype == f32 else BF16_REL_TOL
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= tol, "lstm_seq %s %s: %s rel err %.3g > %g"
+                  % ((T, N, H), tag, worst, errs[worst], tol))
+            if dtype == f32 and route == "persistent":
+                max_err["fwd"] = max(max_err["fwd"], max(
+                    (getattr(got, k).float() - getattr(ref, k).float())
+                    .abs().max().item() for k in ("hs", "cs", "gates")))
+                max_err["bwd"] = max(max_err["bwd"], max(
+                    (a.float() - r.float()).abs().max().item()
+                    for a, r in zip(got_b, ref_b)))
+            log("lstm_seq (T, N, H)=%-15s %-4s %s; max |diff| / max |plain|:"
+                " %s (bound %g)" % (str((T, N, H)), tag, note, " ".join(
+                    "%s %.2e" % kv for kv in errs.items()), tol))
+            if (T, N, H) == (LM_SEQ, LM_BATCH, LM_HIDDEN):
+                data[tag] = (xg, w, h0, c0, dhs, dhT, dcT, ref)
+    times = {tag: _seq_times(torch, mx, *data[tag]) for tag in ("f32",
+                                                                "bf16")}
+    for tag, t in times.items():
+        log("lstm_seq layer at (T, N, H)=%s %s, ms: forward kernel %.4f "
+            "(serving, no residuals: %.4f), per_step %.4f, plain %.4f, bound "
+            "%.4f (%s); projection addmm + kernel %.4f, cuDNN LSTM forward "
+            "%.4f (device time in a trace, training mode; between events "
+            "%.4f) | backward kernel %.4f (+ dW matmul %.4f), per_step + dW "
+            "%.4f, "
+            "plain %.4f (+ dW %.4f), bound %.4f (+ dW %.4f), cuDNN backward "
+            "%.4f (forward + backward %.4f less forward, device time; "
+            "between events %.4f) on %s" % (
+                (LM_SEQ, LM_BATCH, LM_HIDDEN), tag, t["fwd"], t["fwd_serve"],
+                t["fwd_step"], t["fwd_plain"], t["fwd_bound"],
+                t["fwd_bound_by"], t["proj_fwd"], t["cudnn_fwd"],
+                t["cudnn_fwd_event"], t["bwd"], t["bwd_dw"],
+                t["bwd_step_dw"], t["bwd_plain"], t["bwd_plain_dw"],
+                t["bwd_bound"], t["bwd_dw_bound"], t["cudnn_bwd"],
+                t["cudnn_fwd_bwd"], t["cudnn_fwd_bwd_event"], card))
+    log("lstm_seq kernels: float32 forward max abs err %.3g, backward %.3g; "
+        "every shape and dtype within tolerance, per_step only at H = 1024"
+        % (max_err["fwd"], max_err["bwd"]))
+    return times, max_err
+
+
+def _seq_times(torch, mx, xg, w, h0, c0, dhs, dhT, dcT, out):
+    """Device ms of one LM layer's recurrence on each route, the plain
+    versions, the bounds, and cuDNN's one-layer LSTM at the same shape
+    (timed only: the port never calls it)."""
+    lc = mx.kernels.lstm_cell
+    roofline = mx.kernels.roofline
+    T, N, G = xg.shape
+    H = G // 4
+    size = xg.element_size()
+
+    def dw(dgates):
+        return torch.matmul(dgates.reshape(T * N, G).t(),
+                            out.h_prev.reshape(T * N, H))
+    res = (out.gates, out.c_prev, w, dhs, dhT, dcT)
+    t = {
+        "fwd": device_ms(torch, lambda: lc.lstm_seq_fwd(xg, w, h0, c0,
+                                                        keep=True)),
+        "fwd_serve": device_ms(torch, lambda: lc.lstm_seq_fwd(xg, w, h0, c0)),
+        "fwd_step": device_ms(torch, lambda: lc.lstm_seq_fwd(
+            xg, w, h0, c0, keep=True, route="per_step")),
+        "fwd_plain": device_ms(torch, lambda: lc.lstm_seq_plain(
+            xg, w, h0, c0, keep=True)),
+        "bwd": device_ms(torch, lambda: lc.lstm_seq_bwd(*res)),
+        "bwd_dw": device_ms(torch, lambda: dw(lc.lstm_seq_bwd(*res)[0])),
+        "bwd_step_dw": device_ms(torch, lambda: dw(lc.lstm_seq_bwd(
+            *res, route="per_step")[0])),
+        "bwd_plain": device_ms(torch, lambda: lc.lstm_seq_bwd_plain(*res)),
+        "bwd_plain_dw": device_ms(torch, lambda: dw(
+            lc.lstm_seq_bwd_plain(*res)[0])),
+    }
+    t["fwd_bound"], t["fwd_bound_by"] = _seq_bound_ms(roofline, T, N, H,
+                                                      size)
+    t["bwd_bound"], t["bwd_bound_by"] = _seq_bound_ms(roofline, T, N, H,
+                                                      size, backward=True)
+    peak = F32_FLOPS_PER_S if size == 4 else BF16_FLOPS_PER_S
+    dw_bytes = (T * N * G + T * N * H + G * H) * size
+    t["bwd_dw_bound"] = t["bwd_bound"] + max(
+        2 * T * N * G * H / peak, dw_bytes / HBM_BYTES_PER_S) * 1e3
+    # the port's own input projection (bias added in one addmm) + kernel,
+    # which is what cuDNN's layer computes from its (T, N, H) input
+    gen = torch.Generator(device=xg.device)
+    gen.manual_seed(7)
+    x = torch.randn((T, N, H), generator=gen, device=xg.device).to(xg.dtype)
+    w_i2h = (torch.rand((G, H), generator=gen, device=xg.device) * 0.1
+             - 0.05).to(xg.dtype)
+    bias = torch.zeros(G, device=xg.device, dtype=xg.dtype)
+    t["proj_fwd"] = device_ms(torch, lambda: lc.lstm_seq_fwd(
+        torch.addmm(bias, x.reshape(T * N, H), w_i2h.t()).reshape(T, N, G),
+        w, h0, c0, keep=True))
+    lstm = torch.nn.LSTM(H, H, 1).to(device=xg.device, dtype=xg.dtype)
+    state = (h0[None], c0[None])
+    xr = x.clone().requires_grad_(True)
+    grad = torch.ones((T, N, H), device=xg.device, dtype=xg.dtype)
+
+    def fwd_bwd():
+        y, _ = lstm(xr, state)
+        torch.autograd.backward(y, grad)
+    # autograd is not captured in a graph, and between CUDA events the
+    # host's enqueue of a cuDNN call takes as long as its kernels; so the
+    # device time is the kernels' summed durations in a profiler trace,
+    # and the event time is kept beside it
+    for key, fn in (("cudnn_fwd_bwd", fwd_bwd),
+                    ("cudnn_fwd", lambda: lstm(xr, state))):
+        t[key + "_event"] = event_ms(torch, fn)
+        t[key] = traced_device_ms(torch, fn)
+    t["cudnn_bwd"] = t["cudnn_fwd_bwd"] - t["cudnn_fwd"]
+    return t
+
+
 def lm_symbol(mx):
     sym, _, _ = mx.models.lstm_lm.lstm_lm_sym(LM_SEQ, LM_VOCAB, LM_EMBED,
                                               LM_HIDDEN, LM_LAYERS)
@@ -1130,13 +1404,32 @@ def make_lm_trainer(torch, mx, seed, compute_dtype=None):
     return tr
 
 
+#: the LSTM kernels' launch counters (kernels/lstm_cell.py): the cell's
+#: forward and backward, the persistent recurrence's forward and backward,
+#: and the persistent forwards that wrote gate residuals
+LSTM_COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "SEQ_LAUNCHES",
+                 "SEQ_BWD_LAUNCHES", "SEQ_GATES_WRITTEN")
+
+
+def zero_lstm_counts(lc):
+    for name in LSTM_COUNTERS:
+        setattr(lc, name, 0)
+
+
+def lstm_counts(lc):
+    """``{"cell": (fwd, bwd), "seq": (fwd, bwd), "gates": n}`` since the
+    counters were last zeroed."""
+    return {"cell": (lc.LAUNCHES, lc.BWD_LAUNCHES),
+            "seq": (lc.SEQ_LAUNCHES, lc.SEQ_BWD_LAUNCHES),
+            "gates": lc.SEQ_GATES_WRITTEN}
+
+
 def _lm_steps(torch, mx, tr, plan):
-    """The main path: ``tr.step`` over ``plan`` with the lstm_cell counts
-    zeroed just before and read just after; per-step losses and host
-    stamps."""
+    """The main path: ``tr.step`` over ``plan`` with the LSTM kernel
+    counts zeroed just before and read just after; per-step losses and
+    host stamps."""
     lc = mx.kernels.lstm_cell
-    lc.LAUNCHES = 0
-    lc.BWD_LAUNCHES = 0
+    zero_lstm_counts(lc)
     stamps, losses = [], []
     for x, y in plan:
         stamps.append(time.perf_counter())
@@ -1144,7 +1437,52 @@ def _lm_steps(torch, mx, tr, plan):
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     skipped = tr.skipped_steps
-    return lc.LAUNCHES, lc.BWD_LAUNCHES, stamps, losses, skipped
+    return lstm_counts(lc), stamps, losses, skipped
+
+
+def _check_lm_counts(counts, steps, route, what):
+    """A training run of ``steps`` fused-RNN steps on ``route``: one
+    persistent forward (with residuals) and backward a layer a step and no
+    cell launch, or LM_PER_PASS cell launches each way and no persistent
+    one."""
+    n = LM_LAYERS * steps
+    want = ({"cell": (0, 0), "seq": (n, n), "gates": n}
+            if route == "persistent" else
+            {"cell": (LM_PER_PASS * steps,) * 2, "seq": (0, 0), "gates": 0})
+    check(counts == want, "%s: LSTM launches %s over %d steps, expected %s"
+          % (what, counts, steps, want))
+
+
+def _route_turns(torch, mx, tr, plan, what, card):
+    """The LM training step on both routes of the recurrence in turns
+    (persistent, per_step, per_step, persistent), ``plan`` each turn;
+    steady host-clock ms per step of each turn."""
+    lc = mx.kernels.lstm_cell
+    turns = []
+    try:
+        for route in ("persistent", "per_step", "per_step", "persistent"):
+            lc.SEQ_ROUTE = route
+            counts, stamps, losses, skipped = _lm_steps(torch, mx, tr, plan)
+            _check_lm_counts(counts, len(plan), route, "%s turn %s"
+                             % (what, route))
+            check(skipped == 0 and all(
+                bool(torch.isfinite(v)) for v in losses),
+                "%s turn %s: a skipped step or a non-finite loss"
+                % (what, route))
+            turns.append((route, (stamps[-1] - stamps[2])
+                          / (len(plan) - 2) * 1e3))
+    finally:
+        lc.SEQ_ROUTE = None
+    per = {r: [ms for q, ms in turns if q == r]
+           for r in ("persistent", "per_step")}
+    mean = {r: sum(v) / len(v) for r, v in per.items()}
+    log("lm training %s, routes in turns (%d steps each, steady ms/step): "
+        "%s; persistent %.2f vs per_step %.2f ms/step mean, %.1f%% lower, "
+        "on %s" % (what, len(plan), ", ".join(
+            "%s %.2f" % t for t in turns), mean["persistent"],
+            mean["per_step"], 100 * (1 - mean["persistent"]
+                                     / mean["per_step"]), card))
+    return turns
 
 
 def phase_lm_training(torch, mx, seed, card):
@@ -1159,17 +1497,17 @@ def phase_lm_training(torch, mx, seed, card):
     torch.cuda.reset_peak_memory_stats()
     plan = batches + [fixed] * LM_FIXED_STEPS
     n = len(plan)
-    fwd, bwd, stamps, losses, skipped = _lm_steps(torch, mx, tr, plan)
+    counts, stamps, losses, skipped = _lm_steps(torch, mx, tr, plan)
     peak = torch.cuda.max_memory_allocated()
     ce_after = float(_lm_cross_entropy(torch, tr.forward_only(*fixed)[0],
                                        fixed[1]))
     losses = [float(v) for v in torch.stack(losses).cpu()]
     ce_before = float(ce_before)
-    log("lm training: lstm_cell launches over %d steps: forward %d, "
-        "backward %d (expected %d each)" % (n, fwd, bwd, LM_PER_PASS * n))
-    check(fwd == LM_PER_PASS * n and bwd == LM_PER_PASS * n,
-          "lm lstm_cell launches %d / %d != %d" % (fwd, bwd,
-                                                   LM_PER_PASS * n))
+    log("lm training: LSTM launches over %d steps: persistent forward %d, "
+        "backward %d, gate residuals %d (expected %d each), lstm_cell %s "
+        "(expected none)" % (n, counts["seq"][0], counts["seq"][1],
+                             counts["gates"], LM_LAYERS * n, counts["cell"]))
+    _check_lm_counts(counts, n, "persistent", "lm training")
     log("lm training: per-step loss %s" % " ".join("%.4f" % v
                                                    for v in losses))
     check(all(np.isfinite(losses)), "non-finite LM training loss")
@@ -1195,22 +1533,26 @@ def phase_lm_training(torch, mx, seed, card):
     # are rounded to bfloat16 on the way in, as in the JAX package)
     tr16 = make_lm_trainer(torch, mx, seed, compute_dtype="bfloat16")
     plan16 = _lm_batches(torch, LM_BF16_STEPS, seed + 21)
-    fwd16, bwd16, stamps16, losses16, skipped16 = _lm_steps(
+    counts16, stamps16, losses16, skipped16 = _lm_steps(
         torch, mx, tr16, plan16)
     losses16 = [float(v) for v in torch.stack(losses16).cpu()]
     n16 = len(plan16)
-    check(fwd16 == LM_PER_PASS * n16 and bwd16 == LM_PER_PASS * n16,
-          "bf16 lm lstm_cell launches %d / %d != %d" % (
-              fwd16, bwd16, LM_PER_PASS * n16))
+    _check_lm_counts(counts16, n16, "persistent", "bf16 lm training")
     check(all(np.isfinite(losses16)) and skipped16 == 0,
           "bf16 LM loss not finite or steps skipped")
     steady16 = (stamps16[-1] - stamps16[2]) / (n16 - 2)
     log("lm training bfloat16 (the bench's compute_dtype): %d steps, "
-        "launches %d / %d, loss %s, steady %.2f ms/step -> %.0f tokens/s "
-        "on %s" % (n16, fwd16, bwd16, " ".join("%.3f" % v for v in losses16),
-                   steady16 * 1e3, tokens / steady16, card))
+        "persistent launches %d / %d, loss %s, steady %.2f ms/step -> %.0f "
+        "tokens/s on %s" % (n16, counts16["seq"][0], counts16["seq"][1],
+                            " ".join("%.3f" % v for v in losses16),
+                            steady16 * 1e3, tokens / steady16, card))
+    # the step time of both routes of the recurrence, in turns
+    turn_plan = _lm_batches(torch, LM_TURN_STEPS, seed + 22)
+    _route_turns(torch, mx, tr, turn_plan, "float32", card)
+    _route_turns(torch, mx, tr16, turn_plan, "bfloat16", card)
     tr16.close()
-    return tr, batches, fwd + fwd16, bwd + bwd16
+    return tr, batches, counts["seq"][0] + counts16["seq"][0], \
+        counts["seq"][1] + counts16["seq"][1]
 
 
 def route_b_symbol(mx):
@@ -1265,18 +1607,19 @@ def phase_route_b(torch, mx, seed):
     y = rs.randint(0, LM_VOCAB, shape).astype(np.float32)
 
     # -- the main path: counts zeroed just before, read just after ---------
-    lc.LAUNCHES = 0
-    lc.BWD_LAUNCHES = 0
+    zero_lstm_counts(lc)
     ex_b = _route_step(mx, sym_b, w_b, x, y)
     out_b = ex_b.outputs[0].asnumpy()
-    launched = (lc.LAUNCHES, lc.BWD_LAUNCHES)
+    counts = lstm_counts(lc)
     # ----------------------------------------------------------------------
+    launched = counts["cell"]
     log("route B (unrolled LSTMCells -> _FusedLSTMCell): one forward/"
         "backward at batch %d launched %d forward and %d backward lstm_cell "
-        "kernels (expected %d each)" % (LM_BATCH, launched[0], launched[1],
-                                        LM_PER_PASS))
-    check(launched == (LM_PER_PASS, LM_PER_PASS),
-          "route B launched %s lstm_cell kernels" % (launched,))
+        "kernels (expected %d each) and %s persistent ones (expected none)"
+        % (LM_BATCH, launched[0], launched[1], LM_PER_PASS, counts["seq"]))
+    check(counts == {"cell": (LM_PER_PASS, LM_PER_PASS), "seq": (0, 0),
+                     "gates": 0},
+          "route B launched %s LSTM kernels" % (counts,))
 
     fused = mx.rnn.FusedRNNCell(LM_HIDDEN, num_layers=LM_LAYERS,
                                 mode="lstm", prefix="lstm_")
@@ -1323,8 +1666,9 @@ def _lm_weights(symbol, batch, seed):
 
 
 def phase_lm_agreement(torch, mx, seed):
-    """One batch-4 LM forward/backward on the card, fused and with
-    MXTPU_FUSED_KERNELS=0, against the port's CPU path: the output and
+    """One batch-4 LM forward/backward on the card, fused (one persistent
+    forward and backward a layer) and with MXTPU_FUSED_KERNELS=0 (no LSTM
+    kernel), against the port's CPU path: the output and
     every gradient within AGREE_REL_TOL x max |cpu|; both also against a
     float64 CPU run, to say which path is off if the bound is missed."""
     import numpy as np
@@ -1341,7 +1685,7 @@ def phase_lm_agreement(torch, mx, seed):
     c_ratio, c_key = _worst_max_rel(np, ref, exact, list(ref))
     results = {}
     for fused in ("1", "0"):
-        before = (lc.LAUNCHES, lc.BWD_LAUNCHES)
+        zero_lstm_counts(lc)
         old = os.environ.get("MXTPU_FUSED_KERNELS")
         os.environ["MXTPU_FUSED_KERNELS"] = fused
         try:
@@ -1351,11 +1695,11 @@ def phase_lm_agreement(torch, mx, seed):
                 del os.environ["MXTPU_FUSED_KERNELS"]
             else:
                 os.environ["MXTPU_FUSED_KERNELS"] = old
-        launched = (lc.LAUNCHES - before[0], lc.BWD_LAUNCHES - before[1])
-        want = (LM_PER_PASS, LM_PER_PASS) if fused == "1" else (0, 0)
+        launched = lstm_counts(lc)
+        n = LM_LAYERS if fused == "1" else 0
+        want = {"cell": (0, 0), "seq": (n, n), "gates": n}
         check(launched == want, "LM agreement MXTPU_FUSED_KERNELS=%s "
-              "launched %s lstm_cell kernels, not %s" % (fused, launched,
-                                                         want))
+              "launched %s LSTM kernels, not %s" % (fused, launched, want))
         for k, r in ref.items():
             check(got[k].shape == r.shape and np.isfinite(got[k]).all(),
                   "LM agreement: %s shape %s / not finite" % (k,
@@ -1377,8 +1721,9 @@ def phase_lm_agreement(torch, mx, seed):
 
 def phase_lm_serving(torch, mx, tr, seed, card):
     """Serve the trained LM through Predictor from a checkpoint at batch
-    32: exactly 64 forward launches and no backward launch per forward;
-    finite probabilities; tokens/s."""
+    32: exactly one persistent forward launch a layer per forward, which
+    writes no gate residuals, and no backward or cell launch; finite
+    probabilities; tokens/s."""
     import numpy as np
     lc = mx.kernels.lstm_cell
     args, aux = tr.get_params()
@@ -1401,22 +1746,22 @@ def phase_lm_serving(torch, mx, tr, seed, card):
     labels = np.zeros(shape, np.float32)
 
     # -- the main path: counts zeroed just before, read just after ---------
-    lc.LAUNCHES = 0
-    lc.BWD_LAUNCHES = 0
+    zero_lstm_counts(lc)
     times, outs = [], []
     for x in requests:
         t0 = time.perf_counter()
         outs.append(pred.forward(data=x, softmax_label=labels)
                     .get_output(0))
         times.append(time.perf_counter() - t0)
-    launched = (lc.LAUNCHES, lc.BWD_LAUNCHES)
+    counts = lstm_counts(lc)
     # ----------------------------------------------------------------------
-    log("lm serving: lstm_cell launches over %d Predictor forwards: "
-        "forward %d (expected %d), backward %d" % (
-            LM_FORWARDS, launched[0], LM_PER_PASS * LM_FORWARDS,
-            launched[1]))
-    check(launched == (LM_PER_PASS * LM_FORWARDS, 0),
-          "lm serving launches %s" % (launched,))
+    log("lm serving: LSTM launches over %d Predictor forwards: persistent "
+        "%s (expected %d forward, no backward), gate residuals written %d, "
+        "lstm_cell %s" % (LM_FORWARDS, counts["seq"],
+                          LM_LAYERS * LM_FORWARDS, counts["gates"],
+                          counts["cell"]))
+    check(counts == {"cell": (0, 0), "seq": (LM_LAYERS * LM_FORWARDS, 0),
+                     "gates": 0}, "lm serving launches %s" % (counts,))
     for out in outs:
         check(out.shape == (LM_SEQ * LM_BATCH, LM_VOCAB)
               and np.isfinite(out).all(), "lm serving output bad")
@@ -1429,7 +1774,7 @@ def phase_lm_serving(torch, mx, tr, seed, card):
             times[0] * 1e3, 1e3 * sum(steady) / len(steady), LM_BATCH,
             LM_SEQ, LM_BATCH * LM_SEQ * len(steady) / sum(steady),
             outs[0].shape, card))
-    return launched[0]
+    return counts["seq"][0]
 
 
 def resnet_paths(torch, mx, seed, card):
@@ -1499,25 +1844,37 @@ def resnet_paths(torch, mx, seed, card):
 
 
 def lm_paths(torch, mx, seed, card):
-    """Phases 8-12: the lstm_cell kernels, the LSTM language model's
-    training (both routes), agreement, serving and profile.  Returns the
-    lstm_cell entries of the kernels line."""
+    """Phases 8-12: the lstm_cell and lstm_seq kernels, the LSTM language
+    model's training (both routes of the fused RNN op, and route B),
+    agreement, serving and profiles.  Returns the lstm_cell and lstm_seq
+    entries of the kernels line."""
     lstm_rows, lstm_err = phase_lstm_kernels(torch, mx, seed)
+    seq_times, seq_err = phase_lstm_seq_kernels(torch, mx, seed, card)
     lm_tr, lm_batches, lm_fwd, lm_bwd = phase_lm_training(torch, mx, seed,
                                                           card)
     route_b = phase_route_b(torch, mx, seed)
     phase_lm_agreement(torch, mx, seed)
     lm_serve = phase_lm_serving(torch, mx, lm_tr, seed, card)
-    phase_train_profile(torch, mx, lm_tr, lm_batches, card, what="lm train",
-                        need=("lstm_cell_fwd", "lstm_cell_bwd"),
-                        unit="batch %d x %d tokens" % (LM_BATCH, LM_SEQ))
-    # times: float32 at the bench's (32, 200), summed over the 64 launches
-    # of one LM training step's forward (or backward)
+    lc = mx.kernels.lstm_cell
+    unit = "batch %d x %d tokens" % (LM_BATCH, LM_SEQ)
+    phase_train_profile(torch, mx, lm_tr, lm_batches, card,
+                        what="lm train (persistent)",
+                        need=("lstm_seq_fwd", "lstm_seq_bwd"), unit=unit)
+    try:
+        lc.SEQ_ROUTE = "per_step"
+        phase_train_profile(torch, mx, lm_tr, lm_batches, card,
+                            what="lm train (per_step)",
+                            need=("lstm_cell_fwd", "lstm_cell_bwd"),
+                            unit=unit)
+    finally:
+        lc.SEQ_ROUTE = None
+    # lstm_cell times: float32 at the bench's (32, 200), summed over the 64
+    # launches of one route-B pass, its main path since this slice
     bench = lstm_rows[(LM_BATCH, LM_HIDDEN)]
     kernels = []
     for name, key, launched, line in (
-            ("lstm_cell_fwd", "", lm_fwd + route_b[0] + lm_serve, 57),
-            ("lstm_cell_bwd", "bwd_", lm_bwd + route_b[1], 70)):
+            ("lstm_cell_fwd", "", route_b[0], 57),
+            ("lstm_cell_bwd", "bwd_", route_b[1], 70)):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1532,12 +1889,38 @@ def lm_paths(torch, mx, seed, card):
             "library_ms": LM_PER_PASS * bench["f32_%slibrary_ms" % key],
         })
     fwd, bwd = kernels
-    log("lstm_cell float32 per LM training step (%d launches each at (%d, "
+    log("lstm_cell float32 per route-B pass (%d launches each at (%d, "
         "%d)): forward kernel %.4f plain %.4f library %.4f bound %.4f ms; "
         "backward kernel %.4f plain %.4f library %.4f bound %.4f ms" % (
             LM_PER_PASS, LM_BATCH, LM_HIDDEN, fwd["ms"], fwd["plain_ms"],
             fwd["library_ms"], fwd["bound_ms"], bwd["ms"], bwd["plain_ms"],
             bwd["library_ms"], bwd["bound_ms"]))
+    # lstm_seq times: float32, one launch a layer of one LM training step;
+    # the library is cuDNN's one-layer LSTM (forward, and forward +
+    # backward less forward), which also computes the input projection
+    t = seq_times["f32"]
+    for name, key, launched, line in (
+            ("lstm_seq_fwd", "fwd", lm_fwd + lm_serve, 57),
+            ("lstm_seq_bwd", "bwd", lm_bwd, 70)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+            "replaces": "mxnet_tpu/kernels/lstm_cell.py:%d" % line,
+            "launches": launched,
+            "max_abs_err": seq_err[key],
+            "ms": LM_LAYERS * t[key],
+            "plain_ms": LM_LAYERS * t[key + "_plain"],
+            "bound_ms": LM_LAYERS * t[key + "_bound"],
+            "bound_by": t[key + "_bound_by"],
+            "library_ms": LM_LAYERS * t["cudnn_" + key],
+        })
+    log("lstm_seq float32 per LM training step (%d launches each at (T, "
+        "N, H) = (%d, %d, %d)): forward kernel %.4f plain %.4f cuDNN %.4f "
+        "bound %.4f ms; backward kernel %.4f plain %.4f cuDNN %.4f bound "
+        "%.4f ms" % ((LM_LAYERS, LM_SEQ, LM_BATCH, LM_HIDDEN)
+                     + tuple(kernels[i][k] for i in (2, 3) for k in (
+                         "ms", "plain_ms", "library_ms", "bound_ms"))))
     return kernels
 
 

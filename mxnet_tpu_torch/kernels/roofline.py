@@ -56,6 +56,33 @@ def _lstm_cell(b, h, itemsize):
     return flops, fused, unfused
 
 
+def _lstm_seq(t, n, h, itemsize, backward=False, keep=True):
+    """One layer and direction of the LSTM recurrence in one kernel
+    (``kernels/lstm_cell.py`` ``lstm_seq_fwd`` / ``lstm_seq_bwd``):
+    2 T N 4H H flops of recurrent products (h . W^T forward, dgates . W
+    backward) plus the cell's ~10 (forward) or ~20 (backward) per hidden
+    element.
+
+    fused: forward reads xg (T, N, 4H), W_h2h (4H, H), h0 and c0 and
+    writes hs and cs (T, N, H), hT and cT and, with ``keep``, the gate
+    pre-activations (T, N, 4H); backward reads the gates, c_prev and dhs,
+    W_h2h, dhT and dcT and writes dgates, dh0 and dc0.
+    unfused (the per-step route): each step's product re-reads W_h2h and
+    writes the (N, 4H) pre-activations, which the cell kernel reads back.
+    """
+    cells = t * n * h
+    flops = 2 * t * n * 4 * h * h + (20 if backward else 10) * cells
+    weight = 4 * h * h
+    if backward:
+        fused = (4 * cells + cells + cells + weight + 2 * n * h
+                 + 4 * cells + 2 * n * h) * itemsize
+    else:
+        fused = (4 * cells + weight + 2 * n * h + 2 * cells
+                 + (4 * cells if keep else 0) + 2 * n * h) * itemsize
+    unfused = fused + (t - 1) * weight * itemsize + 2 * 4 * cells * itemsize
+    return flops, fused, unfused
+
+
 def _flash_attention(b, t, heads, d, itemsize):
     """Attention over (B, T, H, D): 2 matmuls of 2*B*H*T*T*D flops plus
     softmax (~5 flops/score).
@@ -131,6 +158,7 @@ def _pool_act(n, c, hw, stride, itemsize):
 _WORKLOADS = {
     "bn_act": _bn_act,
     "lstm_cell": _lstm_cell,
+    "lstm_seq": _lstm_seq,
     "flash_attention": _flash_attention,
     "eltwise_chain": _eltwise_chain,
     "concat_fuse": _concat_fuse,
@@ -143,6 +171,7 @@ def workload(name, itemsize=4, **shape):
 
     Returns ``{"flops", "fused_bytes", "unfused_bytes"}``.  Shapes:
     ``bn_act(n, c, hw)``, ``lstm_cell(b, h)``,
+    ``lstm_seq(t, n, h, backward=False, keep=True)``,
     ``flash_attention(b, t, heads, d)``,
     ``eltwise_chain(n, c, hw, depth)``,
     ``concat_fuse(n, c, hw, widths)``, ``pool_act(n, c, hw, stride)``.

@@ -5,11 +5,12 @@ package's; the lowerings are PyTorch: ``F.conv{1,2,3}d`` for Convolution,
 ``F.max_pool``/``F.avg_pool`` over an explicitly padded input for Pooling,
 ``torch.matmul`` for FullyConnected, ``F.embedding`` for Embedding, and
 for the fused ``RNN`` op one hoisted input projection per layer and
-direction and a Python loop over time whose LSTM steps call the
-``lstm_cell`` kernel.  They differentiate through torch autograd as they
-are, except SoftmaxOutput, whose hand backward ``(p - onehot(label)) *
-grad_scale`` is a ``torch.autograd.Function`` (the JAX package's
-``custom_vjp``, :618-668), and the LSTM cell (``kernels/lstm_cell.py``).
+direction, then, for the fused LSTM, one ``lstm_seq`` recurrence (one
+persistent kernel launch on the card) and otherwise a Python loop over
+time.  They differentiate through torch autograd as they are, except
+SoftmaxOutput, whose hand backward ``(p - onehot(label)) * grad_scale``
+is a ``torch.autograd.Function`` (the JAX package's ``custom_vjp``,
+:618-668), and the LSTM recurrence (``kernels/lstm_cell.py``).
 Dropout and RNN draw from the ``torch.Generator`` the executor hands
 them as ``rng``.
 """
@@ -509,23 +510,13 @@ def _rnn_split_params(params, num_layers, input_size, state_size,
 def _rnn_cell_step(mode):
     """``step(carry, xb, w_h2h) -> (carry, h)`` for one time step, where
     ``xb`` is the step's hoisted input projection with both biases added.
-    ``MXTPU_FUSED_KERNELS`` routing is resolved once per op call: the
-    fused LSTM cell does all gate math in one kernel launch
-    (``kernels/lstm_cell.py``), the unfused one splits the gates and
-    chains the activations as the JAX package's :934-937."""
-    fused_lstm = None
-    if mode == "lstm":
-        from ..kernels import fused_enabled
-        if fused_enabled("lstm_cell"):
-            from ..kernels.lstm_cell import lstm_cell as fused_lstm
-
+    The unfused LSTM step splits the gates and chains the activations as
+    the JAX package's :934-937 (the fused LSTM runs the whole sequence
+    through ``kernels/lstm_cell.py`` ``lstm_seq`` instead)."""
     def step(carry, xb, w_h2h):
         h = carry[0]
         if mode == "lstm":
             gates = torch.addmm(xb, h, w_h2h.t())
-            if fused_lstm is not None:
-                h, c = fused_lstm(gates, carry[1])
-                return (h, c), h
             i, f, g, o = torch.chunk(gates, 4, dim=-1)
             c = torch.sigmoid(f) * carry[1] + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
@@ -592,11 +583,15 @@ def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
 
     Per layer and direction, the input projection of the whole sequence
     is one (T*N, I) x (I, G*H) matmul with both biases added once, hoisted
-    out of the recurrence, as the JAX package hoists it (:1023); the
-    recurrence is a Python loop over T whose step is one ``addmm`` (the
-    h2h product into the hoisted projection) and, for lstm, one
-    ``lstm_cell`` kernel launch.  GRU keeps its h2h bias of the new-gate
-    part inside the reset product, as the reference does.  Between layers
+    out of the recurrence, as the JAX package hoists it (:1023).  With
+    ``MXTPU_FUSED_KERNELS`` enabling ``lstm_cell``, an lstm layer's
+    recurrence is one ``lstm_seq`` call (``kernels/lstm_cell.py``: on the
+    card one persistent kernel for all T steps, or its ``per_step``
+    route where W_h2h does not fit; the plain loop on the CPU);
+    otherwise it is a Python loop over T whose step is one ``addmm`` (the
+    h2h product into the hoisted projection) and the gate ops.  GRU keeps
+    its h2h bias of the new-gate part inside the reset product, as the
+    reference does.  Between layers
     a training forward with ``p > 0`` drops units with masks drawn from
     ``rng``.  The ``lstm_state_clip_*`` attrs are accepted and ignored,
     as in the JAX package."""
@@ -605,6 +600,11 @@ def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
     ws, bs = _rnn_split_params(parameters, num_layers, data.shape[2],
                                state_size, bidirectional, mode)
     step = _rnn_cell_step(mode)
+    lstm_seq = None
+    if mode == "lstm":
+        from ..kernels import fused_enabled
+        if fused_enabled("lstm_cell"):
+            from ..kernels.lstm_cell import lstm_seq
     h0 = state.reshape(num_layers, dirs, N, state_size)
     c0 = state_cell.reshape(num_layers, dirs, N, state_size) \
         if state_cell is not None else None
@@ -624,15 +624,20 @@ def rnn(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
                 xr, xz, xn = torch.chunk(x_proj, 3, dim=-1)
                 xs = [(xr[t] + hb_r, xz[t] + hb_z, xn[t], hb_n)
                       for t in range(T)]
-            else:
+            elif lstm_seq is None:
                 xs = torch.unbind(x_proj + b_h2h, dim=0)
             carry = (h0[layer, d], c0[layer, d]) if mode == "lstm" \
                 else (h0[layer, d],)
-            hs = []
-            for t in range(T):
-                carry, h = step(carry, xs[t], w_h2h)
-                hs.append(h)
-            hs = torch.stack(hs)
+            if lstm_seq is not None:
+                hs, h_last, c_last = lstm_seq(x_proj + b_h2h, w_h2h,
+                                              *carry)
+                carry = (h_last, c_last)
+            else:
+                hs = []
+                for t in range(T):
+                    carry, h = step(carry, xs[t], w_h2h)
+                    hs.append(h)
+                hs = torch.stack(hs)
             if d == 1:
                 hs = torch.flip(hs, dims=(0,))
             outs_dir.append(hs)
