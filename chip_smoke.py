@@ -107,7 +107,28 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     same symbol for the Module's own overhead, a batch-4 step held
     against the port's CPU path (float32, and float64 for the
     gradients), and a profile of a few ``fit`` batches;
-16. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+16. fits the same fine-tune on the executor route with NAG (an
+    optimizer written in NDArray arithmetic, momentum 0.9) beside sgd
+    with momentum 0.9, in turns: ms per batch, ``Module.update``'s host
+    ms and kernel launches per batch of each;
+17. runs every op of ``ops/tensor.py`` on the card against the port's
+    CPU path (``tensor_op_cases`` at (64, 257): ``mx.nd.<op>`` in float32,
+    float16, bfloat16 and int32 where the reference takes them, then the
+    differentiable ones through ``simple_bind(mx.gpu(0))`` -> forward ->
+    backward), traced to show no device-to-host copy, and the samplers by
+    seed determinism and moments over 10^6 draws;
+18. attacks ResNet-50 with FGSM as ``example/adversary`` does, at batch
+    32, in NDArray ops on the card (``Module`` bound with
+    ``inputs_need_grad``: forward, backward, ``get_input_grads``,
+    ``clip(x + eps * sign(g), 0, 1)``, forward, accuracy): 50 + 50
+    ``bn_act`` forward (two training forwards) and 50 backward launches
+    per batch, a cross-entropy that rises, the input gradient of one
+    batch against a float64 CPU run (relative L2 and signs), ms per batch
+    and its split, idle share, peak memory;
+19. steps each optimizer written in NDArray arithmetic on the card
+    against the CPU (bit for bit; SGLD by its noise's moments), and times
+    the NDArray layer's dispatch beside the same torch calls;
+20. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -2648,11 +2669,12 @@ def finetune_symbol(mx, seed, tmp):
 
 
 def _ft_fit(torch, mx, net, arg_params, aux_params, X, y, kvstore, prefix,
-            seed, card, note="cuDNN default algorithms"):
-    """One epoch of Module.fit with fit.py's wiring on gpu(0); the
-    bn_act and rtc counts are zeroed just before and read just after.
-    Returns the module, the initial params it drew and the run's
-    numbers."""
+            seed, card, note="cuDNN default algorithms", optimizer="sgd",
+            momentum=0.0):
+    """One epoch of Module.fit with fit.py's wiring on gpu(0) (sgd, or
+    ``optimizer`` with ``momentum``); the bn_act and rtc counts are zeroed
+    just before and read just after.  Returns the module, the initial
+    params it drew and the run's numbers."""
     import numpy as np
     ba = mx.kernels.bn_act
     mx.random.seed(seed)            # the same fc-new init on both routes
@@ -2683,8 +2705,8 @@ def _ft_fit(torch, mx, net, arg_params, aux_params, X, y, kvstore, prefix,
     ba.BWD_LAUNCHES = 0
     mx.rtc.LAUNCHES = 0
     t0 = time.perf_counter()
-    mod.fit(train, eval_metric=metric, kvstore=kvstore, optimizer="sgd",
-            optimizer_params={"learning_rate": FT_LR, "momentum": 0.0,
+    mod.fit(train, eval_metric=metric, kvstore=kvstore, optimizer=optimizer,
+            optimizer_params={"learning_rate": FT_LR, "momentum": momentum,
                               "wd": 0.0},
             initializer=initializer, arg_params=arg_params,
             aux_params=aux_params, allow_missing=True,
@@ -2698,7 +2720,8 @@ def _ft_fit(torch, mx, net, arg_params, aux_params, X, y, kvstore, prefix,
     peak = torch.cuda.max_memory_allocated()
     n = len(stamps)
     losses = [float(v) for v in torch.stack(losses).cpu()]
-    what = "fine-tune fit kvstore=%r (%s)" % (kvstore, note)
+    what = "fine-tune fit kvstore=%r %s momentum %g (%s)" % (
+        kvstore, optimizer, momentum, note)
     log("%s: %s route, %d batches; launches bn_act %d forward / %d "
         "backward, rtc %d (expected %d / %d / %d)" % (
             what, "fused SPMDTrainer" if mod._fused is not None
@@ -2889,6 +2912,81 @@ def phase_ft_profile(torch, mx, mod, X, y, card):
     check(per_batch == 2, "profiled rtc launches per batch %.1f" % per_batch)
 
 
+def _update_profile(torch, mx, mod, X, y, card, what):
+    """Host ms of one ``Module.update()`` (median of 5, after a forward
+    and backward) and a torch.profiler trace of PROFILE_STEPS batches of
+    forward -> backward -> update with the update in its own range.
+    Returns ``(update ms, kernel launches per batch)``."""
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(X[i * BATCH:(i + 1) * BATCH], ctx=mx.gpu(0))],
+        [mx.nd.array(y[i * BATCH:(i + 1) * BATCH], ctx=mx.gpu(0))])
+        for i in range(PROFILE_STEPS)]
+    mod.forward(batches[0], is_train=True)
+    mod.backward()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    update_ms = sorted(times)[2]
+
+    def run(i):
+        mod.forward(batches[i], is_train=True)
+        mod.backward()
+        with torch.profiler.record_function("Module.update"):
+            mod.update()
+
+    counts = profile_steps(torch, run, lambda: None, "Module.update", card,
+                           what, ("bn_act_fwd", "bn_act_bwd", "rtc"),
+                           "batch %d" % BATCH)
+    return update_ms, sum(counts.values()) / PROFILE_STEPS
+
+
+def phase_nag_fit(torch, mx, net, arg_params, aux_params, X, y, tmp, seed,
+                  card):
+    """The fine-tune through Module.fit on the executor route with NAG
+    (written in NDArray arithmetic), beside sgd with the same momentum on
+    the same batches: ms per batch, the update's host ms and kernel
+    launches per batch of each.  Returns the bn_act and rtc launches of
+    the two fits."""
+    extra = collections.Counter()
+    out = {}
+    for opt in ("nag", "sgd", "sgd", "nag"):
+        mod, _, run = _ft_fit(torch, mx, net, arg_params, aux_params, X, y,
+                              "local", os.path.join(tmp, "opt-" + opt), seed,
+                              card, optimizer=opt, momentum=NAG_MOMENTUM)
+        check(mod._fused is None, "%s fit took the fused route" % opt)
+        fwd, bwd, rtc = run["launches"]
+        extra.update({"bn_act_fwd": fwd, "bn_act_bwd": bwd,
+                      "rtc_elementwise": rtc})
+        if opt in out:
+            out[opt]["steady_ms"].append(run["steady_ms"])
+        else:
+            update_ms, per_batch = _update_profile(
+                torch, mx, mod, X, y, card, "fine-tune fit %s" % opt)
+            out[opt] = {"steady_ms": [run["steady_ms"]],
+                        "update_ms": update_ms, "launches": per_batch}
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+    for opt, r in sorted(out.items()):
+        log("fine-tune %s (momentum %g, executor route): %s ms/batch (two "
+            "fits, in turns nag, sgd, sgd, nag), Module.update %.2f ms host, "
+            "%.1f kernel launches per batch, on %s" % (
+                opt, NAG_MOMENTUM, " / ".join("%.2f" % v for v in
+                                              r["steady_ms"]),
+                r["update_ms"], r["launches"], card))
+    log("fine-tune nag - sgd: update %+.2f ms, %+.1f launches per batch "
+        "(the host cost of an optimizer in NDArray arithmetic, %d "
+        "parameter arrays)" % (
+            out["nag"]["update_ms"] - out["sgd"]["update_ms"],
+            out["nag"]["launches"] - out["sgd"]["launches"],
+            len(net.list_arguments()) - 2))
+    return extra
+
+
 @contextlib.contextmanager
 def _deterministic_cudnn(torch):
     """cuDNN restricted to deterministic algorithms, as it was after."""
@@ -2904,7 +3002,9 @@ def _deterministic_cudnn(torch):
 def finetune_paths(torch, mx, rtc, seed, card):
     """The rtc kernels, then the fine-tune through Module.fit on both
     routes, score/predict, SPMDTrainer for comparison, CPU agreement and
-    a profile.  Returns the rtc entry of the kernels line."""
+    a profile; then the NAG fits (``phase_nag_fit``).  Returns the bn_act
+    and rtc launches of the NAG fits and the rtc entry of the kernels
+    line."""
     import logging
     import numpy as np
     logging.basicConfig(level=logging.INFO, format="  %(message)s",
@@ -2968,6 +3068,11 @@ def finetune_paths(torch, mx, rtc, seed, card):
                 f_run["steady_ms"] - tr_ms, card))
         phase_ft_agreement(torch, mx, net, start_nd, aux_params, seed)
         phase_ft_profile(torch, mx, fused, X, y, card)
+        del fused
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = phase_nag_fit(torch, mx, net, arg_params, aux_params, X, y,
+                              tmp, seed, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_launches = main_fit_launches + served
@@ -2981,7 +3086,7 @@ def finetune_paths(torch, mx, rtc, seed, card):
             sum(r["f32_bound_ms"] for r in feat), RTC_MODEL_SIZE,
             model["f32_ms"], model["f32_plain_ms"],
             model["f32_library_ms"], model["f32_bound_ms"]))
-    return [{
+    return extra, [{
         "name": "rtc_elementwise",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/rtc_elementwise.cu",
@@ -2994,6 +3099,946 @@ def finetune_paths(torch, mx, rtc, seed, card):
         "bound_by": "bytes",
         "library_ms": model["f32_library_ms"],
     }]
+
+
+# ---------------------------------------------------------------------------
+# the NDArray and Symbol surface: the tensor ops of ops/tensor.py, an FGSM
+# attack on ResNet-50 in NDArray arithmetic, the optimizers written in it,
+# and the NDArray layer's dispatch cost
+# ---------------------------------------------------------------------------
+
+#: the sweep's main shape (an odd width), the tests' is (3, 7)
+SWEEP_SHAPE = (64, 257)
+HALF_TYPES = ("float16", "bfloat16")
+FLOAT_TYPES = ("float32",) + HALF_TYPES
+ALL_TYPES = FLOAT_TYPES + ("int32",)
+#: card vs the port's CPU path: float32 within this x max |cpu| (both
+#: float32, other kernels and summation orders), half types within
+#: HALF_REL_TOL x max |cpu| (a few ulp of 2^-8), gradients within
+#: GRAD_REL_L2 in relative L2; integer, comparison, logic, indexing and
+#: ordering results exactly
+SWEEP_F32_REL_TOL = 1e-5
+HALF_REL_TOL = 1e-2
+GRAD_REL_L2 = 1e-4
+SAMPLER_DRAWS = 10 ** 6
+#: the sampling ops: checked by seed determinism and moments, not values
+SAMPLERS = (("_sample_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12),
+            ("_sample_normal", {"loc": 0.5, "scale": 2.0}, 0.5, 4.0),
+            ("_sample_gamma", {"alpha": 2.0, "beta": 1.5}, 3.0, 4.5))
+FGSM_EPS = 0.01
+FGSM_BATCHES = 3        # attack batches after one warm-up batch
+FGSM_AGREE_BATCH = 2    # the attack batch held against the CPU
+FGSM_SIGN_FLOOR = 1e-3  # signs compared where |g| > this x max |g|
+OPT_SHAPE = (64, 257)
+NAG_MOMENTUM = 0.9
+DISPATCH_SHAPE = (32, 1024)
+DISPATCH_REPS, DISPATCH_CALLS = 5, 1000
+
+
+def _tensor_case(op, inputs, attrs=None, dtypes=FLOAT_TYPES, kind="float",
+                 grad=True, tag="", fixed=None):
+    return dict(op=op, inputs=tuple(inputs), attrs=attrs or {},
+                dtypes=dtypes, kind=kind, grad=grad, tag=tag,
+                fixed=fixed or {})
+
+
+def tensor_op_cases(m, n):
+    """The cases of the tensor-op sweep at main shape (m, n), shared with
+    ``tests/test_torch_tensor_ops.py`` (which runs them at (3, 7) against
+    the JAX package).  Each case: the op, its inputs as (domain, shape)
+    or ("index", values), attributes, the dtypes it runs in (float32
+    always, the half types where the op takes floats, int32 where the
+    reference takes it), how it is compared (``exact``, ``float``,
+    ``trans`` for transcendental) and whether its gradient is checked.
+    Inputs with ties (``ties``) make ordering and comparison checks bite;
+    index inputs reach outside their range and are fractional."""
+    import numpy as np
+    c = _tensor_case
+    S, ROW, COL = (m, n), (1, n), (m, 1)
+    CUBE, TALL = (m, 5, n), (m + 2, n)
+    two = (("any", S), ("any", S))
+    ties2 = (("ties", S), ("ties", S))
+    idx = np.array([-1.7, 0.0, 3.2, m + 7.0, 4.9, -6.0], np.float32)
+    rows = np.resize(np.array([0, n - 1, 2, 1], np.float32), m)
+    cols = np.resize(np.array([0, m - 1, 2 % m, 1], np.float32), n)
+    onehot = np.array([0.0, 2.0, -1.0, 5.0, 3.7, 1.0], np.float32)
+    cases = [
+        c("elemwise_add", two, dtypes=ALL_TYPES),
+        c("elemwise_sub", two, dtypes=ALL_TYPES),
+        c("elemwise_mul", two, dtypes=ALL_TYPES),
+        c("elemwise_div", (("any", S), ("nonzero", S)), dtypes=ALL_TYPES),
+        c("_power", (("pos", S), ("any", S)), kind="trans"),
+        c("_power", (("small", S), ("small", S)), dtypes=("int32",),
+          grad=False, tag="int"),
+        c("_maximum", two, dtypes=ALL_TYPES),
+        c("_minimum", two, dtypes=ALL_TYPES),
+        c("_hypot", two, dtypes=ALL_TYPES, kind="trans"),
+        c("_grad_add", two, dtypes=ALL_TYPES),
+        c("broadcast_add", (("any", S), ("any", ROW)), dtypes=ALL_TYPES),
+        c("broadcast_sub", (("any", COL), ("any", S)), dtypes=ALL_TYPES),
+        c("broadcast_mul", (("any", S), ("any", ROW)), dtypes=ALL_TYPES),
+        c("broadcast_div", (("any", S), ("nonzero", ROW)), dtypes=ALL_TYPES),
+        c("broadcast_mod", (("any", S), ("nonzero", ROW)), dtypes=ALL_TYPES,
+          grad=False),
+        c("broadcast_power", (("pos", S), ("any", ROW)), kind="trans"),
+        c("broadcast_power", (("small", S), ("small", ROW)),
+          dtypes=("int32",), grad=False, tag="int"),
+        c("broadcast_maximum", (("any", S), ("any", ROW)), dtypes=ALL_TYPES),
+        c("broadcast_minimum", (("any", S), ("any", ROW)), dtypes=ALL_TYPES),
+        c("broadcast_hypot", (("any", S), ("any", ROW)), dtypes=ALL_TYPES,
+          kind="trans"),
+    ]
+    cases += [c(op, ties2, dtypes=ALL_TYPES, kind="exact", grad=False)
+              for op in ("broadcast_equal", "broadcast_not_equal",
+                         "broadcast_greater", "broadcast_greater_equal",
+                         "broadcast_lesser", "broadcast_lesser_equal",
+                         "broadcast_logical_and", "broadcast_logical_or",
+                         "broadcast_logical_xor")]
+    # scalar ops: 2.5 rounds to 2 in int32
+    cases += [c(op, (("any", S),), {"scalar": 2.5}, dtypes=ALL_TYPES)
+              for op in ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
+                         "_mul_scalar", "_div_scalar", "_maximum_scalar",
+                         "_minimum_scalar")]
+    cases += [
+        c("_rdiv_scalar", (("nonzero", S),), {"scalar": 2.5},
+          dtypes=ALL_TYPES),
+        c("_mod_scalar", (("any", S),), {"scalar": 2.5}, dtypes=ALL_TYPES,
+          grad=False),
+        c("_rmod_scalar", (("nonzero", S),), {"scalar": 2.5},
+          dtypes=ALL_TYPES, grad=False),
+        c("_power_scalar", (("pos", S),), {"scalar": 2.5}, kind="trans"),
+        c("_power_scalar", (("any", S),), {"scalar": 2.5},
+          dtypes=("int32",), grad=False, tag="int"),
+        c("_rpower_scalar", (("any", S),), {"scalar": 2.5}, kind="trans"),
+        c("_rpower_scalar", (("small", S),), {"scalar": 2.5},
+          dtypes=("int32",), grad=False, tag="int"),
+        c("_hypot_scalar", (("any", S),), {"scalar": 2.5},
+          dtypes=ALL_TYPES, kind="trans"),
+    ]
+    cases += [c(op, (("ties", S),), {"scalar": 1.0}, dtypes=ALL_TYPES,
+                kind="exact", grad=False)
+              for op in ("_equal_scalar", "_not_equal_scalar",
+                         "_greater_scalar", "_greater_equal_scalar",
+                         "_lesser_scalar", "_lesser_equal_scalar")]
+    one = (("any", S),)
+    cases += [
+        c("smooth_l1", one, {"scalar": 1.5}),
+        c("abs", one, dtypes=ALL_TYPES),
+        c("sign", one, dtypes=ALL_TYPES, grad=False),
+        c("negative", one, dtypes=ALL_TYPES),
+        c("square", one, dtypes=ALL_TYPES),
+        c("relu", one, dtypes=ALL_TYPES),
+        c("sigmoid", one, kind="trans"),
+        c("softsign", one, dtypes=ALL_TYPES),
+        c("logical_not", (("ties", S),), dtypes=ALL_TYPES, kind="exact",
+          grad=False),
+        c("identity", one, dtypes=ALL_TYPES),
+        c("BlockGrad", one, dtypes=ALL_TYPES),
+        c("reciprocal", (("nonzero", S),), dtypes=ALL_TYPES),
+        c("degrees", one, dtypes=ALL_TYPES),
+        c("radians", one, dtypes=ALL_TYPES),
+        c("rsqrt", (("pos", S),), kind="trans"),
+        c("cbrt", one, dtypes=ALL_TYPES, kind="trans"),
+        c("rcbrt", (("nonzero", S),), dtypes=ALL_TYPES, kind="trans"),
+        c("gamma", (("pos", S),), kind="trans"),
+        c("gamma", one, dtypes=("float32",), kind="trans", grad=False,
+          tag="negative"),
+        c("gammaln", (("pos", S),), kind="trans"),
+        c("erf", one, kind="trans"),
+        c("erfinv", (("unit", S),), kind="trans"),
+    ]
+    cases += [c(op, (("halves", S),), dtypes=ALL_TYPES, grad=False)
+              for op in ("ceil", "floor", "round", "rint", "trunc", "fix")]
+    cases += [c(op, (("pos", S),), dtypes=ALL_TYPES, kind="trans")
+              for op in ("sqrt", "log", "log10", "log2", "log1p")]
+    cases += [c(op, one, dtypes=ALL_TYPES, kind="trans")
+              for op in ("exp", "expm1", "sin", "cos", "tan", "sinh", "cosh",
+                         "tanh", "arctan", "arcsinh")]
+    cases += [c(op, (("unit", S),), kind="trans")
+              for op in ("arcsin", "arccos", "arctanh")]
+    cases += [
+        c("arccosh", (("gt1", S),), dtypes=ALL_TYPES, kind="trans"),
+        # no gradient case: the reference's train forward seeds float32
+        # ones heads, which jax.vjp refuses for a float16 output
+        c("Cast", one, {"dtype": "float16"}, dtypes=ALL_TYPES, grad=False),
+        c("Cast", one, {"dtype": "int32"}, dtypes=ALL_TYPES, grad=False,
+          tag="to_int"),
+        c("clip", one, {"a_min": -0.5, "a_max": 1.5}),
+        c("clip", one, {"a_min": -2, "a_max": 3}, dtypes=("int32",),
+          grad=False, tag="int"),
+        c("softmax", one, kind="trans"),
+        c("softmax", one, {"axis": 0, "temperature": 2.0}, kind="trans",
+          tag="axis0_t2"),
+        c("log_softmax", one, kind="trans"),
+        c("log_softmax", one, {"axis": 0, "temperature": 2.0}, kind="trans",
+          tag="axis0_t2"),
+    ]
+    # reductions, three axis forms each
+    cases += [c(op, ((dom, CUBE),), attrs, dtypes=ALL_TYPES, grad=grad,
+                tag=tag)
+              for op, dom, grad in (("sum", "any", True),
+                                    ("mean", "any", True),
+                                    ("prod", "unitish", True),
+                                    ("nansum", "nans", False),
+                                    ("nanprod", "unitnans", False),
+                                    ("max", "any", True),
+                                    ("min", "any", True))
+              for attrs, tag in (({}, "all"),
+                                 ({"axis": 1, "keepdims": True}, "keep"),
+                                 ({"axis": (0, 2), "exclude": True},
+                                  "exclude"))]
+    cases += [
+        c("norm", one, dtypes=ALL_TYPES),
+        c("norm", (("any", CUBE),), {"ord": 1, "axis": (0, 2),
+                                     "keepdims": True},
+          dtypes=ALL_TYPES, tag="l1_axes"),
+        c("argmax", (("ties", CUBE),), dtypes=ALL_TYPES, kind="exact",
+          grad=False),
+        c("argmax", (("ties", CUBE),), {"axis": 1, "keepdims": True},
+          dtypes=ALL_TYPES, kind="exact", grad=False, tag="axis1"),
+        c("argmin", (("ties", CUBE),), dtypes=ALL_TYPES, kind="exact",
+          grad=False),
+        c("argmin", (("ties", CUBE),), {"axis": -1}, dtypes=ALL_TYPES,
+          kind="exact", grad=False, tag="axis_last"),
+        c("argmax_channel", (("ties", CUBE),), dtypes=ALL_TYPES,
+          kind="exact", grad=False),
+        c("broadcast_to", (("any", (m, 1, n)),), {"shape": (0, 5, 0)},
+          dtypes=ALL_TYPES),
+        c("broadcast_axis", (("any", (m, 1, 1)),),
+          {"axis": (1, 2), "size": (5, 2)}, dtypes=ALL_TYPES),
+        c("dot", (("any", S), ("any", (n, m))), dtypes=ALL_TYPES),
+        c("dot", (("any", (n, m)), ("any", (m, n))),
+          {"transpose_a": True, "transpose_b": True}, dtypes=ALL_TYPES,
+          tag="transposed"),
+        c("dot", (("any", (2, m, n)), ("any", (n, 4))), dtypes=ALL_TYPES,
+          tag="3d"),
+        c("dot", (("any", (n,)), ("any", (n,))), dtypes=ALL_TYPES,
+          tag="1d"),
+        c("batch_dot", (("any", (2, m, n)), ("any", (2, n, m))),
+          dtypes=ALL_TYPES),
+        c("batch_dot", (("any", (2, n, m)), ("any", (2, m, n))),
+          {"transpose_a": True, "transpose_b": True}, dtypes=ALL_TYPES,
+          tag="transposed"),
+        c("transpose", (("any", CUBE),), dtypes=ALL_TYPES),
+        c("transpose", (("any", CUBE),), {"axes": (1, 0, 2)},
+          dtypes=ALL_TYPES, tag="axes"),
+        c("SwapAxis", (("any", CUBE),), {"dim1": 0, "dim2": 2},
+          dtypes=ALL_TYPES),
+        c("Reshape", (("any", CUBE),), {"shape": (0, -1)}, dtypes=ALL_TYPES),
+        c("Reshape", (("any", CUBE),), {"shape": (-3, 0)}, dtypes=ALL_TYPES,
+          tag="merge"),
+        c("Reshape", (("any", CUBE),), {"shape": (-4, 1, m, -2)},
+          dtypes=ALL_TYPES, tag="split"),
+        c("Flatten", (("any", CUBE),), dtypes=ALL_TYPES),
+        c("expand_dims", one, {"axis": 1}, dtypes=ALL_TYPES),
+        c("slice", (("any", TALL),), {"begin": (1, 0), "end": (m, None),
+                                      "step": (1, 2)}, dtypes=ALL_TYPES),
+        c("slice", (("any", TALL),), {"begin": (None, n - 2),
+                                      "end": (None, 0), "step": (-1, -2)},
+          dtypes=ALL_TYPES, tag="negative_step"),
+        c("slice_axis", (("any", TALL),), {"axis": 1, "begin": 1, "end": -1},
+          dtypes=ALL_TYPES),
+        c("slice_axis", (("any", TALL),),
+          {"axis": 0, "begin": -3, "end": None}, dtypes=ALL_TYPES,
+          tag="tail"),
+        c("reverse", (("any", CUBE),), {"axis": (0, 2)}, dtypes=ALL_TYPES),
+        c("repeat", one, {"repeats": 2, "axis": 1}, dtypes=ALL_TYPES),
+        c("repeat", one, {"repeats": 3}, dtypes=ALL_TYPES, tag="flat"),
+        c("tile", one, {"reps": (2, 1, 3)}, dtypes=ALL_TYPES),
+        c("stack", (("any", S),) * 3, {"axis": 1, "num_args": 3},
+          dtypes=ALL_TYPES),
+        c("add_n", (("any", S),) * 3, {"num_args": 3}, dtypes=ALL_TYPES),
+        c("_zeros", (), grad=False, dtypes=ALL_TYPES, fixed={"shape": S}),
+        c("_ones", (), grad=False, dtypes=ALL_TYPES, fixed={"shape": S}),
+        c("_full", (), grad=False, dtypes=ALL_TYPES,
+          fixed={"shape": S, "value": 2.5}),
+        c("_arange", (), grad=False, dtypes=ALL_TYPES,
+          fixed={"start": 1, "stop": n, "step": 1.5, "repeat": 2}),
+        c("_arange", (), grad=False, dtypes=("float32", "int32"),
+          fixed={"start": n}, tag="stop_none"),
+        c("zeros_like", one, dtypes=ALL_TYPES, grad=False),
+        c("ones_like", one, dtypes=ALL_TYPES, grad=False),
+        c("take", (("any", TALL), ("index", np.resize(idx, (2, 3)))),
+          {"mode": "clip"}, dtypes=ALL_TYPES, kind="exact"),
+        c("take", (("any", TALL), ("index", np.resize(idx, (2, 3)))),
+          {"mode": "wrap"}, dtypes=ALL_TYPES, kind="exact", tag="wrap"),
+        c("take", (("any", (m, n + 1)), ("index", idx[:3])),
+          {"axis": 1, "mode": "clip"}, dtypes=ALL_TYPES, kind="exact",
+          tag="axis1"),
+        c("batch_take", (("any", S), ("index", rows)), dtypes=ALL_TYPES,
+          kind="exact"),
+        c("one_hot", (("index", onehot),), {"depth": 4}, dtypes=ALL_TYPES,
+          kind="exact", grad=False),
+        c("one_hot", (("index", onehot.reshape(2, 3)),),
+          {"depth": 5, "on_value": 2.0, "off_value": -1.0,
+           "dtype": "int32"}, dtypes=("float32",), kind="exact", grad=False,
+          tag="int_out"),
+        c("_onehot_encode", (("index", rows), ("any", S)), dtypes=ALL_TYPES,
+          kind="exact", grad=False),
+        c("pick", (("any", S), ("index", rows)), dtypes=ALL_TYPES,
+          kind="exact"),
+        c("pick", (("any", S), ("index", cols)),
+          {"axis": 0, "keepdims": True}, dtypes=ALL_TYPES, kind="exact",
+          tag="axis0"),
+        c("choose_element_0index", (("any", S), ("index", rows)),
+          dtypes=ALL_TYPES, kind="exact"),
+        c("fill_element_0index", (("any", S), ("any", (m,)),
+                                  ("index", rows)),
+          dtypes=ALL_TYPES, kind="exact"),
+        c("where", (("bool", S), ("any", S), ("any", S)), dtypes=ALL_TYPES,
+          kind="exact"),
+        c("where", (("bool", (m,)), ("any", S), ("any", S)),
+          dtypes=ALL_TYPES, kind="exact", tag="rows"),
+    ]
+    cases += [c("topk", (("ties", S),), dict(attrs, k=3), dtypes=ALL_TYPES,
+                kind="exact", grad=grad, tag=tag)
+              for attrs, tag, grad in (
+                  ({}, "indices", False),
+                  ({"is_ascend": True}, "ascend", False),
+                  ({"ret_typ": "value"}, "value", True),
+                  ({"ret_typ": "value", "is_ascend": True, "axis": 0},
+                   "value_axis0", True),
+                  ({"ret_typ": "both"}, "both", False),
+                  ({"ret_typ": "mask"}, "mask", False))]
+    cases += [
+        c("sort", (("ties", S),), dtypes=ALL_TYPES, kind="exact"),
+        c("sort", (("ties", S),), {"is_ascend": False, "axis": 0},
+          dtypes=ALL_TYPES, kind="exact", tag="descend_axis0"),
+        c("argsort", (("ties", S),), dtypes=ALL_TYPES, kind="exact",
+          grad=False),
+        c("argsort", (("ties", S),), {"is_ascend": False},
+          dtypes=ALL_TYPES, kind="exact", grad=False, tag="descend"),
+        c("sgd_update", two, {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5,
+                              "clip_gradient": 0.7},
+          dtypes=("float32",), grad=False),
+        c("sgd_mom_update", (("any", S),) * 3,
+          {"lr": 0.1, "momentum": 0.9, "wd": 0.01, "clip_gradient": 0.7},
+          dtypes=("float32",), grad=False),
+        c("adam_update", two + (("pos", S),) * 2, {"lr": 0.01, "wd": 0.01},
+          dtypes=("float32",), kind="trans", grad=False),
+        c("rmsprop_update", two + (("pos", S),),
+          {"lr": 0.01, "clip_weights": 0.5}, dtypes=("float32",),
+          kind="trans", grad=False),
+        c("rmspropalex_update",
+          two + (("gt1", S), ("unit", S), ("any", S)), {"lr": 0.01},
+          dtypes=("float32",), kind="trans", grad=False),
+        c("softmax_cross_entropy", (("any", S), ("index", rows)),
+          kind="trans", grad=False),
+        c("_CrossDeviceCopy", one, dtypes=ALL_TYPES),
+        c("_slice_assign", (("any", TALL), ("any", (2, n))),
+          {"begin": (1, None), "end": (3, None)}, dtypes=ALL_TYPES),
+        c("_crop_assign_scalar", (("any", TALL),),
+          {"scalar": 2.5, "begin": (1, 2), "end": (3, 5)},
+          dtypes=ALL_TYPES),
+    ]
+    return cases
+
+
+def tensor_case_id(case, dtype=None):
+    base = case["op"] + ("-" + case["tag"] if case["tag"] else "")
+    return base if dtype is None else "%s-%s" % (base, dtype)
+
+
+def draw_tensor_inputs(case, dtype, seed):
+    """The case's inputs as numpy arrays: data inputs drawn in their
+    domain (integer-valued for int32 and for ``ties``), index inputs as
+    the case gives them (float32)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for domain, spec in case["inputs"]:
+        if domain == "index":
+            out.append(np.asarray(spec, np.float32))
+            continue
+        shape = spec
+        if dtype == "int32":
+            lo, hi = {"any": (-5, 6), "pos": (1, 6), "gt1": (2, 6),
+                      "ties": (-3, 4), "small": (0, 4), "nonzero": (1, 5),
+                      "bool": (0, 2), "halves": (-5, 6), "nans": (-5, 6),
+                      "unitish": (-2, 3), "unitnans": (-2, 3)}[domain]
+            v = rs.randint(lo, hi, shape)
+            if domain == "nonzero":
+                v = v * rs.choice([-1, 1], shape)
+            out.append(v.astype(np.int32))
+            continue
+        if domain in ("any", "nans"):
+            v = rs.standard_normal(shape) * 2
+            if domain == "nans":
+                v.flat[::5] = np.nan
+        elif domain == "pos":
+            v = rs.uniform(0.5, 3.0, shape)
+        elif domain == "unit":
+            v = rs.uniform(-0.9, 0.9, shape)
+        elif domain in ("unitish", "unitnans"):
+            # +-1 with a few 2s and halves: a product of any length is
+            # exact in float32 and stays in range, whatever the order
+            v = rs.choice([1.0, 2.0, 0.5], shape, p=[0.96, 0.02, 0.02]) \
+                * rs.choice([-1, 1], shape)
+            if domain == "unitnans":
+                v.flat[::5] = np.nan
+        elif domain == "gt1":
+            v = rs.uniform(1.1, 3.0, shape)
+        elif domain == "ties":
+            v = rs.randint(-3, 4, shape)
+        elif domain == "small":
+            v = rs.uniform(0.0, 2.0, shape)
+        elif domain == "nonzero":
+            v = rs.uniform(0.5, 3.0, shape) * rs.choice([-1, 1], shape)
+        elif domain == "bool":
+            v = rs.randint(0, 2, shape)
+        elif domain == "halves":
+            # half-way values: round/rint go to the even neighbour
+            v = rs.randint(-4, 5, shape) + 0.5
+            v.flat[::2] = rs.standard_normal(v.size)[::2] * 3
+        else:
+            raise ValueError(domain)
+        out.append(v.astype(np.float32))
+    return out
+
+
+def input_dtypes(case, dtype):
+    """Each input's dtype: index inputs and conditions stay float32."""
+    return [("float32" if domain in ("index", "bool") else dtype)
+            for domain, _ in case["inputs"]]
+
+
+def case_attrs(case, dtype):
+    """The attributes a case calls its op with (init ops take the case's
+    dtype)."""
+    attrs = dict(case["attrs"], **case["fixed"])
+    if not case["inputs"]:
+        attrs.setdefault("dtype", dtype)
+    return attrs
+
+
+def _profiler(torch):
+    """A torch.profiler window over the host and the card."""
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+def _nd_call(mx, case, dtype, arrays, ctx):
+    """``mx.nd.<op>`` on NDArrays: a list of output NDArrays."""
+    attrs = case_attrs(case, dtype)
+    if not arrays:
+        attrs["ctx"] = ctx
+    out = getattr(mx.nd, case["op"])(*arrays, **attrs)
+    return out if isinstance(out, list) else [out]
+
+
+def _sweep_error(np, got, ref, exact, half):
+    """``None`` when the card's output matches the CPU's, else what
+    differs.  Non-finite entries must match exactly (positions and
+    values); finite ones exactly, or within the float tolerance of the
+    largest finite |cpu| value."""
+    if got.shape != ref.shape:
+        return "shape %s vs %s" % (got.shape, ref.shape)
+    g, r = got.astype(np.float64), ref.astype(np.float64)
+    fin = np.isfinite(r)
+    if not np.array_equal(np.isfinite(g), fin) or not np.array_equal(
+            g[~fin], r[~fin], equal_nan=True):
+        return "non-finite entries differ"
+    if exact:
+        return None if np.array_equal(g, r) else \
+            "max |diff| %.3g (exact expected)" % np.abs(g - r).max()
+    scale = float(np.abs(r[fin]).max()) if fin.any() else 0.0
+    err = float(np.abs(g[fin] - r[fin]).max()) if fin.any() else 0.0
+    tol = (HALF_REL_TOL if half else SWEEP_F32_REL_TOL) * max(scale, 1e-30)
+    return None if err <= tol else \
+        "max |diff| %.3g over %.3g (max |cpu| %.3g)" % (err, tol, scale)
+
+
+def _host_syncs(prof):
+    """Device-to-host copies in a torch.profiler window, by name (a read
+    of a device value on the host, ``.item()`` of a CUDA tensor, is one;
+    ``.item()`` of a host scalar, as ``pow`` takes of a host exponent, is
+    not)."""
+    found = collections.Counter()
+    for e in prof.events():
+        if "DtoH" in e.name or "cudaStreamSynchronize" in e.name:
+            found[e.name] += 1
+    return found
+
+
+def _bind_case(mx, case, arrays, ctx):
+    """The case's op as a one-node graph, bound on ``ctx`` with its data
+    inputs needing gradients; arguments written from numpy."""
+    names = ["in%d" % i for i in range(len(arrays))]
+    diff = [nm for nm, (domain, _) in zip(names, case["inputs"])
+            if domain not in ("index", "bool")]
+    net = getattr(mx.sym, case["op"])(*[mx.sym.var(nm) for nm in names],
+                                      **case["attrs"])
+    ex = net.simple_bind(ctx, grad_req={nm: "write" if nm in diff
+                                        else "null" for nm in names},
+                         **{nm: a.shape for nm, a in zip(names, arrays)})
+    for nm, a in zip(names, arrays):
+        ex.arg_dict[nm][:] = a
+    return ex, diff
+
+
+def phase_tensor_ops(torch, mx, seed, card):
+    """Every op of ops/tensor.py on the card against the port's CPU path:
+    imperatively (``mx.nd.<op>``) in each dtype, and for the
+    differentiable ones through ``simple_bind(mx.gpu(0))`` -> forward ->
+    backward; no device-to-host copy inside either sweep (a profile of
+    both); the samplers by seed determinism and moments."""
+    import numpy as np
+    gpu, host = mx.gpu(0), mx.cpu()
+    # the detector sees a device-to-host read (so its silence below counts)
+    probe = torch.ones(2, device=gpu.torch_device)
+    with _profiler(torch) as prof:
+        probe.sum().item()
+    check(_host_syncs(prof), "the profile shows no copy for a .item() of a "
+          "device value")
+    cases = tensor_op_cases(*SWEEP_SHAPE)
+    covered = {c["op"] for c in cases} | {s[0] for s in SAMPLERS}
+    registered = {op.name for op in mx.ops.registry.OP_REGISTRY.values()
+                  if op.fn.__module__ == "mxnet_tpu_torch.ops.tensor"}
+    check(registered == covered, "ops of ops/tensor.py without a sweep case: "
+          "%s" % sorted(registered - covered))
+    runs = []
+    for k, case in enumerate(cases):
+        for dtype in case["dtypes"]:
+            arrays = draw_tensor_inputs(case, dtype, seed + k)
+            dts = input_dtypes(case, dtype)
+            runs.append((case, dtype, [
+                mx.nd.array(a, ctx=gpu, dtype=d) for a, d in zip(arrays,
+                                                                 dts)], [
+                mx.nd.array(a, ctx=host, dtype=d) for a, d in zip(arrays,
+                                                                  dts)]))
+    # the imperative sweep on the card, traced; results stay on the device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _profiler(torch) as prof:
+        card_out = [_nd_call(mx, case, dtype, ins, gpu)
+                    for case, dtype, ins, _ in runs]
+        torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    syncs = _host_syncs(prof)
+    check(not syncs, "device-to-host copies in the op sweep: %s"
+          % dict(syncs))
+    bad = []
+    for (case, dtype, _, cpu_ins), got in zip(runs, card_out):
+        ref = _nd_call(mx, case, dtype, cpu_ins, host)
+        check(len(ref) == len(got), tensor_case_id(case, dtype))
+        for g, r in zip(got, ref):
+            if g._data.dtype != r._data.dtype or g.context != gpu:
+                bad.append("%s: dtype %s vs %s" % (
+                    tensor_case_id(case, dtype), g._data.dtype,
+                    r._data.dtype))
+                continue
+            exact = case["kind"] == "exact" or \
+                not r._data.is_floating_point()
+            half = dtype in HALF_TYPES or r._data.dtype in (
+                torch.float16, torch.bfloat16)
+            err = _sweep_error(np, g.asnumpy(), r.asnumpy(), exact, half)
+            if err:
+                bad.append("%s: %s" % (tensor_case_id(case, dtype), err))
+    check(not bad, "op sweep, card vs CPU: %s" % "; ".join(bad[:20]))
+    n_types = collections.Counter(dtype for _, dtype, _, _ in runs)
+    log("tensor ops: %d ops (%d cases) x dtypes = %d imperative runs on the "
+        "card (%s), all agree with the CPU path (exact for integer, "
+        "comparison, logic, indexing and ordering results; float32 within "
+        "%g, half types within %g x max |cpu|); sweep %.2f s traced, %d "
+        "device-to-host copies" % (
+            len({c["op"] for c in cases}), len(cases), len(runs),
+            ", ".join("%s %d" % kv for kv in sorted(n_types.items())),
+            SWEEP_F32_REL_TOL, HALF_REL_TOL, sweep_s, sum(syncs.values())))
+    # the differentiable ops through simple_bind, forward and backward
+    bound = []
+    for k, case in enumerate(cases):
+        if not (case["grad"] and "float32" in case["dtypes"]
+                and case["inputs"]):
+            continue
+        arrays = draw_tensor_inputs(case, "float32", seed + k + 1)
+        ex_gpu, diff = _bind_case(mx, case, arrays, gpu)
+        ex_cpu, _ = _bind_case(mx, case, arrays, host)
+        shape = ex_cpu.forward()[0].shape
+        head = np.random.RandomState(seed + 7).standard_normal(shape) \
+            .astype(np.float32)
+        bound.append((case, diff, ex_gpu, ex_cpu, head,
+                      mx.nd.array(head, ctx=gpu)))
+    torch.cuda.synchronize()
+    with _profiler(torch) as prof:
+        for case, diff, ex, _, _, head in bound:
+            ex.forward(is_train=True)
+            ex.backward(out_grads=[head])
+        torch.cuda.synchronize()
+    syncs = _host_syncs(prof)
+    check(not syncs, "device-to-host copies in the bound sweep: %s"
+          % dict(syncs))
+    worst = (0.0, "")
+    for case, diff, ex, ex_cpu, head, _ in bound:
+        ex_cpu.forward(is_train=True)
+        ex_cpu.backward(out_grads=[mx.nd.array(head, ctx=host)])
+        what = tensor_case_id(case)
+        err = _sweep_error(np, ex.outputs[0].asnumpy(),
+                           ex_cpu.outputs[0].asnumpy(),
+                           case["kind"] == "exact", False)
+        check(err is None, "%s bound forward: %s" % (what, err))
+        for nm in diff:
+            g = ex.grad_dict[nm].asnumpy().astype(np.float64)
+            r = ex_cpu.grad_dict[nm].asnumpy().astype(np.float64)
+            den = float(np.linalg.norm(r))
+            rel = float(np.linalg.norm(g - r)) / den if den > 0 else \
+                float(np.linalg.norm(g))
+            worst = max(worst, (rel, "%s %s" % (what, nm)))
+    check(worst[0] <= GRAD_REL_L2, "bound sweep gradients: %s relative L2 "
+          "%.3g (bound %g)" % (worst[1], worst[0], GRAD_REL_L2))
+    log("tensor ops: %d differentiable cases bound on %s -> forward(is_train"
+        "=True) -> backward(head), outputs and gradients against the CPU "
+        "path: worst gradient relative L2 %.3g (%s, bound %g); no "
+        "device-to-host copy" % (len(bound), gpu, worst[0], worst[1],
+                                 GRAD_REL_L2))
+    _check_samplers(torch, mx, seed, card)
+
+
+def _check_samplers(torch, mx, seed, card):
+    """Each sampler on the card: a seed gives the same draws, another seed
+    others, and SAMPLER_DRAWS draws have the distribution's mean and
+    variance within 5 standard errors; the sampling ops bound in a graph
+    draw anew each forward."""
+    gpu, n = mx.gpu(0), SAMPLER_DRAWS
+    for op, attrs, mean, var in SAMPLERS:
+        draws = []
+        for s in (seed, seed, seed + 1):
+            mx.random.seed(s)
+            draws.append(getattr(mx.nd, op)(shape=(n,), ctx=gpu, **attrs)
+                         ._data)
+        check(draws[0].device == gpu.torch_device
+              and torch.equal(draws[0], draws[1])
+              and not torch.equal(draws[0], draws[2]),
+              "%s: not determined by the seed" % op)
+        x = draws[0].double()
+        m, v = float(x.mean()), float(x.var(unbiased=False))
+        m4 = float(((x - m) ** 4).mean())
+        se_m, se_v = (var / n) ** 0.5, ((m4 - var ** 2) / n) ** 0.5
+        log("sampler %s on the card: mean %.5f (expected %g, 5 SE %.2g), "
+            "variance %.5f (expected %g, 5 SE %.2g) over %d draws" % (
+                op, m, mean, 5 * se_m, v, var, 5 * se_v, n))
+        check(abs(m - mean) <= 5 * se_m and abs(v - var) <= 5 * se_v,
+              "%s: moments off" % op)
+    net = mx.sym.var("x") + mx.sym.uniform(shape=(4, 8)) + \
+        mx.sym.normal(shape=(4, 8))
+    ex = net.simple_bind(gpu, grad_req="null", x=(4, 8))
+    mx.random.seed(seed)
+    first = ex.forward()[0].asnumpy()
+    second = ex.forward()[0].asnumpy()
+    mx.random.seed(seed)
+    again = ex.forward()[0].asnumpy()
+    import numpy as np
+    check(not np.array_equal(first, second) and np.array_equal(first, again),
+          "bound samplers: not fresh per forward or not seeded")
+
+
+def _fgsm_ce(mx, probs, label):
+    """The summed cross-entropy of softmax outputs, in NDArray ops."""
+    return mx.nd.sum(-mx.nd.log(mx.nd.pick(probs, label, axis=1)))
+
+
+def _profile_window(torch, run, steps):
+    """``(wall ms, busy ms, kernels)`` of ``steps`` calls of ``run(i)``
+    under torch.profiler (device busy time from the trace's kernels,
+    copies and sets)."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="nd-trace-", suffix=".json",
+                                dir=build_dir)
+    os.close(fd)
+    try:
+        torch.cuda.synchronize()
+        with _profiler(torch) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                run(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(path)
+        busy_us, by_class, n_kernels, _, _ = _trace_classes(path, None)
+    finally:
+        os.remove(path)
+    return wall_ms, busy_us / 1e3, n_kernels, by_class
+
+
+def phase_fgsm_resnet(torch, mx, seed, card):
+    """The adversary example's flow at ResNet-50 width on the card (see
+    ``nd_paths``).  Returns the bn_act forward and backward launches of
+    the attack batches."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    gpu = mx.gpu(0)
+    shape = (BATCH,) + IMAGE
+    with mx.name.NameManager():
+        symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                      image_shape=IMAGE)
+    w_args, w_aux = draw_weights(symbol, shape, seed)
+    mod = mx.mod.Module(symbol, context=gpu)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (BATCH,))],
+             for_training=True, inputs_need_grad=True)
+    mod.set_params({k: mx.nd.array(v, ctx=gpu) for k, v in w_args.items()},
+                   {k: mx.nd.array(v, ctx=gpu) for k, v in w_aux.items()})
+    rs = np.random.RandomState(seed + 91)
+    n = FGSM_BATCHES + 1
+    X = rs.uniform(0, 1, (n,) + shape).astype(np.float32)
+    Y = rs.randint(0, 1000, (n, BATCH)).astype(np.float32)
+    xs = [mx.nd.array(X[i], ctx=gpu) for i in range(n)]
+    ys = [mx.nd.array(Y[i], ctx=gpu) for i in range(n)]
+
+    def attack(x, label, stamps=None):
+        """One attack batch; ``stamps`` (if given) gets the times after
+        forward+backward, the perturbation and the second forward."""
+        def mark():
+            if stamps is not None:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+        mark()
+        mod.forward(mx.io.DataBatch([x], [label]), is_train=True)
+        mod.backward()
+        g = mod.get_input_grads()[0]
+        probs = mod.get_outputs()[0]
+        ce = _fgsm_ce(mx, probs, label)
+        clean = mx.nd.mean(mx.nd.argmax(probs, axis=1) == label)
+        mark()
+        x_adv = mx.nd.clip(x + FGSM_EPS * mx.nd.sign(g), 0, 1)
+        mark()
+        # the second forward takes batch statistics too: the moving
+        # statistics are drawn, not learned, and the gradient was taken
+        # with batch statistics
+        mod.forward(mx.io.DataBatch([x_adv], [label]), is_train=True)
+        out = mod.get_outputs()[0]
+        ce_adv = _fgsm_ce(mx, out, label)
+        acc = mx.nd.mean(mx.nd.argmax(out, axis=1) == label).asscalar()
+        mark()
+        return g, x_adv, ce, ce_adv, clean, acc
+
+    attack(xs[0], ys[0])                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, launches = [], [0, 0]
+    for i in range(1, n):
+        stamps = []
+        # -- the main path: counts zeroed just before, read just after -----
+        ba.LAUNCHES = 0
+        ba.BWD_LAUNCHES = 0
+        g, x_adv, ce, ce_adv, clean, acc = attack(xs[i], ys[i], stamps)
+        counts = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+        # -------------------------------------------------------------------
+        launches[0] += counts[0]
+        launches[1] += counts[1]
+        ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        rows.append((sum(ms), ms, counts, float(ce.asscalar()),
+                     float(ce_adv.asscalar()), float(clean.asscalar()), acc))
+        if i == FGSM_AGREE_BATCH:
+            agree = (X[i], Y[i], g.asnumpy(), x_adv.asnumpy())
+    peak = torch.cuda.max_memory_allocated()
+    for i, (total, ms, counts, ce, ce_adv, clean, acc) in enumerate(rows, 1):
+        log("fgsm batch %d: %.2f ms (forward+backward %.2f, perturbation "
+            "%.2f, second forward %.2f); bn_act launches %d forward / %d "
+            "backward; cross-entropy %.2f -> %.2f on x_adv; accuracy %.4f "
+            "-> %.4f; on %s" % (i, total, ms[0], ms[1], ms[2], counts[0],
+                                counts[1], ce, ce_adv, clean, acc, card))
+        check(counts == (100, 50), "fgsm batch %d: bn_act launches %s, "
+              "expected 50 + 50 forward (two training forwards) and 50 "
+              "backward" % (i, counts))
+        check(np.isfinite(ce) and ce_adv > ce,
+              "fgsm batch %d: the cross-entropy did not rise (%.4f -> %.4f)"
+              % (i, ce, ce_adv))
+    med = sorted(r[0] for r in rows)[len(rows) // 2]
+    log("fgsm: median %.2f ms per attack batch at batch %d (eps %g), peak "
+        "memory %.2f GiB (max_memory_allocated), on %s" % (
+            med, BATCH, FGSM_EPS, peak / 2 ** 30, card))
+    wall, busy, kernels, by_class = _profile_window(
+        torch, lambda i: attack(xs[1 + i % FGSM_BATCHES],
+                                ys[1 + i % FGSM_BATCHES]), PROFILE_STEPS)
+    log("fgsm profile: %d attack batches, wall %.2f ms, device busy %.2f ms, "
+        "idle share %.3f, %.1f kernels per batch, on %s" % (
+            PROFILE_STEPS, wall, busy, 1 - busy / wall,
+            kernels / PROFILE_STEPS, card))
+    for cls, us in by_class.most_common(6):
+        log("fgsm profile: class %-20s %8.3f ms/batch" % (
+            cls, us / 1e3 / PROFILE_STEPS))
+    check(by_class.get("bn_act_fwd", 0) > 0 and
+          by_class.get("bn_act_bwd", 0) > 0, "fgsm profile: no bn_act time")
+    # the input gradient of one attack batch against the CPU path
+    x_np, y_np, g_card, x_adv_card = agree
+    del mod, xs, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+    host = mx.cpu()
+    weights = (w_args, w_aux)
+    g32 = _executor_step(mx, symbol, weights, x_np, y_np, host)["grad:data"]
+    g64 = _executor_step(mx, symbol, weights, x_np.astype(np.float64),
+                         y_np.astype(np.float64), host)["grad:data"]
+    keys = ["g"]
+    cpu_l2 = _rel_l2(np, {"g": g32}, {"g": g64}, keys)
+    card_l2 = _rel_l2(np, {"g": g_card.astype(np.float64)}, {"g": g64}, keys)
+    bound = max(AGREE_REL_TOL, GRAD_L2_FACTOR * cpu_l2)
+    top = np.abs(g64).max()
+    flips = {}
+    for floor in (FGSM_SIGN_FLOOR, 1e-2, 1e-1):
+        decided = np.abs(g64) > floor * top
+        flips[floor] = tuple(
+            int((np.sign(g)[decided] != np.sign(g64)[decided]).sum())
+            for g in (g_card, g32)) + (int(decided.sum()),)
+    log("fgsm batch %d input gradient vs the float64 CPU run: relative L2 "
+        "%.3g (bound %.3g; CPU float32 %.3g); sign flips where |g| > "
+        "floor x max |g|, card / CPU float32 of elements: %s" % (
+            FGSM_AGREE_BATCH, card_l2, bound, cpu_l2, ", ".join(
+                "%g: %d / %d of %d" % ((f,) + flips[f]) for f in flips)))
+    check(card_l2 <= bound, "fgsm input gradient disagrees with the CPU")
+    # float32 itself flips signs against float64 here (ReLU masks that
+    # flip under another summation order), so the card is held to the
+    # CPU float32 path's count, as its relative L2 is
+    card_flips, cpu_flips, _ = flips[FGSM_SIGN_FLOOR]
+    check(card_flips <= GRAD_L2_FACTOR * max(cpu_flips, 1),
+          "fgsm: %d input-gradient signs differ from float64 (CPU float32: "
+          "%d)" % (card_flips, cpu_flips))
+    # the perturbation in NDArray ops on the card is exactly the float32
+    # arithmetic of the card's own gradient signs
+    x_adv_ref = np.clip(x_np + np.float32(FGSM_EPS) * np.sign(g_card), 0, 1)
+    check(np.array_equal(x_adv_card, x_adv_ref),
+          "fgsm: x_adv is not clip(x + eps sign(g), 0, 1) of the card's g")
+    return launches
+
+
+def _optimizer_run(mx, name, params, shape, seed, ctx):
+    """Two updates of optimizer ``name`` on ``ctx`` from seeded weights
+    and gradients: the weight after them (numpy)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    w0 = rs.standard_normal(shape).astype(np.float32)
+    grads = [(rs.standard_normal(shape) * 2).astype(np.float32)
+             for _ in range(2)]
+    opt = mx.optimizer.create(name, learning_rate=0.1, wd=0.01,
+                              clip_gradient=1.5, rescale_grad=0.5,
+                              param_idx2name={0: "fc_weight"}, **params)
+    upd = mx.optimizer.get_updater(opt)
+    w = mx.nd.array(w0, ctx=ctx)
+    for g in grads:
+        upd(0, mx.nd.array(g, ctx=ctx), w)
+    return w0, grads, w.asnumpy()
+
+
+def phase_nd_optimizers(torch, mx, seed, card):
+    """Each optimizer written in NDArray arithmetic takes two updates on
+    the card and on the CPU from the same weights and gradients: NAG,
+    DCASGD and Test equal bit for bit in float32; AdaGrad and AdaDelta,
+    which take a square root, within the sweep's float32 tolerance
+    (SWEEP_F32_REL_TOL x max |cpu|: the host's float32 ``torch.sqrt`` is
+    not correctly rounded, the card's is, both counted here); SGLD by its
+    noise's moments."""
+    import numpy as np
+    gpu, host = mx.gpu(0), mx.cpu()
+    v = torch.from_numpy(np.random.RandomState(seed).uniform(
+        0.5, 4.0, 1 << 20).astype(np.float32))
+    rounded = torch.sqrt(v.double()).float()
+    off = [int((torch.sqrt(x).cpu() != rounded).sum())
+           for x in (v, v.to(gpu.torch_device))]
+    log("float32 torch.sqrt of %d values in [0.5, 4): %d (host) / %d (card) "
+        "not correctly rounded, on %s" % (v.numel(), off[0], off[1], card))
+    for name, params in (("nag", {"momentum": NAG_MOMENTUM}),
+                         ("adagrad", {}), ("adadelta", {}),
+                         ("dcasgd", {"momentum": 0.9}), ("test", {})):
+        _, _, w_gpu = _optimizer_run(mx, name, params, OPT_SHAPE, seed, gpu)
+        _, _, w_cpu = _optimizer_run(mx, name, params, OPT_SHAPE, seed, host)
+        diff = np.abs(w_gpu.astype(np.float64) - w_cpu)
+        ulps = int(np.max(diff / np.spacing(np.abs(w_cpu))))
+        rel = float(diff.max() / np.abs(w_cpu).max())
+        exact = name not in ("adagrad", "adadelta")
+        log("optimizer %s: 2 updates at %s on the card vs the CPU: max "
+            "|diff| %.3g of max |cpu| (%d ulp of the weight; %s)" % (
+                name, OPT_SHAPE, rel, ulps, "exact expected" if exact else
+                "bound %g" % SWEEP_F32_REL_TOL))
+        check(ulps == 0 if exact else rel <= SWEEP_F32_REL_TOL,
+              "optimizer %s: card and CPU differ (%.3g, %d ulp)"
+              % (name, rel, ulps))
+    n, lr = SAMPLER_DRAWS, 0.1
+    mx.random.seed(seed)
+    w0, grads, w = _optimizer_run(mx, "sgld", {}, (n,), seed, gpu)
+    # the drift of the two updates, less the noise, on the host in float64
+    ref = w0.astype(np.float64)
+    wd = 0.01
+    for g in grads:
+        ref = ref - lr / 2 * (np.clip(g * 0.5, -1.5, 1.5) + wd * ref)
+    noise = w.astype(np.float64) - ref
+    # two draws of N(0, lr), the first shrunk by the second's (1 - lr wd/2)
+    var = lr * (1 + (1 - lr * wd / 2) ** 2)
+    log("optimizer sgld: 2 updates of %d weights on the card: noise mean "
+        "%.3g (5 SE %.2g), variance %.5f (expected %.5f, 5 SE %.2g)" % (
+            n, noise.mean(), 5 * (var / n) ** 0.5, noise.var(), var,
+            5 * var * (2.0 / n) ** 0.5))
+    check(abs(noise.mean()) <= 5 * (var / n) ** 0.5 and
+          abs(noise.var() - var) <= 5 * var * (2.0 / n) ** 0.5,
+          "sgld noise moments")
+
+
+def phase_nd_dispatch(torch, mx, seed, card):
+    """The NDArray layer's host cost: median microseconds per call over
+    DISPATCH_REPS x DISPATCH_CALLS calls on the card, beside the same
+    torch call."""
+    import numpy as np
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(seed)
+    a = mx.nd.array(rs.standard_normal(DISPATCH_SHAPE), ctx=gpu)
+    b = mx.nd.array(rs.standard_normal(DISPATCH_SHAPE), ctx=gpu)
+    ta, tb = a._data.clone(), b._data.clone()
+    held = {"a": a, "t": ta}
+
+    def nd_isub():
+        x = held["a"]
+        x -= b
+
+    def t_isub():
+        x = held["t"]
+        x -= tb
+
+    pairs = (("a + b", lambda: a + b, lambda: ta + tb),
+             ("a * 2.0", lambda: a * 2.0, lambda: ta * 2.0),
+             ("a -= b", nd_isub, t_isub),
+             ("mx.nd.sum(a, axis=1)", lambda: mx.nd.sum(a, axis=1),
+              lambda: torch.sum(ta, dim=1)),
+             ("a[1:3]", lambda: a[1:3], lambda: ta[1:3]),
+             ("mx.nd.topk(a, k=5)", lambda: mx.nd.topk(a, k=5),
+              lambda: torch.topk(ta, 5)))
+
+    def per_call_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+
+    for label, nd_fn, t_fn in pairs:
+        per_call_us(nd_fn)              # warm-up
+        per_call_us(t_fn)
+        nd_us, t_us = [], []
+        for _ in range(DISPATCH_REPS):
+            nd_us.append(per_call_us(nd_fn))
+            t_us.append(per_call_us(t_fn))
+        nd_med = sorted(nd_us)[DISPATCH_REPS // 2]
+        t_med = sorted(t_us)[DISPATCH_REPS // 2]
+        log("dispatch %-22s NDArray %7.2f us/call, torch %7.2f us/call "
+            "(median of %d x %d calls at %s float32), on %s" % (
+                label, nd_med, t_med, DISPATCH_REPS, DISPATCH_CALLS,
+                DISPATCH_SHAPE, card))
+
+
+def nd_paths(torch, mx, seed, card):
+    """The tensor-op sweep, the FGSM attack on ResNet-50 (one warm-up and
+    FGSM_BATCHES attack batches of forward(is_train=True) -> backward ->
+    get_input_grads -> clip(x + eps sign(g), 0, 1) -> forward -> accuracy,
+    all NDArray ops on the card), the optimizers' single steps and the
+    dispatch cost.  Returns the bn_act launches of the attack batches."""
+    phase_tensor_ops(torch, mx, seed, card)
+    fwd, bwd = phase_fgsm_resnet(torch, mx, seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_nd_optimizers(torch, mx, seed, card)
+    phase_nd_dispatch(torch, mx, seed, card)
+    return collections.Counter({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
 
 
 def main(argv=None):
@@ -3017,7 +4062,11 @@ def main(argv=None):
     kernels = resnet_paths(torch, mx, args.seed, card)
     kernels += lm_paths(torch, mx, args.seed, card)
     kernels += long_context_paths(torch, mx, args.seed, card)
-    kernels += finetune_paths(torch, mx, rtc, args.seed, card)
+    extra, rows = finetune_paths(torch, mx, rtc, args.seed, card)
+    kernels += rows
+    extra += nd_paths(torch, mx, args.seed, card)
+    for row in kernels:
+        row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
 ``mx.nd.contrib``), ``mx.rtc``, ``mx.mod`` (``mx.module``), ``mx.kv``
 (``mx.kvstore``), ``mx.metric``, ``mx.callback``, ``mx.cpu()``,
-``mx.gpu(i)``, ``mx.current_context()``.
+``mx.gpu(i)``, ``mx.current_context()``, ``mx.num_gpus()``, and the
+classes ``mx.NDArray``, ``mx.Symbol``, ``mx.Executor``, ``mx.Optimizer``.
 This package imports ``torch``, ``numpy`` and
 the standard library only; it never imports ``jax`` or ``mxnet_tpu``.
 
@@ -17,15 +18,18 @@ without CUDA a gpu context raises instead of running on the host.
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
 from . import ops  # noqa: F401 — registers the ops before sym is built
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import symbol
 from . import symbol as sym
+from .symbol import Symbol
 from . import kernels
 from . import mxfuse
 from . import executor
+from .executor import Executor
 from . import model
 from . import models
 from . import predict
@@ -36,6 +40,7 @@ from . import random
 from . import io
 from . import lr_scheduler
 from . import optimizer
+from .optimizer import Optimizer
 from . import initializer
 from . import parallel
 from . import rnn
@@ -58,7 +63,8 @@ ndarray.contrib = contrib.ndarray
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "nd",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "NDArray", "Symbol", "Executor", "Optimizer", "nd",
            "ndarray", "sym", "symbol", "kernels", "mxfuse", "executor",
            "model", "models", "predict", "convert", "name", "attribute",
            "random", "io", "lr_scheduler", "optimizer", "initializer",

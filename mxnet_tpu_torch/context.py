@@ -20,7 +20,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "pin_f32_numerics"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
+           "pin_f32_numerics"]
 
 
 def pin_f32_numerics():
@@ -99,6 +100,11 @@ def cpu(device_id=0):
 def gpu(device_id=0):
     """The i-th CUDA device."""
     return Context("gpu", device_id)
+
+
+def num_gpus():
+    """The number of CUDA devices (0 on a host without CUDA)."""
+    return torch.cuda.device_count()
 
 
 def current_context():

@@ -71,19 +71,24 @@ def _node_plan(symbol):
 
 
 def _build_eval(symbol):
-    """Return ``eval_fn(args, aux, is_train, rng) -> (outputs,
-    aux_updates)`` over name -> tensor dicts, interpreting the plan as the
-    mxfuse passes rewrote it (``MXTPU_FUSED_KERNELS=0`` skips them).
-    ``rng`` is the forward's integer seed."""
+    """Return ``eval_fn(args, aux, is_train, rng, device=None) ->
+    (outputs, aux_updates)`` over name -> tensor dicts, interpreting the
+    plan as the mxfuse passes rewrote it (``MXTPU_FUSED_KERNELS=0`` skips
+    them).  ``rng`` is the forward's integer seed; ``device`` is where
+    nodes without tensor inputs (``_zeros``, the samplers) create their
+    results (default: the first argument's device)."""
     from . import mxfuse
     out_refs = [(id(n), i) for n, i in symbol._outputs]
     fused_plan = mxfuse.optimize_plan(_node_plan(symbol), out_refs)
 
-    def eval_fn(args, aux, is_train, rng):
+    def eval_fn(args, aux, is_train, rng, device=None):
         env = {}
         aux_updates = {}
+        if device is None:
+            device = next((t.device for t in args.values()),
+                          torch.device("cpu"))
         _run_plan_nodes(fused_plan, env, args, aux, is_train, aux_updates,
-                        rng)
+                        rng, device)
         return [env[nid][i] for nid, i in out_refs], aux_updates
     eval_fn.plan = fused_plan
     return eval_fn
@@ -97,9 +102,11 @@ def _bind_variable(node, args, aux):
     raise MXNetError("unbound variable %r" % node.name)
 
 
-def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng):
+def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
+                    device):
     """Interpret a slice of the node plan against ``env`` (id -> outputs
-    tuple); ``rng`` is the forward's integer seed."""
+    tuple); ``rng`` is the forward's integer seed, ``device`` the one
+    nodes without tensor inputs create their results on."""
     for node, call_attrs, n_out, aux_var_names, ix, override in chunk:
         if node.op is None:
             env[id(node)] = (_bind_variable(node, args, aux),)
@@ -124,9 +131,12 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng):
         else:
             fn = node.op.fn
             ins = [env[id(src)][idx] for src, idx in node.inputs]
-        if node.op.needs_rng:
-            device = next(t.device for t in ins if t is not None)
-            kw["rng"] = _random.node_generator(rng, ix, device)
+        if not ins or node.op.needs_rng:
+            on = next((t.device for t in ins if t is not None), device)
+            if not ins and "ctx" in fn_signature_info(fn)[0]:
+                call_attrs = dict(call_attrs, ctx=on)
+            if node.op.needs_rng:
+                kw["rng"] = _random.node_generator(rng, ix, on)
         out = fn(*ins, **call_attrs, **kw)
         if not isinstance(out, (tuple, list)):
             out = (out,)
@@ -230,7 +240,8 @@ class Executor(object):
             self._graph = (outs, leaves)
         else:
             with torch.no_grad():
-                outs, auxu = self._eval(args, aux, is_train, rng)
+                outs, auxu = self._eval(args, aux, is_train, rng,
+                                        self._ctx.torch_device)
         self._set_outputs(outs)
         if is_train:
             self._apply_aux(auxu)
@@ -248,7 +259,8 @@ class Executor(object):
         merged = dict(args)
         merged.update(leaves)
         with torch.enable_grad():
-            outs, auxu = self._eval(merged, aux, True, rng)
+            outs, auxu = self._eval(merged, aux, True, rng,
+                                    self._ctx.torch_device)
         return outs, leaves, auxu
 
     @staticmethod

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager", "current"]
+__all__ = ["NameManager", "Prefix", "current"]
 
 
 class NameManager(object):
@@ -33,6 +33,18 @@ class NameManager(object):
 
     def __exit__(self, ptype, value, trace):
         NameManager._state.current = self._old_manager
+
+
+class Prefix(NameManager):
+    """Prepends a prefix to every name it gives (name.py:63-78)."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name
 
 
 def current():

@@ -1,18 +1,30 @@
 """NDArray — the imperative tensor type, over a ``torch.Tensor``.
 
-Port of the parts of ``mxnet_tpu/ndarray.py`` the serving, training,
-LSTM and Module slices need: the array type (a mutable cell holding one
-tensor on its context's device; slicing and ``reshape`` give views,
-``copy`` a copy), ``array``/``zeros``/``ones``/``empty``/``concatenate``,
-``waitall``, the imperative op surface (every registered op as
-``mx.nd.<op>``, :func:`_init_ndarray_module`; ops registered later, such
-as rtc kernels, inject themselves), and ``.params`` serialization
-byte-identical to ``mxnet_tpu/ndarray.py:501-575`` (the reference's
-format, src/ndarray/ndarray.cc:593-676, kMXAPINDArrayListMagic=0x112), so
-a file written by either package loads in the other.
+Port of ``mxnet_tpu/ndarray.py``: the array type (a mutable cell holding
+one tensor on its context's device; slicing, ``reshape``, ``T`` and
+``expand_dims`` give views, ``copy`` and ``astype`` copies) with the
+reference's properties, sync methods and Python protocol, its arithmetic,
+comparison and in-place operators dispatched through the op registry
+(arrays to the ``broadcast_*`` ops, Python and numpy scalars to the
+``_*_scalar`` ops, anything else ``NotImplemented``; ``==`` gives an
+NDArray and ``__hash__`` is identity, as in the reference), the creation
+functions ``array``/``zeros``/``ones``/``empty``/``full``/``arange``/
+``concatenate``/``moveaxis``/``onehot_encode``, ``waitall``, the
+imperative op surface (every registered op as ``mx.nd.<op>``,
+:func:`_init_ndarray_module`; ops registered later, such as rtc kernels,
+inject themselves), and ``.params`` serialization byte-identical to
+``mxnet_tpu/ndarray.py:501-575`` (the reference's format,
+src/ndarray/ndarray.cc:593-676, kMXAPINDArrayListMagic=0x112), so a file
+written by either package loads in the other.
+
+Only ``asnumpy``, ``asscalar``, ``__bool__``, ``__float__``, ``__int__``,
+``__array__``, ``wait_to_read`` and ``waitall`` wait for the device or
+copy to the host; every other method and operator stays on the device.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 import struct
 
 import numpy as np
@@ -20,10 +32,13 @@ import torch
 
 from .base import MXNetError
 from .context import Context, cpu, current_context
-from .ops.registry import OP_REGISTRY, fn_signature_info
+from .ops.registry import OP_REGISTRY, fn_signature_info, get_op
+from .ops import tensor as _tensor_ops
+from .ops.tensor import torch_dtype as _torch_dtype
 
-__all__ = ["NDArray", "array", "empty", "zeros", "ones", "concatenate",
-           "load", "save", "tensor_from_numpy", "waitall"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
+           "concatenate", "moveaxis", "onehot_encode", "load", "save",
+           "tensor_from_numpy", "waitall"]
 
 # torch dtype <-> reference mshadow type_flag (mshadow/base.h kFloat32=0 ...)
 _DTYPE_TO_FLAG = {
@@ -79,6 +94,9 @@ class NDArray(object):
         arr._data = data
         return arr
 
+    def _view(self, data):
+        return NDArray._from_torch(data, self._ctx)
+
     # -- basic properties -------------------------------------------------
     @property
     def shape(self):
@@ -87,6 +105,10 @@ class NDArray(object):
     @property
     def size(self):
         return int(self._data.numel())
+
+    @property
+    def ndim(self):
+        return self._data.ndim
 
     @property
     def dtype(self):
@@ -107,11 +129,25 @@ class NDArray(object):
     ctx = context
 
     @property
+    def T(self):
+        """The transpose (all axes reversed), a view."""
+        return self._view(self._data.permute(
+            tuple(reversed(range(self._data.ndim)))))
+
+    @property
     def handle(self):
         """The underlying ``torch.Tensor``."""
         return self._data
 
     # -- sync / transfer --------------------------------------------------
+    def wait_to_read(self):
+        """Wait until the work queued on this array's device stream is
+        done."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    wait_to_write = wait_to_read
+
     def asnumpy(self):
         """A numpy copy on the host (waits for the device).  bfloat16 has
         no numpy type here, so it comes back as float32 (exact)."""
@@ -119,6 +155,16 @@ class NDArray(object):
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
+
+    def asscalar(self):
+        """The value of a one-element array, as a numpy scalar."""
+        if self.size != 1:
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def astype(self, dtype):
+        """A copy in another dtype."""
+        return self._view(self._data.to(_torch_dtype(dtype), copy=True))
 
     def copyto(self, other):
         """Copy into another NDArray or to a Context."""
@@ -131,31 +177,64 @@ class NDArray(object):
 
     def copy(self):
         """A new NDArray holding a copy, on the same context."""
-        return NDArray._from_torch(self._data.clone(), self._ctx)
+        return self._view(self._data.clone())
 
     def as_in_context(self, context):
         if context == self._ctx:
             return self
         return self.copyto(context)
 
+    # -- shape manipulation ----------------------------------------------
     def reshape(self, shape, reverse=False):
         """A view in a new shape, with the ``Reshape`` op's special codes
         (0, -1, -2, -3, -4)."""
-        from .ops.tensor import infer_reshape
         if isinstance(shape, int):
             shape = (shape,)
-        return NDArray._from_torch(
-            self._data.reshape(infer_reshape(self.shape, tuple(shape),
-                                             reverse)), self._ctx)
+        return self._view(self._data.reshape(
+            _tensor_ops.infer_reshape(self.shape, tuple(shape), reverse)))
+
+    def broadcast_to(self, shape):
+        """A new array of ``shape`` with this one broadcast over it."""
+        return self._view(self._data.expand(tuple(shape)).contiguous())
+
+    def expand_dims(self, axis):
+        return self._view(self._data.unsqueeze(axis))
+
+    def flatten(self):
+        return self._view(self._data.reshape(self.shape[0], -1))
+
+    def transpose(self, axes=None):
+        if axes is None:
+            return self.T
+        return self._view(self._data.permute(tuple(axes)))
+
+    def slice(self, start, stop):
+        return self[start:stop]
+
+    def slice_axis(self, axis, begin, end):
+        n = self._data.shape[axis]
+        begin = begin + n if begin < 0 else begin
+        end = end + n if end < 0 else end
+        return self._view(self._data.narrow(axis, begin, end - begin))
+
+    # -- indexing ---------------------------------------------------------
+    @staticmethod
+    def _key(key):
+        """An NDArray key indexes with its values as integers (the
+        reference's ``astype(int32)``)."""
+        if isinstance(key, NDArray):
+            return key._data.to(torch.int32).to(torch.int64)
+        return key
 
     def __getitem__(self, key):
         """``a[i]``, ``a[i:j]``: a view sharing this array's storage, as
-        the reference's slicing gives."""
-        return NDArray._from_torch(self._data[key], self._ctx)
+        the reference's slicing gives; an NDArray key gathers rows."""
+        return self._view(self._data[self._key(key)])
 
     def __setitem__(self, key, value):
         """``a[:] = v`` writes ``v`` (array, tensor or scalar) into this
         array's storage, broadcasting and casting to its dtype."""
+        key = self._key(key)
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, torch.Tensor):
@@ -164,6 +243,143 @@ class NDArray(object):
                 return
             value = tensor_from_numpy(value)
         self._data[key] = value.to(self._data.device, self._data.dtype)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(self.shape[0]):
+            yield self[i]
+
+    # -- python protocol (the sync points) --------------------------------
+    def __repr__(self):
+        return "%s\n<%s %s @%s>" % (
+            str(self.asnumpy()), self.__class__.__name__,
+            "x".join(map(str, self.shape)), self._ctx)
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("ambiguous truth value of multi-element NDArray")
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    # -- arithmetic (dispatched through the op registry, as the reference's
+    #    _binary, mxnet_tpu/ndarray.py:317-326) ----------------------------
+    def _binary(self, other, op_name, scalar_op, reverse=False):
+        if isinstance(other, NDArray):
+            a, b = (other, self) if reverse else (self, other)
+            return _invoke(get_op(op_name), (a, b), {}, ctx=self._ctx)[0]
+        if isinstance(other, (int, float, np.number)):
+            return _invoke(get_op(scalar_op), (self,),
+                           {"scalar": float(other)}, ctx=self._ctx)[0]
+        return NotImplemented
+
+    def __add__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "broadcast_sub", "_rminus_scalar",
+                            reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __div__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar")
+
+    __truediv__ = __div__
+
+    def __rdiv__(self, o):
+        return self._binary(o, "broadcast_div", "_rdiv_scalar", reverse=True)
+
+    __rtruediv__ = __rdiv__
+
+    def __mod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        return self._binary(o, "broadcast_mod", "_rmod_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        return self._binary(o, "broadcast_power", "_rpower_scalar",
+                            reverse=True)
+
+    def __neg__(self):
+        return self._view(torch.neg(self._data))
+
+    def __abs__(self):
+        return self._view(torch.abs(self._data))
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    # in-place: a handle swap — the NDArray is the mutable cell, so an
+    # executor or optimizer that holds this NDArray reads the new tensor.
+    # Nothing is recorded for autograd (the reference's _record_mutation,
+    # mxnet_tpu/ndarray.py:51-86) until autograd.py is ported.
+    def _inplace(self, other, op_name, scalar_op):
+        res = self._binary(other, op_name, scalar_op)
+        if res is NotImplemented:
+            return res
+        self._data = res._data
+        return self
+
+    def __iadd__(self, o):
+        return self._inplace(o, "broadcast_add", "_plus_scalar")
+
+    def __isub__(self, o):
+        return self._inplace(o, "broadcast_sub", "_minus_scalar")
+
+    def __imul__(self, o):
+        return self._inplace(o, "broadcast_mul", "_mul_scalar")
+
+    def __idiv__(self, o):
+        return self._inplace(o, "broadcast_div", "_div_scalar")
+
+    __itruediv__ = __idiv__
 
 
 # ---------------------------------------------------------------------------
@@ -199,15 +415,6 @@ def _numpy_type(torch_dtype):
     return found
 
 
-def _torch_dtype(dtype):
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
-    if name == "bfloat16":
-        return torch.bfloat16
-    return torch.from_numpy(np.zeros((), np.dtype(name))).dtype
-
-
 def empty(shape, ctx=None, dtype="float32"):
     if isinstance(shape, int):
         shape = (shape,)
@@ -235,6 +442,39 @@ def ones(shape, ctx=None, dtype="float32"):
                    device=ctx.torch_device), ctx)
 
 
+def full(shape, val, ctx=None, dtype="float32"):
+    """An array of ``shape`` filled with ``val``."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    ctx = ctx if ctx is not None else current_context()
+    return NDArray._from_torch(
+        torch.full(tuple(shape), val, dtype=_torch_dtype(dtype),
+                   device=ctx.torch_device), ctx)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    """Evenly spaced values in [start, stop), each repeated ``repeat``
+    times (the ``_arange`` op)."""
+    ctx = ctx if ctx is not None else current_context()
+    return NDArray._from_torch(
+        _tensor_ops._arange(start, stop, step, repeat, dtype,
+                            ctx.torch_device), ctx)
+
+
+def moveaxis(tensor, source, destination):
+    """A view with axis ``source`` moved to ``destination``."""
+    return NDArray._from_torch(
+        torch.movedim(tensor._data, source, destination), tensor._ctx)
+
+
+def onehot_encode(indices, out):
+    """One-hot of ``indices`` into ``out`` (its width and dtype), by a
+    handle swap as in the reference."""
+    out._data = _tensor_ops._onehot_encode(
+        indices._data.to(out._data.device), out._data)
+    return out
+
+
 def concatenate(arrays, axis=0, always_copy=True):
     """The arrays joined along ``axis``, on the first one's context."""
     if len(arrays) == 1 and not always_copy:
@@ -258,11 +498,13 @@ def waitall():
 
 def _invoke(opdef, nd_inputs, attrs, is_train=False, ctx=None):
     """Run ``opdef`` on NDArrays with the given attributes; returns the
-    op's outputs (aux updates dropped) as NDArrays on the first input's
-    context (or ``ctx``)."""
+    op's outputs (aux updates dropped) as NDArrays on ``ctx`` (default:
+    the first input's context, or the current one for an op without
+    inputs, which gets the device as its ``ctx``).  A sampling op draws
+    from that device's generator (``random.generator``)."""
     from . import random as _random
-    if not nd_inputs:
-        raise MXNetError("%s: needs at least one NDArray input" % opdef.name)
+    if ctx is None:
+        ctx = nd_inputs[0].context if nd_inputs else current_context()
     if opdef.variable_inputs:
         attrs.setdefault("num_args", len(nd_inputs))
     opdef.validate_attrs(attrs, where="imperative call")
@@ -271,18 +513,26 @@ def _invoke(opdef, nd_inputs, attrs, is_train=False, ctx=None):
     names, has_var_kw = fn_signature_info(opdef.fn)
     if not has_var_kw:
         attrs = {k: v for k, v in attrs.items() if k in names}
-    ctx = ctx if ctx is not None else nd_inputs[0].context
     device = ctx.torch_device
     arrays = [a._data if a._data.device == device else a._data.to(device)
               for a in nd_inputs]
+    if not arrays and "ctx" in names:
+        attrs["ctx"] = device
     if opdef.needs_is_train:
         attrs["is_train"] = bool(is_train)
     if opdef.needs_rng:
-        attrs["rng"] = _random.node_generator(_random.next_seed(), 0, device)
+        attrs["rng"] = _random.generator(device)
     out = opdef.fn(*arrays, **attrs)
     if not isinstance(out, (tuple, list)):
         out = (out,)
     return [NDArray._from_torch(o, ctx) for o in out[:n_out]]
+
+
+@functools.lru_cache(maxsize=None)
+def _positional_params(fn):
+    """The names of ``fn``'s positional parameters, in order."""
+    return tuple(p.name for p in inspect.signature(fn).parameters.values()
+                 if p.kind == inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
 
 def _make_ndarray_function(opdef, func_name):
@@ -290,7 +540,11 @@ def _make_ndarray_function(opdef, func_name):
     attributes as keywords, plus ``out=`` (write the results into these
     arrays), ``ctx=`` and ``is_train=`` (default: whether the op declares
     it needs one, as in the JAX package).  A bare number given
-    positionally to an op without tensor inputs is its ``scalar``."""
+    positionally to an op without tensor inputs is its ``scalar``; to an
+    op with inputs, it is the op function's parameter at that place
+    (``mx.nd.clip(x, 0, 1)``: ``a_min``, ``a_max``), as the JAX package
+    passes it on; other values (lists, numpy arrays) become arrays on the
+    context of the call's first NDArray."""
     def generic_op(*args, **kwargs):
         out = kwargs.pop("out", None)
         kwargs.pop("name", None)
@@ -298,15 +552,27 @@ def _make_ndarray_function(opdef, func_name):
         if ctx is not None and not isinstance(ctx, Context):
             ctx = Context(ctx)
         is_train = kwargs.pop("is_train", bool(opdef.needs_is_train))
+        host = ctx
+        if host is None:
+            host = next((a.context for a in list(args) +
+                         list(kwargs.values()) if isinstance(a, NDArray)),
+                        None)
+        params = _positional_params(opdef.fn)
+        tensor_names = set(opdef.get_input_names(kwargs)) | \
+            set(opdef.get_aux_names(kwargs))
         nd_inputs = []
-        for a in args:
+        for pos, a in enumerate(args):
             if isinstance(a, NDArray):
                 nd_inputs.append(a)
             elif isinstance(a, (int, float)) and "scalar" not in kwargs \
                     and not opdef.get_input_names(kwargs):
                 kwargs["scalar"] = a
+            elif isinstance(a, (int, float, np.number)) and \
+                    not opdef.variable_inputs and pos < len(params) and \
+                    params[pos] not in tensor_names:
+                kwargs[params[pos]] = a
             else:
-                nd_inputs.append(array(a, ctx=ctx))
+                nd_inputs.append(array(a, ctx=host))
         in_names = opdef.get_input_names(kwargs) + \
             opdef.get_aux_names(kwargs)
         for nm in in_names:

@@ -1,6 +1,6 @@
 """Operator registry — the single source of truth for the port's ops.
 
-Port of ``mxnet_tpu/ops/registry.py:48-199``.  Each op is a plain function
+Port of ``mxnet_tpu/ops/registry.py:48-201``.  Each op is a plain function
 over ``torch.Tensor``s; the executor interprets the Symbol DAG by calling
 them in topological order.
 
@@ -26,7 +26,7 @@ import inspect
 
 from ..base import MXNetError, parse_attr_value
 
-__all__ = ["OpDef", "register", "get_op", "OP_REGISTRY",
+__all__ = ["OpDef", "register", "get_op", "list_ops", "OP_REGISTRY",
            "fn_signature_info", "FRAMEWORK_ATTRS"]
 
 OP_REGISTRY = {}
@@ -163,3 +163,8 @@ def get_op(name):
     except KeyError:
         raise MXNetError("operator %r is not registered" % (name,)) from None
 
+
+def list_ops():
+    """Distinct canonical op names, hidden ops included (MXListAllOpNames
+    analog; ``mxnet_tpu/ops/registry.py:199-201``)."""
+    return sorted({op.name for op in OP_REGISTRY.values()})

@@ -1,13 +1,17 @@
 """Optimizers (port of ``mxnet_tpu/optimizer.py``: ``Optimizer``,
-``create``/``register``, ``SGD``, ``Adam``, ``RMSProp``, ``Updater``).
+``create``/``register``, ``SGD``, ``NAG``, ``SGLD``, ``Adam``,
+``AdaGrad``, ``RMSProp``, ``AdaDelta``, ``DCASGD``, ``Test``,
+``Updater``).
 
-The update rules are the registered update ops (``ops/tensor.py``
+SGD, Adam and RMSProp apply the registered update ops (``ops/tensor.py``
 ``sgd_update``/``sgd_mom_update``/``adam_update``/``rmsprop_update``/
-``rmspropalex_update``).  :meth:`Optimizer.update` applies one rule to
-one NDArray (the imperative ``Updater`` path); ``SPMDTrainer`` applies the
-same ops inside its step.  As in the JAX package, an update assigns new
-tensors to the weight's and the state's NDArrays rather than writing in
-place.
+``rmspropalex_update``), which ``SPMDTrainer`` also applies inside its
+step; the other six are written, as in the JAX package
+(``mxnet_tpu/optimizer.py:147-357``), in NDArray arithmetic
+(``weight -= lr * g``, ``nd.clip``, ``nd.sqrt``, ``nd.normal``), run
+through ``Module``'s executor routes, and are refused by ``SPMDTrainer``.
+An update gives the weight's and the state's NDArrays new tensors (the
+in-place operators swap the handle) or writes into them (``a[:] = v``).
 """
 from __future__ import annotations
 
@@ -16,11 +20,14 @@ import pickle
 
 import numpy as np
 
+from . import ndarray as nd
 from .base import Registry
+from .context import cpu
 from .ndarray import NDArray, zeros
 from .ops import tensor as T
 
-__all__ = ["Optimizer", "SGD", "Adam", "RMSProp", "Updater", "get_updater",
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "RMSProp",
+           "AdaDelta", "SGLD", "DCASGD", "Test", "Updater", "get_updater",
            "create", "register"]
 
 opt_registry = Registry("optimizer")
@@ -153,6 +160,45 @@ class SGD(Optimizer):
 
 
 @register
+class NAG(SGD):
+    """Nesterov accelerated SGD (reference optimizer.py:380)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, a_min=-self.clip_gradient,
+                           a_max=self.clip_gradient)
+        if state is not None:
+            state *= self.momentum
+            grad += wd * weight
+            state += grad
+            grad += self.momentum * state
+            weight -= lr * grad
+        else:
+            weight -= lr * (grad + wd * weight)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference optimizer.py:416)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, a_min=-self.clip_gradient,
+                           a_max=self.clip_gradient)
+        noise = nd.normal(loc=0, scale=math.sqrt(lr), shape=weight.shape,
+                          ctx=weight.context)
+        weight += -lr / 2 * (grad + wd * weight) + noise
+
+
+@register
 class Adam(Optimizer):
     """Adam (reference optimizer.py:451; update = adam_update op with the
     reference's bias-corrected effective lr)."""
@@ -182,6 +228,30 @@ class Adam(Optimizer):
             weight._data, grad._data, mean._data, var._data, lr=lr,
             beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon, wd=wd,
             rescale_grad=self.rescale_grad, clip_gradient=self._clip()))
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference optimizer.py:499)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, ctx=weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, a_min=-self.clip_gradient,
+                           a_max=self.clip_gradient)
+        state += grad * grad
+        weight -= lr * (grad / nd.sqrt(state + self.float_stable_eps)
+                        + wd * weight)
 
 
 @register
@@ -223,6 +293,83 @@ class RMSProp(Optimizer):
                 gamma2=self.gamma2, **kwargs))
 
 
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference optimizer.py:605)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, ctx=weight.context),
+                zeros(weight.shape, ctx=weight.context))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, a_min=-self.clip_gradient,
+                           a_max=self.clip_gradient)
+        acc_g, acc_delta = state
+        acc_g[:] = self.rho * acc_g + (1.0 - self.rho) * grad * grad
+        current_delta = nd.sqrt(acc_delta + self.epsilon) / \
+            nd.sqrt(acc_g + self.epsilon) * grad
+        acc_delta[:] = self.rho * acc_delta + \
+            (1.0 - self.rho) * current_delta * current_delta
+        weight[:] = weight - current_delta - wd * weight
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated async SGD (reference optimizer.py:325)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (zeros(weight.shape, ctx=weight.context), weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, a_min=-self.clip_gradient,
+                           a_max=self.clip_gradient)
+        mom, previous_weight = state
+        if mom is not None:
+            mom[:] = self.momentum * mom - lr * (
+                grad + wd * weight +
+                self.lamda * grad * grad * (weight - previous_weight))
+            weight += mom
+        else:
+            weight += -lr * (grad + wd * weight + self.lamda * grad * grad *
+                             (weight - previous_weight))
+        previous_weight[:] = weight
+
+
+@register
+class Test(Optimizer):
+    """Test optimizer (reference optimizer.py:653): adds
+    ``rescale_grad * g`` to the weight, as the reference's code does."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, ctx=weight.context)
+
+    def update(self, index, weight, grad, state):
+        weight += grad * self.rescale_grad
+        state[:] = weight
+
+
 class Updater(object):
     """Stateful per-key updater closure (reference optimizer.py:669
     get_updater)."""
@@ -230,10 +377,15 @@ class Updater(object):
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self._unplaced = set()    # loaded states not yet on their weight's
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+        elif index in self._unplaced:
+            self.states[index] = _state_to_context(self.states[index],
+                                                   weight.context)
+            self._unplaced.discard(index)
         self.optimizer.update(index, weight, grad, self.states[index])
 
     def set_states(self, states):
@@ -255,10 +407,17 @@ class Updater(object):
                 for key in name2indices.get(name, [name]):
                     converted[key] = val
             loaded = converted
-        # each state goes where the one it replaces lives (a new key: the
-        # current context)
-        self.states = {k: _state_from_numpy(v, _context_of(
-            self.states.get(k))) for k, v in loaded.items()}
+        # each state goes where the one it replaces lives; one with no
+        # predecessor waits on the host and moves to its weight's context
+        # at its first update
+        states = {}
+        for k, v in loaded.items():
+            ctx = _context_of(self.states.get(k))
+            if ctx is None:
+                self._unplaced.add(k)
+            states[k] = _state_from_numpy(v, ctx if ctx is not None
+                                          else cpu())
+        self.states = states
 
     def get_states(self):
         return pickle.dumps({k: _state_to_numpy(v)
@@ -281,6 +440,14 @@ def _context_of(state):
             if isinstance(s, NDArray):
                 return s.context
     return None
+
+
+def _state_to_context(v, ctx):
+    if isinstance(v, NDArray):
+        return v.as_in_context(ctx)
+    if isinstance(v, (tuple, list)):
+        return tuple(_state_to_context(x, ctx) for x in v)
+    return v
 
 
 def _state_from_numpy(v, ctx):

@@ -1,15 +1,20 @@
 """Random state: :func:`seed` and one seeded ``torch.Generator`` per
-device (port of ``mxnet_tpu/random.py``'s ``seed``/``uniform``/``normal``/
-``next_key``/``peek_key``).
+device (port of ``mxnet_tpu/random.py``: ``seed``, ``get_state``/
+``set_state``, ``uniform``/``normal``/``randint``, ``next_key``/
+``peek_key``).
 
 The JAX package draws from one ``jax.random`` key chain; the port draws
 from an explicit ``torch.Generator`` for each device, made on first use
-and seeded from the last :func:`seed`.  Graph forwards take an integer
+and seeded from the last :func:`seed`.  ``uniform``/``normal`` (and
+every imperative sampling op, ``mx.nd.uniform``/``_sample_*``) draw from
+the generator of the context's device.  Graph forwards take an integer
 seed each from :func:`next_seed` (the JAX package's ``next_key``), and a
 node that draws gets a generator of its own from
-:func:`node_generator` (``fold_in``).  The two packages give different
-numbers from the same seed: weights cross between them as numpy arrays
-or ``.params`` files, never by matching random streams.
+:func:`node_generator` (``fold_in``).  :func:`get_state` snapshots all
+of it (an opaque object) and :func:`set_state` restores it.  The two
+packages give different numbers from the same seed: weights cross
+between them as numpy arrays or ``.params`` files, never by matching
+random streams.
 """
 from __future__ import annotations
 
@@ -18,8 +23,9 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["seed", "get_seed", "generator", "uniform", "normal",
-           "next_seed", "peek_seed", "node_generator"]
+__all__ = ["seed", "get_seed", "get_state", "set_state", "generator",
+           "uniform", "normal", "randint", "next_seed", "peek_seed",
+           "node_generator"]
 
 _DEFAULT_SEED = 0
 _seed_int = _DEFAULT_SEED
@@ -61,25 +67,71 @@ def generator(device):
         return gen
 
 
-def _out(shape, ctx, dtype, out):
-    if out is not None:
-        return out
+def get_state():
+    """A snapshot of the random state: the seed, the forwards seeded since,
+    and every device generator's state.  Opaque; :func:`set_state` takes
+    it back."""
+    with _lock:
+        return {"seed": _seed_int, "forwards": _forwards,
+                "generators": {str(dev): gen.get_state()
+                               for dev, gen in _generators.items()}}
+
+
+def set_state(state):
+    """Restore a :func:`get_state` snapshot."""
+    global _seed_int, _forwards
+    with _lock:
+        _seed_int = int(state["seed"])
+        _forwards = int(state["forwards"])
+        _generators.clear()
+        for name, gen_state in state["generators"].items():
+            dev = torch.device(name)
+            gen = torch.Generator(device=dev)
+            gen.set_state(gen_state)
+            _generators[dev] = gen
+
+
+def _draw(op_name, attrs, shape, ctx, dtype, out):
+    """Run the sampling op ``op_name``; with ``out`` its shape, context
+    and dtype are taken and the values written into its storage."""
     from . import ndarray as nd
-    return nd.empty(shape, ctx=ctx, dtype=dtype)
+    from .ops.registry import get_op
+    if out is not None:
+        shape, ctx, dtype = out.shape, out.context, out._data.dtype
+    attrs = dict(attrs, shape=tuple(shape) if not isinstance(shape, int)
+                 else (shape,), dtype=dtype)
+    res = nd._invoke(get_op(op_name), [], attrs, ctx=ctx)[0]
+    if out is None:
+        return res
+    out._data.copy_(res._data)
+    return out
 
 
 def uniform(low=0, high=1, shape=(), ctx=None, dtype="float32", out=None):
-    """U(low, high) into ``out`` (or a new NDArray on ``ctx``)."""
-    out = _out(shape, ctx, dtype, out)
-    out._data.uniform_(low, high, generator=generator(out._data.device))
-    return out
+    """U(low, high) into ``out`` (or a new NDArray on ``ctx``), through
+    the ``_sample_uniform`` op."""
+    return _draw("_sample_uniform", {"low": low, "high": high}, shape, ctx,
+                 dtype, out)
 
 
 def normal(loc=0, scale=1, shape=(), ctx=None, dtype="float32", out=None):
-    """N(loc, scale) into ``out`` (or a new NDArray on ``ctx``)."""
-    out = _out(shape, ctx, dtype, out)
-    out._data.normal_(loc, scale, generator=generator(out._data.device))
-    return out
+    """N(loc, scale) into ``out`` (or a new NDArray on ``ctx``), through
+    the ``_sample_normal`` op."""
+    return _draw("_sample_normal", {"loc": loc, "scale": scale}, shape, ctx,
+                 dtype, out)
+
+
+def randint(low, high, shape=(), ctx=None, dtype="int32"):
+    """Integers uniform in [low, high) on ``ctx``."""
+    from . import ndarray as nd
+    from .context import current_context
+    from .ops.tensor import torch_dtype
+    ctx = ctx if ctx is not None else current_context()
+    dev = ctx.torch_device
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    data = torch.randint(int(low), int(high), shape, generator=generator(dev),
+                         device=dev, dtype=torch_dtype(dtype))
+    return nd.NDArray._from_torch(data, ctx)
 
 
 def _mix(a, b):

@@ -18,7 +18,8 @@ from . import attribute, name as _name_mod
 from .base import MXNetError, attr_to_string, parse_attr_value
 from .ops.registry import OP_REGISTRY, fn_signature_info, get_op
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "pow", "maximum", "minimum"]
 
 # attrs that belong to the framework, not to the op's kernel
 _RESERVED_ATTRS = frozenset((
@@ -131,6 +132,21 @@ class Symbol(object):
             return self._outputs[0][0].name
         return None
 
+    def attr(self, key):
+        """The string value of attribute ``key`` of this (single-output)
+        symbol's node, or None."""
+        if len(self._outputs) == 1:
+            v = self._outputs[0][0].attrs.get(key)
+            return attr_to_string(v) if v is not None else None
+        return None
+
+    def list_attr(self):
+        """This (single-output) symbol's node attributes as strings."""
+        if len(self._outputs) == 1:
+            return {k: attr_to_string(v)
+                    for k, v in self._outputs[0][0].attrs.items()}
+        return {}
+
     def attr_dict(self):
         """``{node name: {attr: string value}}`` for every node with attrs
         (the optimizer reads ``lr_mult``/``wd_mult`` here)."""
@@ -141,12 +157,26 @@ class Symbol(object):
                                   for k, v in node.attrs.items()}
         return out
 
+    def _set_attr(self, **kwargs):
+        for node, _ in self._outputs:
+            node.attrs.update(kwargs)
+
     def get_internals(self):
         outs = []
         for node in self._nodes():
             for i in range(node.num_outputs()):
                 outs.append((node, i))
         return Symbol(outs)
+
+    def get_children(self):
+        """The inputs of this (single-output) symbol's node as one
+        grouped symbol, or None for a variable."""
+        if len(self._outputs) != 1:
+            return None
+        node = self._outputs[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
 
     def __getitem__(self, index):
         if isinstance(index, str):
@@ -191,7 +221,7 @@ class Symbol(object):
 
         return Symbol([rewrite_pair(n, i) for n, i in self._outputs])
 
-    # -- arithmetic (the JAX package's :235-265) -------------------------
+    # -- arithmetic (the JAX package's :227-291) -------------------------
     def _binary(self, other, op_name, scalar_op, reverse=False):
         if isinstance(other, Symbol):
             a, b = (other, self) if reverse else (self, other)
@@ -216,14 +246,46 @@ class Symbol(object):
 
     __rmul__ = __mul__
 
-    def __truediv__(self, o):
+    def __div__(self, o):
         return self._binary(o, "elemwise_div", "_div_scalar")
 
-    def __rtruediv__(self, o):
+    __truediv__ = __div__
+
+    def __rdiv__(self, o):
         return self._binary(o, "elemwise_div", "_rdiv_scalar", reverse=True)
+
+    __rtruediv__ = __rdiv__
+
+    def __pow__(self, o):
+        return self._binary(o, "_power", "_power_scalar")
 
     def __neg__(self):
         return _create("_mul_scalar", [self], {"scalar": -1.0})
+
+    def __eq__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return self._binary(o, "broadcast_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return self._binary(o, "broadcast_not_equal",
+                                "_not_equal_scalar")
+        return NotImplemented
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
 
     def __hash__(self):
         return id(self)
@@ -322,6 +384,20 @@ class Symbol(object):
         return Executor(self, ctx, args, args_grad=args_grad,
                         grad_req=grad_req, aux_states=aux_states)
 
+    def grad(self, wrt):
+        """Not available, as in the JAX package (:390-392): bind and call
+        ``backward()``."""
+        raise NotImplementedError(
+            "Symbol.grad: use bind(...).backward() or autograd")
+
+    # -- eval convenience -------------------------------------------------
+    def eval(self, ctx=None, **kwargs):
+        """Bind the arguments in ``kwargs`` (no gradients) and run one
+        forward; returns the outputs (a list of NDArrays)."""
+        from .context import current_context
+        ctx = ctx or current_context()
+        return self.bind(ctx, kwargs).forward()
+
 
 def _infer_node(node, attrs, in_shapes):
     """Shape inference for one node: the op's own function, else the op
@@ -344,6 +420,10 @@ def _infer_node(node, attrs, in_shapes):
     call_attrs = dict(attrs) if has_var_kw else \
         {k: v for k, v in attrs.items() if k in names}
     kw = {"is_train": False} if op.needs_is_train else {}
+    if op.needs_rng:
+        kw["rng"] = None
+    if not in_shapes and "ctx" in names:
+        call_attrs["ctx"] = torch.device("meta")
     metas = [torch.empty(s, dtype=torch.float32, device="meta")
              for s in in_shapes]
     try:
@@ -375,6 +455,9 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
         attrs["wd_mult"] = str(wd_mult)
     attrs.update({k: str(v) for k, v in kwargs.items()})
     return Symbol([(_Node(None, name, attrs), 0)])
+
+
+var = Variable
 
 
 def Group(symbols):
@@ -502,3 +585,23 @@ def load_json(json_str):
 def load(fname):
     with open(fname) as f:
         return load_json(f.read())
+
+
+def pow(base, exp):  # noqa: A001 - parity with mx.sym.pow
+    return base ** exp
+
+
+def maximum(left, right):
+    if isinstance(left, Symbol) and isinstance(right, Symbol):
+        return _create("_maximum", [left, right], {})
+    if isinstance(left, Symbol):
+        return _create("_maximum_scalar", [left], {"scalar": float(right)})
+    return _create("_maximum_scalar", [right], {"scalar": float(left)})
+
+
+def minimum(left, right):
+    if isinstance(left, Symbol) and isinstance(right, Symbol):
+        return _create("_minimum", [left, right], {})
+    if isinstance(left, Symbol):
+        return _create("_minimum_scalar", [left], {"scalar": float(right)})
+    return _create("_minimum_scalar", [right], {"scalar": float(left)})

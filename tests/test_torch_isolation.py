@@ -2,9 +2,9 @@
 line of ``chip_smoke.py`` imports JAX or the JAX package, the port
 imports, builds a model and takes an ``SPMDTrainer`` step of a ResNet and
 of the LSTM language model, a ``make_step`` step of the long-context LM
-(flash route) and a ``Module.fit`` through an rtc op on both Module routes
-on the CPU with JAX made unimportable, and the chip smoke test refuses to
-run without CUDA."""
+(flash route), a ``Module.fit`` through an rtc op on both Module routes
+and one FGSM step in NDArray arithmetic on the CPU with JAX made
+unimportable, and the chip smoke test refuses to run without CUDA."""
 import ast
 import os
 import subprocess
@@ -110,6 +110,20 @@ def test_port_runs_with_jax_unimportable():
         "    assert (m._fused is not None) == (kv == 'tpu')\n"
         "    assert m.predict(mx.io.NDArrayIter(X, Y, batch_size=8))"
         ".shape == (32, 3)\n"
+        "atk = mx.mod.Module(net, context=mx.cpu())\n"
+        "atk.bind(data_shapes=[('data', (8, 5))], label_shapes=["
+        "('softmax_label', (8,))], for_training=True, "
+        "inputs_need_grad=True)\n"
+        "atk.set_params(*m.get_params())\n"
+        "x = mx.nd.array(X[:8], ctx=mx.cpu())\n"
+        "label = mx.nd.array(Y[:8], ctx=mx.cpu())\n"
+        "atk.forward(mx.io.DataBatch([x], [label]), is_train=True)\n"
+        "atk.backward()\n"
+        "g = atk.get_input_grads()[0]\n"
+        "x_adv = mx.nd.clip(x + 0.1 * mx.nd.sign(g), 0, 1)\n"
+        "assert float(mx.nd.max(x_adv)) <= 1 and float(mx.nd.min(x_adv))"
+        " >= 0\n"
+        "assert float(mx.nd.sum(x_adv != mx.nd.clip(x, 0, 1))) > 0\n"
         "assert not [m for m in sys.modules if m.startswith(('jax', "
         "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
         "print('ok', len(args))\n")
