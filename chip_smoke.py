@@ -46,7 +46,8 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
    the memory-traffic bound; then the recurrence of the fused ``RNN``
    op (``lstm_seq``) at (T, N, H) = (32, 32, 200), (32, 4, 200),
    (5, 7, 13), the largest H the persistent route takes in float32 at
-   batch 32, and (8, 128, 1024), which takes ``per_step``: the route
+   batch 32, (8, 128, 1024), which takes ``per_step``, and the bucketed
+   LM's shortest and longest buckets (10 and 60, 32, 200): the route
    each shape takes, its forward and backward against the plain
    versions, the plan's clusters against the ones the card holds at
    once; and times the persistent kernels, the ``per_step`` route, the
@@ -128,7 +129,25 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
 19. steps each optimizer written in NDArray arithmetic on the card
     against the CPU (bit for bit; SGLD by its noise's moments), and times
     the NDArray layer's dispatch beside the same torch calls;
-20. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+20. trains the bucketed LSTM language model of
+    ``example/rnn/lstm_bucketing.py`` at its defaults (vocab 10000,
+    embed and hidden 200, 2 layers, batch 32, buckets 10 to 60, sgd lr
+    0.01) on the example's synthetic Markov corpus through
+    ``BucketingModule.fit`` for 2 epochs with validation data, first on
+    the unrolled ``LSTMCell`` stack (exactly 2T + 2T ``lstm_cell``
+    launches a batch of bucket T, 2T in validation) and then on
+    ``FusedRNNCell`` (exactly 2 + 2 persistent ``lstm_seq`` launches, 2
+    in validation): every bucket visited, finite losses, validation
+    perplexity lower after epoch 2 than after epoch 1, every parameter
+    moved; steady ms per batch by bucket, tokens/s, the binds, peak
+    memory; then on each stack the weights shared across buckets (after
+    updates in bucket 60, bucket 10 computes what a fresh ``Module``
+    given ``get_params()`` computes), one ``update_metric`` of
+    ``Perplexity`` copying only the picked probabilities to the host, a
+    profile of a few ``fit`` batches, and one batch of buckets 10 and 60
+    held against the port's CPU path (float32 outputs, gradients against
+    float64);
+21. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -189,11 +208,13 @@ LSTM_SHAPES = ((32, 200), (4, 200), (7, 13), (128, 1024))
 LSTM_F32_TOL = (2e-6, 1e-5)  # max abs error: (h, c), (dgates, dc_prev)
 #: (T, N, H) of the lstm_seq checks: the LM's layer, the agreement batch's,
 #: an odd one, the largest H the persistent route takes in float32 at
-#: batch 32 (None: found from lstm_seq_route), and H = 1024, which must
-#: take per_step
+#: batch 32 (None: found from lstm_seq_route), H = 1024, which must take
+#: per_step, and the bucketed LM's shortest and longest buckets
 LSTM_SEQ_SHAPES = ((LM_SEQ, LM_BATCH, LM_HIDDEN),
                    (LM_SEQ, LM_AGREE_BATCH, LM_HIDDEN), (5, 7, 13), None,
-                   (8, 128, 1024))
+                   (8, 128, 1024), (10, 32, 200), (60, 32, 200))
+#: the bucket lengths whose lstm_seq layer is timed beside the LM's
+LSTM_SEQ_BUCKET_T = (10, 60)
 # float32 lstm_seq kernel vs plain, max |diff| / max |plain| of each
 # output: both float32, but the kernel sums each recurrent product (200 to
 # 452 terms) in another order than cuBLAS (split over lanes, added by
@@ -1293,8 +1314,19 @@ def phase_lstm_seq_kernels(torch, mx, seed, card):
                     "%s %.2e" % kv for kv in errs.items()), tol))
             if (T, N, H) == (LM_SEQ, LM_BATCH, LM_HIDDEN):
                 data[tag] = (xg, w, h0, c0, dhs, dhT, dcT, ref)
+            if (N, H) == (LM_BATCH, LM_HIDDEN) and dtype == f32 \
+                    and T in LSTM_SEQ_BUCKET_T:
+                data[T] = (xg, w, h0, c0, dhs, dhT, dcT, ref)
     times = {tag: _seq_times(torch, mx, *data[tag]) for tag in ("f32",
                                                                 "bf16")}
+    for T in LSTM_SEQ_BUCKET_T:
+        t = _bucket_seq_times(torch, mx, *data[T])
+        log("lstm_seq layer at (T, N, H)=%s f32 (a bucket of the bucketed "
+            "LM), ms: forward kernel %.4f, plain %.4f, bound %.4f (%s) | "
+            "backward kernel %.4f, plain %.4f, bound %.4f (%s) on %s" % (
+                (T, LM_BATCH, LM_HIDDEN), t["fwd"], t["fwd_plain"],
+                t["fwd_bound"], t["fwd_bound_by"], t["bwd"], t["bwd_plain"],
+                t["bwd_bound"], t["bwd_bound_by"], card))
     for tag, t in times.items():
         log("lstm_seq layer at (T, N, H)=%s %s, ms: forward kernel %.4f "
             "(serving, no residuals: %.4f), per_step %.4f, plain %.4f, bound "
@@ -1316,6 +1348,28 @@ def phase_lstm_seq_kernels(torch, mx, seed, card):
         "every shape and dtype within tolerance, per_step only at H = 1024"
         % (max_err["fwd"], max_err["bwd"]))
     return times, max_err
+
+
+def _bucket_seq_times(torch, mx, xg, w, h0, c0, dhs, dhT, dcT, out):
+    """Device ms of one layer's persistent recurrence at a bucket's T,
+    forward (with residuals) and backward (without the dW matmul), beside
+    the plain versions and the bounds."""
+    lc = mx.kernels.lstm_cell
+    T, N, G = xg.shape
+    res = (out.gates, out.c_prev, w, dhs, dhT, dcT)
+    t = {
+        "fwd": device_ms(torch, lambda: lc.lstm_seq_fwd(xg, w, h0, c0,
+                                                        keep=True)),
+        "fwd_plain": device_ms(torch, lambda: lc.lstm_seq_plain(
+            xg, w, h0, c0, keep=True)),
+        "bwd": device_ms(torch, lambda: lc.lstm_seq_bwd(*res)),
+        "bwd_plain": device_ms(torch, lambda: lc.lstm_seq_bwd_plain(*res)),
+    }
+    for key, backward in (("fwd", False), ("bwd", True)):
+        t[key + "_bound"], t[key + "_bound_by"] = _seq_bound_ms(
+            mx.kernels.roofline, T, N, G // 4, xg.element_size(),
+            backward=backward)
+    return t
 
 
 def _seq_times(torch, mx, xg, w, h0, c0, dhs, dhT, dcT, out):
@@ -1576,14 +1630,24 @@ def phase_lm_training(torch, mx, seed, card):
         counts["seq"][1] + counts16["seq"][1]
 
 
-def route_b_symbol(mx):
-    """The example's default sym_gen (example/rnn/lstm_bucketing.py,
-    ``--fused 0``): a SequentialRNNCell of LSTMCells, unrolled."""
+def lm_stack(mx, fused):
+    """example/rnn/lstm_bucketing.py's stack: ``FusedRNNCell(mode='lstm')``
+    (``--fused 1``) or a SequentialRNNCell of LSTMCells (``--fused 0``,
+    its default)."""
+    if fused:
+        return mx.rnn.FusedRNNCell(LM_HIDDEN, num_layers=LM_LAYERS,
+                                   mode="lstm", prefix="lstm_")
     stack = mx.rnn.SequentialRNNCell()
     for i in range(LM_LAYERS):
         stack.add(mx.rnn.LSTMCell(num_hidden=LM_HIDDEN,
                                   prefix="lstm_l%d_" % i))
-    return _lm_head(mx, stack, LM_SEQ)
+    return stack
+
+
+def route_b_symbol(mx):
+    """The example's default sym_gen (example/rnn/lstm_bucketing.py,
+    ``--fused 0``): a SequentialRNNCell of LSTMCells, unrolled."""
+    return _lm_head(mx, lm_stack(mx, False), LM_SEQ)
 
 
 def _lm_head(mx, cell, seq):
@@ -1642,8 +1706,7 @@ def phase_route_b(torch, mx, seed):
                      "gates": 0},
           "route B launched %s LSTM kernels" % (counts,))
 
-    fused = mx.rnn.FusedRNNCell(LM_HIDDEN, num_layers=LM_LAYERS,
-                                mode="lstm", prefix="lstm_")
+    fused = lm_stack(mx, True)
     sym_a = _lm_head(mx, fused, LM_SEQ)
     cpu = mx.cpu()
     cells = {k: mx.nd.array(v, ctx=cpu) for k, v in w_b.items()
@@ -4041,6 +4104,472 @@ def nd_paths(torch, mx, seed, card):
     return collections.Counter({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
 
 
+# ---------------------------------------------------------------------------
+# the bucketed LSTM language model of example/rnn/lstm_bucketing.py through
+# BucketingModule.fit, on both of its stacks
+# ---------------------------------------------------------------------------
+
+# the example's defaults (lstm_bucketing.py:28-60, :98-101): the LM's
+# widths (LM_LAYERS, LM_HIDDEN, LM_EMBED, LM_BATCH), six buckets, invalid
+# label 0, sgd with lr 0.01, momentum 0 and wd 1e-5, Xavier(in, 2.34),
+# Perplexity(0), kvstore 'local'; the example's synthetic Markov corpus
+# (its fallback without the PTB files) at PTB's vocabulary, LM_VOCAB,
+# 2000 training and 200 validation sentences as the example draws them;
+# cut: 2 epochs of 25
+BK_BUCKETS = (10, 20, 30, 40, 50, 60)
+BK_INVALID = 0
+BK_SENTENCES = (2000, 200)
+BK_EPOCHS = 2
+BK_OPT = {"learning_rate": 0.01, "momentum": 0.0, "wd": 0.00001}
+BK_AGREE_BUCKETS = (10, 60)   # the buckets of the GPU-vs-CPU check
+BK_SWITCH_UPDATES = 2         # updates in one bucket before the switch check
+BK_PROFILE_BUCKET = 30
+
+
+def synthetic_corpus(n_sent, vocab_size=200, seed=0):
+    """Markov-chain sentences of 5 to 59 tokens, each token's successor
+    one of 4 fixed ones 9 times in 10: a copy of
+    example/rnn/lstm_bucketing.py:64-92 (the example imports the JAX
+    package, so it cannot be imported here).  The transition table has
+    its own fixed seed; ``seed`` picks the sentences."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    succ = np.random.RandomState(1234).randint(
+        1, vocab_size, size=(vocab_size, 4))
+    sentences = []
+    for _ in range(n_sent):
+        length = rs.randint(5, 60)
+        tok = rs.randint(1, vocab_size)
+        sent = [tok]
+        for _ in range(length - 1):
+            if rs.rand() < 0.9:
+                tok = succ[tok][rs.randint(4)]
+            else:
+                tok = rs.randint(1, vocab_size)
+            sent.append(tok)
+        sentences.append(sent)
+    return sentences
+
+
+def bk_sym_gen(mx, stack):
+    """The example's ``sym_gen``: Embedding -> the stack unrolled over the
+    bucket's length -> FullyConnected -> SoftmaxOutput."""
+    def sym_gen(seq_len):
+        return _lm_head(mx, stack, seq_len), ("data",), ("softmax_label",)
+    return sym_gen
+
+
+class StampedIter(object):
+    """An iterator over ``inner``'s batches that stamps the host clock as
+    it hands each one out, so a batch-end callback can time the batch
+    (forward, backward, update and the metric's read)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.stamp = None
+        self.provide_data = inner.provide_data
+        self.provide_label = inner.provide_label
+        self.default_bucket_key = inner.default_bucket_key
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = self.inner.next()
+        self.stamp = time.perf_counter()
+        return batch
+
+    next = __next__
+
+    def reset(self):
+        self.inner.reset()
+
+
+def _lstm_vec(lc):
+    """The LSTM launch counters as one tuple (see LSTM_COUNTERS)."""
+    return tuple(getattr(lc, name) for name in LSTM_COUNTERS)
+
+
+def bk_expected(fused, T, train):
+    """LSTM launches of one batch of bucket T, in LSTM_COUNTERS order: the
+    unrolled stack launches the cell forward 2T times (and the backward
+    2T in training), the fused one the persistent recurrence twice (one a
+    layer; its forward writes gate residuals only in training)."""
+    if fused:
+        n = LM_LAYERS
+        return (0, 0, n, n if train else 0, n if train else 0)
+    n = LM_LAYERS * T
+    return (n, n if train else 0, 0, 0, 0)
+
+
+def bk_batches(mx, sentences, seed):
+    """A fresh shuffle's batches of the training sentences, by bucket."""
+    import random
+    import numpy as np
+    random.seed(seed)
+    np.random.seed(seed)
+    it = mx.rnn.BucketSentenceIter(sentences, LM_BATCH,
+                                   buckets=list(BK_BUCKETS),
+                                   invalid_label=BK_INVALID)
+    out = collections.defaultdict(list)
+    for batch in it:
+        out[batch.bucket_key].append(batch)
+    return out
+
+
+def phase_bucketing_fit(torch, mx, seed, card, fused, corpus):
+    """The main path of one stack: ``BucketingModule.fit`` over
+    BK_EPOCHS epochs of the training sentences with the validation
+    sentences as ``eval_data``, as the example runs it.  Every batch's
+    LSTM launches are exact for its bucket, every bucket is visited, the
+    running loss stays finite, validation perplexity falls from epoch 1 to
+    epoch 2 and every parameter moves.  Returns the module, the counts
+    and the numbers reported."""
+    import random
+    import numpy as np
+    lc = mx.kernels.lstm_cell
+    what = "bucketing %s stack" % ("fused" if fused else "unrolled")
+    random.seed(seed)
+    np.random.seed(seed)          # the iterators shuffle with these
+    train = StampedIter(mx.rnn.BucketSentenceIter(
+        corpus[0], LM_BATCH, buckets=list(BK_BUCKETS),
+        invalid_label=BK_INVALID))
+    val = mx.rnn.BucketSentenceIter(corpus[1], LM_BATCH,
+                                    buckets=list(BK_BUCKETS),
+                                    invalid_label=BK_INVALID)
+    sym_gen = bk_sym_gen(mx, lm_stack(mx, fused))
+    mod = mx.mod.BucketingModule(sym_gen, context=mx.gpu(0),
+                                 default_bucket_key=train.default_bucket_key)
+    init = mx.initializer.Xavier(factor_type="in", magnitude=2.34)
+    mx.random.seed(seed)
+    # fit binds and initializes as below; done first to keep the start
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(init)
+    start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    train_rows, val_rows, val_ppl, bad = [], [], [], []
+    last = [None]
+
+    def delta():
+        now = _lstm_vec(lc)
+        d = tuple(a - b for a, b in zip(now, last[0]))
+        last[0] = now
+        return d
+
+    def on_batch(param):
+        t = time.perf_counter()
+        batch = param.locals["data_batch"]
+        loss = param.eval_metric.sum_metric
+        if not np.isfinite(loss):
+            bad.append((param.epoch, param.nbatch, loss))
+        train_rows.append((param.epoch, batch.bucket_key,
+                           (t - train.stamp) * 1e3, delta()))
+
+    def on_val_batch(param):
+        val_rows.append((param.epoch, param.locals["eval_batch"].bucket_key,
+                         delta()))
+
+    def on_val_end(param):
+        val_ppl.append(param.eval_metric.get()[1])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after ---------
+    zero_lstm_counts(lc)
+    last[0] = _lstm_vec(lc)
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val,
+            eval_metric=mx.metric.Perplexity(BK_INVALID), kvstore="local",
+            optimizer="sgd", optimizer_params=dict(BK_OPT),
+            initializer=init, num_epoch=BK_EPOCHS,
+            batch_end_callback=on_batch,
+            eval_batch_end_callback=on_val_batch,
+            eval_end_callback=on_val_end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = lstm_counts(lc)
+    # ----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = [0] * len(LSTM_COUNTERS)
+    for rows, train_mode in ((train_rows, True), (val_rows, False)):
+        for row in rows:
+            T, got = row[1], row[-1]
+            want = bk_expected(fused, T, train_mode)
+            check(got == want, "%s: a %s batch of bucket %d launched %s "
+                  "(%s), expected %s" % (what, "training" if train_mode
+                                         else "validation", T, got,
+                                         ", ".join(LSTM_COUNTERS), want))
+            total = [a + b for a, b in zip(total, got)]
+    check(tuple(total) == _lstm_vec(lc), "%s: launches outside the "
+          "batches: %s against %s" % (what, _lstm_vec(lc), total))
+    visited = sorted({row[1] for row in train_rows})
+    check(visited == list(BK_BUCKETS), "%s visited buckets %s" % (what,
+                                                                visited))
+    check(not bad, "%s: non-finite loss at %s" % (what, bad[:3]))
+    check(len(val_ppl) == BK_EPOCHS and all(np.isfinite(val_ppl)),
+          "%s: validation perplexity %s" % (what, val_ppl))
+    check(val_ppl[1] < val_ppl[0], "%s: validation perplexity did not fall "
+          "from epoch 1 to epoch 2: %s" % (what, val_ppl))
+    end = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    frozen = [k for k in start if np.array_equal(start[k], end[k])
+              or not np.isfinite(end[k]).all()]
+    check(not frozen, "%s: parameters that did not move or are not "
+          "finite: %s" % (what, frozen))
+    # steady: every batch but each bucket's first (its bind)
+    first = {}
+    for i, row in enumerate(train_rows):
+        first.setdefault(row[1], i)
+    by_bucket = collections.defaultdict(list)
+    for i, row in enumerate(train_rows):
+        if i not in first.values():
+            by_bucket[row[1]].append(row[2])
+    steady_ms = sum(sum(v) for v in by_bucket.values())
+    tokens = sum(LM_BATCH * T * len(v) for T, v in by_bucket.items())
+    log("%s: %d training batches over %d epochs (%s a bucket), %d "
+        "validation batches; LSTM launches %s; every batch's launches "
+        "exact for its bucket; validation perplexity by epoch %s; fit wall "
+        "%.2f s; peak memory %.3f GiB on %s" % (
+            what, len(train_rows), BK_EPOCHS,
+            "/".join(str(sum(1 for r in train_rows if r[1] == T))
+                     for T in BK_BUCKETS), len(val_rows), counts,
+            " -> ".join("%.2f" % p for p in val_ppl), wall, peak, card))
+    log("%s: steady ms per batch by bucket (median, mean over n, each "
+        "bucket's first batch left out): %s; %.0f tokens/s over the steady "
+        "batches; first (bind) batch ms: %s; on %s" % (
+            what, ", ".join("T=%d %.2f / %.2f (n=%d)" % (
+                T, sorted(v)[len(v) // 2], sum(v) / len(v), len(v))
+                for T, v in sorted(by_bucket.items())),
+            tokens / (steady_ms / 1e3),
+            ", ".join("T=%d %.1f" % (train_rows[i][1], train_rows[i][2])
+                      for i in sorted(first.values())), card))
+    return {"mod": mod, "sym_gen": sym_gen, "counts": counts,
+            "val_ppl": val_ppl, "wall": wall, "peak": peak}
+
+
+def phase_bucket_switch(torch, mx, run, batches, what):
+    """Weights shared across buckets: after BK_SWITCH_UPDATES updates taken
+    in bucket 60, bucket 10's executor computes what a fresh Module of
+    bucket 10 given ``get_params()`` computes, and not what it computed
+    before the updates."""
+    import numpy as np
+    mod = run["mod"]
+    short, long_ = batches[min(BK_BUCKETS)][0], batches[max(BK_BUCKETS)][0]
+    mod.forward(short, is_train=False)
+    before = mod.get_outputs()[0].asnumpy()
+    for _ in range(BK_SWITCH_UPDATES):
+        mod.forward_backward(long_)
+        mod.update()
+    mod.forward(short, is_train=False)
+    after = mod.get_outputs()[0].asnumpy()
+    args, aux = mod.get_params()
+    sym, data_names, label_names = run["sym_gen"](min(BK_BUCKETS))
+    fresh = mx.mod.Module(sym, data_names, label_names, context=mx.gpu(0))
+    fresh.bind(short.provide_data, short.provide_label, for_training=False)
+    fresh.set_params(args, aux)
+    fresh.forward(short, is_train=False)
+    ref = fresh.get_outputs()[0].asnumpy()
+    moved = float(np.abs(after - before).max())
+    err = float(np.abs(after - ref).max()) / float(np.abs(ref).max())
+    log("%s: after %d updates in bucket %d, bucket %d's executor against "
+        "a fresh Module given get_params(): max |diff| / max |fresh| %.3g "
+        "(bound 1e-6; bit-equal: %s); its outputs moved by %.3g since "
+        "before the updates" % (what, BK_SWITCH_UPDATES, max(BK_BUCKETS),
+                                min(BK_BUCKETS), err,
+                                np.array_equal(after, ref), moved))
+    check(moved > 0, what + ": the updates did not reach bucket 10")
+    check(err <= 1e-6, what + ": bucket 10 computes with stale weights")
+
+
+def _bk_weights(run, seed):
+    """Seeded numpy weights of the default bucket's parameters (uniform,
+    about Xavier's scale)."""
+    import numpy as np
+    sym, _, _ = run["sym_gen"](max(BK_BUCKETS))
+    shape = (LM_BATCH, max(BK_BUCKETS))
+    arg_shapes, _, _ = sym.infer_shape(data=shape, softmax_label=shape)
+    rs = np.random.RandomState(seed)
+    return {n: rs.uniform(-0.1, 0.1, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+
+
+def phase_bucketing_agreement(torch, mx, seed, run, batches, fused, what):
+    """One training forward/backward of a batch of bucket 10 and one of
+    bucket 60 through a BucketingModule on the card (no update), against
+    the port's CPU path: outputs against its float32 run, gradients in
+    relative L2 against its float64 run (see _compare_train)."""
+    import numpy as np
+    lc = mx.kernels.lstm_cell
+    weights = _bk_weights(run, seed + 70)
+    mod = mx.mod.BucketingModule(run["sym_gen"], context=mx.gpu(0),
+                                 default_bucket_key=max(BK_BUCKETS))
+    shape = (LM_BATCH, max(BK_BUCKETS))
+    mod.bind([("data", shape)], [("softmax_label", shape)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in weights.items()})
+    for T in BK_AGREE_BUCKETS:
+        batch = batches[T][0]
+        zero_lstm_counts(lc)
+        mod.forward_backward(batch)
+        got = {"output": mod.get_outputs()[0].asnumpy().astype(np.float64)}
+        grads = mod._curr_module._exec_group.execs[0].grad_dict
+        got.update({"grad:" + k: grads[k].asnumpy().astype(np.float64)
+                    for k in weights})
+        check(_lstm_vec(lc) == bk_expected(fused, T, True),
+              "%s agreement: bucket %d launched %s" % (what, T,
+                                                       _lstm_vec(lc)))
+        sym = run["sym_gen"](T)[0]
+        x, y = batch.data[0].asnumpy(), batch.label[0].asnumpy()
+        ref = _executor_step(mx, sym, (weights, {}), x, y, mx.cpu())
+        exact = _executor_step(mx, sym, (weights, {}), x.astype(np.float64),
+                               y.astype(np.float64), mx.cpu())
+        ref = {k: ref[k] for k in got}
+        exact = {k: exact[k] for k in got}
+        g_keys = [k for k in got if k.startswith("grad:")]
+        _compare_train(np, got, ref, exact, _rel_l2(np, ref, exact, g_keys),
+                       "%s gpu vs cpu, bucket %d (batch %d)" % (what, T,
+                                                                LM_BATCH))
+
+
+def dtoh_bytes(torch, fn):
+    """Bytes copied from the card to the host while ``fn()`` runs, two
+    ways: ``(ops, trace)``.  ``ops`` sums, over the aten calls of a
+    TorchDispatchMode, the results of the copies whose source lies on
+    the card and whose result lies on the host, and the scalar reads of
+    card values; ``trace`` sums the memcpy events of a torch.profiler
+    trace of the same call (None when it holds none: a trace in a
+    process that ran many before it can miss them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counted = []
+
+    class CountCopies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            if "_local_scalar_dense" in name and ins and ins[0].is_cuda:
+                counted.append(ins[0].element_size())
+            elif "copy" in name and isinstance(out, torch.Tensor) \
+                    and not out.is_cuda and any(t.is_cuda for t in ins):
+                counted.append(out.numel() * out.element_size())
+            return out
+
+    torch.cuda.synchronize()
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="copy-trace-", suffix=".json",
+                                dir=build_dir)
+    os.close(fd)
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with CountCopies():
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    sizes = [int((e.get("args") or {}).get("bytes", 0)) for e in events
+             if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    return sum(counted), (sum(sizes) if sizes else None)
+
+
+def phase_perplexity_copy(torch, mx, run, batches, what):
+    """One ``update_metric`` of Perplexity after a bucket-60 forward on the
+    card copies the picked probabilities (T x batch floats) and, were
+    they on the card, the labels to the host, not the (T x batch, vocab)
+    output; its value equals the host formula on the whole output."""
+    import numpy as np
+    probe = torch.ones(12345, device="cuda")
+    seen = dtoh_bytes(torch, lambda: probe.cpu())
+    check(seen[0] == 4 * 12345 and seen[1] in (None, 4 * 12345),
+          "the copy counters read %s bytes for a copy of %d"
+          % (seen, 4 * 12345))
+    mod = run["mod"]
+    batch = batches[max(BK_BUCKETS)][0]
+    mod.forward(batch, is_train=False)
+    metric = mx.metric.Perplexity(BK_INVALID)
+    copied, traced = dtoh_bytes(
+        torch, lambda: mod.update_metric(metric, batch.label))
+    T, label = max(BK_BUCKETS), batch.label[0]
+    on_card = label.context != mx.cpu()
+    allowed = LM_BATCH * T * 4 + (label.size * 4 if on_card else 0)
+    log("%s: one Perplexity update_metric at bucket %d copied %d bytes to "
+        "the host (the trace's memcpy events: %s; bound %d: %d picked "
+        "float32 probabilities, labels %s; the whole output is %d bytes)"
+        % (what, T, copied, traced, allowed, LM_BATCH * T,
+           "on the card" if on_card else "on the host",
+           LM_BATCH * T * LM_VOCAB * 4))
+    check(0 < copied <= allowed and (traced is None or traced <= allowed),
+          "%s: update_metric copied %s bytes (trace: %s)" % (what, copied,
+                                                             traced))
+    pred = mod.get_outputs()[0].asnumpy()
+    flat = label.asnumpy().reshape(-1).astype("int32")
+    probs = pred[np.arange(flat.size), flat]
+    ignore = flat == BK_INVALID
+    probs = np.where(ignore, 1.0, probs)
+    loss = -np.sum(np.log(np.maximum(1e-10, probs)))
+    check(metric.sum_metric == loss
+          and metric.num_inst == flat.size - ignore.sum(),
+          what + ": the device pick's perplexity differs from the host "
+          "formula")
+
+
+def phase_bucketing_profile(torch, mx, run, batches, card, fused, what):
+    """A torch.profiler trace of PROFILE_STEPS batches of bucket
+    BK_PROFILE_BUCKET (forward_backward, the update in its own range,
+    update_metric), as fit runs them."""
+    mod = run["mod"]
+    plan = batches[BK_PROFILE_BUCKET][:PROFILE_STEPS]
+    metric = mx.metric.Perplexity(BK_INVALID)
+    mod.forward_backward(plan[0])     # the bucket is bound and warm
+    mod.update()
+
+    def one(i):
+        batch = plan[i % len(plan)]
+        mod.forward_backward(batch)
+        with torch.profiler.record_function("Module.update"):
+            mod.update()
+        mod.update_metric(metric, batch.label)
+
+    need = ("lstm_seq_fwd", "lstm_seq_bwd") if fused else (
+        "lstm_cell_fwd", "lstm_cell_bwd")
+    profile_steps(torch, one, lambda: None, "Module.update", card,
+                  "%s fit" % what, need, "batch %d x %d tokens"
+                  % (LM_BATCH, BK_PROFILE_BUCKET))
+
+
+def bucketing_paths(torch, mx, seed, card):
+    """The bucketed LSTM LM of example/rnn/lstm_bucketing.py through
+    BucketingModule.fit, on the unrolled stack (LSTMCells: lstm_cell
+    kernels) and then on FusedRNNCell (the persistent lstm_seq kernels),
+    each followed by the cross-bucket weight check, the Perplexity copy
+    trace, a profile and the card-vs-CPU check at buckets 10 and 60.
+    Returns the main paths' launches by kernel."""
+    corpus = (synthetic_corpus(BK_SENTENCES[0], LM_VOCAB, seed),
+              synthetic_corpus(BK_SENTENCES[1], LM_VOCAB, seed + 1))
+    launched = collections.Counter()
+    for fused in (False, True):
+        what = "bucketing %s stack" % ("fused" if fused else "unrolled")
+        run = phase_bucketing_fit(torch, mx, seed, card, fused, corpus)
+        c = run["counts"]
+        launched.update({"lstm_cell_fwd": c["cell"][0],
+                         "lstm_cell_bwd": c["cell"][1],
+                         "lstm_seq_fwd": c["seq"][0],
+                         "lstm_seq_bwd": c["seq"][1]})
+        batches = bk_batches(mx, corpus[0], seed + 80)
+        phase_bucket_switch(torch, mx, run, batches, what)
+        phase_perplexity_copy(torch, mx, run, batches, what)
+        phase_bucketing_profile(torch, mx, run, batches, card, fused, what)
+        phase_bucketing_agreement(torch, mx, seed, run, batches, fused, what)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4065,6 +4594,7 @@ def main(argv=None):
     extra, rows = finetune_paths(torch, mx, rtc, args.seed, card)
     kernels += rows
     extra += nd_paths(torch, mx, args.seed, card)
+    extra += bucketing_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

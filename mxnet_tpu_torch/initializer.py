@@ -15,14 +15,15 @@ import logging
 import re
 
 import numpy as np
+import torch
 
 from .base import MXNetError, Registry
 from .ndarray import NDArray, zeros as nd_zeros
 from . import random as _random
 
-__all__ = ["Initializer", "Uniform", "Normal", "Xavier", "MSRAPrelu", "One",
-           "Zero", "Constant", "Load", "Mixed", "LSTMBias", "FusedRNN",
-           "InitDesc", "register"]
+__all__ = ["Initializer", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "One", "Zero", "Constant", "Load", "Mixed",
+           "LSTMBias", "FusedRNN", "InitDesc", "register"]
 
 init_registry = Registry("initializer")
 register = init_registry.register
@@ -224,6 +225,37 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """An orthogonal matrix times ``scale`` (reference
+    initializer.py:Orthogonal): the singular vectors of a (nout, nin)
+    draw, uniform on [-1, 1] or standard normal.  The draw comes from
+    the package's seeded host generator (:mod:`random`), in float64; the
+    JAX package draws from numpy's global stream, so the two packages
+    agree on the properties (orthogonal rows or columns of norm
+    ``scale``), not on the values."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        gen = _random.generator(torch.device("cpu"))
+        if self.rand_type == "uniform":
+            tmp = torch.rand((nout, nin), generator=gen,
+                             dtype=torch.float64) * 2.0 - 1.0
+        else:
+            tmp = torch.randn((nout, nin), generator=gen,
+                              dtype=torch.float64)
+        tmp = tmp.numpy()
+        u, _v, q = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else q
+        arr[:] = (self.scale * res).reshape(arr.shape)
+
+
+@register
 class Xavier(Initializer):
     """Xavier/Glorot (reference initializer.py:Xavier)."""
 
@@ -270,6 +302,15 @@ class MSRAPrelu(Xavier):
         magnitude = 2.0 / (1 + slope ** 2)
         super().__init__("gaussian", factor_type, magnitude)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """Bilinear upsampling weights for a deconvolution (reference
+    initializer.py:Bilinear)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
 
 
 @register

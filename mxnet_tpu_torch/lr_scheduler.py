@@ -1,10 +1,13 @@
 """Learning-rate schedulers (port of ``mxnet_tpu/lr_scheduler.py``:
-``FactorScheduler`` and ``MultiFactorScheduler``)."""
+``FactorScheduler``, ``MultiFactorScheduler``, ``PolyScheduler`` and
+``CosineScheduler``)."""
 from __future__ import annotations
 
 import logging
+import math
 
-__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "PolyScheduler", "CosineScheduler"]
 
 
 class LRScheduler(object):
@@ -73,3 +76,44 @@ class MultiFactorScheduler(LRScheduler):
             else:
                 return self.base_lr
         return self.base_lr
+
+
+class PolyScheduler(LRScheduler):
+    """Polynomial decay to zero over ``max_update`` steps:
+    ``base_lr * (1 - t / max_update) ** pwr`` (lr_scheduler.py
+    PolyScheduler); past ``max_update`` the last rate stays."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2):
+        super().__init__(base_lr)
+        self.max_update = max_update
+        self.power = pwr
+        self.base_lr_orig = base_lr
+
+    def __call__(self, num_update):
+        if num_update <= self.max_update:
+            self.base_lr = self.base_lr_orig * \
+                pow(1.0 - float(num_update) / self.max_update, self.power)
+        return self.base_lr
+
+
+class CosineScheduler(LRScheduler):
+    """Linear warm-up over ``warmup_steps``, then cosine decay from
+    ``base_lr`` to ``final_lr`` at ``max_update`` (lr_scheduler.py
+    CosineScheduler)."""
+
+    def __init__(self, max_update, base_lr=0.01, final_lr=0.0,
+                 warmup_steps=0):
+        super().__init__(base_lr)
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.warmup_steps = warmup_steps
+        self.base_lr_orig = base_lr
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            return self.base_lr_orig * num_update / max(1, self.warmup_steps)
+        t = min(num_update - self.warmup_steps,
+                self.max_update - self.warmup_steps)
+        T = max(1, self.max_update - self.warmup_steps)
+        return self.final_lr + (self.base_lr_orig - self.final_lr) * \
+            0.5 * (1 + math.cos(math.pi * t / T))

@@ -1,22 +1,29 @@
-"""Evaluation metrics (port of ``mxnet_tpu/metric.py:21-250, 286-398,
+"""Evaluation metrics (port of ``mxnet_tpu/metric.py:21-398,
 486-507``; reference python/mxnet/metric.py).
 
 Every metric reads its labels and predictions on the host with
 ``.asnumpy()`` at each ``update``: the JAX package's
 ``MXTPU_METRIC_BLOCKING=1`` path, whose values equal its deferred
-in-graph accumulation.  ``Perplexity`` comes with ``BucketingModule``;
-``SkippedSteps`` and the deferred metrics with the resilience slice.
+in-graph accumulation.  ``Perplexity`` is the exception: it picks each
+label's probability where the prediction lies and copies only those
+(one float per label) to the host, then finishes in numpy as the JAX
+package does.  ``SkippedSteps`` and the deferred metrics come with the
+resilience slice.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as _numpy
+import torch
 
 from .base import MXNetError, Registry
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "MAE", "MSE",
-           "RMSE", "CrossEntropy", "Loss", "CustomMetric",
-           "CompositeEvalMetric", "check_label_shapes", "np", "create"]
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "Perplexity",
+           "MAE", "MSE", "RMSE", "CrossEntropy", "Loss", "Torch", "Caffe",
+           "CustomMetric", "CompositeEvalMetric", "check_label_shapes", "np",
+           "create"]
 
 metric_registry = Registry("metric")
 
@@ -183,6 +190,60 @@ class F1(EvalMetric):
             self.num_inst += 1
 
 
+def pick_probs(pred, label):
+    """``pred.reshape(-1, V)[arange, label]`` as a float32 (or float64)
+    numpy vector, ``label`` an int32 numpy vector (a negative label
+    counts from the end, as numpy's indexing does).  A prediction on the
+    card is gathered there and only the picked values are copied."""
+    if not isinstance(pred, NDArray):
+        pred = _numpy.asarray(pred)
+        pred = pred.reshape(-1, pred.shape[-1])
+        return pred[_numpy.arange(label.shape[0]), label]
+    data = pred._data.detach()
+    data = data.reshape(-1, data.shape[-1])
+    idx = _numpy.where(label < 0, label + data.shape[1], label)
+    idx = torch.from_numpy(idx.astype(_numpy.int64)).to(data.device)
+    picked = torch.gather(data, 1, idx.reshape(-1, 1)).reshape(-1)
+    if picked.dtype == torch.bfloat16:
+        picked = picked.float()
+    return picked.to("cpu").numpy()
+
+
+@metric_registry.register
+class Perplexity(EvalMetric):
+    """Perplexity, ``exp`` of the mean negative log probability of the
+    labels (reference metric.py:Perplexity); labels equal to
+    ``ignore_label`` count neither in the sum nor in the number.  The
+    values equal the JAX package's host formula bit for bit: the pick
+    copies the same float32 values, and the sum runs in numpy."""
+
+    def __init__(self, ignore_label=None, axis=-1):
+        super().__init__("Perplexity")
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = _as_np(label).reshape(-1).astype("int32")
+            probs = pick_probs(pred, label)
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label)
+                probs = _numpy.where(ignore, 1.0, probs)
+                num -= ignore.sum()
+            loss -= _numpy.sum(_numpy.log(_numpy.maximum(1e-10, probs)))
+            num += label.shape[0]
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
 @metric_registry.register
 class MAE(EvalMetric):
     def __init__(self):
@@ -258,6 +319,22 @@ class Loss(EvalMetric):
         for pred in preds:
             self.sum_metric += _as_np(pred).sum()
             self.num_inst += pred.size
+
+
+class Torch(Loss):
+    """The mean of a torch criterion's outputs (reference
+    metric.py:Torch)."""
+
+    def __init__(self, name="torch"):
+        super(Loss, self).__init__(name)
+
+
+class Caffe(Torch):
+    """The mean of a caffe loss layer's outputs (reference
+    metric.py:Caffe)."""
+
+    def __init__(self):
+        super(Loss, self).__init__("caffe")
 
 
 class CustomMetric(EvalMetric):

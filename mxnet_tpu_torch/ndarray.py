@@ -149,9 +149,10 @@ class NDArray(object):
     wait_to_write = wait_to_read
 
     def asnumpy(self):
-        """A numpy copy on the host (waits for the device).  bfloat16 has
-        no numpy type here, so it comes back as float32 (exact)."""
-        t = self._data.detach().to("cpu")
+        """A numpy copy on the host (waits for the device), never a view
+        of a host array's storage.  bfloat16 has no numpy type here, so
+        it comes back as float32 (exact)."""
+        t = self._data.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()

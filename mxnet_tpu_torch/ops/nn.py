@@ -453,6 +453,72 @@ def slice_channel(data, num_outputs=1, axis=1, squeeze_axis=False):
 
 
 # ---------------------------------------------------------------------------
+# Sequence ops — src/operator/sequence_{last,mask,reverse}-inl.h (the JAX
+# package's :815-860).  Data is time-major (T, N, ...); with
+# ``use_sequence_length`` the (N,) lengths are read on the device (a
+# gather or a mask), never on the host.
+# ---------------------------------------------------------------------------
+
+def _seq_inputs(attrs):
+    if attrs.get("use_sequence_length", False):
+        return ("data", "sequence_length")
+    return ("data",)
+
+
+def _seq_last_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    return [tuple(s) if s else s for s in in_shapes], [tuple(data[1:])], []
+
+
+def _seq_index(sequence_length, data):
+    """The (N,) lengths as int64 shaped to broadcast against the time
+    axis of ``data``: (1, N, 1, ...)."""
+    return sequence_length.to(torch.int32).to(torch.int64).reshape(
+        (1, -1) + (1,) * (data.ndim - 2))
+
+
+@register("SequenceLast", input_names=_seq_inputs, infer_shape=_seq_last_infer)
+def sequence_last(data, sequence_length=None, use_sequence_length=False):
+    """Each sequence's last valid step: ``data[length - 1, n]``."""
+    if not use_sequence_length or sequence_length is None:
+        return data[-1]
+    idx = (_seq_index(sequence_length, data) - 1).expand(
+        (1,) + tuple(data.shape[1:]))
+    return torch.gather(data, 0, idx)[0]
+
+
+@register("SequenceMask", input_names=_seq_inputs)
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0):
+    """Steps at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    T = data.shape[0]
+    steps = torch.arange(T, device=data.device).reshape(
+        (T,) + (1,) * (data.ndim - 1))
+    lens = sequence_length.reshape((1, -1) + (1,) * (data.ndim - 2))
+    return torch.where(steps < lens, data,
+                       torch.tensor(value, dtype=data.dtype,
+                                    device=data.device))
+
+
+@register("SequenceReverse", input_names=_seq_inputs)
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False):
+    """Each sequence's first ``length`` steps reversed in place; the
+    padding after them stays where it is."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, dims=(0,))
+    T = data.shape[0]
+    steps = torch.arange(T, device=data.device).reshape(
+        (T,) + (1,) * (data.ndim - 1))
+    lens = _seq_index(sequence_length, data)
+    rev_idx = torch.where(steps < lens, lens - 1 - steps, steps)
+    return torch.gather(data, 0, rev_idx.expand(tuple(data.shape)))
+
+
+# ---------------------------------------------------------------------------
 # Fused RNN — src/operator/rnn-inl.h / cudnn_rnn-inl.h (the JAX package's
 # :862-1052).  Weight layout matches the reference's fused vector format so
 # rnn_cell pack/unpack round-trips (python/mxnet/rnn/rnn_cell.py:541-607):

@@ -4,9 +4,13 @@ python/mxnet/rnn/rnn_cell.py:60-608).
 Cells build symbolic graphs step by step through ``unroll``;
 ``FusedRNNCell`` emits the fused ``RNN`` op (one hoisted input
 projection and a loop over time per layer, ``ops/nn.py``) and ``unfuse()``
-turns it into a ``SequentialRNNCell`` of ``LSTMCell``s.  Weight layout
+turns it into a ``SequentialRNNCell`` of explicit cells: ``RNNCell``,
+``LSTMCell`` or ``GRUCell`` by mode, ``BidirectionalCell`` pairs for a
+bidirectional stack and ``DropoutCell``s between layers.  Weight layout
 pack/unpack between the fused vector and per-cell i2h/h2h matrices
-round-trips (gate order LSTM [i, f, c, o]).  ``LSTMCell`` emits the
+round-trips (gate order LSTM [i, f, c, o], GRU [r, z, n]).  The modifier
+cells (``ZoneoutCell``, ``ResidualCell``) wrap another cell.  ``LSTMCell``
+emits the
 ``_FusedLSTMCell`` op (``kernels/lstm_cell.py``) when
 ``MXTPU_FUSED_KERNELS`` enables ``lstm_cell`` at symbol-build time, and
 the JAX package's exact slice/activation graph otherwise.
@@ -22,13 +26,9 @@ from .. import symbol
 from ..base import MXNetError
 from ..ops.nn import rnn_param_size
 
-__all__ = ["RNNParams", "BaseRNNCell", "LSTMCell", "FusedRNNCell",
-           "SequentialRNNCell"]
-
-
-def _later(what):
-    raise MXNetError("%s is not ported yet (it comes with the RNN cells "
-                     "slice of mxnet_tpu_torch)" % what)
+__all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
+           "FusedRNNCell", "SequentialRNNCell", "BidirectionalCell",
+           "DropoutCell", "ModifierCell", "ZoneoutCell", "ResidualCell"]
 
 
 class RNNParams(object):
@@ -187,6 +187,50 @@ class BaseRNNCell(object):
             outputs = symbol.Concat(*outputs, dim=axis)
         return outputs, states
 
+    def _get_activation(self, inputs, activation, **kwargs):
+        """``Activation`` of the named type, or ``activation(inputs)``
+        for a callable."""
+        if isinstance(activation, str):
+            return symbol.Activation(inputs, act_type=activation, **kwargs)
+        return activation(inputs, **kwargs)
+
+
+class RNNCell(BaseRNNCell):
+    """Vanilla RNN cell (rnn_cell.py:RNNCell): ``act(i2h + h2h)``."""
+
+    def __init__(self, num_hidden, activation="tanh", prefix="rnn_",
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._activation = activation
+        self._iW = self.params.get("i2h_weight")
+        self._iB = self.params.get("i2h_bias")
+        self._hW = self.params.get("h2h_weight")
+        self._hB = self.params.get("h2h_bias")
+
+    @property
+    def state_info(self):
+        return [{"shape": (0, self._num_hidden), "__layout__": "NC"}]
+
+    @property
+    def _gate_names(self):
+        return ("",)
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = "%st%d_" % (self._prefix, self._counter)
+        i2h = symbol.FullyConnected(data=inputs, weight=self._iW,
+                                    bias=self._iB,
+                                    num_hidden=self._num_hidden,
+                                    name="%si2h" % name)
+        h2h = symbol.FullyConnected(data=states[0], weight=self._hW,
+                                    bias=self._hB,
+                                    num_hidden=self._num_hidden,
+                                    name="%sh2h" % name)
+        output = self._get_activation(i2h + h2h, self._activation,
+                                      name="%sout" % name)
+        return output, [output]
+
 
 class LSTMCell(BaseRNNCell):
     """LSTM cell (rnn_cell.py:LSTMCell); gate order [i, f, c, o]."""
@@ -249,6 +293,52 @@ class LSTMCell(BaseRNNCell):
         next_h = out_gate * symbol.Activation(next_c, act_type="tanh",
                                               name="%sstate" % name)
         return next_h, [next_h, next_c]
+
+
+class GRUCell(BaseRNNCell):
+    """GRU cell (rnn_cell.py:GRUCell); gate order [r, z, n], the new
+    gate's h2h part inside the reset product."""
+
+    def __init__(self, num_hidden, prefix="gru_", params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._iW = self.params.get("i2h_weight")
+        self._hW = self.params.get("h2h_weight")
+        self._iB = self.params.get("i2h_bias")
+        self._hB = self.params.get("h2h_bias")
+
+    @property
+    def state_info(self):
+        return [{"shape": (0, self._num_hidden), "__layout__": "NC"}]
+
+    @property
+    def _gate_names(self):
+        return ["_r", "_z", "_o"]
+
+    def __call__(self, inputs, states):
+        self._counter += 1
+        name = "%st%d_" % (self._prefix, self._counter)
+        prev_state_h = states[0]
+        i2h = symbol.FullyConnected(data=inputs, weight=self._iW,
+                                    bias=self._iB,
+                                    num_hidden=self._num_hidden * 3,
+                                    name="%si2h" % name)
+        h2h = symbol.FullyConnected(data=prev_state_h, weight=self._hW,
+                                    bias=self._hB,
+                                    num_hidden=self._num_hidden * 3,
+                                    name="%sh2h" % name)
+        i2h = symbol.SliceChannel(i2h, num_outputs=3, axis=1,
+                                  name="%si2h_slice" % name)
+        h2h = symbol.SliceChannel(h2h, num_outputs=3, axis=1,
+                                  name="%sh2h_slice" % name)
+        reset_gate = symbol.Activation(i2h[0] + h2h[0], act_type="sigmoid",
+                                       name="%sr_act" % name)
+        update_gate = symbol.Activation(i2h[1] + h2h[1], act_type="sigmoid",
+                                        name="%sz_act" % name)
+        next_h_tmp = symbol.Activation(i2h[2] + reset_gate * h2h[2],
+                                       act_type="tanh", name="%sh_act" % name)
+        next_h = (1.0 - update_gate) * next_h_tmp + update_gate * prev_state_h
+        return next_h, [next_h]
 
 
 class FusedRNNCell(BaseRNNCell):
@@ -427,21 +517,31 @@ class FusedRNNCell(BaseRNNCell):
         return outputs, attr_states
 
     def unfuse(self):
-        """Fused -> a ``SequentialRNNCell`` of explicit ``LSTMCell``s, one
-        per layer (rnn_cell.py:unfuse).  The other modes, bidirectional
-        stacks and inter-layer dropout need cells of a later slice."""
-        if self._mode != "lstm":
-            _later("FusedRNNCell.unfuse for mode %r (RNNCell/GRUCell)"
-                   % self._mode)
-        if self._bidirectional:
-            _later("FusedRNNCell.unfuse of a bidirectional stack "
-                   "(BidirectionalCell)")
-        if self._dropout > 0 and self._num_layers > 1:
-            _later("FusedRNNCell.unfuse with dropout (DropoutCell)")
+        """Fused -> a ``SequentialRNNCell`` of explicit cells, one per
+        layer (a ``BidirectionalCell`` pair when bidirectional), with a
+        ``DropoutCell`` between layers when ``dropout`` > 0
+        (rnn_cell.py:unfuse)."""
         stack = SequentialRNNCell()
+        get_cell = {
+            "rnn_relu": lambda p: RNNCell(self._num_hidden, activation="relu",
+                                          prefix=p),
+            "rnn_tanh": lambda p: RNNCell(self._num_hidden, activation="tanh",
+                                          prefix=p),
+            "lstm": lambda p: LSTMCell(self._num_hidden, prefix=p),
+            "gru": lambda p: GRUCell(self._num_hidden, prefix=p),
+        }[self._mode]
         for i in range(self._num_layers):
-            stack.add(LSTMCell(self._num_hidden,
-                               prefix="%sl%d_" % (self._prefix, i)))
+            if self._bidirectional:
+                stack.add(BidirectionalCell(
+                    get_cell("%sl%d_" % (self._prefix, i)),
+                    get_cell("%sr%d_" % (self._prefix, i)),
+                    output_prefix="%sbi_l%d_" % (self._prefix, i)))
+            else:
+                stack.add(get_cell("%sl%d_" % (self._prefix, i)))
+            if self._dropout > 0 and i != self._num_layers - 1:
+                stack.add(DropoutCell(self._dropout,
+                                      prefix="%s_dropout%d_" % (self._prefix,
+                                                                i)))
         return stack
 
 
@@ -503,3 +603,163 @@ class SequentialRNNCell(BaseRNNCell):
             next_states.extend(st)
             p += n
         return outputs, next_states
+
+
+class DropoutCell(BaseRNNCell):
+    """Dropout on the outputs between layers (rnn_cell.py:DropoutCell);
+    it has no state."""
+
+    def __init__(self, dropout, prefix="dropout_", params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self.dropout > 0:
+            inputs = symbol.Dropout(data=inputs, p=self.dropout)
+        return inputs, states
+
+
+class ModifierCell(BaseRNNCell):
+    """Base of the cells that wrap another cell and share its parameters
+    and states (rnn_cell.py:ModifierCell)."""
+
+    def __init__(self, base_cell):
+        super().__init__()
+        base_cell._modified = True
+        self.base_cell = base_cell
+
+    @property
+    def params(self):
+        self._own_params = False
+        return self.base_cell.params
+
+    @property
+    def state_info(self):
+        return self.base_cell.state_info
+
+    def begin_state(self, init_sym=None, **kwargs):
+        assert not self._modified
+        self.base_cell._modified = False
+        begin = self.base_cell.begin_state(**kwargs)
+        self.base_cell._modified = True
+        return begin
+
+    def unpack_weights(self, args):
+        return self.base_cell.unpack_weights(args)
+
+    def pack_weights(self, args):
+        return self.base_cell.pack_weights(args)
+
+
+class ZoneoutCell(ModifierCell):
+    """Zoneout (rnn_cell.py:ZoneoutCell): in training, each output and
+    state unit keeps its previous value with probability
+    ``zoneout_outputs`` / ``zoneout_states`` (masks drawn by ``Dropout``
+    over ones); in inference the masks are all ones."""
+
+    def __init__(self, base_cell, zoneout_outputs=0.0, zoneout_states=0.0):
+        assert not isinstance(base_cell, FusedRNNCell), \
+            "FusedRNNCell doesn't support zoneout. Please unfuse first."
+        super().__init__(base_cell)
+        self.zoneout_outputs = zoneout_outputs
+        self.zoneout_states = zoneout_states
+        self.prev_output = None
+
+    def reset(self):
+        super().reset()
+        self.prev_output = None
+
+    def __call__(self, inputs, states):
+        cell, p_outputs, p_states = (self.base_cell, self.zoneout_outputs,
+                                     self.zoneout_states)
+        next_output, next_states = cell(inputs, states)
+
+        def mask(p, like):
+            return symbol.Dropout(symbol.ones_like(like), p=p)
+
+        prev_output = self.prev_output if self.prev_output is not None \
+            else symbol.zeros_like(next_output)
+        output = symbol.where(mask(p_outputs, next_output), next_output,
+                              prev_output) if p_outputs != 0.0 \
+            else next_output
+        states = [symbol.where(mask(p_states, new_s), new_s, old_s)
+                  for new_s, old_s in zip(next_states, states)] \
+            if p_states != 0.0 else next_states
+        self.prev_output = output
+        return output, states
+
+
+class ResidualCell(ModifierCell):
+    """A residual connection around a cell (rnn_cell.py:ResidualCell):
+    the output is the cell's output plus its input."""
+
+    def __call__(self, inputs, states):
+        output, states = self.base_cell(inputs, states)
+        output = symbol.elemwise_add(output, inputs)
+        return output, states
+
+
+class BidirectionalCell(BaseRNNCell):
+    """Two cells over the sequence, one forward and one reversed, their
+    outputs concatenated per step (rnn_cell.py:BidirectionalCell).  A
+    merged (N, T, C) input is reversed on the device by
+    ``SequenceReverse``."""
+
+    def __init__(self, l_cell, r_cell, params=None, output_prefix="bi_"):
+        super().__init__("", params=params)
+        self._output_prefix = output_prefix
+        self._override_cell_params = params is not None
+        self._cells = [l_cell, r_cell]
+
+    def unpack_weights(self, args):
+        for cell in self._cells:
+            args = cell.unpack_weights(args)
+        return args
+
+    def pack_weights(self, args):
+        for cell in self._cells:
+            args = cell.pack_weights(args)
+        return args
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError("Bidirectional cannot be stepped. Please "
+                                  "use unroll")
+
+    @property
+    def state_info(self):
+        return sum([c.state_info for c in self._cells], [])
+
+    def begin_state(self, **kwargs):
+        assert not self._modified
+        return sum([c.begin_state(**kwargs) for c in self._cells], [])
+
+    def unroll(self, length, inputs=None, begin_state=None, input_prefix="",
+               layout="NTC", merge_outputs=None):
+        self.reset()
+        l_cell, r_cell = self._cells
+        n_l = len(l_cell.state_info)
+        l_outputs, l_states = l_cell.unroll(
+            length, inputs=inputs,
+            begin_state=None if begin_state is None else begin_state[:n_l],
+            layout=layout, merge_outputs=False, input_prefix=input_prefix)
+        if isinstance(inputs, list):
+            rev_inputs = list(reversed(inputs))
+        else:
+            rev_inputs = symbol.SwapAxis(symbol.SequenceReverse(
+                symbol.SwapAxis(inputs, dim1=0, dim2=1)), dim1=0, dim2=1)
+        r_outputs, r_states = r_cell.unroll(
+            length, inputs=rev_inputs,
+            begin_state=None if begin_state is None else begin_state[n_l:],
+            layout=layout, merge_outputs=False, input_prefix=input_prefix)
+        outputs = [symbol.Concat(l_o, r_o, dim=1,
+                                 name="%st%d" % (self._output_prefix, i))
+                   for i, (l_o, r_o) in enumerate(
+                       zip(l_outputs, reversed(r_outputs)))]
+        if merge_outputs:
+            outputs = [symbol.expand_dims(o, axis=1) for o in outputs]
+            outputs = symbol.Concat(*outputs, dim=1)
+        return outputs, l_states + r_states

@@ -133,6 +133,81 @@ def test_port_runs_with_jax_unimportable():
     assert res.stdout.startswith("ok ")
 
 
+def test_bucketing_stack_runs_with_jax_unimportable():
+    """The bucketing slice's modules import and run with JAX made
+    unimportable: a BucketSentenceIter -> BucketingModule.fit of a small
+    LSTM LM on both stacks (Perplexity, eval data), the other cells, the
+    Sequence ops, SequentialModule over a PythonLossModule, FeedForward
+    and the executor manager, the new schedules and initializers."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch.module import bucketing_module, "
+        "sequential_module, python_module\n"
+        "from mxnet_tpu_torch.rnn import io, rnn\n"
+        "from mxnet_tpu_torch import executor_manager\n"
+        "rs = np.random.RandomState(0)\n"
+        "sents = [list(rs.randint(1, 20, rs.randint(2, 9))) for _ in "
+        "range(40)]\n"
+        "for fused in (0, 1):\n"
+        "    it = mx.rnn.BucketSentenceIter(sents, 4, buckets=[4, 8], "
+        "invalid_label=0)\n"
+        "    stack = mx.rnn.FusedRNNCell(6, num_layers=2, prefix='l_') "
+        "if fused else mx.rnn.FusedRNNCell(6, num_layers=2, prefix='l_')"
+        ".unfuse()\n"
+        "    def gen(T):\n"
+        "        e = mx.sym.Embedding(mx.sym.Variable('data'), "
+        "input_dim=20, output_dim=5, name='embed')\n"
+        "        stack.reset()\n"
+        "        o, _ = stack.unroll(T, inputs=e, merge_outputs=True)\n"
+        "        o = mx.sym.FullyConnected(mx.sym.Reshape(o, shape=(-1, 6)),"
+        " num_hidden=20, name='pred')\n"
+        "        lab = mx.sym.Reshape(mx.sym.Variable('softmax_label'), "
+        "shape=(-1,))\n"
+        "        return mx.sym.SoftmaxOutput(o, lab, name='softmax'), "
+        "('data',), ('softmax_label',)\n"
+        "    m = mx.mod.BucketingModule(gen, default_bucket_key=8, "
+        "context=mx.cpu())\n"
+        "    m.fit(it, eval_data=it, eval_metric=mx.metric.Perplexity(0), "
+        "initializer=mx.initializer.Orthogonal(), num_epoch=1, "
+        "optimizer_params={'learning_rate': 0.1, 'lr_scheduler': "
+        "mx.lr_scheduler.CosineScheduler(20, 0.1)})\n"
+        "    assert sorted(m._buckets) == [4, 8]\n"
+        "bi = mx.rnn.BidirectionalCell(mx.rnn.GRUCell(3, prefix='a_'), "
+        "mx.rnn.ZoneoutCell(mx.rnn.RNNCell(3, prefix='b_'), 0.5))\n"
+        "o, _ = bi.unroll(4, inputs=mx.sym.Variable('data'), "
+        "merge_outputs=True)\n"
+        "ex = o.simple_bind(mx.cpu(), data=(2, 4, 5))\n"
+        "assert ex.forward()[0].shape == (2, 4, 6)\n"
+        "X = rs.standard_normal((16, 5)).astype(np.float32)\n"
+        "Y = rs.randint(0, 3, 16).astype(np.float32)\n"
+        "net = mx.sym.FullyConnected(mx.sym.Variable('data'), "
+        "num_hidden=3, name='fc')\n"
+        "seq = mx.mod.SequentialModule().add(mx.mod.Module(net, "
+        "label_names=[], context=mx.cpu())).add(mx.mod.PythonLossModule("
+        "grad_func=lambda s, l: s.asnumpy() * 0.1), take_labels=True, "
+        "auto_wiring=True)\n"
+        "seq.fit(mx.io.NDArrayIter(X, Y, batch_size=8), num_epoch=1)\n"
+        "ff = mx.model.FeedForward(mx.sym.SoftmaxOutput(net, "
+        "name='softmax'), ctx=mx.cpu(), num_epoch=1, numpy_batch_size=8, "
+        "initializer=mx.initializer.Xavier())\n"
+        "ff.fit(X, Y)\n"
+        "assert ff.predict(X).shape == (16, 3)\n"
+        "w = mx.nd.zeros((1, 1, 4, 4), ctx=mx.cpu())\n"
+        "mx.initializer.Bilinear()('up_weight', w)\n"
+        "assert mx.lr_scheduler.PolyScheduler(10)(5) > 0\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith("ok")
+
+
 def test_chip_smoke_refuses_without_cuda():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],

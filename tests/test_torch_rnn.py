@@ -287,11 +287,16 @@ def test_pack_unpack_roundtrip_and_unfuse_limits():
     packed = fused.pack_weights(unpacked)
     np.testing.assert_array_equal(packed["lstm_parameters"].asnumpy(), flat)
     np.testing.assert_array_equal(params.asnumpy(), flat)  # copies, no alias
-    for kw in ({"mode": "gru"}, {"mode": "rnn_tanh"},
-               {"mode": "lstm", "bidirectional": True},
-               {"mode": "lstm", "num_layers": 2, "dropout": 0.5}):
-        with pytest.raises(tmx.MXNetError, match="later slice|not ported"):
-            tmx.rnn.FusedRNNCell(4, **kw).unfuse()
+    # every mode unfuses now, into the JAX package's cells
+    for kw, kinds in (
+            ({"mode": "gru"}, ["GRUCell"]),
+            ({"mode": "rnn_tanh"}, ["RNNCell"]),
+            ({"mode": "lstm", "bidirectional": True}, ["BidirectionalCell"]),
+            ({"mode": "lstm", "num_layers": 2, "dropout": 0.5},
+             ["LSTMCell", "DropoutCell", "LSTMCell"])):
+        for mx in (tmx, jmx):
+            stack = mx.rnn.FusedRNNCell(4, **kw).unfuse()
+            assert [type(c).__name__ for c in stack._cells] == kinds
 
 
 def test_lstm_bias_and_fused_rnn_initializers_match_jax():
