@@ -147,7 +147,32 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     profile of a few ``fit`` batches, and one batch of buckets 10 and 60
     held against the port's CPU path (float32 outputs, gradients against
     float64);
-21. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+21. runs the image-classification zoo (``zoo_paths``): logs each zoo
+    model's fused plan (merged ``concat_fuse`` groups, ``pool_act``
+    rewrites, BN sites, chains, what liveness drops, convolutions and
+    ``fused_bn_act`` calls per forward) and requires every pass to engage
+    on Inception-BN; holds both ``bn_act`` kernels against their plain
+    versions at every shape an Inception-BN training step gives them
+    (merged widths included) with times; times ``pooling_opt``'s slice
+    form against the Pooling op at Inception-BN's pooling sites (the
+    CUDA gate); serves Inception-BN (3x224x224, 1000 classes, batch 32)
+    through ``Predictor`` with every pass on (bn_act launches, merged
+    bodies and convolutions per forward held to the plan; fused against
+    unfused logits; the card against the CPU at batch 4; a profile) and
+    trains it through ``SPMDTrainer`` with bench.py's ResNet settings
+    (48 + 48 ``bn_act`` launches and 13 merged bodies a step, 48
+    convolutions a training forward, a falling loss, fused against
+    unfused ms/step in turns, a profile), holds a batch-4 training step
+    against the CPU (float32, and float64 for the gradients); serves
+    every other zoo model at batch 32 at its published size (LeNet and
+    the MLP at 1x28x28, AlexNet, VGG-16, GoogLeNet, MobileNet and
+    ResNeXt-50 at 224, Inception-v3 at 299) fused and unfused, img/s,
+    logits against each other and against the CPU at batch 1; serves
+    ResNet-50 fused, fused interpreting every plan entry (the executor
+    before liveness: 86 convolutions a forward) and unfused (53 each) in
+    turns; and runs the 15 ops of ``ops/nn.py`` the port added last
+    forward and backward against the CPU;
+22. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -663,11 +688,12 @@ def _kernel_class(name):
     return "other"
 
 
-def phase_profile(torch, mx, net, params, card):
+def phase_profile(torch, mx, net, params, card, what="resnet-50"):
     """Fused vs ``MXTPU_FUSED_KERNELS=0`` serving throughput in turns
     (fused, unfused, unfused, fused), then a ``torch.profiler`` trace of
     a few fused forwards: device time by kernel class, kernel launches per
-    forward, and the device's idle share."""
+    forward, and the device's idle share.  Returns the img/s of each
+    turn by plan."""
     import numpy as np
     from torch.autograd import DeviceType
     batch, forwards = BATCH, PROFILE_FORWARDS
@@ -696,9 +722,10 @@ def phase_profile(torch, mx, net, params, card):
             preds[which].forward(data=x).get_output(0)
         rates[which].append(batch * forwards / (time.perf_counter() - t0))
     for which, r in rates.items():
-        log("profile: %s serving %s img/s (two turns of %d forwards, batch "
-            "%d) on %s" % (which, " / ".join("%.1f" % v for v in r),
-                           forwards, batch, card))
+        log("profile: %s %s serving %s img/s (two turns of %d forwards, "
+            "batch %d) on %s" % (what, which, " / ".join("%.1f" % v
+                                                       for v in r),
+                                 forwards, batch, card))
 
     pred = preds["fused"]
     with torch.profiler.profile(activities=[
@@ -725,16 +752,17 @@ def phase_profile(torch, mx, net, params, card):
     for ms, count, key in rows:
         by_class[_kernel_class(key)] += ms
         launches += count
-    log("profile: %d fused forwards, wall %.2f ms, device busy %.2f ms, "
-        "idle share %.3f, %.1f kernels per forward" % (
-            forwards, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
+    log("profile: %s %d fused forwards, wall %.2f ms, device busy %.2f "
+        "ms, idle share %.3f, %.1f kernels per forward" % (
+            what, forwards, wall_ms, busy_ms, 1 - busy_ms / wall_ms,
             launches / forwards))
     for cls, ms in by_class.most_common():
-        log("profile: class %-12s %8.3f ms/forward  %5.1f%%" % (
-            cls, ms / forwards, 100 * ms / busy_ms))
+        log("profile: %s class %-12s %8.3f ms/forward  %5.1f%%" % (
+            what, cls, ms / forwards, 100 * ms / busy_ms))
     for ms, count, key in rows[:12]:
-        log("profile: kernel %8.3f ms/forward x%-4d %s" % (
-            ms / forwards, count // forwards, key[:110]))
+        log("profile: %s kernel %8.3f ms/forward x%-4d %s" % (
+            what, ms / forwards, count // forwards, key[:110]))
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -883,13 +911,17 @@ def _rel_l2(np, got, ref, keys):
     return (num / den) ** 0.5 if den > 0 else (0.0 if num == 0 else np.inf)
 
 
-def _compare_train(np, got, ref, exact, cpu_l2, what):
+def _compare_train(np, got, ref, exact, cpu_l2, what, zero_grads=()):
     """Outputs and moving statistics against the port's CPU float32 path,
     each within AGREE_REL_TOL x its max |cpu|.  Gradients against the
     float64 CPU run: together within max(AGREE_REL_TOL, GRAD_L2_FACTOR x
     the CPU float32 path's own relative L2 error ``cpu_l2``), each tensor
     within GRAD_TENSOR_L2_TOL; the worst tensor by max |diff| / max |cpu|
-    is printed beside them."""
+    is printed beside them.  ``zero_grads`` are gradients that are zero
+    in exact arithmetic (a conv bias a batch-statistics BatchNorm
+    subtracts again), so only rounding is left in them: each is held to
+    an L2 norm within AGREE_REL_TOL x that of all float64 gradients
+    instead of the per-tensor bound."""
     for k, r in ref.items():
         check(got[k].shape == r.shape and np.isfinite(got[k]).all(),
               "%s: %s shape %s / not finite" % (what, k, got[k].shape))
@@ -903,7 +935,18 @@ def _compare_train(np, got, ref, exact, cpu_l2, what):
           what + ": outputs or moving statistics disagree with the CPU path")
     g_l2 = _rel_l2(np, got, exact, grads)
     bound = max(AGREE_REL_TOL, GRAD_L2_FACTOR * cpu_l2)
-    t_l2, t_key = max((_rel_l2(np, got, exact, [k]), k) for k in grads)
+    t_l2, t_key = max((_rel_l2(np, got, exact, [k]), k) for k in grads
+                      if k not in zero_grads)
+    if zero_grads:
+        total = sum(float(np.sum(exact[k] ** 2)) for k in grads) ** 0.5
+        z_norm, z_key = max((float(np.linalg.norm(got[k])), k)
+                            for k in zero_grads)
+        log("%s: %d gradients zero in exact arithmetic, largest L2 norm %s "
+            "%.3g (bound %.3g = %g x the float64 gradients' %.3g)" % (
+                what, len(zero_grads), z_key, z_norm, AGREE_REL_TOL * total,
+                AGREE_REL_TOL, total))
+        check(z_norm <= AGREE_REL_TOL * total, what + ": a gradient that "
+              "is zero in exact arithmetic is not")
     m_ratio, m_key = _worst_max_rel(np, got, ref, grads)
     log("%s: %d gradients, relative L2 error against float64 %.3g (bound "
         "%.3g); worst tensor %s %.3g (bound %g); worst by max |diff| / max "
@@ -4570,6 +4613,812 @@ def bucketing_paths(torch, mx, seed, card):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# the image-classification zoo: the plan passes' report, Inception-BN
+# served and trained through every pass, the pooling gate, the other zoo
+# models served, the ResNet-50 liveness repair, and the ops of ops/nn.py
+# ---------------------------------------------------------------------------
+
+#: every other zoo model at its published input size and class count,
+#: served at batch 32 (ResNet-50 has its own phases above)
+ZOO_MODELS = (("lenet", (1, 28, 28), 10), ("mlp", (1, 28, 28), 10),
+              ("alexnet", IMAGE, 1000), ("vgg16", IMAGE, 1000),
+              ("googlenet", IMAGE, 1000), ("mobilenet", IMAGE, 1000),
+              ("resnext-50", IMAGE, 1000),
+              ("inception-v3", (3, 299, 299), 1000))
+ZOO_TURN_FORWARDS = 3   # batch-32 forwards in each of a model's 4 turns
+IBN_FORWARDS = 8        # Inception-BN batch-32 requests on the main path
+IBN_TRAIN_STEPS = 4     # distinct seeded batches, then IBN_FIXED_STEPS
+IBN_FIXED_STEPS = 6
+IBN_TURN_STEPS = 3      # steps in each turn of fused against unfused
+IBN_AGREE_BATCH = AGREE_BATCH
+ZOO_AGREE_BATCH = 1
+REPAIR_TURN_FORWARDS = 4
+#: Fused against MXTPU_FUSED_KERNELS=0 logits on the card, every zoo model:
+#: within 1e-3 x max |logit| with the same argmax (compare_logits, the CPU
+#: agreement's bound).  Both plans run float32 with TF32 off; they differ
+#: by summation order only: a bn_fold site runs its conv on folded weights,
+#: and a concat_fuse group runs one wider (or grouped) convolution, for
+#: which cuDNN may pick another algorithm than for its members, so the
+#: merge is not bitwise on the card (it is on the CPU for grouped merges).
+
+
+@contextlib.contextmanager
+def fused_kernels(value):
+    """``MXTPU_FUSED_KERNELS=value`` while graphs are bound inside."""
+    old = os.environ.get("MXTPU_FUSED_KERNELS")
+    os.environ["MXTPU_FUSED_KERNELS"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MXTPU_FUSED_KERNELS"]
+        else:
+            os.environ["MXTPU_FUSED_KERNELS"] = old
+
+
+def conv_counter(torch):
+    """A dispatch mode counting ``aten.convolution`` calls (forward
+    convolutions; a backward is ``convolution_backward``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ConvCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket is torch.ops.aten.convolution:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+    return ConvCount()
+
+
+def zoo_symbol(mx, name, image, classes):
+    with mx.name.NameManager():
+        if name.startswith("resnet-"):
+            return mx.models.get_symbol(name, num_classes=classes,
+                                        image_shape=image)
+        return mx.models.get_symbol(name, num_classes=classes)
+
+
+def _head(net):
+    """The output of the layer SoftmaxOutput reads: the logits."""
+    return net._outputs[0][0].inputs[0][0].name + "_output"
+
+
+def zoo_report(mx, net, shape):
+    """The fused plan's report (``mxfuse.plan_report``) at input ``shape``
+    with every pass on."""
+    with fused_kernels("1"):
+        fn = mx.executor._build_eval(net)
+    return mx.mxfuse.plan_report(fn.plan, fn.out_refs,
+                                 mx.mxfuse.output_shapes(net, data=shape))
+
+
+def _params_on_host(mx, weights):
+    args, aux = mx.convert.params_from_numpy(weights, ctx=mx.cpu())
+    return _with_prefixes(args, aux)
+
+
+def _predictor(mx, net, params, shape, ctx, fused, head=False):
+    with fused_kernels("1" if fused else "0"):
+        return mx.predict.Predictor(net, params, {"data": shape}, ctx=ctx,
+                                    output_name=_head(net) if head else None)
+
+
+def phase_zoo_plans(torch, mx):
+    """Each zoo model's fused plan at batch 32: groups and members merged,
+    pool rewrites, BN sites by kind, chains, entries liveness drops and
+    the convolutions and ``fused_bn_act`` calls per forward on each path;
+    for Inception-BN every pass must engage, as tests/test_mxfuse.py:366
+    asks of the JAX package.  Returns ``{name: report}``."""
+    reports = {}
+    models = (("inception-bn", IMAGE, 1000), ("resnet-50", IMAGE, 1000)) \
+        + ZOO_MODELS
+    for name, image, classes in models:
+        net = zoo_symbol(mx, name, image, classes)
+        r = reports[name] = zoo_report(mx, net, (BATCH,) + image)
+        log("plan %-12s %d entries | concat_fuse %d groups (%d grouped, %d "
+            "merged at this shape), %d members | pool_act %d reorder, %d "
+            "collapse, %d routed | "
+            "bn_act %d, bn_fold %d | eltwise_chain %d chains of %d ops | "
+            "liveness drops %d (inference) / %d (training) | convs %d in "
+            "the plan, run per forward %d / %d | fused_bn_act calls %d / %d"
+            % (name, r["entries"], r["concat_groups"], r["concat_grouped"],
+               r["concat_merged"], r["concat_members"], r["pool_reorder"],
+               r["pool_collapse"],
+               r["pool_routed"], r["bn_act"], r["bn_fold"], r["chains"],
+               r["chain_ops"], r["dropped_infer"], r["dropped_train"],
+               r["convs"], r["conv_calls_infer"], r["conv_calls_train"],
+               r["bn_act_calls_infer"], r["bn_act_calls_train"]))
+        # a generated kernel per chain would launch once where the eager
+        # chain launches once per op, forward and backward
+        log("plan %-12s a kernel per eltwise chain would remove %d "
+            "elementwise launches per forward and %d per training step"
+            % (name, r["chain_ops"] - r["chains"],
+               2 * (r["chain_ops"] - r["chains"])))
+    r = reports["inception-bn"]
+    check(r["concat_groups"] > 0 and r["concat_grouped"] > 0
+          and r["pool_reorder"] > 0 and r["pool_routed"] > 0
+          and r["bn_fold"] > 0 and r["dropped_infer"] > 0
+          and r["dropped_train"] > 0
+          and r["conv_calls_infer"] < r["convs"],
+          "inception-bn: a pass did not engage: %s" % r)
+    check(reports["resnet-50"]["conv_calls_infer"] == 53,
+          "resnet-50 runs %d convolutions per fused forward, not 53"
+          % reports["resnet-50"]["conv_calls_infer"])
+    return reports
+
+
+def phase_ibn_kernels(torch, mx, seed, calls):
+    """The bn_act forward and backward kernels against their plain
+    versions at every shape Inception-BN's training forward hands them
+    (merged concat_fuse widths included), relu, float32 and bfloat16, with
+    times (float32) per shape summed over one step's calls."""
+    ba = mx.kernels.bn_act
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    counts = collections.Counter(calls)
+    totals = collections.Counter()
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape, n in sorted(counts.items(), key=lambda kv: (-kv[0][1],
+                                                           kv[0])):
+        c = shape[1]
+        x32 = torch.randn(shape, generator=gen, device=dev) * 2.0
+        s32 = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
+        b32 = torch.randn(c, generator=gen, device=dev) * 0.5
+        dy32 = torch.randn(shape, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, sc, sh, dy = (t.to(dtype) for t in (x32, s32, b32, dy32))
+            f32 = dtype == torch.float32
+            y = ba.norm_act(x, sc, sh, "relu")
+            ref = ba.norm_act_plain(x, sc, sh, "relu")
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = F32_TOL if f32 else \
+                BF16_REL_TOL * ref.float().abs().max().item()
+            check(err <= tol, "bn_act %s %s: max abs err %.3g > %.3g"
+                  % (shape, dtype, err, tol))
+            ratio, dx_err = _bwd_error(
+                torch, ba.norm_act_bwd(x, sc, sh, dy, "relu"),
+                ba.norm_act_bwd_plain(x, sc, sh, dy, "relu"), f32)
+            check(ratio <= 1.0, "bn_act backward %s %s: error %.3g x its "
+                  "tolerance" % (shape, dtype, ratio))
+            if f32:
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["bwd"] = max(worst["bwd"], dx_err)
+        x, sc, sh, dy = x32, s32, b32, dy32
+        s4, b4 = sc.reshape(1, c, 1, 1), sh.reshape(1, c, 1, 1)
+        xl, sl, bl = (t.detach().requires_grad_(True) for t in (x, s4, b4))
+        row = {
+            "ms": device_ms(torch, lambda: ba.norm_act(x, sc, sh, "relu")),
+            "plain_ms": device_ms(
+                torch, lambda: ba.norm_act_plain(x, sc, sh, "relu")),
+            "library_ms": device_ms(
+                torch, lambda: torch.relu(torch.addcmul(b4, x, s4))),
+            "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+            "bwd_ms": device_ms(
+                torch, lambda: ba.norm_act_bwd(x, sc, sh, dy, "relu")),
+            "bwd_plain_ms": device_ms(
+                torch, lambda: ba.norm_act_bwd_plain(x, sc, sh, dy, "relu")),
+            "bwd_library_ms": device_ms(torch, lambda: torch.autograd.grad(
+                torch.relu(torch.addcmul(bl, xl, sl)), (xl, sl, bl), dy)),
+            "bwd_bound_ms": 3 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        }
+        for k, v in row.items():
+            totals[k] += n * v
+        log("bn_act inception-bn %-19s x%d per step | fwd f32 ms %.4f plain "
+            "%.4f library %.4f bound %.4f | bwd f32 ms %.4f plain %.4f "
+            "library %.4f bound %.4f" % (
+                str(shape), n, row["ms"], row["plain_ms"], row["library_ms"],
+                row["bound_ms"], row["bwd_ms"], row["bwd_plain_ms"],
+                row["bwd_library_ms"], row["bwd_bound_ms"]))
+    log("bn_act inception-bn per training step (%d launches each way, %d "
+        "shapes, every shape within tolerance, f32 max abs err fwd %.3g "
+        "dx %.3g): forward kernel %.4f plain %.4f library %.4f bound %.4f "
+        "ms; backward kernel %.4f plain %.4f library %.4f bound %.4f ms" % (
+            len(calls), len(counts), worst["fwd"], worst["bwd"],
+            totals["ms"], totals["plain_ms"], totals["library_ms"],
+            totals["bound_ms"], totals["bwd_ms"], totals["bwd_plain_ms"],
+            totals["bwd_library_ms"], totals["bwd_bound_ms"]))
+    return totals
+
+
+def _pool_sites(mx, net, shape):
+    """``(input shape, attrs)`` of every non-global Pooling entry."""
+    shapes = mx.mxfuse.output_shapes(net, data=shape)
+    plan = mx.executor._node_plan(net)
+    sites = []
+    for e in plan:
+        if e[0].op is not None and e[0].op.name == "Pooling" \
+                and not e[1].get("global_pool", False):
+            src, idx = e[0].inputs[0]
+            sites.append((shapes[(id(src), idx)], dict(e[1])))
+    return sites
+
+
+def phase_pool_gate(torch, mx, seed, card):
+    """``pooling_opt``'s shifted-slice form against the registered Pooling
+    op at Inception-BN's batch-32 pooling sites, inference: equal (max bit
+    for bit, avg within 1e-6 x max), and timed (device time, CUDA graphs);
+    the CUDA gate the measurement supports is logged beside the one in
+    ``kernels/pool_act.py``, and a CUDA tensor above the gate must take
+    the op."""
+    PA = mx.kernels.pool_act
+    nn = mx.ops.nn
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 41)
+    seen = set()
+    wins = []
+    for in_shape, attrs in _pool_sites(mx, net, (BATCH,) + IMAGE):
+        key = (in_shape, tuple(sorted((k, str(v)) for k, v in attrs.items())))
+        if key in seen:
+            continue
+        seen.add(key)
+        x = torch.randn(in_shape, generator=gen, device=dev)
+        big = 10 ** 9
+        check(PA.slice_pool_eligible(x, attrs, limit=big),
+              "pool site %s %s not slice-eligible" % (in_shape, attrs))
+        got = PA.pooling_opt(x, attrs, limit=big)
+        ref = nn.pooling(x, **attrs)
+        if attrs.get("pool_type", "max") == "max":
+            check(torch.equal(got, ref), "slice max pool %s differs"
+                  % (in_shape,))
+        else:
+            err = (got - ref).abs().max().item()
+            check(err <= 1e-6 * ref.abs().max().item(),
+                  "slice avg pool %s: max abs err %.3g" % (in_shape, err))
+        routed = PA.pooling_opt(x, attrs)
+        check(torch.equal(routed, ref) if in_shape[2] * in_shape[3]
+              > PA.POOL_SLICE_MAX_SPATIAL_CUDA else True,
+              "pooling_opt on CUDA above the gate did not take the op")
+        slice_ms = device_ms(torch, lambda: PA.pooling_opt(x, attrs,
+                                                           limit=big))
+        op_ms = device_ms(torch, lambda: nn.pooling(x, **attrs))
+        bound_ms = (x.numel() + ref.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        wins.append((in_shape[2] * in_shape[3], slice_ms < op_ms))
+        log("pool gate %-20s %s k%s s%s p%s | slice form %.4f ms, Pooling "
+            "op %.4f ms (%.2fx), bound %.4f ms on %s" % (
+                str(in_shape), attrs.get("pool_type", "max"),
+                attrs.get("kernel"), attrs.get("stride"), attrs.get("pad"),
+                slice_ms, op_ms, op_ms / slice_ms, bound_ms, card))
+    losing = [hw for hw, win in wins if not win]
+    supported = max([hw for hw, win in wins if win and all(
+        hw < lost for lost in losing)] or [0])
+    log("pool gate: the slice form wins at %d of %d sites; largest H*W up to "
+        "which it wins at every site: %d; POOL_SLICE_MAX_SPATIAL_CUDA = %d"
+        % (sum(w for _, w in wins), len(wins), supported,
+           PA.POOL_SLICE_MAX_SPATIAL_CUDA))
+
+
+def phase_ibn_serving(torch, mx, seed, card, report):
+    """Inception-BN served through ``Predictor`` at batch 32 with every
+    pass on: IBN_FORWARDS requests, counts zeroed just before; bn_act
+    launches and merged bodies per forward held to the plan, convolutions
+    per forward (a dispatch mode) to the live count; fused against
+    unfused logits; the card against the port's CPU path at batch 2;
+    fused and unfused img/s in turns and a profile."""
+    import numpy as np
+    ba, CF = mx.kernels.bn_act, mx.kernels.concat_fuse
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    shape = (BATCH,) + IMAGE
+    params = _params_on_host(mx, draw_weights(net, shape, seed + 50))
+    gpu = mx.gpu(0)
+    pred = _predictor(mx, net, params, shape, gpu, True)
+    rs = np.random.RandomState(seed + 51)
+    requests = [rs.standard_normal(shape).astype(np.float32)
+                for _ in range(IBN_FORWARDS)]
+    pred.forward(data=requests[0]).get_output(0)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    CF.MERGED_BODIES = 0
+    t0 = time.perf_counter()
+    outs = [pred.forward(data=x).get_output(0) for x in requests]
+    wall = time.perf_counter() - t0
+    launches, merged = ba.LAUNCHES, CF.MERGED_BODIES
+    # ----------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated()
+    n = len(requests)
+    log("inception-bn serving: %d forwards at batch %d, %.1f img/s, peak "
+        "memory %.2f GiB; bn_act launches %d (plan: %d per forward), "
+        "merged group bodies %d (plan: %d per forward) on %s" % (
+            n, BATCH, BATCH * n / wall, peak / 2 ** 30, launches,
+            report["bn_act_calls_infer"], merged, report["concat_merged"],
+            card))
+    check(launches == report["bn_act_calls_infer"] * n,
+          "inception-bn serving bn_act launches %d" % launches)
+    check(merged == report["concat_merged"] * n,
+          "inception-bn serving merged bodies %d over %d forwards"
+          % (merged, n))
+    for out in outs:
+        check(out.shape == (BATCH, 1000) and np.isfinite(out).all()
+              and np.allclose(out.sum(1), 1.0, atol=1e-4),
+              "inception-bn serving output bad")
+    count = conv_counter(torch)
+    with count:
+        pred.forward(data=requests[0]).get_output(0)
+    log("inception-bn serving: %d convolutions per fused forward (plan: %d "
+        "live; %d in the graph)" % (count.n, report["conv_calls_infer"],
+                                    report["convs"]))
+    check(count.n == report["conv_calls_infer"],
+          "inception-bn fused forward ran %d convolutions" % count.n)
+    # fused against unfused logits, and the card against the CPU
+    x = requests[1]
+    fused = _predictor(mx, net, params, shape, gpu, True, head=True)
+    unfused = _predictor(mx, net, params, shape, gpu, False, head=True)
+    before = ba.LAUNCHES
+    ref = unfused.forward(data=x).get_output(0)
+    check(ba.LAUNCHES == before, "MXTPU_FUSED_KERNELS=0 launched bn_act")
+    compare_logits(np, fused.forward(data=x).get_output(0), ref,
+                   "inception-bn gpu fused vs unfused, batch %d" % BATCH)
+    x2 = x[:IBN_AGREE_BATCH]
+    cpu = _predictor(mx, net, params, x2.shape, mx.cpu(), True, head=True)
+    ref2 = cpu.forward(data=x2).get_output(0)
+    for plan in (True, False):
+        got = _predictor(mx, net, params, x2.shape, gpu, plan, head=True)
+        compare_logits(np, got.forward(data=x2).get_output(0), ref2,
+                       "inception-bn gpu %s vs cpu fused, batch %d" % (
+                           "fused" if plan else "unfused", IBN_AGREE_BATCH))
+    del pred, fused, unfused, cpu
+    rates = phase_profile(torch, mx, net, params, card, what="inception-bn")
+    return launches, rates
+
+
+def _ibn_trainer(torch, mx, seed, fused):
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    mx.random.seed(seed)
+    with fused_kernels("1" if fused else "0"):
+        tr = mx.parallel.SPMDTrainer(
+            net, "sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+                         "rescale_grad": 1.0 / BATCH},
+            mesh=None, compute_dtype=None, ctx=mx.gpu(0))
+        tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+        tr.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                             factor_type="in", magnitude=2))
+    return tr
+
+
+def phase_ibn_training(torch, mx, seed, card, report):
+    """Inception-BN trained through ``SPMDTrainer`` at batch 32 with
+    bench.py's ResNet settings, every pass on (concat_fuse in training:
+    bn_act at merged widths): bn_act forward and backward launches and
+    merged bodies per step held to the plan, convolutions per training
+    forward to the live count, finite losses, a cross-entropy that falls
+    on a fixed batch, no skipped step, moved params; then fused against
+    MXTPU_FUSED_KERNELS=0 ms/step in turns, and a profile."""
+    import numpy as np
+    ba, CF = mx.kernels.bn_act, mx.kernels.concat_fuse
+    tr = _ibn_trainer(torch, mx, seed + 60, True)
+    dev = torch.device("cuda", 0)
+    rs = np.random.RandomState(seed + 61)
+    batches = [(torch.from_numpy(rs.standard_normal((BATCH,) + IMAGE)
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(rs.randint(0, 1000, BATCH)
+                                 .astype(np.float32)).to(dev))
+               for _ in range(IBN_TRAIN_STEPS)]
+    fixed = batches[0]
+    params0 = {k: v.clone() for k, v in tr.params.items()}
+    ce_before = _cross_entropy(torch, tr.forward_only(*fixed)[0], fixed[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan = list(batches) + [fixed] * IBN_FIXED_STEPS
+    steps = len(plan)
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    ba.BWD_LAUNCHES = 0
+    CF.MERGED_BODIES = 0
+    stamps, losses = [], []
+    for x, y in plan:
+        stamps.append(time.perf_counter())
+        losses.append(_cross_entropy(torch, tr.step(x, y)[0], y))
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    fwd, bwd, merged = ba.LAUNCHES, ba.BWD_LAUNCHES, CF.MERGED_BODIES
+    skipped = tr.skipped_steps
+    # ----------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated()
+    per = report["bn_act_calls_train"]
+    log("inception-bn training: bn_act launches over %d steps: forward %d, "
+        "backward %d (plan: %d per step, merged groups counted once); "
+        "merged group bodies %d (plan: %d per step)" % (
+            steps, fwd, bwd, per, merged, report["concat_merged"]))
+    check(fwd == bwd == per * steps, "inception-bn training bn_act launches "
+          "%d / %d != %d" % (fwd, bwd, per * steps))
+    check(merged == report["concat_merged"] * steps, "inception-bn "
+          "training merged bodies %d over %d steps" % (merged, steps))
+    ce_after = float(_cross_entropy(torch, tr.forward_only(*fixed)[0],
+                                    fixed[1]))
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    log("inception-bn training: per-step loss %s; fixed-batch cross-entropy "
+        "%.4f before, %.4f after %d steps on it" % (
+            " ".join("%.4f" % v for v in losses), float(ce_before), ce_after,
+            IBN_FIXED_STEPS))
+    check(all(np.isfinite(losses)) and ce_after < float(ce_before),
+          "inception-bn training: loss not finite or not falling")
+    check(skipped == 0, "inception-bn: %d guard-skipped steps" % skipped)
+    moved = sum(not torch.equal(v, params0[k]) for k, v in tr.params.items())
+    check(moved == len(params0), "inception-bn: %d of %d params moved"
+          % (moved, len(params0)))
+    steady = (stamps[-1] - stamps[2]) / (steps - 2)
+    log("inception-bn training: first step %.1f ms, steady %.2f ms/step at "
+        "batch %d -> %.1f img/s, peak memory %.2f GiB on %s" % (
+            (stamps[1] - stamps[0]) * 1e3, steady * 1e3, BATCH,
+            BATCH / steady, peak / 2 ** 30, card))
+    count = conv_counter(torch)
+    with count:
+        tr.step(*batches[1])
+        torch.cuda.synchronize()
+    log("inception-bn training: %d convolutions per fused training forward "
+        "(plan: %d live; %d in the graph)" % (
+            count.n, report["conv_calls_train"], report["convs"]))
+    check(count.n == report["conv_calls_train"],
+          "inception-bn training forward ran %d convolutions" % count.n)
+    # fused against unfused, in turns
+    tr0 = _ibn_trainer(torch, mx, seed + 60, False)
+    before = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+    tr0.step(*batches[1])
+    torch.cuda.synchronize()
+    check((ba.LAUNCHES, ba.BWD_LAUNCHES) == before,
+          "MXTPU_FUSED_KERNELS=0 training launched bn_act")
+    times = collections.defaultdict(list)
+    for which in ("fused", "unfused", "unfused", "fused"):
+        t = tr if which == "fused" else tr0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(IBN_TURN_STEPS):
+            t.step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3
+                            / IBN_TURN_STEPS)
+    for which, ms in times.items():
+        log("inception-bn training %s: %s ms/step (two turns of %d steps, "
+            "batch %d) on %s" % (which, " / ".join("%.2f" % v for v in ms),
+                                 IBN_TURN_STEPS, BATCH, card))
+    tr0.close()
+    del tr0
+    phase_train_profile(torch, mx, tr, batches, card,
+                        what="inception-bn train")
+    tr.close()
+    return fwd, bwd
+
+
+def phase_ibn_train_agreement(torch, mx, seed, report_at):
+    """One batch-2 Inception-BN training forward/backward on the card,
+    fused and unfused, against the port's CPU path (float32, and float64
+    for the gradients), as ``phase_train_agreement`` does for
+    ResNet-50."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    shape = (IBN_AGREE_BATCH,) + IMAGE
+    per = report_at(shape)["bn_act_calls_train"]
+    weights = draw_weights(net, shape, seed + 70)
+    rs = np.random.RandomState(seed + 71)
+    x = rs.standard_normal(shape).astype(np.float32)
+    y = rs.randint(0, 1000, IBN_AGREE_BATCH).astype(np.float32)
+    t0 = time.perf_counter()
+    ref = _executor_step(mx, net, weights, x, y, mx.cpu())
+    exact = _executor_step(mx, net, weights, x.astype(np.float64),
+                           y.astype(np.float64), mx.cpu())
+    grads = [k for k in ref if k.startswith("grad:")]
+    cpu_l2 = _rel_l2(np, ref, exact, grads)
+    # every conv of Inception-BN has a bias and feeds a BatchNorm, which
+    # subtracts its batch mean again: those biases' gradients are zero
+    zero = tuple("grad:" + e[0].inputs[0][0].inputs[2][0].name
+                 for e in mx.executor._node_plan(net)
+                 if e[0].op is not None and e[0].op.name == "BatchNorm"
+                 and e[0].inputs[0][0].op is not None
+                 and e[0].inputs[0][0].op.name == "Convolution"
+                 and len(e[0].inputs[0][0].inputs) == 3)
+    log("inception-bn training agreement: CPU float32 and float64 at batch "
+        "%d took %.1f s; CPU float32 gradients' relative L2 against float64 "
+        "%.3g" % (IBN_AGREE_BATCH, time.perf_counter() - t0, cpu_l2))
+    before = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+    got = _executor_step(mx, net, weights, x, y, mx.gpu(0))
+    launched = (ba.LAUNCHES - before[0], ba.BWD_LAUNCHES - before[1])
+    check(launched == (per, per), "inception-bn executor step launched %s "
+          "bn_act kernels, not %s" % (launched, (per, per)))
+    with fused_kernels("0"):
+        unfused = _executor_step(mx, net, weights, x, y, mx.gpu(0))
+    log("inception-bn training agreement: gradients' relative L2 against "
+        "float64: cpu float32 %.3g, gpu fused %.3g, gpu unfused %.3g" % (
+            cpu_l2, _rel_l2(np, got, exact, grads),
+            _rel_l2(np, unfused, exact, grads)))
+    _compare_train(np, got, ref, exact, cpu_l2, "inception-bn gpu fused",
+                   zero)
+    _compare_train(np, unfused, ref, exact, cpu_l2,
+                   "inception-bn gpu MXTPU_FUSED_KERNELS=0", zero)
+
+
+def phase_zoo_serving(torch, mx, seed, card, reports):
+    """Every other zoo model served through ``Predictor`` at batch 32 at
+    its published input size, fused and unfused: bn_act launches on the
+    fused forwards held to the plan, finite softmax rows, fused against
+    unfused logits, the card against the CPU at batch 1, img/s of both in
+    turns (fused, unfused, unfused, fused).  Returns the fused forwards'
+    bn_act launches."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    gpu = mx.gpu(0)
+    total = 0
+    for k, (name, image, classes) in enumerate(ZOO_MODELS):
+        net = zoo_symbol(mx, name, image, classes)
+        shape = (BATCH,) + image
+        t0 = time.perf_counter()
+        params = _params_on_host(mx, draw_weights(net, shape, seed + 80 + k))
+        draw_s = time.perf_counter() - t0
+        preds = {plan: _predictor(mx, net, params, shape, gpu, plan == "fused")
+                 for plan in ("fused", "unfused")}
+        x = np.random.RandomState(seed + 90 + k).uniform(
+            0, 1, shape).astype(np.float32)
+        for p in preds.values():
+            p.forward(data=x).get_output(0)          # warm-up
+        rates = collections.defaultdict(list)
+        launches = 0
+        for plan in ("fused", "unfused", "unfused", "fused"):
+            before = ba.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ZOO_TURN_FORWARDS):
+                out = preds[plan].forward(data=x).get_output(0)
+            rates[plan].append(BATCH * ZOO_TURN_FORWARDS
+                               / (time.perf_counter() - t0))
+            if plan == "fused":
+                launches += ba.LAUNCHES - before
+            else:
+                check(ba.LAUNCHES == before, "%s unfused launched bn_act"
+                      % name)
+            check(out.shape == (BATCH, classes) and np.isfinite(out).all()
+                  and np.allclose(out.sum(1), 1.0, atol=1e-4),
+                  "%s %s serving output bad" % (name, plan))
+        expected = reports[name]["bn_act_calls_infer"] * 2 * ZOO_TURN_FORWARDS
+        check(launches == expected, "%s: bn_act launches %d != %d"
+              % (name, launches, expected))
+        total += launches
+        del preds
+        logits = {plan: _predictor(mx, net, params, shape, gpu,
+                                   plan == "fused", head=True)
+                  .forward(data=x).get_output(0)
+                  for plan in ("fused", "unfused")}
+        compare_logits(np, logits["fused"], logits["unfused"],
+                       "%s gpu fused vs unfused, batch %d" % (name, BATCH))
+        x1 = x[:ZOO_AGREE_BATCH]
+        ref = _predictor(mx, net, params, x1.shape, mx.cpu(), True,
+                         head=True).forward(data=x1).get_output(0)
+        compare_logits(np, _predictor(mx, net, params, x1.shape, gpu, True,
+                                      head=True).forward(data=x1)
+                       .get_output(0), ref,
+                       "%s gpu vs cpu fused, batch %d" % (name,
+                                                          ZOO_AGREE_BATCH))
+        log("zoo %-12s %s at batch %d: fused %s img/s, unfused %s img/s on "
+            "%s (weights drawn in %.1f s)" % (
+                name, "x".join(map(str, image)), BATCH,
+                " / ".join("%.1f" % v for v in rates["fused"]),
+                " / ".join("%.1f" % v for v in rates["unfused"]), card,
+                draw_s))
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def _whole_plan_eval(mx, fn):
+    """An eval function interpreting EVERY entry of ``fn``'s fused plan,
+    as the executor did before liveness: each fold site also runs its
+    original convolution, whose result nothing reads."""
+    def eval_fn(args, aux, is_train, rng, device=None):
+        env, aux_updates = {}, {}
+        mx.executor._run_plan_nodes(fn.plan, env, args, aux, is_train,
+                                    aux_updates, rng, device)
+        return [env[nid][i] for nid, i in fn.out_refs], aux_updates
+    return eval_fn
+
+
+def phase_resnet_repair(torch, mx, seed, card):
+    """ResNet-50 served at batch 32 three ways in one run: fused with
+    liveness (this tree), fused interpreting every entry (the executor
+    before liveness, emulated by ``_whole_plan_eval``), and unfused;
+    convolutions per forward (53, 86, 53), equal outputs, and img/s in
+    turns."""
+    import numpy as np
+    net = zoo_symbol(mx, "resnet-50", IMAGE, 1000)
+    shape = (BATCH,) + IMAGE
+    params = _params_on_host(mx, draw_weights(net, shape, seed + 100))
+    gpu = mx.gpu(0)
+    preds = {"after": _predictor(mx, net, params, shape, gpu, True),
+             "before": _predictor(mx, net, params, shape, gpu, True),
+             "unfused": _predictor(mx, net, params, shape, gpu, False)}
+    preds["before"]._exec._eval = _whole_plan_eval(
+        mx, preds["before"]._exec._eval)
+    x = np.random.RandomState(seed + 101).standard_normal(shape) \
+        .astype(np.float32)
+    outs, convs = {}, {}
+    for which, p in preds.items():
+        count = conv_counter(torch)
+        with count:
+            outs[which] = p.forward(data=x).get_output(0)
+        convs[which] = count.n
+    log("resnet-50 serving convolutions per forward: fused %d, fused "
+        "interpreting every entry (before the repair) %d, unfused %d"
+        % (convs["after"], convs["before"], convs["unfused"]))
+    check(convs == {"after": 53, "before": 86, "unfused": 53},
+          "resnet-50 convolutions per forward %s" % convs)
+    check(np.array_equal(outs["after"], outs["before"]),
+          "liveness changed the fused outputs")
+    rates = collections.defaultdict(list)
+    for which in ("after", "before", "unfused", "unfused", "before",
+                  "after"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPAIR_TURN_FORWARDS):
+            preds[which].forward(data=x).get_output(0)
+        rates[which].append(BATCH * REPAIR_TURN_FORWARDS
+                            / (time.perf_counter() - t0))
+    for which, r in rates.items():
+        log("resnet-50 serving %-8s %s img/s (two turns of %d forwards, "
+            "batch %d) on %s" % (which, " / ".join("%.1f" % v for v in r),
+                                 REPAIR_TURN_FORWARDS, BATCH, card))
+    del preds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the ops of ops/nn.py the port added last, on the card against its CPU
+#: path: (op, {input: shape}, attrs, label inputs).  rrelu draws its
+#: slopes from the device's generator in training, so its values differ
+#: between devices by design; it is held on the CPU in the tests.
+NN_OP_CASES = (
+    ("Deconvolution", {"data": (8, 16, 14, 14)},
+     dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), num_filter=32,
+          no_bias=False), ()),
+    ("Deconvolution", {"data": (8, 16, 14, 14)},
+     dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1), adj=(2, 2),
+          num_filter=8, num_group=2, target_shape=(16, 16)), ()),
+    ("LeakyReLU", {"data": (32, 64, 13, 13)},
+     dict(act_type="leaky", slope=0.1), ()),
+    ("LeakyReLU", {"data": (32, 64, 13, 13)}, dict(act_type="elu"), ()),
+    ("LeakyReLU", {"data": (32, 64, 13, 13)}, dict(act_type="prelu"), ()),
+    ("InstanceNorm", {"data": (8, 32, 17, 17)}, dict(eps=1e-3), ()),
+    ("L2Normalization", {"data": (8, 32, 17, 17)}, dict(mode="instance"),
+     ()),
+    ("L2Normalization", {"data": (8, 32, 17, 17)}, dict(mode="channel"), ()),
+    ("L2Normalization", {"data": (8, 32, 17, 17)}, dict(mode="spatial"), ()),
+    ("LRN", {"data": (32, 96, 27, 27)},
+     dict(alpha=1e-4, beta=0.75, knorm=2, nsize=5), ()),
+    ("Pad", {"data": (8, 16, 15, 15)},
+     dict(mode="constant", pad_width=(0, 0, 0, 0, 2, 1, 1, 2),
+          constant_value=0.5), ()),
+    ("Pad", {"data": (8, 16, 15, 15)},
+     dict(mode="edge", pad_width=(0, 0, 0, 0, 2, 1, 1, 2)), ()),
+    ("Pad", {"data": (8, 16, 15, 15)},
+     dict(mode="reflect", pad_width=(0, 0, 0, 0, 3, 2, 2, 3)), ()),
+    ("Crop", {"data": (8, 16, 15, 15)}, dict(h_w=(9, 11), offset=(2, 3)),
+     ()),
+    ("Crop", {"data": (8, 16, 15, 15), "like": (8, 4, 10, 10)},
+     dict(num_args=2, center_crop=True), ("like",)),
+    ("UpSampling", {"a": (8, 16, 14, 14), "b": (8, 16, 14, 14)},
+     dict(scale=2, sample_type="nearest", num_args=2), ()),
+    ("UpSampling", {"data": (8, 16, 14, 14)},
+     dict(scale=2, sample_type="bilinear", num_filter=16), ()),
+    ("SoftmaxActivation", {"data": (32, 10, 7, 7)}, dict(mode="channel"),
+     ()),
+    ("SVMOutput", {"data": (32, 100), "label": (32,)}, dict(margin=1.0),
+     ("label",)),
+    ("MakeLoss", {"data": (32, 100)}, dict(normalization="batch"), ()),
+    ("IdentityAttachKLSparseReg", {"data": (32, 100)}, {}, ()),
+    ("LinearRegressionOutput", {"data": (32, 100), "label": (32, 100)}, {},
+     ("label",)),
+    ("LogisticRegressionOutput", {"data": (32, 100), "label": (32, 100)},
+     {}, ("label",)),
+    ("MAERegressionOutput", {"data": (32, 100), "label": (32, 100)}, {},
+     ("label",)),
+)
+
+
+def phase_nn_ops(torch, mx, seed):
+    """Each case of NN_OP_CASES bound on the card and on the CPU
+    (``simple_bind`` -> ``forward(is_train=True)`` -> ``backward(head)``
+    with one random head): outputs within SWEEP_F32_REL_TOL x max |cpu|,
+    every gradient within GRAD_REL_L2 in relative L2."""
+    import numpy as np
+    covered = {c[0] for c in NN_OP_CASES}
+    check(len(covered) == 15, "nn op cases cover %d ops" % len(covered))
+    worst_out, worst_grad = (0.0, ""), (0.0, "")
+    for k, (op, shapes, attrs, labels) in enumerate(NN_OP_CASES):
+        head = None
+        results = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with mx.name.NameManager():
+                net = getattr(mx.sym, op)(
+                    *[mx.sym.var(n) for n in shapes], name="op", **attrs)
+            req = {n: "null" if n in labels else "write"
+                   for n in net.list_arguments()}
+            ex = net.simple_bind(ctx, grad_req=req, **shapes)
+            rs_k = np.random.RandomState(seed + 300 + k)
+            for n in sorted(ex.arg_dict):
+                arr = ex.arg_dict[n]
+                if n == "label" and op == "SVMOutput":
+                    v = rs_k.randint(0, 100, arr.shape)
+                elif n.endswith("gamma"):
+                    v = rs_k.uniform(0.1, 0.5, arr.shape)
+                else:
+                    v = rs_k.standard_normal(arr.shape)
+                arr[:] = v.astype(np.float32)
+            out_shape = ex.forward(is_train=True)[0].shape
+            if head is None:
+                head = np.random.RandomState(seed + 200 + k) \
+                    .standard_normal(out_shape).astype(np.float32)
+            ex.backward(out_grads=[mx.nd.array(head, ctx=ctx)])
+            results.append((ex.outputs[0].asnumpy(),
+                            {n: g.asnumpy() for n, g in ex.grad_dict.items()
+                             if req.get(n) == "write"}))
+        (g_out, g_grads), (c_out, c_grads) = results
+        what = "%s %s" % (op, ",".join("%s=%s" % kv for kv in
+                                       sorted(attrs.items()))[:60])
+        err = _sweep_error(np, g_out, c_out, False, False)
+        check(err is None, "nn op %s forward: %s" % (what, err))
+        top = float(np.abs(c_out).max())
+        worst_out = max(worst_out, (float(np.abs(g_out - c_out).max())
+                                    / max(top, 1e-30), what))
+        check(sorted(g_grads) == sorted(c_grads) and g_grads,
+              "nn op %s: gradients %s" % (what, sorted(g_grads)))
+        for n in c_grads:
+            r = c_grads[n].astype(np.float64)
+            g = g_grads[n].astype(np.float64)
+            den = float(np.linalg.norm(r))
+            rel = float(np.linalg.norm(g - r)) / den if den > 0 else \
+                float(np.linalg.norm(g))
+            worst_grad = max(worst_grad, (rel, "%s %s" % (what, n)))
+    check(worst_grad[0] <= GRAD_REL_L2, "nn op gradients: %s relative L2 "
+          "%.3g (bound %g)" % (worst_grad[1], worst_grad[0], GRAD_REL_L2))
+    log("nn ops: %d cases of the %d ops of ops/nn.py the port added last, "
+        "forward and backward on the card against the CPU path: worst "
+        "output max |diff| / max |cpu| %.3g (%s, bound %g), worst gradient "
+        "relative L2 %.3g (%s, bound %g)" % (
+            len(NN_OP_CASES), len(covered), worst_out[0], worst_out[1],
+            SWEEP_F32_REL_TOL, worst_grad[0], worst_grad[1], GRAD_REL_L2))
+
+
+def zoo_paths(torch, mx, seed, card):
+    """The model zoo and the rest of the plan optimizer: the plans'
+    report, the bn_act kernels at Inception-BN's shapes, the pooling gate,
+    Inception-BN serving and training (with agreement against the CPU),
+    the other zoo models served, the ResNet-50 liveness repair in one run,
+    and the ops of ops/nn.py.  Returns the main paths' launches by
+    kernel."""
+    reports = phase_zoo_plans(torch, mx)
+    ibn = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    with fused_kernels("1"):
+        fn = mx.executor._build_eval(ibn)
+    calls = mx.mxfuse.bn_act_calls(
+        fn.plan, mx.mxfuse.output_shapes(ibn, data=(BATCH,) + IMAGE), True)
+    check(len(calls) == reports["inception-bn"]["bn_act_calls_train"],
+          "bn_act call shapes disagree with the report")
+    phase_ibn_kernels(torch, mx, seed, calls)
+    phase_pool_gate(torch, mx, seed, card)
+    serve_launches, _ = phase_ibn_serving(torch, mx, seed, card,
+                                          reports["inception-bn"])
+    train_fwd, train_bwd = phase_ibn_training(torch, mx, seed, card,
+                                              reports["inception-bn"])
+    phase_ibn_train_agreement(
+        torch, mx, seed, lambda shape: zoo_report(mx, ibn, shape))
+    zoo_launches = phase_zoo_serving(torch, mx, seed, card, reports)
+    phase_resnet_repair(torch, mx, seed, card)
+    phase_nn_ops(torch, mx, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return collections.Counter({
+        "bn_act_fwd": serve_launches + train_fwd + zoo_launches,
+        "bn_act_bwd": train_bwd})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4595,6 +5444,7 @@ def main(argv=None):
     kernels += rows
     extra += nd_paths(torch, mx, args.seed, card)
     extra += bucketing_paths(torch, mx, args.seed, card)
+    extra += zoo_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

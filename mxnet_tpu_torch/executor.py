@@ -76,10 +76,22 @@ def _build_eval(symbol):
     plan as the mxfuse passes rewrote it (``MXTPU_FUSED_KERNELS=0`` skips
     them).  ``rng`` is the forward's integer seed; ``device`` is where
     nodes without tensor inputs (``_zeros``, the samplers) create their
-    results (default: the first argument's device)."""
+    results (default: the first argument's device).
+
+    Each path interprets only its live entries (:func:`mxfuse.
+    live_entries`, the port's stand-in for XLA's dead-code elimination):
+    ``eval_fn.train_plan`` in training, ``eval_fn.infer_plan`` otherwise.
+    With ``infer_trace`` enabled the inference path also starts past its
+    bind-time constants (:func:`mxfuse.fold_constants`, folded once per
+    device at the first forward there)."""
     from . import mxfuse
+    from .kernels import fused_enabled
     out_refs = [(id(n), i) for n, i in symbol._outputs]
     fused_plan = mxfuse.optimize_plan(_node_plan(symbol), out_refs)
+    train_plan = mxfuse.live_entries(fused_plan, out_refs, is_train=True)
+    infer_plan = mxfuse.live_entries(fused_plan, out_refs)
+    fold = fused_enabled("infer_trace")
+    folded = {}     # device -> (const_env, remaining entries)
 
     def eval_fn(args, aux, is_train, rng, device=None):
         env = {}
@@ -87,10 +99,22 @@ def _build_eval(symbol):
         if device is None:
             device = next((t.device for t in args.values()),
                           torch.device("cpu"))
-        _run_plan_nodes(fused_plan, env, args, aux, is_train, aux_updates,
-                        rng, device)
+        if is_train:
+            chunk = train_plan
+        elif fold:
+            if device not in folded:
+                folded[device] = mxfuse.fold_constants(infer_plan, device)
+            const_env, chunk = folded[device]
+            env.update(const_env)
+        else:
+            chunk = infer_plan
+        _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
+                        device)
         return [env[nid][i] for nid, i in out_refs], aux_updates
     eval_fn.plan = fused_plan
+    eval_fn.train_plan = train_plan
+    eval_fn.infer_plan = infer_plan
+    eval_fn.out_refs = out_refs
     return eval_fn
 
 
@@ -106,7 +130,11 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
                     device):
     """Interpret a slice of the node plan against ``env`` (id -> outputs
     tuple); ``rng`` is the forward's integer seed, ``device`` the one
-    nodes without tensor inputs create their results on."""
+    nodes without tensor inputs create their results on.  An override
+    that sets ``uses_memo`` gets this run's ``memo`` dict, where a merged
+    ``concat_fuse`` group keeps the body its members slice."""
+    from .mxfuse import dead_inputs
+    memo = {}
     for node, call_attrs, n_out, aux_var_names, ix, override in chunk:
         if node.op is None:
             env[id(node)] = (_bind_variable(node, args, aux),)
@@ -119,9 +147,11 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
         if override is not None:
             # fusion override: fn replaces the op, with the referenced
             # extra inputs appended (conv data/weights).  Inputs the
-            # override declared dead on the inference path ride as None
+            # override declared dead on this path ride as None
             fn, extra_refs = override[0], override[1]
-            dead = override[2] if not is_train else ()
+            dead = dead_inputs(override, is_train)
+            if getattr(fn, "uses_memo", False):
+                kw["memo"] = memo
             ins = [None if pos in dead else env[id(src)][idx]
                    for pos, (src, idx) in enumerate(node.inputs)]
             for src, idx in extra_refs:

@@ -5,8 +5,13 @@ its semantics: ``1`` (default) enables every kernel and plan pass, ``0``
 restores the exact pre-fusion graphs, a comma list enables individual
 names.  ``KNOWN_KERNELS`` is the JAX package's full catalog, so a
 setting written for either package is understood (and no name warns)
-in both; names whose pass or kernel the port does not have yet simply
-enable nothing.
+in both, and one setting toggles the same plan passes in both
+(``concat_fuse``, ``pool_act``, ``bn_act``/``bn_fold``,
+``eltwise_chain``, ``infer_trace``: :mod:`mxnet_tpu_torch.mxfuse`;
+the bodies of ``concat_fuse``, ``pool_act`` and ``eltwise_chain`` are
+:mod:`.concat_fuse`, :mod:`.pool_act` and :mod:`.eltwise_chain` here).  ``augment`` belongs to
+the input pipeline, which the port does not have yet: it enables
+nothing.
 
 **Building.** Every hand-written kernel lives in ``csrc/<name>.cu`` with
 a plain C interface.  :func:`build` compiles the sources at first use
@@ -42,7 +47,8 @@ from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
            "load_library", "library_path", "BUILD_SECONDS", "ENV_FLASH_BLOCK",
-           "bn_act", "lstm_cell", "flash_attention", "roofline"]
+           "bn_act", "lstm_cell", "flash_attention", "roofline",
+           "concat_fuse", "pool_act", "eltwise_chain"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -219,3 +225,6 @@ from . import bn_act  # noqa: E402
 from . import lstm_cell  # noqa: E402
 from . import flash_attention  # noqa: E402
 from . import roofline  # noqa: E402
+from . import concat_fuse  # noqa: E402
+from . import pool_act  # noqa: E402
+from . import eltwise_chain  # noqa: E402

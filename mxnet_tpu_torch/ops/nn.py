@@ -7,12 +7,15 @@ package's; the lowerings are PyTorch: ``F.conv{1,2,3}d`` for Convolution,
 for the fused ``RNN`` op one hoisted input projection per layer and
 direction, then, for the fused LSTM, one ``lstm_seq`` recurrence (one
 persistent kernel launch on the card) and otherwise a Python loop over
-time.  They differentiate through torch autograd as they are, except
-SoftmaxOutput, whose hand backward ``(p - onehot(label)) * grad_scale``
-is a ``torch.autograd.Function`` (the JAX package's ``custom_vjp``,
-:618-668), and the LSTM recurrence (``kernels/lstm_cell.py``).
-Dropout and RNN draw from the ``torch.Generator`` the executor hands
-them as ``rng``.
+time; ``F.conv_transpose{1,2,3}d`` for Deconvolution and bilinear
+UpSampling.  They differentiate through torch autograd as they are,
+except the loss layers, whose backward supplies its own gradient and
+ignores the head gradient (SoftmaxOutput's ``(p - onehot(label)) *
+grad_scale``, the three regression outputs, SVMOutput's hinge and
+MakeLoss: each a ``torch.autograd.Function``, the JAX package's
+``custom_vjp``s, :618-803), and the LSTM recurrence
+(``kernels/lstm_cell.py``).  Dropout, RNN and LeakyReLU's rrelu draw
+from the ``torch.Generator`` the executor hands them as ``rng``.
 """
 from __future__ import annotations
 
@@ -116,6 +119,80 @@ def convolution(data, weight, bias=None, kernel=(), stride=None, dilate=None,
 
 
 # ---------------------------------------------------------------------------
+# Deconvolution — src/operator/deconvolution-inl.h
+# ---------------------------------------------------------------------------
+
+_DECONV_FNS = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+               3: F.conv_transpose3d}
+
+
+def _deconv_infer(attrs, in_shapes):
+    kernel = _tuple(attrs["kernel"])
+    nd = len(kernel)
+    num_filter = int(attrs["num_filter"])
+    num_group = int(attrs.get("num_group", 1))
+    no_bias = attrs.get("no_bias", True)
+    stride = _tuple(attrs.get("stride", (1,) * nd), nd)
+    pad = _tuple(attrs.get("pad", (0,) * nd), nd)
+    adj = _tuple(attrs.get("adj", (0,) * nd), nd)
+    dilate = _tuple(attrs.get("dilate", (1,) * nd), nd)
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    c_in = data[1]
+    wshape = (c_in, num_filter // num_group) + kernel
+    shapes = [tuple(data), wshape] + ([] if no_bias else [(num_filter,)])
+    out_sp = tuple(
+        stride[i] * (data[2 + i] - 1) + dilate[i] * (kernel[i] - 1) + 1
+        - 2 * pad[i] + adj[i]
+        for i in range(nd))
+    return shapes, [(data[0], num_filter) + out_sp], []
+
+
+@register("Deconvolution",
+          input_names=lambda attrs: (("data", "weight") if attrs.get("no_bias", True)
+                                     else ("data", "weight", "bias")),
+          infer_shape=_deconv_infer)
+def deconvolution(data, weight, bias=None, kernel=(), stride=None, pad=None,
+                  adj=None, dilate=None, num_filter=0, num_group=1,
+                  no_bias=True, workspace=512, target_shape=None,
+                  cudnn_tune=None, cudnn_off=False, layout=None):
+    """Transposed convolution (the gradient of Convolution w.r.t. its
+    input), weight (C_in, num_filter / num_group, k...).  The output
+    extent is ``stride * (in - 1) + dilate * (k - 1) + 1 - 2 * pad +
+    adj`` per axis; ``target_shape`` is accepted and, as in the JAX
+    package, does not change it.  ``F.conv_transpose`` takes ``adj`` as
+    its ``output_padding`` where torch allows it (below the stride or the
+    dilation); otherwise the unpadded transposed conv is computed and
+    its window ``[pad, pad + out)`` taken, zero past its end."""
+    kernel = _tuple(kernel)
+    nd = len(kernel)
+    stride = _tuple(stride or (1,) * nd, nd)
+    pad = _tuple(pad if pad is not None else (0,) * nd, nd)
+    adj = _tuple(adj if adj is not None else (0,) * nd, nd)
+    dilate = _tuple(dilate if dilate is not None else (1,) * nd, nd)
+    fn = _DECONV_FNS[nd]
+    if all(a < max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        return fn(data, weight, bias, stride=stride, padding=pad,
+                  output_padding=adj, groups=int(num_group), dilation=dilate)
+    full = fn(data, weight, None, stride=stride, groups=int(num_group),
+              dilation=dilate)
+    index = [slice(None), slice(None)]
+    grow = []
+    for i in range(nd):
+        size = full.shape[2 + i]
+        out = size - 2 * pad[i] + adj[i]
+        index.append(slice(pad[i], min(pad[i] + out, size)))
+        grow.append(max(pad[i] + out - size, 0))
+    out = full[tuple(index)]
+    if any(grow):
+        out = F.pad(out, [p for g in reversed(grow) for p in (0, g)])
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Pooling — src/operator/pooling-inl.h (+ pooling_v1)
 # ---------------------------------------------------------------------------
 
@@ -212,6 +289,47 @@ def activation(data, act_type="relu"):
     raise MXNetError("unknown act_type %r" % act_type)
 
 
+def _lrelu_inputs(attrs):
+    if str(attrs.get("act_type", "leaky")) == "prelu":
+        return ("data", "gamma")
+    return ("data",)
+
+
+def _lrelu_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    if str(attrs.get("act_type", "leaky")) == "prelu":
+        return [tuple(data), (data[1],)], [tuple(data)], []
+    return [tuple(data)], [tuple(data)], []
+
+
+@register("LeakyReLU", input_names=_lrelu_inputs, infer_shape=_lrelu_infer,
+          needs_is_train=True, needs_rng=True)
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, is_train=False, rng=None):
+    """``x`` where ``x >= 0``, else ``slope * x`` (leaky), ``slope *
+    expm1(x)`` (elu), ``gamma[c] * x`` (prelu) or ``s * x`` (rrelu: ``s``
+    drawn uniform in [lower_bound, upper_bound) from the node's generator
+    in training, their mean otherwise)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2))
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "rrelu":
+        if is_train:
+            s = torch.rand(data.shape, generator=rng, device=data.device,
+                           dtype=data.dtype) * (upper_bound - lower_bound) \
+                + lower_bound
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, s * data)
+    raise MXNetError("unknown act_type %r" % act_type)
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm — src/operator/batch_norm-inl.h (aux: moving_mean, moving_var)
 # ---------------------------------------------------------------------------
@@ -259,6 +377,67 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=0.001,
     if output_mean_var:
         return out, mean, inv, new_moving_mean, new_moving_var
     return out, new_moving_mean, new_moving_var
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm / L2Normalization / LRN — src/operator/instance_norm-inl.h,
+# l2_normalization-inl.h, lrn-inl.h
+# ---------------------------------------------------------------------------
+
+def _in_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    c = (data[1],)
+    return [tuple(data), c, c], [tuple(data)], []
+
+
+@register("InstanceNorm", input_names=("data", "gamma", "beta"),
+          infer_shape=_in_infer)
+def instance_norm(data, gamma, beta, eps=0.001):
+    """Each (n, c) map normalized by its own mean and (biased) variance,
+    then scaled by ``gamma[c]`` and shifted by ``beta[c]``."""
+    axes = tuple(range(2, data.ndim))
+    mean = torch.mean(data, dim=axes, keepdim=True)
+    var = torch.var(data, dim=axes, keepdim=True, unbiased=False)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) + \
+        beta.reshape(bshape)
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``x / sqrt(sum(x^2) + eps)`` over every axis but the batch
+    (instance), the channel axis (channel) or the spatial axes
+    (spatial)."""
+    if mode == "instance":
+        axes = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    elif mode == "spatial":
+        axes = tuple(range(2, data.ndim))
+    else:
+        raise MXNetError("unknown mode %r" % mode)
+    norm = torch.sqrt(torch.sum(torch.square(data), dim=axes, keepdim=True)
+                      + eps)
+    return data / norm
+
+
+@register("LRN", num_outputs=1)
+def lrn(data, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Cross-channel local response normalization in MXNet's form:
+    ``x * (knorm + alpha / nsize * sum of x^2 over the nsize channels
+    around c)^-beta``, the window zero-padded by ``nsize // 2`` at both
+    ends of the channel axis (not ``F.local_response_norm``'s
+    average-pool form)."""
+    sq = torch.square(data)
+    half = nsize // 2
+    zeros = sq.new_zeros((sq.shape[0], half) + tuple(sq.shape[2:]))
+    padded = torch.cat([zeros, sq, zeros], dim=1)
+    c = data.shape[1]
+    windows = sum(padded[:, i:i + c] for i in range(nsize))
+    norm = torch.pow(knorm + (alpha / nsize) * windows, -beta)
+    return data * norm
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +527,145 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                                 float(ignore_label), bool(use_ignore),
                                 bool(multi_output), str(normalization),
                                 bool(out_grad))
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, mode="instance"):
+    """Softmax over the channel axis (channel) or over everything but the
+    batch axis (instance)."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+# ---------------------------------------------------------------------------
+# The other loss layers — regression_output-inl.h, svm_output-inl.h,
+# make_loss-inl.h.  Each backward supplies its own gradient and ignores the
+# incoming head gradient (the JAX package's custom_vjps, :712-803); the
+# label's gradient is zeros.
+# ---------------------------------------------------------------------------
+
+def _loss_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    label = in_shapes[1] if len(in_shapes) > 1 and in_shapes[1] is not None \
+        else (data[0],)
+    return [tuple(data), tuple(label)], [tuple(data)], []
+
+
+def _zero_label_grad(ctx, label):
+    return torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+
+
+def _make_regression(name, fwd_fn, bwd_fn):
+    class _Regression(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, data, label, grad_scale):
+            out = fwd_fn(data)
+            ctx.save_for_backward(out, label)
+            ctx.grad_scale = grad_scale
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            out, label = ctx.saved_tensors
+            num_output = _prod(label.shape[1:]) if label.ndim > 1 else 1
+            grad = (ctx.grad_scale / num_output) * bwd_fn(
+                out, label.reshape(out.shape))
+            return grad, _zero_label_grad(ctx, label), None
+
+    _Regression.__name__ = "_" + name
+
+    @register(name, input_names=("data", "label"), infer_shape=_loss_infer)
+    def _op(data, label, grad_scale=1.0):
+        return _Regression.apply(data, label, float(grad_scale))
+    _op.__name__ = name
+    return _op
+
+
+_make_regression("LinearRegressionOutput", lambda d: d, lambda o, l: o - l)
+_make_regression("LogisticRegressionOutput", torch.sigmoid,
+                 lambda o, l: o - l)
+_make_regression("MAERegressionOutput", lambda d: d,
+                 lambda o, l: torch.sign(o - l))
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Forward identity; backward the one-vs-all hinge of the reference
+    kernels (svm_output.cc L1_SVM/L2_SVM): the true class's score pushed
+    above +margin, every other class's below -margin."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = (margin, reg, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        margin, reg, use_linear = ctx.attrs
+        classes = torch.arange(data.shape[1], device=data.device)
+        onehot = (label.to(torch.int32).unsqueeze(1) == classes).to(
+            data.dtype)
+        zero = torch.zeros((), dtype=data.dtype, device=data.device)
+        if use_linear:
+            g_true = torch.where(data < margin, zero - reg, zero)
+            g_other = torch.where(data > -margin, zero + reg, zero)
+        else:
+            g_true = torch.where(data < margin, -2.0 * reg * (margin - data),
+                                 zero)
+            g_other = torch.where(data > -margin,
+                                  2.0 * reg * (margin + data), zero)
+        grad = onehot * g_true + (1 - onehot) * g_other
+        return grad.to(data.dtype), _zero_label_grad(ctx, label), None, \
+            None, None
+
+
+@register("SVMOutput", input_names=("data", "label"), infer_shape=_loss_infer)
+def svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    return _SVMOutput.apply(data, label, float(margin),
+                            float(regularization_coefficient),
+                            bool(use_linear))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Forward identity; backward ``grad_scale`` everywhere, divided by the
+    batch size (batch) or the element count (valid) — make_loss-inl.h:
+    92-98."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, normalization):
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / data.shape[0]
+        elif normalization == "valid":
+            scale = scale / _prod(data.shape)
+        ctx.scale = scale
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.scale), None, None
+
+
+@register("MakeLoss", aliases=("make_loss",))
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """Forward identity; backward emits grad_scale (reference
+    src/operator/make_loss-inl.h:92-98)."""
+    return _MakeLoss.apply(data, float(grad_scale), str(normalization))
+
+
+@register("IdentityAttachKLSparseReg")
+def identity_attach_kl_sparse_reg(data, sparseness_target=0.1, penalty=0.001,
+                                  momentum=0.9):
+    """Identity, as in the JAX package: the KL sparseness penalty's
+    gradient and its moving average of activations are not modelled
+    there (no aux state), so the port keeps the same surface."""
+    return data
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +768,130 @@ def slice_channel(data, num_outputs=1, axis=1, squeeze_axis=False):
     if squeeze_axis:
         parts = [torch.squeeze(p, axis) for p in parts]
     return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# Pad / Crop / UpSampling — src/operator/pad.cc, crop.cc, upsampling.cc
+# ---------------------------------------------------------------------------
+
+def _pad_index(n, left, right, mode, device):
+    """Source index of each output position of one axis padded by
+    ``(left, right)``: the nearest end (edge) or the mirror image without
+    repeating the end (reflect, periodic in ``2 (n - 1)`` as numpy's)."""
+    i = torch.arange(-left, n + right, device=device)
+    if mode == "edge" or n == 1:
+        return torch.clamp(i, 0, n - 1)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j <= n - 1, j, period - j)
+
+
+@register("Pad", aliases=("pad",))
+def pad_op(data, pad_width=(), mode="constant", constant_value=0.0):
+    """``pad_width`` holds (before, after) for every axis, in axis order:
+    constant fills with ``constant_value``; edge and reflect gather along
+    each padded axis."""
+    pw = _tuple(pad_width)
+    pads = [(int(pw[2 * i]), int(pw[2 * i + 1])) for i in range(data.ndim)]
+    if mode == "constant":
+        flat = [p for lr in reversed(pads) for p in lr]
+        return F.pad(data, flat, value=float(constant_value))
+    if mode not in ("edge", "reflect"):
+        raise MXNetError("unknown pad mode %r" % mode)
+    out = data
+    for axis, (left, right) in enumerate(pads):
+        if left or right:
+            out = torch.index_select(
+                out, axis, _pad_index(out.shape[axis], left, right, mode,
+                                      out.device))
+    return out
+
+
+def _crop_inputs(attrs):
+    n = int(attrs.get("num_args", 1))
+    return ("data",) if n == 1 else ("data", "crop_like")
+
+
+def _crop_infer(attrs, in_shapes):
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    if int(attrs.get("num_args", 1)) == 2 and in_shapes[1] is not None:
+        hw = in_shapes[1][2:]
+    else:
+        hw = _tuple(attrs.get("h_w", ()))
+    out = tuple(data[:2]) + tuple(hw)
+    return [tuple(s) if s else s for s in in_shapes], [out], []
+
+
+@register("Crop", input_names=_crop_inputs, infer_shape=_crop_infer)
+def crop(data, crop_like=None, num_args=1, offset=(0, 0), h_w=(0, 0),
+         center_crop=False):
+    """An (h, w) window of the NCHW input: h, w from ``crop_like``'s
+    spatial shape or ``h_w``; its corner centred or at ``offset``, moved
+    back inside the input where it would leave it (``lax.dynamic_slice``
+    clamps its start the same way)."""
+    if crop_like is not None:
+        h, w = crop_like.shape[2], crop_like.shape[3]
+    else:
+        h, w = _tuple(h_w, 2)
+    if center_crop:
+        oy = (data.shape[2] - h) // 2
+        ox = (data.shape[3] - w) // 2
+    else:
+        oy, ox = _tuple(offset, 2)
+    oy = min(max(int(oy), 0), data.shape[2] - h)
+    ox = min(max(int(ox), 0), data.shape[3] - w)
+    return data[:, :, oy:oy + h, ox:ox + w]
+
+
+def _upsample_infer(attrs, in_shapes):
+    scale = int(attrs.get("scale", 1))
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    out = (data[0], data[1], data[2] * scale, data[3] * scale)
+    shapes = [tuple(s) if s else s for s in in_shapes]
+    if str(attrs.get("sample_type", "nearest")) == "bilinear":
+        k = 2 * scale - scale % 2
+        nf = int(attrs.get("num_filter", data[1]) or data[1])
+        shapes = [tuple(data), (nf, 1, k, k)]
+        out = (data[0], nf, data[2] * scale, data[3] * scale)
+    return shapes, [out], []
+
+
+def _upsample_inputs(attrs):
+    if str(attrs.get("sample_type", "nearest")) == "bilinear":
+        return ("data", "weight")
+    return _concat_inputs(attrs)
+
+
+@register("UpSampling", variable_inputs=True, input_names=_upsample_inputs,
+          infer_shape=_upsample_infer)
+def upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest: each pixel repeated ``scale`` x ``scale``; several inputs
+    are concatenated on the channel axis or summed.  Bilinear: the
+    reference's UpSamplingBilinear, a transposed conv with one (learnable)
+    filter per channel, kernel ``2 * scale - scale % 2``, stride
+    ``scale``."""
+    if sample_type == "bilinear":
+        data, weight = args[0], args[1]
+        k = 2 * scale - scale % 2
+        p = int(math.ceil((scale - 1) / 2.0))
+        nf = num_filter or data.shape[1]
+        w = torch.reshape(weight, (data.shape[1], 1, k, k))
+        return deconvolution(data, w, None, kernel=(k, k),
+                             stride=(scale, scale), pad=(p, p),
+                             num_filter=nf, num_group=data.shape[1],
+                             no_bias=True)
+    outs = [torch.repeat_interleave(torch.repeat_interleave(
+        data, scale, dim=2), scale, dim=3) for data in args]
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == "sum":
+        return sum(outs)
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
