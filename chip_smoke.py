@@ -172,7 +172,30 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     before liveness: 86 convolutions a forward) and unfused (53 each) in
     turns; and runs the 15 ops of ``ops/nn.py`` the port added last
     forward and backward against the CPU;
-22. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+22. runs the extension surface at ResNet-50 and Inception-BN width
+    (``extension_paths``, batch 32, float32): ResNet-50 through
+    ``Module.fit`` with ``example/numpy-ops``' ``NumpySoftmax`` as its
+    head (one host forward and backward of the op a batch, the bytes they
+    move held exactly, 50 + 50 ``bn_act`` launches a batch, gradients
+    against ``SoftmaxOutput``'s within 1e-5 relative L2, ms per batch of
+    both heads); with ``fc1`` replaced by ``TorchModule(torch.nn.Linear(
+    2048, 1000))`` (no device-to-host copy in a step, gradients against
+    the FullyConnected head's, a ``TorchCriterion(CrossEntropyLoss)``
+    whose loss falls on a fixed batch, ``mx.th`` on a card NDArray); under
+    ``Monitor(2, norm_stat)`` as ``monitor_weights.py`` builds it (the
+    plain plan's taps on every sampled batch, all finite, tapped logits
+    against fused, ms per batch monitored and not in turns); FGSM through
+    ``contrib.autograd.grad_and_loss`` over a node-by-node ``mx.nd`` walk
+    of the symbol (the input gradient against the executor's under
+    ``MXTPU_FUSED_KERNELS=0``, ms per batch beside the executor route in
+    turns); Inception-BN trained through ``SPMDTrainer`` with
+    ``inception_memcost.py``'s settings in float32 and bfloat16, mirror
+    off and on in turns (step peak memory lower with the mirror, the
+    ``bn_act`` launches a mirrored step the segments imply, ms per step),
+    a batch-4 step mirror on against off within 1e-6 relative L2, and an
+    executor's ``close`` (card memory back to its level before the bind,
+    the caller's arrays readable);
+23. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -255,6 +278,9 @@ LC_STEPS = 40       # seq-512 training steps, as the example runs
 LC_LONG_STEPS = 5   # seq-4096 training steps
 LC_FORWARDS = 4     # seq-4096 serving forwards
 LC_AGREE = (2, 1024)  # (batch, seq) of the GPU-vs-CPU check
+# steps in the seq-4096 training profile: a window of 3 (7707 kernels a
+# step) lost 69 kernel events in one chip run, 2 of them flash launches
+LC_PROFILE_STEPS = 1
 ATT_SHAPE, ATT_HEADS = (4, 512, 64), 4   # the symbolic Attention op's
 #: (B, Tq, Tk, H, D, causal) of the flash kernel checks: the LM at seq 512
 #: and 4096, bench.py's kernel shape causal and not, an odd shape, a
@@ -1075,13 +1101,13 @@ def phase_train_profile(torch, mx, tr, batches, card, what="train",
         tr.flush_step_guard, UPDATE_RANGE, card, what, need, unit)
 
 
-def profile_steps(torch, run, finish, update_range, card, what, need, unit):
-    """A torch.profiler trace of PROFILE_STEPS calls of ``run(i)`` (then
+def profile_steps(torch, run, finish, update_range, card, what, need, unit,
+                  steps=PROFILE_STEPS):
+    """A torch.profiler trace of ``steps`` calls of ``run(i)`` (then
     ``finish()``): idle share, kernel launches per step, device time per
     step by class; each class in ``need`` and the optimizer update (the
     kernels launched inside ``update_range``) must show device time.
     Returns ``{kernel name: launches}`` of the window."""
-    steps = PROFILE_STEPS
     build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     fd, path = tempfile.mkstemp(prefix="train-trace-", suffix=".json",
@@ -2534,9 +2560,11 @@ def long_context_paths(torch, mx, seed, card):
         torch, lambda i: step(params, *long_batches[i % len(long_batches)]),
         lambda: None, lm.UPDATE_RANGE, card, "lc train seq %d" % LC_MAX_LEN,
         ("flash_attention_fwd",), "batch %d x %d tokens" % (LC_BATCH,
-                                                           LC_MAX_LEN))
+                                                           LC_MAX_LEN),
+        steps=LC_PROFILE_STEPS)
     per_step = sum(c for k, c in counts.items()
-                   if any(n in k for n in FLASH_KERNEL_NAMES)) / PROFILE_STEPS
+                   if any(n in k for n in FLASH_KERNEL_NAMES)) \
+        / LC_PROFILE_STEPS
     log("lc profile: %.1f flash_attention launches per step (expected %d)"
         % (per_step, LC_LAYERS))
     check(per_step == LC_LAYERS, "profiled flash launches per step %.1f"
@@ -5213,10 +5241,11 @@ def _whole_plan_eval(mx, fn):
     """An eval function interpreting EVERY entry of ``fn``'s fused plan,
     as the executor did before liveness: each fold site also runs its
     original convolution, whose result nothing reads."""
-    def eval_fn(args, aux, is_train, rng, device=None):
+    def eval_fn(args, aux, is_train, rng, device=None, monitor=None):
         env, aux_updates = {}, {}
         mx.executor._run_plan_nodes(fn.plan, env, args, aux, is_train,
-                                    aux_updates, rng, device)
+                                    aux_updates, rng, device,
+                                    monitor=monitor)
         return [env[nid][i] for nid, i in fn.out_refs], aux_updates
     return eval_fn
 
@@ -5419,6 +5448,721 @@ def zoo_paths(torch, mx, seed, card):
         "bn_act_bwd": train_bwd})
 
 
+# ---------------------------------------------------------------------------
+# the extension surface: a Custom op head, a torch head, a Monitor, the
+# autograd tape, and the mirror memory mode with Executor.close
+# ---------------------------------------------------------------------------
+
+EXT_BATCHES = 6          # Module.fit batches of each ResNet-50 head / monitor
+EXT_MON_INTERVAL = 2     # monitor_weights.py's Monitor(interval, norm_stat)
+EXT_GRAD_REL_L2 = 1e-5   # heads, torch head and autograd against their twins
+EXT_CRIT_STEPS = 5       # TorchCriterion steps on one fixed batch
+EXT_FGSM_BATCHES = 3     # attack batches of each route in each turn
+EXT_MIRROR_STEPS = 3     # SPMDTrainer steps in each mirror turn
+EXT_MIRROR_BATCH = 4     # the mirror-on against mirror-off gradient check
+EXT_MIRROR_REL_L2 = 1e-6
+# example/memcost/inception_memcost.py's trainer: sgd lr 0.1, Xavier,
+# compute in bfloat16 (and float32 here), batch 32
+MEMCOST_LR = 0.1
+
+
+def numpy_softmax_class(mx):
+    """``example/numpy-ops/numpy_softmax.py``'s ``NumpySoftmax``, on the
+    port's ``mx.operator``."""
+    import numpy as np
+
+    class NumpySoftmax(mx.operator.NumpyOp):
+        def __init__(self):
+            super(NumpySoftmax, self).__init__(False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            data_shape = in_shape[0]
+            label_shape = (in_shape[0][0],)
+            output_shape = in_shape[0]
+            return [data_shape, label_shape], [output_shape]
+
+        def forward(self, in_data, out_data):
+            x = in_data[0]
+            y = out_data[0]
+            y[:] = np.exp(x - x.max(axis=1).reshape((x.shape[0], 1)))
+            y /= y.sum(axis=1).reshape((x.shape[0], 1))
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            lab = in_data[1].reshape((in_data[1].size,)).astype(int)
+            y = out_data[0]
+            dx = in_grad[0]
+            dx[:] = y
+            dx[np.arange(lab.shape[0]), lab] -= 1.0
+    return NumpySoftmax
+
+
+@contextlib.contextmanager
+def mirror_env(on):
+    """``MXNET_BACKWARD_DO_MIRROR`` while executors and trainers are
+    built inside."""
+    old = os.environ.get("MXNET_BACKWARD_DO_MIRROR")
+    os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MXNET_BACKWARD_DO_MIRROR"]
+        else:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = old
+
+
+def dtoh_ops(torch, fn):
+    """Device-to-host copies and scalar reads of card values while
+    ``fn()`` runs, counted over its aten calls: ``(count, bytes)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    counted = []
+
+    class CountCopies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            if "_local_scalar_dense" in name and ins and ins[0].is_cuda:
+                counted.append(ins[0].element_size())
+            elif "copy" in name and isinstance(out, torch.Tensor) \
+                    and not out.is_cuda and any(t.is_cuda for t in ins):
+                counted.append(out.numel() * out.element_size())
+            return out
+    with CountCopies():
+        fn()
+    torch.cuda.synchronize()
+    return len(counted), sum(counted)
+
+
+def _ext_data(seed, n):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(0, 1, (n * BATCH,) + IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, n * BATCH).astype(np.float32)
+    return X, y
+
+
+def _ext_fit(torch, mx, net, weights, X, y, what, card, monitor=None):
+    """One epoch of Module.fit on the executor route (sgd, lr FT_LR) from
+    ``weights``; bn_act and the Custom host counts zeroed just before and
+    read just after.  Returns (module, steady ms/batch, counts)."""
+    import numpy as np
+    ba, op = mx.kernels.bn_act, mx.operator
+    host = mx.cpu()
+    w_args, w_aux = weights
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    stamps = []
+
+    def on_batch(_param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    ba.BWD_LAUNCHES = 0
+    for k in op.HOST_COUNTS:
+        op.HOST_COUNTS[k] = 0
+    t0 = time.perf_counter()
+    mod.fit(mx.io.NDArrayIter(X, y, batch_size=BATCH), kvstore="local",
+            optimizer="sgd", optimizer_params={"learning_rate": FT_LR},
+            arg_params={k: mx.nd.array(v, ctx=host)
+                        for k, v in w_args.items()},
+            aux_params={k: mx.nd.array(v, ctx=host)
+                        for k, v in w_aux.items()},
+            batch_end_callback=on_batch, monitor=monitor, num_epoch=1)
+    torch.cuda.synchronize()
+    counts = {"bn_act_fwd": ba.LAUNCHES, "bn_act_bwd": ba.BWD_LAUNCHES}
+    counts.update(op.HOST_COUNTS)
+    # ----------------------------------------------------------------------
+    n = len(stamps)
+    check(n == len(X) // BATCH, "%s: %d batches" % (what, n))
+    steady = (stamps[-1] - stamps[1]) / (n - 2) * 1e3
+    out = mod.get_outputs()[0].asnumpy()
+    check(np.isfinite(out).all() and np.allclose(out.sum(1), 1.0,
+                                                 atol=1e-4),
+          "%s: outputs are not probabilities" % what)
+    log("%s: %d batches of %d through Module.fit (executor route), first "
+        "batch %.1f ms, steady %.2f ms/batch; launches bn_act %d forward / "
+        "%d backward; on %s" % (what, n, BATCH, (stamps[0] - t0) * 1e3,
+                                steady, counts["bn_act_fwd"],
+                                counts["bn_act_bwd"], card))
+    return mod, steady, counts
+
+
+def _grad_pair(torch, mx, nets, weights, x, y, rename=None):
+    """One training forward/backward of each net at the same weights and
+    batch on the card, with deterministic cuDNN: the gradients of the
+    first under the second's names (``rename``), and the second's."""
+    import numpy as np
+    got = []
+    with _deterministic_cudnn(torch):
+        for i, net in enumerate(nets):
+            w = weights
+            if i == 0 and rename:
+                inv = {v: k for k, v in rename.items()}
+                w = ({inv.get(k, k): v for k, v in weights[0].items()},
+                     weights[1])
+            got.append(_executor_step(mx, net, w, x, y, mx.gpu(0)))
+    a, b = got
+    if rename:
+        a = {("grad:" + rename.get(k[5:], k[5:]) if k.startswith("grad:")
+              else k): v for k, v in a.items()}
+    keys = sorted(k for k in b if k.startswith("grad:"))
+    check(sorted(k for k in a if k.startswith("grad:")) == keys,
+          "gradient names differ")
+    return _rel_l2(np, a, b, keys), len(keys)
+
+
+def phase_custom_head(torch, mx, seed, card):
+    """ResNet-50 with example/numpy-ops' ``NumpySoftmax`` as its head,
+    through Module.fit: one host forward and one host backward of the op a
+    batch, the bytes it moves, 50 + 50 bn_act launches a batch, the
+    gradients against SoftmaxOutput's at the same weights and batch, ms
+    per batch of each head.  Returns the bn_act launches of its fit."""
+    body = zoo_symbol(mx, "resnet-50", IMAGE, 1000)
+    logits = body.get_internals()["fc1_output"]
+    custom = numpy_softmax_class(mx)()(data=logits, name="softmax")
+    plain = mx.sym.SoftmaxOutput(logits, name="softmax")
+    check(custom.list_arguments() == plain.list_arguments(),
+          "NumpySoftmax head: arguments differ from SoftmaxOutput's")
+    weights = draw_weights(body, (BATCH,) + IMAGE, seed + 100)
+    X, y = _ext_data(seed + 101, EXT_BATCHES)
+    _mod, ms_custom, counts = _ext_fit(torch, mx, custom, weights, X, y,
+                                       "custom head (NumpySoftmax)", card)
+    n = EXT_BATCHES
+    to_host = BATCH * 1000 * 4 + BATCH * 4     # logits + label
+    to_device = 2 * BATCH * 1000 * 4           # probabilities, dlogits
+    log("custom head: host calls %d forward / %d backward; bytes across "
+        "the host link %d to the host + %d to the card a batch (%d + %d "
+        "expected: logits and label down, probabilities and their gradient "
+        "up; need_top_grad=False sends no head gradient)" % (
+            counts["forward"], counts["backward"],
+            counts["bytes_to_host"] // n, counts["bytes_to_device"] // n,
+            to_host, to_device))
+    check((counts["forward"], counts["backward"]) == (n, n),
+          "custom head: host calls %s" % counts)
+    check((counts["bn_act_fwd"], counts["bn_act_bwd"]) == (50 * n, 50 * n),
+          "custom head: bn_act launches %s" % counts)
+    check((counts["bytes_to_host"], counts["bytes_to_device"])
+          == (to_host * n, to_device * n), "custom head: host bytes %s"
+          % counts)
+    _mod2, ms_plain, counts2 = _ext_fit(torch, mx, plain, weights, X, y,
+                                        "SoftmaxOutput head", card)
+    check(counts2["forward"] == 0, "SoftmaxOutput head made host calls")
+    l2, n_grads = _grad_pair(torch, mx, (custom, plain), weights,
+                             X[:BATCH], y[:BATCH])
+    again, _n = _grad_pair(torch, mx, (plain, plain), weights, X[:BATCH],
+                           y[:BATCH])
+    log("custom head: %d gradients against SoftmaxOutput's at the same "
+        "weights and batch: relative L2 %.3g (bound %g; SoftmaxOutput "
+        "against itself %.3g); ms per batch NumpySoftmax %.2f, "
+        "SoftmaxOutput %.2f on %s" % (n_grads, l2, EXT_GRAD_REL_L2, again,
+                                      ms_custom, ms_plain, card))
+    check(l2 <= EXT_GRAD_REL_L2, "custom head gradients disagree")
+    return counts["bn_act_fwd"], counts["bn_act_bwd"]
+
+
+def phase_torch_head(torch, mx, seed, card):
+    """ResNet-50 with ``fc1`` replaced by ``TorchModule(torch.nn.Linear(
+    2048, 1000))``, trained through Module.fit: no device-to-host copy in
+    a step, gradients against the FullyConnected head's, a
+    ``TorchCriterion(CrossEntropyLoss)`` variant whose loss falls on a
+    fixed batch, and ``mx.th`` on a card NDArray.  Returns the bn_act
+    launches of its fit."""
+    import numpy as np
+    body = zoo_symbol(mx, "resnet-50", IMAGE, 1000)
+    flat = body.get_internals()["flatten0_output"]
+    torch.manual_seed(seed)
+    lin = torch.nn.Linear(2048, 1000)
+    head = mx.torch_bridge.TorchModule(lin, flat, name="fc1")
+    th_net = mx.sym.SoftmaxOutput(head, name="softmax")
+    rename = {"fc1_torch_weight": "fc1_weight", "fc1_torch_bias": "fc1_bias"}
+    check(sorted(rename.get(k, k) for k in th_net.list_arguments())
+          == sorted(body.list_arguments()), "torch head: arguments differ")
+    weights = draw_weights(body, (BATCH,) + IMAGE, seed + 110)
+    inv = {v: k for k, v in rename.items()}
+    th_weights = ({inv.get(k, k): v for k, v in weights[0].items()},
+                  weights[1])
+    X, y = _ext_data(seed + 111, EXT_BATCHES)
+    mod, ms, counts = _ext_fit(torch, mx, th_net, th_weights, X, y,
+                               "torch head (TorchModule Linear)", card)
+    n = EXT_BATCHES
+    check((counts["bn_act_fwd"], counts["bn_act_bwd"]) == (50 * n, 50 * n)
+          and counts["forward"] == 0, "torch head: launches / host calls %s"
+          % counts)
+    batch = mx.io.DataBatch([mx.nd.array(X[:BATCH], ctx=mx.gpu(0))],
+                            [mx.nd.array(y[:BATCH], ctx=mx.gpu(0))])
+    mod.forward_backward(batch)                 # warm
+    mod.update()
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+    copies, nbytes = dtoh_ops(torch, step)
+    log("torch head: one Module step (forward_backward + update) made %d "
+        "device-to-host copies or reads (%d bytes); the node runs "
+        "torch.func.functional_call on %s" % (
+            copies, nbytes, mod._exec_group.execs[0].arg_dict[
+                "fc1_torch_weight"]._data.device))
+    check(copies == 0, "torch head: the step copied to the host")
+    l2, n_grads = _grad_pair(torch, mx, (th_net, body), weights,
+                             X[:BATCH], y[:BATCH], rename=rename)
+    log("torch head: %d gradients against the FullyConnected head at the "
+        "same weights and batch: relative L2 %.3g (bound %g); %.2f "
+        "ms/batch on %s" % (n_grads, l2, EXT_GRAD_REL_L2, ms, card))
+    check(l2 <= EXT_GRAD_REL_L2, "torch head gradients disagree")
+    # TorchCriterion(CrossEntropyLoss) as the output layer
+    logits = body.get_internals()["fc1_output"]
+    crit = mx.torch_bridge.TorchCriterion(
+        torch.nn.CrossEntropyLoss(), logits,
+        mx.sym.Variable("softmax_label"), name="ce")
+    tr = mx.parallel.SPMDTrainer(crit, "sgd", {"learning_rate": 0.1},
+                                 ctx=mx.gpu(0))
+    tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    tr.init_params(None, *weights)
+    dev = torch.device("cuda", 0)
+    xb = torch.from_numpy(X[:BATCH]).to(dev)
+    yb = torch.from_numpy(y[:BATCH]).to(dev)
+    losses = [float(tr.step(xb, yb)[0].reshape(-1)[0])
+              for _ in range(EXT_CRIT_STEPS)]
+    log("torch head: TorchCriterion(CrossEntropyLoss) through SPMDTrainer "
+        "on one fixed batch, loss per step %s" % " ".join(
+            "%.4f" % v for v in losses))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "TorchCriterion: the loss did not fall")
+    tr.close()
+    a = mx.nd.array(X[:2, 0, 0, :8], ctx=mx.gpu(0))
+    r = mx.th.mul(a, 2.0)
+    check(isinstance(r, mx.nd.NDArray) and r.context == mx.gpu(0)
+          and r._data.is_cuda and np.array_equal(r.asnumpy(),
+                                                 2 * X[:2, 0, 0, :8]),
+          "mx.th did not return a card NDArray")
+    log("torch head: mx.th.mul on a card NDArray returned an NDArray on %s"
+        % r.context)
+    return counts["bn_act_fwd"], counts["bn_act_bwd"]
+
+
+def plain_taps(mx, symbol, pattern):
+    """The tap names of the plain plan's op nodes (``<node>_output``,
+    ``<node>_output<i>``) that ``pattern`` matches."""
+    import re
+    prog = re.compile(pattern)
+    names = []
+    for node in symbol._nodes():
+        if node.op is None:
+            continue
+        n = node.num_outputs()
+        names += [node.name + "_output"] if n == 1 else [
+            "%s_output%d" % (node.name, i) for i in range(n)]
+    return [nm for nm in names if prog.match(nm)]
+
+
+def phase_monitor(torch, mx, seed, card):
+    """ResNet-50 through Module.fit with monitor_weights.py's Monitor(2,
+    norm_stat): the statistics of each sampled batch are the plain plan's
+    taps, all finite; tapped logits against the fused forward's; ms per
+    batch monitored and not, in turns."""
+    import numpy as np
+    net = zoo_symbol(mx, "resnet-50", IMAGE, 1000)
+    weights = draw_weights(net, (BATCH,) + IMAGE, seed + 120)
+    X, y = _ext_data(seed + 121, EXT_BATCHES)
+
+    def norm_stat(d):
+        return mx.nd.norm(d) / np.sqrt(d.size)
+
+    expect = plain_taps(mx, net, ".*")
+    times = collections.defaultdict(list)
+    for which in ("monitored", "plain", "plain", "monitored"):
+        mon = None
+        rows = []
+        if which == "monitored":
+            mon = mx.mon.Monitor(EXT_MON_INTERVAL, norm_stat)
+
+            def record(mon=mon, rows=rows):
+                # toc_print without the print: the rows are checked and
+                # summarized below
+                rows.append([(k, v) for _s, k, v in mon.queue])
+                return mon.toc()
+            mon.toc_print = record
+        _mod, ms, counts = _ext_fit(torch, mx, net, weights, X, y,
+                                    "monitor fit (%s)" % which, card,
+                                    monitor=mon)
+        times[which].append(ms)
+        if which == "plain":
+            check((counts["bn_act_fwd"], counts["bn_act_bwd"])
+                  == (50 * EXT_BATCHES,) * 2, "plain fit launches %s"
+                  % counts)
+            continue
+        sampled = [r for r in rows if r]
+        check(len(sampled) == -(-EXT_BATCHES // EXT_MON_INTERVAL),
+              "monitor: %d sampled batches" % len(sampled))
+        vals = []
+        for r in sampled:
+            check([k for k, _v in r] == expect, "monitor: %d statistics, "
+                  "the plain plan taps %d" % (len(r), len(expect)))
+            vals += [float(v.asnumpy().reshape(-1)[0]) for _k, v in r]
+        check(np.isfinite(vals).all(), "monitor: a statistic is not finite")
+        log("monitor: %d sampled batches of %d, %d statistics each (the "
+            "plain plan's %d taps), all finite, range %.3g..%.3g, first %s; "
+            "bn_act launches %d (the plain plan runs while a tap is "
+            "installed)" % (
+                len(sampled), EXT_BATCHES, len(sampled[0]), len(expect),
+                min(vals), max(vals), ", ".join(
+                    "%s %.4g" % (k, v) for (k, _a), v in
+                    zip(sampled[0][:3], vals[:3])), counts["bn_act_fwd"]))
+    log("monitor: ms per batch monitored %s, unmonitored %s (turns of one "
+        "fit each) on %s" % (
+            " / ".join("%.2f" % v for v in times["monitored"]),
+            " / ".join("%.2f" % v for v in times["plain"]), card))
+    # tapped logits against the fused forward's
+    logits = net.get_internals()["fc1_output"]
+    ex = logits.simple_bind(mx.gpu(0), grad_req="null",
+                            data=(BATCH,) + IMAGE)
+    for k, v in weights[0].items():
+        if k in ex.arg_dict:
+            ex.arg_dict[k][:] = v
+    for k, v in weights[1].items():
+        ex.aux_dict[k][:] = v
+    fused = ex.forward(is_train=False, data=X[:BATCH])[0].asnumpy()
+    seen = []
+    ex.set_monitor_callback(lambda name, arr: seen.append(name))
+    tapped = ex.forward(is_train=False, data=X[:BATCH])[0].asnumpy()
+    diff = float(np.abs(tapped - fused).max())
+    bound = 1e-3 * float(np.abs(fused).max())
+    log("monitor: tapped (plain plan) logits against fused: max |diff| %.3g "
+        "(bound %.3g = 1e-3 x max|logit|), %d taps" % (diff, bound,
+                                                        len(seen)))
+    check(np.isfinite(tapped).all() and diff <= bound,
+          "monitor: tapped logits disagree with the fused forward")
+    check(seen == plain_taps(mx, logits, ".*"), "monitor: taps of the "
+          "logits executor are not its plain plan's")
+    ex.close()
+
+
+def nd_walk(mx, symbol, values):
+    """``symbol``'s nodes run one by one as ``mx.nd`` calls on ``values``
+    (name -> NDArray): the first output, as an NDArray."""
+    env = {}
+    for node in symbol._nodes():
+        if node.is_variable:
+            env[id(node)] = [values[node.name]]
+            continue
+        ins = [env[id(src)][i] for src, i in node.inputs]
+        out = getattr(mx.nd, node.op.name)(*ins, **node.op_attrs())
+        env[id(node)] = out if isinstance(out, list) else [out]
+    node, i = symbol._outputs[0]
+    return env[id(node)][i]
+
+
+def phase_autograd_fgsm(torch, mx, seed, card):
+    """FGSM on ResNet-50 through ``contrib.autograd.grad_and_loss`` over
+    the node-by-node ``mx.nd`` walk of the symbol, the data NDArray the
+    marked variable: its input gradient against the executor's
+    ``inputs_need_grad`` gradient under MXTPU_FUSED_KERNELS=0, and ms per
+    attack batch in turns with the executor route (a Module, as
+    ``phase_fgsm_resnet``)."""
+    import numpy as np
+    gpu = mx.gpu(0)
+    net = zoo_symbol(mx, "resnet-50", IMAGE, 1000)
+    weights = draw_weights(net, (BATCH,) + IMAGE, seed + 130)
+    X, y = _ext_data(seed + 131, EXT_FGSM_BATCHES)
+    values = {k: mx.nd.array(v, ctx=gpu) for k, v in weights[0].items()}
+    values.update({k: mx.nd.array(v, ctx=gpu) for k, v in
+                   weights[1].items()})
+    xs = [mx.nd.array(X[i * BATCH:(i + 1) * BATCH], ctx=gpu)
+          for i in range(EXT_FGSM_BATCHES)]
+    ys = [mx.nd.array(y[i * BATCH:(i + 1) * BATCH], ctx=gpu)
+          for i in range(EXT_FGSM_BATCHES)]
+
+    def forward(x, label):
+        return nd_walk(mx, net, dict(values, data=x, softmax_label=label))
+
+    def walk_attack(x, label):
+        grads, probs = mx.contrib.autograd.grad_and_loss(
+            lambda v: forward(v, label))(x)
+        x_adv = mx.nd.clip(x + FGSM_EPS * mx.nd.sign(grads[0]), 0, 1)
+        out = forward(x_adv, label)
+        return grads[0], _fgsm_ce(mx, probs, label), _fgsm_ce(mx, out, label)
+
+    mod = mx.mod.Module(net, context=gpu)
+    mod.bind(data_shapes=[("data", (BATCH,) + IMAGE)],
+             label_shapes=[("softmax_label", (BATCH,))],
+             for_training=True, inputs_need_grad=True)
+    mod.set_params({k: mx.nd.array(v, ctx=gpu) for k, v in
+                    weights[0].items()},
+                   {k: mx.nd.array(v, ctx=gpu) for k, v in
+                    weights[1].items()})
+
+    def exec_attack(x, label):
+        mod.forward(mx.io.DataBatch([x], [label]), is_train=True)
+        mod.backward()
+        g = mod.get_input_grads()[0]
+        ce = _fgsm_ce(mx, mod.get_outputs()[0], label)
+        x_adv = mx.nd.clip(x + FGSM_EPS * mx.nd.sign(g), 0, 1)
+        mod.forward(mx.io.DataBatch([x_adv], [label]), is_train=True)
+        return g, ce, _fgsm_ce(mx, mod.get_outputs()[0], label)
+
+    # the input gradient against the executor's, plain plan, one batch
+    with _deterministic_cudnn(torch):
+        g_walk = walk_attack(xs[0], ys[0])[0].asnumpy()
+        with fused_kernels("0"):
+            ref = _executor_step(mx, net, weights, X[:BATCH], y[:BATCH],
+                                 gpu)["grad:data"]
+    l2 = _rel_l2(np, {"g": g_walk.astype(np.float64)}, {"g": ref}, ["g"])
+    log("autograd fgsm: input gradient through grad_and_loss over the "
+        "nd walk against the executor's (MXTPU_FUSED_KERNELS=0, "
+        "deterministic cuDNN): relative L2 %.3g (bound %g)" % (
+            l2, EXT_GRAD_REL_L2))
+    check(l2 <= EXT_GRAD_REL_L2, "autograd fgsm: input gradient disagrees")
+    exec_attack(xs[0], ys[0])                       # warm
+    times = collections.defaultdict(list)
+    for which in ("autograd", "executor", "executor", "autograd"):
+        attack = walk_attack if which == "autograd" else exec_attack
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(EXT_FGSM_BATCHES):
+            g, ce, ce_adv = attack(xs[i], ys[i])
+            rise = float(ce_adv.asscalar()) - float(ce.asscalar())
+            check(np.isfinite(rise) and rise > 0, "%s fgsm: the "
+                  "cross-entropy did not rise" % which)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3
+                            / EXT_FGSM_BATCHES)
+    log("autograd fgsm: ms per attack batch (batch %d, eps %g) through "
+        "contrib.autograd %s, through the executor (Module, "
+        "inputs_need_grad) %s, in turns on %s" % (
+            BATCH, FGSM_EPS, " / ".join("%.2f" % v for v in
+                                        times["autograd"]),
+            " / ".join("%.2f" % v for v in times["executor"]), card))
+    check(not mx.autograd.is_recording(), "autograd left recording on")
+
+
+def mirror_recompute_calls(mx, plan, segments, shapes):
+    """``fused_bn_act`` calls the backward's recompute of ``segments``
+    makes: each segment's bn_act and bn_fold sites, and each merged group
+    once in the segment holding its first member (a later segment slices
+    the body handed on); a shape-ineligible grouped pair calls it per
+    member wherever the member lies."""
+    full = mx.mxfuse.bn_sites(plan)
+    per_group = {}
+    for members in full["concat"]:
+        fn = mx.mxfuse._override_fn(plan, members[0])
+        per_group[fn.group] = len(mx.mxfuse._group_shapes(fn, members,
+                                                          shapes))
+    total, carried = 0, set()
+    for seg in segments:
+        sites = mx.mxfuse.bn_sites(seg.entries)
+        total += len(sites["bn_act"]) + len(sites["bn_fold"])
+        for members in sites["concat"]:
+            key = mx.mxfuse._override_fn(seg.entries, members[0]).group
+            if per_group[key] == 1:
+                total += 0 if key in carried else 1
+            else:
+                total += len(members)
+        carried = set(seg.memo_out)
+    return total
+
+
+def _memcost_trainer(mx, net, dtype, remat, weights=None):
+    tr = mx.parallel.SPMDTrainer(net, "sgd", {"learning_rate": MEMCOST_LR},
+                                 compute_dtype=dtype, remat=remat,
+                                 ctx=mx.gpu(0))
+    tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    if weights is None:
+        tr.init_params(mx.initializer.Xavier())
+    else:
+        tr.init_params(None, *weights)
+    return tr
+
+
+def phase_mirror(torch, mx, seed, card):
+    """Inception-BN trained through SPMDTrainer with inception_memcost.py's
+    settings at batch 32, float32 and bfloat16, mirror off and on in
+    turns: peak memory lower with the mirror, bn_act launches a mirrored
+    step as the segments imply, ms per step; one batch-4 step's gradients
+    mirror on against off; then an executor's close.  Returns the
+    mirrored steps' bn_act launches."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    shapes = mx.mxfuse.output_shapes(net, data=(BATCH,) + IMAGE)
+    dev = torch.device("cuda", 0)
+    rs = np.random.RandomState(seed + 140)
+    x = torch.from_numpy(rs.standard_normal((BATCH,) + IMAGE)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 1000, BATCH).astype(np.float32)) \
+        .to(dev)
+    launches = [0, 0]
+    for dtype in ("float32", "bfloat16"):
+        mx.random.seed(seed + 141)
+        off = _memcost_trainer(mx, net, dtype, False)
+        on = _memcost_trainer(mx, net, dtype, True, off.get_params())
+        segs = on._eval.segments
+        per_step = len(mx.mxfuse.bn_act_calls(on._eval.train_plan, shapes,
+                                              True))
+        recompute = mirror_recompute_calls(mx, on._eval.train_plan, segs,
+                                           shapes)
+        carried = sum(len(s.memo_out) for s in segs)
+        for t in (off, on):
+            t.step(x, y)                            # warm
+        torch.cuda.synchronize()
+        # -- the main path: counts zeroed just before, read just after -----
+        ba.LAUNCHES = 0
+        ba.BWD_LAUNCHES = 0
+        on.step(x, y)
+        torch.cuda.synchronize()
+        fwd, bwd = ba.LAUNCHES, ba.BWD_LAUNCHES
+        # ------------------------------------------------------------------
+        launches[0] += fwd
+        launches[1] += bwd
+        log("mirror %s: %d segments (MXNET_MIRROR_SEGMENTS default, sqrt "
+            "of %d ops), %d merged bodies handed across a boundary; bn_act "
+            "launches a mirrored step %d forward / %d backward (plan: %d + "
+            "%d recomputed / %d)" % (
+                dtype, len(segs), sum(1 for n_ in net._nodes()
+                                      if n_.op is not None), carried, fwd,
+                bwd, per_step, recompute, per_step))
+        check((fwd, bwd) == (per_step + recompute, per_step),
+              "mirror %s: bn_act launches %s" % (dtype, (fwd, bwd)))
+        peaks, times = collections.defaultdict(list), \
+            collections.defaultdict(list)
+        for which in ("off", "on", "on", "off"):
+            t = on if which == "on" else off
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(EXT_MIRROR_STEPS):
+                out = t.step(x, y)[0]
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3
+                                / EXT_MIRROR_STEPS)
+            peaks[which].append((torch.cuda.max_memory_allocated() - base)
+                                / 2 ** 30)
+            check(bool(torch.isfinite(out).all()), "mirror %s %s: output "
+                  "not finite" % (dtype, which))
+        log("mirror %s: step peak memory above the resident %.3f / %.3f GiB "
+            "off, %.3f / %.3f GiB on; ms per step off %s, on %s (turns of "
+            "%d steps, batch %d) on %s" % (
+                dtype, peaks["off"][0], peaks["off"][1], peaks["on"][0],
+                peaks["on"][1], " / ".join("%.2f" % v for v in times["off"]),
+                " / ".join("%.2f" % v for v in times["on"]),
+                EXT_MIRROR_STEPS, BATCH, card))
+        check(max(peaks["on"]) < min(peaks["off"]),
+              "mirror %s: peak memory not lower with the mirror" % dtype)
+        check(off.skipped_steps == 0 and on.skipped_steps == 0,
+              "mirror %s: guard-skipped steps" % dtype)
+        off.close()
+        on.close()
+        del off, on
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one batch-4 step, mirror on against off, deterministic cuDNN
+    shape = (EXT_MIRROR_BATCH,) + IMAGE
+    weights = draw_weights(net, shape, seed + 142)
+    xs = rs.standard_normal(shape).astype(np.float32)
+    ys = rs.randint(0, 1000, EXT_MIRROR_BATCH).astype(np.float32)
+    res = {}
+    with _deterministic_cudnn(torch):
+        for on in (False, True):
+            with mirror_env(on):
+                res[on] = _executor_step(mx, net, weights, xs, ys, mx.gpu(0))
+    keys = [k for k in res[False] if k.startswith("grad:")]
+    l2 = _rel_l2(np, res[True], res[False], keys)
+    state = [k for k in res[False] if not k.startswith("grad:")]
+    s_ratio, s_key = _worst_max_rel(np, res[True], res[False], state)
+    log("mirror: batch-%d step, %d gradients mirror on against off: "
+        "relative L2 %.3g (bound %g); outputs and moving statistics worst "
+        "%s %.3g" % (EXT_MIRROR_BATCH, len(keys), l2, EXT_MIRROR_REL_L2,
+                     s_key, s_ratio))
+    check(l2 <= EXT_MIRROR_REL_L2 and s_ratio <= EXT_MIRROR_REL_L2,
+          "mirror: gradients or moving statistics differ from the plain "
+          "step")
+    phase_executor_close(torch, mx, net, seed)
+    return launches
+
+
+def phase_executor_close(torch, mx, net, seed):
+    """Bind Inception-BN on caller arrays, run a step and the next step's
+    forward (its graph held), close: card memory back to what it was
+    before the bind, the caller's arrays readable."""
+    import numpy as np
+    gpu = mx.gpu(0)
+    shape = (BATCH,) + IMAGE
+    w_args, w_aux = draw_weights(net, shape, seed + 150)
+    rs = np.random.RandomState(seed + 151)
+    x = rs.standard_normal(shape).astype(np.float32)
+    y = rs.randint(0, 1000, BATCH).astype(np.float32)
+    names = net.list_arguments()
+    arg_shapes, _, _ = net.infer_shape(data=shape, softmax_label=(BATCH,))
+    args = {n: mx.nd.array(w_args[n] if n in w_args else np.zeros(s),
+                           ctx=gpu) for n, s in zip(names, arg_shapes)}
+    grads = {n: mx.nd.zeros(s, ctx=gpu) for n, s in zip(names, arg_shapes)
+             if n not in ("data", "softmax_label")}
+    aux = {n: mx.nd.array(v, ctx=gpu) for n, v in w_aux.items()}
+    for _ in range(2):
+        # the first round leaves what the process keeps across executors
+        # (cuBLAS's workspace: 4 MiB in the first chip run); the second
+        # is held
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        ex = net.bind(gpu, args, args_grad=grads, aux_states=aux)
+        ex.forward(is_train=True, data=x, softmax_label=y)
+        ex.backward()
+        ex.forward(is_train=True, data=x, softmax_label=y)
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated()
+        ex.close()
+        gc.collect()
+        torch.cuda.synchronize()
+        m2 = torch.cuda.memory_allocated()
+    readable = all(np.isfinite(a.asnumpy()).all()
+                   for d in (args, grads, aux) for a in d.values())
+    moved = sum(float(np.abs(g.asnumpy()).sum()) > 0 for g in grads.values())
+    log("executor close: card memory %.3f GiB before the bind, %.3f GiB "
+        "with a step done and the next forward's graph held, %.3f GiB after "
+        "close (freed %.3f GiB of the executor's own); the caller's %d "
+        "arrays read back finite: %s, %d of %d gradients non-zero" % (
+            m0 / 2 ** 30, m1 / 2 ** 30, m2 / 2 ** 30, (m1 - m2) / 2 ** 30,
+            len(args) + len(grads) + len(aux), readable, moved, len(grads)))
+    check(m2 - m0 <= 2 ** 20 and m1 - m2 > 2 ** 27,
+          "executor close: card memory did not return (%d -> %d -> %d)"
+          % (m0, m1, m2))
+    check(readable and moved > 0.9 * len(grads),
+          "executor close: the caller's arrays are gone")
+
+
+def extension_paths(torch, mx, seed, card):
+    """The extension surface at ResNet-50 and Inception-BN width: a
+    NumpySoftmax head and a TorchModule head through Module.fit, a
+    Monitor, FGSM through contrib.autograd, the mirror memory mode and
+    Executor.close.  Returns the main paths' bn_act launches."""
+    launches = collections.Counter()
+    for phase in (phase_custom_head, phase_torch_head):
+        fwd, bwd = phase(torch, mx, seed, card)
+        launches.update({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_monitor(torch, mx, seed, card)
+    phase_autograd_fgsm(torch, mx, seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd, bwd = phase_mirror(torch, mx, seed, card)
+    launches.update({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -5445,6 +6189,7 @@ def main(argv=None):
     extra += nd_paths(torch, mx, args.seed, card)
     extra += bucketing_paths(torch, mx, args.seed, card)
     extra += zoo_paths(torch, mx, args.seed, card)
+    extra += extension_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

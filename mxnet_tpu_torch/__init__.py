@@ -18,8 +18,10 @@ without CUDA a gpu context raises instead of running on the host.
 from __future__ import annotations
 
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .context import (Context, cpu, current_context, gpu, num_gpus,
+                      num_tpus, tpu)
 from . import ops  # noqa: F401 — registers the ops before sym is built
+from . import operator  # registers Custom
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
@@ -31,17 +33,21 @@ from . import mxfuse
 from . import executor
 from .executor import Executor
 from . import model
+from .model import FeedForward
 from . import models
 from . import predict
 from . import convert
 from . import name
 from . import attribute
+from .attribute import AttrScope
 from . import random
+from . import random as rnd
 from . import io
 from . import lr_scheduler
 from . import optimizer
 from .optimizer import Optimizer
 from . import initializer
+from .initializer import init_registry
 from . import parallel
 from . import rnn
 from . import executor_manager
@@ -56,10 +62,16 @@ from . import rtc
 symbol._init_symbol_module()
 ndarray._init_ndarray_module()
 
+from . import autograd  # noqa: E402
 from . import contrib  # noqa: E402 — after the symbol creators exist
 # both addressing styles work: mx.contrib.symbol.X and mx.sym.contrib.X
 symbol.contrib = contrib.symbol
 ndarray.contrib = contrib.ndarray
+from . import monitor  # noqa: E402
+from . import monitor as mon  # noqa: E402
+from .monitor import Monitor  # noqa: E402
+from . import torch_bridge  # noqa: E402
+from .torch_bridge import th  # noqa: E402
 
 __version__ = "0.1.0"
 

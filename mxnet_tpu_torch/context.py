@@ -21,7 +21,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
-           "pin_f32_numerics"]
+           "pin_f32_numerics", "tpu", "num_tpus"]
 
 
 def pin_f32_numerics():
@@ -102,9 +102,20 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def tpu(device_id=0):
+    """The JAX package's accelerator context, here the i-th CUDA device:
+    a script written for ``mx.tpu()`` runs on the card."""
+    return gpu(device_id)
+
+
 def num_gpus():
     """The number of CUDA devices (0 on a host without CUDA)."""
     return torch.cuda.device_count()
+
+
+def num_tpus():
+    """:func:`num_gpus` under the JAX package's name."""
+    return num_gpus()
 
 
 def current_context():

@@ -26,14 +26,23 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import random as _random
-from .base import MXNetError
+from .base import MXNetError, get_env, register_env
 from .context import Context
 from .ndarray import NDArray, tensor_from_numpy, zeros as nd_zeros
 from .ops.registry import fn_signature_info
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "mirror_segments_for"]
+
+ENV_BACKWARD_DO_MIRROR = register_env(
+    "MXNET_BACKWARD_DO_MIRROR", default=0,
+    doc="1 = memory mirror mode: the backward recomputes activations per "
+        "checkpoint segment instead of storing them")
+ENV_MIRROR_SEGMENTS = register_env(
+    "MXNET_MIRROR_SEGMENTS",
+    doc="Segment count for mirror mode (default sqrt of op count)")
 
 
 def _filter_attrs(op, attrs):
@@ -70,36 +79,140 @@ def _node_plan(symbol):
     return plan
 
 
-def _build_eval(symbol):
-    """Return ``eval_fn(args, aux, is_train, rng, device=None) ->
-    (outputs, aux_updates)`` over name -> tensor dicts, interpreting the
-    plan as the mxfuse passes rewrote it (``MXTPU_FUSED_KERNELS=0`` skips
-    them).  ``rng`` is the forward's integer seed; ``device`` is where
-    nodes without tensor inputs (``_zeros``, the samplers) create their
-    results (default: the first argument's device).
+def mirror_segments_for(symbol, force=False):
+    """Segment count for the memory-mirror mode (0 = off), as the JAX
+    package counts it (``mxnet_tpu/executor.py:207-217``): on with
+    ``MXNET_BACKWARD_DO_MIRROR=1`` or ``force`` (the trainer's
+    ``remat=True``); about sqrt(op count) segments, which
+    ``MXNET_MIRROR_SEGMENTS`` overrides."""
+    if not force and str(get_env(ENV_BACKWARD_DO_MIRROR, "0")) != "1":
+        return 0
+    n_ops = sum(1 for node in symbol._nodes() if node.op is not None)
+    return max(2, int(get_env(ENV_MIRROR_SEGMENTS,
+                              int(np.sqrt(max(1, n_ops))))))
+
+
+class _Segment(object):
+    """One mirror segment of the training plan: its op ``entries``, the
+    node ids whose outputs leave it (``live_out``) and the merged-group
+    memo keys it hands on (``memo_out``), both in a fixed order."""
+    __slots__ = ("entries", "live_out", "memo_out")
+
+    def __init__(self, entries, live_out, memo_out):
+        self.entries = entries
+        self.live_out = live_out
+        self.memo_out = memo_out
+
+
+def _segments(entries, out_refs, n_segments):
+    """Cut the op entries of a plan into ``n_segments`` runs of equal
+    length.  Between segments only the live boundary values cross, as in
+    the JAX package's ``_build_eval_segmented`` (:286-345), and so does a
+    ``concat_fuse`` group's merged body when its members straddle a
+    boundary: the segment that computes the body hands it on, so a
+    recompute never finds it already made."""
+    ops = [e for e in entries if e[0].op is not None]
+    size = max(1, -(-len(ops) // max(1, n_segments)))
+    chunks = [ops[i:i + size] for i in range(0, len(ops), size)]
+    produced, last_use, groups = {}, {}, {}
+    for ci, chunk in enumerate(chunks):
+        for node, _a, _n, _x, _ix, override in chunk:
+            produced[id(node)] = ci
+            refs = list(node.inputs)
+            if override is not None:
+                refs += list(override[1])
+                if getattr(override[0], "uses_memo", False):
+                    groups.setdefault(override[0].group, []).append(ci)
+            for src, _idx in refs:
+                last_use[id(src)] = max(last_use.get(id(src), -1), ci)
+    for nid, _i in out_refs:
+        last_use[nid] = len(chunks)
+    segs = []
+    for ci, chunk in enumerate(chunks):
+        live_out = [nid for nid, pc in produced.items()
+                    if pc <= ci < last_use.get(nid, -1)]
+        memo_out = [key for key, cis in groups.items()
+                    if min(cis) <= ci < max(cis)]
+        segs.append(_Segment(chunk, live_out, memo_out))
+    return segs
+
+
+def _run_segments(segments, variables, out_refs, args, aux, rng, device):
+    """The training forward as checkpointed segments
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    each segment from its boundary values instead of keeping its
+    activations.  Each segment's aux updates are the ones its first run
+    returns; a recompute's are dropped with the rest of its return
+    value."""
+    var_env = {id(node): (_bind_variable(node, args, aux),)
+               for node, *_rest in variables}
+    aux_updates = {}
+    carry_ids, carry_vals, memo_keys, memo_vals = [], [], [], []
+    for seg in segments:
+        def run(vals, mvals, _seg=seg, _ids=carry_ids, _keys=memo_keys):
+            env = dict(var_env)
+            env.update(zip(_ids, vals))
+            memo = {k: v for k, v in zip(_keys, mvals) if v is not None}
+            seg_aux = {}
+            _run_plan_nodes(_seg.entries, env, args, aux, True, seg_aux,
+                            rng, device, memo=memo)
+            return ([env[i] for i in _seg.live_out],
+                    [memo.get(k) for k in _seg.memo_out], seg_aux)
+        carry_vals, memo_vals, seg_aux = torch.utils.checkpoint.checkpoint(
+            run, carry_vals, memo_vals, use_reentrant=False)
+        aux_updates.update(seg_aux)
+        carry_ids, memo_keys = seg.live_out, seg.memo_out
+    env = dict(var_env)
+    env.update(zip(carry_ids, carry_vals))
+    return [env[nid][i] for nid, i in out_refs], aux_updates
+
+
+def _build_eval(symbol, mirror_segments=0):
+    """Return ``eval_fn(args, aux, is_train, rng, device=None,
+    monitor=None) -> (outputs, aux_updates)`` over name -> tensor dicts,
+    interpreting the plan as the mxfuse passes rewrote it
+    (``MXTPU_FUSED_KERNELS=0`` skips them).  ``rng`` is the forward's
+    integer seed; ``device`` is where nodes without tensor inputs
+    (``_zeros``, the samplers) create their results (default: the first
+    argument's device).
 
     Each path interprets only its live entries (:func:`mxfuse.
     live_entries`, the port's stand-in for XLA's dead-code elimination):
     ``eval_fn.train_plan`` in training, ``eval_fn.infer_plan`` otherwise.
     With ``infer_trace`` enabled the inference path also starts past its
     bind-time constants (:func:`mxfuse.fold_constants`, folded once per
-    device at the first forward there)."""
+    device at the first forward there).
+
+    ``mirror_segments`` > 1 runs the training path, when torch records a
+    graph, as that many checkpointed segments (``eval_fn.segments``; the
+    memory mirror mode).  A ``monitor(node, outputs)`` callback runs the
+    plain, unfused plan (``eval_fn.plain_plan``, every node) and sees each
+    node's outputs."""
     from . import mxfuse
     from .kernels import fused_enabled
     out_refs = [(id(n), i) for n, i in symbol._outputs]
-    fused_plan = mxfuse.optimize_plan(_node_plan(symbol), out_refs)
+    plain_plan = _node_plan(symbol)
+    fused_plan = mxfuse.optimize_plan(plain_plan, out_refs)
     train_plan = mxfuse.live_entries(fused_plan, out_refs, is_train=True)
     infer_plan = mxfuse.live_entries(fused_plan, out_refs)
+    segments = _segments(train_plan, out_refs, mirror_segments) \
+        if mirror_segments and mirror_segments > 1 else None
+    variables = [e for e in train_plan if e[0].op is None]
     fold = fused_enabled("infer_trace")
     folded = {}     # device -> (const_env, remaining entries)
 
-    def eval_fn(args, aux, is_train, rng, device=None):
+    def eval_fn(args, aux, is_train, rng, device=None, monitor=None):
         env = {}
         aux_updates = {}
         if device is None:
             device = next((t.device for t in args.values()),
                           torch.device("cpu"))
-        if is_train:
+        if monitor is not None:
+            chunk = plain_plan
+        elif is_train:
+            if segments is not None and torch.is_grad_enabled():
+                return _run_segments(segments, variables, out_refs, args,
+                                     aux, rng, device)
             chunk = train_plan
         elif fold:
             if device not in folded:
@@ -109,11 +222,13 @@ def _build_eval(symbol):
         else:
             chunk = infer_plan
         _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
-                        device)
+                        device, monitor=monitor)
         return [env[nid][i] for nid, i in out_refs], aux_updates
     eval_fn.plan = fused_plan
+    eval_fn.plain_plan = plain_plan
     eval_fn.train_plan = train_plan
     eval_fn.infer_plan = infer_plan
+    eval_fn.segments = segments
     eval_fn.out_refs = out_refs
     return eval_fn
 
@@ -127,14 +242,16 @@ def _bind_variable(node, args, aux):
 
 
 def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
-                    device):
+                    device, memo=None, monitor=None):
     """Interpret a slice of the node plan against ``env`` (id -> outputs
     tuple); ``rng`` is the forward's integer seed, ``device`` the one
     nodes without tensor inputs create their results on.  An override
-    that sets ``uses_memo`` gets this run's ``memo`` dict, where a merged
-    ``concat_fuse`` group keeps the body its members slice."""
+    that sets ``uses_memo`` gets the run's ``memo`` dict (a new one unless
+    given), where a merged ``concat_fuse`` group keeps the body its
+    members slice.  ``monitor(node, outputs)`` sees every op node's
+    outputs."""
     from .mxfuse import dead_inputs
-    memo = {}
+    memo = {} if memo is None else memo
     for node, call_attrs, n_out, aux_var_names, ix, override in chunk:
         if node.op is None:
             env[id(node)] = (_bind_variable(node, args, aux),)
@@ -174,6 +291,8 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
         for name, arr in zip(aux_var_names, out[n_out:]):
             if name is not None:
                 aux_updates[name] = arr
+        if monitor is not None:
+            monitor(node, env[id(node)])
 
 
 class Executor(object):
@@ -181,12 +300,24 @@ class Executor(object):
 
     Arrays given as NDArrays on the executor's context are bound as they
     are (shared with the caller, as in the JAX package); anything else is
-    copied onto the context."""
+    copied onto the context.
+
+    ``group2ctx`` maps ``ctx_group`` attributes to contexts; a map that
+    places every node on the executor's own device binds a plain executor,
+    as in the JAX package, and one over several devices raises (it comes
+    with the multi-GPU slice).  ``shared_exec`` is taken and, as in the
+    JAX package, shares nothing.  With ``MXNET_BACKWARD_DO_MIRROR=1`` the
+    training forward runs as checkpointed segments
+    (:func:`mirror_segments_for`)."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
-                 aux_states=None):
+                 aux_states=None, group2ctx=None, shared_exec=None):
         self._symbol = symbol
         self._ctx = Context(ctx) if not isinstance(ctx, Context) else ctx
+        self._group2ctx = dict(group2ctx or {})
+        self._placement = _placement(symbol, self._group2ctx, self._ctx)
+        self._monitor_callback = None
+        self._monitor_all = False
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         self.arg_dict = _to_dict("args", args, arg_names, self._ctx)
@@ -201,7 +332,8 @@ class Executor(object):
         self._diff_names = tuple(
             n for n in arg_names
             if self.grad_req.get(n, "null") != "null" and n in self.grad_dict)
-        self._eval = _build_eval(symbol)
+        self._eval = _build_eval(symbol,
+                                 mirror_segments=mirror_segments_for(symbol))
         self._outputs = None      # list[NDArray]
         self._graph = None        # (outputs, leaves) of the last train forward
         self._grads = None        # name -> gradient tensor, once computed
@@ -210,7 +342,7 @@ class Executor(object):
     # -- construction helpers --------------------------------------------
     @staticmethod
     def _simple_bind(symbol, ctx, grad_req="write", type_dict=None,
-                     shapes=None):
+                     group2ctx=None, shared_exec=None, shapes=None):
         arg_shapes, _, aux_shapes = symbol.infer_shape(**(shapes or {}))
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
@@ -224,7 +356,8 @@ class Executor(object):
                  for name, shape in zip(arg_names, arg_shapes)
                  if req.get(name, "null") != "null"}
         return Executor(symbol, ctx, args, args_grad=grads, grad_req=grad_req,
-                        aux_states=aux)
+                        aux_states=aux, group2ctx=group2ctx,
+                        shared_exec=shared_exec)
 
     # -- dict/list views ---------------------------------------------------
     @property
@@ -254,6 +387,7 @@ class Executor(object):
         is bound as it is, anything else is written into the bound array,
         ``arg_dict[k][:] = v``).  ``is_train=True`` also applies the aux
         updates and keeps the graph for :meth:`backward`."""
+        self._check_open()
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward argument %r" % k)
@@ -265,32 +399,48 @@ class Executor(object):
         self._graph = None
         self._grads = None
         rng = self._last_rng = _random.next_seed()
+        taps = [] if self._monitor_callback is not None else None
+        monitor = None
+        if taps is not None:
+            def monitor(node, outs):
+                if len(outs) == 1:
+                    names = [node.name + "_output"]
+                else:
+                    names = ["%s_output%d" % (node.name, i)
+                             for i in range(len(outs))]
+                taps.extend(zip(names, outs))
+            if self._monitor_all:
+                taps.extend({**aux, **args}.items())
         if is_train and self._diff_names:
-            outs, leaves, auxu = self._train_forward(args, aux, rng)
+            outs, leaves, auxu = self._train_forward(args, aux, rng, monitor)
             self._graph = (outs, leaves)
         else:
             with torch.no_grad():
                 outs, auxu = self._eval(args, aux, is_train, rng,
-                                        self._ctx.torch_device)
+                                        self._ctx.torch_device,
+                                        monitor=monitor)
         self._set_outputs(outs)
         if is_train:
             self._apply_aux(auxu)
+        for name, arr in taps or ():
+            self._monitor_callback(
+                name, NDArray._from_torch(arr.detach(), self._ctx))
         return self._outputs
 
     def _set_outputs(self, outs):
         self._outputs = [NDArray._from_torch(o.detach(), self._ctx)
                          for o in outs]
 
-    def _train_forward(self, args, aux, rng):
+    def _train_forward(self, args, aux, rng, monitor=None):
         """The plan in train mode with the ``_diff_names`` arguments as
         the only leaves that require grad, drawing from seed ``rng``."""
         leaves = {k: args[k].detach().requires_grad_(True)
                   for k in self._diff_names}
-        merged = dict(args)
+        merged = {k: v.detach() for k, v in args.items()}
         merged.update(leaves)
         with torch.enable_grad():
             outs, auxu = self._eval(merged, aux, True, rng,
-                                    self._ctx.torch_device)
+                                    self._ctx.torch_device, monitor=monitor)
         return outs, leaves, auxu
 
     @staticmethod
@@ -332,7 +482,8 @@ class Executor(object):
 
     def _pad_out_grads(self, heads):
         """Match user heads to outputs the way the JAX package does
-        (:541-586): loss outputs (self-gradient ops) are skipped; the
+        (:541-586): loss outputs (self-gradient ops, ``need_top_grad=
+        False`` Customs included) are skipped; the
         given heads fill the remaining outputs in order; anything left
         unmatched gets zeros, silently."""
         n_out = len(self._symbol._outputs)
@@ -353,7 +504,15 @@ class Executor(object):
         for (node, _idx), (shape, dtype) in zip(self._symbol._outputs,
                                                 out_avals):
             op_name = getattr(node.op, "name", None) if node.op else None
-            if op_name in self._SELF_GRAD_OPS:
+            self_grad = op_name in self._SELF_GRAD_OPS
+            if op_name == "Custom":
+                # a need_top_grad=False Custom is a loss layer
+                from .operator import _prop_for
+                try:
+                    self_grad = not _prop_for(node.attrs).need_top_grad_
+                except MXNetError:      # unknown op_type
+                    self_grad = False
+            if self_grad:
                 full.append(torch.zeros(shape, dtype=dtype, device=device))
             else:
                 g = next(it, None)
@@ -374,6 +533,7 @@ class Executor(object):
         ``out_grads`` they are computed anew for those heads (re-running
         the train forward with the last forward's seed, without its aux
         update, when its graph was already used)."""
+        self._check_open()
         if not self._diff_names:
             return
         if out_grads is not None:
@@ -421,7 +581,67 @@ class Executor(object):
             self.forward()
         return self._outputs
 
+    # -- monitor taps (mx.mon.Monitor) ---------------------------------------
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Install a per-node output tap (reference
+        MXExecutorSetMonitorCallback; ``mxnet_tpu/executor.py:636-641``).
+        While one is installed, forwards interpret the plain, unfused plan
+        and call ``callback(name, NDArray)`` with each node's outputs as
+        ``<node>_output`` (``<node>_output<i>``), after the args and aux
+        states with ``monitor_all``.  A training forward keeps its graph
+        for ``backward`` as an untapped one does."""
+        self._monitor_callback = callback
+        self._monitor_all = monitor_all
+
+    # -- lifecycle ----------------------------------------------------------
+    def _check_open(self):
+        if self._eval is None:
+            raise MXNetError("this executor is closed")
+
+    def close(self):
+        """Free what this executor owns: its outputs, the graph of a
+        training forward not yet differentiated, the gradients it keeps
+        and its plan with the constants folded into it
+        (``mxnet_tpu/executor.py:759-804``).  The bound arg, grad and aux
+        arrays are the caller's (they may be shared with other executors
+        or be the caller's parameters): the executor only lets go of them.
+        An output that is one of those arrays' tensors is left alone.  The
+        executor is unusable afterwards; a second call does nothing."""
+        bound = {id(arr._data)
+                 for d in (self.arg_dict, self.aux_dict, self.grad_dict)
+                 for arr in d.values()}
+        for out in self._outputs or ():
+            if id(out._data) not in bound:
+                out._data = out._data.new_empty((0,))
+        self._outputs = None
+        self._graph = None
+        self._grads = None
+        self.arg_dict, self.aux_dict, self.grad_dict = {}, {}, {}
+        self._eval = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.close()
+        return False
+
     # -- misc ---------------------------------------------------------------
+    def debug_str(self):
+        """The bound graph as text (``mxnet_tpu/executor.py:713``): the
+        outputs, then each variable and op with its inputs."""
+        lines = ["Symbol Outputs:"]
+        for name in self._symbol.list_outputs():
+            lines.append("\toutput[%s]" % name)
+        for node in self._symbol._nodes():
+            if node.is_variable:
+                lines.append("Variable:%s" % node.name)
+            else:
+                ins = ", ".join(s.name for s, _ in node.inputs)
+                lines.append("Op:%s, Name=%s\n\tInputs:\n\t\t%s"
+                             % (node.op.name, node.name, ins))
+        return "\n".join(lines)
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
         for name, arr in arg_params.items():
@@ -464,7 +684,32 @@ class Executor(object):
                     new_grads[name] = nd_zeros(shape, ctx=self._ctx)
         return Executor(self._symbol, self._ctx, new_args,
                         args_grad=new_grads or None, grad_req=self.grad_req,
-                        aux_states=self.aux_dict)
+                        aux_states=self.aux_dict, group2ctx=self._group2ctx)
+
+
+def _placement(symbol, group2ctx, ctx):
+    """The device of each node under ``group2ctx`` when it spans more than
+    one: empty when every node lands on ``ctx``'s device (a plain
+    executor, as in the JAX package); several devices raise."""
+    if not group2ctx:
+        return {}
+
+    def device(c):      # the host is one device, whatever its id
+        c = c if isinstance(c, Context) else Context(c)
+        return "cpu" if c.device_type == "cpu" else str(c)
+    devices = {device(ctx)}
+    for node in symbol._nodes():
+        grp = node.attrs.get("ctx_group")
+        target = group2ctx.get(grp) if grp else None
+        if target is not None:
+            devices.add(device(target))
+    if len(devices) > 1:
+        raise MXNetError(
+            "group2ctx places nodes on %d devices (%s); model parallelism "
+            "over several devices is not ported yet (it comes with the "
+            "multi-GPU slice of mxnet_tpu_torch)"
+            % (len(devices), ", ".join(sorted(str(d) for d in devices))))
+    return {}
 
 
 def _as_bound(v, ctx):

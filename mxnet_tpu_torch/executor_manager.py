@@ -73,9 +73,7 @@ class DataParallelExecutorManager(object):
             param_names, for_training=True, inputs_need_grad=False)
 
     def install_monitor(self, monitor):
-        raise MXNetError("DataParallelExecutorManager.install_monitor "
-                         "(Monitor taps) is not ported yet (it comes with "
-                         "the monitor slice of mxnet_tpu_torch)")
+        self.execgrp.install_monitor(monitor)
 
     def set_params(self, arg_params, aux_params):
         self.execgrp.set_params(arg_params, aux_params)

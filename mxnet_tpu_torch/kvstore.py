@@ -98,6 +98,22 @@ class KVStore(object):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
 
+    def barrier(self):
+        """A no-op in one process (reference KVStore::Barrier)."""
+
+    _barrier = barrier
+
+    def get_num_dead_node(self, node_id=-1, timeout=60):
+        """0: a store in one process has no other node to lose (reference
+        kvstore_dist.h:158-167)."""
+        return 0
+
+    @property
+    def is_recovery(self):
+        """False: a store in one process never rejoins a running cluster
+        (reference ps::Postoffice::is_recovery)."""
+        return False
+
     def get_optimizer_states(self):
         if self._updater is None:
             raise MXNetError("updater is not set")

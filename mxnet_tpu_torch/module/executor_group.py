@@ -36,7 +36,7 @@ class DataParallelExecutorGroup(object):
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
-                 grad_req="write"):
+                 grad_req="write", state_names=None):
         if len(contexts) != 1:
             raise MXNetError(
                 "DataParallelExecutorGroup over %d contexts is not ported "
@@ -49,6 +49,9 @@ class DataParallelExecutorGroup(object):
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.fixed_param_names = set(fixed_param_names or [])
+        # taken as the JAX package takes them; states are bound like any
+        # other input
+        self.state_names = list(state_names or [])
         self.logger = logger
 
         self.arg_names = symbol.list_arguments()
@@ -101,7 +104,11 @@ class DataParallelExecutorGroup(object):
                                                  self.workload)
         return major_axis
 
-    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None,
+                  reshape=False):
+        """Bind the executors for these shapes; ``reshape`` is taken as the
+        JAX package takes it (every bind here allocates fresh inputs and
+        shares the parameter cells of ``shared_group``)."""
         data_shapes = _as_data_desc(data_shapes)
         label_shapes = _as_data_desc(label_shapes)
         self.batch_size = None
@@ -305,6 +312,11 @@ class DataParallelExecutorGroup(object):
             return [x[0] if len(x) == 1 else concatenate(x, axis=0)
                     for x in self.input_grad_arrays]
         return self.input_grad_arrays
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on every executor of the group."""
+        for e in self.execs:
+            mon.install(e)
 
     def update_metric(self, eval_metric, labels):
         for i, e in enumerate(self.execs):

@@ -105,6 +105,7 @@ class Module(BaseModule):
         self._fused_key = None
         self._fused_outputs = None
         self._fused_outputs_from_update = False
+        self._monitor_installed = False
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -316,6 +317,7 @@ class Module(BaseModule):
         self._fused_key = None
         self._fused_outputs = None
         self._fused_outputs_from_update = False
+        self._monitor_installed = False
 
     def reshape(self, data_shapes, label_shapes=None):
         """Re-bind for new input shapes keeping parameters and optimizer
@@ -430,6 +432,8 @@ class Module(BaseModule):
             reasons.append("inputs_need_grad")
         if self._fixed_param_names:
             reasons.append("fixed_param_names")
+        if self._monitor_installed:
+            reasons.append("an installed Monitor (needs per-op taps)")
         if any(self._exec_group.grad_req.get(n) not in (None, "null", "write")
                for n in self._param_names):
             reasons.append("grad_req != 'write'")
@@ -606,4 +610,15 @@ class Module(BaseModule):
             self.set_optimizer_states(f.read())
 
     def install_monitor(self, mon):
-        _later("install_monitor (Monitor taps)", "monitor")
+        """Install a Monitor on the executor group's executors.  The fused
+        ``kvstore='tpu'`` route has no per-op taps: install the monitor
+        before ``init_optimizer`` (``fit`` does), and the Module then keeps
+        the executor-group route, as in the JAX package
+        (``mxnet_tpu/module/module.py:706-713``)."""
+        assert self.binded
+        if self._fused is not None:
+            raise MXNetError(
+                "Monitor taps need per-op execution; install the monitor "
+                "before init_optimizer or use a non-tpu kvstore")
+        self._monitor_installed = True
+        self._exec_group.install_monitor(mon)

@@ -53,6 +53,18 @@ _DTYPE_TO_FLAG = {
 _FLAG_TO_DTYPE = {v: k for k, v in _DTYPE_TO_FLAG.items()}
 
 
+# the autograd recording state (set by ``autograd``): while
+# ``_RECORDING[0]`` is true, imperative ops run with torch's grad mode on,
+# so torch's own graph is the tape, and writes into an array
+# (``__setitem__``, ``copyto``) swap in a new tensor instead of writing into
+# one that the graph may have saved (the JAX package's ``_record_mutation``,
+# ``mxnet_tpu/ndarray.py:65-86``).  ``_TRAIN_MODE[0]`` is the imperative
+# ``is_train`` default inside a train (True) or test (False) section, None
+# outside one (the op's own default).
+_RECORDING = [False]
+_TRAIN_MODE = [None]
+
+
 def tensor_from_numpy(arr):
     """A CPU tensor holding a copy of a numpy array.  bfloat16 arrays (the
     ``ml_dtypes`` type the JAX package's ``asnumpy`` returns) carry over
@@ -170,7 +182,11 @@ class NDArray(object):
     def copyto(self, other):
         """Copy into another NDArray or to a Context."""
         if isinstance(other, NDArray):
-            other._data.copy_(self._data)
+            if _RECORDING[0]:
+                other._data = self._data.to(other._data.device,
+                                            other._data.dtype, copy=True)
+            else:
+                _writable(other).copy_(self._data)
             return other
         if isinstance(other, Context):
             return NDArray(self._data, ctx=other)
@@ -234,16 +250,24 @@ class NDArray(object):
 
     def __setitem__(self, key, value):
         """``a[:] = v`` writes ``v`` (array, tensor or scalar) into this
-        array's storage, broadcasting and casting to its dtype."""
+        array's storage, broadcasting and casting to its dtype.  While
+        autograd records, the write goes into a copy that replaces this
+        array's tensor, so the gradient flows through it and no tensor the
+        graph saved changes."""
         key = self._key(key)
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, torch.Tensor):
-            if np.isscalar(value):
-                self._data[key] = value
-                return
-            value = tensor_from_numpy(value)
-        self._data[key] = value.to(self._data.device, self._data.dtype)
+            if not np.isscalar(value):
+                value = tensor_from_numpy(value)
+        if isinstance(value, torch.Tensor):
+            value = value.to(self._data.device, self._data.dtype)
+        if _RECORDING[0]:
+            data = self._data.clone()
+            data[key] = value
+            self._data = data
+            return
+        _writable(self)[key] = value
 
     def __len__(self):
         return self.shape[0]
@@ -358,9 +382,8 @@ class NDArray(object):
         return id(self)
 
     # in-place: a handle swap — the NDArray is the mutable cell, so an
-    # executor or optimizer that holds this NDArray reads the new tensor.
-    # Nothing is recorded for autograd (the reference's _record_mutation,
-    # mxnet_tpu/ndarray.py:51-86) until autograd.py is ported.
+    # executor or optimizer that holds this NDArray reads the new tensor;
+    # while autograd records, the new tensor carries the graph
     def _inplace(self, other, op_name, scalar_op):
         res = self._binary(other, op_name, scalar_op)
         if res is NotImplemented:
@@ -381,6 +404,15 @@ class NDArray(object):
         return self._inplace(o, "broadcast_div", "_div_scalar")
 
     __itruediv__ = __idiv__
+
+
+def _writable(arr):
+    """``arr``'s tensor, ready for an in-place write outside recording: a
+    tensor left requiring grad by an autograd section is detached first
+    (the same storage, so views of it still see the write)."""
+    if arr._data.requires_grad:
+        arr._data = arr._data.detach()
+    return arr._data
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +555,15 @@ def _invoke(opdef, nd_inputs, attrs, is_train=False, ctx=None):
         attrs["is_train"] = bool(is_train)
     if opdef.needs_rng:
         attrs["rng"] = _random.generator(device)
-    out = opdef.fn(*arrays, **attrs)
+    recording = _RECORDING[0]
+    if recording != torch.is_grad_enabled() and \
+            (recording or any(a.requires_grad for a in arrays)):
+        # torch's graph is the tape: on while recording, and off outside
+        # a section for inputs a section left requiring grad
+        with torch.set_grad_enabled(recording):
+            out = opdef.fn(*arrays, **attrs)
+    else:
+        out = opdef.fn(*arrays, **attrs)
     if not isinstance(out, (tuple, list)):
         out = (out,)
     return [NDArray._from_torch(o, ctx) for o in out[:n_out]]
@@ -539,7 +579,8 @@ def _positional_params(fn):
 def _make_ndarray_function(opdef, func_name):
     """``mx.nd.<func_name>``: NDArray inputs positionally or by input name,
     attributes as keywords, plus ``out=`` (write the results into these
-    arrays), ``ctx=`` and ``is_train=`` (default: whether the op declares
+    arrays), ``ctx=`` and ``is_train=`` (default: True in an autograd
+    train section, False in a test section, else whether the op declares
     it needs one, as in the JAX package).  A bare number given
     positionally to an op without tensor inputs is its ``scalar``; to an
     op with inputs, it is the op function's parameter at that place
@@ -552,7 +593,9 @@ def _make_ndarray_function(opdef, func_name):
         ctx = kwargs.pop("ctx", None)
         if ctx is not None and not isinstance(ctx, Context):
             ctx = Context(ctx)
-        is_train = kwargs.pop("is_train", bool(opdef.needs_is_train))
+        mode = _TRAIN_MODE[0]
+        is_train = kwargs.pop("is_train", bool(opdef.needs_is_train)
+                              if mode is None else mode)
         host = ctx
         if host is None:
             host = next((a.context for a in list(args) +

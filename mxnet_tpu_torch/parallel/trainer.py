@@ -16,9 +16,11 @@ applied-update count.  The JAX package compiles the step into one XLA
 program that updates in place; here the step runs eagerly and makes new
 parameter tensors each step.
 
-Arguments that belong to later slices of the port (a mesh, zero/zero3
-gradient sync, a sharding plan, remat, parameter shardings, deferred
-metrics, the watchdog, fault injection) raise :class:`MXNetError`.
+``remat=True`` (or ``MXNET_BACKWARD_DO_MIRROR=1``) runs the step's
+forward as checkpointed segments that the backward recomputes.  Arguments
+that belong to later slices of the port (a mesh, zero/zero3 gradient
+sync, a sharding plan, parameter shardings, deferred metrics, the
+watchdog, fault injection) raise :class:`MXNetError`.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from .. import random as _random
 from ..base import (ENV_MAX_BAD_STEPS, ENV_STEP_GUARD, MXNetError, get_env,
                     register_env)
 from ..context import Context, cpu, current_context
-from ..executor import _build_eval
+from ..executor import (ENV_BACKWARD_DO_MIRROR, _build_eval,
+                        mirror_segments_for)
 from ..io import DataDesc
 from ..ndarray import NDArray, tensor_from_numpy, zeros as nd_zeros
 from ..ops import tensor as T
@@ -52,9 +55,6 @@ ENV_GRAD_SYNC = register_env(
     "MXNET_GRAD_SYNC", default="allreduce",
     doc="Gradient sync of the fused step: allreduce on one device here; "
         "zero/zero3 come with the multi-GPU slice")
-ENV_BACKWARD_DO_MIRROR = register_env(
-    "MXNET_BACKWARD_DO_MIRROR", default=0,
-    doc="1 = memory mirror (remat) mode; comes with a later slice")
 ENV_FAULTS = register_env(
     "MXTPU_FAULTS", default="",
     doc="Fault-injection points; come with the resilience slice")
@@ -91,8 +91,7 @@ class SPMDTrainer(object):
             _later("param_shardings", "multi-GPU")
         if remat is None:
             remat = str(get_env(ENV_BACKWARD_DO_MIRROR, "0")) == "1"
-        if remat:
-            _later("remat / MXNET_BACKWARD_DO_MIRROR", "memory (remat)")
+        self.remat = bool(remat)
         if str(get_env(ENV_FAULTS, "")).strip():
             _later("fault injection (MXTPU_FAULTS)", "resilience")
         self.symbol = symbol
@@ -114,7 +113,11 @@ class SPMDTrainer(object):
                 "SPMDTrainer: in-step rule for optimizer %r not implemented "
                 "(sgd/adam/rmsprop supported)" % kind)
         self.optimizer = optimizer
-        self._eval = _build_eval(symbol)
+        # remat: the step's forward as checkpointed segments, recomputed
+        # by the backward (the memory mirror mode)
+        self._eval = _build_eval(
+            symbol,
+            mirror_segments=mirror_segments_for(symbol, force=self.remat))
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
 

@@ -371,18 +371,22 @@ class Symbol(object):
             f.write(self.tojson())
 
     # -- binding ----------------------------------------------------------
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
         """Bind with every argument, gradient and aux state allocated
-        (zeros) from the shapes in ``kwargs``."""
+        (zeros) from the shapes in ``kwargs``; ``group2ctx`` and
+        ``shared_exec`` as :class:`Executor` takes them."""
         from .executor import Executor
         return Executor._simple_bind(self, ctx, grad_req=grad_req,
-                                     type_dict=type_dict, shapes=kwargs)
+                                     type_dict=type_dict, group2ctx=group2ctx,
+                                     shared_exec=shared_exec, shapes=kwargs)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         from .executor import Executor
         return Executor(self, ctx, args, args_grad=args_grad,
-                        grad_req=grad_req, aux_states=aux_states)
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
 
     def grad(self, wrt):
         """Not available, as in the JAX package (:390-392): bind and call

@@ -2,9 +2,11 @@
 line of ``chip_smoke.py`` imports JAX or the JAX package, the port
 imports, builds a model and takes an ``SPMDTrainer`` step of a ResNet and
 of the LSTM language model, a ``make_step`` step of the long-context LM
-(flash route), a ``Module.fit`` through an rtc op on both Module routes
-and one FGSM step in NDArray arithmetic on the CPU with JAX made
-unimportable, and the chip smoke test refuses to run without CUDA."""
+(flash route), a ``Module.fit`` through an rtc op on both Module routes,
+one FGSM step in NDArray arithmetic, and the extension surface
+(autograd, a CustomOp, a Monitor, the torch bridge, the mirror mode) on
+the CPU with JAX made unimportable, and the chip smoke test refuses to
+run without CUDA."""
 import ast
 import os
 import subprocess
@@ -206,6 +208,74 @@ def test_bucketing_stack_runs_with_jax_unimportable():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.startswith("ok")
+
+
+def test_extension_surface_runs_with_jax_unimportable():
+    """The extension slice's modules (``autograd``, ``operator``,
+    ``monitor``, ``torch_bridge``) and the mirror mode import and run with
+    JAX made unimportable: a gradient through ``contrib.autograd``, a
+    CustomOp trained in a Module fit under a Monitor, a TorchModule node,
+    ``mx.th``, a mirrored executor step and ``Executor.close``."""
+    code = (
+        "import sys, os\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np, torch\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch import autograd, operator, monitor, "
+        "torch_bridge\n"
+        "from mxnet_tpu_torch.contrib import autograd as cag\n"
+        "with mx.cpu():\n"
+        "    g = cag.grad(lambda v: mx.nd.sum(v * v))(mx.nd.ones((3,)))[0]\n"
+        "    assert g.asnumpy().tolist() == [2.0, 2.0, 2.0]\n"
+        "    class Half(mx.operator.CustomOp):\n"
+        "        def forward(self, is_train, req, in_data, out_data, aux):\n"
+        "            self.assign(out_data[0], req[0], in_data[0] * 0.5)\n"
+        "        def backward(self, req, out_grad, in_data, out_data, "
+        "in_grad, aux):\n"
+        "            self.assign(in_grad[0], req[0], out_grad[0] * 0.5)\n"
+        "    @mx.operator.register('iso_half')\n"
+        "    class HalfProp(mx.operator.CustomOpProp):\n"
+        "        def create_operator(self, ctx, shapes, dtypes):\n"
+        "            return Half()\n"
+        "    net = mx.sym.Custom(mx.sym.Variable('data'), op_type='iso_half')\n"
+        "    net = mx.torch_bridge.TorchModule(torch.nn.Linear(4, 3), net, "
+        "name='tl')\n"
+        "    net = mx.sym.SoftmaxOutput(net, name='softmax')\n"
+        "    rs = np.random.RandomState(0)\n"
+        "    X = rs.randn(16, 4).astype('f')\n"
+        "    Y = rs.randint(0, 3, 16).astype('f')\n"
+        "    mon = mx.mon.Monitor(1, pattern='.*output')\n"
+        "    m = mx.mod.Module(net, context=mx.cpu())\n"
+        "    m.fit(mx.io.NDArrayIter(X, Y, batch_size=8), num_epoch=1, "
+        "monitor=mon, initializer=mx.initializer.Xavier())\n"
+        "    assert mon.step == 2 and operator.HOST_COUNTS['forward'] == 2\n"
+        "    assert mx.th.add(mx.nd.ones((2,)), 1).asnumpy().tolist() == "
+        "[2.0, 2.0]\n"
+        "    os.environ['MXNET_BACKWARD_DO_MIRROR'] = '1'\n"
+        "    s = mx.models.get_symbol('resnet', num_layers=8, num_classes=4,"
+        " image_shape=(3, 8, 8))\n"
+        "    with s.simple_bind(mx.cpu(), data=(2, 3, 8, 8)) as ex:\n"
+        "        assert ex._eval.segments\n"
+        "        ex.forward(is_train=True)\n"
+        "        ex.backward()\n"
+        "    assert ex._eval is None\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.splitlines()[-1] == "ok"      # after the monitor rows
+
+
+def test_new_modules_are_covered():
+    """The extension slice's modules are among the sources the import
+    check walks."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("autograd", "operator", "monitor", "torch_bridge",
+                "contrib/autograd"):
+        assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -368,8 +368,8 @@ def test_module_reshape_keeps_params():
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """Several contexts, dist stores, the monitor, the resilience options
-    and their knobs raise, naming the slice that brings them."""
+    """Several contexts, dist stores, the resilience options and their
+    knobs raise, naming the slice that brings them."""
     net = mlp_sym(nh=8)
     X, y = make_blobs(64, 6, 3)
     it = tmx.io.NDArrayIter(X, y, batch_size=32)
@@ -386,8 +386,6 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     with pytest.raises(tmx.MXNetError, match="MXTPU_RESUME"):
         _module(net).fit(it, num_epoch=1)
     monkeypatch.delenv("MXTPU_RESUME")
-    with pytest.raises(tmx.MXNetError, match="monitor"):
-        _module(net).fit(it, num_epoch=1, monitor=object())
     with pytest.raises(tmx.MXNetError, match="resilience"):
         tmx.callback.PreemptionCheckpoint(None, None)
 
