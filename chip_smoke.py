@@ -195,7 +195,28 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     a batch-4 step mirror on against off within 1e-6 relative L2, and an
     executor's ``close`` (card memory back to its level before the bind,
     the caller's arrays readable);
-23. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+23. runs the input pipeline (``input_paths``): probes the host (libjpeg,
+    cv2, PIL, ``nvjpeg.h``, g++, cores) and builds the native library
+    (and, without libjpeg, the nvJPEG decoder); writes a seeded JPEG
+    ``.rec``/``.idx`` at ImageNet's layout (640 images, short side 256)
+    and a detection ``.rec``; times each ``ImageRecordIter`` route's
+    decode into ``gpu(0)`` (native at 1, 4 and all cores in float32,
+    uint8 and bfloat16 with the fast DCT on and off, the process route
+    at the example's arguments, the engine route with an ``aug_list``)
+    and the batch's upload (pageable ``.to()``, pinned on the side
+    stream, ``stage_batch``); trains Inception-BN through
+    ``Module.fit(kvstore='tpu')`` fed by the example's train iterator
+    (process route), the same without ``pad`` (native route), that
+    through ``DevicePrefetchIter(stage=module)`` and the same batches in
+    an ``NDArrayIter``, in turns (48 + 48 ``bn_act`` launches a step, ms
+    a batch, idle share); scores ResNet-50 through ``Module.score`` from
+    the val iterator (img/s, host-to-device copy share); and holds each
+    route's batches on the card against the CPU path's (the nvJPEG
+    backend against the committed fixture of libjpeg's decode), a staged
+    batch against its bytes, an Inception-BN batch-4 step fed a
+    ``StagedBatch`` against host arrays (bit for bit), the image I/O ops
+    and ``ImageDetRecordIter`` against the CPU;
+24. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -6163,6 +6184,712 @@ def extension_paths(torch, mx, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the input pipeline: seeded JPEG .rec files, the decode routes, the upload,
+# Inception-BN training and ResNet-50 scoring fed from a .rec
+# ---------------------------------------------------------------------------
+
+def seeded_image(rs, h, w, noise=8.0, cells=6):
+    """An (h, w, 3) uint8 image: a smooth random field (bilinear over a
+    ``cells`` x ``cells`` grid of random colors) plus Gaussian noise, so a
+    JPEG of it weighs about what a photo of its size does."""
+    import numpy as np
+    grid = rs.rand(cells + 1, cells + 1, 3) * 255.0
+    y = np.linspace(0, cells, h)
+    x = np.linspace(0, cells, w)
+    y0 = np.minimum(y.astype(int), cells - 1)
+    x0 = np.minimum(x.astype(int), cells - 1)
+    fy = (y - y0)[:, None, None]
+    fx = (x - x0)[None, :, None]
+    img = (grid[y0][:, x0] * (1 - fy) * (1 - fx)
+           + grid[y0 + 1][:, x0] * fy * (1 - fx)
+           + grid[y0][:, x0 + 1] * (1 - fy) * fx
+           + grid[y0 + 1][:, x0 + 1] * fy * fx)
+    img += rs.normal(0.0, noise, img.shape)
+    return np.clip(img + 0.5, 0, 255).astype(np.uint8)
+
+
+def detection_label(rs, classes=20):
+    """A flat detection label ``[2, 5, (id, x1, y1, x2, y2) * k]``, k in
+    1..3, coordinates normalized to [0, 1]."""
+    import numpy as np
+    k = rs.randint(1, 4)
+    boxes = []
+    for _ in range(k):
+        x1, y1 = rs.uniform(0.0, 0.6, 2)
+        x2, y2 = x1 + rs.uniform(0.2, 0.4), y1 + rs.uniform(0.2, 0.4)
+        boxes.append([rs.randint(0, classes), x1, y1, x2, y2])
+    return np.concatenate([[2.0, 5.0], np.asarray(boxes).reshape(-1)]
+                          ).astype(np.float32)
+
+
+def write_seeded_rec(recordio, prefix, n, short, seed, classes=1000,
+                     det=False, quality=90, long_range=(3.0 / 4, 4.0 / 3)):
+    """``prefix.rec`` / ``prefix.idx`` of ``n`` seeded JPEGs (``recordio``
+    is either package's module) at ImageNet's layout: short side
+    ``short``, aspect ratios in ``long_range``, labels from ``classes``
+    classes (``det``: detection labels).  Returns the mean JPEG bytes."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    total = 0
+    try:
+        for i in range(n):
+            ratio = rs.uniform(*long_range)
+            h, w = (short, int(short * ratio)) if ratio >= 1 else \
+                (int(short / ratio), short)
+            img = seeded_image(rs, h, w)
+            label = detection_label(rs) if det else \
+                float(rs.randint(0, classes))
+            payload = recordio.pack_img((0, label, i, 0), img,
+                                        quality=quality)
+            total += len(payload)
+            rec.write_idx(i, payload)
+    finally:
+        rec.close()
+    return total / float(n)
+
+
+IN_IMAGES = 640         # seeded JPEGs of the training .rec (20 batches of 32)
+IN_SHORT = 256          # their short side: ImageNet's resized layout
+IN_DET_IMAGES = 64      # seeded JPEGs of the detection .rec
+IN_DET_SHAPE = (3, 300, 300)   # example/ssd's input
+#: example/image-classification/common/data.py: --rgb-mean, --data-nthreads
+IN_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
+IN_THREADS = 4
+IN_WARM = 2             # fit batches before the measured window
+IN_FIT_BATCHES = 10     # measured batches of each feed in each turn
+IN_PROFILE_BATCHES = 4  # batches of each feed's traced window
+IN_RATE_BATCHES = 8     # batches a decode-rate run reads after one warm-up
+IN_UPLOAD_REPS = 20
+IN_SCORE_BATCHES = 8
+IN_SEED = 90
+#: nvJPEG against the JAX package's exact libjpeg decode (another IDCT and
+#: chroma upsampling): mean and largest absolute difference in levels
+NVJPEG_MEAN_ABS = 2.0
+NVJPEG_MAX_ABS = 32
+
+
+def in_train_iter(mx, rec, seed, pad=True, ctx=None, **kw):
+    """The example's train iterator (common/data.py:get_rec_iter) over
+    ``rec``: ``pad=0`` as the example always passes it (the process
+    route), or without ``pad`` (the native route)."""
+    args = dict(path_imgrec=rec + ".rec", label_width=1, data_name="data",
+                label_name="softmax_label", data_shape=IMAGE,
+                batch_size=BATCH, rand_crop=True, max_random_scale=1.0,
+                min_random_scale=1.0, rand_mirror=True,
+                preprocess_threads=IN_THREADS, shuffle=True, seed=seed,
+                ctx=ctx, **IN_MEAN)
+    if pad:
+        args["pad"] = 0
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def in_val_iter(mx, rec, seed, ctx=None, **kw):
+    """The example's val iterator: center crop, no mirror (native)."""
+    args = dict(path_imgrec=rec + ".rec", label_width=1, data_name="data",
+                label_name="softmax_label", data_shape=IMAGE,
+                batch_size=BATCH, rand_crop=False, rand_mirror=False,
+                preprocess_threads=IN_THREADS, seed=seed, ctx=ctx, **IN_MEAN)
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def phase_input_probe(torch, mx):
+    """What the card's host offers the input pipeline; builds the native
+    library (and, without libjpeg, the nvJPEG decoder)."""
+    import ctypes.util
+    import glob
+    heads = [p for p in ["/usr/include/jpeglib.h"]
+             + glob.glob("/usr/include/*/jpeglib.h") if os.path.exists(p)]
+    log("probe: jpeglib.h %s" % (", ".join(heads) or "missing"))
+    log("probe: libjpeg.so %s" % (ctypes.util.find_library("jpeg")
+                                   or "missing"))
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            m = __import__(name)
+            found[name] = True
+            log("probe: %s %s" % (name, m.__version__))
+        except ImportError:
+            found[name] = False
+            log("probe: %s missing" % name)
+    nvh = os.path.join(mx.native.cuda_home(), "include", "nvjpeg.h")
+    log("probe: nvjpeg.h %s" % (nvh if os.path.exists(nvh) else "missing"))
+    gxx = shutil.which("g++")
+    ver = subprocess.run([gxx, "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0] if gxx else ""
+    log("probe: g++ %s (%s)" % (gxx or "missing", ver))
+    log("probe: os.cpu_count() %d, cores this process may use %d" % (
+        os.cpu_count(), len(os.sched_getaffinity(0))))
+    secs = mx.native.build()
+    lib = mx.native.get_lib()
+    log("probe: native library %s built in %.2f s; libjpeg pipeline %s" % (
+        os.path.basename(mx.native.library_path()), secs,
+        "yes" if lib._has_imagedec else "no"))
+    found["libjpeg"] = bool(lib._has_imagedec)
+    if not lib._has_imagedec:
+        err = (mx.native.JPEG_BUILD_ERROR or "").strip().splitlines()
+        log("probe: the libjpeg build failed (%s): the native route cannot "
+            "decode with libjpeg on this host; it decodes on the card with "
+            "nvJPEG" % (err[0] if err else "?"))
+        t0 = time.perf_counter()
+        mx.native.nvjpeg_lib()
+        log("probe: nvJPEG decoder library built in %.2f s" % (
+            time.perf_counter() - t0))
+    return found
+
+
+def phase_input_recs(mx, tmp, seed):
+    """The seeded training .rec/.idx and the detection .rec."""
+    train = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    mean = write_seeded_rec(mx.recordio, train, IN_IMAGES, IN_SHORT, seed)
+    log("input: train.rec: %d JPEGs (quality 90), short side %d, aspect "
+        "3:4 to 4:3, labels from 1000 classes: %.0f bytes a JPEG on "
+        "average, %.1f MB, written in %.1f s" % (
+            IN_IMAGES, IN_SHORT, mean, os.path.getsize(train + ".rec")
+            / 1e6, time.perf_counter() - t0))
+    det = os.path.join(tmp, "det")
+    mean = write_seeded_rec(mx.recordio, det, IN_DET_IMAGES, IN_SHORT,
+                            seed + 1, det=True)
+    log("input: det.rec: %d JPEGs with 1-3 boxes each, %.0f bytes a JPEG" % (
+        IN_DET_IMAGES, mean))
+    return train, det
+
+
+def _rate(torch, it, batches=IN_RATE_BATCHES):
+    """img/s of ``batches`` batches after one warm-up batch."""
+    it.next()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(batches):
+        b = it.next()
+        n += BATCH - b.pad
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def phase_decode_rates(torch, mx, train, seed, card):
+    """Decode rate of each ImageRecordIter route into gpu(0), in img/s."""
+    dev = mx.gpu(0)
+    cores = os.cpu_count()
+    old = os.environ.get("MXNET_JPEG_DECODE_FAST")
+    try:
+        for threads in sorted({1, IN_THREADS, cores}):
+            for dtype in ("float32", "uint8", "bfloat16"):
+                for fast in ("1", "0"):
+                    os.environ["MXNET_JPEG_DECODE_FAST"] = fast
+                    it = in_train_iter(mx, train, seed, pad=False, ctx=dev,
+                                       preprocess_threads=threads,
+                                       dtype=dtype)
+                    check(it.route == "native", "decode rate: route %s"
+                          % it.route)
+                    rate = _rate(torch, it)
+                    backend = it._pipeline.backend
+                    it.close()
+                    log("input decode: native route (%s) preprocess_threads"
+                        " %d, %s, fast DCT %s: %.0f img/s on %s" % (
+                            backend, threads, dtype,
+                            "on" if fast == "1" else "off", rate, card))
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_JPEG_DECODE_FAST", None)
+        else:
+            os.environ["MXNET_JPEG_DECODE_FAST"] = old
+    t0 = time.perf_counter()
+    it = in_train_iter(mx, train, seed, ctx=dev)
+    check(it.route == "process", "the example's train iterator took the %s "
+          "route" % it.route)
+    rate = _rate(torch, it)
+    log("input decode: process route at the example's arguments (%d "
+        "workers, pad=0): %.0f img/s (%.1f s with the workers' start) on %s"
+        % (IN_THREADS, rate, time.perf_counter() - t0, card))
+    it.close()
+    augs = [mx.image.RandomCropAug((IMAGE[2], IMAGE[1])),
+            mx.image.HorizontalFlipAug(0.5), mx.image.CastAug(),
+            mx.image.ColorNormalizeAug(
+                [IN_MEAN["mean_r"], IN_MEAN["mean_g"], IN_MEAN["mean_b"]],
+                None)]
+    it = in_train_iter(mx, train, seed, pad=False, ctx=dev, aug_list=augs)
+    check(it.route == "engine", "aug_list took the %s route" % it.route)
+    rate = _rate(torch, it, IN_RATE_BATCHES // 2)
+    log("input decode: engine route with an aug_list (%d workers): %.0f "
+        "img/s on %s" % (IN_THREADS, rate, card))
+    it.close()
+
+
+def phase_upload_rates(torch, mx, tr, card):
+    """The (32, 3, 224, 224) batch to the card in float32, uint8 and
+    bfloat16: pageable ``.to()``, a pinned ``non_blocking`` copy on the
+    side stream (``dataflow.Uploader``) and ``SPMDTrainer.stage_batch``
+    from a pageable host tensor (its pinned staging included)."""
+    dev = mx.gpu(0).torch_device
+    label = torch.zeros(BATCH)
+    up = mx.dataflow.Uploader(dev)
+    rows = {}
+    for dtype in (torch.float32, torch.uint8, torch.bfloat16):
+        host = (torch.rand((BATCH,) + IMAGE) * 255).to(dtype)
+        pinned = host.pin_memory()
+        nbytes = host.numel() * host.element_size()
+
+        def pageable():
+            host.to(dev)
+            torch.cuda.synchronize()
+
+        def side():
+            _, event = up.upload([pinned])
+            event.synchronize()
+
+        def staged():
+            sb = tr.stage_batch(host, label)
+            sb.event.synchronize()
+
+        for how, fn in (("pageable .to()", pageable),
+                        ("pinned non_blocking side stream", side),
+                        ("stage_batch", staged)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(IN_UPLOAD_REPS):
+                fn()
+            ms = (time.perf_counter() - t0) * 1e3 / IN_UPLOAD_REPS
+            rows[(str(dtype).split(".")[-1], how)] = ms
+            log("input upload: %s %.1f MB by %s: %.3f ms, %.2f GB/s on %s"
+                % (str(dtype).split(".")[-1], nbytes / 1e6, how, ms,
+                   nbytes / ms / 1e6, card))
+        sb = tr.stage_batch(host, label)
+        mx.dataflow.wait(list(sb.values()), sb.event)
+        check(torch.equal(sb["data"].cpu(), host),
+              "a staged %s batch differs from its host bytes" % dtype)
+    return rows
+
+
+def _in_module(torch, mx, seed):
+    """Inception-BN in a Module on gpu(0) with a fused trainer
+    (kvstore='tpu'), bench.py's ResNet sgd settings."""
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+        "rescale_grad": 1.0 / BATCH})
+    check(mod._fused is not None, "inception-bn Module took no fused route")
+    return net, mod
+
+
+def _in_fit(torch, mx, mod, feed, batches, window, prof=None):
+    """One epoch of ``Module.fit(kvstore='tpu')`` over ``batches`` batches
+    of ``feed``; the host clock (and ``prof``, when given) over the
+    ``window`` batches after IN_WARM.  Returns (ms a batch, counts)."""
+    ba = mx.kernels.bn_act
+    stamps = {}
+
+    def on_batch(param):
+        if param.nbatch in (IN_WARM - 1, IN_WARM - 1 + window):
+            torch.cuda.synchronize()
+            stamps[param.nbatch] = time.perf_counter()
+            if prof is not None:
+                (prof.start if param.nbatch == IN_WARM - 1
+                 else prof.stop)()
+
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    ba.BWD_LAUNCHES = 0
+    mod.fit(mx.io.ResizeIter(feed, batches), kvstore="tpu", optimizer="sgd",
+            batch_end_callback=on_batch, num_epoch=1)
+    torch.cuda.synchronize()
+    counts = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+    # ----------------------------------------------------------------------
+    ms = (stamps[IN_WARM - 1 + window] - stamps[IN_WARM - 1]) * 1e3 / window
+    return ms, counts
+
+
+def _htod_us(path):
+    """Host-to-device copy time in a chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(float(e.get("dur", 0)) for e in events
+               if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+
+
+def _traced(torch, run):
+    """(busy ms, HtoD copy ms, kernels) of ``run(prof)``, which starts and
+    stops the profiler it is given."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="in-trace-", suffix=".json",
+                                dir=build_dir)
+    os.close(fd)
+    try:
+        prof = _profiler(torch)
+        out = run(prof)
+        prof.export_chrome_trace(path)
+        busy_us, _, n_kernels, _, _ = _trace_classes(path, None)
+        htod = _htod_us(path)
+    finally:
+        os.remove(path)
+    return out, busy_us / 1e3, htod / 1e3, n_kernels
+
+
+def phase_ibn_feeds(torch, mx, train, seed, card):
+    """Inception-BN trained through Module.fit(kvstore='tpu') at batch 32,
+    fed four ways in turns: (a) the example's train iterator (process
+    route), (b) the same without pad (native route), (c) (b) through
+    DevicePrefetchIter(stage=module), (d) the same decoded batches in an
+    NDArrayIter.  ms a batch, idle share and bn_act launches a step."""
+    import numpy as np
+    net, mod = _in_module(torch, mx, seed + 1)
+    per = zoo_report(mx, net, (BATCH,) + IMAGE)["bn_act_calls_train"]
+    batches = IN_WARM + IN_FIT_BATCHES
+    dev = mx.gpu(0)
+    src = in_train_iter(mx, train, seed, pad=False, ctx=dev)
+    held = [src.next() for _ in range(batches)]
+    src.close()
+    X = np.concatenate([b.data[0].asnumpy() for b in held])
+    Y = np.concatenate([b.label[0].asnumpy() for b in held])
+    del held
+
+    def feed(which):
+        """(the iterator fit reads, the iterators to close after)"""
+        if which == "d":
+            it = mx.io.NDArrayIter(X, Y, batch_size=BATCH)
+            return it, [it]
+        it = in_train_iter(mx, train, seed, pad=(which == "a"), ctx=dev)
+        check(it.route == ("process" if which == "a" else "native"),
+              "feed (%s) took the %s route" % (which, it.route))
+        if which == "c":
+            pre = mx.DevicePrefetchIter(it, stage=mod)
+            return pre, [pre, it]
+        return it, [it]
+
+    names = {"a": "process route (the example's, pad=0)",
+             "b": "native route", "c": "native route + DevicePrefetchIter",
+             "d": "decoded batches in an NDArrayIter"}
+    times = collections.defaultdict(list)
+    launches = collections.Counter()
+    # one iterator a feed for every fit: each fit's epoch end resets it
+    feeds = {which: feed(which) for which in "abcd"}
+    try:
+        for which in ("a", "b", "c", "d", "d", "c", "b", "a"):
+            ms, (fwd, bwd) = _in_fit(torch, mx, mod, feeds[which][0],
+                                     batches, IN_FIT_BATCHES)
+            check(fwd == bwd == per * batches, "feed (%s): bn_act launches "
+                  "%d / %d over %d batches, plan %d a step" % (
+                      which, fwd, bwd, batches, per))
+            launches.update({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
+            times[which].append(ms)
+        traced = {}
+        for which in "abcd":
+            traced[which] = _traced(torch, lambda prof: _in_fit(
+                torch, mx, mod, feeds[which][0],
+                IN_WARM + IN_PROFILE_BATCHES, IN_PROFILE_BATCHES, prof))
+    finally:
+        for _, owned in feeds.values():
+            for o in owned:
+                o.close()
+    for which in "abcd":
+        (ms, _), busy, htod, kernels = traced[which]
+        wall = ms * IN_PROFILE_BATCHES
+        log("inception-bn fit, feed (%s) %s: %s ms a batch (two turns of %d "
+            "batches, batch %d); traced window %.2f ms a batch, device busy "
+            "%.2f ms, idle share %.3f, host-to-device copies %.3f ms a "
+            "batch, %.0f kernels a batch; %d + %d bn_act launches a step; "
+            "on %s" % (which, names[which], " / ".join(
+                "%.2f" % v for v in times[which]), IN_FIT_BATCHES, BATCH, ms,
+                busy / IN_PROFILE_BATCHES, 1 - busy / wall,
+                htod / IN_PROFILE_BATCHES, kernels / IN_PROFILE_BATCHES,
+                per, per, card))
+    for which in "abc":
+        log("inception-bn fit: feed (%s) costs %+.2f ms a batch over (d)" % (
+            which, np.mean(times[which]) - np.mean(times["d"])))
+    out = mod.get_outputs()[0].asnumpy()
+    check(np.isfinite(out).all(), "inception-bn fit: outputs not finite")
+    del mod
+    return launches
+
+
+def phase_resnet_score(torch, mx, train, seed, card):
+    """ResNet-50 scored through Module.score, fed by the example's val
+    iterator (native route, center crop): img/s and the share of device
+    time in host-to-device copies."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    net = zoo_symbol(mx, "resnet-50", IMAGE, 1000)
+    args, aux = draw_weights(net, (BATCH,) + IMAGE, seed + 2)
+    host = mx.cpu()
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))],
+             for_training=False)
+    mod.set_params({k: mx.nd.array(v, ctx=host) for k, v in args.items()},
+                   {k: mx.nd.array(v, ctx=host) for k, v in aux.items()})
+    per = zoo_report(mx, net, (BATCH,) + IMAGE)["bn_act_calls_infer"]
+    it = in_val_iter(mx, train, seed, ctx=mx.gpu(0))
+    check(it.route == "native", "the val iterator took the %s route"
+          % it.route)
+    mod.score(it, "acc", num_batch=2)
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = mod.score(it, mx.metric.create(["acc", mx.metric.create(
+        "top_k_accuracy", top_k=5)]), num_batch=IN_SCORE_BATCHES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fwd = ba.LAUNCHES
+    # ----------------------------------------------------------------------
+    check(fwd == per * IN_SCORE_BATCHES, "resnet-50 score: %d bn_act "
+          "launches, plan %d a forward" % (fwd, per))
+    check(all(np.isfinite(v) for _, v in res), "resnet-50 score: %s" % res)
+
+    def window(prof):
+        prof.start()
+        t0 = time.perf_counter()
+        mod.score(it, "acc", num_batch=4)
+        torch.cuda.synchronize()
+        prof.stop()
+        return time.perf_counter() - t0
+
+    wall, busy, htod, kernels = _traced(torch, window)
+    log("resnet-50 score from the val iterator (%s): %d batches of %d in "
+        "%.1f ms, %.0f img/s (the iterator's reset included); traced 4 "
+        "batches: idle share %.3f, host-to-device copies %.3f ms of %.2f "
+        "ms device time (%.1f%%; the pageable upload was 13%% of a "
+        "forward's), %d bn_act launches a forward, metrics %s; on %s" % (
+            it._pipeline.backend, IN_SCORE_BATCHES, BATCH, dt * 1e3,
+            IN_SCORE_BATCHES * BATCH / dt, 1 - busy / (wall * 1e3),
+            htod, busy, 100 * htod / busy, per, res, card))
+    it.close()
+    return fwd
+
+
+def _route_batches(torch, mx, make, n=2):
+    """First ``n`` batches of an iterator built on gpu(0) and on the CPU
+    from the same arguments: ``[(card data, card label, cpu data, cpu
+    label)]`` and the route."""
+    out = []
+    its = [make(mx.gpu(0)), make(mx.cpu())]
+    for _ in range(n):
+        g, c = its[0].next(), its[1].next()
+        out.append((g.data[0]._data, g.label[0]._data, c.data[0]._data,
+                    c.label[0]._data))
+    route = its[0].route
+    for it in its:
+        it.close()
+    return out, route
+
+
+def phase_nvjpeg_fixture(torch, mx, tmp):
+    """The nvJPEG decode, and the native route through it, against the JAX
+    package's libjpeg decode of the committed fixture's JPEGs."""
+    import numpy as np
+    path = os.path.join(ROOT, "tests", "data", "nvjpeg_fixture.npz")
+    dev = mx.gpu(0).torch_device
+    f = np.load(path)
+    n = len([k for k in f.files if k.startswith("jpeg_")])
+    dec = mx.image._NvjpegDecoder(dev)
+    diffs = []
+    for i in range(n):
+        got = dec.decode(f["jpeg_%d" % i].tobytes())
+        check(got is not None, "nvJPEG rejected fixture JPEG %d" % i)
+        ref = torch.from_numpy(f["pixels_%d" % i]).to(dev)
+        check(tuple(got.shape) == tuple(ref.shape), "nvJPEG decode of %d: "
+              "shape %s, libjpeg %s" % (i, tuple(got.shape),
+                                        tuple(ref.shape)))
+        d = (got.int() - ref.int()).abs()
+        diffs.append((float(d.float().mean()), int(d.max())))
+    dec.close()
+    log("nvjpeg: decode of %d fixture JPEGs against libjpeg's exact decode: "
+        "mean |diff| %s, max %s levels (limits %.1f, %d)" % (
+            n, " ".join("%.3f" % m for m, _ in diffs),
+            " ".join("%d" % x for _, x in diffs), NVJPEG_MEAN_ABS,
+            NVJPEG_MAX_ABS))
+    check(all(m <= NVJPEG_MEAN_ABS and x <= NVJPEG_MAX_ABS
+              for m, x in diffs), "nvJPEG decode off libjpeg's")
+    prefix = os.path.join(tmp, "fixture")
+    w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(n):
+        w.write_idx(i, mx.recordio.pack((0, float(i), i, 0),
+                                        f["jpeg_%d" % i].tobytes()))
+    w.close()
+    crop = [int(v) for v in f["crop"]]
+    it = mx.io.ImageRecordIter(prefix + ".rec", (3, crop[0], crop[1]), n,
+                               seed=int(f["seed"]), dtype="uint8",
+                               rand_crop=True, rand_mirror=True,
+                               preprocess_threads=1, ctx=mx.gpu(0))
+    check(it.route == "native" and it._pipeline.backend == "nvjpeg",
+          "fixture iterator: %s/%s" % (it.route, it._pipeline.backend))
+    got = it.next().data[0]._data
+    it.close()
+    d = (got.int() - torch.from_numpy(f["batch"]).to(dev).int()).abs()
+    log("nvjpeg: native route (nvJPEG backend) batch of the fixture against "
+        "the JAX package's libjpeg route: mean |diff| %.3f, max %d levels" % (
+            float(d.float().mean()), int(d.max())))
+    check(float(d.float().mean()) <= NVJPEG_MEAN_ABS
+          and int(d.max()) <= NVJPEG_MAX_ABS,
+          "nvJPEG route batch off the libjpeg route's")
+
+
+def phase_input_agreement(torch, mx, train, det, seed, found, tmp):
+    """Correctness on the card: each route's batch against the CPU path's
+    (byte for byte; the nvJPEG backend against the fixture), a staged
+    batch against its host bytes, an Inception-BN batch-4 step fed a
+    StagedBatch against the step fed host arrays (bit for bit), the
+    image I/O ops against the CPU, ImageDetRecordIter on the card against
+    the CPU."""
+    import random
+    import numpy as np
+    routes = {
+        "process": lambda ctx: in_train_iter(mx, train, seed, ctx=ctx,
+                                             preprocess_threads=2),
+        "engine": lambda ctx: in_train_iter(
+            mx, train, seed, pad=False, ctx=ctx, preprocess_threads=2,
+            aug_list=[mx.image.RandomCropAug((IMAGE[2], IMAGE[1])),
+                      mx.image.HorizontalFlipAug(0.5), mx.image.CastAug()]),
+    }
+    if found["libjpeg"]:
+        routes["native"] = lambda ctx: in_train_iter(
+            mx, train, seed, pad=False, ctx=ctx, dtype="bfloat16")
+    else:
+        log("input agreement: the native route decodes with nvJPEG on the "
+            "card and cannot run on this host's CPU (no libjpeg): held "
+            "against the fixture instead")
+        phase_nvjpeg_fixture(torch, mx, tmp)
+    for name, make in sorted(routes.items()):
+        pairs, route = _route_batches(torch, mx, make)
+        check(route == name, "route %s took %s" % (name, route))
+        for gd, gl, cd, cl in pairs:
+            check(gd.is_cuda and gl.is_cuda, "%s route: a batch is not on "
+                  "the card" % name)
+            check(torch.equal(gd.cpu(), cd) and torch.equal(gl.cpu(), cl),
+                  "%s route: the card's batch differs from the CPU's" % name)
+        log("input agreement: %s route, %d batches on gpu(0) equal the CPU "
+            "path's byte for byte" % (name, len(pairs)))
+    # an Inception-BN batch-4 step fed a StagedBatch against host arrays
+    net = zoo_symbol(mx, "inception-bn", IMAGE, 1000)
+    rs = np.random.RandomState(seed + 3)
+    x = rs.standard_normal((4,) + IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, 4).astype(np.float32)
+    trs = []
+    with _deterministic_cudnn(torch):
+        for _ in range(2):
+            mx.random.seed(seed + 4)
+            tr = mx.parallel.SPMDTrainer(
+                net, "sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                             "rescale_grad": 0.25}, mesh=None,
+                ctx=mx.gpu(0))
+            tr.bind([("data", (4,) + IMAGE)], [("softmax_label", (4,))])
+            tr.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                                 factor_type="in",
+                                                 magnitude=2))
+            trs.append(tr)
+        trs[1].set_params(*trs[0].get_params())
+        sb = trs[1].stage_batch(x, y)
+        staged = mx.io.StagedBatch(sb, data=[x], label=[y])
+        o0 = trs[0].step(x, y, key=7)[0]
+        o1 = trs[1].step(staged, key=7)[0]
+        torch.cuda.synchronize()
+    same = torch.equal(o0, o1) and all(
+        torch.equal(trs[0].params[k], trs[1].params[k])
+        for k in trs[0].params)
+    log("input agreement: inception-bn batch-4 step fed a StagedBatch %s the "
+        "step fed host arrays bit for bit (outputs and %d params)" % (
+            "equals" if same else "DIFFERS from", len(trs[0].params)))
+    check(same, "StagedBatch step differs from the host-array step")
+    for tr in trs:
+        tr.close()
+    # the image I/O ops on the card against the CPU
+    rs = np.random.RandomState(seed + 5)
+    worst = {}
+    for dtype in ("uint8", "float32"):
+        src = (rs.rand(IN_SHORT, 341, 3) * 255).astype(dtype)
+        for interp in range(5):
+            outs = [mx.nd.imresize(mx.nd.array(src, ctx=ctx, dtype=dtype),
+                                   w=224, h=224, interp=interp).asnumpy()
+                    for ctx in (mx.gpu(0), mx.cpu())]
+            d = np.abs(outs[0].astype(np.float64) - outs[1]).max()
+            bound = 1 if dtype == "uint8" else 1e-5 * np.abs(outs[1]).max()
+            check(d <= bound, "imresize %s interp %d: card off the CPU by "
+                  "%g" % (dtype, interp, d))
+            worst[(dtype, interp)] = d
+        borders = [mx.nd.copyMakeBorder(mx.nd.array(src, ctx=ctx,
+                                                    dtype=dtype),
+                                        top=2, bot=3, left=4, right=5,
+                                        value=9).asnumpy()
+                   for ctx in (mx.gpu(0), mx.cpu())]
+        check(np.array_equal(*borders), "copyMakeBorder %s: card != CPU"
+              % dtype)
+    log("input agreement: imresize (256x341 -> 224x224) on the card against "
+        "the CPU, largest difference per (dtype, interp): %s; copyMakeBorder "
+        "equal" % ", ".join("%s/%d %.3g" % (k[0], k[1], v)
+                             for k, v in sorted(worst.items())))
+    # ImageDetRecordIter on the card against the CPU
+    if not found["cv2"]:
+        log("input agreement: cv2 missing: ImageDetRecordIter's resize "
+            "cannot run here; tests/test_torch_image_det.py carries its "
+            "parity")
+        return
+    batches = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        random.seed(seed)
+        np.random.seed(seed)
+        it = mx.io.ImageDetRecordIter(det + ".rec", IN_DET_SHAPE, 8,
+                                      rand_crop_prob=0.5, rand_pad_prob=0.5,
+                                      rand_mirror_prob=0.5, ctx=ctx,
+                                      **IN_MEAN)
+        batches.append([(b.data[0]._data.cpu(), b.label[0]._data.cpu(),
+                         b.data[0]._data.device.type) for b in it])
+    check(len(batches[0]) == len(batches[1]) == IN_DET_IMAGES // 8,
+          "ImageDetRecordIter batches")
+    check(batches[0][0][2] == "cuda", "ImageDetRecordIter: a batch is not "
+          "on the card")
+    for (gd, gl, _), (cd, cl, _) in zip(*batches):
+        check(torch.equal(gd, cd) and torch.equal(gl, cl),
+              "ImageDetRecordIter: the card's batch differs from the CPU's")
+    log("input agreement: ImageDetRecordIter at %s, %d batches and padded "
+        "labels (width %d) on gpu(0) equal the CPU's" % (
+            IN_DET_SHAPE, len(batches[0]), batches[0][0][1].shape[1]))
+
+
+def input_paths(torch, mx, seed, card):
+    """The input pipeline on the card: the probe, seeded .rec files, decode
+    and upload rates, Inception-BN trained through Module.fit fed four
+    ways, ResNet-50 scored from the val iterator, and the agreement
+    checks.  Returns the main paths' bn_act launches."""
+    found = phase_input_probe(torch, mx)
+    tmp = tempfile.mkdtemp(prefix="input-", dir=os.path.join(
+        ROOT, "mxnet_tpu_torch", "_build"))
+    try:
+        train, det = phase_input_recs(mx, tmp, seed + IN_SEED)
+        phase_decode_rates(torch, mx, train, seed, card)
+        tr = make_trainer(torch, mx, seed)
+        phase_upload_rates(torch, mx, tr, card)
+        tr.close()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = phase_ibn_feeds(torch, mx, train, seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["bn_act_fwd"] += phase_resnet_score(torch, mx, train, seed,
+                                                     card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_input_agreement(torch, mx, train, det, seed, found, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -6190,6 +6917,7 @@ def main(argv=None):
     extra += bucketing_paths(torch, mx, args.seed, card)
     extra += zoo_paths(torch, mx, args.seed, card)
     extra += extension_paths(torch, mx, args.seed, card)
+    extra += input_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

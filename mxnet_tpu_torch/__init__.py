@@ -3,7 +3,10 @@
 ``import mxnet_tpu_torch as mx`` gives the same surface as ``mxnet_tpu``
 for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.optimizer``,
-``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io``,
+``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io`` (with
+the RecordIO image iterators), ``mx.recordio``, ``mx.image`` (``mx.img``),
+``mx.image_det``, ``mx.dataflow`` (``mx.DevicePrefetchIter``), ``mx.engine``,
+``mx.resilience`` (the input pipeline's retries, so far),
 ``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
 ``mx.nd.contrib``), ``mx.rtc``, ``mx.mod`` (``mx.module``), ``mx.kv``
 (``mx.kvstore``), ``mx.metric``, ``mx.callback``, ``mx.cpu()``,
@@ -18,6 +21,7 @@ without CUDA a gpu context raises instead of running on the host.
 from __future__ import annotations
 
 from .base import MXNetError
+from . import resilience
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       num_tpus, tpu)
 from . import ops  # noqa: F401 — registers the ops before sym is built
@@ -43,6 +47,17 @@ from .attribute import AttrScope
 from . import random
 from . import random as rnd
 from . import io
+from . import engine
+from . import recordio
+from . import image
+from . import image as img
+from . import image_det
+# the reference registers its C++ image iterators under mx.io
+io.ImageRecordIter = image.ImageRecordIter
+io.ImageRecordUInt8Iter = image.ImageRecordUInt8Iter
+io.ImageDetRecordIter = image_det.ImageDetRecordIter
+from . import dataflow
+from .dataflow import DevicePrefetchIter
 from . import lr_scheduler
 from . import optimizer
 from .optimizer import Optimizer
@@ -79,6 +94,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "NDArray", "Symbol", "Executor", "Optimizer", "nd",
            "ndarray", "sym", "symbol", "kernels", "mxfuse", "executor",
            "model", "models", "predict", "convert", "name", "attribute",
-           "random", "io", "lr_scheduler", "optimizer", "initializer",
-           "parallel", "rnn", "contrib", "rtc", "mod", "module", "kv",
+           "random", "io", "engine", "recordio", "image", "img",
+           "image_det", "dataflow", "DevicePrefetchIter", "lr_scheduler",
+           "optimizer", "initializer", "parallel", "rnn", "contrib", "rtc", "mod", "module", "kv",
            "kvstore", "metric", "callback", "executor_manager"]

@@ -460,7 +460,12 @@ class Module(BaseModule):
     def _fused_feed(self, data_batch):
         """The trainer's input list (data then labels) from a DataBatch,
         with zero labels where the batch has none (the predict path;
-        labels only matter for the backward)."""
+        labels only matter for the backward).  A StagedBatch (inputs
+        already on the device, from DevicePrefetchIter/stage_batch) passes
+        through whole: the trainer consumes it and skips the copy."""
+        from ..io import StagedBatch
+        if isinstance(data_batch, StagedBatch):
+            return [data_batch]
         arrays = list(data_batch.data)
         labels = list(data_batch.label or [])
         if len(labels) < len(self._fused.label_names):

@@ -12,7 +12,11 @@ tensor and are read one step late, at the next step's entry
 Numerics match the JAX package's: gradients are summed over the batch
 (pass ``rescale_grad=1/batch``), weight decay follows the optimizer's
 per-name multipliers (gammas keep it), Adam's bias correction uses the
-applied-update count.  The JAX package compiles the step into one XLA
+applied-update count.  A batch reaches the device through pinned memory
+on the trainer's side stream (``dataflow.Uploader``); ``stage_batch``
+does that ahead of the step, and ``step``/``eval_step``/``forward_only``
+take the :class:`~mxnet_tpu_torch.io.StagedBatch` it makes without a
+copy.  The JAX package compiles the step into one XLA
 program that updates in place; here the step runs eagerly and makes new
 parameter tensors each step.
 
@@ -145,6 +149,7 @@ class SPMDTrainer(object):
         self.opt_state = None
         self._num_update = 0
         self._outputs = None
+        self._uploader = None     # dataflow.Uploader, made at first upload
 
     # -- setup ------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None):
@@ -309,24 +314,63 @@ class SPMDTrainer(object):
         self.params, self.aux, self.opt_state = new_params, new_aux, new_state
         return [o.detach() for o in outs]
 
-    def _stage(self, batch_arrays):
-        """Input dict on the device: NDArrays and tensors as they are,
-        numpy through a host copy; floating inputs cast to the compute
-        dtype."""
+    def stage_batch(self, *batch_arrays):
+        """Place one batch (data and labels in ``input_names`` order:
+        NDArrays, tensors or numpy) on the device ahead of its step: the
+        copy and the compute-dtype cast that ``step`` would do.  Host
+        tensors go through pinned memory on the trainer's side stream
+        (``dataflow.Uploader``), cast there; tensors already on the device
+        pass through, cast on the caller's stream.  Returns the ``{name:
+        device tensor}`` dict (a ``dataflow.Staged``, whose ``event`` marks
+        the end of the side-stream copies) that a
+        :class:`~mxnet_tpu_torch.io.StagedBatch` holds; safe to call from a
+        background thread (``dataflow.DevicePrefetchIter``), which is how
+        the upload of batch N+1 overlaps the step of batch N."""
+        from ..dataflow import Staged, Uploader
         if len(batch_arrays) != len(self.input_names):
             raise MXNetError("step: %d arrays given for inputs %s"
                              % (len(batch_arrays), self.input_names))
-        out = {}
-        for name, v in zip(self.input_names, batch_arrays):
+        if self._uploader is None:
+            self._uploader = Uploader(self._device)
+        tensors = []
+        for v in batch_arrays:
             if isinstance(v, NDArray):
                 v = v._data
             elif not isinstance(v, torch.Tensor):
                 v = tensor_from_numpy(np.asarray(v))
-            v = v.to(self._device)
-            if self.compute_dtype is not None and v.is_floating_point():
-                v = v.to(self.compute_dtype)
-            out[name] = v
+            tensors.append(v)
+        cdt = self.compute_dtype
+
+        def cast(t):
+            return t.to(cdt) if cdt is not None and t.is_floating_point() \
+                else t
+
+        on_device = [t.device == self._device for t in tensors]
+        moved, event = self._uploader.upload(
+            [t for t, d in zip(tensors, on_device) if not d], cast)
+        moved = iter(moved)
+        out = Staged()
+        for name, t, d in zip(self.input_names, tensors, on_device):
+            out[name] = cast(t) if d else next(moved)
+        out.event = event
         return out
+
+    def _resolve_batch(self, batch_arrays):
+        """The input dict of one step or forward on the caller's stream: a
+        single :class:`~mxnet_tpu_torch.io.StagedBatch` gives its staged
+        tensors (the caller's stream waits on their copies' event); other
+        arrays are staged now."""
+        from ..dataflow import wait
+        from ..io import StagedBatch
+        if len(batch_arrays) == 1 and isinstance(batch_arrays[0],
+                                                 StagedBatch):
+            b = batch_arrays[0]
+            data, event = dict(b.staged), b.event
+        else:
+            staged = self.stage_batch(*batch_arrays)
+            data, event = dict(staged), staged.event
+        wait(list(data.values()), event)
+        return data
 
     # -- public API --------------------------------------------------------
     def step(self, *batch_arrays, key=None):
@@ -341,7 +385,7 @@ class SPMDTrainer(object):
         # this one: a one-deep pipeline (the device runs step N while the
         # host prepares N+1)
         self.flush_step_guard()
-        data = self._stage(batch_arrays)
+        data = self._resolve_batch(batch_arrays)
         if key is None:
             key = _random.next_seed()
         self._num_update += 1
@@ -427,7 +471,7 @@ class SPMDTrainer(object):
         return watchdog
 
     def _forward(self, batch_arrays, is_train, key):
-        data = self._stage(batch_arrays)
+        data = self._resolve_batch(batch_arrays)
         with torch.no_grad():
             merged = self._xform(data)
             merged.update(self._cast(self.params))

@@ -4,9 +4,10 @@ imports, builds a model and takes an ``SPMDTrainer`` step of a ResNet and
 of the LSTM language model, a ``make_step`` step of the long-context LM
 (flash route), a ``Module.fit`` through an rtc op on both Module routes,
 one FGSM step in NDArray arithmetic, and the extension surface
-(autograd, a CustomOp, a Monitor, the torch bridge, the mirror mode) on
-the CPU with JAX made unimportable, and the chip smoke test refuses to
-run without CUDA."""
+(autograd, a CustomOp, a Monitor, the torch bridge, the mirror mode) and
+the input pipeline (a ``.rec``, the three ``ImageRecordIter`` routes,
+``DevicePrefetchIter`` into a step) on the CPU with JAX made
+unimportable, and the chip smoke test refuses to run without CUDA."""
 import ast
 import os
 import subprocess
@@ -269,12 +270,75 @@ def test_extension_surface_runs_with_jax_unimportable():
     assert res.stdout.splitlines()[-1] == "ok"      # after the monitor rows
 
 
+def test_input_pipeline_runs_with_jax_unimportable(tmp_path):
+    """The input-pipeline slice's modules import and run with JAX made
+    unimportable: a seeded ``.rec`` built with ``recordio.pack_img``, all
+    three ``ImageRecordIter`` routes (native, decode worker processes,
+    engine), the image I/O ops, and one ``SPMDTrainer`` step fed through
+    ``DevicePrefetchIter``."""
+    script = tmp_path / "pipeline.py"
+    script.write_text(
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "sys.path.insert(0, %r)\n"
+        "import numpy as np\n"
+        "import mxnet_tpu_torch as mx\n"
+        "def main():\n"
+        "    rs = np.random.RandomState(0)\n"
+        "    p = %r\n"
+        "    w = mx.recordio.MXIndexedRecordIO(p + '.idx', p + '.rec', 'w')\n"
+        "    for i in range(8):\n"
+        "        img = (rs.rand(20, 24, 3) * 255).astype(np.uint8)\n"
+        "        w.write_idx(i, mx.recordio.pack_img((0, float(i %% 4), i, "
+        "0), img))\n"
+        "    w.close()\n"
+        "    with mx.cpu():\n"
+        "        routes = []\n"
+        "        for kw in ({}, {'pad': 0}, {'aug_list': "
+        "[mx.image.CenterCropAug((16, 16)), mx.image.CastAug()]}):\n"
+        "            it = mx.io.ImageRecordIter(p + '.rec', (3, 16, 16), 4, "
+        "preprocess_threads=2, seed=1, **kw)\n"
+        "            bs = [b.data[0].shape for b in it]\n"
+        "            assert bs == [(4, 3, 16, 16)] * 2, bs\n"
+        "            routes.append(it.route)\n"
+        "            it.close()\n"
+        "        assert routes == ['native', 'process', 'engine'], routes\n"
+        "        x = mx.nd.imresize(mx.nd.ones((5, 6, 3)), w=3, h=2)\n"
+        "        assert x.shape == (2, 3, 3)\n"
+        "        net = mx.models.get_symbol('resnet', num_layers=8, "
+        "num_classes=4, image_shape=(3, 16, 16))\n"
+        "        tr = mx.parallel.SPMDTrainer(net, 'sgd', {'learning_rate': "
+        "0.1}, mesh=None, ctx=mx.cpu())\n"
+        "        tr.bind([('data', (4, 3, 16, 16))], [('softmax_label', "
+        "(4,))])\n"
+        "        tr.init_params(mx.initializer.Xavier())\n"
+        "        it = mx.DevicePrefetchIter(mx.io.ImageRecordIter(p + '.rec', "
+        "(3, 16, 16), 4), stage=tr)\n"
+        "        b = it.next()\n"
+        "        assert isinstance(b, mx.io.StagedBatch)\n"
+        "        assert np.isfinite(tr.step(b)[0].numpy()).all()\n"
+        "        it.close()\n"
+        "    assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
+        "    print('ok')\n"
+        "if __name__ == '__main__':\n"
+        "    main()\n" % (REPO, str(tmp_path / "p")))
+    res = subprocess.run([sys.executable, str(script)], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.splitlines()[-1] == "ok"
+
+
 def test_new_modules_are_covered():
-    """The extension slice's modules are among the sources the import
-    check walks."""
+    """The extension and input-pipeline slices' modules are among the
+    sources the import check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
-                "contrib/autograd"):
+                "contrib/autograd", "recordio", "image", "image_det",
+                "engine", "dataflow", "resilience", "native/__init__",
+                "data_service/__init__", "data_service/common",
+                "ops/image_io"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 

@@ -22,20 +22,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: top-level names of the JAX package the port does not have yet, each
 #: with the ROADMAP queue 1 item that brings it
 LATER = {
-    # item 3, the input pipeline
-    "DevicePrefetchIter": 3, "dataflow": 3, "image": 3, "image_det": 3,
-    "recordio": 3, "native": 3,
-    # item 5, resilience
+    # item 5, resilience (the module exists: the input pipeline's retries)
     "CheckpointManager": 5, "PreemptionHandler": 5, "StepWatchdog": 5,
-    "resilience": 5,
     # item 6, serving
     "serving": 6,
     # item 7, the package's tools
     "analysis": 7, "profiler": 7, "profiler_set_config": 7,
     "profiler_set_state": 7, "dump_profile": 7, "visualization": 7,
-    "viz": 7, "test_utils": 7, "engine": 7, "libinfo": 7,
+    "viz": 7, "test_utils": 7, "libinfo": 7,
     # item 8, several devices
-    "distributed": 8, "data_service": 8, "fleet": 8,
+    "distributed": 8, "fleet": 8,
 }
 
 
@@ -59,9 +55,14 @@ def test_public_names_match_jax_but_later_slices():
     assert missing == set(LATER), sorted(missing ^ set(LATER))
     for name in ("AttrScope", "FeedForward", "rnd", "init_registry",
                  "operator", "autograd", "monitor", "mon", "Monitor",
-                 "torch_bridge", "th", "tpu", "num_tpus"):
+                 "torch_bridge", "th", "tpu", "num_tpus", "recordio",
+                 "image", "img", "image_det", "dataflow",
+                 "DevicePrefetchIter", "engine", "native", "resilience",
+                 "data_service"):
         assert hasattr(tmx, name), name
     assert tmx.rnd is tmx.random and tmx.mon is tmx.monitor
+    assert tmx.img is tmx.image
+    assert tmx.io.ImageRecordIter is tmx.image.ImageRecordIter
     assert tmx.contrib.autograd.mark_variables is \
         tmx.autograd.mark_variables
     assert hasattr(tmx.sym, "Custom") and hasattr(tmx.nd, "Custom")
