@@ -216,7 +216,25 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     batch against its bytes, an Inception-BN batch-4 step fed a
     ``StagedBatch`` against host arrays (bit for bit), the image I/O ops
     and ``ImageDetRecordIter`` against the CPU;
-24. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+24. runs the data service (``data_service_paths``): reads the same seeded
+    ``.rec`` through ``ImageRecordIter(data_service=True)`` into
+    ``gpu(0)`` at 1, 2 and 4 decode workers (img/s, each worker's decoder
+    held to what the host's native library predicts, the 1-worker stream
+    against the 4-worker one byte for byte); checks ``DeviceAugment``
+    (3x240x240 uint8 canvas, margin 16, crop, mirror, ImageNet mean/std,
+    float32) on the card against the CPU on the same canvas and chunk
+    seed (exact; the resize branch within 1e-5 x max; pad rows zero),
+    times the canvas upload beside the float32 batch's and the augment's
+    device time and kernels a batch, and holds uploaded batches unchanged
+    after three more pulls; starts two network-tier servers
+    (``data_service/server_main.py``, 2 workers each) on loopback and
+    holds their device-augmented stream against the local service's byte
+    for byte; trains Inception-BN through ``Module.fit(kvstore='tpu')``
+    fed in turns by held batches, the local service host-augmented, with
+    ``device_augment``, that through ``DevicePrefetchIter(stage=module)``
+    and the network tier with ``device_augment`` (48 + 48 ``bn_act``
+    launches a step, ms a batch, idle share);
+25. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -6890,6 +6908,419 @@ def input_paths(torch, mx, seed, card):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# the data service: decode workers over shared-memory rings, the network
+# tier, on-device augmentation (DeviceAugment)
+# ---------------------------------------------------------------------------
+
+DS_WORKERS = (1, 2, 4)   # decode workers of the rate runs (the host has 8)
+DS_MARGIN = 16           # device_augment's crop margin: a 3x240x240 canvas
+DS_FIT_BATCHES = 8       # measured batches of each feed in each turn
+DS_COMPARE_BATCHES = 4   # batches held byte for byte between two streams
+DS_AUG_REPS = 20         # augment calls in the traced window
+DS_SERVERS = 2           # loopback server processes of the network tier
+DS_SERVER_WORKERS = 2    # decode workers in each server
+DS_RESIZE_REL_TOL = 1e-5  # the resize branch, card against CPU, x max|out|
+#: the augmentation of every service feed: the example's crop and mirror,
+#: with ImageNet's mean and std (DeviceAugment's settings)
+DS_AUG = dict(rand_crop=True, rand_mirror=True, mean=True, std=True)
+
+
+def ds_iter(mx, rec, seed, ctx, **kw):
+    """An ``ImageRecordIter`` over the data service at the example's
+    layout (``path_imgidx`` given, no ``pad``), checked to have taken the
+    service's route (``"network"`` for a server list) with no fallback."""
+    args = dict(path_imgrec=rec + ".rec", path_imgidx=rec + ".idx",
+                label_width=1, data_name="data", label_name="softmax_label",
+                data_shape=IMAGE, batch_size=BATCH,
+                preprocess_threads=IN_THREADS, shuffle=True, seed=seed,
+                ctx=ctx, data_service=True)
+    args.update(kw)
+    it = mx.io.ImageRecordIter(**args)
+    want = "service" if args["data_service"] is True else "network"
+    check(it._service is not None and it.route == want,
+          "data service iterator took the %s route, not %s" % (it.route,
+                                                              want))
+    check((it._dev_aug is not None) == (args.get("device_augment")
+                                        is not None),
+          "device_augment=%r: DeviceAugment %s" % (
+              args.get("device_augment"), it._dev_aug))
+    return it
+
+
+def _ds_batches(it, n):
+    """The next ``n`` batches of ``it`` as private tensors."""
+    out = []
+    for _ in range(n):
+        b = it.next()
+        out.append((b.data[0]._data.clone(), b.label[0]._data.clone(),
+                    b.pad))
+    return out
+
+
+def _ds_same(torch, a, b):
+    """Two lists of ``_ds_batches`` equal byte for byte."""
+    return len(a) == len(b) and all(
+        torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]) and x[2] == y[2]
+        for x, y in zip(a, b))
+
+
+def phase_ds_rates(torch, mx, train, seed, card, expect):
+    """The local service's decode rate into gpu(0) at 1, 2 and 4 workers,
+    each worker's decoder, and the 1-worker stream against the 4-worker
+    one on the card."""
+    dev = mx.gpu(0)
+    rates = {}
+    for workers in DS_WORKERS:
+        t0 = time.perf_counter()
+        it = ds_iter(mx, train, seed, dev, preprocess_threads=workers,
+                     **DS_AUG)
+        for _ in range(workers - 1):   # _rate warms one: one a worker
+            it.next()
+        rate = _rate(torch, it)
+        st = it.stats()
+        it.close()
+        decoders = [w["decoder"] for _, w in sorted(st["workers"].items())]
+        check(decoders == [expect] * workers, "data service workers decode "
+              "with %s; the host probe predicts %s" % (decoders, expect))
+        rates[workers] = rate
+        log("data service: %d workers (decoders %s), float32 host-augmented "
+            "into gpu(0): %.0f img/s (%.1f s with the workers' start; "
+            "producer stall %.2f s, consumer stall %.2f s, ring occupancy "
+            "%.2f) on %s" % (workers, ",".join(decoders), rate,
+                             time.perf_counter() - t0,
+                             st["producer_stall_s"], st["consumer_stall_s"],
+                             st["ring_occupancy"], card))
+    streams = []
+    for workers in (1, 4):
+        it = ds_iter(mx, train, seed, dev, preprocess_threads=workers,
+                     **DS_AUG)
+        streams.append(_ds_batches(it, DS_COMPARE_BATCHES))
+        it.close()
+    check(streams[0][0][0].is_cuda, "a service batch is not on the card")
+    check(_ds_same(torch, *streams), "the 1-worker stream differs from the "
+          "4-worker stream on the card")
+    log("data service: the first %d batches on gpu(0) at 1 and 4 workers "
+        "equal byte for byte" % DS_COMPARE_BATCHES)
+    return rates
+
+
+def phase_ds_augment(torch, mx, train, seed, card):
+    """DeviceAugment on the card: the canvas upload against the float32
+    batch's, the augment's device time and kernels a batch (traced), the
+    card against the port's CPU DeviceAugment on the same canvas bytes and
+    chunk seed (exact; the resize branch within DS_RESIZE_REL_TOL x max),
+    pad rows, the iterator's first device-augmented batch against the CPU
+    augment of the service's canvas, and uploaded batches unchanged after
+    three more pulls."""
+    from mxnet_tpu_torch.data_service import common as dsc
+    dev = mx.gpu(0)
+    tdev = dev.torch_device
+    aug = mx.kernels.augment.DeviceAugment(IMAGE, margin=DS_MARGIN,
+                                           **DS_AUG)
+    # the service's own canvas stream, on the host: what device_augment
+    # ships (a center crop to the canvas, uint8, no host augmentation)
+    it = ds_iter(mx, train, seed, mx.cpu(), data_shape=aug.canvas_shape,
+                 dtype="uint8", host_batches=True, preprocess_threads=2)
+    canvas = it.next().data[0].clone()
+    it.close()
+    check(tuple(canvas.shape) == (BATCH,) + aug.canvas_shape
+          and canvas.dtype == torch.uint8, "canvas %s %s" % (
+              tuple(canvas.shape), canvas.dtype))
+    cseed = dsc.chunk_seed(seed, 0, epoch=1)
+    # the upload: the uint8 canvas against the float32 batch, pinned, on
+    # the side stream
+    up = mx.dataflow.Uploader(tdev)
+    f32 = (torch.rand((BATCH,) + IMAGE) * 255).pin_memory()
+    upload = {}
+    for name, host in (("uint8 canvas", canvas.pin_memory()),
+                       ("float32 batch", f32)):
+        def side(host=host):
+            _, event = up.upload([host])
+            event.synchronize()
+        for _ in range(3):
+            side()
+        t0 = time.perf_counter()
+        for _ in range(IN_UPLOAD_REPS):
+            side()
+        ms = (time.perf_counter() - t0) * 1e3 / IN_UPLOAD_REPS
+        upload[name] = ms
+        nbytes = host.numel() * host.element_size()
+        log("device augment: upload of the %s %s (%.1f MB), pinned "
+            "non_blocking on the side stream: %.3f ms, %.2f GB/s on %s" % (
+                name, tuple(host.shape), nbytes / 1e6, ms,
+                nbytes / ms / 1e6, card))
+    on_card = canvas.to(tdev)
+    for nvalid in (BATCH, BATCH - 12):
+        got = aug(on_card, cseed, nvalid)
+        ref = aug(canvas, cseed, nvalid)
+        check(got.is_cuda, "DeviceAugment's output is not on the card")
+        check(torch.equal(got.cpu(), ref), "DeviceAugment on the card "
+              "differs from the CPU's (nvalid %d)" % nvalid)
+        check(not bool(got[nvalid:].any()), "pad rows not zero")
+    gen = torch.Generator().manual_seed(seed + 7)
+    other = torch.randint(0, 256, (BATCH, 3, 256, 256), generator=gen,
+                          dtype=torch.uint8)
+    got = aug(other.to(tdev), cseed, BATCH).cpu()
+    ref = aug(other, cseed, BATCH)
+    rel = _rel_err(got, ref)
+    check(rel <= DS_RESIZE_REL_TOL, "DeviceAugment's resize branch: card "
+          "off the CPU by %g x max" % rel)
+    log("device augment: the card equals the CPU on the same canvas and "
+        "chunk seed byte for byte (nvalid %d and %d, pad rows zero); the "
+        "resize branch (256x256 -> %dx%d) within %.3g x max (limit %g)"
+        % (BATCH, BATCH - 12, aug.canvas_shape[1], aug.canvas_shape[2], rel,
+           DS_RESIZE_REL_TOL))
+    torch.cuda.synchronize()
+
+    def window(prof):
+        prof.start()
+        for _ in range(DS_AUG_REPS):
+            aug(on_card, cseed, BATCH)
+        torch.cuda.synchronize()
+        prof.stop()
+
+    _, busy, htod, ops = _traced(torch, window)
+    ev = event_ms(torch, lambda: aug(on_card, cseed, BATCH))
+    log("device augment: %.3f ms of device time a batch (traced, %d "
+        "calls), %.1f device ops a batch (kernels and copies; %.4f ms of "
+        "it the draws' host-to-device copy), %.3f ms a call between CUDA "
+        "events (host included) on %s" % (
+            busy / DS_AUG_REPS, DS_AUG_REPS, ops / DS_AUG_REPS,
+            htod / DS_AUG_REPS, ev, card))
+    # the iterator's first device-augmented batch is the augment of the
+    # service's first canvas at the batch's chunk seed
+    it = ds_iter(mx, train, seed, dev, device_augment=DS_MARGIN, **DS_AUG)
+    b0 = it.next()
+    first = b0.data[0]._data
+    check(first.is_cuda, "a device-augmented batch is not on the card")
+    check(tuple(first.shape) == (BATCH,) + IMAGE,
+          "device-augmented batch %s" % (tuple(first.shape),))
+    check(torch.equal(first.cpu(), aug(canvas, cseed, BATCH)),
+          "the iterator's device-augmented batch differs from the CPU "
+          "augment of its canvas")
+    snap = first.clone()
+    for _ in range(3):
+        it.next()
+    torch.cuda.synchronize()
+    check(torch.equal(first, snap), "a device-augmented batch changed "
+          "after three more pulls")
+    it.close()
+    it = ds_iter(mx, train, seed, dev, preprocess_threads=2, **DS_AUG)
+    first = it.next().data[0]._data
+    snap = first.clone()
+    for _ in range(3):
+        it.next()
+    torch.cuda.synchronize()
+    check(torch.equal(first, snap), "a host-augmented service batch "
+          "changed after three more pulls")
+    it.close()
+    log("device augment: the iterator's first batch equals the CPU augment "
+        "of the service's canvas; device- and host-augmented batches on "
+        "gpu(0) unchanged after three more pulls")
+    return upload, busy / DS_AUG_REPS, ops / DS_AUG_REPS
+
+
+def start_data_servers(n, tmp):
+    """``n`` network-tier servers (``data_service/server_main.py``) on
+    loopback ports: ``(processes, 'host:port,...')``."""
+    main = os.path.join(ROOT, "mxnet_tpu_torch", "data_service",
+                        "server_main.py")
+    procs, files = [], []
+    for i in range(n):
+        pf = os.path.join(tmp, "server%d.port" % i)
+        procs.append(subprocess.Popen(
+            [sys.executable, main, "--port", "0", "--port-file", pf],
+            stderr=subprocess.DEVNULL))
+        files.append(pf)
+    deadline = time.monotonic() + 60
+    addrs = []
+    for p, pf in zip(procs, files):
+        while not os.path.exists(pf):
+            check(p.poll() is None and time.monotonic() < deadline,
+                  "a data server did not come up")
+            time.sleep(0.05)
+        with open(pf) as f:
+            addrs.append(f.read().strip())
+    return procs, ",".join(addrs)
+
+
+def stop_data_servers(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
+
+
+def phase_ds_network(torch, mx, train, seed, card, servers):
+    """Two loopback servers with 2 workers each and device_augment: their
+    stream on the card equals the local service's byte for byte; the
+    tier's rate into gpu(0)."""
+    dev = mx.gpu(0)
+    streams = []
+    for ds in (True, servers):
+        it = ds_iter(mx, train, seed, dev, data_service=ds,
+                     preprocess_threads=DS_SERVER_WORKERS,
+                     device_augment=DS_MARGIN, **DS_AUG)
+        streams.append(_ds_batches(it, DS_COMPARE_BATCHES))
+        it.close()
+    check(_ds_same(torch, *streams), "the network tier's device-augmented "
+          "stream differs from the local service's")
+    it = ds_iter(mx, train, seed, dev, data_service=servers,
+                 preprocess_threads=DS_SERVER_WORKERS,
+                 device_augment=DS_MARGIN, **DS_AUG)
+    rate = _rate(torch, it)
+    st = it.stats()
+    it.close()
+    check(all(s["alive"] for s in st["servers"].values()),
+          "a data server connection died: %s" % st)
+    log("data service network tier: %d loopback servers x %d workers with "
+        "device_augment: the first %d batches on gpu(0) equal the local "
+        "service's byte for byte; %.0f img/s into gpu(0) (%d frames, %.1f "
+        "MB received) on %s" % (
+            DS_SERVERS, DS_SERVER_WORKERS, DS_COMPARE_BATCHES, rate,
+            sum(s["frames"] for s in st["servers"].values()),
+            sum(s["bytes_rx"] for s in st["servers"].values()) / 1e6, card))
+    return rate
+
+
+def phase_ds_feeds(torch, mx, train, seed, card, servers):
+    """Inception-BN trained through Module.fit(kvstore='tpu') at batch 32,
+    fed in turns: (d) held batches in an NDArrayIter, (e) the local service
+    host-augmented, (f) the local service with device_augment, (g) (f)
+    through DevicePrefetchIter(stage=module), (h) the network tier with
+    device_augment.  ms a batch, idle share, bn_act launches a step."""
+    import numpy as np
+    net, mod = _in_module(torch, mx, seed + 1)
+    per = zoo_report(mx, net, (BATCH,) + IMAGE)["bn_act_calls_train"]
+    batches = IN_WARM + DS_FIT_BATCHES
+    dev = mx.gpu(0)
+    src = ds_iter(mx, train, seed, dev, **DS_AUG)
+    held = [src.next() for _ in range(batches)]
+    src.close()
+    X = np.concatenate([b.data[0].asnumpy() for b in held])
+    Y = np.concatenate([b.label[0].asnumpy() for b in held])
+    del held
+
+    def feed(which):
+        """(the iterator fit reads, the iterators to close after)"""
+        if which == "d":
+            it = mx.io.NDArrayIter(X, Y, batch_size=BATCH)
+            return it, [it]
+        if which == "e":
+            it = ds_iter(mx, train, seed, dev, **DS_AUG)
+        elif which == "h":
+            it = ds_iter(mx, train, seed, dev, data_service=servers,
+                         preprocess_threads=DS_SERVER_WORKERS,
+                         device_augment=DS_MARGIN, **DS_AUG)
+        else:
+            it = ds_iter(mx, train, seed, dev, device_augment=DS_MARGIN,
+                         **DS_AUG)
+        if which == "g":
+            pre = mx.DevicePrefetchIter(it, stage=mod)
+            return pre, [pre, it]
+        return it, [it]
+
+    names = {"d": "held batches in an NDArrayIter",
+             "e": "local service, host-augmented",
+             "f": "local service + device_augment",
+             "g": "(f) + DevicePrefetchIter(stage=module)",
+             "h": "network tier (%d servers) + device_augment" % DS_SERVERS}
+    times = collections.defaultdict(list)
+    launches = collections.Counter()
+    feeds = {which: feed(which) for which in "defgh"}
+    try:
+        # one untimed fit first, so that no timed turn is the phase's
+        # first fit of the module
+        _in_fit(torch, mx, mod, feeds["d"][0], batches, DS_FIT_BATCHES)
+        for which in ("d", "e", "f", "g", "h", "h", "g", "f", "e", "d"):
+            aug = feeds[which][1][-1]._dev_aug if which != "d" else None
+            calls = aug.calls if aug is not None else 0
+            ms, (fwd, bwd) = _in_fit(torch, mx, mod, feeds[which][0],
+                                     batches, DS_FIT_BATCHES)
+            check(fwd == bwd == per * batches, "feed (%s): bn_act launches "
+                  "%d / %d over %d batches, plan %d a step" % (
+                      which, fwd, bwd, batches, per))
+            # feed (g)'s prefetcher runs ahead of its fit: at least
+            augmented = aug.calls - calls if aug is not None else 0
+            check(which not in "fgh" or augmented >= batches,
+                  "feed (%s): %d device augments over %d batches" % (
+                      which, augmented, batches))
+            launches.update({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
+            times[which].append(ms)
+        traced = {}
+        for which in "defgh":
+            traced[which] = _traced(torch, lambda prof: _in_fit(
+                torch, mx, mod, feeds[which][0],
+                IN_WARM + IN_PROFILE_BATCHES, IN_PROFILE_BATCHES, prof))
+        stats = {which: feeds[which][1][-1].stats() for which in "efgh"}
+    finally:
+        for _, owned in feeds.values():
+            for o in owned:
+                o.close()
+    for which in "defgh":
+        (ms, _), busy, htod, kernels = traced[which]
+        wall = ms * IN_PROFILE_BATCHES
+        log("inception-bn fit, feed (%s) %s: %s ms a batch (two turns of %d "
+            "batches, batch %d); traced window %.2f ms a batch, device busy "
+            "%.2f ms, idle share %.3f, host-to-device copies %.3f ms a "
+            "batch, %.0f kernels a batch; %d + %d bn_act launches a step; "
+            "on %s" % (which, names[which], " / ".join(
+                "%.2f" % v for v in times[which]), DS_FIT_BATCHES, BATCH, ms,
+                busy / IN_PROFILE_BATCHES, 1 - busy / wall,
+                htod / IN_PROFILE_BATCHES, kernels / IN_PROFILE_BATCHES,
+                per, per, card))
+    for which in "efgh":
+        st = stats[which]
+        log("inception-bn fit: feed (%s) costs %+.2f ms a batch over (d); "
+            "consumer stall %.2f s over its fits%s" % (
+                which, np.mean(times[which]) - np.mean(times["d"]),
+                st["consumer_stall_s"],
+                "; decoders %s" % ",".join(st["decoders"])
+                if "decoders" in st else ""))
+    out = mod.get_outputs()[0].asnumpy()
+    check(np.isfinite(out).all(), "inception-bn fit: outputs not finite")
+    del mod
+    return launches
+
+
+def data_service_paths(torch, mx, seed, card):
+    """The data service on the card: the decode rate by worker count with
+    each worker's decoder, DeviceAugment's checks and times, the network
+    tier on loopback, and Inception-BN trained through Module.fit fed five
+    ways.  Returns the main path's bn_act launches."""
+    lib = mx.native.get_lib()
+    expect = "native" if lib._has_imagedec else "python"
+    log("data service: the native library %s libjpeg, so the decode "
+        "workers take the %s decoder (the JAX package's rule)" % (
+            "has" if lib._has_imagedec else "lacks", expect))
+    tmp = tempfile.mkdtemp(prefix="dataservice-", dir=os.path.join(
+        ROOT, "mxnet_tpu_torch", "_build"))
+    procs = []
+    try:
+        train = os.path.join(tmp, "train")
+        write_seeded_rec(mx.recordio, train, IN_IMAGES, IN_SHORT,
+                         seed + IN_SEED)
+        phase_ds_rates(torch, mx, train, seed, card, expect)
+        phase_ds_augment(torch, mx, train, seed, card)
+        procs, servers = start_data_servers(DS_SERVERS, tmp)
+        phase_ds_network(torch, mx, train, seed, card, servers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = phase_ds_feeds(torch, mx, train, seed, card, servers)
+    finally:
+        stop_data_servers(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -6918,6 +7349,7 @@ def main(argv=None):
     extra += zoo_paths(torch, mx, args.seed, card)
     extra += extension_paths(torch, mx, args.seed, card)
     extra += input_paths(torch, mx, args.seed, card)
+    extra += data_service_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

@@ -8,12 +8,16 @@ work on numpy HWC uint8/float32 arrays on the host, with the same
 ``random``/``np.random`` draws as the JAX package from the same seeded
 thread-local RNG, so both packages give the same bytes for the same seed.
 
-``ImageRecordIter`` takes one of three routes, chosen as the JAX package
-chooses them: the native libjpeg pipeline (``native/imagedec.cc``, GIL
-released), decode worker processes (``forkserver``; the workers import
-only this module's package on the host and never touch CUDA), or the
-host dependency engine (custom ``aug_list``, or
-``MXNET_RECORDITER_PROCS=0``).  Its batches land on the context current
+``ImageRecordIter`` takes one of five routes, chosen as the JAX package
+chooses them: the data service (``data_service=True`` or
+``MXTPU_DATA_WORKERS``: decode worker processes over shared-memory rings;
+``data_service='host:port,...'`` or ``MXTPU_DATA_SERVERS``: its network
+tier), optionally with on-device augmentation (``device_augment=``,
+``kernels/augment.py``); else the native libjpeg pipeline
+(``native/imagedec.cc``, GIL released), decode worker processes
+(``forkserver``; the workers import only this module's package on the host
+and never touch CUDA), or the host dependency engine (custom ``aug_list``,
+or ``MXNET_RECORDITER_PROCS=0``).  Its batches land on the context current
 when it was built (``gpu(0)`` by default): the native pipe decodes
 straight into a pinned host tensor, and every route copies through
 ``dataflow.Uploader`` (``non_blocking`` on one side stream; ``next()``
@@ -25,9 +29,7 @@ Divergences from the JAX package: bfloat16 host batches are
 side stream replace its four uploader threads (``MXNET_UPLOAD_THREADS``),
 since copies on one stream serialize and a ``non_blocking`` copy from
 pinned memory returns at once; a native route that cannot run (no libjpeg)
-raises instead of falling back to the process route; ``data_service=``,
-``device_augment=`` and ``MXTPU_DATA_WORKERS``/``MXTPU_DATA_SERVERS`` raise:
-the data service comes with the next slice of the port.  ``cv2`` is
+raises instead of falling back to the process route.  ``cv2`` is
 imported only where the JAX package imports it: ``imresize`` (a crop
 resized to another size), ``PadAug`` with ``pad > 0`` and non-JPEG
 payloads.
@@ -61,20 +63,16 @@ ENV_RECORDITER_PROCS = register_env(
         "ImageRecordIter")
 ENV_DATA_WORKERS = register_env(
     "MXTPU_DATA_WORKERS", default=0,
-    doc="Decode worker processes of the data service (comes with the data "
-        "service slice of the port; a nonzero value raises)")
+    doc="Route every env-routed ImageRecordIter through the data service "
+        "with this many decode worker processes (0: off)")
 ENV_DATA_SERVERS = register_env(
     "MXTPU_DATA_SERVERS", default="",
-    doc="host:port list of data servers (comes with the data service "
-        "slice of the port; a non-empty value raises)")
+    doc="host:port list of data servers: routes every env-routed "
+        "ImageRecordIter through the data service's network tier")
 
 #: torch dtypes of the batch dtypes the pipelines emit
 _TORCH_DTYPES = {"float32": torch.float32, "uint8": torch.uint8,
                  "bfloat16": torch.bfloat16}
-
-#: the next slice of the port, named by the errors of the options it brings
-_SERVICE_SLICE = ("the data service slice of mxnet_tpu_torch (local decode "
-                  "workers, the network tier, DeviceAugment)")
 
 
 # ---------------------------------------------------------------------------
@@ -1622,8 +1620,10 @@ class ImageRecordIter(mxio.DataIter):
     """Threaded RecordIO image iterator: the reference's C++
     ImageRecordIOParser2 pipeline (reference src/io/iter_image_recordio_2.cc:
     parser -> augmenter -> batch loader -> prefetcher).  ``route`` names the
-    route it took: ``"native"``, ``"process"`` or ``"engine"``.  Batches
-    land on the context current at construction (``ctx`` overrides it).
+    route it took: ``"service"`` (the local data service), ``"network"``
+    (its network tier), ``"native"``, ``"process"`` or ``"engine"``.
+    Batches land on the context current at construction (``ctx``
+    overrides it).
     """
 
     def __init__(self, path_imgrec, data_shape, batch_size,
@@ -1649,23 +1649,82 @@ class ImageRecordIter(mxio.DataIter):
             raise MXNetError(
                 "host_batches yields raw host batches — a device_transform "
                 "would be silently skipped; pass one or the other")
+        self._ctx = ctx if ctx is not None else current_context()
+        # The data service (data_service=True: preprocess_threads worker
+        # processes; MXTPU_DATA_WORKERS=N turns it on for env-routed
+        # iterators and sizes their fleet), or its network tier
+        # (data_service='host:port,...' or MXTPU_DATA_SERVERS).
+        # data_service=False forces the in-process pipelines even when
+        # either variable is set.
+        self._service = None
+        self._service_iter = None
+        self._dev_aug = None
+        self._it = None
+        if device_augment is False:
+            device_augment = None   # explicit off == unset; 0 is a real
+            # margin (center crop + mirror/normalize on the device)
         env_workers = int(get_env(ENV_DATA_WORKERS, 0) or 0)
         env_servers = str(get_env(ENV_DATA_SERVERS, "") or "").strip()
-        if device_augment is False:
-            device_augment = None   # explicit off == unset
-        wants_service = data_service not in (None, False, 0, "") or (
-            data_service is None and (env_workers > 0 or env_servers))
-        if wants_service or device_augment is not None:
+        # data_service forms: None (the variables decide), False/0/""
+        # (opt out), True or another truthy value (local service),
+        # 'host:p,host:p' or a list/tuple of addresses (network tier)
+        explicit_servers = None
+        explicit_local = False
+        if isinstance(data_service, str):
+            explicit_servers = data_service.strip() or None
+        elif isinstance(data_service, (list, tuple)):
+            explicit_servers = list(data_service) or None
+        elif data_service is not None:
+            explicit_local = bool(data_service)
+        servers = explicit_servers
+        if servers is None and data_service is None and env_servers:
+            servers = env_servers
+        env_routed = data_service is None
+        use_local = explicit_local or (
+            env_routed and not servers and env_workers > 0)
+        if servers or use_local:
+            # an explicit data_service=True sizes the fleet from the call's
+            # preprocess_threads; the variable sizes only env-routed
+            # iterators.  On the network tier preprocess_threads is the
+            # per-server decode worker count.
+            workers = env_workers if (use_local and env_routed) \
+                else max(1, int(preprocess_threads))
+            try:
+                self._init_service(
+                    path_imgrec, path_imgidx, data_shape, batch_size,
+                    label_width, shuffle, part_index, num_parts, workers,
+                    dtype, layout, aug_kwargs, has_custom_augs,
+                    host_batches, data_name, label_name,
+                    servers=servers, device_augment=device_augment)
+            except MXNetError:
+                if not env_routed:   # explicitly requested: surface it
+                    raise
+                if device_augment is not None:
+                    # an explicit device-augment ask must not degrade to
+                    # host augmentation on a routing fallback
+                    raise
+                logging.warning(
+                    "ImageRecordIter: MXTPU_DATA_WORKERS/MXTPU_DATA_"
+                    "SERVERS is set but this configuration cannot route "
+                    "through the data service; using the in-process "
+                    "pipeline", exc_info=True)
+        elif device_augment is not None:
             raise MXNetError(
-                "ImageRecordIter: data_service=%r, device_augment=%r, "
-                "MXTPU_DATA_WORKERS=%r, MXTPU_DATA_SERVERS=%r: the data "
-                "service and on-device augmentation come with %s; pass "
-                "data_service=False (or unset the variables) for the "
-                "in-process pipelines" % (data_service, device_augment,
-                                          env_workers, env_servers,
-                                          _SERVICE_SLICE))
-        self._ctx = ctx if ctx is not None else current_context()
+                "device_augment rides the data-service transports: pass "
+                "data_service=True / a server list, or set "
+                "MXTPU_DATA_WORKERS / MXTPU_DATA_SERVERS")
         self._uploader = Uploader(self._ctx.torch_device)
+        if self._service is not None:
+            self.route = "network" if servers else "service"
+            self.batch_size = batch_size
+            self.data_shape = tuple(data_shape)
+            self.label_width = label_width
+            self._dtype = dtype
+            self._host_batches = bool(host_batches)
+            self._device_transform = device_transform
+            self._data_name = data_name
+            self._label_name = label_name
+            return
         self._it = ImageIter(
             batch_size, data_shape, label_width=label_width,
             path_imgrec=path_imgrec, path_imgidx=path_imgidx,
@@ -1739,10 +1798,109 @@ class ImageRecordIter(mxio.DataIter):
             self._read_var = self._engine.new_variable()
             self._start_prefetch()
 
+    def _init_service(self, path_imgrec, path_imgidx, data_shape,
+                      batch_size, label_width, shuffle, part_index,
+                      num_parts, workers, dtype, layout, aug_kwargs,
+                      has_custom_augs, host_batches, data_name, label_name,
+                      servers=None, device_augment=None):
+        """Route through the data service, local
+        (``data_service.DataService``, this host's cores) or the network
+        tier (``data_service.NetDataService``); raises MXNetError for
+        configurations neither can express."""
+        from .data_service import (DataService, DataServiceIter,
+                                   NetDataService)
+        if path_imgidx is None:
+            raise MXNetError(
+                "data_service needs path_imgidx (sharded readers plan "
+                "from the index)")
+        if has_custom_augs:
+            raise MXNetError(
+                "data_service cannot ship a custom aug_list to worker "
+                "processes")
+        unsupported = set(aug_kwargs) - _NativePipeline.SUPPORTED
+        if unsupported:
+            raise MXNetError(
+                "data_service does not implement augmentations %s"
+                % sorted(unsupported))
+        if not servers and not _rec_looks_jpeg(path_imgrec):
+            # worker processes decode JPEG (libjpeg, or cv2/PIL where the
+            # native library has none): fail eligibility here so env
+            # routing falls back to the cv2 pipelines.  (Network tier: the
+            # paths are the servers'; their handshake reports problems.)
+            raise MXNetError(
+                "data_service needs a JPEG-payload .rec (the worker "
+                "decode pipes are libjpeg); this file's first record "
+                "is not JPEG")
+        svc_shape = tuple(data_shape)
+        svc_aug = dict(aug_kwargs)
+        svc_dtype = dtype
+        if device_augment is not None:
+            # on-device augmentation (kernels/augment.py, the `augment`
+            # name of MXTPU_FUSED_KERNELS): the transport ships a decoded
+            # uint8 canvas with a crop margin and the device crops,
+            # mirrors and normalizes, seeded per global batch.  With the
+            # name off, the exact host-augmented path below.
+            from .kernels import fused_enabled
+            if host_batches:
+                raise MXNetError(
+                    "device_augment produces device arrays: it cannot "
+                    "combine with host_batches")
+            if fused_enabled("augment"):
+                from .kernels.augment import DeviceAugment
+                margin = 16 if device_augment is True \
+                    else int(device_augment)
+                self._dev_aug = DeviceAugment(
+                    svc_shape, margin=margin,
+                    rand_crop=bool(aug_kwargs.get("rand_crop")),
+                    rand_mirror=bool(aug_kwargs.get("rand_mirror")),
+                    mean=aug_kwargs.get("mean"),
+                    std=aug_kwargs.get("std"), layout=layout,
+                    dtype=dtype)
+                svc_shape = self._dev_aug.canvas_shape
+                svc_aug = {k: v for k, v in aug_kwargs.items()
+                           if k == "resize"}
+                svc_dtype = "uint8"   # raw pixels cross: 4x fewer bytes
+            else:
+                logging.info(
+                    "ImageRecordIter: MXTPU_FUSED_KERNELS disables the "
+                    "augment kernel: using the exact host-augmented path")
+        fast_dct = get_env(ENV_JPEG_DECODE_FAST, "1") != "0"
+        if servers:
+            self._service = NetDataService(
+                servers, path_imgrec, path_imgidx, svc_shape,
+                batch_size, label_width=label_width, shuffle=shuffle,
+                seed=self._eff_seed, part_index=part_index,
+                num_parts=num_parts, workers_per_server=workers,
+                dtype=svc_dtype, layout=layout, aug=svc_aug,
+                fast_dct=fast_dct)
+        else:
+            self._service = DataService(
+                path_imgrec, path_imgidx, svc_shape, batch_size,
+                label_width=label_width, shuffle=shuffle,
+                seed=self._eff_seed, part_index=part_index,
+                num_parts=num_parts, num_workers=workers,
+                dtype=svc_dtype, layout=layout, aug=svc_aug,
+                fast_dct=fast_dct)
+        # copy=False: host_batches hands the views on (valid until the
+        # next pull), and the device path copies them out of the slot
+        # before it releases it (_next_service)
+        self._service_iter = DataServiceIter(
+            self._service, data_name=data_name, label_name=label_name,
+            copy=False)
+
     @property
     def provide_data(self):
         dt = np.dtype("float32" if self._dtype == "bfloat16"
                       else self._dtype)
+        if self._service is not None:
+            if self._dev_aug is not None:
+                # the transport carries the uint8 canvas; consumers see
+                # the product of the device-side augmentation
+                shape = (self.batch_size,) + self._dev_aug.per_layout(
+                    self._dev_aug.out_shape)
+                return [mxio.DataDesc(self._data_name, shape, dtype=dt)]
+            return [mxio.DataDesc(d.name, d.shape, dtype=dt)
+                    for d in self._service_iter.provide_data]
         descs = []
         for d in self._it.provide_data:
             shape = d.shape
@@ -1754,6 +1912,8 @@ class ImageRecordIter(mxio.DataIter):
 
     @property
     def provide_label(self):
+        if self._service is not None:
+            return self._service_iter.provide_label
         return self._it.provide_label
 
     def _produce_one(self):
@@ -1845,6 +2005,9 @@ class ImageRecordIter(mxio.DataIter):
             self._produce_one()
 
     def reset(self):
+        if self._service is not None:
+            self._service_iter.reset()
+            return
         if self._pipeline is not None:
             self._pipeline.reset()
             return
@@ -1864,7 +2027,39 @@ class ImageRecordIter(mxio.DataIter):
                  event)
         return batch
 
+    def _next_service(self):
+        """One batch off the service collector.  host_batches hands the
+        zero-copy views on (valid until the next pull, the product the C++
+        parser handed out).  The device path copies the slot through the
+        uploader (into a pinned block, then ``non_blocking`` on the side
+        stream; on the CPU a private clone, since the CPU "upload" would
+        alias the slot) and only then releases the slot: a worker must not
+        overwrite bytes still being read.  With device_augment the
+        uploaded canvas is augmented on the uploader's stream, seeded by
+        the batch's chunk seed."""
+        batch = self._service_iter.next()
+        if self._host_batches:
+            return batch
+        data = batch.data[0]
+        if not self._uploader.cuda:
+            data = data.clone()
+        aug, dt = self._dev_aug, self._device_transform
+        transform = dt
+        if aug is not None:
+            seed, nvalid = batch.aug_seed, self.batch_size - batch.pad
+            transform = (lambda d: dt(aug(d, seed, nvalid))) if dt \
+                else (lambda d: aug(d, seed, nvalid))
+        out = _upload_batch(self._ctx, self._uploader, data,
+                            batch.label[0], batch.pad, transform)
+        batch.release()   # the bytes have left the slot: recycle it
+        return out
+
     def next(self):
+        if self._service is not None:
+            batch = self._next_service()
+            batch.provide_data = self.provide_data
+            batch.provide_label = self.provide_label
+            return self._ready(batch)
         if self._pipeline is not None:
             batch = self._pipeline.next()
             batch.provide_data = self.provide_data
@@ -1882,11 +2077,16 @@ class ImageRecordIter(mxio.DataIter):
         return self._ready(slot["batch"])
 
     def stats(self):
-        """Per-stage data-service counters; None for the in-process
-        pipelines (the only ones the port has so far)."""
+        """Per-stage data-service counters (``DataService.stats``); None
+        for the in-process pipelines."""
+        if self._service is not None:
+            return self._service_iter.stats()
         return None
 
     def close(self):
+        if self._service is not None:
+            self._service_iter.close()
+            return
         if self._pipeline is not None:
             self._pipeline.shutdown()
             return

@@ -9,9 +9,10 @@ in both, and one setting toggles the same plan passes in both
 (``concat_fuse``, ``pool_act``, ``bn_act``/``bn_fold``,
 ``eltwise_chain``, ``infer_trace``: :mod:`mxnet_tpu_torch.mxfuse`;
 the bodies of ``concat_fuse``, ``pool_act`` and ``eltwise_chain`` are
-:mod:`.concat_fuse`, :mod:`.pool_act` and :mod:`.eltwise_chain` here).  ``augment`` belongs to
-the input pipeline, which the port does not have yet: it enables
-nothing.
+:mod:`.concat_fuse`, :mod:`.pool_act` and :mod:`.eltwise_chain` here).
+``augment`` routes ``ImageRecordIter(device_augment=...)`` to
+:mod:`.augment` (torch code, no hand-written kernel, as in the JAX
+package).
 
 **Building.** Every hand-written kernel lives in ``csrc/<name>.cu`` with
 a plain C interface.  :func:`build` compiles the sources at first use
@@ -48,7 +49,7 @@ from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
            "load_library", "library_path", "BUILD_SECONDS", "ENV_FLASH_BLOCK",
            "bn_act", "lstm_cell", "flash_attention", "roofline",
-           "concat_fuse", "pool_act", "eltwise_chain"]
+           "concat_fuse", "pool_act", "eltwise_chain", "augment"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -228,3 +229,4 @@ from . import roofline  # noqa: E402
 from . import concat_fuse  # noqa: E402
 from . import pool_act  # noqa: E402
 from . import eltwise_chain  # noqa: E402
+from . import augment  # noqa: E402

@@ -1,5 +1,7 @@
 """Retries for the input pipeline (port of ``mxnet_tpu/resilience.py``'s
-``TransientError``, ``retry`` and ``retrying_next``, ``:171``, ``:813-879``).
+``TransientError``, ``retry`` and ``retrying_next``, ``:171``, ``:813-879``)
+and ``strip_faults_env`` (``:315``), which the data service applies to the
+environment of a respawned decode worker.
 
 The rest of the JAX module (``CheckpointManager``, ``StepWatchdog``,
 ``PreemptionHandler``) and its fault injection (``faults.maybe_fail`` /
@@ -14,8 +16,8 @@ import time
 
 from .base import MXNetError, get_env, register_env
 
-__all__ = ["TransientError", "retry", "retrying_next", "ENV_DATA_RETRIES",
-           "ENV_DATA_BACKOFF"]
+__all__ = ["TransientError", "retry", "retrying_next", "strip_faults_env",
+           "ENV_DATA_RETRIES", "ENV_DATA_BACKOFF"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -90,3 +92,15 @@ def retrying_next(data_iter, name="next"):
         backoff=float(get_env(ENV_DATA_BACKOFF, "0.05")),
         retry_on=(IOError, OSError, TransientError),
         name=name)
+
+
+def strip_faults_env(value, points):
+    """Drop the given fault points from an ``MXTPU_FAULTS`` value
+    (``"point:times[@after],..."``), keeping everything else: an injected
+    fault fires once per drill, never again on a respawned process (or it
+    would crash-loop the respawn budget away)."""
+    points = set(points)
+    keep = [part for part in
+            filter(None, (p.strip() for p in (value or "").split(",")))
+            if part.partition(":")[0] not in points]
+    return ",".join(keep)

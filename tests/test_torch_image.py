@@ -232,15 +232,29 @@ def test_uint8_iter_and_provide(rec):
 
 
 def test_service_options_raise_naming_the_next_slice(rec, monkeypatch):
+    """The service options (ported since this test was written): explicit
+    requests that the service cannot express raise with the JAX package's
+    messages, the variable routes an eligible iterator and falls back for
+    an ineligible one, and data_service=False keeps the in-process
+    route."""
+    monkeypatch.setenv("MXTPU_DATA_NET_RETRIES", "1")
     with tmx.cpu():
-        for kw in (dict(data_service=True), dict(data_service="h:1"),
-                   dict(device_augment=True), dict(device_augment=0)):
-            with pytest.raises(tmx.MXNetError, match="data service slice"):
+        for kw, msg in ((dict(data_service=True), "path_imgidx"),
+                        (dict(data_service="h:1"), "path_imgidx"),
+                        (dict(device_augment=True), "device_augment"),
+                        (dict(device_augment=0), "device_augment")):
+            with pytest.raises(tmx.MXNetError, match=msg):
                 tmx.io.ImageRecordIter(rec + "/a.rec", SHAPE, 8, **kw)
         monkeypatch.setenv("MXTPU_DATA_WORKERS", "2")
-        with pytest.raises(tmx.MXNetError, match="data service slice"):
-            tmx.io.ImageRecordIter(rec + "/a.rec", SHAPE, 8)
+        it = tmx.io.ImageRecordIter(rec + "/a.rec", SHAPE, 8)
+        assert it.route == "native" and it.stats() is None   # no .idx
+        it.close()
         it = tmx.io.ImageRecordIter(rec + "/a.rec", SHAPE, 8,
+                                    path_imgidx=rec + "/a.idx")
+        assert it.route == "service" and it.stats()["num_workers"] == 2
+        it.close()
+        it = tmx.io.ImageRecordIter(rec + "/a.rec", SHAPE, 8,
+                                    path_imgidx=rec + "/a.idx",
                                     data_service=False)
         assert it.route == "native" and it.stats() is None
         it.close()

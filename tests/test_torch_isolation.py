@@ -7,7 +7,9 @@ one FGSM step in NDArray arithmetic, and the extension surface
 (autograd, a CustomOp, a Monitor, the torch bridge, the mirror mode) and
 the input pipeline (a ``.rec``, the three ``ImageRecordIter`` routes,
 ``DevicePrefetchIter`` into a step) on the CPU with JAX made
-unimportable, and the chip smoke test refuses to run without CUDA."""
+unimportable, the data service's worker, coordinator and server stream an
+epoch with torch and JAX both unimportable, and the chip smoke test
+refuses to run without CUDA."""
 import ast
 import os
 import subprocess
@@ -330,15 +332,105 @@ def test_input_pipeline_runs_with_jax_unimportable(tmp_path):
     assert res.stdout.splitlines()[-1] == "ok"
 
 
+def _poisoned_path(tmp_path):
+    """A PYTHONPATH entry under which ``torch``, ``jax`` and ``mxnet_tpu``
+    raise at import."""
+    poison = tmp_path / "poison"
+    for name in ("torch", "jax", "mxnet_tpu"):
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(
+            "raise ImportError('%s must not be imported here')\n" % name)
+    return str(poison) + os.pathsep + os.environ.get("PYTHONPATH", "")
+
+
+def test_data_service_processes_run_with_torch_and_jax_unimportable(
+        tmp_path):
+    """The decode worker, the coordinator and the server entry point
+    (``data_service/_worker_main.py``, ``service.py``, ``server_main.py``)
+    never import torch or JAX: with both unimportable, a local
+    ``DataService`` under the stub package streams a real epoch from two
+    workers, and a server started by path streams one (its workers
+    inherit the poisoned path) to this process's consumer."""
+    from mxnet_tpu_torch import recordio
+    import numpy as np
+    prefix = str(tmp_path / "d")
+    rs = np.random.RandomState(0)
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(12):
+        w.write_idx(i, recordio.pack_img(
+            (0, float(i), i, 0), (rs.rand(40, 44, 3) * 255).astype(
+                np.uint8)))
+    w.close()
+    env = dict(os.environ, PYTHONPATH=_poisoned_path(tmp_path))
+    ds_dir = os.path.join(REPO, "mxnet_tpu_torch", "data_service")
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import _worker_main\n"
+        "_worker_main.bootstrap()\n"
+        "from mxnet_tpu_torch.data_service.service import DataService\n"
+        "svc = DataService(%r, %r, (3, 32, 32), 4, num_workers=2, "
+        "shuffle=True, aug={'rand_crop': True})\n"
+        "n = 0\n"
+        "while True:\n"
+        "    try:\n"
+        "        d, lab, pad, rel = svc.next_batch()\n"
+        "    except StopIteration:\n"
+        "        break\n"
+        "    assert d.shape == (4, 3, 32, 32) and d.std() > 0\n"
+        "    n += 1\n"
+        "st = svc.stats()\n"
+        "svc.close()\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'mxnet_tpu')]\n"
+        "assert st['batches_produced'] == 3 and all(w['respawns'] == 0 "
+        "for w in st['workers'].values()), st\n"
+        "print('ok', n)\n" % (ds_dir, prefix + ".rec", prefix + ".idx"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["ok", "3"]
+    pf = str(tmp_path / "port")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ds_dir, "server_main.py"), "--port",
+         "0", "--port-file", pf], cwd=str(tmp_path),
+        stderr=subprocess.DEVNULL, env=env)
+    try:
+        import time
+        deadline = time.monotonic() + 60
+        while not os.path.exists(pf):
+            assert proc.poll() is None, "the server died at startup"
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        with open(pf) as f:
+            addr = f.read().strip()
+        from mxnet_tpu_torch.data_service import DataServiceIter
+        from mxnet_tpu_torch.data_service.net import NetDataService
+        it = DataServiceIter(NetDataService(
+            addr, prefix + ".rec", prefix + ".idx", (3, 32, 32), 4,
+            workers_per_server=2, retries=2))
+        shapes = [tuple(b.data[0].shape) for b in it]
+        it.close()
+        assert shapes == [(4, 3, 32, 32)] * 3
+        assert proc.poll() is None
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+
+
 def test_new_modules_are_covered():
-    """The extension and input-pipeline slices' modules are among the
-    sources the import check walks."""
+    """The extension, input-pipeline and data-service slices' modules are
+    among the sources the import check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
                 "engine", "dataflow", "resilience", "native/__init__",
                 "data_service/__init__", "data_service/common",
-                "ops/image_io"):
+                "data_service/ring", "data_service/_worker_main",
+                "data_service/service", "data_service/iter",
+                "data_service/net", "data_service/server_main",
+                "kernels/augment", "ops/image_io"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 

@@ -66,6 +66,15 @@ def test_public_names_match_jax_but_later_slices():
     assert tmx.contrib.autograd.mark_variables is \
         tmx.autograd.mark_variables
     assert hasattr(tmx.sym, "Custom") and hasattr(tmx.nd, "Custom")
+    # the data-service slice's names, as the JAX package exports them
+    assert tmx.data_service.__all__ == jmx.data_service.__all__
+    for name in jmx.data_service.__all__:
+        assert hasattr(tmx.data_service, name), name
+    from mxnet_tpu.data_service import net as jnet
+    from mxnet_tpu_torch.data_service import net as tnet
+    assert tnet.__all__ == jnet.__all__
+    assert tmx.kernels.augment.DeviceAugment.__name__ == "DeviceAugment"
+    assert "augment" in tmx.kernels.__all__
 
 
 def _grouped_net(mx):
