@@ -234,7 +234,25 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     ``device_augment``, that through ``DevicePrefetchIter(stage=module)``
     and the network tier with ``device_augment`` (48 + 48 ``bn_act``
     launches a step, ms a batch, idle share);
-25. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+25. runs the rest of the op library through the examples that use it
+    (``detection_paths``), each example file loaded with its
+    ``mxnet_tpu`` imports bound to the port (``load_example``): SSD-512
+    with a ResNet-50 body (the reference's ``symbol_factory`` entry:
+    ``example/ssd``'s ``get_symbol_train``/``get_symbol_detect`` around
+    the zoo's ResNet-50 cut at stages 3 and 4 and four extra layers, 6132
+    anchors, VOC's 20 classes) trained through ``Module.fit`` at batch 32
+    (the plan's ``bn_act`` launches a step, ms a batch, peak memory, a
+    profiled window's idle share), MultiBoxTarget's host and device ms,
+    the detection graph on the trained weights (NMS must suppress boxes
+    in every picture; the NMS sweep's host and device ms), MultiBoxTarget,
+    MultiBoxDetection and Proposal card against CPU on the same inputs, a
+    batch-2 training step against the CPU (float32, and float64 for the
+    gradients), ``example/rcnn``'s Faster R-CNN fit (Custom ops' host
+    round trips a batch), ``example/warpctc``'s toy CTC OCR at its
+    defaults (1 + 1 ``lstm_seq`` launches a batch, the WarpCTC backward's
+    ms), every new op card against CPU, and ROIPooling and Correlation at
+    their published shapes (peak memory under 2 GiB above resident);
+26. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -248,6 +266,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4752,13 +4771,13 @@ def _head(net):
     return net._outputs[0][0].inputs[0][0].name + "_output"
 
 
-def zoo_report(mx, net, shape):
+def zoo_report(mx, net, shape, **shapes):
     """The fused plan's report (``mxfuse.plan_report``) at input ``shape``
-    with every pass on."""
+    (and the other inputs' ``shapes``) with every pass on."""
     with fused_kernels("1"):
         fn = mx.executor._build_eval(net)
-    return mx.mxfuse.plan_report(fn.plan, fn.out_refs,
-                                 mx.mxfuse.output_shapes(net, data=shape))
+    return mx.mxfuse.plan_report(fn.plan, fn.out_refs, mx.mxfuse.output_shapes(
+        net, data=shape, **shapes))
 
 
 def _params_on_host(mx, weights):
@@ -7321,6 +7340,883 @@ def data_service_paths(torch, mx, seed, card):
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------------------
+# the detection and sequence examples on the port: example/ssd (SSD-512
+# with a ResNet-50 body), example/rcnn and example/warpctc, loaded with
+# ``mxnet_tpu`` bound to the port
+# ---------------------------------------------------------------------------
+
+_PKG_IMPORT = re.compile(r"^([ \t]*)(import|from)([ \t]+)mxnet_tpu\b", re.M)
+
+
+def load_example(relpath, name, siblings=None):
+    """Execute the example file ``relpath`` (from the repository root) as a
+    module named ``name``, with ``mxnet_tpu`` bound to ``mxnet_tpu_torch``:
+    every line that imports ``mxnet_tpu`` or a module under it (``import
+    mxnet_tpu as mx``, ``from mxnet_tpu.io import DataIter``, an import
+    inside a function) is rewritten to import the port's, and the rest of
+    the file runs as written.  ``siblings`` maps the names the example
+    imports its neighbours by (``import symbol_ssd``) to modules loaded
+    this way; they stand in ``sys.modules`` only while the file runs."""
+    import types
+    path = os.path.join(ROOT, relpath)
+    with open(path) as f:
+        source = _PKG_IMPORT.sub(r"\1\2\3mxnet_tpu_torch", f.read())
+    module = types.ModuleType(name)
+    module.__file__ = path
+    stand_in = dict(siblings or {})
+    stand_in[name] = module
+    saved = {k: sys.modules.get(k) for k in stand_in}
+    sys.modules.update(stand_in)
+    try:
+        exec(compile(source, path, "exec"), module.__dict__)
+    finally:
+        for k, old in saved.items():
+            if old is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = old
+    return module
+
+
+def example_modules():
+    """The examples' modules on the port: ``symbol_ssd``, ``train_ssd``,
+    ``rcnn_target`` (registers its two Custom ops), ``train_rcnn`` and
+    ``toy_ctc``."""
+    ssd = load_example("example/ssd/symbol_ssd.py", "port_symbol_ssd")
+    target = load_example("example/rcnn/rcnn_target.py", "port_rcnn_target")
+    return {
+        "symbol_ssd": ssd,
+        "train_ssd": load_example("example/ssd/train_ssd.py",
+                                  "port_train_ssd", {"symbol_ssd": ssd}),
+        "rcnn_target": target,
+        "train_rcnn": load_example("example/rcnn/train_rcnn.py",
+                                   "port_train_rcnn",
+                                   {"rcnn_target": target}),
+        "toy_ctc": load_example("example/warpctc/toy_ctc.py",
+                                "port_toy_ctc"),
+    }
+
+
+#: SSD-512 with a ResNet-50 body: the "resnet50" entry of the reference's
+#: example/ssd/symbol/symbol_factory.py at data shape 512 (VOC's 20
+#: classes): the zoo's ResNet-50 v2 cut at the ends of stages 3 and 4
+#: (the reference's _plus12 and _plus15), four extra layers, six maps
+SSD_IMAGE = (3, 512, 512)
+SSD_CLASSES = 20
+SSD_BATCH = 32
+SSD_FROM = ("elemwise_add12_output", "elemwise_add15_output")
+SSD_EXTRA_FILTERS = (512, 256, 256, 128)
+SSD_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+             (.88, .961))
+_SSD_R3, _SSD_R5 = (1.0, 2.0, .5), (1.0, 2.0, .5, 3.0, 1.0 / 3)
+SSD_RATIOS = (_SSD_R3, _SSD_R5, _SSD_R5, _SSD_R5, _SSD_R3, _SSD_R3)
+SSD_ANCHORS = 6132
+SSD_OBJECTS = 16        # label rows a picture, padded with rows of -1
+SSD_WARM, SSD_TIMED = 2, 6
+SSD_PROFILE_BATCHES = 3
+SSD_SGD = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4}
+#: get_symbol_detect on the trained weights: the example's 0.2 threshold
+#: would leave untrained scores near 1/21 nothing to suppress
+SSD_DETECT = dict(threshold=0.01, nms_thresh=0.45, nms_topk=400)
+SSD_DETECT_FORWARDS = 4
+SSD_AGREE_BATCH = 2
+#: MultiBox ops card against CPU on the same inputs: loc_target within
+#: 1e-6 absolute (the log of each device's math library); decoded box
+#: corners within 2 ulp of 1.0 (each device's exp)
+MBT_LOC_ATOL = 1e-6
+BOX_ATOL = 2.4e-7
+#: Faster R-CNN's published test-time proposal layer: VGG-16 conv5_3 of a
+#: 600 x 1000 image (stride 16: 38 x 63), 9 anchors, 6000 / 300
+RCNN_PROPOSAL = dict(shape=(1, 18, 38, 63), im_info=(600.0, 1000.0, 1.6),
+                     attrs=dict(rpn_pre_nms_top_n=6000,
+                                rpn_post_nms_top_n=300, threshold=0.7,
+                                rpn_min_size=16, scales=(8, 16, 32),
+                                ratios=(0.5, 1, 2), feature_stride=16,
+                                output_score=True))
+RCNN_BATCHES = 8        # one epoch of the example's ToyDetIter (64 / 8)
+CTC_BATCHES = 8         # one epoch of toy_ctc.train at its defaults
+#: ROIPooling at Faster R-CNN's VGG-16 conv5_3 shape, 128 ROIs, 7 x 7;
+#: Correlation at FlowNetC's layer (kernel 1, displacement 20, strides 1
+#: and 2, pad 20); the forward+backward peak above resident of each
+ROI_PUBLISHED = ((1, 512, 38, 63), 128, (7, 7), 1.0 / 16)
+CORR_PUBLISHED = ((8, 256, 48, 64), dict(kernel_size=1, max_displacement=20,
+                                         stride1=1, stride2=2, pad_size=20))
+PEAK_TARGET_GIB = 2.0
+
+
+def ssd512_symbols(mx, ssd):
+    """SSD-512 ResNet-50 (train, detect) through the example's own
+    ``get_symbol_train`` / ``get_symbol_detect``, with its
+    ``multi_layer_feature`` replaced by the zoo's ResNet-50 (built under a
+    fresh NameManager, cut at SSD_FROM) and the reference's extra layers
+    (``symbol_builder.multi_layer_feature``: a 1x1 conv of max(128, f/2)
+    filters, then a stride-2 3x3 conv of f, each with a relu)."""
+    def multi_layer_feature(data):
+        with mx.name.NameManager():
+            body = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                        image_shape=SSD_IMAGE)
+        internals = body.get_internals()
+        layers = [internals[name] for name in SSD_FROM]
+        for k, f in enumerate(SSD_EXTRA_FILTERS):
+            c1 = ssd.conv_act(layers[-1], "multi_feat_%d_conv_1x1" % (k + 2),
+                              max(128, f // 2), kernel=(1, 1), pad=(0, 0))
+            layers.append(ssd.conv_act(
+                c1, "multi_feat_%d_conv_3x3" % (k + 2), f, kernel=(3, 3),
+                pad=(1, 1), stride=(2, 2)))
+        return layers
+
+    example_features = ssd.multi_layer_feature
+    ssd.multi_layer_feature = multi_layer_feature
+    try:
+        with mx.name.NameManager():
+            train = ssd.get_symbol_train(num_classes=SSD_CLASSES,
+                                         sizes=SSD_SIZES, ratios=SSD_RATIOS)
+        with mx.name.NameManager():
+            detect = ssd.get_symbol_detect(
+                num_classes=SSD_CLASSES, sizes=SSD_SIZES, ratios=SSD_RATIOS,
+                **SSD_DETECT)
+    finally:
+        ssd.multi_layer_feature = example_features
+    return train, detect
+
+
+def ssd_data(seed, n, size=SSD_IMAGE[1], classes=SSD_CLASSES,
+             objects=SSD_OBJECTS):
+    """``n`` seeded pictures of noise with 1-8 colored rectangles each
+    (one color a class) and their labels (n, objects, 5): rows (class, x1,
+    y1, x2, y2) in [0, 1], padded with rows of -1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3, size, size), dtype=np.float32)
+    x *= 0.3
+    colors = rng.uniform(-1.5, 1.5, (classes, 3)).astype(np.float32)
+    lab = -np.ones((n, objects, 5), np.float32)
+    for i in range(n):
+        for k in range(rng.integers(1, 9)):
+            cls = int(rng.integers(0, classes))
+            x0, y0 = rng.uniform(0.0, 0.75, 2)
+            w, h = rng.uniform(0.08, 0.45, 2)
+            x1, y1 = min(1.0, x0 + w), min(1.0, y0 + h)
+            px = [int(round(v * size)) for v in (x0, y0, x1, y1)]
+            x[i, :, px[1]:px[3], px[0]:px[2]] = colors[cls][:, None, None]
+            lab[i, k] = (cls, x0, y0, x1, y1)
+    return x, lab
+
+
+def _host_device_ms(torch, fn, iters=5):
+    """(host ms, device ms) of one ``fn()`` call: the host clock around
+    calls that end in no sync, after a synced warm-up; the device time a
+    trace of the same calls records (``traced_device_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host, traced_device_ms(torch, fn, iters=iters)
+
+
+def phase_ssd_fit(torch, mx, ex, seed, card):
+    """SSD-512 ResNet-50 trained through the example's Module.fit wiring
+    (kvstore=None, sgd, the example's Xavier init and MultiBoxMetric) at
+    batch 32 on gpu(0): SSD_WARM untimed then SSD_TIMED timed batches, then
+    a profiled window.  Returns (module, data, labels, detect symbol,
+    bn_act launches (fwd, bwd))."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    train, detect = ssd512_symbols(mx, ex["symbol_ssd"])
+    shape = (SSD_BATCH,) + SSD_IMAGE
+    label_shape = (SSD_BATCH, SSD_OBJECTS, 5)
+    internals = train.get_internals()
+    _, outs, _ = internals.infer_shape(data=shape, label=label_shape)
+    anchors = dict(zip(internals.list_outputs(), outs))[
+        "multibox_anchors_output"]
+    check(anchors == (1, SSD_ANCHORS, 4), "ssd-512: %s anchors, not %d" % (
+        anchors, SSD_ANCHORS))
+    report = zoo_report(mx, train, shape, label=label_shape)
+    per_step = report["bn_act_calls_train"]
+    per_forward = report["bn_act_calls_infer"]
+    batches = SSD_WARM + SSD_TIMED
+    X, Y = ssd_data(seed + 140, batches * SSD_BATCH)
+    it = mx.io.NDArrayIter(X, Y, batch_size=SSD_BATCH, label_name="label")
+    mod = mx.mod.Module(train, data_names=("data",), label_names=("label",),
+                        context=mx.gpu(0))
+    metric = ex["train_ssd"].MultiBoxMetric()
+    stamps = {}
+
+    def on_batch(param):
+        if param.nbatch in (SSD_WARM - 1, SSD_WARM - 1 + SSD_TIMED):
+            torch.cuda.synchronize()
+            stamps[param.nbatch] = time.perf_counter()
+
+    mx.random.seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    ba.BWD_LAUNCHES = 0
+    mod.fit(it, eval_metric=metric, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(SSD_SGD),
+            initializer=mx.initializer.Xavier(rnd_type="gaussian",
+                                              factor_type="in", magnitude=2),
+            batch_end_callback=on_batch, kvstore=None)
+    torch.cuda.synchronize()
+    launched = (ba.LAUNCHES, ba.BWD_LAUNCHES)
+    # ----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    ms = (stamps[SSD_WARM - 1 + SSD_TIMED] - stamps[SSD_WARM - 1]) * 1e3 \
+        / SSD_TIMED
+    names, values = metric.get()
+    check(np.isfinite(values).all(), "ssd-512 fit: metric %s" % (values,))
+    check(launched == (per_step * batches, per_step * batches),
+          "ssd-512 fit launched %s bn_act kernels over %d batches, the plan "
+          "%d + %d a step" % (launched, batches, per_step, per_step))
+    log("ssd-512 resnet-50 fit (Module.fit, kvstore=None, sgd lr %g, batch "
+        "%d, 3x512x512, %d anchors, %d classes): %.2f ms a batch, %.1f "
+        "img/s over %d batches after %d; peak memory %.2f GiB (%.2f above "
+        "the %.2f GiB resident before); %d + %d bn_act launches a step; "
+        "%s %s; on %s" % (
+            SSD_SGD["learning_rate"], SSD_BATCH, SSD_ANCHORS, SSD_CLASSES, ms,
+            SSD_BATCH * 1e3 / ms, SSD_TIMED, SSD_WARM, peak / 2 ** 30,
+            (peak - resident) / 2 ** 30, resident / 2 ** 30, per_step,
+            per_step, names, ["%.4f" % v for v in values], card))
+    # a profiled window: one more epoch over the first batches
+    prof_it = mx.io.NDArrayIter(X[:(1 + SSD_PROFILE_BATCHES) * SSD_BATCH],
+                                Y[:(1 + SSD_PROFILE_BATCHES) * SSD_BATCH],
+                                batch_size=SSD_BATCH, label_name="label")
+
+    def run(prof):
+        t = {}
+
+        def stamp(param):
+            if param.nbatch in (0, SSD_PROFILE_BATCHES):
+                torch.cuda.synchronize()
+                t[param.nbatch] = time.perf_counter()
+                (prof.start if param.nbatch == 0 else prof.stop)()
+        mod.fit(prof_it, eval_metric=metric, num_epoch=1,
+                batch_end_callback=stamp, kvstore=None)
+        return (t[SSD_PROFILE_BATCHES] - t[0]) * 1e3
+
+    wall, busy, htod, kernels = _traced(torch, run)
+    log("ssd-512 fit profile: %d batches, wall %.2f ms a batch, device busy "
+        "%.2f ms, idle share %.3f, host-to-device copies %.3f ms a batch, "
+        "%.0f kernels a batch; on %s" % (
+            SSD_PROFILE_BATCHES, wall / SSD_PROFILE_BATCHES,
+            busy / SSD_PROFILE_BATCHES, 1 - busy / wall,
+            htod / SSD_PROFILE_BATCHES, kernels / SSD_PROFILE_BATCHES, card))
+    return mod, X, Y, detect, launched, per_forward
+
+
+def phase_ssd_target_ms(torch, mx, Y, card):
+    """MultiBoxTarget at the fit's shapes on the card: host and device
+    ms of one call (the example's attributes, mining on)."""
+    import numpy as np
+    contrib = mx.ops.contrib
+    dev = mx.gpu(0).torch_device
+    parts = [contrib.multibox_prior(torch.zeros(1, 1, s, s, device=dev),
+                                    sizes=SSD_SIZES[k], ratios=SSD_RATIOS[k])
+             for k, s in enumerate((32, 16, 8, 4, 2, 1))]
+    anchors = torch.cat(parts, dim=1)
+    check(anchors.shape == (1, SSD_ANCHORS, 4), "ssd anchors %s" % (
+        tuple(anchors.shape),))
+    rs = np.random.RandomState(7)
+    pred = torch.from_numpy(rs.standard_normal(
+        (SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS)).astype(np.float32)).to(dev)
+    label = torch.from_numpy(Y[:SSD_BATCH]).to(dev)
+    kw = dict(overlap_threshold=0.5, ignore_label=-1,
+              negative_mining_ratio=3.0, minimum_negative_samples=0,
+              negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2))
+    host, device = _host_device_ms(torch, lambda: contrib.multibox_target(
+        anchors, label, pred, **kw))
+    log("ssd-512 MultiBoxTarget at batch %d, %d anchors, %d label rows (the "
+        "fit's shapes; %d greedy matching rounds batched over the samples): "
+        "host %.3f ms, device %.3f ms a call; on %s" % (
+            SSD_BATCH, SSD_ANCHORS, SSD_OBJECTS, SSD_OBJECTS, host, device,
+            card))
+    return anchors, pred, label, kw
+
+
+def phase_ssd_detect(torch, mx, mod, detect, X, per_forward, card):
+    """The example's deployment graph on the trained weights at batch 32:
+    ms a forward, bn_act launches and kernels a forward, the NMS sweep's
+    host and device ms, boxes kept before and after NMS in the first
+    pictures (NMS must suppress some in each).  Returns (bn_act launches,
+    the MultiBoxDetection inputs)."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    contrib = mx.ops.contrib
+    internals = detect.get_internals()
+    names = internals.list_outputs()
+    prob_name = next(n for n in names if n.startswith("softmaxactivation"))
+    group = mx.sym.Group([detect, internals[prob_name],
+                          internals["multibox_loc_pred_output"],
+                          internals["multibox_anchors_output"]])
+    det = mx.mod.Module(group, data_names=("data",), label_names=None,
+                        context=mx.gpu(0))
+    det.bind(data_shapes=[("data", (SSD_BATCH,) + SSD_IMAGE)],
+             for_training=False)
+    arg_params, aux_params = mod.get_params()
+    det.set_params(arg_params, aux_params, allow_missing=False)
+    batch = mx.io.DataBatch(data=[mx.nd.array(X[:SSD_BATCH],
+                                              ctx=mx.gpu(0))])
+    det.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(SSD_DETECT_FORWARDS):
+        det.forward(batch, is_train=False)
+        rows = det.get_outputs()[0].asnumpy()
+    ms = (time.perf_counter() - t0) * 1e3 / SSD_DETECT_FORWARDS
+    launched = ba.LAUNCHES
+    # ----------------------------------------------------------------------
+    check(launched == per_forward * SSD_DETECT_FORWARDS, "ssd-512 detect "
+          "launched %d bn_act kernels over %d forwards, the plan %d a "
+          "forward" % (launched, SSD_DETECT_FORWARDS, per_forward))
+    outs = [o._data for o in det.get_outputs()]
+    prob, loc, anchors = outs[1], outs[2], outs[3]
+    check(rows.shape == (SSD_BATCH, SSD_ANCHORS, 6) and np.isfinite(
+        rows).all(), "ssd-512 detect rows %s" % (rows.shape,))
+    fg = prob[:, 1:].amax(1)
+    before = (fg > SSD_DETECT["threshold"]).sum(1).cpu().numpy()
+    after = (rows[..., 0] >= 0).sum(1)
+    check((after < before).all() and (after > 0).all(),
+          "ssd-512 detect: NMS kept %s of %s candidates" % (
+              after.tolist(), before.tolist()))
+    kept = rows[0][rows[0][:, 0] >= 0]
+    check((kept[:, 1] > SSD_DETECT["threshold"]).all()
+          and (np.diff(kept[:, 1]) <= 0).all()
+          and ((kept[:, 2:] >= 0) & (kept[:, 2:] <= 1)).all(),
+          "ssd-512 detect: kept rows not sorted scores over the threshold "
+          "with clipped boxes")
+    _, busy, _, kernels = _traced(torch, lambda prof: (
+        prof.start(), det.forward(batch, is_train=False),
+        det.get_outputs()[0].asnumpy(), prof.stop()))
+    # the sweep alone, on this forward's rows
+    boxes, score, cls_id, valid, sel = contrib._mbd_candidates(
+        prob, loc, anchors, True, SSD_DETECT["threshold"], 0,
+        (0.1, 0.1, 0.2, 0.2), False)
+    _, sboxes, keep0 = contrib._score_rows(boxes, score, sel)
+    topk = SSD_DETECT["nms_topk"]
+    steps = min(topk, SSD_ANCHORS - 1)
+    sweep_host, sweep_dev = _host_device_ms(
+        torch, lambda: contrib._nms_sweep(sboxes, keep0,
+                                          SSD_DETECT["nms_thresh"], topk),
+        iters=2)
+    op_host, op_dev = _host_device_ms(torch, lambda: contrib.multibox_detection(
+        prob, loc, anchors, threshold=SSD_DETECT["threshold"],
+        nms_threshold=SSD_DETECT["nms_thresh"], nms_topk=topk), iters=2)
+    log("ssd-512 detect (get_symbol_detect, threshold %g, nms %g, topk %d) "
+        "at batch %d: %.2f ms a forward; %d bn_act launches and %.0f kernels "
+        "a forward (device busy %.2f ms of a traced forward); the NMS sweep "
+        "runs %d steps over %d (picture, class) rows of %d: host %.2f ms, "
+        "device %.2f ms; MultiBoxDetection whole: host %.2f ms, device %.2f "
+        "ms; on %s" % (
+            SSD_DETECT["threshold"], SSD_DETECT["nms_thresh"], topk,
+            SSD_BATCH, ms, per_forward, kernels, busy, steps,
+            SSD_BATCH * SSD_CLASSES, SSD_ANCHORS, sweep_host, sweep_dev,
+            op_host, op_dev, card))
+    log("ssd-512 detect: boxes over the threshold before NMS / kept after, "
+        "first 8 pictures: %s" % ", ".join(
+            "%d/%d" % (b, a) for b, a in zip(before[:8], after[:8])))
+    del det
+    return launched, (prob, loc, anchors)
+
+
+def _same_rows(np, got, ref, what, atol):
+    """Detection rows on two devices: ids and scores equal, box corners
+    within ``atol``; returns the largest corner difference."""
+    check(got.shape == ref.shape, "%s: shapes %s / %s" % (
+        what, got.shape, ref.shape))
+    check(np.array_equal(got[..., :2], ref[..., :2]),
+          "%s: class ids or scores differ (%d entries)" % (
+              what, int((got[..., :2] != ref[..., :2]).sum())))
+    diff = float(np.abs(got[..., 2:] - ref[..., 2:]).max()) if got.size \
+        else 0.0
+    check(diff <= atol, "%s: corners differ by %.3g (bound %.3g)" % (
+        what, diff, atol))
+    return diff
+
+
+def phase_multibox_agreement(torch, mx, target_in, detect_in, seed):
+    """MultiBoxTarget, MultiBoxDetection and Proposal on the card against
+    the port's CPU path on the same inputs (the main path's shapes):
+    equal targets, masks and rows, box coordinates within rounding."""
+    import numpy as np
+    contrib = mx.ops.contrib
+    anchors, pred, label, kw = target_in
+    got = [t.cpu().numpy() for t in contrib.multibox_target(
+        anchors, label, pred, **kw)]
+    ref = [t.numpy() for t in contrib.multibox_target(
+        anchors.cpu(), label.cpu(), pred.cpu(), **kw)]
+    loc_diff = float(np.abs(got[0] - ref[0]).max())
+    check(np.array_equal(got[2], ref[2]) and np.array_equal(got[1], ref[1])
+          and loc_diff <= MBT_LOC_ATOL, "MultiBoxTarget card vs CPU: "
+          "cls_target %d, loc_mask %d entries differ, loc_target by %.3g" % (
+              int((got[2] != ref[2]).sum()), int((got[1] != ref[1]).sum()),
+              loc_diff))
+    log("MultiBoxTarget card vs CPU at batch %d x %d anchors (mining on): "
+        "cls_target and loc_mask equal (%d positives, %d mined negatives, "
+        "%d ignored), loc_target within %.3g (bound %g)" % (
+            SSD_BATCH, SSD_ANCHORS, int((ref[2] > 0).sum()),
+            int((ref[2] == 0).sum()), int((ref[2] == -1).sum()), loc_diff,
+            MBT_LOC_ATOL))
+    prob, loc, anc = detect_in
+    for force in (False, True):
+        attrs = dict(threshold=SSD_DETECT["threshold"],
+                     nms_threshold=SSD_DETECT["nms_thresh"],
+                     nms_topk=SSD_DETECT["nms_topk"], force_suppress=force)
+        got = contrib.multibox_detection(prob, loc, anc, **attrs)
+        ref = contrib.multibox_detection(prob.cpu(), loc.cpu(), anc.cpu(),
+                                         **attrs)
+        diff = _same_rows(np, got.cpu().numpy(), ref.numpy(),
+                          "MultiBoxDetection card vs CPU", BOX_ATOL)
+        log("MultiBoxDetection card vs CPU at batch %d (the detect "
+            "forward's inputs, force_suppress %s): ids and scores equal, %d "
+            "rows kept, corners within %.3g (bound %.3g)" % (
+                SSD_BATCH, force, int((ref[..., 0] >= 0).sum()), diff,
+                BOX_ATOL))
+    rs = np.random.RandomState(seed + 150)
+    shape = RCNN_PROPOSAL["shape"]
+    a0 = shape[1] // 2
+    for n, what in ((1, "published"), (8, "batch 8")):
+        s = (n,) + shape[1:]
+        p = rs.uniform(0, 1, s).astype(np.float32)
+        p[:, a0:] = 1 - p[:, :a0]               # fg = 1 - bg, as a softmax
+        d = (0.2 * rs.standard_normal((n, 4 * a0) + s[2:])).astype(
+            np.float32)
+        info = np.tile(np.asarray(RCNN_PROPOSAL["im_info"], np.float32),
+                       (n, 1))
+        args = [torch.from_numpy(v) for v in (p, d, info)]
+        got = contrib.proposal(*[a.to(anc.device) for a in args],
+                               **RCNN_PROPOSAL["attrs"])
+        ref = contrib.proposal(*args, **RCNN_PROPOSAL["attrs"])
+        g_rois, r_rois = got[0].cpu().numpy(), ref[0].numpy()
+        atol = 4 * np.spacing(np.float32(RCNN_PROPOSAL["im_info"][1]))
+        diff = float(np.abs(g_rois[:, 1:] - r_rois[:, 1:]).max())
+        check(np.array_equal(g_rois[:, 0], r_rois[:, 0])
+              and np.array_equal(got[1].cpu().numpy(), ref[1].numpy())
+              and diff <= atol, "Proposal card vs CPU (%s): scores or "
+              "indices differ, or boxes by %.3g" % (what, diff))
+        log("Proposal card vs CPU (%s: %s, pre %d, post %d, output_score): "
+            "scores and batch indices equal, %d rois above zero score, "
+            "corners within %.3g px (bound %.3g)" % (
+                what, s, RCNN_PROPOSAL["attrs"]["rpn_pre_nms_top_n"],
+                RCNN_PROPOSAL["attrs"]["rpn_post_nms_top_n"],
+                int((ref[1].numpy() > 0).sum()), diff, atol))
+
+
+def _ssd_step(mx, symbol, params, x, lab, ctx):
+    """One SSD training forward/backward in x's dtype: the three outputs
+    and every parameter gradient as float64 numpy (float64 binds arrays
+    of that dtype; simple_bind allocates float32)."""
+    import numpy as np
+    args, aux = params
+    names = symbol.list_arguments()
+    arg_shapes, _, _ = symbol.infer_shape(data=x.shape, label=lab.shape)
+
+    def arr(v):
+        return mx.nd.array(v, ctx=ctx, dtype=x.dtype)
+    values = {n: arr(args[n] if n in args else np.zeros(s))
+              for n, s in zip(names, arg_shapes)}
+    values["data"], values["label"] = arr(x), arr(lab)
+    grads = {n: arr(np.zeros(s)) for n, s in zip(names, arg_shapes)
+             if n in args}
+    ex = symbol.bind(ctx, values, args_grad=grads,
+                     grad_req={n: "write" if n in args else "null"
+                               for n in names},
+                     aux_states={n: arr(v) for n, v in aux.items()})
+    outs = ex.forward(is_train=True)
+    ex.backward()
+    out = {"output:" + k: o.asnumpy() for k, o in zip(
+        ("cls_prob", "loc_loss", "cls_label"), outs)}
+    out.update({"grad:" + k: g.asnumpy() for k, g in ex.grad_dict.items()
+                if k in args})
+    return {k: v.astype(np.float64) for k, v in out.items()}
+
+
+def phase_ssd_agreement(torch, mx, mod, X, Y, card):
+    """A batch-2 SSD-512 training forward/backward on the card against the
+    port's CPU path from the fit's weights: cls_prob and loc_loss within
+    AGREE_REL_TOL x their max, the gradients in relative L2 against a
+    float64 CPU run; the mined cls_target entries that differ are counted
+    (a negative whose score ties within rounding may flip)."""
+    import numpy as np
+    args, aux = mod.get_params()
+    params = ({k: v.asnumpy() for k, v in args.items()},
+              {k: v.asnumpy() for k, v in aux.items()})
+    symbol = mod.symbol
+    x, lab = X[:SSD_AGREE_BATCH], Y[:SSD_AGREE_BATCH]
+    t0 = time.perf_counter()
+    ref = _ssd_step(mx, symbol, params, x, lab, mx.cpu())
+    exact = _ssd_step(mx, symbol, params, x.astype(np.float64),
+                      lab.astype(np.float64), mx.cpu())
+    got = _ssd_step(mx, symbol, params, x, lab, mx.gpu(0))
+    grads = [k for k in ref if k.startswith("grad:")]
+    cpu_l2 = _rel_l2(np, ref, exact, grads)
+    flips = int((got["output:cls_label"] != ref["output:cls_label"]).sum())
+    flips64 = int((ref["output:cls_label"]
+                   != exact["output:cls_label"]).sum())
+    log("ssd-512 agreement at batch %d (CPU float32 and float64 took %.1f "
+        "s): cls_target entries that differ card vs CPU float32: %d of %d "
+        "(CPU float32 vs float64: %d); CPU float32 gradients' relative L2 "
+        "against float64 %.3g" % (
+            SSD_AGREE_BATCH, time.perf_counter() - t0, flips,
+            ref["output:cls_label"].size, flips64, cpu_l2))
+    for k in ("output:cls_prob", "output:loc_loss"):
+        top = float(np.abs(ref[k]).max())
+        diff = float(np.abs(got[k] - ref[k]).max())
+        log("ssd-512 agreement: %s max |card - cpu| %.3g, %.3g of its max "
+            "(bound %g)" % (k[7:], diff, diff / top, AGREE_REL_TOL))
+        check(diff <= AGREE_REL_TOL * top, "ssd-512: %s disagrees with the "
+              "CPU path" % k[7:])
+    g_l2 = _rel_l2(np, got, exact, grads)
+    bound = max(AGREE_REL_TOL, GRAD_L2_FACTOR * cpu_l2)
+    t_l2, t_key = max((_rel_l2(np, got, exact, [k]), k) for k in grads)
+    log("ssd-512 agreement: %d gradients, relative L2 against float64 %.3g "
+        "(bound %.3g), worst tensor %s %.3g (bound %g); on %s" % (
+            len(grads), g_l2, bound, t_key, t_l2, GRAD_TENSOR_L2_TOL, card))
+    check(g_l2 <= bound and t_l2 <= GRAD_TENSOR_L2_TOL,
+          "ssd-512: gradients disagree with the float64 CPU run")
+
+
+def phase_rcnn_fit(torch, mx, ex, seed, card):
+    """example/rcnn at its own size (64x64, batch 8, 3 foreground
+    classes): one epoch of Module.fit on gpu(0) through its anchor_target
+    and proposal_target Custom ops, Proposal and ROIPooling.  ms a batch,
+    the Custom ops' host round trips a batch."""
+    import numpy as np
+    train = ex["train_rcnn"]
+    op = mx.operator
+    it = train.ToyDetIter(n=RCNN_BATCHES * 8, batch_size=8)
+    with mx.name.NameManager():
+        net = train.get_symbol_train()
+    mod = mx.mod.Module(net, data_names=("data", "im_info", "gt_boxes"),
+                        label_names=None, context=mx.gpu(0))
+    metric = train.RcnnMetric()
+    stamps = {}
+
+    def on_batch(param):
+        if param.nbatch in (1, RCNN_BATCHES - 1):
+            torch.cuda.synchronize()
+            stamps[param.nbatch] = time.perf_counter()
+            if param.nbatch == 1:
+                for k in op.HOST_COUNTS:
+                    op.HOST_COUNTS[k] = 0
+
+    mx.random.seed(seed)
+    with mx.gpu(0):     # the iterator's mx.nd.array batches land there
+        mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.002, "momentum": 0.9,
+                                  "wd": 5e-4},
+                initializer=mx.initializer.Xavier(
+                    rnd_type="gaussian", factor_type="in", magnitude=2),
+                batch_end_callback=on_batch, kvstore=None)
+    counts = dict(op.HOST_COUNTS)
+    timed = RCNN_BATCHES - 2
+    ms = (stamps[RCNN_BATCHES - 1] - stamps[1]) * 1e3 / timed
+    vals = dict(metric.get_name_value())
+    check(all(np.isfinite(v) for v in vals.values()),
+          "faster r-cnn fit: metric %s" % vals)
+    # both Custom ops run forward on the host each batch; only
+    # anchor_target's input (rpn_cls_score) takes a gradient, so only its
+    # backward runs (proposal_target's rois come from Proposal, detached)
+    check(counts["forward"] == 2 * timed and counts["backward"] == timed,
+          "faster r-cnn: %s Custom host calls over %d batches, not 2 "
+          "forward and 1 backward a batch" % (counts, timed))
+    log("faster r-cnn fit (example/rcnn, 64x64, batch 8, Proposal pre 256 / "
+        "post 64, ROIPooling 4x4): %.2f ms a batch over %d batches; Custom "
+        "ops %d forward and %d backward host calls a batch, %.0f bytes to "
+        "the host and %.0f back a batch; %s; on %s" % (
+            ms, timed, counts["forward"] // timed, counts["backward"] // timed,
+            counts["bytes_to_host"] / timed, counts["bytes_to_device"] / timed,
+            ", ".join("%s %.4f" % kv for kv in sorted(vals.items())), card))
+
+
+def phase_warpctc(torch, mx, ex, seed, card):
+    """example/warpctc/toy_ctc.train at its defaults (the LSTM net through
+    FusedRNNCell, hidden 100, T 80, batch 32, adam) for one epoch of
+    CTC_BATCHES batches on gpu(0): ms a batch, lstm_seq launches a batch,
+    the WarpCTC backward's host and device ms.  Returns the lstm_seq
+    launches (fwd, bwd)."""
+    import numpy as np
+    toy = ex["toy_ctc"]
+    lc = mx.kernels.lstm_cell
+    ctc = mx.ops.ctc
+    stamps = []
+    example_batch = toy.gen_batch
+
+    def stamped(batch_size, rng):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return example_batch(batch_size, rng)
+
+    toy.gen_batch = stamped
+    try:
+        # -- the main path: counts zeroed just before, read just after -----
+        zero_lstm_counts(lc)
+        acc = toy.train(epochs=1, batches_per_epoch=CTC_BATCHES, seed=seed,
+                        ctx=mx.gpu(0), log=lambda *a: None)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        counts = lstm_counts(lc)
+        # ------------------------------------------------------------------
+    finally:
+        toy.gen_batch = example_batch
+    check(len(acc) == 1 and np.isfinite(acc[0]), "toy ctc: accuracy %s"
+          % (acc,))
+    check(counts["seq"] == (CTC_BATCHES, CTC_BATCHES)
+          and counts["cell"] == (0, 0), "toy ctc: lstm launches %s over %d "
+          "batches, not 1 + 1 persistent a batch" % (counts, CTC_BATCHES))
+    ms = (stamps[-1] - stamps[1]) * 1e3 / (CTC_BATCHES - 1)
+    rs = np.random.RandomState(seed + 160)
+    T, N, A = toy.SEQ_LEN, 32, toy.ALPHABET
+    dev = mx.gpu(0).torch_device
+    data = torch.from_numpy(rs.standard_normal((T * N, A)).astype(
+        np.float32)).to(dev).requires_grad_()
+    label = torch.from_numpy(rs.randint(1, A, (N, toy.NUM_LABEL)).astype(
+        np.float32)).to(dev)
+
+    def backward():
+        out = ctc.warpctc(data, label, label_length=toy.NUM_LABEL,
+                          input_length=T)
+        return torch.autograd.grad(out, data, torch.ones_like(out))
+
+    host, device = _host_device_ms(torch, backward)
+    log("toy ctc (toy_ctc.train: LSTM hidden 100, T %d, batch 32, adam): "
+        "%.2f ms a batch over %d batches after the first; %d + %d lstm_seq "
+        "launches a batch; sequence accuracy %.3f after the epoch; WarpCTC "
+        "forward + backward (%d alpha steps under autograd): host %.2f ms, "
+        "device %.2f ms; on %s" % (
+            T, ms, CTC_BATCHES - 1, counts["seq"][0] // CTC_BATCHES,
+            counts["seq"][1] // CTC_BATCHES, acc[0], T - 1, host, device,
+            card))
+    return counts["seq"]
+
+
+def _sweep_case(torch, card_dev, what, fn, inputs, diff, seed, exact=(),
+                atol=None, rtol=0.0):
+    """One op on the card and on the CPU on the same inputs: forward (each
+    output within ``atol`` + ``rtol`` x its max, or equal where ``exact``
+    names it) and, for the inputs at ``diff``, the gradients of output 0
+    for one seeded cotangent (within ``atol`` + ``rtol`` x their max).
+    Returns the worst relative difference."""
+    import numpy as np
+    res = {}
+    for dev in (card_dev, torch.device("cpu")):
+        args = [t.to(dev).clone() for t in inputs]
+        for i in diff:
+            args[i].requires_grad_(True)
+        out = fn(*args)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        grads = []
+        if diff:
+            cot = torch.from_numpy(np.random.RandomState(seed).standard_normal(
+                tuple(outs[0].shape)).astype(np.float32)).to(dev)
+            grads = list(torch.autograd.grad(outs[0], [args[i] for i in diff],
+                                             cot))
+        res[dev.type] = [t.detach().cpu().double().numpy()
+                         for t in outs + grads]
+    worst = 0.0
+    for k, (g, r) in enumerate(zip(res[card_dev.type], res["cpu"])):
+        top = float(np.abs(r).max()) if r.size else 0.0
+        d = float(np.abs(g - r).max()) if r.size else 0.0
+        if k in exact:
+            check(d == 0, "op sweep %s: result %d differs by %.3g card vs "
+                  "CPU" % (what, k, d))
+            continue
+        check(d <= atol + rtol * top, "op sweep %s: result %d differs by "
+              "%.3g (bound %.3g + %.3g x %.3g)" % (what, k, d, atol, rtol,
+                                                    top))
+        worst = max(worst, d / top if top else d)
+    return worst
+
+
+def phase_op_sweep(torch, mx, seed, card):
+    """The 14 ops of ops/contrib.py (MultiBox*, Proposal, fft, ifft,
+    count_sketch), ops/vision.py and ops/ctc.py forward, and backward
+    where they have a gradient, on the card against the CPU path; then
+    ROIPooling and Correlation at their published shapes: forward +
+    backward peak memory above resident."""
+    import numpy as np
+    ops = mx.ops
+    c, v, ctc = ops.contrib, ops.vision, ops.ctc
+    rs = np.random.RandomState(seed + 170)
+    dev = mx.gpu(0).torch_device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    anchors = c.multibox_prior(torch.zeros(1, 1, 8, 8), sizes=(0.2, 0.4),
+                               ratios=(1, 2, 0.5))
+    a = anchors.shape[1]
+    _, lab = ssd_data(seed + 171, 4, size=8, classes=3, objects=6)
+    prob = torch.softmax(t(2 * rs.standard_normal((4, 4, a))), 1)
+    feat = np.maximum(rs.standard_normal((2, 8, 20, 24)), 0)
+    rois = np.array([[0, 0, 0, 79, 95], [1, 8, 8, 40, 60], [0, 30, 20, 90, 70],
+                     [1, 50, 50, 51, 52], [0, 200, 200, 300, 300]])
+    cp = rs.uniform(0, 1, (2, 12, 6, 7))
+    cases = [
+        ("MultiBoxPrior", lambda d: c.multibox_prior(
+            d, sizes=(0.3, 0.5), ratios=(1, 2, 0.5, 3), clip=True),
+         [torch.zeros(2, 3, 9, 11)], (), (0,), 0.0, 0.0),
+        ("MultiBoxTarget", lambda an, lb, p: c.multibox_target(
+            an, lb, p, negative_mining_ratio=3.0),
+         [anchors, t(lab), t(rs.standard_normal((4, 4, a)))], (), (1, 2),
+         MBT_LOC_ATOL, 0.0),
+        ("MultiBoxDetection", lambda p, l, an: c.multibox_detection(
+            p, l, an, threshold=0.1, nms_threshold=0.4, nms_topk=50),
+         [prob, t(0.3 * rs.standard_normal((4, a * 4))), anchors], (), (),
+         BOX_ATOL, 0.0),
+        ("Proposal", lambda p, d, i: c.proposal(
+            p, d, i, rpn_pre_nms_top_n=100, rpn_post_nms_top_n=30,
+            rpn_min_size=4, scales=(2, 4), ratios=(0.5, 1, 2),
+            feature_stride=8, output_score=True),
+         [t(cp), t(0.3 * rs.standard_normal((2, 24, 6, 7))),
+          t([[48, 56, 1.0], [40, 44, 1.5]])], (), (1,), 1.6e-5, 0.0),
+        ("fft", lambda d: c.fft(d), [t(rs.standard_normal((4, 64)))], (0,),
+         (), 0.0, 1e-5),
+        ("ifft", lambda d: c.ifft(d), [t(rs.standard_normal((4, 128)))],
+         (0,), (), 0.0, 1e-5),
+        ("count_sketch", lambda d, h, s: c.count_sketch(d, h, s, out_dim=16),
+         [t(rs.standard_normal((8, 40))), t(rs.randint(0, 16, (1, 40))),
+          t(rs.choice([-1.0, 1.0], (1, 40)))], (0, 2), (), 0.0, 1e-6),
+        ("ROIPooling", lambda d, r: v.roi_pooling(
+            d, r, pooled_size=(3, 4), spatial_scale=0.25),
+         [t(feat), t(rois)], (0,), (0,), 0.0, 1e-6),
+        ("BilinearSampler", v.bilinear_sampler,
+         [t(rs.standard_normal((2, 3, 9, 11))),
+          t(rs.uniform(-1.2, 1.2, (2, 2, 7, 8)))], (0, 1), (), 0.0, 1e-5),
+        ("GridGenerator", lambda d: v.grid_generator(
+            d, transform_type="affine", target_shape=(6, 7)),
+         [t(rs.standard_normal((3, 6)))], (0,), (), 0.0, 1e-6),
+        ("GridGenerator warp", lambda d: v.grid_generator(
+            d, transform_type="warp"), [t(rs.standard_normal((2, 2, 5, 6)))],
+         (0,), (), 0.0, 1e-6),
+        ("SpatialTransformer", lambda d, l: v.spatial_transformer(
+            d, l, target_shape=(6, 7)),
+         [t(rs.standard_normal((2, 3, 9, 11))),
+          t([[0.9, 0.1, 0.05, -0.1, 0.8, 0.0], [1.1, -0.2, 0.1, 0.2, 0.7,
+                                                -0.3]])], (0, 1), (), 0.0,
+         1e-5),
+        ("Correlation", lambda x, y: v.correlation(
+            x, y, kernel_size=3, max_displacement=4, stride1=2, stride2=2,
+            pad_size=4, is_multiply=False),
+         [t(rs.standard_normal((2, 16, 12, 14))),
+          t(rs.standard_normal((2, 16, 12, 14)))], (0, 1), (), 0.0, 1e-5),
+        ("Correlation multiply", lambda x, y: v.correlation(
+            x, y, kernel_size=1, max_displacement=4, stride1=1, stride2=2,
+            pad_size=4),
+         [t(rs.standard_normal((2, 16, 12, 14))),
+          t(rs.standard_normal((2, 16, 12, 14)))], (0, 1), (), 0.0, 1e-5),
+        ("WarpCTC", lambda d, l: ctc.warpctc(d, l, label_length=4,
+                                              input_length=20),
+         [t(rs.standard_normal((20 * 4, 8))), t(rs.randint(0, 8, (4, 4)))],
+         (0,), (), 0.0, 1e-5),
+        ("ctc_loss", lambda d, l: ctc.ctc_loss_op(d, l),
+         [t(rs.standard_normal((20, 4, 8))), t(rs.randint(0, 8, (4, 5)))],
+         (0,), (), 0.0, 1e-5),
+    ]
+    done = []
+    for k, (name, fn, inputs, diff, exact, atol, rtol) in enumerate(cases):
+        worst = _sweep_case(torch, dev, name, fn, inputs, diff, seed + k,
+                            exact, atol, rtol)
+        done.append("%s %.2g" % (name, worst))
+    canonical = {"MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection",
+                 "Proposal", "fft", "ifft", "count_sketch", "ROIPooling",
+                 "BilinearSampler", "GridGenerator", "SpatialTransformer",
+                 "Correlation", "WarpCTC", "ctc_loss"}
+    check(canonical <= {case[0] for case in cases}, "op sweep misses ops")
+    log("op sweep: %d ops (%d cases) card against CPU, forward and backward "
+        "where differentiable, worst |diff| / max: %s" % (
+            len(canonical), len(cases), ", ".join(done)))
+    # the published shapes: peak memory of a forward + backward
+    shape, n_rois, pooled, scale = ROI_PUBLISHED
+    data = torch.from_numpy(np.maximum(rs.standard_normal(shape), 0).astype(
+        np.float32)).to(dev)
+    h, w = shape[2] / scale, shape[3] / scale
+    x1 = rs.uniform(0, w - 32, n_rois)
+    y1 = rs.uniform(0, h - 32, n_rois)
+    roi = np.stack([np.zeros(n_rois), x1, y1,
+                    np.minimum(w - 1, x1 + rs.uniform(16, 400, n_rois)),
+                    np.minimum(h - 1, y1 + rs.uniform(16, 300, n_rois))], 1)
+    roi = torch.from_numpy(roi.astype(np.float32)).to(dev)
+    corr_shape, corr_kw = CORR_PUBLISHED
+    f1 = torch.from_numpy(rs.standard_normal(corr_shape).astype(
+        np.float32)).to(dev)
+    f2 = torch.from_numpy(rs.standard_normal(corr_shape).astype(
+        np.float32)).to(dev)
+    for name, fn, args, what in (
+            ("ROIPooling", lambda d: v.roi_pooling(
+                d, roi, pooled_size=pooled, spatial_scale=scale), [data],
+             "%s, %d ROIs, %dx%d, scale 1/%d" % (
+                 shape, n_rois, pooled[0], pooled[1], round(1 / scale))),
+            ("Correlation", lambda x, y: v.correlation(x, y, **corr_kw),
+             [f1, f2], "%s, %s" % (corr_shape, corr_kw))):
+        args = [a.clone().requires_grad_() for a in args]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        grads = torch.autograd.grad(out, args, torch.ones_like(out))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - resident
+        check(all(torch.isfinite(g).all() for g in grads)
+              and torch.isfinite(out).all(), "%s published: not finite"
+              % name)
+        log("%s at its published shape (%s): output %s, forward + backward "
+            "%.2f ms (host clock, first call), peak %.3f GiB above resident "
+            "(target under %g); on %s" % (
+                name, what, tuple(out.shape), ms, peak / 2 ** 30,
+                PEAK_TARGET_GIB, card))
+        check(peak < PEAK_TARGET_GIB * 2 ** 30, "%s published shape: peak "
+              "%.3f GiB above resident" % (name, peak / 2 ** 30))
+        del out, grads, args
+    del data, f1, f2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def detection_paths(torch, mx, seed, card):
+    """The rest of the op library on the card, driven by the examples that
+    use it: SSD-512 ResNet-50 trained and run for detection through
+    example/ssd, the MultiBox ops and Proposal held card against CPU,
+    Faster R-CNN through example/rcnn, the toy CTC OCR through
+    example/warpctc, and the op sweep.  Returns the main paths' launches
+    by kernel."""
+    ex = example_modules()
+    launches = collections.Counter()
+    mod, X, Y, detect, (fwd, bwd), per_forward = phase_ssd_fit(
+        torch, mx, ex, seed, card)
+    launches.update({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
+    target_in = phase_ssd_target_ms(torch, mx, Y, card)
+    fwd, detect_in = phase_ssd_detect(torch, mx, mod, detect, X, per_forward,
+                                      card)
+    launches.update({"bn_act_fwd": fwd})
+    phase_multibox_agreement(torch, mx, target_in, detect_in, seed)
+    del target_in, detect_in
+    phase_ssd_agreement(torch, mx, mod, X, Y, card)
+    del mod, X, Y
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_rcnn_fit(torch, mx, ex, seed, card)
+    fwd, bwd = phase_warpctc(torch, mx, ex, seed, card)
+    launches.update({"lstm_seq_fwd": fwd, "lstm_seq_bwd": bwd})
+    phase_op_sweep(torch, mx, seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -7350,6 +8246,7 @@ def main(argv=None):
     extra += extension_paths(torch, mx, args.seed, card)
     extra += input_paths(torch, mx, args.seed, card)
     extra += data_service_paths(torch, mx, args.seed, card)
+    extra += detection_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

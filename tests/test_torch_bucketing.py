@@ -82,8 +82,10 @@ def _sym_gen(mx, stack):
 
 
 def _weights(mx, fused, seed=3):
-    """Seeded numpy weights of the default bucket's symbol."""
-    sym, _, _ = _sym_gen(mx, _stack(mx, fused))(max(BUCKETS))
+    """Seeded numpy weights of the default bucket's symbol, built under a
+    fresh NameManager (auto-names count per process)."""
+    with mx.name.NameManager():
+        sym, _, _ = _sym_gen(mx, _stack(mx, fused))(max(BUCKETS))
     shape = (BATCH, max(BUCKETS))
     arg_shapes, _, _ = sym.infer_shape(data=shape, softmax_label=shape)
     rs = np.random.RandomState(seed)

@@ -36,7 +36,10 @@ def _symbol(mx, classes=10):
 
 def _weights(seed=50, classes=10):
     rs = np.random.RandomState(seed)
-    sym = _symbol(tmx, classes)
+    # a fresh NameManager, so that this shape-only build uses up no
+    # auto-names of the process (ResNet-8's elemwise_add0..2)
+    with tmx.name.NameManager():
+        sym = _symbol(tmx, classes)
     arg_shapes, _, aux_shapes = sym.infer_shape(data=(BATCH,) + IMAGE)
     args = {}
     for n, s in zip(sym.list_arguments(), arg_shapes):

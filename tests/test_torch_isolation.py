@@ -419,6 +419,64 @@ def test_data_service_processes_run_with_torch_and_jax_unimportable(
         proc.wait(timeout=10)
 
 
+def test_examples_run_on_the_port_with_jax_unimportable():
+    """``chip_smoke.example_modules`` loads example/ssd, example/rcnn and
+    example/warpctc with their imports bound to the port while JAX and
+    the JAX package cannot be imported; their graphs (the MultiBox ops,
+    the Custom target ops, Proposal, ROIPooling, WarpCTC) run a training
+    step on the CPU, and the op library's other new ops run too."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np\n"
+        "import chip_smoke\n"
+        "import mxnet_tpu_torch as mx\n"
+        "ex = chip_smoke.example_modules()\n"
+        "assert all(m.mx is mx for m in ex.values())\n"
+        "rs = np.random.RandomState(0)\n"
+        "with mx.cpu():\n"
+        "    net = ex['symbol_ssd'].get_symbol_train(num_classes=3)\n"
+        "    lab = -np.ones((2, 3, 5), np.float32)\n"
+        "    lab[:, 0] = [1, 0.1, 0.1, 0.5, 0.6]\n"
+        "    it = mx.io.NDArrayIter(rs.rand(2, 3, 64, 64).astype('f'), "
+        "lab, batch_size=2, label_name='label')\n"
+        "    m = mx.mod.Module(net, label_names=('label',), "
+        "context=mx.cpu())\n"
+        "    m.fit(it, eval_metric=ex['train_ssd'].MultiBoxMetric(), "
+        "num_epoch=1, kvstore=None)\n"
+        "    det = ex['symbol_ssd'].get_symbol_detect(num_classes=3)\n"
+        "    d = mx.mod.Module(det, label_names=None, context=mx.cpu())\n"
+        "    d.bind([('data', (2, 3, 64, 64))], for_training=False)\n"
+        "    d.set_params(*m.get_params())\n"
+        "    d.forward(mx.io.DataBatch([mx.nd.zeros((2, 3, 64, 64))]))\n"
+        "    assert d.get_outputs()[0].shape[2] == 6\n"
+        "    tr = ex['train_rcnn']\n"
+        "    r = mx.mod.Module(tr.get_symbol_train(batch_rois=8), "
+        "data_names=('data', 'im_info', 'gt_boxes'), label_names=None, "
+        "context=mx.cpu())\n"
+        "    r.fit(tr.ToyDetIter(n=2, batch_size=2), num_epoch=1, "
+        "eval_metric=tr.RcnnMetric(), kvstore=None)\n"
+        "    acc = ex['toy_ctc'].train(batch_size=4, num_hidden=8, "
+        "epochs=1, batches_per_epoch=1, ctx=mx.cpu(), log=lambda *a: None)\n"
+        "    assert len(acc) == 1\n"
+        "    x = mx.nd.array(rs.rand(1, 4, 6, 6).astype('f'))\n"
+        "    assert mx.nd.Correlation(x, x, max_displacement=1, "
+        "pad_size=1).shape == (1, 9, 6, 6)\n"
+        "    assert mx.nd.contrib.fft(mx.nd.ones((2, 4))).shape == (2, 8)\n"
+        "    g = mx.nd.GridGenerator(mx.nd.array([[1, 0, 0, 0, 1, 0]]), "
+        "transform_type='affine', target_shape=(3, 3))\n"
+        "    assert mx.nd.BilinearSampler(x, mx.nd.concat(g, g, dim=0)[:1]"
+        ").shape == (1, 4, 3, 3)\n"
+        "assert not [k for k in sys.modules if k.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[k] is not None]\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_new_modules_are_covered():
     """The extension, input-pipeline and data-service slices' modules are
     among the sources the import check walks."""
@@ -430,7 +488,8 @@ def test_new_modules_are_covered():
                 "data_service/ring", "data_service/_worker_main",
                 "data_service/service", "data_service/iter",
                 "data_service/net", "data_service/server_main",
-                "kernels/augment", "ops/image_io"):
+                "kernels/augment", "ops/image_io", "ops/vision",
+                "ops/ctc", "ops/contrib"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 

@@ -130,8 +130,10 @@ def test_fused_lstm_cell_op_forward_matches_jax_op():
     arrays = _draw((3, 50), seed=3)
     outs = []
     for mx in (jmx, mxt):
-        cell = mx.sym._FusedLSTMCell(mx.sym.Variable("gates"),
-                                     mx.sym.Variable("prev_c"), name="cell")
+        with mx.name.NameManager():
+            cell = mx.sym._FusedLSTMCell(mx.sym.Variable("gates"),
+                                         mx.sym.Variable("prev_c"),
+                                         name="cell")
         ex = cell.bind(mx.cpu(), {
             "gates": mx.nd.array(arrays[0], ctx=mx.cpu()),
             "prev_c": mx.nd.array(arrays[1], ctx=mx.cpu())})

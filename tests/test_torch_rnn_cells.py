@@ -77,6 +77,15 @@ def _graph(mx, cell, merged=True):
     return mx.sym.Group([outputs] + list(states))
 
 
+def _fresh_graph(mx, kind, merged=True):
+    """``_graph`` of a fresh cell under a fresh ``NameManager``: auto-names
+    (``elemwise_add0``) count per process, and other tests in this worker
+    may have built symbols, so names compared across the packages start
+    from 0 in each."""
+    with mx.name.NameManager():
+        return _graph(mx, _cell(mx, kind), merged)
+
+
 def _draw(sym, seed):
     arg_shapes, out_shapes, _ = sym.infer_shape(data=(N, T, I))
     rs = np.random.RandomState(seed)
@@ -125,7 +134,7 @@ CELLS = ["rnn_tanh", "rnn_relu", "gru", "lstm", "dropout0", "zoneout0",
 def test_cell_unroll_matches_jax(kind, merged):
     """Forward (outputs and final states) and backward (every argument's
     gradient, the input's included) of the unrolled cell."""
-    syms = {mx: _graph(mx, _cell(mx, kind), merged) for mx in (jmx, tmx)}
+    syms = {mx: _fresh_graph(mx, kind, merged) for mx in (jmx, tmx)}
     assert syms[tmx].list_arguments() == syms[jmx].list_arguments()
     assert syms[tmx].list_outputs() == syms[jmx].list_outputs()
     args, heads = _draw(syms[tmx], 1)
@@ -165,7 +174,8 @@ def test_dropout_and_zoneout_exact_in_inference(kind):
             cell = mx.rnn.ZoneoutCell(mx.rnn.GRUCell(H, prefix="z_"),
                                       zoneout_outputs=0.5,
                                       zoneout_states=0.3)
-        outs.append(_graph(mx, cell))
+        with mx.name.NameManager():
+            outs.append(_graph(mx, cell))
     args, _ = _draw(outs[1], 3)
     got, _ = _run(tmx, outs[1], args, None, is_train=False)
     ref, _ = _run(jmx, outs[0], args, None, is_train=False)
@@ -237,8 +247,9 @@ def test_unfuse_matches_the_fused_op(case):
         n_cells = layers * (1 if p == 0 else 2) - (1 if p else 0)
         assert len(stack._cells) == n_cells
         data = mx.sym.Variable("data")
-        f_out, _ = fused.unroll(T, inputs=data, merge_outputs=True)
-        s_out, _ = stack.unroll(T, inputs=data, merge_outputs=True)
+        with mx.name.NameManager():
+            f_out, _ = fused.unroll(T, inputs=data, merge_outputs=True)
+            s_out, _ = stack.unroll(T, inputs=data, merge_outputs=True)
         results[mx] = (fused, stack, f_out, s_out)
     fused, stack, f_out, s_out = results[tmx]
     f_args, heads = _draw(f_out, 6)

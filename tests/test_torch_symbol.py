@@ -18,6 +18,11 @@ def _build(pkg, name, image_shape):
                                      image_shape=image_shape)
 
 
+def _fresh(build, pkg):
+    with pkg.name.NameManager():
+        return build(pkg)
+
+
 @pytest.mark.parametrize("name,image_shape", MODELS)
 def test_identical_json_and_cross_load(name, image_shape):
     sj, st = _build(mxj, name, image_shape), _build(mxt, name, image_shape)
@@ -52,10 +57,10 @@ def test_infer_shape_without_op_shape_function():
         s = pkg.sym.Flatten(a + b, name="flat")
         return pkg.sym.FullyConnected(s, num_hidden=3, name="fc")
     shapes = {"data": (2, 3, 5, 7)}
-    assert build(mxt).infer_shape(**shapes) == \
-        build(mxj).infer_shape(**shapes)
-    assert build(mxt).infer_shape_partial()[0] == \
-        build(mxj).infer_shape_partial()[0]
+    st, sj = _fresh(build, mxt), _fresh(build, mxj)
+    assert st.tojson() == sj.tojson()
+    assert st.infer_shape(**shapes) == sj.infer_shape(**shapes)
+    assert st.infer_shape_partial()[0] == sj.infer_shape_partial()[0]
 
 
 def test_compose_and_variable_shape_attr():
@@ -64,7 +69,7 @@ def test_compose_and_variable_shape_attr():
         net = pkg.sym.FullyConnected(pkg.sym.Variable("x"), num_hidden=5,
                                      name="fc")
         return net(x=data)
-    st, sj = build(mxt), build(mxj)
+    st, sj = _fresh(build, mxt), _fresh(build, mxj)
     assert st.tojson() == sj.tojson()
     assert st.infer_shape() == sj.infer_shape()
 
