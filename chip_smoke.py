@@ -252,7 +252,26 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     defaults (1 + 1 ``lstm_seq`` launches a batch, the WarpCTC backward's
     ms), every new op card against CPU, and ROIPooling and Correlation at
     their published shapes (peak memory under 2 GiB above resident);
-26. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+26. runs the resilience slice (``resilience_paths``): ResNet-50 through
+    ``Module.fit`` (2 epochs of 6 batches, sgd with momentum, a
+    ``CheckpointManager``, deterministic cuDNN/cuBLAS) in child processes
+    written to a temp directory, uninterrupted and as a chain under
+    ``tools/supervise.py``: a small Dropout net SIGTERMed in-band (exit
+    85; its CUDA generator comes back through the manifest's JSON random
+    state), ResNet-50 hung by ``MXTPU_FAULTS=hang_step`` against a short
+    ``MXTPU_STEP_TIMEOUT`` (exit 87 with a stack and ``torch.cuda``
+    dump, resumed from the epoch-end checkpoint), SIGTERMed after batch 3
+    of epoch 1 (exit 85 within one step plus the save, resumed with a
+    fast-forward), its final params and momentum equal to the
+    uninterrupted run's bit for bit, 50 + 50 ``bn_act`` launches a batch
+    in every process; then in this process one ``poison_grad`` step
+    (``SkippedSteps`` 1, nothing moved), deferred ``Accuracy`` against
+    ``MXTPU_METRIC_BLOCKING=1`` (ms a batch in turns, device-to-host
+    bytes a step), the epoch-end save blocking against async (stall,
+    bytes, the writer's time), and ``tools/ckpt_fsck.py`` with the port's
+    ``verify_promotion`` on the run's directory before and after a byte
+    of its newest params rots;
+27. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
     "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
@@ -268,6 +287,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -8217,6 +8237,612 @@ def detection_paths(torch, mx, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# resilience: managed checkpoints, preemption and resume under
+# tools/supervise.py, the hung-step watchdog, poison_grad, async saves,
+# deferred metrics, the offline audit
+# ---------------------------------------------------------------------------
+
+RS_BATCHES = 6          # batches of each drill epoch (ResNet-50, batch 32)
+RS_EPOCHS = 2
+RS_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+RS_HANG_AT = 9          # the hung step: the 10th, epoch 1 batch 3
+RS_STEP_TIMEOUT = 10    # seconds: MXTPU_STEP_TIMEOUT of the hang drill
+RS_TERM_AFTER = (1, 2)  # SIGTERM once (epoch 1, nbatch 2) is done: batch 3
+RS_DROP_PREEMPT = 5     # the Dropout net's in-band SIGTERM: boundary 6
+RS_METRIC_BATCHES = 6   # batches of each deferred/blocking turn
+RS_COUNT_STEPS = 3      # steps of each device-to-host count
+RS_CHAIN_TIMEOUT = 420  # seconds the supervised chain may take
+RS_TERM_SLACK_S = 1.0   # SIGTERM-to-exit beyond one step and the save
+
+#: the drill's child, written to a temp directory and run as ``python3``:
+#: a small Dropout net (its CUDA generator drawn each batch, so the
+#: random state in the manifest must carry it) preempted in-band once,
+#: then ResNet-50 through Module.fit(checkpoint=...) with deterministic
+#: cuDNN/cuBLAS.  Its progress goes to RS_PROGRESS as JSON lines.
+RS_CHILD = r'''
+import atexit, json, logging, os, sys, time
+T_START = time.time()
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+sys.path.insert(0, os.environ["RS_ROOT"])
+logging.basicConfig(level=logging.INFO, format="  child %(message)s",
+                    stream=sys.stderr)
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.resilience import CheckpointManager, faults
+
+PROGRESS = os.environ["RS_PROGRESS"]
+SEED = int(os.environ["RS_SEED"])
+BATCHES, EPOCHS = int(os.environ["RS_BATCHES"]), int(os.environ["RS_EPOCHS"])
+chain = os.environ.get("RS_CHAIN") == "1"
+
+
+def record(**kw):
+    kw.update(pid=os.getpid(), t=time.time())
+    with open(PROGRESS, "a") as f:
+        f.write(json.dumps(kw) + "\n")
+
+
+record(kind="start", t_start=T_START)
+atexit.register(lambda: record(kind="exit"))
+orig_save = mx.module.base_module.BaseModule._save_preemption_checkpoint
+
+
+def timed_save(self, checkpoint, epoch, step):
+    t0 = time.time()
+    orig_save(self, checkpoint, epoch, step)
+    record(kind="save", dir=checkpoint.directory, epoch=epoch, step=step,
+           t0=t0, t1=time.time())
+
+
+mx.module.base_module.BaseModule._save_preemption_checkpoint = timed_save
+gpu = mx.gpu(0)
+
+# -- the Dropout net: its CUDA generator round-trips through the manifest --
+drop_dir = os.environ["RS_DROP_DIR"]
+drop_man = CheckpointManager(drop_dir)
+entry = drop_man.latest_entry()
+if entry is not None and entry.get("step_state"):
+    record(kind="drop_resume",
+           generators=sorted(entry["step_state"]["rng"]["generators"]))
+rs = np.random.RandomState(SEED + 3)
+DX = rs.standard_normal((256, 32)).astype(np.float32)
+DY = rs.randint(0, 4, 256).astype(np.float32)
+with mx.name.NameManager():
+    d = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=64,
+                              name="dfc1")
+    d = mx.sym.Dropout(mx.sym.Activation(d, act_type="relu"), p=0.3)
+    d = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(d, num_hidden=4,
+                                                   name="dfc2"),
+                             name="softmax")
+if chain and entry is None:
+    faults.arm("preempt", times=1, after=int(os.environ["RS_DROP_PREEMPT"]))
+
+
+def drop_draw(param):
+    draw = mx.random.uniform(shape=(4,), ctx=gpu).asnumpy()
+    record(kind="drop_draw", epoch=param.epoch, nbatch=param.nbatch,
+           draw=[float(v).hex() for v in draw])
+
+
+mx.random.seed(SEED + 4)
+mx.random.uniform(shape=(1,), ctx=gpu)   # the CUDA generator exists
+dmod = mx.mod.Module(d, context=gpu)
+dmod.fit(mx.io.NDArrayIter(DX, DY, batch_size=64), num_epoch=2,
+         kvstore="local", optimizer="sgd",
+         optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+         initializer=mx.initializer.Xavier(), checkpoint=drop_man,
+         preemption_safe=True, batch_end_callback=drop_draw)
+del dmod
+
+# -- ResNet-50 through Module.fit ---------------------------------------
+res_dir = os.environ["RS_DIR"]
+man = CheckpointManager(res_dir, keep_last=3)
+resumed = man.latest() is not None
+if resumed:
+    # the drill's strip of its one-shot hang around a relaunch
+    faults.disarm("hang_step")
+with mx.name.NameManager():
+    net = mx.models.get_symbol("resnet-50", num_classes=1000,
+                               image_shape=(3, 224, 224))
+gen = np.random.default_rng(SEED + 91)
+X = gen.standard_normal((BATCHES * 32, 3, 224, 224), dtype=np.float32)
+Y = gen.integers(0, 1000, BATCHES * 32).astype(np.float32)
+ba = mx.kernels.bn_act
+
+
+def progress(param):
+    torch.cuda.synchronize()
+    record(kind="batch", epoch=param.epoch, nbatch=param.nbatch,
+           resumed=resumed, fwd=ba.LAUNCHES, bwd=ba.BWD_LAUNCHES)
+
+
+mx.random.seed(SEED)
+mod = mx.mod.Module(net, context=gpu)
+ba.LAUNCHES = 0
+ba.BWD_LAUNCHES = 0
+mod.fit(mx.io.NDArrayIter(X, Y, batch_size=32), num_epoch=EPOCHS,
+        kvstore="tpu", optimizer="sgd",
+        optimizer_params=json.loads(os.environ["RS_SGD"]),
+        initializer=mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2),
+        checkpoint=man, preemption_safe=True, batch_end_callback=progress)
+record(kind="done", fwd=ba.LAUNCHES, bwd=ba.BWD_LAUNCHES)
+'''
+
+
+def _rs_records(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _rs_env(root, tmp, name, seed, **extra):
+    env = dict(os.environ)
+    for k in ("MXTPU_RESUME", "MXTPU_FAULTS", "MXTPU_STEP_TIMEOUT",
+              "MXTPU_CKPT_ASYNC", "MXTPU_DEBUG_DIR", "MXTPU_METRIC_BLOCKING",
+              "MXTPU_ON_PREEMPT"):
+        env.pop(k, None)
+    env.update(RS_ROOT=root, RS_SEED=str(seed), RS_BATCHES=str(RS_BATCHES),
+               RS_EPOCHS=str(RS_EPOCHS), RS_SGD=json.dumps(RS_SGD),
+               RS_DROP_PREEMPT=str(RS_DROP_PREEMPT),
+               RS_PROGRESS=os.path.join(tmp, name + ".jsonl"),
+               RS_DIR=os.path.join(tmp, name, "resnet"),
+               RS_DROP_DIR=os.path.join(tmp, name, "dropout"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.update(extra)
+    return env
+
+
+def _rs_check_launches(records, what):
+    """Every ResNet batch of every launch added exactly 50 + 50 bn_act
+    launches; returns the launch totals."""
+    fwd = bwd = 0
+    by_pid = collections.OrderedDict()
+    for r in records:
+        if r["kind"] == "batch":
+            by_pid.setdefault(r["pid"], []).append(r)
+    for pid, rows in by_pid.items():
+        for k, r in enumerate(rows, 1):
+            check((r["fwd"], r["bwd"]) == (50 * k, 50 * k),
+                  "%s: process %d batch %d ran %d / %d bn_act launches "
+                  "(expected %d each)" % (what, pid, k, r["fwd"], r["bwd"],
+                                          50 * k))
+        fwd += rows[-1]["fwd"]
+        bwd += rows[-1]["bwd"]
+    return fwd, bwd, sum(len(v) for v in by_pid.values())
+
+
+def _same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def _rs_same_files(a, b, names, what):
+    for n in names:
+        check(_same_bytes(os.path.join(a, n), os.path.join(b, n)),
+              "%s: %s differs from the uninterrupted run's" % (what, n))
+
+
+def _rs_param_diff(mx, np, a, b, name):
+    """The largest absolute difference by parameter between two .params
+    files (the finding when bit identity is missed)."""
+    da, db = mx.nd.load(os.path.join(a, name)), mx.nd.load(
+        os.path.join(b, name))
+    return sorted(((float(np.abs(da[k].asnumpy() - db[k].asnumpy()).max()),
+                    k) for k in da), reverse=True)[:3]
+
+
+def phase_rs_drills(torch, mx, seed, card, tmp):
+    """The uninterrupted run, then the supervised chain: the Dropout net
+    preempted in-band (exit 85), ResNet-50 hung by ``hang_step`` (exit 87
+    with a dump), SIGTERMed after batch 3 of epoch 1 (exit 85), and
+    finished; final params and states against the uninterrupted run's
+    bit for bit.  Returns the children's bn_act launches and the
+    numbers."""
+    import numpy as np
+    script = os.path.join(tmp, "drill_child.py")
+    with open(script, "w") as f:
+        f.write(RS_CHILD)
+    # the uninterrupted run and the supervised chain start together (the
+    # chain's first launch trains only the Dropout net); the chain's
+    # timed windows come after the uninterrupted run has ended
+    env_full = _rs_env(ROOT, tmp, "full", seed)
+    debug = os.path.join(tmp, "debug")
+    env = _rs_env(ROOT, tmp, "cut", seed, RS_CHAIN="1",
+                  MXTPU_FAULTS="hang_step:1@%d" % RS_HANG_AT,
+                  MXTPU_STEP_TIMEOUT=str(RS_STEP_TIMEOUT),
+                  MXTPU_DEBUG_DIR=debug)
+    t0 = time.perf_counter()
+    full_log = os.path.join(tmp, "full.log")
+    out_path = os.path.join(tmp, "chain.log")
+    with open(full_log, "w") as full_f, open(out_path, "w") as out_f:
+        # each in a session of its own, so a failure stops the
+        # supervisor's current child with it
+        uninterrupted = subprocess.Popen([sys.executable, script],
+                                         env=env_full, stdout=full_f,
+                                         stderr=subprocess.STDOUT,
+                                         start_new_session=True)
+        sup = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "tools", "supervise.py"),
+             "--max-restarts", "3", "--backoff", "0", "--", sys.executable,
+             script], env=env, stdout=out_f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        t_kill = victim = t_gone = full_s = None
+        try:
+            deadline = time.monotonic() + RS_CHAIN_TIMEOUT
+            while sup.poll() is None or uninterrupted.poll() is None:
+                check(time.monotonic() < deadline, "the drills did not "
+                      "finish in %d s" % RS_CHAIN_TIMEOUT)
+                if full_s is None and uninterrupted.poll() is not None:
+                    full_s = time.perf_counter() - t0
+                if victim is None:
+                    for r in _rs_records(env["RS_PROGRESS"]):
+                        if r["kind"] == "batch" and r["resumed"] and \
+                                (r["epoch"], r["nbatch"]) == RS_TERM_AFTER:
+                            victim = r["pid"]
+                            t_kill = time.time()
+                            os.kill(victim, signal.SIGTERM)
+                            break
+                elif t_gone is None and \
+                        not os.path.exists("/proc/%d" % victim):
+                    t_gone = time.time()
+                time.sleep(0.005)
+        finally:
+            for proc in (sup, uninterrupted):
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+    chain_s = time.perf_counter() - t0
+    full_s = chain_s if full_s is None else full_s
+    full = _rs_records(env_full["RS_PROGRESS"])
+    if uninterrupted.returncode != 0:
+        with open(full_log) as f:
+            log(f.read()[-4000:])
+    check(uninterrupted.returncode == 0, "uninterrupted drill run exited %d"
+          % uninterrupted.returncode)
+    fwd, bwd, n_full = _rs_check_launches(full, "uninterrupted run")
+    check(n_full == RS_BATCHES * RS_EPOCHS, "uninterrupted run trained %d "
+          "batches" % n_full)
+    batch_t = [r["t"] for r in full if r["kind"] == "batch"]
+    steady = (batch_t[-1] - batch_t[RS_BATCHES]) / (RS_BATCHES - 1)
+    log("resilience: uninterrupted ResNet-50 Module.fit (%d x %d batches, "
+        "deterministic cuDNN/cuBLAS, CheckpointManager) in %.1f s as a "
+        "process beside the chain's first launches; epoch 1 %.2f ms a "
+        "batch; %d / %d bn_act launches"
+        % (RS_EPOCHS, RS_BATCHES, full_s, steady * 1e3, fwd, bwd))
+    with open(out_path) as f:
+        chain_log = f.read()
+    recs = _rs_records(env["RS_PROGRESS"])
+    if sup.returncode != 0:
+        log(chain_log[-6000:])
+    check(sup.returncode == 0, "the supervised chain exited %d"
+          % sup.returncode)
+    starts = [r for r in recs if r["kind"] == "start"]
+    for pat, what in (("graceful preemption — relaunch 1/3", "85 -> 1"),
+                      ("watchdog abort (hung step) — relaunch 2/3",
+                       "87 -> 2"),
+                      ("graceful preemption — relaunch 3/3", "85 -> 3")):
+        check(pat in chain_log, "supervise.py did not relaunch %s" % what)
+    check(len(starts) == 4, "the chain ran %d launches, expected 4"
+          % len(starts))
+    # the watchdog's dump
+    dumps = os.listdir(debug) if os.path.isdir(debug) else []
+    check(len(dumps) == 1, "watchdog reports: %s" % dumps)
+    with open(os.path.join(debug, dumps[0])) as f:
+        report = f.read()
+    for need in ("exceeded its %.1fs budget" % RS_STEP_TIMEOUT,
+                 "--- thread", "maybe_hang", "torch.cuda device 0"):
+        check(need in report, "the watchdog report lacks %r" % need)
+    check("restored checkpoint epoch 1 from" in chain_log,
+          "the relaunch after the hang did not resume epoch 1")
+    # the SIGTERM launch: saved within one step plus the save
+    check(victim is not None and t_gone is not None,
+          "the SIGTERM launch was never seen or never exited")
+    saves = [r for r in recs if r["kind"] == "save"
+             and r["pid"] == victim]
+    check(len(saves) == 1 and saves[0]["epoch"] == 1, "the SIGTERMed "
+          "launch saved %s" % saves)
+    save = saves[0]
+    exit_t = [r["t"] for r in recs if r["kind"] == "exit"
+              and r["pid"] == victim][0]
+    vb = [r["t"] for r in recs if r["kind"] == "batch"
+          and r["pid"] == victim]
+    step_s = max(b - a for a, b in zip(vb[1:], vb[2:]))
+    save_s = save["t1"] - save["t0"]
+    term_exit = exit_t - t_kill
+    check(term_exit <= step_s + save_s + RS_TERM_SLACK_S,
+          "SIGTERM to exit took %.2f s (one step %.3f s + save %.3f s)"
+          % (term_exit, step_s, save_s))
+    # the last launch fast-forwarded past the saved steps (the first
+    # fast-forward is the Dropout net's, in the second launch)
+    ff = re.findall(r"fast-forwarded (\d+) batches of epoch 1 in ([0-9.]+) "
+                    r"s", chain_log)
+    check(len(ff) == 2 and int(ff[1][0]) == save["step"],
+          "fast-forward %s after a save at step %d" % (ff, save["step"]))
+    ff = ff[1:]
+    last = starts[-1]["pid"]
+    last_first = [r["t"] for r in recs if r["kind"] == "batch"
+                  and r["pid"] == last][0]
+    last_start = starts[-1]["t_start"]
+    # every batch of epoch 1 ran exactly once across the last two launches
+    tail = [(r["epoch"], r["nbatch"]) for r in recs if r["kind"] == "batch"
+            and r["pid"] in (victim, last)]
+    check(sorted(tail) == [(1, b) for b in range(RS_BATCHES)],
+          "epoch 1 across the SIGTERM: %s" % tail)
+    cfwd, cbwd, n_chain = _rs_check_launches(recs, "supervised chain")
+    # bit for bit: ResNet-50 params and momentum, the Dropout net's
+    # params and its CUDA draws
+    names = ["checkpoint-%04d.params" % RS_EPOCHS,
+             "checkpoint-%04d.states" % RS_EPOCHS]
+    full_dir, cut_dir = (os.path.join(tmp, n, "resnet")
+                         for n in ("full", "cut"))
+    same = all(_same_bytes(os.path.join(full_dir, n),
+                           os.path.join(cut_dir, n)) for n in names)
+    if not same:
+        log("resilience: the resumed ResNet-50 differs; largest "
+            "differences by parameter: %s" % _rs_param_diff(
+                mx, np, full_dir, cut_dir, names[0]))
+    check(same, "the preempted and resumed ResNet-50 is not bit-identical "
+          "to the uninterrupted run")
+    _rs_same_files(os.path.join(tmp, "full", "dropout"),
+                   os.path.join(tmp, "cut", "dropout"),
+                   ["checkpoint-0002.params", "checkpoint-0002.states"],
+                   "the Dropout net")
+    draws = {}
+    for what, rows in (("full", full), ("cut", recs)):
+        draws[what] = sorted((r["epoch"], r["nbatch"], tuple(r["draw"]))
+                             for r in rows if r["kind"] == "drop_draw")
+    check(draws["full"] == draws["cut"] and len(draws["full"]) == 8,
+          "the Dropout net's CUDA draws differ across the preemption")
+    resumes = [r for r in recs if r["kind"] == "drop_resume"]
+    check(resumes and "cuda:0" in resumes[0]["generators"],
+          "the Dropout net's manifest rng holds no CUDA generator: %s"
+          % resumes)
+    log("resilience: supervised chain in %.1f s (4 launches): Dropout net "
+        "in-band SIGTERM -> 85 -> relaunch, resumed from the manifest's "
+        "random state (generators %s), its params and 8 CUDA draws equal "
+        "the uninterrupted run's; ResNet-50 hung at step %d -> watchdog "
+        "%d s -> 87 with a %d-byte dump -> relaunch from epoch 1; SIGTERM "
+        "after batch 3 of epoch 1 -> saved at step %d -> 85 -> relaunch, "
+        "fast-forward %s batches in %s s -> done; epoch-%d params and "
+        "momentum equal the uninterrupted run's bit for bit; %d / %d bn_act "
+        "launches in %d batches" % (
+            chain_s, resumes[0]["generators"], RS_HANG_AT + 1,
+            RS_STEP_TIMEOUT, len(report), save["step"], ff[0][0], ff[0][1],
+            RS_EPOCHS, cfwd, cbwd, n_chain))
+    log("resilience: SIGTERM to exit %.3f s (process gone %.3f s): the "
+        "batch in flight, then the blocking preemption save %.3f s (one "
+        "step %.3f s); resume: launch to first trained batch %.2f s, of it "
+        "the fast-forward %s s, on %s" % (
+            term_exit, t_gone - t_kill, save_s, step_s,
+            last_first - last_start, ff[0][1], card))
+    return {"fwd": fwd + cfwd, "bwd": bwd + cbwd,
+            "full_dir": full_dir, "term_exit_s": term_exit,
+            "save_s": save_s, "ff_s": float(ff[0][1])}
+
+
+def _rs_module(torch, mx, seed):
+    """ResNet-50 on the fused route with the drill's sgd and seeded
+    batches (host arrays, as NDArrayIter gives them)."""
+    import numpy as np
+    with mx.name.NameManager():
+        net = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                   image_shape=IMAGE)
+    rs = np.random.RandomState(seed + 93)
+    X = rs.standard_normal((RS_METRIC_BATCHES * BATCH,) + IMAGE) \
+        .astype(np.float32)
+    Y = rs.randint(0, 1000, RS_METRIC_BATCHES * BATCH).astype(np.float32)
+    it = mx.io.NDArrayIter(X, Y, batch_size=BATCH)
+    batches = list(it)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2))
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd",
+                       optimizer_params=dict(RS_SGD))
+    check(mod._fused is not None, "resilience module: no fused route")
+    return mod, batches
+
+
+def _rs_steps(mod, metric, batches):
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        mod.update_metric(metric, b.label)
+
+
+def phase_rs_poison(torch, mx, mod, batches):
+    """One ``poison_grad`` step: SkippedSteps reads 1, and params, moving
+    statistics and momentum are unchanged bit for bit across it."""
+    import pickle
+    import numpy as np
+    metric = mx.metric.Accuracy()
+    _rs_steps(mod, metric, batches[:1])      # momentum is nonzero now
+    args0, aux0 = mod.get_params()
+    states0 = pickle.loads(mod.get_optimizer_states())
+    skipped = mx.metric.SkippedSteps(mod)
+    before = skipped.get()[1]
+    mx.resilience.faults.arm("poison_grad")
+    try:
+        _rs_steps(mod, metric, batches[1:2])
+    finally:
+        mx.resilience.faults.disarm("poison_grad")
+    after = skipped.get()[1]
+    args1, aux1 = mod.get_params()
+    states1 = pickle.loads(mod.get_optimizer_states())
+    moved = [k for k in args0 if not np.array_equal(
+        args0[k].asnumpy(), args1[k].asnumpy())]
+    moved += [k for k in aux0 if not np.array_equal(
+        aux0[k].asnumpy(), aux1[k].asnumpy())]
+    moved += [k for k, s in states0["states"].items() if not all(
+        np.array_equal(a, b) for a, b in zip(s, states1["states"][k]))]
+    check(after - before == 1, "poison_grad: SkippedSteps %g -> %g"
+          % (before, after))
+    check(not moved and states0["num_update"] == states1["num_update"],
+          "poison_grad moved %s" % moved[:5])
+    log("resilience: poison_grad: SkippedSteps %g -> %g; %d params, %d "
+        "moving statistics and %d momentum tensors unchanged bit for bit, "
+        "update count %d kept" % (before, after, len(args0), len(aux0),
+                                  len(states0["states"]),
+                                  states1["num_update"]))
+    _rs_steps(mod, metric, batches[2:3])
+    check(mx.metric.SkippedSteps(mod).get()[1] == after,
+          "the clean step after the poisoned one was skipped")
+
+
+def phase_rs_metric(torch, mx, mod, batches, card):
+    """Deferred Accuracy against MXTPU_METRIC_BLOCKING=1 on the fused
+    route: ms a batch in turns, device-to-host bytes a step (the
+    dispatch-mode counter) between folds."""
+    timings = {True: [], False: []}
+    copies = {}
+    try:
+        for deferred in (True, False, False, True):
+            os.environ["MXTPU_METRIC_BLOCKING"] = "0" if deferred else "1"
+            metric = mx.metric.Accuracy()
+            mod._install_deferred_metric(metric)
+            check((mod._deferred_metric is metric) == deferred,
+                  "deferred metric install: %s" % mod._deferred_metric)
+            _rs_steps(mod, metric, batches[:1])        # warm
+            metric.get()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _rs_steps(mod, metric, batches)
+            value = metric.get()
+            torch.cuda.synchronize()
+            timings[deferred].append(
+                (time.perf_counter() - t0) * 1e3 / len(batches))
+            if deferred not in copies:
+                copies[deferred] = dtoh_ops(torch, lambda: _rs_steps(
+                    mod, metric, batches[:RS_COUNT_STEPS]))
+            check(metric.num_inst > 0 and 0 <= value[1] <= 1,
+                  "metric %s" % (value,))
+    finally:
+        os.environ.pop("MXTPU_METRIC_BLOCKING", None)
+    n = RS_COUNT_STEPS
+    check(copies[True][1] == 0, "deferred Accuracy copied %d bytes in %d "
+          "steps" % (copies[True][1], n))
+    check(copies[False][1] >= n * BATCH * 1000 * 4, "blocking Accuracy "
+          "copied only %d bytes in %d steps" % (copies[False][1], n))
+    log("resilience: deferred Accuracy %s ms a batch against blocking %s "
+        "(turns D B B D, %d batches each); device-to-host a step: deferred "
+        "%d bytes in %d copies, blocking %d bytes in %d copies (%d steps "
+        "counted), on %s" % (
+            " / ".join("%.2f" % v for v in timings[True]),
+            " / ".join("%.2f" % v for v in timings[False]),
+            len(batches), copies[True][1] // n, copies[True][0] // n,
+            copies[False][1] // n, copies[False][0] // n, n, card))
+    return timings, copies
+
+
+def phase_rs_save_cost(torch, mx, mod, tmp, card):
+    """An epoch-end save of ResNet-50 (params + momentum) blocking
+    against MXTPU_CKPT_ASYNC's path, in turns: the step loop's stall (the
+    optimizer state's serialization and the save call), the bytes
+    written, the writer's wall time."""
+    man = mx.resilience.CheckpointManager(os.path.join(tmp, "savecost"),
+                                          keep_last=2)
+    rows = []
+    for epoch, blocking in enumerate((True, False, False, True), 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arg, aux = mod.get_params()
+        t1 = time.perf_counter()
+        states = mod.get_optimizer_states()
+        man.save(epoch, mod.symbol, arg, aux, optimizer_states=states,
+                 blocking=blocking)
+        t2 = time.perf_counter()
+        writer = None
+        if not blocking:
+            writer = man.wait()["elapsed_s"]
+        sizes = [os.path.getsize(p) for p in (man.params_path(epoch),
+                                             man.states_path(epoch))]
+        rows.append((blocking, (t1 - t0) * 1e3, (t2 - t1) * 1e3, writer,
+                     sizes))
+    for blocking, get_ms, stall_ms, writer, sizes in rows:
+        log("resilience: epoch-end save %s: get_params %.1f ms, stall %.1f "
+            "ms%s; %d bytes of params + %d of momentum, on %s" % (
+                "blocking" if blocking else "async", get_ms, stall_ms,
+                "" if writer is None else ", writer %.1f ms" % (writer * 1e3),
+                sizes[0], sizes[1], card))
+    check(all(abs(r[4][0] - 102e6) < 5e6 and abs(r[4][1] - 102e6) < 5e6
+              for r in rows), "save sizes %s" % [r[4] for r in rows])
+    check(man.restore()[4] == 4, "the save-cost manager does not restore")
+    return rows
+
+
+def phase_rs_audit(mx, full_dir):
+    """tools/ckpt_fsck.py on the uninterrupted run's directory: exit 0,
+    then 1 after its newest params file rots; the port's
+    verify_promotion agrees."""
+    fsck = os.path.join(ROOT, "tools", "ckpt_fsck.py")
+
+    def audit():
+        return subprocess.run([sys.executable, fsck, full_dir, "-q"],
+                              capture_output=True, text=True, timeout=120)
+
+    res0 = audit()
+    v0 = mx.resilience.verify_promotion(full_dir)
+    path = os.path.join(full_dir, "checkpoint-%04d.params" % RS_EPOCHS)
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    res1 = audit()
+    v1 = mx.resilience.verify_promotion(full_dir)
+    log("resilience: ckpt_fsck exit %d on the run's directory, %d after "
+        "the newest params rots; verify_promotion %s then %s" % (
+            res0.returncode, res1.returncode, v0, (v1[0], v1[1][:1])))
+    check(res0.returncode == 0 and v0 == (RS_EPOCHS, []),
+          "clean audit: fsck %d, %s" % (res0.returncode, v0))
+    check(res1.returncode == 1 and v1[0] == RS_EPOCHS and v1[1],
+          "rotted audit: fsck %d, %s" % (res1.returncode, v1))
+
+
+def resilience_paths(torch, mx, seed, card):
+    """The resilience slice on the card (runs last): the drills as child
+    processes (uninterrupted ResNet-50 fit; the supervised chain through
+    exit 85, 87 and 85 to a bit-identical finish), then in this process a
+    poison_grad step, deferred against blocking Accuracy, the epoch-end
+    save's cost blocking and async, and the offline audit.  Returns the
+    main paths' bn_act launches."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="resilience-", dir=build_dir)
+    t_phase = time.perf_counter()
+    try:
+        drills = phase_rs_drills(torch, mx, seed, card, tmp)
+        mod, batches = _rs_module(torch, mx, seed)
+        ba = mx.kernels.bn_act
+        ba.LAUNCHES = 0
+        ba.BWD_LAUNCHES = 0
+        phase_rs_poison(torch, mx, mod, batches)
+        phase_rs_metric(torch, mx, mod, batches, card)
+        torch.cuda.synchronize()
+        fwd, bwd = ba.LAUNCHES, ba.BWD_LAUNCHES
+        steps = 3 + 4 * (1 + RS_METRIC_BATCHES) + 2 * RS_COUNT_STEPS
+        check((fwd, bwd) == (50 * steps, 50 * steps),
+              "resilience module: %d / %d bn_act launches in %d steps"
+              % (fwd, bwd, steps))
+        phase_rs_save_cost(torch, mx, mod, tmp, card)
+        del mod, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_rs_audit(mx, drills["full_dir"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("resilience_paths: %.1f s" % (time.perf_counter() - t_phase))
+    return collections.Counter({"bn_act_fwd": drills["fwd"] + fwd,
+                                "bn_act_bwd": drills["bwd"] + bwd})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -8247,6 +8873,7 @@ def main(argv=None):
     extra += input_paths(torch, mx, args.seed, card)
     extra += data_service_paths(torch, mx, args.seed, card)
     extra += detection_paths(torch, mx, args.seed, card)
+    extra += resilience_paths(torch, mx, args.seed, card)
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io`` (with
 the RecordIO image iterators), ``mx.recordio``, ``mx.image`` (``mx.img``),
 ``mx.image_det``, ``mx.dataflow`` (``mx.DevicePrefetchIter``), ``mx.engine``,
-``mx.resilience`` (the input pipeline's retries, so far),
+``mx.resilience`` (with ``mx.CheckpointManager``, ``mx.PreemptionHandler``,
+``mx.StepWatchdog``),
 ``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
 ``mx.nd.contrib``), ``mx.rtc``, ``mx.mod`` (``mx.module``), ``mx.kv``
 (``mx.kvstore``), ``mx.metric``, ``mx.callback``, ``mx.cpu()``,
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 from .base import MXNetError
 from . import resilience
+from .resilience import CheckpointManager, PreemptionHandler, StepWatchdog
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       num_tpus, tpu)
 from . import ops  # noqa: F401 — registers the ops before sym is built

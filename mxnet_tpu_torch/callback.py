@@ -1,6 +1,6 @@
-"""Training callbacks (port of ``mxnet_tpu/callback.py:62-156``;
-reference python/mxnet/callback.py).  ``PreemptionCheckpoint`` comes with
-the resilience slice and raises until then."""
+"""Training callbacks (port of ``mxnet_tpu/callback.py``; reference
+python/mxnet/callback.py), with ``PreemptionCheckpoint`` for custom
+training loops and ``do_checkpoint`` over a ``CheckpointManager``."""
 from __future__ import annotations
 
 import logging
@@ -8,30 +8,77 @@ import math
 import sys
 import time
 
-from .base import MXNetError
-
 __all__ = ["Speedometer", "ProgressBar", "do_checkpoint", "log_train_metric",
            "module_checkpoint", "PreemptionCheckpoint"]
 
 
 class PreemptionCheckpoint(object):
-    """Graceful-preemption batch-end callback: not ported yet."""
+    """Batch-end callback giving custom training loops the graceful-
+    preemption exit ``fit(preemption_safe=True)`` has built in: installs
+    a :class:`~mxnet_tpu_torch.resilience.PreemptionHandler`, and at the
+    first batch boundary after SIGTERM/SIGINT saves a mid-epoch
+    checkpoint (step and RNG state in the manifest) through ``manager``
+    and exits with ``resilience.PREEMPT_EXIT_CODE`` for a supervisor to
+    relaunch.
+
+    Use it as a context manager (or call :meth:`close`) so the signal
+    handlers are restored when the loop finishes without a preemption::
+
+        man = mx.resilience.CheckpointManager("ckpt/")
+        with mx.callback.PreemptionCheckpoint(mod, man) as cb:
+            for epoch in ...:
+                for nbatch, batch in enumerate(train_iter):
+                    mod.forward_backward(batch); mod.update()
+                    cb(mx.model.BatchEndParam(epoch, nbatch, metric,
+                                              locals()))
+    """
 
     def __init__(self, mod, manager, handler=None):
-        raise MXNetError("callback.PreemptionCheckpoint is not ported yet "
-                         "(it comes with the resilience slice of "
-                         "mxnet_tpu_torch)")
+        from .resilience import PreemptionHandler
+        self.mod = mod
+        self.manager = manager
+        self.handler = handler or PreemptionHandler()
+        self.handler.install()
+
+    def __call__(self, param):
+        if not self.handler.triggered:
+            return
+        from .resilience import preempted_exit
+        self.mod._save_preemption_checkpoint(self.manager, param.epoch,
+                                             param.nbatch + 1)
+        self.handler.uninstall()
+        preempted_exit()
+
+    def close(self):
+        """Restore the original signal handlers (idempotent)."""
+        self.handler.uninstall()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.close()
+        return False
 
 
 def do_checkpoint(prefix, period=1):
     """Epoch-end callback saving prefix-symbol.json + prefix-%04d.params
-    (reference callback.py:do_checkpoint); the writes are atomic."""
+    (reference callback.py:do_checkpoint).  Writes are atomic; ``prefix``
+    may also be a :class:`~mxnet_tpu_torch.resilience.CheckpointManager`,
+    which adds manifest discovery, per-file checksums and keep_last
+    retention.  Under ``MXTPU_CKPT_ASYNC=1`` both forms return after the
+    host copy and a background writer does the file IO: drain with
+    ``manager.wait()`` / ``resilience.wait_checkpoints()``."""
     from .model import save_checkpoint
     period = int(max(1, period))
+    managed = hasattr(prefix, "save") and hasattr(prefix, "latest")
 
     def _callback(iter_no, sym, arg, aux):
         if (iter_no + 1) % period == 0:
-            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+            if managed:
+                prefix.save(iter_no + 1, sym, arg, aux)
+            else:
+                save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
     return _callback
 
 

@@ -9,8 +9,8 @@ which would cost each of N workers seconds and hundreds of MB, and any
 CUDA touch in a child would compete with the trainer for the card.
 Instead it installs a stub ``mxnet_tpu_torch`` package whose ``__path__``
 points at the real package directory, then imports only the torch-free
-leaves: ``base`` (env registry), ``native`` (ctypes loader), ``recordio``
-and ``data_service.{common,ring}``.
+leaves: ``base`` (env registry), ``native`` (ctypes loader), ``recordio``,
+``resilience`` (the fault points) and ``data_service.{common,ring}``.
 
 Per epoch the worker derives its shard from (seed, epoch, rank,
 num_workers) with the coordinator's own arithmetic
@@ -29,8 +29,11 @@ Protocol: commands on stdin (``E <epoch> <skip>`` = produce the epoch,
 skipping the first <skip> already-consumed shard batches; ``Q`` = quit);
 flow control, abort, stop and heartbeats through the ring's control
 words; errors on stderr and a nonzero exit code (the coordinator respawns
-the worker and resumes its shard).  The worker reads no fault points: the
-port's fault injection comes with its resilience module.
+the worker and resumes its shard).  Fault points (``MXTPU_FAULTS``):
+``hang_data_worker`` stalls the worker before a batch (its heartbeat goes
+stale and the coordinator kills and respawns it), ``data_worker`` raises
+(the worker exits nonzero and is respawned); the coordinator strips both
+from a respawned worker's environment.
 """
 from __future__ import annotations
 
@@ -56,9 +59,9 @@ def bootstrap():
             "mxnet_tpu_torch", None, is_package=True)
         pkg.__spec__.submodule_search_locations = [_PKG_DIR]
         sys.modules["mxnet_tpu_torch"] = pkg
-    from mxnet_tpu_torch import native, recordio
+    from mxnet_tpu_torch import native, recordio, resilience
     from mxnet_tpu_torch.data_service import common, ring
-    return recordio, common, ring, native
+    return recordio, resilience, common, ring, native
 
 
 class _NativeDecoder(object):
@@ -213,7 +216,8 @@ class _PythonDecoder(object):
         pass
 
 
-def _run_epoch(cfg, ring_, reader, decoder, common, unpack, epoch, skip):
+def _run_epoch(cfg, ring_, reader, decoder, faults, common, unpack, epoch,
+               skip):
     bs = int(cfg["batch_size"])
     lw = int(cfg["label_width"])
     dtype = common.np_dtype(cfg["dtype"])
@@ -241,6 +245,11 @@ def _run_epoch(cfg, ring_, reader, decoder, common, unpack, epoch, skip):
             continue
         if ring_.stopped() or abandoned():
             break
+        # fault points: a hang ages the heartbeat out (killed and
+        # respawned), a raise exits the worker (respawned); either way the
+        # shard resumes at the last consumed record
+        faults.maybe_hang("hang_data_worker")
+        faults.maybe_fail("data_worker")
         slot = ring_.acquire(on_wait=abandoned)
         if slot is None:
             break
@@ -280,7 +289,7 @@ def _run_epoch(cfg, ring_, reader, decoder, common, unpack, epoch, skip):
 
 def main():
     cfg = json.loads(sys.argv[1])
-    recordio, common, ring_mod, native = bootstrap()
+    recordio, resilience, common, ring_mod, native = bootstrap()
     ring_ = ring_mod.Ring(
         cfg["shm_name"], cfg["slots"], cfg["batch_size"],
         cfg["ring_shape"], cfg["label_width"],
@@ -302,8 +311,9 @@ def main():
             if not parts or parts[0] == "Q":
                 break
             if parts[0] == "E":
-                _run_epoch(cfg, ring_, reader, decoder, common,
-                           recordio.unpack, int(parts[1]), int(parts[2]))
+                _run_epoch(cfg, ring_, reader, decoder, resilience.faults,
+                           common, recordio.unpack, int(parts[1]),
+                           int(parts[2]))
     finally:
         decoder.close()
         reader.close()

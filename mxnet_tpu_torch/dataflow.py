@@ -17,8 +17,10 @@ runs: a background thread pulls batches from any ``DataIter`` through
 :class:`~mxnet_tpu_torch.io.StagedBatch` objects straight into
 ``SPMDTrainer.step`` / ``Module.forward``, which skip the copy.  Errors
 surface on the consuming thread, and ``reset()``/``close()`` stop the
-worker cleanly mid-epoch.  Fault injection at the staging points
-(``stage_batch``, ``hang_stage``) comes with the resilience slice.
+worker cleanly mid-epoch.  The staging thread carries the fault points
+``stage_batch`` (raises, surfaced to the consumer) and ``hang_stage``
+(stalls it, as a wedged copy would: what ``fit``'s watchdog window
+catches).
 """
 from __future__ import annotations
 
@@ -201,6 +203,9 @@ class DevicePrefetchIter(DataIter):
                 continue
 
     def _stage_one(self, batch):
+        from .resilience import faults
+        faults.maybe_hang("hang_stage")
+        faults.maybe_fail("stage_batch")
         # transport-owned buffers (slot-backed batches override release()
         # per instance) may be recycled before a queued batch is consumed:
         # snapshot on this thread and hand the slot back at once

@@ -125,8 +125,10 @@ class KVStore(object):
         self._updater.set_states(states)
 
     def save_optimizer_states(self, fname):
-        from .model import write_atomically
-        write_atomically(fname, self.get_optimizer_states())
+        # temp + fsync + rename: a crash mid-save never tears an existing
+        # optimizer-state file (the checkpoints' contract)
+        from .resilience import atomic_write
+        atomic_write(fname, self.get_optimizer_states())
 
     def load_optimizer_states(self, fname):
         with open(fname, "rb") as f:

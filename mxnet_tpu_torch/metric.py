@@ -1,14 +1,17 @@
-"""Evaluation metrics (port of ``mxnet_tpu/metric.py:21-398,
-486-507``; reference python/mxnet/metric.py).
+"""Evaluation metrics (port of ``mxnet_tpu/metric.py``; reference
+python/mxnet/metric.py).
 
-Every metric reads its labels and predictions on the host with
-``.asnumpy()`` at each ``update``: the JAX package's
-``MXTPU_METRIC_BLOCKING=1`` path, whose values equal its deferred
-in-graph accumulation.  ``Perplexity`` is the exception: it picks each
-label's probability where the prediction lies and copies only those
-(one float per label) to the host, then finishes in numpy as the JAX
-package does.  ``SkippedSteps`` and the deferred metrics come with the
-resilience slice.
+A metric's ``update`` reads its labels and predictions on the host with
+``.asnumpy()`` (``Perplexity`` copies only each label's picked
+probability).  On the fused route a metric with a device rule
+(``graph_update``: ``Accuracy``, as in the JAX package) is accumulated
+inside ``SPMDTrainer.step`` instead (:func:`try_install_deferred`, which
+``fit`` calls): the step adds to a ``(sum, count)`` pair of float32
+tensors on the device and the host folds them in on ``get()`` /
+``reset()`` or every ``MXTPU_METRIC_INTERVAL`` updates, so a step copies
+nothing to the host; ``MXTPU_METRIC_BLOCKING=1`` keeps the per-step
+host update.  The two give the same numbers (integer counts in float32).
+``SkippedSteps`` surfaces the step guard's skip counter as a metric row.
 """
 from __future__ import annotations
 
@@ -18,12 +21,14 @@ import numpy as _numpy
 import torch
 
 from .base import MXNetError, Registry
+from .base import register_env as _register_env
 from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "Perplexity",
            "MAE", "MSE", "RMSE", "CrossEntropy", "Loss", "Torch", "Caffe",
-           "CustomMetric", "CompositeEvalMetric", "check_label_shapes", "np",
-           "create"]
+           "CustomMetric", "CompositeEvalMetric", "SkippedSteps",
+           "check_label_shapes", "np", "create", "try_install_deferred",
+           "ENV_METRIC_INTERVAL", "ENV_METRIC_BLOCKING"]
 
 metric_registry = Registry("metric")
 
@@ -39,7 +44,16 @@ def check_label_shapes(labels, preds, shape=False):
 
 
 class EvalMetric(object):
-    """Base metric (reference metric.py:EvalMetric)."""
+    """Base metric (reference metric.py:EvalMetric).
+
+    Deferred device accumulation: a fused trainer can keep this metric's
+    (sum, count) on the device (``SPMDTrainer.install_metric``) so a
+    step's ``update`` never copies to the host.  The trainer is attached
+    as a deferred source (:meth:`attach_deferred_source`); ``get()`` and
+    ``reset()`` fold the device totals in first, so reads are exact and
+    between reads the host copy lags by at most the fold interval
+    (``MXTPU_METRIC_INTERVAL``).
+    """
 
     def __init__(self, name, num=None):
         self.name = name
@@ -56,8 +70,45 @@ class EvalMetric(object):
         else:
             self.num_inst = [0] * self.num
             self.sum_metric = [0.0] * self.num
+        reset_fn = getattr(self, "_deferred_reset", None)
+        if reset_fn is not None:
+            reset_fn()
+
+    # -- deferred (on-device) accumulation ---------------------------------
+    def graph_update(self, label_names):
+        """A torch function ``fn(outs, data) -> (sum, count)`` mirroring
+        :meth:`update` on the step's device tensors, or None when this
+        metric has no device rule (the caller then keeps the blocking host
+        path).  ``outs`` is the step's output list, ``data`` its input
+        dict (labels under ``label_names``)."""
+        return None
+
+    def attach_deferred_source(self, fetch, reset):
+        """Fold device-side accumulators into this metric lazily:
+        ``fetch() -> (sum_delta, count_delta)`` is drained on every
+        ``get``/explicit fold; ``reset()`` zeroes the device side when the
+        metric resets."""
+        self._deferred_fetch = fetch
+        self._deferred_reset = reset
+
+    def detach_deferred_source(self):
+        self._deferred_fetch = None
+        self._deferred_reset = None
+
+    def fold_deferred(self):
+        """Drain any pending device-side (sum, count) into the host
+        accumulators (one small device-to-host read; no-op when no
+        deferred source is attached)."""
+        fetch = getattr(self, "_deferred_fetch", None)
+        if fetch is None:
+            return
+        s, c = fetch()
+        if c:
+            self.sum_metric += s
+            self.num_inst += int(c)
 
     def get(self):
+        self.fold_deferred()
         if self.num is None:
             if self.num_inst == 0:
                 return (self.name, float("nan"))
@@ -133,6 +184,28 @@ class Accuracy(EvalMetric):
             check_label_shapes(label, pred)
             self.sum_metric += (pred == label).sum()
             self.num_inst += len(label)
+
+    def graph_update(self, label_names):
+        """The device rule: integer counts in float32, so the deferred
+        totals equal the host path's exactly."""
+        if not label_names:
+            return None
+        axis = self.axis
+
+        def fn(outs, data):
+            s = 0.0
+            c = 0.0
+            for name, pred in zip(label_names, outs):
+                label = data[name]
+                if pred.dim() > label.dim():
+                    pred = pred.argmax(dim=axis)
+                pred = pred.to(torch.int32).reshape(-1)
+                label = label.to(torch.int32).reshape(-1)
+                s = s + (pred == label).sum().to(torch.float32)
+                c = c + float(label.shape[0])
+            return s, c
+
+        return fn
 
 
 @metric_registry.register(name="top_k_accuracy", aliases=("topkaccuracy",))
@@ -362,6 +435,84 @@ class CustomMetric(EvalMetric):
             else:
                 self.sum_metric += reval
                 self.num_inst += 1
+
+
+class SkippedSteps(EvalMetric):
+    """The fused step guard's skipped-update counter as a metric row, so
+    NaN-skips show in the same epoch logs as accuracy or loss.
+
+    ``source`` is anything exposing the counter: a Module
+    (``skipped_update_count``) or an SPMDTrainer (``skipped_steps``).
+    The value is a running total, not a per-batch average; ``reset()``
+    keeps it (the counter belongs to the trainer).  The source's counter
+    property reads the device counters, so ``get()`` is exact even when
+    the guard's reads are deferred."""
+
+    def __init__(self, source, name="skipped_steps"):
+        self._source = source
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        pass
+
+    def reset(self):
+        pass
+
+    def _count(self):
+        for attr in ("skipped_update_count", "skipped_steps"):
+            v = getattr(self._source, attr, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    def get(self):
+        return (self.name, self._count())
+
+
+#: fold the device-side accumulators into the host metric every N
+#: ``update_metric`` calls; 0 (default) folds only on reads
+ENV_METRIC_INTERVAL = _register_env(
+    "MXTPU_METRIC_INTERVAL", default=0,
+    doc="Fold deferred on-device train-metric accumulators into the host "
+        "metric every N update_metric calls (0 = on reads only)")
+#: "1" disables deferred metrics: every step updates the host metric
+#: from its copied outputs
+ENV_METRIC_BLOCKING = _register_env(
+    "MXTPU_METRIC_BLOCKING", default=0,
+    doc="1 disables deferred metrics: every step updates the host metric "
+        "from fetched outputs (exact-parity mode for tests)")
+
+
+def try_install_deferred(trainer, metric):
+    """Move ``metric``'s accumulation into ``trainer``'s fused step when
+    possible.  Returns the fold interval (an int, 0 = on reads only) when
+    installed, or None when the blocking path must be used (no trainer,
+    ``MXTPU_METRIC_BLOCKING=1``, a compute dtype that would round the
+    labels, a composite or multi-slot metric, or no device rule).  Call
+    before the first step (fit does)."""
+    from .base import get_env
+    if trainer is None or getattr(trainer, "_eval", None) is None:
+        return None
+    if str(get_env(ENV_METRIC_BLOCKING, "0")) == "1":
+        return None
+    if getattr(trainer, "compute_dtype", None) is not None:
+        # the step casts floating labels to the compute dtype too, and
+        # bfloat16 cannot hold odd class ids above 256: the device
+        # comparison would drift from the host path's exact labels
+        return None
+    if not isinstance(metric, EvalMetric) or metric.num is not None:
+        return None
+    fn = metric.graph_update(list(trainer.label_names))
+    if fn is None:
+        return None
+    interval = int(get_env(ENV_METRIC_INTERVAL, "0"))
+    # equivalence key: a second fit() with the same metric keeps the rule
+    key = (type(metric).__name__, getattr(metric, "axis", None),
+           tuple(trainer.label_names), interval)
+    trainer.install_metric(fn, flush_interval=interval, key=key)
+    metric.attach_deferred_source(trainer.fetch_metric,
+                                  trainer.reset_metric)
+    return interval
 
 
 def np(numpy_feval, name=None, allow_extra_outputs=False):

@@ -1,4 +1,5 @@
-"""Checkpoints: ``save_checkpoint`` / ``load_checkpoint`` (port of
+"""Checkpoints: ``save_checkpoint`` (with ``blocking=``, asynchronous
+through ``resilience``'s writer) / ``load_checkpoint`` (port of
 ``mxnet_tpu/model.py:87-140``; reference python/mxnet/model.py), the
 Module stack's helpers (``mxnet_tpu/model.py:28-86``): ``BatchEndParam``
 and the kvstore update trio, and the legacy ``FeedForward`` API
@@ -11,7 +12,6 @@ checkpoint written by either package loads in the other.
 from __future__ import annotations
 
 import logging
-import os
 from collections import namedtuple
 
 import numpy as np
@@ -91,41 +91,51 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
             updater(index * num_device + k, g, w)
 
 
-def _replace_atomically(path, write):
-    """``write(tmp_path)``, fsync, then rename over ``path``: a crash
-    mid-save never tears an existing file."""
-    tmp = "%s.tmp%d" % (path, os.getpid())
-    try:
-        write(tmp)
-        with open(tmp, "rb") as f:
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-
-
 def write_atomically(path, data):
-    """Write ``data`` (bytes) to ``path`` through a temporary file."""
-    def write(tmp):
-        with open(tmp, "wb") as f:
-            f.write(data)
-    _replace_atomically(path, write)
+    """Write ``data`` (bytes) to ``path`` through a temporary file, fsync
+    and rename (``resilience.atomic_write``, with its ``checkpoint_write``
+    fault point): a crash mid-save never tears an existing file."""
+    from .resilience import atomic_write
+    atomic_write(path, data)
 
 
-def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """Save ``prefix-symbol.json`` + ``prefix-%04d.params``."""
-    sym_json = symbol if isinstance(symbol, str) else symbol.tojson()
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
+                    blocking=None):
+    """Save ``prefix-symbol.json`` + ``prefix-%04d.params`` (reference
+    model.py:save_checkpoint; the JAX package's bytes).  Files land via
+    temp + fsync + rename, so a crash mid-save can never tear an existing
+    checkpoint.
 
-    def write_json(tmp):
-        with open(tmp, "w") as f:
-            f.write(sym_json)
-    _replace_atomically("%s-symbol.json" % prefix, write_json)
-    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
-    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
-    param_name = "%s-%04d.params" % (prefix, epoch)
-    _replace_atomically(param_name, lambda tmp: nd.save(tmp, save_dict))
-    logging.info("Saved checkpoint to \"%s\"", param_name)
+    ``blocking=False`` (default: the ``MXTPU_CKPT_ASYNC`` env) returns
+    after copying the params to the host (one copy per tensor); the shared
+    background :class:`~mxnet_tpu_torch.resilience.CheckpointWriter` then
+    serializes and writes: drain with ``resilience.wait_checkpoints()``.
+    ``symbol`` may be a Symbol or its JSON (what async snapshots and
+    ``CheckpointManager``'s writer hand in)."""
+    from .resilience import (atomic_path, atomic_write, checkpoint_async,
+                             snapshot_params, submit_checkpoint)
+    sym_json = symbol if isinstance(symbol, str) or symbol is None \
+        else symbol.tojson()
+    if blocking is None:
+        blocking = not checkpoint_async()
+    if not blocking:
+        arg_params = snapshot_params(arg_params)
+        aux_params = snapshot_params(aux_params)
+
+    def _write():
+        if sym_json is not None:
+            atomic_write("%s-symbol.json" % prefix, sym_json)
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        with atomic_path(param_name) as tmp:
+            nd.save(tmp, save_dict)
+        logging.info("Saved checkpoint to \"%s\"", param_name)
+
+    if blocking:
+        _write()
+    else:
+        submit_checkpoint(_write, "%s epoch %d" % (prefix, epoch))
 
 
 def load_checkpoint(prefix, epoch, ctx=None):

@@ -5,16 +5,17 @@ python/mxnet/module/base_module.py: bind -> init_params -> init_optimizer
 
 ``fit`` keeps the reference's loop: ``eval_metric``, ``epoch_end_callback``,
 ``batch_end_callback``, ``eval_data`` with ``validation_metric``,
-``begin_epoch``, ``monitor``.  The JAX package's resilience arguments
-(``checkpoint=``, ``resume=``, ``preemption_safe=``, ``watchdog=``) and
-its environment knobs ``MXTPU_RESUME``, ``MXTPU_ON_PREEMPT``,
-``MXTPU_STEP_TIMEOUT`` and ``MXTPU_PROFILE_DIR`` come with the resilience
-slice: setting any of them raises instead of being ignored.
+``begin_epoch``, ``monitor``; and the JAX package's resilience
+(``checkpoint=``, ``resume=``, ``preemption_safe=``, ``watchdog=``, with
+the knobs ``MXTPU_RESUME``, ``MXTPU_ON_PREEMPT``, ``MXTPU_STEP_TIMEOUT``)
+and deferred train metrics on the fused route.  ``MXTPU_PROFILE_DIR``
+(step-trace capture) comes with the profiler slice and raises when set.
 """
 from __future__ import annotations
 
 import logging
 import os
+import signal
 import time
 
 from .. import metric as metric_mod
@@ -25,16 +26,12 @@ from ..ndarray import concatenate
 
 __all__ = ["BaseModule"]
 
-#: the JAX package's resilience and profiling knobs, registered so a
-#: setting is recognised and refused rather than silently ignored
-RESILIENCE_ENVS = tuple(register_env(
-    name, default=None, doc="The JAX package's %s; comes with the "
-    "resilience slice of mxnet_tpu_torch (fit raises when it is set)"
-    % what) for name, what in (
-        ("MXTPU_RESUME", "fit auto-resume"),
-        ("MXTPU_ON_PREEMPT", "graceful-preemption mode"),
-        ("MXTPU_STEP_TIMEOUT", "hung-step watchdog budget"),
-        ("MXTPU_PROFILE_DIR", "step-trace capture directory")))
+#: the JAX package's step-trace knob, registered so a setting is
+#: recognised and refused rather than silently ignored
+ENV_PROFILE_DIR = register_env(
+    "MXTPU_PROFILE_DIR", default=None,
+    doc="The JAX package's step-trace capture directory; comes with the "
+        "profiler slice of mxnet_tpu_torch (fit raises when it is set)")
 
 
 def _as_list(obj):
@@ -56,19 +53,6 @@ def _check_input_names(symbol, names, typename, throw):
             if throw:
                 raise ValueError(msg)
             logging.warning(msg)
-
-
-def _refuse_resilience(checkpoint, resume, preemption_safe, watchdog):
-    given = [n for n, v in (("checkpoint=", checkpoint is not None),
-                            ("resume=", bool(resume)),
-                            ("preemption_safe=", bool(preemption_safe)),
-                            ("watchdog=", bool(watchdog))) if v]
-    given += [n for n in RESILIENCE_ENVS if os.environ.get(n, "")]
-    if given:
-        raise MXNetError(
-            "fit: %s not ported yet (managed checkpoints, resume, graceful "
-            "preemption, the step watchdog and step traces come with the "
-            "resilience slice of mxnet_tpu_torch)" % ", ".join(given))
 
 
 class BaseModule(object):
@@ -175,11 +159,87 @@ class BaseModule(object):
         the epoch's Train-* metric log, a parameter sync, the epoch-end
         callbacks (``do_checkpoint``) and, with ``eval_data``, a score.
 
-        ``checkpoint``, ``resume``, ``preemption_safe`` and ``watchdog``
-        (and their environment knobs) raise: they come with the
-        resilience slice."""
+        ``checkpoint`` (a :class:`~mxnet_tpu_torch.resilience.
+        CheckpointManager` or a directory) turns on managed epoch-end
+        checkpoints: params and optimizer state land atomically after
+        every epoch.  ``resume=True`` (or ``MXTPU_RESUME=1``, which
+        ``tools/supervise.py`` sets on a relaunch) restores the newest
+        checkpoint first (params, optimizer state, epoch).  A mid-epoch
+        checkpoint (graceful preemption, below) also carries the step and
+        the random state: the resumed run skips the consumed batches of
+        the iterator (which must replay its order after ``reset()``) and
+        restores the random stream, so it ends bit-identical to an
+        uninterrupted run.
+
+        ``preemption_safe=True`` (or ``MXTPU_ON_PREEMPT=save``) installs a
+        SIGTERM/SIGINT handler: the next step boundary saves a mid-epoch
+        checkpoint and exits with ``resilience.PREEMPT_EXIT_CODE``.  Needs
+        ``checkpoint=``.
+
+        ``watchdog``: True or a :class:`~mxnet_tpu_torch.resilience.
+        StepWatchdog` arms a hung-step monitor around every batch; None
+        follows ``MXTPU_STEP_TIMEOUT`` (seconds, or ``auto``).  An
+        overrunning step dumps every thread's stack and the ``torch.cuda``
+        memory state and exits ``resilience.WATCHDOG_EXIT_CODE``.
+
+        On the fused route the train metric accumulates on the device
+        where it has a rule (``metric.try_install_deferred``; see
+        ``MXTPU_METRIC_INTERVAL``/``MXTPU_METRIC_BLOCKING``)."""
         assert num_epoch is not None, "please specify number of epochs"
-        _refuse_resilience(checkpoint, resume, preemption_safe, watchdog)
+        from contextlib import nullcontext
+        from ..base import get_env
+        from .. import resilience
+        from ..resilience import (CheckpointManager, PreemptionHandler,
+                                  StepWatchdog, faults, preempted_exit)
+        if str(get_env(ENV_PROFILE_DIR, "") or ""):
+            raise MXNetError(
+                "fit: MXTPU_PROFILE_DIR (step-trace capture) is not ported "
+                "yet (it comes with the profiler slice of mxnet_tpu_torch)")
+
+        if checkpoint is not None and not hasattr(checkpoint, "restore"):
+            checkpoint = CheckpointManager(checkpoint)
+        if not resume and str(get_env(resilience.ENV_RESUME, "0")) == "1":
+            # a supervise.py relaunch: same command line, resume forced
+            resume = checkpoint is not None
+        restored_states = None
+        resume_step_state = None
+        if resume:
+            assert checkpoint is not None, "fit(resume=True) needs checkpoint="
+            if checkpoint.latest() is not None:
+                _, arg_restored, aux_restored, restored_states, ck_epoch = \
+                    checkpoint.restore()
+                arg_params, aux_params = arg_restored, aux_restored
+                entry = checkpoint.entry(ck_epoch) or {}
+                resume_step_state = entry.get("step_state")
+                if resume_step_state is not None:
+                    # partial (preemption) checkpoint: re-enter the
+                    # interrupted epoch, not the one after it
+                    begin_epoch = max(begin_epoch,
+                                      int(resume_step_state["epoch"]))
+                else:
+                    begin_epoch = max(begin_epoch, ck_epoch)
+                force_init = True
+                self.logger.info("fit(resume=True): restored checkpoint "
+                                 "epoch %d%s from %s", ck_epoch,
+                                 " (mid-epoch, step %d)"
+                                 % resume_step_state["step"]
+                                 if resume_step_state else "",
+                                 checkpoint.directory)
+
+        if preemption_safe is None:
+            preemption_safe = checkpoint is not None and str(
+                get_env(resilience.ENV_ON_PREEMPT, "")).lower() in \
+                ("save", "1")
+        if preemption_safe and checkpoint is None:
+            raise MXNetError("fit(preemption_safe=True) needs checkpoint= "
+                             "(there is nowhere to save the mid-epoch "
+                             "state)")
+        if preemption_safe and resilience._world() > 1:
+            raise MXNetError(
+                "fit(preemption_safe=True) across %d processes needs every "
+                "rank to agree on the preemption flag at a step boundary: "
+                "not ported yet (it comes with the multi-GPU slice of "
+                "mxnet_tpu_torch)" % resilience._world())
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -191,54 +251,214 @@ class BaseModule(object):
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if restored_states is not None:
+            try:
+                self.set_optimizer_states(restored_states)
+            except NotImplementedError:
+                # the module cannot carry optimizer state (mirrors the
+                # save side): resume params and epoch only
+                self.logger.warning(
+                    "fit(resume=True): %s has no optimizer-state support; "
+                    "resuming params and epoch only",
+                    type(self).__name__)
 
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+        # deferred metrics: fused modules fold the train metric's
+        # (sum, count) into the step so update_metric copies nothing to
+        # the host (no-op on the executor route, for metrics without a
+        # device rule and under MXTPU_METRIC_BLOCKING)
+        self._install_deferred_metric(eval_metric)
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                if batch_end_callback is not None:
-                    batch_end_params = BatchEndParam(
-                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                        locals=locals())
-                    for callback in _as_list(batch_end_callback):
-                        callback(batch_end_params)
+        # mid-epoch resume: restore the random stream the interrupted run
+        # saved at the preemption boundary (after init: the restore must
+        # win over what initialization drew) and skip the batches of
+        # begin_epoch it already trained on
+        fast_forward = 0
+        if resume_step_state is not None:
+            fast_forward = int(resume_step_state.get("step", 0))
+            if resume_step_state.get("rng") is not None:
+                from .. import random as _random
+                _random.set_state(resume_step_state["rng"])
 
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            toc = time.time()
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
+        # preemption and the watchdog are set up inside the try, so a
+        # failure anywhere in bring-up still runs the finally: a leaked
+        # signal handler would swallow the process's next Ctrl-C, a leaked
+        # monitor thread its memory
+        preempt = None
+        wd = None
+        own_watchdog = False
+        fused_trainer = self._deferred_metric_trainer()
+        try:
+            if preemption_safe:
+                # flag set by SIGTERM/SIGINT, consumed at the step
+                # boundaries below
+                preempt = PreemptionHandler(logger=self.logger).install()
+            # fit owns the watchdog's monitor thread; the fused trainer
+            # (when present) is armed too so its step context lands in
+            # the hang report
+            if watchdog is None:
+                watchdog = resilience.step_timeout_configured()
+            if isinstance(watchdog, StepWatchdog):
+                wd = watchdog
+            elif watchdog:
+                wd = StepWatchdog(logger=self.logger)
+                own_watchdog = True
+            if wd is not None:
+                wd.start()
+                if fused_trainer is not None:
+                    fused_trainer.install_watchdog(wd)
 
-            # sync aux params across devices
-            arg_params_, aux_params_ = self.get_params()
-            self.set_params(arg_params_, aux_params_)
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                data_stream = iter(train_data)
+                nbatch = -1
+                if epoch == begin_epoch and fast_forward > 0:
+                    # skip the batches the interrupted run trained on
+                    # (deterministic iterators replay the same order)
+                    t_ff = time.perf_counter()
+                    for _ in range(fast_forward):
+                        try:
+                            next(data_stream)
+                        except StopIteration:
+                            break
+                        nbatch += 1
+                    self.logger.info(
+                        "fit(resume=True): fast-forwarded %d batches of "
+                        "epoch %d in %.6f s", nbatch + 1, epoch,
+                        time.perf_counter() - t_ff)
+                while True:
+                    # the armed window covers the data fetch too: a wedged
+                    # staging thread hangs the consumer in next()
+                    with wd.armed("epoch %d batch %d"
+                                  % (epoch, nbatch + 1)) \
+                            if wd is not None else nullcontext():
+                        try:
+                            data_batch = next(data_stream)
+                        except StopIteration:
+                            break
+                        nbatch += 1
+                        if monitor is not None:
+                            monitor.tic()
+                        self.forward_backward(data_batch)
+                        self.update()
+                        self.update_metric(eval_metric, data_batch.label)
+                        if monitor is not None:
+                            monitor.toc_print()
+                        if batch_end_callback is not None:
+                            batch_end_params = BatchEndParam(
+                                epoch=epoch, nbatch=nbatch,
+                                eval_metric=eval_metric, locals=locals())
+                            for callback in _as_list(batch_end_callback):
+                                callback(batch_end_params)
+                    # step boundary: consume a pending preemption —
+                    # checkpoint mid-epoch and exit for the supervisor to
+                    # relaunch with resume
+                    if preempt is not None:
+                        if faults.consume("preempt"):
+                            # in-band drill: deliver a real signal so the
+                            # whole handler path is what gets tested
+                            os.kill(os.getpid(), signal.SIGTERM)
+                            time.sleep(0.05)  # let the handler run
+                        if preempt.triggered:
+                            self._save_preemption_checkpoint(
+                                checkpoint, epoch, nbatch + 1)
+                            preempted_exit()
 
-            if epoch_end_callback is not None:
-                for callback in _as_list(epoch_end_callback):
-                    callback(epoch, self.symbol, arg_params_, aux_params_)
+                # one epoch of training is finished
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                toc = time.time()
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 toc - tic)
 
-            if eval_data:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
+                # sync aux params across devices
+                arg_params_, aux_params_ = self.get_params()
+                self.set_params(arg_params_, aux_params_)
 
-            # end of 1 epoch, reset the data-iter for another epoch
-            train_data.reset()
+                if epoch_end_callback is not None:
+                    for callback in _as_list(epoch_end_callback):
+                        callback(epoch, self.symbol, arg_params_,
+                                 aux_params_)
+
+                if checkpoint is not None:
+                    try:
+                        states = self.get_optimizer_states()
+                    except NotImplementedError:
+                        states = None
+                    checkpoint.save(epoch + 1, self.symbol, arg_params_,
+                                    aux_params_, optimizer_states=states)
+
+                if eval_data:
+                    res = self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch)
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+
+                # end of 1 epoch, reset the data-iter for another epoch
+                train_data.reset()
+            # drain the async checkpoint writers so every epoch's save is
+            # durable (and a background write failure surfaces here)
+            # before fit returns: the manager's own writer and the shared
+            # default writer behind prefix-based saves (do_checkpoint's);
+            # the writer threads are daemons, which interpreter exit kills
+            if checkpoint is not None and hasattr(checkpoint, "wait"):
+                checkpoint.wait()
+            resilience.wait_checkpoints()
+        finally:
+            if preempt is not None:
+                preempt.uninstall()
+            if wd is not None:
+                if fused_trainer is not None:
+                    fused_trainer.install_watchdog(None)
+                if own_watchdog:
+                    wd.stop()
+
+    def _save_preemption_checkpoint(self, checkpoint, epoch, step):
+        """Mid-epoch checkpoint at a step boundary: params and optimizer
+        state under the epoch number the epoch-end save will use
+        (epoch + 1), plus a ``step_state`` manifest record (epoch index,
+        batches consumed, the random state as JSON) that
+        ``fit(resume=True)`` fast-forwards from.  The later epoch-end save
+        of the same number replaces the partial entry.
+
+        The exit-85 contract needs the checkpoint on disk when the process
+        exits: an in-flight async save is drained first (bounded; this
+        blocking save supersedes whatever a failed write would have
+        published) and this save is blocking, MXTPU_CKPT_ASYNC
+        notwithstanding."""
+        from .. import random as _random
+        from ..resilience import (PREEMPT_EXIT_CODE, CheckpointManager,
+                                  wait_checkpoints)
+        try:
+            wait_checkpoints(timeout=CheckpointManager.DRAIN_TIMEOUT / 2)
+        except Exception as e:  # noqa: BLE001 — superseded below
+            self.logger.warning(
+                "preemption: in-flight async checkpoint write failed "
+                "(%s: %s) — the blocking preemption save below "
+                "supersedes it", type(e).__name__, e)
+        arg_params_, aux_params_ = self.get_params()
+        try:
+            states = self.get_optimizer_states()
+        except NotImplementedError:
+            states = None
+        checkpoint.save(epoch + 1, self.symbol, arg_params_, aux_params_,
+                        optimizer_states=states, blocking=True,
+                        step_state={"epoch": int(epoch), "step": int(step),
+                                    "rng": _random.get_state()})
+        self.logger.warning(
+            "preemption: saved mid-epoch checkpoint (epoch %d, step %d) "
+            "to %s; exiting with code %d — relaunch with resume to "
+            "continue", epoch, step, checkpoint.directory,
+            PREEMPT_EXIT_CODE)
 
     # -- symbol / params ---------------------------------------------------
     @property
@@ -261,11 +481,12 @@ class BaseModule(object):
     def save_params(self, fname):
         """Save ``arg:``/``aux:`` params to ``fname`` (atomically)."""
         from .. import ndarray as nd
-        from ..model import _replace_atomically
+        from ..resilience import atomic_path
         arg_params, aux_params = self.get_params()
         save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
         save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
-        _replace_atomically(fname, lambda tmp: nd.save(tmp, save_dict))
+        with atomic_path(fname) as tmp:
+            nd.save(tmp, save_dict)
 
     def load_params(self, fname):
         from .. import ndarray as nd
@@ -282,7 +503,51 @@ class BaseModule(object):
                 raise ValueError("Invalid param file " + fname)
         self.set_params(arg_params, aux_params)
 
+    def _deferred_metric_trainer(self):
+        """The fused SPMDTrainer that can carry on-device metrics, or
+        None: the base has none, so every module type keeps the blocking
+        path unless it overrides this."""
+        return None
+
+    def _install_deferred_metric(self, eval_metric):
+        """fit() hook: move the train metric's accumulation into the
+        fused step (``metric.try_install_deferred``).  Detaches a metric
+        installed before and removes a stale device rule when the new
+        metric cannot defer, so a second fit() never keeps the first's
+        accumulators or takes its deltas."""
+        prev = getattr(self, "_deferred_metric", None)
+        if prev is not None:
+            prev.detach_deferred_source()
+        self._deferred_metric = None
+        self._deferred_interval = 0
+        self._deferred_calls = 0
+        trainer = self._deferred_metric_trainer()
+        if trainer is None:
+            return
+        interval = metric_mod.try_install_deferred(trainer, eval_metric)
+        if interval is None:
+            if getattr(trainer, "_metric_fn", None) is not None:
+                trainer.install_metric(None)
+            return
+        self._deferred_metric = eval_metric
+        self._deferred_interval = interval
+
+    def _deferred_metric_update(self, eval_metric):
+        """True when ``eval_metric`` accumulates on the device for train
+        steps (the per-step host update is skipped); folds the device
+        totals every ``_deferred_interval`` calls."""
+        if getattr(self, "_deferred_metric", None) is not eval_metric:
+            return False
+        self._deferred_calls += 1
+        if self._deferred_interval > 0 and \
+                self._deferred_calls % self._deferred_interval == 0:
+            eval_metric.fold_deferred()
+        return True
+
     def get_optimizer_states(self):
+        """Serialized optimizer state (bytes), for managed checkpoints.
+        Modules with an optimizer implement this; the base raises, so
+        ``fit(checkpoint=...)`` degrades to params-only checkpoints."""
         raise NotImplementedError
 
     def set_optimizer_states(self, states):

@@ -119,15 +119,48 @@ class Module(BaseModule):
             mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
-    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        blocking=None):
         """Save symbol + params (+ optimizer states) (reference
-        module.py:135); every file lands atomically."""
+        module.py:135); every file lands atomically (temp + fsync +
+        rename).
+
+        ``blocking=False`` (default: the ``MXTPU_CKPT_ASYNC`` env) returns
+        after copying params to the host (and serializing the optimizer
+        state); the shared background writer does the file IO in one job:
+        drain with ``resilience.wait_checkpoints()``."""
+        from ..resilience import (atomic_write, checkpoint_async,
+                                  snapshot_params, submit_checkpoint)
+        if blocking is None:
+            blocking = not checkpoint_async()
+        states = self.get_optimizer_states() if save_optimizer_states \
+            else None
         arg_params, aux_params = self.get_params()
-        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
-        if save_optimizer_states:
-            state_name = "%s-%04d.states" % (prefix, epoch)
-            write_atomically(state_name, self.get_optimizer_states())
-            logging.info("Saved optimizer state to \"%s\"", state_name)
+        sym_json = self._symbol.tojson()
+        state_name = "%s-%04d.states" % (prefix, epoch)
+
+        def _write_states():
+            if states is not None:
+                atomic_write(state_name, states)
+                logging.info("Saved optimizer state to \"%s\"", state_name)
+
+        if blocking:
+            save_checkpoint(prefix, epoch, sym_json, arg_params, aux_params,
+                            blocking=True)
+            _write_states()
+        else:
+            # ONE job for params and states: the writer holds one job at
+            # a time, so a second submit would block this caller for the
+            # whole first write, the stall async mode exists to remove
+            arg_params = snapshot_params(arg_params)
+            aux_params = snapshot_params(aux_params)
+
+            def _write_all():
+                save_checkpoint(prefix, epoch, sym_json, arg_params,
+                                aux_params, blocking=True)
+                _write_states()
+
+            submit_checkpoint(_write_all, "%s epoch %d" % (prefix, epoch))
 
     # -- properties --------------------------------------------------------
     @property
@@ -318,6 +351,11 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_outputs_from_update = False
         self._monitor_installed = False
+        if getattr(self, "_deferred_metric", None) is not None:
+            self._deferred_metric.detach_deferred_source()
+        self._deferred_metric = None
+        self._deferred_interval = 0
+        self._deferred_calls = 0
 
     def reshape(self, data_shapes, label_shapes=None):
         """Re-bind for new input shapes keeping parameters and optimizer
@@ -567,8 +605,16 @@ class Module(BaseModule):
             self.inputs_need_grad
         return self._exec_group.get_input_grads(merge_multi_context)
 
+    def _deferred_metric_trainer(self):
+        return self._fused  # None on the executor route
+
     def update_metric(self, eval_metric, labels):
         if self._fused is not None:
+            if self._fused_outputs_from_update and \
+                    self._deferred_metric_update(eval_metric):
+                # the step itself added (sum, count) on the device:
+                # nothing to copy this step
+                return
             if self._fused_outputs_from_update and self._fused.step_guard:
                 # a guard-skipped step's outputs are non-finite: keep them
                 # out of the metric (the flush reads what the outputs'

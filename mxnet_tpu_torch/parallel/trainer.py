@@ -21,10 +21,20 @@ program that updates in place; here the step runs eagerly and makes new
 parameter tensors each step.
 
 ``remat=True`` (or ``MXNET_BACKWARD_DO_MIRROR=1``) runs the step's
-forward as checkpointed segments that the backward recomputes.  Arguments
-that belong to later slices of the port (a mesh, zero/zero3 gradient
-sync, a sharding plan, parameter shardings, deferred metrics, the
-watchdog, fault injection) raise :class:`MXNetError`.
+forward as checkpointed segments that the backward recomputes.
+
+Resilience (``mxnet_tpu/parallel/trainer.py``'s): a deferred metric's
+``(sum, count)`` accumulates on the device inside the step
+(:meth:`SPMDTrainer.install_metric`; guard-skipped steps add nothing)
+and the guard counters are then read every ``flush_interval`` steps
+only; a :class:`~mxnet_tpu_torch.resilience.StepWatchdog` is armed
+around each step (:meth:`SPMDTrainer.install_watchdog`); the fault
+points ``poison_grad`` (NaN in the first floating input) and
+``hang_step`` fire here; :meth:`SPMDTrainer.save_checkpoint` and
+:meth:`SPMDTrainer.restore` go through a
+:class:`~mxnet_tpu_torch.resilience.CheckpointManager`.  Arguments that
+belong to later slices of the port (a mesh, zero/zero3 gradient sync, a
+sharding plan, parameter shardings) raise :class:`MXNetError`.
 """
 from __future__ import annotations
 
@@ -46,7 +56,8 @@ from ..io import DataDesc
 from ..ndarray import NDArray, tensor_from_numpy, zeros as nd_zeros
 from ..ops import tensor as T
 
-__all__ = ["SPMDTrainer", "SUPPORTED_OPTIMIZERS", "UPDATE_RANGE"]
+__all__ = ["SPMDTrainer", "SUPPORTED_OPTIMIZERS", "UPDATE_RANGE",
+           "DEFAULT_GUARD_FLUSH_INTERVAL", "diff_param_sets"]
 
 #: the ``torch.profiler.record_function`` range around each step's
 #: guard + optimizer update + aux merge
@@ -59,9 +70,9 @@ ENV_GRAD_SYNC = register_env(
     "MXNET_GRAD_SYNC", default="allreduce",
     doc="Gradient sync of the fused step: allreduce on one device here; "
         "zero/zero3 come with the multi-GPU slice")
-ENV_FAULTS = register_env(
-    "MXTPU_FAULTS", default="",
-    doc="Fault-injection points; come with the resilience slice")
+#: guard-counter read cadence (steps) while a deferred metric is
+#: installed and sets no interval of its own
+DEFAULT_GUARD_FLUSH_INTERVAL = 25
 
 _LOG = logging.getLogger(__name__)
 
@@ -69,6 +80,26 @@ _LOG = logging.getLogger(__name__)
 def _later(what, slice_name):
     raise MXNetError("SPMDTrainer: %s is not ported yet (it comes with the "
                      "%s slice of mxnet_tpu_torch)" % (what, slice_name))
+
+
+def diff_param_sets(saved_params, current_names, kind="parameter"):
+    """Problems list for a save->resume param-set change (the names part
+    of the JAX package's ``parallel/planner.py:diff_param_sets``): a param
+    ADDED to the model since the save or REMOVED from it must fail the
+    resume with names, never silently misload."""
+    saved, current = set(saved_params or ()), set(current_names)
+    problems = []
+    added = sorted(current - saved)
+    removed = sorted(saved - current)
+    if added:
+        problems.append(
+            "%s(s) %s exist in the model but not in the checkpoint "
+            "(added since the save)" % (kind, ", ".join(added)))
+    if removed:
+        problems.append(
+            "%s(s) %s exist in the checkpoint but not in the model "
+            "(removed since the save)" % (kind, ", ".join(removed)))
+    return problems
 
 
 class SPMDTrainer(object):
@@ -96,8 +127,6 @@ class SPMDTrainer(object):
         if remat is None:
             remat = str(get_env(ENV_BACKWARD_DO_MIRROR, "0")) == "1"
         self.remat = bool(remat)
-        if str(get_env(ENV_FAULTS, "")).strip():
-            _later("fault injection (MXTPU_FAULTS)", "resilience")
         self.symbol = symbol
         self.mesh = None
         self.grad_sync = "allreduce"
@@ -143,6 +172,19 @@ class SPMDTrainer(object):
         self._guard_pending = False       # unread counters in flight
         self._trips_seen = 0              # abort events already raised
         self.last_step_skipped = False    # most recently FLUSHED step
+        # deferred metrics: a (sum, count) float32 pair on the device,
+        # added to inside the step (install_metric); fetch_metric reads
+        # and re-zeroes it, so a window spans at most flush_interval steps
+        # and float32 stays exact for integer sums
+        self._metric_fn = None
+        self._metric_key = None
+        self._metric_acc = None
+        # guard-counter read cadence: 1 = at every step entry (one-deep
+        # pipeline); > 1 = every that-many steps (deferred-metric runs)
+        self.flush_interval = 1
+        self._steps_since_flush = 0
+        # optional hung-step watchdog (resilience.StepWatchdog), armed
+        # around every step (fit wires it through install_watchdog)
         self.watchdog = None
         self.params = None        # dict name -> tensor (float32 master)
         self.aux = None
@@ -274,10 +316,12 @@ class SPMDTrainer(object):
         tf = self.input_transforms
         return {k: (tf[k](v) if k in tf else v) for k, v in data.items()}
 
-    def _step_tail(self, outs, auxu, grads, lr, wd, t):
+    def _step_tail(self, outs, auxu, grads, lr, wd, t, data):
         """The epilogue of the step (the JAX package's :665-757): the
         all-finite guard over the gradients, the optimizer update, the aux
-        merge and the stacked int32[3] skip counters — device work only."""
+        merge, the stacked int32[3] skip counters and a deferred metric's
+        (sum, count), which a guard-skipped step leaves as they were —
+        device work only."""
         params, aux, opt_state = self.params, self.aux, self.opt_state
         guard = self.step_guard
         finite = None
@@ -311,8 +355,17 @@ class SPMDTrainer(object):
                                  ).to(trips.dtype)
             self._guard_acc = torch.stack(
                 [torch.where(finite, total, total + 1), new_consec, trips])
+        outs = [o.detach() for o in outs]
+        if self._metric_fn is not None:
+            ds, dc = self._metric_fn(outs, data)
+            s_acc, c_acc = self._metric_acc
+            s_new, c_new = s_acc + ds, c_acc + dc
+            if guard:
+                s_new = torch.where(finite, s_new, s_acc)
+                c_new = torch.where(finite, c_new, c_acc)
+            self._metric_acc = (s_new, c_new)
         self.params, self.aux, self.opt_state = new_params, new_aux, new_state
-        return [o.detach() for o in outs]
+        return outs
 
     def stage_batch(self, *batch_arrays):
         """Place one batch (data and labels in ``input_names`` order:
@@ -355,22 +408,48 @@ class SPMDTrainer(object):
         out.event = event
         return out
 
-    def _resolve_batch(self, batch_arrays):
+    def _resolve_batch(self, batch_arrays, train=False):
         """The input dict of one step or forward on the caller's stream: a
         single :class:`~mxnet_tpu_torch.io.StagedBatch` gives its staged
         tensors (the caller's stream waits on their copies' event); other
-        arrays are staged now."""
+        arrays are staged now.  On a train step an armed ``poison_grad``
+        fault re-stages from poisoned host copies, a staged batch's too."""
         from ..dataflow import wait
         from ..io import StagedBatch
+        from ..resilience import faults
+        poison = train and faults.is_armed("poison_grad")
         if len(batch_arrays) == 1 and isinstance(batch_arrays[0],
                                                  StagedBatch):
             b = batch_arrays[0]
-            data, event = dict(b.staged), b.event
-        else:
-            staged = self.stage_batch(*batch_arrays)
-            data, event = dict(staged), staged.event
+            if poison:
+                batch_arrays = tuple(list(b.data) + list(b.label or []))
+            else:
+                data, event = dict(b.staged), b.event
+                wait(list(data.values()), event)
+                return data
+        if poison:
+            batch_arrays = self._poison_batch(batch_arrays)
+        staged = self.stage_batch(*batch_arrays)
+        data, event = dict(staged), staged.event
         wait(list(data.values()), event)
         return data
+
+    def _poison_batch(self, batch_arrays):
+        """Fault-injection hook: NaN out the first floating input so the
+        step's gradients go non-finite deterministically (coverage of the
+        guard without waiting for a real divergence)."""
+        from ..resilience import faults
+        out = list(batch_arrays)
+        for i, v in enumerate(out):
+            if isinstance(v, NDArray):
+                v = v._data
+            host = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
+            if np.issubdtype(host.dtype, np.floating):
+                if faults.consume("poison_grad"):
+                    out[i] = np.full_like(host, np.nan)
+                break
+        return tuple(out)
 
     # -- public API --------------------------------------------------------
     def step(self, *batch_arrays, key=None):
@@ -381,11 +460,25 @@ class SPMDTrainer(object):
         :func:`random.next_seed` when None: a caller that previewed the
         step with ``forward_only(key=k)`` passes the same ``k`` so both
         passes draw the same masks."""
-        # consume the PREVIOUS step's guard counters before dispatching
-        # this one: a one-deep pipeline (the device runs step N while the
-        # host prepares N+1)
-        self.flush_step_guard()
-        data = self._resolve_batch(batch_arrays)
+        from contextlib import nullcontext
+        from ..resilience import faults
+        wd = self.watchdog
+        with wd.armed("fused step %d" % (self._num_update + 1)) \
+                if wd is not None else nullcontext():
+            # deterministic hang injection (the watchdog drill): stalls
+            # here, inside the armed window, like a wedged device would
+            faults.maybe_hang("hang_step")
+            return self._step_impl(batch_arrays, key)
+
+    def _step_impl(self, batch_arrays, key):
+        # consume the PREVIOUS steps' guard counters before dispatching
+        # this one: a one-deep pipeline by default (the device runs step N
+        # while the host prepares N+1); with flush_interval > 1 (deferred
+        # metrics) the read happens every that-many steps only
+        self._steps_since_flush += 1
+        if self._steps_since_flush >= max(1, self.flush_interval):
+            self.flush_step_guard()
+        data = self._resolve_batch(batch_arrays, train=True)
         if key is None:
             key = _random.next_seed()
         self._num_update += 1
@@ -395,6 +488,10 @@ class SPMDTrainer(object):
             self._guard_acc = torch.zeros(3, dtype=torch.int32,
                                           device=self._device)
             self._trips_seen = 0
+        if self._metric_fn is not None and self._metric_acc is None:
+            self._metric_acc = tuple(
+                torch.zeros((), dtype=torch.float32, device=self._device)
+                for _ in range(2))
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in self.params.items()}
         with torch.enable_grad():
@@ -412,7 +509,8 @@ class SPMDTrainer(object):
         # the named range lets a profile attribute the update's kernels
         with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
             outs = self._step_tail(outs, auxu, grads, lr,
-                                   self.optimizer.wd, self._num_update)
+                                   self.optimizer.wd, self._num_update,
+                                   data)
         if self.step_guard:
             self._guard_pending = True
         self._outputs = outs
@@ -434,10 +532,12 @@ class SPMDTrainer(object):
         """Fold the device-side skip counters into host state: ONE
         device->host read of the int32[3] stack, which waits for the last
         dispatched step.  Called at step() entry, at get_params/set_params
-        and by the counter properties.  A skipped step rolls the update
-        counter back, so lr schedules and Adam's bias correction see only
-        applied steps.  Raises the consecutive-bad-steps abort when the
-        flushed run reached the limit."""
+        and by the counter properties (every ``flush_interval`` steps at
+        step entry).  A skipped step rolls the update counter back, so lr
+        schedules and Adam's bias correction see only applied steps.
+        Raises the consecutive-bad-steps abort when the flushed run
+        reached the limit."""
+        self._steps_since_flush = 0
         if not self._guard_pending:
             return
         self._guard_pending = False
@@ -462,12 +562,65 @@ class SPMDTrainer(object):
                 "or set MXTPU_STEP_GUARD=0 to disable the guard)"
                 % self.max_consecutive_bad_steps)
 
+    # -- deferred on-device metrics ----------------------------------------
     def install_metric(self, graph_fn, flush_interval=0, key=None):
-        _later("install_metric (deferred in-step metrics)", "Module")
+        """Fold a metric's (sum, count) accumulation into the step.
+
+        ``graph_fn(outs, data) -> (sum, count)`` is a torch rule over the
+        step's device tensors (``EvalMetric.graph_update``); the step then
+        adds to a float32 pair on the device and ``EvalMetric.update``
+        needs no copy to the host: the host reads the totals with
+        :meth:`fetch_metric` every ``MXTPU_METRIC_INTERVAL`` updates or on
+        a read.  Guard-skipped steps add nothing, as the blocking path
+        drops them too.  ``graph_fn=None`` removes the rule; ``key``
+        names an equivalent rule, whose re-install (a second fit with the
+        same metric) only starts a fresh window.  The guard's
+        ``flush_interval`` rises with it, so the skip-counter read stops
+        forcing a copy every step (staleness bounded by that interval)."""
+        if graph_fn is None and self._metric_fn is None:
+            return
+        if graph_fn is not None and key is not None and \
+                key == self._metric_key:
+            self._metric_acc = None
+            return
+        self._metric_fn = graph_fn
+        self._metric_key = key if graph_fn is not None else None
+        self._metric_acc = None
+        if graph_fn is not None:
+            self.flush_interval = int(flush_interval) if flush_interval \
+                and int(flush_interval) > 0 else DEFAULT_GUARD_FLUSH_INTERVAL
+        else:
+            self.flush_interval = 1
+
+    def fetch_metric(self):
+        """(sum, count) accumulated on the device since the last fetch (one
+        device-to-host read of both scalars; waits for the last step),
+        then zeroed: bounded windows keep float32 exact for integer
+        sums."""
+        if self._metric_acc is None:
+            return 0.0, 0.0
+        s, c = torch.stack([v.float() for v in self._metric_acc]).cpu()
+        self._metric_acc = None     # fresh zeros at the next step
+        return float(s), float(c)
+
+    def reset_metric(self):
+        """Zero the device accumulators (epoch start)."""
+        self._metric_acc = None
 
     def install_watchdog(self, watchdog):
+        """Arm ``watchdog`` (``resilience.StepWatchdog``) around every step
+        and give its hang report this trainer's context.  None detaches
+        (and clears the info hook, which would otherwise pin this trainer
+        and stamp a later run's report with its context)."""
+        if watchdog is None and self.watchdog is not None:
+            self.watchdog.info = None
+        self.watchdog = watchdog
         if watchdog is not None:
-            _later("the step watchdog", "resilience")
+            def _info(_self=self):
+                return ("trainer: step %d, grad_sync=%r, device=%s"
+                        % (_self._num_update, _self.grad_sync,
+                           _self._device))
+            watchdog.info = _info
         return watchdog
 
     def _forward(self, batch_arrays, is_train, key):
@@ -580,11 +733,63 @@ class SPMDTrainer(object):
             placed.setdefault(name, self.opt_state[name])
         self.opt_state = placed
 
+    # -- checkpoints --------------------------------------------------------
+    def snapshot_params(self):
+        """Checkpoint-ready host copies: ``(arg, aux)`` dicts of
+        ``resilience._HostSnapshot`` values, one device-to-host copy per
+        tensor, which ``resilience.snapshot_params`` adopts without
+        another copy."""
+        from ..resilience import _HostSnapshot
+        self.flush_step_guard()
+
+        def _snap(d):
+            return {k: _HostSnapshot(v.detach().to("cpu", copy=True))
+                    for k, v in d.items()}
+        return _snap(self.params), _snap(self.aux)
+
+    def save_checkpoint(self, manager, step, blocking=None):
+        """Checkpoint params and optimizer state through a
+        :class:`~mxnet_tpu_torch.resilience.CheckpointManager` as epoch
+        ``step``.  ``blocking=None`` follows ``MXTPU_CKPT_ASYNC``: the
+        async path stalls the caller for the host copies only, the
+        manager's writer serializes, fsyncs and publishes (drain with
+        ``manager.wait()``).  One device holds every parameter, so this is
+        the gathered layout (``MXTPU_CKPT_SHARDED`` needs zero/zero3 over
+        several devices, as in the JAX package)."""
+        arg_params, aux_params = self.snapshot_params()
+        states = self.get_states()
+        return manager.save(step, self.symbol, arg_params, aux_params,
+                            optimizer_states=states, blocking=blocking)
+
+    def restore(self, manager, epoch=None):
+        """Resume params and optimizer state (with the update counter,
+        inside the states blob) from the manager's newest (or given)
+        checkpoint; returns the restored epoch.  The parameter set must
+        match exactly: a parameter added or removed between save and
+        resume raises with names (use ``set_params`` for a deliberate
+        partial restore)."""
+        _, arg_params, aux_params, states, epoch = manager.restore(epoch)
+        problems = diff_param_sets(arg_params, self.param_names)
+        problems += diff_param_sets(aux_params, self.aux_names,
+                                    kind="aux state")
+        if problems:
+            raise MXNetError(
+                "restore: checkpoint epoch %d does not match this "
+                "model's parameter set:\n  %s\n(a param added/removed "
+                "between save and resume — fix the symbol, or load "
+                "deliberately with set_params)"
+                % (epoch, "\n  ".join(problems)))
+        self.set_params(arg_params, aux_params)
+        if states is not None:
+            self.set_states(states)
+        return epoch
+
     # -- lifecycle --------------------------------------------------------
     def close(self):
         """Drop this trainer's tensors (params, aux, optimizer state,
         outputs, counters); the trainer is unusable afterwards."""
-        for attr in ("params", "aux", "opt_state", "_outputs", "_guard_acc"):
+        for attr in ("params", "aux", "opt_state", "_outputs", "_guard_acc",
+                     "_metric_acc"):
             setattr(self, attr, None)
         self._guard_pending = False
         self._eval = None

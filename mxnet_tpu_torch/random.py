@@ -11,7 +11,8 @@ the generator of the context's device.  Graph forwards take an integer
 seed each from :func:`next_seed` (the JAX package's ``next_key``), and a
 node that draws gets a generator of its own from
 :func:`node_generator` (``fold_in``).  :func:`get_state` snapshots all
-of it (an opaque object) and :func:`set_state` restores it.  The two
+of it as JSON-serialisable data (a mid-epoch checkpoint's ``rng``) and
+:func:`set_state` restores it.  The two
 packages give different numbers from the same seed: weights cross
 between them as numpy arrays or ``.params`` files, never by matching
 random streams.
@@ -67,27 +68,49 @@ def generator(device):
         return gen
 
 
+#: the ``format`` tag of :func:`get_state`'s record: a mid-epoch
+#: checkpoint's ``rng`` written by another package (the JAX package's
+#: ``{"key": [...], "seed": n}``) carries none and is refused on restore
+STATE_FORMAT = "mxnet_tpu_torch.random/1"
+
+
 def get_state():
-    """A snapshot of the random state: the seed, the forwards seeded since,
-    and every device generator's state.  Opaque; :func:`set_state` takes
-    it back."""
+    """A snapshot of the random state as a JSON-serialisable dict (it goes
+    into a mid-epoch checkpoint's manifest): the seed, the forwards seeded
+    since, and every device generator's ``get_state()`` bytes as hex, CUDA
+    generators included.  :func:`set_state` takes it back."""
     with _lock:
-        return {"seed": _seed_int, "forwards": _forwards,
-                "generators": {str(dev): gen.get_state()
-                               for dev, gen in _generators.items()}}
+        return {"format": STATE_FORMAT, "seed": _seed_int,
+                "forwards": _forwards,
+                "generators": {
+                    str(dev): bytes(gen.get_state().tolist()).hex()
+                    for dev, gen in sorted(_generators.items(),
+                                           key=lambda kv: str(kv[0]))}}
 
 
 def set_state(state):
-    """Restore a :func:`get_state` snapshot."""
+    """Restore a :func:`get_state` snapshot (from the dict itself or from
+    its JSON round trip).  A record of another format, such as the JAX
+    package's key chain, raises :class:`MXNetError`: its stream cannot be
+    continued here, and resuming on it would silently draw other masks
+    than the interrupted run."""
+    from .base import MXNetError
+    if not isinstance(state, dict) or state.get("format") != STATE_FORMAT:
+        raise MXNetError(
+            "random.set_state: the record is not a %s state (keys %s): a "
+            "random stream saved by another package cannot be continued "
+            "by mxnet_tpu_torch" % (STATE_FORMAT, sorted(state)
+                                    if isinstance(state, dict) else state))
     global _seed_int, _forwards
     with _lock:
         _seed_int = int(state["seed"])
         _forwards = int(state["forwards"])
         _generators.clear()
-        for name, gen_state in state["generators"].items():
+        for name, hex_state in state["generators"].items():
             dev = torch.device(name)
             gen = torch.Generator(device=dev)
-            gen.set_state(gen_state)
+            gen.set_state(torch.tensor(list(bytes.fromhex(hex_state)),
+                                       dtype=torch.uint8))
             _generators[dev] = gen
 
 

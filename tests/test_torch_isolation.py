@@ -8,8 +8,11 @@ one FGSM step in NDArray arithmetic, and the extension surface
 the input pipeline (a ``.rec``, the three ``ImageRecordIter`` routes,
 ``DevicePrefetchIter`` into a step) on the CPU with JAX made
 unimportable, the data service's worker, coordinator and server stream an
-epoch with torch and JAX both unimportable, and the chip smoke test
-refuses to run without CUDA."""
+epoch with torch and JAX both unimportable, the resilience layer
+(managed checkpoints, preemption and resume, the watchdog, deferred
+metrics) runs with JAX unimportable and ``resilience.py`` loads through
+the decode worker's loader with torch unimportable, and the chip smoke
+test refuses to run without CUDA."""
 import ast
 import os
 import subprocess
@@ -419,6 +422,79 @@ def test_data_service_processes_run_with_torch_and_jax_unimportable(
         proc.wait(timeout=10)
 
 
+def test_resilience_runs_without_jax_and_loads_without_torch(tmp_path):
+    """With JAX unimportable: fit under a CheckpointManager with an
+    in-band SIGTERM, a resume that restores the JSON random state, the
+    watchdog and a deferred metric, then verify_promotion.  With torch
+    (and JAX) unimportable: ``resilience`` loads through the decode
+    worker's stub-package loader and its faults, checksums and manager
+    work on the stdlib alone."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch.resilience import faults, verify_promotion\n"
+        "rs = np.random.RandomState(0)\n"
+        "X = rs.standard_normal((64, 5)).astype(np.float32)\n"
+        "Y = rs.randint(0, 3, 64).astype(np.float32)\n"
+        "net = mx.sym.Dropout(mx.sym.FullyConnected(mx.sym.Variable("
+        "'data'), num_hidden=8, name='fc1'), p=0.2)\n"
+        "net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(net, "
+        "num_hidden=3, name='fc2'), name='softmax')\n"
+        "def fit(**kw):\n"
+        "    m = mx.mod.Module(net, context=mx.cpu())\n"
+        "    mx.random.seed(3)\n"
+        "    m.fit(mx.io.NDArrayIter(X, Y, batch_size=16), num_epoch=2, "
+        "kvstore='tpu', checkpoint=%r, watchdog=True, **kw)\n"
+        "    return m\n"
+        "faults.arm('preempt', after=5)\n"
+        "try:\n"
+        "    fit(preemption_safe=True)\n"
+        "    raise AssertionError('no preemption')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 85\n"
+        "m = fit(resume=True)\n"
+        "assert m._deferred_metric is not None\n"
+        "assert verify_promotion(%r) == (2, [])\n"
+        "assert not [k for k in sys.modules if k.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[k] is not None]\n"
+        "print('ok')\n" % (str(tmp_path / "ck"), str(tmp_path / "ck")))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+    env = dict(os.environ, PYTHONPATH=_poisoned_path(tmp_path),
+               MXTPU_FAULTS="data_worker:1")
+    ds_dir = os.path.join(REPO, "mxnet_tpu_torch", "data_service")
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import _worker_main\n"
+        "recordio, res, common, ring, native = _worker_main.bootstrap()\n"
+        "assert res.faults.is_armed('data_worker')\n"
+        "try:\n"
+        "    res.faults.maybe_fail('data_worker')\n"
+        "    raise AssertionError('not raised')\n"
+        "except res.TransientError:\n"
+        "    pass\n"
+        "assert res.checksum_bytes(b'hello', 'crc32c') == (5, '9a71bb4c')\n"
+        "man = res.CheckpointManager(%r)\n"
+        "assert man.latest() is None\n"
+        "assert res.verify_promotion(man.directory)[0] is None\n"
+        "res.atomic_write(%r, b'abc')\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'mxnet_tpu')]\n"
+        "print('ok')\n" % (ds_dir, str(tmp_path / "m"),
+                            str(tmp_path / "f.bin")))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["ok"]
+
+
 def test_examples_run_on_the_port_with_jax_unimportable():
     """``chip_smoke.example_modules`` loads example/ssd, example/rcnn and
     example/warpctc with their imports bound to the port while JAX and
@@ -478,8 +554,8 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 
 def test_new_modules_are_covered():
-    """The extension, input-pipeline and data-service slices' modules are
-    among the sources the import check walks."""
+    """The extension, input-pipeline, data-service and resilience slices'
+    modules are among the sources the import check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
@@ -489,7 +565,9 @@ def test_new_modules_are_covered():
                 "data_service/service", "data_service/iter",
                 "data_service/net", "data_service/server_main",
                 "kernels/augment", "ops/image_io", "ops/vision",
-                "ops/ctc", "ops/contrib"):
+                "ops/ctc", "ops/contrib", "random", "model", "kvstore",
+                "callback", "metric", "module/base_module",
+                "module/module", "parallel/trainer"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 

@@ -368,8 +368,10 @@ def test_module_reshape_keeps_params():
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """Several contexts, dist stores, the resilience options and their
-    knobs raise, naming the slice that brings them."""
+    """Several contexts, dist stores and step traces (MXTPU_PROFILE_DIR)
+    raise, naming the slice that brings them; the resilience options and
+    their knobs no longer do (tests/test_torch_resilience.py holds them
+    against the JAX package)."""
     net = mlp_sym(nh=8)
     X, y = make_blobs(64, 6, 3)
     it = tmx.io.NDArrayIter(X, y, batch_size=32)
@@ -378,16 +380,29 @@ def test_unported_options_raise(tmp_path, monkeypatch):
         mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
     with pytest.raises(tmx.MXNetError, match="multi-GPU"):
         tmx.kvstore.create("dist_sync")
-    for kw in ({"checkpoint": str(tmp_path)}, {"resume": True},
-               {"preemption_safe": True}, {"watchdog": True}):
-        with pytest.raises(tmx.MXNetError, match="resilience"):
-            _module(net).fit(it, num_epoch=1, **kw)
-    monkeypatch.setenv("MXTPU_RESUME", "1")
-    with pytest.raises(tmx.MXNetError, match="MXTPU_RESUME"):
+    monkeypatch.setenv("MXTPU_PROFILE_DIR", str(tmp_path / "trace"))
+    with pytest.raises(tmx.MXNetError, match="profiler slice"):
         _module(net).fit(it, num_epoch=1)
+    monkeypatch.delenv("MXTPU_PROFILE_DIR")
+    for i, kw in enumerate(({"checkpoint": str(tmp_path / "a")},
+                            {"resume": True,
+                             "checkpoint": str(tmp_path / "b")},
+                            {"preemption_safe": True,
+                             "checkpoint": str(tmp_path / "c")},
+                            {"watchdog": True})):
+        it.reset()
+        _module(net).fit(it, num_epoch=1, **kw)
+    assert tmx.resilience.CheckpointManager(str(tmp_path / "a")).latest() \
+        == 1
+    monkeypatch.setenv("MXTPU_RESUME", "1")
+    it.reset()
+    _module(net).fit(it, num_epoch=2, checkpoint=str(tmp_path / "a"))
+    assert tmx.resilience.CheckpointManager(str(tmp_path / "a")).latest() \
+        == 2
     monkeypatch.delenv("MXTPU_RESUME")
-    with pytest.raises(tmx.MXNetError, match="resilience"):
-        tmx.callback.PreemptionCheckpoint(None, None)
+    man = tmx.resilience.CheckpointManager(str(tmp_path / "d"))
+    with tmx.callback.PreemptionCheckpoint(None, man) as cb:
+        assert not cb.handler.triggered
 
 
 # ---------------------------------------------------------------------------

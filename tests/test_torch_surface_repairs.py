@@ -22,8 +22,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: top-level names of the JAX package the port does not have yet, each
 #: with the ROADMAP queue 1 item that brings it
 LATER = {
-    # item 5, resilience (the module exists: the input pipeline's retries)
-    "CheckpointManager": 5, "PreemptionHandler": 5, "StepWatchdog": 5,
     # item 6, serving
     "serving": 6,
     # item 7, the package's tools
@@ -58,7 +56,8 @@ def test_public_names_match_jax_but_later_slices():
                  "torch_bridge", "th", "tpu", "num_tpus", "recordio",
                  "image", "img", "image_det", "dataflow",
                  "DevicePrefetchIter", "engine", "native", "resilience",
-                 "data_service"):
+                 "data_service", "CheckpointManager", "PreemptionHandler",
+                 "StepWatchdog"):
         assert hasattr(tmx, name), name
     assert tmx.rnd is tmx.random and tmx.mon is tmx.monitor
     assert tmx.img is tmx.image

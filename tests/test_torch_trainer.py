@@ -185,11 +185,14 @@ def test_later_slice_arguments_raise(monkeypatch):
     # remat (the mirror mode) is ported: it builds checkpointed segments
     assert tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(), remat=True) \
         ._eval.segments
+    # the deferred metric and the watchdog are ported (resilience slice)
     tr = _trainer(tmx)
-    with pytest.raises(tmx.MXNetError, match="not ported yet"):
-        tr.install_metric(lambda outs, data: (0.0, 0.0))
-    with pytest.raises(tmx.MXNetError, match="not ported yet"):
-        tr.install_watchdog(object())
+    tr.install_metric(lambda outs, data: (0.0, 0.0))
+    assert tr.flush_interval > 1
+    wd = tmx.resilience.StepWatchdog(timeout=1.0, abort=lambda c: None)
+    assert tr.install_watchdog(wd) is wd and "step" in wd.info()
+    tr.install_watchdog(None)
+    assert wd.info is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(tmx.MXNetError, match="CUDA is not available"):
         tmx.parallel.SPMDTrainer(sym)      # default context: gpu(0)
