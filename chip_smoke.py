@@ -271,8 +271,28 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     bytes, the writer's time), and ``tools/ckpt_fsck.py`` with the port's
     ``verify_promotion`` on the run's directory before and after a byte
     of its newest params rots;
-27. prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-    "device": {...}}``.
+27. serves (``serving_paths``): ResNet-50 from a ``CheckpointManager``
+    directory through ``serving.ModelPool.load_dir`` on ``gpu(0)``,
+    warmed over buckets 1-32 and timed at each (17 ``bn_act`` launches a
+    forward), 5 rows in a bucket of 8 against each row served alone and
+    a full bucket of 32 against ``Predictor`` (bit for bit), bucket 4
+    against the port's CPU path, bfloat16 and int8 pools against float32
+    with their resident and peak memory; then the port's daemon
+    (``serving/serve_main.py --watch``) with ResNet-50, bench.py's serving
+    MLP and the LM (bench.py loaded with its imports bound to the port):
+    a quiet request against the unbatched ``Predictor`` bit for bit,
+    closed loops at concurrency 1 and 32 (QPS, p50, p99, shed, 0
+    errors), ``/predict_seq`` at three length buckets against
+    ``Predictor`` at each shape, a new epoch published under 8 clients
+    (all 200, then bit-equal to a fresh ``Predictor``), a ``swap_probe``
+    rollback (bit-exact), a SIGTERM drain with 8 requests in flight (exit
+    0) and the daemon's own launch counters against its batches (17 a
+    ResNet-50 forward, 2 a LM batch); then the daemon under
+    ``tools/supervise.py`` with a hung forward (87 with a report, the
+    relaunch answers 200, SIGTERM gives 0);
+28. logs every path's wall time (``<path>: %.1f s``, also written to
+    ``chiprun_out/smoke_times.json``), then prints a ``{"kernels":
+    [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line.  Without CUDA, or
 run from a directory without the package, it fails at once.
@@ -407,8 +427,15 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*parts):
     print(*parts, flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "smoke_trace.log"), "a") as f:
+        f.write("%8.1f %s\n" % (time.perf_counter() - _T0,
+                                " ".join(str(p) for p in parts)[:300]))
 
 
 # ---------------------------------------------------------------------------
@@ -3344,7 +3371,7 @@ FGSM_SIGN_FLOOR = 1e-3  # signs compared where |g| > this x max |g|
 OPT_SHAPE = (64, 257)
 NAG_MOMENTUM = 0.9
 DISPATCH_SHAPE = (32, 1024)
-DISPATCH_REPS, DISPATCH_CALLS = 5, 1000
+DISPATCH_REPS, DISPATCH_CALLS = 3, 1000
 
 
 def _tensor_case(op, inputs, attrs=None, dtypes=FLOAT_TYPES, kind="float",
@@ -4732,7 +4759,7 @@ ZOO_MODELS = (("lenet", (1, 28, 28), 10), ("mlp", (1, 28, 28), 10),
               ("googlenet", IMAGE, 1000), ("mobilenet", IMAGE, 1000),
               ("resnext-50", IMAGE, 1000),
               ("inception-v3", (3, 299, 299), 1000))
-ZOO_TURN_FORWARDS = 3   # batch-32 forwards in each of a model's 4 turns
+ZOO_TURN_FORWARDS = 2   # batch-32 forwards in each of a model's 4 turns
 IBN_FORWARDS = 8        # Inception-BN batch-32 requests on the main path
 IBN_TRAIN_STEPS = 4     # distinct seeded batches, then IBN_FIXED_STEPS
 IBN_FIXED_STEPS = 6
@@ -6315,9 +6342,9 @@ IN_DET_SHAPE = (3, 300, 300)   # example/ssd's input
 IN_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
 IN_THREADS = 4
 IN_WARM = 2             # fit batches before the measured window
-IN_FIT_BATCHES = 10     # measured batches of each feed in each turn
+IN_FIT_BATCHES = 5      # measured batches of each feed in each turn
 IN_PROFILE_BATCHES = 4  # batches of each feed's traced window
-IN_RATE_BATCHES = 8     # batches a decode-rate run reads after one warm-up
+IN_RATE_BATCHES = 4     # batches a decode-rate run reads after one warm-up
 IN_UPLOAD_REPS = 20
 IN_SCORE_BATCHES = 8
 IN_SEED = 90
@@ -6955,7 +6982,7 @@ def input_paths(torch, mx, seed, card):
 
 DS_WORKERS = (1, 2, 4)   # decode workers of the rate runs (the host has 8)
 DS_MARGIN = 16           # device_augment's crop margin: a 3x240x240 canvas
-DS_FIT_BATCHES = 8       # measured batches of each feed in each turn
+DS_FIT_BATCHES = 4       # measured batches of each feed in each turn
 DS_COMPARE_BATCHES = 4   # batches held byte for byte between two streams
 DS_AUG_REPS = 20         # augment calls in the traced window
 DS_SERVERS = 2           # loopback server processes of the network tier
@@ -7433,13 +7460,13 @@ _SSD_R3, _SSD_R5 = (1.0, 2.0, .5), (1.0, 2.0, .5, 3.0, 1.0 / 3)
 SSD_RATIOS = (_SSD_R3, _SSD_R5, _SSD_R5, _SSD_R5, _SSD_R3, _SSD_R3)
 SSD_ANCHORS = 6132
 SSD_OBJECTS = 16        # label rows a picture, padded with rows of -1
-SSD_WARM, SSD_TIMED = 2, 6
+SSD_WARM, SSD_TIMED = 2, 3
 SSD_PROFILE_BATCHES = 3
 SSD_SGD = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4}
 #: get_symbol_detect on the trained weights: the example's 0.2 threshold
 #: would leave untrained scores near 1/21 nothing to suppress
 SSD_DETECT = dict(threshold=0.01, nms_thresh=0.45, nms_topk=400)
-SSD_DETECT_FORWARDS = 4
+SSD_DETECT_FORWARDS = 2
 SSD_AGREE_BATCH = 2
 #: MultiBox ops card against CPU on the same inputs: loc_target within
 #: 1e-6 absolute (the log of each device's math library); decoded box
@@ -8250,7 +8277,7 @@ RS_HANG_AT = 9          # the hung step: the 10th, epoch 1 batch 3
 RS_STEP_TIMEOUT = 10    # seconds: MXTPU_STEP_TIMEOUT of the hang drill
 RS_TERM_AFTER = (1, 2)  # SIGTERM once (epoch 1, nbatch 2) is done: batch 3
 RS_DROP_PREEMPT = 5     # the Dropout net's in-band SIGTERM: boundary 6
-RS_METRIC_BATCHES = 6   # batches of each deferred/blocking turn
+RS_METRIC_BATCHES = 3   # batches of each deferred/blocking turn
 RS_COUNT_STEPS = 3      # steps of each device-to-host count
 RS_CHAIN_TIMEOUT = 420  # seconds the supervised chain may take
 RS_TERM_SLACK_S = 1.0   # SIGTERM-to-exit beyond one step and the save
@@ -8816,7 +8843,6 @@ def resilience_paths(torch, mx, seed, card):
     build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="resilience-", dir=build_dir)
-    t_phase = time.perf_counter()
     try:
         drills = phase_rs_drills(torch, mx, seed, card, tmp)
         mod, batches = _rs_module(torch, mx, seed)
@@ -8838,9 +8864,640 @@ def resilience_paths(torch, mx, seed, card):
         phase_rs_audit(mx, drills["full_dir"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log("resilience_paths: %.1f s" % (time.perf_counter() - t_phase))
     return collections.Counter({"bn_act_fwd": drills["fwd"] + fwd,
                                 "bn_act_bwd": drills["bwd"] + bwd})
+
+
+# ---------------------------------------------------------------------------
+# serving: the pool, the daemon, hot swap and the watchdog drill
+# ---------------------------------------------------------------------------
+
+SV_BUCKETS = (1, 2, 4, 8, 16, 32)
+SV_TIMED = 3            # timed pool forwards at each bucket after the warmup
+SV_IDENTITY = (5, 8)    # rows, bucket of the bit-identity check
+SV_AGREE_BUCKET = 4     # the card against the port's CPU path
+SV_BF16_ATOL = 1e-2     # bfloat16 weights against float32, max |diff|
+SV_INT8_TOL = dict(atol=2e-2, rtol=5e-2)   # int8 against float32
+SV_LOAD_S = 2.5         # closed-loop seconds at each concurrency
+SV_CONCURRENCY = (1, 32)
+SV_SWAP_CLIENTS = 8     # concurrency while a new epoch is published
+SV_DRAIN_CLIENTS = 8    # requests in flight at SIGTERM
+SV_SEQ_BUCKETS = (8, 16, 32)
+SV_SEQ_LENS = (5, 16, 29)   # one /predict_seq request at each bucket
+SV_STEP_TIMEOUT = 10    # MXTPU_STEP_TIMEOUT of the watchdog drill
+SV_WAIT_S = 240         # the longest any one wait of the phase may take
+SERVE_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "serving", "serve_main.py")
+#: the watchdog drill's child: serve_main.py, with the injected fault
+#: dropped on the supervisor's relaunch (MXTPU_RESUME=1), as a respawn does
+SV_CHILD = """
+import os, runpy, sys
+if os.environ.get("MXTPU_RESUME") == "1":
+    os.environ.pop("MXTPU_FAULTS", None)
+sys.argv = [%(main)r] + sys.argv[1:]
+runpy.run_path(%(main)r, run_name="__main__")
+"""
+
+
+def _sv_save_resnet(mx, symbol, seed, directory, epoch):
+    """Seeded ResNet-50 weights published as ``epoch`` of a
+    CheckpointManager directory; returns the host (args, aux)."""
+    w_args, w_aux = draw_weights(symbol, (BATCH,) + IMAGE, seed)
+    args, aux = mx.convert.params_from_numpy((w_args, w_aux), ctx=mx.cpu())
+    mx.resilience.CheckpointManager(directory).save(
+        epoch, symbol, args, aux, blocking=True)
+    return args, aux
+
+
+def _sv_save_lm(mx, seed, directory):
+    """The LM (vocab 10000, width 200, 2 layers) with seeded weights,
+    published without its init states (zero-filled per batch bucket)."""
+    symbol = lm_symbol(mx)
+    w, _ = _lm_weights(symbol, LM_BATCH, seed)
+    w = {k: v for k, v in w.items()
+         if k not in ("lstm_init_h", "lstm_init_c")}
+    args, _ = mx.convert.params_from_numpy((w, {}), ctx=mx.cpu())
+    mx.resilience.CheckpointManager(directory).save(
+        1, symbol, args, {}, blocking=True)
+    return symbol, args
+
+
+def _sv_env(**extra):
+    env = dict(os.environ)
+    for k in ("MXTPU_RESUME", "MXTPU_FAULTS", "MXTPU_STEP_TIMEOUT",
+              "MXTPU_DEBUG_DIR", "MXTPU_COMPILE_CACHE", "MXTPU_SERVE_DTYPE",
+              "MXTPU_ANALYZE", "MXTPU_SWAP_POLL_S"):
+        env.pop(k, None)
+    env.update(extra)
+    return env
+
+
+def _sv_wait_port(port_file, proc, log_path):
+    deadline = time.monotonic() + SV_WAIT_S
+    while True:
+        try:
+            with open(port_file) as f:
+                return int(f.read().split(":")[1])
+        except (OSError, ValueError, IndexError):
+            pass
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                log(f.read()[-4000:])
+        check(proc.poll() is None, "serve daemon exited %s before "
+              "listening" % proc.returncode)
+        check(time.monotonic() < deadline, "serve daemon did not listen "
+              "in %d s" % SV_WAIT_S)
+        time.sleep(0.05)
+
+
+def _sv_stop(proc):
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _sv_line(text, tag):
+    """The JSON of the last ``mxserve: <tag> {...}`` line."""
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("mxserve: %s " % tag)]
+    check(lines, "no 'mxserve: %s' line in the daemon's log" % tag)
+    return json.loads(lines[-1][len("mxserve: %s " % tag):])
+
+
+def _sv_mem(torch):
+    torch.cuda.synchronize()
+    gc.collect()
+    return torch.cuda.memory_allocated()
+
+
+def _sv_peak(torch, fn):
+    """Peak device bytes above what is allocated before ``fn()``."""
+    base = _sv_mem(torch)
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_sv_pool(torch, mx, seed, card, res_dir, symbol):
+    """ResNet-50 in process through ``ModelPool.load_dir`` on gpu(0):
+    warmed over every bucket, timed at each, the bucket bit-identity
+    contract at full width, a full bucket against ``Predictor``, the card
+    against the port's CPU path, and the bfloat16 and int8 pools against
+    float32 with their resident and peak memory.  Returns the bn_act
+    launches of the pool forwards and the numbers."""
+    import numpy as np
+    from mxnet_tpu_torch.serving import pad_to_bucket
+    ba = mx.kernels.bn_act
+    gpu = mx.gpu(0)
+    sample = {"data": IMAGE}
+    rs = np.random.RandomState(seed + 70)
+    xs = {b: rs.standard_normal((b,) + IMAGE).astype(np.float32)
+          for b in SV_BUCKETS}
+    ident = rs.standard_normal((SV_IDENTITY[0],) + IMAGE).astype(np.float32)
+    out = {}
+    mem0 = _sv_mem(torch)
+    t0 = time.perf_counter()
+    entry = mx.serving.ModelPool(ctx=gpu).load_dir("resnet", res_dir,
+                                                   sample_shapes=sample)
+    out["load_s"] = time.perf_counter() - t0
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    ba.LAUNCHES = 0
+    t0 = time.perf_counter()
+    entry.forward({"data": xs[BATCH]})
+    out["first_s"] = time.perf_counter() - t0
+    # resident: the weights and one bucket's executor, as for the
+    # low-precision pools below
+    out["resident"] = {"float32": _sv_mem(torch) - mem0}
+    t0 = time.perf_counter()
+    entry.warmup(SV_BUCKETS)
+    torch.cuda.synchronize()
+    out["warmup_s"] = time.perf_counter() - t0
+    forwards = 1 + len(SV_BUCKETS)
+    times, outs = {}, {}
+    for b in SV_BUCKETS:
+        before = ba.LAUNCHES
+        times[b] = []
+        for _ in range(SV_TIMED):
+            t0 = time.perf_counter()
+            outs[b] = entry.forward({"data": xs[b]})[0]
+            times[b].append((time.perf_counter() - t0) * 1e3)
+        forwards += SV_TIMED
+        check(ba.LAUNCHES - before == 17 * SV_TIMED, "bucket %d: %d bn_act "
+              "launches in %d forwards" % (b, ba.LAUNCHES - before, SV_TIMED))
+        check(outs[b].shape == (b, 1000) and np.isfinite(outs[b]).all()
+              and np.allclose(outs[b].sum(1), 1.0, atol=1e-4),
+              "bucket %d output bad" % b)
+    n, bucket = SV_IDENTITY
+    shared = entry.forward({"data": pad_to_bucket(list(ident), bucket)})[0]
+    alone = [entry.forward({"data": pad_to_bucket([ident[i]], bucket)})[0][0]
+             for i in range(n)]
+    forwards += 1 + n
+    _, out["peak"] = _sv_peak(torch, lambda: entry.forward(
+        {"data": xs[BATCH]}))
+    out["peak"] = {"float32": out["peak"]}
+    forwards += 1
+    low = {}
+    for dtype in ("bfloat16", "int8"):
+        m0 = _sv_mem(torch)
+        e = mx.serving.ModelPool(ctx=gpu, dtype=dtype).load_dir(
+            "resnet", res_dir, sample_shapes=sample)
+        low[dtype] = e.forward({"data": xs[BATCH]})[0]
+        out["resident"][dtype] = _sv_mem(torch) - m0
+        out.setdefault("weight_bytes", {})[dtype] = e.resident_weight_bytes()
+        low[dtype], out["peak"][dtype] = _sv_peak(torch, lambda: e.forward(
+            {"data": xs[BATCH]})[0])
+        forwards += 2
+        if dtype == "int8":
+            f32_bytes = sum(int(np.prod(e.arg_params[k].shape)) * 4
+                            for k in e._wt_scales)
+            out["int8_fraction"] = e.resident_weight_bytes() / f32_bytes
+        del e
+    launches = ba.LAUNCHES
+    # ----------------------------------------------------------------------
+    check(launches == 17 * forwards, "pool: %d bn_act launches in %d "
+          "forwards (17 a forward)" % (launches, forwards))
+    for i in range(n):
+        check(np.array_equal(shared[i], alone[i]), "bucket %d: row %d of %d "
+              "differs from the row served alone" % (bucket, i, n))
+    args, aux = mx.resilience.CheckpointManager(res_dir).restore()[1:3]
+    pred = mx.predict.Predictor(entry.symbol, _with_prefixes(args, aux),
+                                {"data": (BATCH,) + IMAGE}, ctx=gpu)
+    full = pred.forward(data=xs[BATCH]).get_output(0)
+    check(np.array_equal(outs[BATCH], full), "a full bucket %d differs "
+          "from Predictor at (%d, 3, 224, 224)" % (BATCH, BATCH))
+    del pred
+    cpu_entry = mx.serving.ModelPool(ctx=mx.cpu()).load_dir(
+        "resnet", res_dir, sample_shapes=sample)
+    ref = cpu_entry.forward({"data": xs[SV_AGREE_BUCKET]})[0]
+    diff = float(np.abs(outs[SV_AGREE_BUCKET] - ref).max())
+    check(diff <= 1e-3 * float(np.abs(ref).max()) and
+          (outs[SV_AGREE_BUCKET].argmax(1) == ref.argmax(1)).all(),
+          "pool bucket %d: card against CPU %.3g" % (SV_AGREE_BUCKET, diff))
+    d16 = float(np.abs(low["bfloat16"] - outs[BATCH]).max())
+    check(d16 <= SV_BF16_ATOL, "bfloat16 pool: max |diff| %.3g" % d16)
+    d8 = float(np.abs(low["int8"] - outs[BATCH]).max())
+    check(np.allclose(low["int8"], outs[BATCH], **SV_INT8_TOL),
+          "int8 pool: max |diff| %.3g" % d8)
+    check(out["int8_fraction"] < 0.3, "int8 weights hold %.3f of float32's "
+          "bytes" % out["int8_fraction"])
+    log("serving pool: resnet-50 load_dir %.2f s, first forward (bucket "
+        "32) %.2f s, then warmup over buckets %s %.2f s; %d forwards, %d "
+        "bn_act launches (17 a forward)" % (
+            out["load_s"], out["first_s"], list(SV_BUCKETS),
+            out["warmup_s"], forwards, launches))
+    log("serving pool: forward ms by bucket (host clock to the output on "
+        "the host, %d each after the warmup): %s; img/s at bucket 32 %.1f, "
+        "on %s" % (SV_TIMED, ", ".join(
+            "%d: %s" % (b, " / ".join("%.2f" % t for t in times[b]))
+            for b in SV_BUCKETS), BATCH * 1e3 / min(times[BATCH]), card))
+    log("serving pool: %d rows in bucket %d equal each row served alone bit "
+        "for bit; bucket %d equals Predictor bit for bit; bucket %d card "
+        "against CPU max |diff| %.3g (bound 1e-3 x %.3g)" % (
+            n, bucket, BATCH, SV_AGREE_BUCKET, diff,
+            float(np.abs(ref).max())))
+    log("serving pool: against float32 at bucket 32: bfloat16 max |diff| "
+        "%.3g (bound %g), int8 max |diff| %.3g (atol 2e-2, rtol 5e-2); int8 "
+        "weights %.3f of float32's bytes" % (d16, SV_BF16_ATOL, d8,
+                                              out["int8_fraction"]))
+    for dtype in ("float32", "bfloat16", "int8"):
+        log("serving pool memory %s: resident %.1f MiB, a bucket-32 "
+            "forward's peak above it %.1f MiB, on %s" % (
+                dtype, out["resident"][dtype] / 2 ** 20,
+                out["peak"][dtype] / 2 ** 20, card))
+    out["times"] = times
+    return launches, out
+
+
+def _sv_stats(cli):
+    status, payload = cli.stats()
+    check(status == 200, "/stats answered %s" % status)
+    return payload
+
+
+def _sv_traffic(mx, port, model, x, clients, stop, rows):
+    """``clients`` threads sending ``x`` (x-npy) until ``stop`` is set;
+    each result (send time, status, ms) goes to ``rows``."""
+    import threading
+
+    def worker():
+        cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    status, _ = cli.predict(model, x, npy=True)
+                except Exception:  # noqa: BLE001 — a dropped connection
+                    status = -1
+                rows.append((t0, status, (time.perf_counter() - t0) * 1e3))
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _sv_predict(mx, port, model, x):
+    cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+    try:
+        status, payload = cli.predict(model, x, npy=True)
+    finally:
+        cli.close()
+    check(status == 200, "%s answered %s: %s" % (model, status, payload))
+    import numpy as np
+    return np.asarray(payload["outputs"][0], dtype=np.float32)
+
+
+def _sv_wait(what, cond):
+    deadline = time.monotonic() + SV_WAIT_S
+    while not cond():
+        check(time.monotonic() < deadline, "waited %d s for %s"
+              % (SV_WAIT_S, what))
+        time.sleep(0.05)
+
+
+def phase_sv_daemon(torch, mx, seed, card, tmp, res_dir, symbol, bench):
+    """serve_main.py on gpu(0) with ResNet-50 (its CheckpointManager
+    directory, watched), bench.py's serving MLP and the LM: bit parity of
+    a quiet request, closed-loop load at concurrency 1 and 32, the LM at
+    three length buckets, a new epoch published under traffic, a rollback
+    by the ``swap_probe`` fault point, a SIGTERM drain with requests in
+    flight and the daemon's launch counters.  Returns its bn_act and
+    lstm_seq launches and the numbers."""
+    import threading
+    import numpy as np
+    os.makedirs(os.path.join(tmp, "bench"))
+    specs = bench._save_serving_models(os.path.join(tmp, "bench"))
+    lm_dir = os.path.join(tmp, "lm")
+    lm_sym, lm_args = _sv_save_lm(mx, seed + 80, lm_dir)
+    port_file = os.path.join(tmp, "daemon.port")
+    log_path = os.path.join(tmp, "daemon.log")
+    mlp_prefix, mlp_epoch, mlp_sample = specs["mlp"]
+    cmd = [sys.executable, SERVE_MAIN, "--context", "gpu(0)",
+           "--model", "resnet=%s" % res_dir,
+           "--model", "mlp=%s:%d" % (mlp_prefix, mlp_epoch),
+           "--model", "lm=%s" % lm_dir,
+           "--input-shape", "resnet:data=%s" % ",".join(map(str, IMAGE)),
+           "--input-shape", "mlp:data=%s" % ",".join(map(str, mlp_sample)),
+           "--buckets", ",".join(map(str, SV_BUCKETS)), "--max-wait-ms", "2",
+           "--seq-buckets", ",".join(map(str, SV_SEQ_BUCKETS)),
+           "--warmup", "--watch", "--port", "0", "--port-file", port_file]
+    # the first promotion's probe passes, the second's fails: a rollback
+    env = _sv_env(MXTPU_FAULTS="swap_probe:1@1")
+    out = {}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        port = _sv_wait_port(port_file, proc, log_path)
+        out["ready_s"] = time.perf_counter() - t0
+        cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+        batches = collections.Counter()
+
+        def count(model, fn):
+            before = _sv_stats(cli)["batches"]["count"]
+            result = fn()
+            batches[model] += _sv_stats(cli)["batches"]["count"] - before
+            return result
+
+        # a quiet request of each image model equals Predictor at bucket 1
+        parity = count("parity", lambda: bench._serve_parity(port, {
+            "resnet": (os.path.join(res_dir, "checkpoint"), 1, IMAGE),
+            "mlp": specs["mlp"]}))
+        check(parity, "a quiet daemon request differs from the unbatched "
+              "Predictor")
+        check(batches.pop("parity") == 2, "the parity requests did not "
+              "take one batch each")
+        batches["resnet"] += 1
+        batches["mlp"] += 1
+        # closed loop: ResNet-50 with x-npy bodies, the MLP with JSON
+        load = {}
+        for model, sample, npy in (("resnet", IMAGE, True),
+                                   ("mlp", mlp_sample, False)):
+            for conc in SV_CONCURRENCY:
+                load[model, conc] = count(model, lambda: bench._serve_load(
+                    port, model, sample, conc, SV_LOAD_S, npy=npy))
+                qps, p50, p99, shed, errors = load[model, conc]
+                check(errors == 0 and qps > 0, "%s at concurrency %d: %s"
+                      % (model, conc, load[model, conc]))
+        out["load"] = load
+        # the LM at three length buckets against Predictor at each shape
+        rs = np.random.RandomState(seed + 81)
+        seq_ok = []
+        for length, bucket in zip(SV_SEQ_LENS, SV_SEQ_BUCKETS):
+            toks = rs.randint(0, LM_VOCAB, length)
+            status, payload = count("lm", lambda: cli.predict_seq("lm", toks))
+            check(status == 200 and payload["bucket"] == bucket,
+                  "predict_seq %d: %s %s" % (length, status,
+                                             str(payload)[:300]))
+            padded = np.concatenate([toks, np.repeat(toks[-1:],
+                                                     bucket - length)])
+            shape = (1, bucket)
+            pred = mx.predict.Predictor(
+                lm_sym, _with_prefixes(lm_args, {}),
+                {"data": shape, "softmax_label": shape}, ctx=mx.gpu(0))
+            ref = pred.forward(data=padded[None].astype(np.float32),
+                               softmax_label=np.zeros(shape, np.float32)
+                               ).get_output(0)[:length]
+            seq_ok.append(np.array_equal(
+                np.asarray(payload["outputs"][0], np.float32), ref))
+        check(all(seq_ok), "predict_seq answers against Predictor: %s"
+              % seq_ok)
+        check(batches["lm"] == len(SV_SEQ_LENS), "the LM took %d batches"
+              % batches["lm"])
+
+        # -- hot swap under traffic: epoch 2 published ---------------------
+        xq = np.random.RandomState(seed + 82).standard_normal(
+            IMAGE).astype(np.float32)
+        stop, rows = threading.Event(), []
+        before = _sv_stats(cli)["batches"]["count"]
+        threads = _sv_traffic(mx, port, "resnet", xq, SV_SWAP_CLIENTS, stop,
+                              rows)
+        try:
+            time.sleep(0.5)
+            t_pub = time.perf_counter()
+            args2, aux2 = _sv_save_resnet(mx, symbol, seed + 1, res_dir, 2)
+            _sv_wait("epoch 2 to serve", lambda: cli.healthz()[1]
+                     ["epochs"]["resnet"] == 2)
+            out["publish_to_served_s"] = time.perf_counter() - t_pub
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+        batches["resnet"] += _sv_stats(cli)["batches"]["count"] - before
+        statuses = collections.Counter(r[1] for r in rows)
+        check(set(statuses) == {200}, "answers during the swap: %s"
+              % dict(statuses))
+        deploy = _sv_stats(cli)["deploy"]["resnet"]
+        out["swap_ms"] = deploy["last_swap_ms"]
+        out["swap_requests"] = len(rows)
+        out["swap_max_ms"] = max(r[2] for r in rows)
+        pred = mx.predict.Predictor(symbol, _with_prefixes(args2, aux2),
+                                    {"data": (1,) + IMAGE}, ctx=mx.gpu(0))
+        fresh = pred.forward(data=xq[None]).get_output(0)[0]
+        del pred
+        served = count("resnet", lambda: _sv_predict(mx, port, "resnet",
+                                                     xq))
+        check(np.array_equal(served, fresh), "after the swap the daemon "
+              "differs from a fresh Predictor on epoch 2")
+        # -- epoch 3: its probe fails (swap_probe), the rollback -------------
+        _sv_save_resnet(mx, symbol, seed + 2, res_dir, 3)
+        _sv_wait("the rollback", lambda: _sv_stats(cli)["deploy"]["resnet"]
+                 ["rolled_back"] == 1)
+        deploy = _sv_stats(cli)["deploy"]["resnet"]
+        check(deploy["promoted"] == 1 and deploy["epoch"] == 2,
+              "after the rollback: %s" % deploy)
+        again = count("resnet", lambda: _sv_predict(mx, port, "resnet", xq))
+        check(np.array_equal(again, served), "the rollback is not bit-exact")
+        staged = deploy["promoted"] + deploy["rolled_back"]
+
+        # -- SIGTERM with requests in flight --------------------------------
+        stats = _sv_stats(cli)
+        accepted = stats["counters"]["accepted"]
+        last = stats["batches"]["count"]
+        results = []
+        drain = [threading.Thread(target=lambda i=i: results.append(
+            _sv_predict(mx, port, "resnet", xq + i)))
+            for i in range(SV_DRAIN_CLIENTS)]
+        for t in drain:
+            t.start()
+        _sv_wait("the drain requests", lambda: _sv_stats(cli)["counters"]
+                 ["accepted"] >= accepted + SV_DRAIN_CLIENTS)
+        cli.close()
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        for t in drain:
+            t.join(60)
+        rc = proc.wait(timeout=SV_WAIT_S)
+        out["drain_s"] = time.perf_counter() - t_term
+    finally:
+        _sv_stop(proc)
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        log(text[-4000:])
+    check(rc == 0, "the daemon exited %d after SIGTERM" % rc)
+    check(len(results) == SV_DRAIN_CLIENTS, "%d of %d in-flight requests "
+          "answered" % (len(results), SV_DRAIN_CLIENTS))
+    counts = _sv_line(text, "launches")
+    final = _sv_line(text, "stats")["batches"]
+    batches["resnet"] += final - last
+    log("serving daemon: batches by model %s, daemon's %d; deploy %s; "
+        "watcher lines: %s" % (dict(batches), final, json.dumps(deploy),
+                               [ln for ln in text.splitlines()
+                                if "CheckpointWatcher" in ln][:8]))
+    check(sum(batches.values()) == final, "batches by model %s against "
+          "the daemon's %d" % (dict(batches), final))
+    resnet_fwd = len(SV_BUCKETS) + batches["resnet"] + staged \
+        + deploy["promoted"]
+    check(counts["bn_act_fwd"] == 17 * resnet_fwd, "daemon: %d bn_act "
+          "launches, expected 17 x %d ResNet-50 forwards (%d warmup, %d "
+          "batches, %d staged validations, %d probes)" % (
+              counts["bn_act_fwd"], resnet_fwd, len(SV_BUCKETS),
+              batches["resnet"], staged, deploy["promoted"]))
+    check(counts["lstm_seq_fwd"] == LM_LAYERS * batches["lm"],
+          "daemon: %d lstm_seq launches in %d LM batches"
+          % (counts["lstm_seq_fwd"], batches["lm"]))
+    check(counts["bn_act_bwd"] == counts["lstm_seq_bwd"] == 0,
+          "daemon ran a backward: %s" % counts)
+    out.update(counts=counts, batches=dict(batches))
+    log("serving daemon: ready in %.1f s (resnet-50 directory, mlp, lm; "
+        "warmup over %s: %s s); a quiet request of each image model equals "
+        "the unbatched Predictor bit for bit" % (
+            out["ready_s"], list(SV_BUCKETS),
+            re.findall(r"mxserve: warmup_s=([0-9.]+)", text)))
+    for (model, conc), (qps, p50, p99, shed, errors) in sorted(load.items()):
+        log("serving daemon load: %s (%s bodies) concurrency %d: %.2f QPS, "
+            "p50 %s ms, p99 %s ms, shed %d, errors %d, on %s" % (
+                model, "x-npy" if model == "resnet" else "JSON", conc, qps,
+                p50, p99, shed, errors, card))
+    for model in ("resnet", "mlp"):
+        c1, c32 = load[model, 1][0], load[model, 32][0]
+        log("serving daemon load: %s c32 / c1 = %.2f" % (model, c32 / c1))
+    log("serving daemon: /predict_seq at length buckets %s equals Predictor "
+        "at each bucket shape bit for bit" % (list(SV_SEQ_BUCKETS),))
+    log("serving hot swap: epoch 2 published under %d clients, served %.2f "
+        "s after the publish began; %d requests, all 200, slowest %.1f ms; "
+        "the swap's stall at the dispatch boundary %s ms; equals a fresh "
+        "Predictor bit for bit; epoch 3's probe failed and rolled back bit "
+        "for bit, on %s" % (SV_SWAP_CLIENTS, out["publish_to_served_s"],
+                            out["swap_requests"], out["swap_max_ms"],
+                            out["swap_ms"], card))
+    log("serving daemon: SIGTERM with %d requests in flight: all 200, exit "
+        "0 in %.2f s; launches %s over %s batches by model (%d a forward "
+        "on the ResNet-50, %d a batch on the LM)" % (
+            SV_DRAIN_CLIENTS, out["drain_s"], json.dumps(counts),
+            dict(batches), 17, LM_LAYERS))
+    return counts, out
+
+
+def start_sv_drill(tmp, res_dir):
+    """Start the watchdog drill's daemon under ``tools/supervise.py
+    --max-restarts 1`` with ``hang_serve_forward`` armed, on a copy of
+    the ResNet-50 directory.  Its start-up (imports, the card's first
+    forward) overlaps the main daemon's; it then waits for its request.
+    Returns the supervisor and its paths."""
+    drill_dir = os.path.join(tmp, "drill-resnet")
+    shutil.copytree(res_dir, drill_dir)
+    child = os.path.join(tmp, "serve_child.py")
+    with open(child, "w") as f:
+        f.write(SV_CHILD % {"main": SERVE_MAIN})
+    paths = {"port": os.path.join(tmp, "drill.port"),
+             "log": os.path.join(tmp, "drill.log"),
+             "debug": os.path.join(tmp, "debug")}
+    env = _sv_env(MXTPU_FAULTS="hang_serve_forward:1",
+                  MXTPU_STEP_TIMEOUT=str(SV_STEP_TIMEOUT),
+                  MXTPU_DEBUG_DIR=paths["debug"])
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "supervise.py"),
+           "--max-restarts", "1", "--backoff", "0", "--", sys.executable,
+           child, "--context", "gpu(0)", "--model", "resnet=%s" % drill_dir,
+           "--input-shape", "data=%s" % ",".join(map(str, IMAGE)),
+           "--buckets", "1,2", "--max-wait-ms", "2", "--warmup", "--port",
+           "0", "--port-file", paths["port"]]
+    with open(paths["log"], "w") as f:
+        sup = subprocess.Popen(cmd, env=env, stdout=f,
+                               stderr=subprocess.STDOUT,
+                               start_new_session=True)
+    return sup, paths
+
+
+def phase_sv_watchdog(torch, mx, seed, card, sup, paths):
+    """The drill (``start_sv_drill``): the first batch hangs, the
+    watchdog exits 87 with a report, the relaunch answers 200, a SIGTERM
+    to the supervisor gives 0.  Returns the relaunch's bn_act launches
+    and the numbers."""
+    import numpy as np
+    port_file, log_path, debug = paths["port"], paths["log"], paths["debug"]
+    x = np.random.RandomState(seed + 90).standard_normal(IMAGE).astype(
+        np.float32)
+    rc = None
+    try:
+        first = _sv_wait_port(port_file, sup, log_path)
+        t_hang = time.perf_counter()
+        status, port = None, first
+        deadline = time.monotonic() + SV_WAIT_S
+        while status != 200:
+            check(time.monotonic() < deadline, "no 200 after the relaunch")
+            check(sup.poll() is None, "the supervisor exited %s"
+                  % sup.returncode)
+            try:
+                with open(port_file) as f:
+                    port = int(f.read().split(":")[1])
+                cli = mx.serving.ServeClient("127.0.0.1", port,
+                                             timeout=SV_STEP_TIMEOUT + 20)
+                status, payload = cli.predict("resnet", x, npy=True)
+                cli.close()
+            except Exception:  # noqa: BLE001 — hung, dead or relaunching
+                status = None
+                time.sleep(0.2)
+        restart_s = time.perf_counter() - t_hang
+        check(port != first, "the 200 came from the hung daemon's port")
+        cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+        batches = _sv_stats(cli)["batches"]["count"]
+        cli.close()
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=SV_WAIT_S)
+    finally:
+        _sv_stop(sup)
+        with open(log_path) as f:
+            text = f.read()
+        if rc != 0:
+            log(text[-6000:])
+    check(rc == 0, "the supervisor exited %d after SIGTERM" % rc)
+    check("watchdog abort (hung step)" in text and "exceeded its %.1fs "
+          "budget" % SV_STEP_TIMEOUT in text, "no watchdog report (87)")
+    dumps = os.listdir(debug) if os.path.isdir(debug) else []
+    check(len(dumps) == 1, "watchdog dumps: %s" % dumps)
+    size = os.path.getsize(os.path.join(debug, dumps[0]))
+    counts = _sv_line(text, "launches")
+    warm = re.findall(r"mxserve: warmup_s=([0-9.]+)", text)
+    check(len(warm) == 2, "warmups in the drill: %s" % warm)
+    check(counts["bn_act_fwd"] == 17 * (2 + batches), "relaunch: %d bn_act "
+          "launches in 2 warmup forwards and %d batches"
+          % (counts["bn_act_fwd"], batches))
+    log("serving watchdog drill: the hung forward -> watchdog %d s -> exit "
+        "87 with a %d-byte report -> supervise.py relaunch (warmup %s s) -> "
+        "200 after %.2f s from the hung request; SIGTERM to the supervisor "
+        "-> 0; relaunch bn_act %d in 2 warmup forwards and %d batches, on "
+        "%s" % (SV_STEP_TIMEOUT, size, warm[1], restart_s,
+                counts["bn_act_fwd"], batches, card))
+    return counts["bn_act_fwd"], {"restart_s": restart_s}
+
+
+def serving_paths(torch, mx, seed, card):
+    """The serving slice on the card: the pool in process, then the
+    daemon (load, sequences, hot swap, drain) and the watchdog drill as
+    child processes.  Returns the serving launches of rows 1 and 3."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="serving-", dir=build_dir)
+    sup = None
+    try:
+        bench = load_example("bench.py", "port_bench")
+        with mx.name.NameManager():
+            symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                          image_shape=IMAGE)
+        res_dir = os.path.join(tmp, "resnet")
+        _sv_save_resnet(mx, symbol, seed, res_dir, 1)
+        pool_fwd, _ = phase_sv_pool(torch, mx, seed, card, res_dir, symbol)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sup, paths = start_sv_drill(tmp, res_dir)
+        counts, _ = phase_sv_daemon(torch, mx, seed, card, tmp, res_dir,
+                                    symbol, bench)
+        drill_fwd, _ = phase_sv_watchdog(torch, mx, seed, card, sup, paths)
+    finally:
+        if sup is not None:
+            _sv_stop(sup)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return collections.Counter({
+        "bn_act_fwd": pool_fwd + counts["bn_act_fwd"] + drill_fwd,
+        "lstm_seq_fwd": counts["lstm_seq_fwd"]})
 
 
 def main(argv=None):
@@ -8859,21 +9516,44 @@ def main(argv=None):
         print("chip_smoke: cannot import mxnet_tpu_torch: %s" % e,
               file=sys.stderr)
         return 2
-    rtc = rtc_kernels(torch, mx)
-    card = phase_setup(torch, mx, rtc)
-    kernels = resnet_paths(torch, mx, args.seed, card)
-    kernels += lm_paths(torch, mx, args.seed, card)
-    kernels += long_context_paths(torch, mx, args.seed, card)
-    extra, rows = finetune_paths(torch, mx, rtc, args.seed, card)
+    times = collections.OrderedDict()
+
+    def timed(name, fn, *args):
+        """Run one path, log its wall time and keep every time so far in
+        chiprun_out/smoke_times.json (a failure still leaves its row)."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            times[name] = round(time.perf_counter() - t0, 1)
+            log("%s: %.1f s" % (name, times[name]))
+            out = os.path.join(ROOT, "chiprun_out")
+            os.makedirs(out, exist_ok=True)
+            with open(os.path.join(out, "smoke_times.json"), "w") as f:
+                json.dump(times, f, indent=1)
+
+    rtc = timed("setup_rtc", rtc_kernels, torch, mx)
+    card = timed("setup", phase_setup, torch, mx, rtc)
+    seed = args.seed
+    kernels = timed("resnet_paths", resnet_paths, torch, mx, seed, card)
+    kernels += timed("lm_paths", lm_paths, torch, mx, seed, card)
+    kernels += timed("long_context_paths", long_context_paths, torch, mx,
+                     seed, card)
+    extra, rows = timed("finetune_paths", finetune_paths, torch, mx, rtc,
+                        seed, card)
     kernels += rows
-    extra += nd_paths(torch, mx, args.seed, card)
-    extra += bucketing_paths(torch, mx, args.seed, card)
-    extra += zoo_paths(torch, mx, args.seed, card)
-    extra += extension_paths(torch, mx, args.seed, card)
-    extra += input_paths(torch, mx, args.seed, card)
-    extra += data_service_paths(torch, mx, args.seed, card)
-    extra += detection_paths(torch, mx, args.seed, card)
-    extra += resilience_paths(torch, mx, args.seed, card)
+    for name, path in (("nd_paths", nd_paths),
+                       ("bucketing_paths", bucketing_paths),
+                       ("zoo_paths", zoo_paths),
+                       ("extension_paths", extension_paths),
+                       ("input_paths", input_paths),
+                       ("data_service_paths", data_service_paths),
+                       ("detection_paths", detection_paths),
+                       ("resilience_paths", resilience_paths),
+                       ("serving_paths", serving_paths)):
+        extra += timed(name, path, torch, mx, seed, card)
+    times["total"] = round(sum(times.values()), 1)
+    log(json.dumps({"path_seconds": times}))
     for row in kernels:
         row["launches"] += extra.get(row["name"], 0)
     log(json.dumps({"kernels": kernels}))

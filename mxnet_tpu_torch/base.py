@@ -13,7 +13,8 @@ from collections import namedtuple
 
 __all__ = ["MXNetError", "get_env", "register_env", "ENV_REGISTRY",
            "parse_attr_value", "attr_to_string", "Registry",
-           "ENV_FUSED_KERNELS", "ENV_STEP_GUARD", "ENV_MAX_BAD_STEPS"]
+           "ENV_FUSED_KERNELS", "ENV_STEP_GUARD", "ENV_MAX_BAD_STEPS",
+           "ENV_COMPILE_CACHE"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -150,3 +151,11 @@ ENV_MAX_BAD_STEPS = register_env(
 ENV_STEP_GUARD = register_env(
     "MXTPU_STEP_GUARD", default=1,
     doc="0 disables the in-step NaN/Inf gradient guard")
+
+#: the JAX package's cache knob (``mxnet_tpu/base.py:219``).  The port has
+#: no compiled forward to cache yet; the serving daemon reads it for the
+#: location of its AOT store (``serving/aot.py``)
+ENV_COMPILE_CACHE = register_env(
+    "MXTPU_COMPILE_CACHE",
+    doc="Directory of the compile cache; the serving daemon keeps its AOT "
+        "store under <dir>/aot")

@@ -346,6 +346,9 @@ def test_stage_fault_points(port_faults, point):
         port_faults.arm("stage_batch")
     else:
         port_faults.arm_hang("hang_stage", seconds=0.3)
+    # the constructor starts the worker, which may enter the hang before
+    # it returns: the clock starts before it, so the whole hang is timed
+    t0 = time.monotonic()
     it = DevicePrefetchIter(base, stage=None, depth=2)
     try:
         if point == "stage_batch":
@@ -353,7 +356,6 @@ def test_stage_fault_points(port_faults, point):
                 for _ in it:
                     pass
         else:
-            t0 = time.monotonic()
             seen = [b.data[0].asnumpy().copy() for b in it]
             assert time.monotonic() - t0 >= 0.3
             assert len(seen) == 4

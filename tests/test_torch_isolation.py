@@ -554,8 +554,9 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 
 def test_new_modules_are_covered():
-    """The extension, input-pipeline, data-service and resilience slices'
-    modules are among the sources the import check walks."""
+    """The extension, input-pipeline, data-service, resilience and
+    serving slices' modules are among the sources the import check
+    walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
@@ -567,7 +568,10 @@ def test_new_modules_are_covered():
                 "kernels/augment", "ops/image_io", "ops/vision",
                 "ops/ctc", "ops/contrib", "random", "model", "kvstore",
                 "callback", "metric", "module/base_module",
-                "module/module", "parallel/trainer"):
+                "module/module", "parallel/trainer", "serving/__init__",
+                "serving/batcher", "serving/pool", "serving/sequence",
+                "serving/aot", "serving/frontend", "serving/deploy",
+                "serving/serve_main"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 

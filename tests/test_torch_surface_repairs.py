@@ -22,14 +22,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: top-level names of the JAX package the port does not have yet, each
 #: with the ROADMAP queue 1 item that brings it
 LATER = {
-    # item 6, serving
-    "serving": 6,
-    # item 7, the package's tools
-    "analysis": 7, "profiler": 7, "profiler_set_config": 7,
-    "profiler_set_state": 7, "dump_profile": 7, "visualization": 7,
-    "viz": 7, "test_utils": 7, "libinfo": 7,
-    # item 8, several devices
-    "distributed": 8, "fleet": 8,
+    # item 2, the fleet
+    "fleet": 2,
+    # item 3, the package's tools
+    "analysis": 3, "profiler": 3, "profiler_set_config": 3,
+    "profiler_set_state": 3, "dump_profile": 3, "visualization": 3,
+    "viz": 3, "test_utils": 3, "libinfo": 3,
+    # item 4, several devices
+    "distributed": 4,
 }
 
 
@@ -57,7 +57,7 @@ def test_public_names_match_jax_but_later_slices():
                  "image", "img", "image_det", "dataflow",
                  "DevicePrefetchIter", "engine", "native", "resilience",
                  "data_service", "CheckpointManager", "PreemptionHandler",
-                 "StepWatchdog"):
+                 "StepWatchdog", "serving"):
         assert hasattr(tmx, name), name
     assert tmx.rnd is tmx.random and tmx.mon is tmx.monitor
     assert tmx.img is tmx.image
@@ -72,6 +72,10 @@ def test_public_names_match_jax_but_later_slices():
     from mxnet_tpu.data_service import net as jnet
     from mxnet_tpu_torch.data_service import net as tnet
     assert tnet.__all__ == jnet.__all__
+    # the serving slice's names, as the JAX package exports them
+    assert tmx.serving.__all__ == jmx.serving.__all__
+    for name in ("ModelPool", "ServingFrontend"):
+        assert getattr(tmx.serving, name).__name__ == name
     assert tmx.kernels.augment.DeviceAugment.__name__ == "DeviceAugment"
     assert "augment" in tmx.kernels.__all__
 
