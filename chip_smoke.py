@@ -290,7 +290,24 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     ResNet-50 forward, 2 a LM batch); then the daemon under
     ``tools/supervise.py`` with a hung forward (87 with a report, the
     relaunch answers 200, SIGTERM gives 0);
-28. logs every path's wall time (``<path>: %.1f s``, also written to
+28. runs the fleet (``fleet_paths``): ``fleet/fleet_main.py serve
+    --device-sets cuda:0 --replicas 2 --watch`` (two daemons co-tenant on
+    the card behind the router, ``dup_request`` armed) with ResNet-50 and
+    bench.py's MLP: time to ready, card memory, a quiet request through
+    the router and on each replica bit-equal to the smoke's
+    ``Predictor`` (bursts straight to each replica until buckets 8 and 32
+    answered, each equal to ``Predictor`` at that bucket), the duplicate
+    collapsed by the replica's dedup cache, concurrency 1 and 32 through
+    the router and straight to one replica (QPS, p50, p99, 0 errors, the
+    CPU seconds of the front end, the load and the replicas, batches by
+    replica), a SIGKILL of the ResNet-50 home under 8 clients (all 200,
+    eviction, the respawn's rejoin, the respawn bit-equal), a rolling
+    swap under 4 clients (one replica at a time, all 200, both equal to a
+    fresh ``Predictor`` on the new epoch), the drain (exit 0, every
+    replica 0, 17 ``bn_act`` launches a ResNet-50 forward in each drained
+    run), and a ``--workers 2`` fleet at concurrency 32 when the router
+    used 0.8 CPU s a second or more;
+29. logs every path's wall time (``<path>: %.1f s``, also written to
     ``chiprun_out/smoke_times.json``), then prints a ``{"kernels":
     [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -9500,6 +9517,629 @@ def serving_paths(torch, mx, seed, card):
         "lstm_seq_fwd": counts["lstm_seq_fwd"]})
 
 
+# -- the fleet: two replica daemons co-tenant on the card --------------------
+
+FL_DEVICE_SETS = "cuda:0"    # both replicas co-tenant on card 0
+FL_BUCKETS = (1, 8, 32)
+FL_C1_S = 2.5           # closed-loop seconds at concurrency 1
+FL_C32_S = 4.0          # and at concurrency 32
+FL_KILL_CLIENTS = 8     # clients through the SIGKILL drill
+FL_SWAP_CLIENTS = 4     # clients through the rolling swap
+FL_BURSTS = 4           # most burst rounds to see buckets 8 and 32 served
+FL_ROUTER_BOUND = 0.8   # router CPU s per s past which --workers 2 runs too
+FL_IDLE_S = 1.5         # an idle window: what the front end costs unloaded
+FL_ENV = {"MXTPU_FLEET_HEARTBEAT_S": "0.3", "MXTPU_FLEET_EVICT_S": "1.2",
+          "MXTPU_FLEET_SPILL_QUEUE": "4", "MXTPU_SERVE_MAX_WAIT_MS": "2"}
+FLEET_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "fleet", "fleet_main.py")
+
+
+def _fl_start(tmp, name, res_dir, mlp, workers=1, watch=True, **env):
+    """``fleet_main.py serve`` with two replicas on card 0 serving the
+    ResNet-50 directory and the MLP; returns (process, public port,
+    seconds from spawn to the port file, run directory, log path)."""
+    run_dir = os.path.join(tmp, name)
+    port_file = os.path.join(tmp, name + ".port")
+    log_path = os.path.join(tmp, name + ".log")
+    prefix, epoch, sample = mlp
+    cmd = [sys.executable, FLEET_MAIN, "serve", "--replicas", "2",
+           "--device-sets", FL_DEVICE_SETS,
+           "--buckets", ",".join(map(str, FL_BUCKETS)),
+           "--model", "resnet=%s" % res_dir,
+           "--model", "mlp=%s:%d" % (prefix, epoch),
+           "--input-shape", "resnet:data=%s" % ",".join(map(str, IMAGE)),
+           "--input-shape", "mlp:data=%s" % ",".join(map(str, sample)),
+           "--workers", str(workers), "--run-dir", run_dir, "--port", "0",
+           "--port-file", port_file]
+    if watch:
+        cmd.append("--watch")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, env=_sv_env(**dict(FL_ENV, **env)),
+                                stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        port = _sv_wait_port(port_file, proc, log_path)
+    except SmokeFailure:
+        for r in (0, 1):
+            path = os.path.join(run_dir, "replica-%d.log" % r)
+            if os.path.exists(path):
+                with open(path) as f:
+                    log("replica %d: %s" % (r, f.read()[-3000:]))
+        _fl_stop(proc)
+        raise
+    return proc, port, time.perf_counter() - t0, run_dir, log_path
+
+
+def _fl_replica_port(run_dir, rid):
+    with open(os.path.join(run_dir, "replica-%d.port" % rid)) as f:
+        return int(f.read().split(":")[1])
+
+
+def _fl_get(mx, port):
+    """``/stats`` of the router or replica on ``port``."""
+    cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+    try:
+        status, payload = cli.stats()
+    finally:
+        cli.close()
+    check(status == 200, "/stats on port %d answered %s" % (port, status))
+    return payload
+
+
+def _fl_batches(mx, run_dir):
+    """Each replica's batch count, from its own ``/stats``."""
+    return [_fl_get(mx, _fl_replica_port(run_dir, r))["batches"]["count"]
+            for r in (0, 1)]
+
+
+def _fl_cpu_s(pids):
+    """CPU seconds (user + system) the processes have used so far."""
+    tick = os.sysconf("SC_CLK_TCK")
+    total = 0
+    for pid in pids:
+        with open("/proc/%d/stat" % pid) as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        total += int(fields[11]) + int(fields[12])
+    return total / tick
+
+
+def _fl_router_pids(mx, proc, port):
+    """The front end's processes: the fleet process (router or prober)
+    and, sharded, its router workers."""
+    workers = _fl_get(mx, port).get("workers") or {}
+    return [proc.pid] + sorted(int(w["pid"]) for w in workers.values()
+                               if w.get("pid") and int(w["pid"]) != proc.pid)
+
+
+def _fl_card_mib():
+    """The card's used memory in MiB (``nvidia-smi
+    --query-gpu=memory.used``): every process on it together."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30)
+    check(res.returncode == 0, "nvidia-smi: %s" % res.stderr)
+    return int(res.stdout.split()[0])
+
+
+def _fl_apps():
+    """``nvidia-smi --query-compute-apps`` as it prints (pid, name and
+    memory of each process on the card, where the machine shows them),
+    and the MPS daemons running (none expected: the replicas time-slice
+    the card)."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "process_name,used_memory", "--format=csv"],
+                         capture_output=True, text=True, timeout=30)
+    mps = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open("/proc/%s/comm" % entry) as f:
+                    comm = f.read().strip()
+            except OSError:
+                continue
+            if comm.startswith("nvidia-cuda-mps"):
+                mps.append(comm)
+    return res.stdout.strip().splitlines(), mps
+
+
+def _fl_serving(mx, port):
+    """Whether the replica on ``port`` answers ``/healthz`` ok (not
+    draining, not gone)."""
+    cli = mx.serving.ServeClient("127.0.0.1", port, timeout=0.5)
+    try:
+        status, payload = cli.healthz()
+        return status == 200 and payload.get("status") == "ok"
+    except Exception:  # noqa: BLE001 — refused or torn down: not serving
+        return False
+    finally:
+        cli.close()
+
+
+def _fl_alive(pid):
+    """Whether ``pid`` runs (a zombie awaiting its parent's reap does
+    not)."""
+    try:
+        with open("/proc/%d/stat" % pid) as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in "ZX"
+    except OSError:
+        return False
+
+
+def _fl_load(mx, bench, port, conc, seconds, groups, run_dir):
+    """``bench._serve_load`` of ResNet-50 x-npy at ``conc``; returns its
+    (qps, p50, p99, shed, errors) and the CPU seconds of each group of
+    processes (``{name: pids}``: the front end, the load's own process,
+    the replicas) over the call, with the call's wall time and each
+    replica's batches."""
+    c0 = {k: _fl_cpu_s(p) for k, p in groups.items()}
+    b0 = _fl_batches(mx, run_dir)
+    t0 = time.perf_counter()
+    load = bench._serve_load(port, "resnet", IMAGE, conc, seconds, npy=True)
+    cpu = {k: round(_fl_cpu_s(p) - c0[k], 2) for k, p in groups.items()}
+    cpu["wall"] = round(time.perf_counter() - t0, 2)
+    cpu["batches"] = [a - b for a, b in zip(_fl_batches(mx, run_dir), b0)]
+    qps, p50, p99, shed, errors = load
+    check(errors == 0 and qps > 0, "resnet at concurrency %d on port %d: "
+          "%s" % (conc, port, load))
+    return load, cpu
+
+
+def _fl_traffic(mx, port, x, clients, stop, rows):
+    """``clients`` threads sending ``x`` (ResNet-50, x-npy) until ``stop``;
+    each answer's (time, status, retried) goes to ``rows``."""
+    import threading
+
+    def worker():
+        cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    status, payload = cli.predict("resnet", x, npy=True)
+                    retried = payload.get("retried") is True
+                except Exception:  # noqa: BLE001 — a dropped connection
+                    status, retried = -1, False
+                rows.append((t0, status, retried))
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _fl_refs(torch, mx, symbol, args, aux, x, buckets=FL_BUCKETS):
+    """The smoke's own ``Predictor`` answer for ``x`` at each bucket
+    shape (``x`` in every row), on gpu(0)."""
+    import numpy as np
+    refs = {}
+    for b in buckets:
+        pred = mx.predict.Predictor(symbol, _with_prefixes(args, aux),
+                                    {"data": (b,) + IMAGE}, ctx=mx.gpu(0))
+        refs[b] = pred.forward(data=np.repeat(x[None], b, axis=0)
+                               ).get_output(0)[0]
+        del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _fl_buckets_of(np, answer, refs):
+    return {b for b, ref in refs.items() if np.array_equal(answer, ref)}
+
+
+def _fl_bursts(mx, port, x, refs):
+    """Bursts of 8 and 32 concurrent requests of ``x`` straight to one
+    replica until buckets 8 and 32 have both answered (each answer must
+    equal the reference of the bucket that served it).  Returns the
+    buckets seen and the requests sent."""
+    import threading
+    import numpy as np
+    seen, sent = set(), 0
+    for _ in range(FL_BURSTS):
+        for n in (8, 32):
+            # connect first (one keep-alive connection a client, opened
+            # in turn), then fire the n requests together
+            clients = [mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+                       for _ in range(n)]
+            for cli in clients:
+                check(cli.healthz()[0] == 200, "replica on %d" % port)
+            answers, go = [], threading.Barrier(n)
+
+            def one(cli):
+                go.wait(60)
+                status, payload = cli.predict("resnet", x, npy=True)
+                check(status == 200, "burst answer %s" % status)
+                answers.append(np.asarray(payload["outputs"][0],
+                                          dtype=np.float32))
+
+            threads = [threading.Thread(target=one, args=(c,))
+                       for c in clients]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            for cli in clients:
+                cli.close()
+            check(len(answers) == n, "%d of %d burst answers" % (
+                len(answers), n))
+            sent += n
+            for a in answers:
+                matched = _fl_buckets_of(np, a, refs)
+                check(matched, "a burst answer on port %d equals no bucket's "
+                      "Predictor answer (max |diff| to bucket 1: %.3g)"
+                      % (port, float(np.abs(a - refs[1]).max())))
+                seen |= matched
+        if {8, 32} <= seen:
+            break
+    check({8, 32} <= seen, "bursts on port %d served buckets %s only"
+          % (port, sorted(seen)))
+    return seen, sent
+
+
+def _fl_launch_check(text, extra_batches, swaps, what):
+    """The drained replica's launch line against its ResNet-50 forwards:
+    3 warmup buckets + its batches (less ``extra_batches`` of the MLP) +
+    a staged validation and a probe per swap.  Returns its bn_act
+    launches."""
+    counts = _sv_line(text, "launches")
+    batches = _sv_line(text, "stats")["batches"] - extra_batches
+    fwd = len(FL_BUCKETS) + batches + 2 * swaps
+    check(counts["bn_act_fwd"] == 17 * fwd, "%s: %d bn_act launches, "
+          "expected 17 x %d ResNet-50 forwards (%d warmup, %d batches, %d "
+          "swaps)" % (what, counts["bn_act_fwd"], fwd, len(FL_BUCKETS),
+                      batches, swaps))
+    check(counts["bn_act_bwd"] == 0, "%s ran a backward: %s" % (what,
+                                                                counts))
+    return counts["bn_act_fwd"], batches
+
+
+def _fl_stop(proc):
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
+    """The fleet's main path on the card: bring-up, parity, route
+    overhead, scale-out at concurrency 32, the SIGKILL drill, the
+    ``dup_request`` collapse, the rolling swap under traffic and the
+    drain.  Returns the drained replicas' bn_act launches and the
+    numbers."""
+    import threading
+    import numpy as np
+    args1, aux1 = _sv_save_resnet(mx, symbol, seed + 100, res_dir, 1)
+    rs = np.random.RandomState(seed + 101)
+    xq = rs.standard_normal(IMAGE).astype(np.float32)
+    refs = _fl_refs(torch, mx, symbol, args1, aux1, xq)
+    out = {"buckets_distinct": len({r.tobytes() for r in refs.values()})}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = out["card_mib"] = {"smoke_alone": _fl_card_mib()}
+    proc, port, out["ready_s"], run_dir, log_path = _fl_start(
+        tmp, "fleet", res_dir, mlp, MXTPU_FAULTS="dup_request:1")
+    try:
+        stats = _fl_get(mx, port)
+        pids = [stats["replicas"][str(r)]["pid"] for r in (0, 1)]
+        mem["ready"] = _fl_card_mib()
+        out["apps"], out["mps"] = _fl_apps()
+        man = mx.fleet.FleetManifest({"resnet": res_dir, "mlp": mlp[0]},
+                                     replicas=2)
+        home = man.home("resnet")
+        # -- parity; the first routed request is delivered twice -------
+        routed = _sv_predict(mx, port, "resnet", xq)
+        check(np.array_equal(routed, refs[1]), "a quiet request through "
+              "the router differs from the smoke's Predictor at bucket 1")
+        router = _fl_get(mx, port)["router"]["counters"]
+        per = [_fl_get(mx, _fl_replica_port(run_dir, r))["counters"]
+               for r in (0, 1)]
+        out["dup"] = {"dup_requests": router.get("dup_requests", 0),
+                      "completed": [c.get("completed", 0) for c in per],
+                      "dedup": [c.get("dedup_hits", 0)
+                                + c.get("dedup_joined", 0) for c in per]}
+        check(out["dup"]["dup_requests"] == 1
+              and sum(out["dup"]["completed"]) == 1
+              and sum(out["dup"]["dedup"]) == 1,
+              "dup_request: %s" % out["dup"])
+        # the MLP through the router, against the smoke's Predictor
+        before = _fl_batches(mx, run_dir)
+        prefix, epoch, sample = mlp
+        xm = rs.rand(*sample).astype(np.float32)
+        got = _sv_predict(mx, port, "mlp", xm)
+        msym, margs, maux = mx.model.load_checkpoint(prefix, epoch)
+        pred = mx.predict.Predictor(msym, _with_prefixes(margs, maux),
+                                    {"data": (1,) + tuple(sample)},
+                                    ctx=mx.gpu(0))
+        check(np.array_equal(got, pred.forward(data=xm[None]).get_output(0)
+                             [0]), "the MLP through the router differs from "
+              "the smoke's Predictor")
+        del pred
+        mlp_batches = [a - b for a, b in zip(_fl_batches(mx, run_dir),
+                                             before)]
+        check(sum(mlp_batches) == 1, "the MLP request took %s batches"
+              % mlp_batches)
+        # the same bytes straight to each replica, at buckets 1, 8, 32
+        out["bursts"] = []
+        for r in (0, 1):
+            rport = _fl_replica_port(run_dir, r)
+            check(np.array_equal(_sv_predict(mx, rport, "resnet", xq),
+                                 refs[1]), "replica %d differs at bucket 1"
+                  % r)
+            out["bursts"].append(_fl_bursts(mx, rport, xq, refs))
+        # -- route overhead at concurrency 1 ---------------------------
+        groups = {"front": _fl_router_pids(mx, proc, port),
+                  "client": [os.getpid()], "replicas": pids}
+        home_port = _fl_replica_port(run_dir, home)
+        c0 = {k: _fl_cpu_s(p) for k, p in groups.items()}
+        time.sleep(FL_IDLE_S)
+        out["idle_cpu"] = {k: round(_fl_cpu_s(p) - c0[k], 2)
+                           for k, p in groups.items()}
+        out["c1_router"] = _fl_load(mx, bench, port, 1, FL_C1_S, groups,
+                                    run_dir)
+        out["c1_direct"] = _fl_load(mx, bench, home_port, 1, FL_C1_S,
+                                    groups, run_dir)
+        # -- scale-out on one card at concurrency 32 -------------------
+        c0 = _fl_get(mx, port)["router"]["counters"]
+        out["c32_router"] = _fl_load(mx, bench, port, 32, FL_C32_S, groups,
+                                     run_dir)
+        c1 = _fl_get(mx, port)["router"]["counters"]
+        out["c32_routed"] = {k: c1.get(k, 0) - c0.get(k, 0)
+                             for k in ("routed", "spilled", "rerouted",
+                                       "retries")}
+        check(min(out["c32_router"][1]["batches"]) > 0, "concurrency 32 "
+              "through the router: batches by replica %s"
+              % out["c32_router"][1]["batches"])
+        out["c32_direct"] = _fl_load(mx, bench, home_port, 32, FL_C32_S,
+                                     groups, run_dir)
+        mem["loaded"] = _fl_card_mib()
+        # -- SIGKILL the ResNet-50 home under 8 clients ----------------
+        victim = pids[home]
+        stop, rows = threading.Event(), []
+        threads = _fl_traffic(mx, port, xq, FL_KILL_CLIENTS, stop, rows)
+        cli = mx.serving.ServeClient("127.0.0.1", port, timeout=60)
+        try:
+            time.sleep(0.5)
+            t_kill = time.perf_counter()
+            os.kill(victim, signal.SIGKILL)
+            _sv_wait("the eviction", lambda: cli.healthz()[1]
+                     ["replicas_healthy"] == 1)
+            out["evict_s"] = time.perf_counter() - t_kill
+            mem["evicted"] = _fl_card_mib()
+            _sv_wait("the respawn's rejoin", lambda: cli.healthz()[1]
+                     ["replicas_healthy"] == 2)
+            out["rejoin_s"] = time.perf_counter() - t_kill
+            mem["rejoined"] = _fl_card_mib()
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+            cli.close()
+        statuses = collections.Counter(r[1] for r in rows)
+        check(set(statuses) == {200}, "answers through the SIGKILL: %s"
+              % dict(statuses))
+        out["kill_requests"] = len(rows)
+        out["kill_retried"] = sum(1 for r in rows if r[2])
+        check(out["kill_retried"] >= 1, "the SIGKILL was never "
+              "client-visible (no retried answer)")
+        stats = _fl_get(mx, port)
+        rep = stats["replicas"][str(home)]
+        check(rep["restarts"] >= 1 and rep["pid"] != victim,
+              "the respawn: %s" % rep)
+        pids[home] = rep["pid"]
+        home_port = _fl_replica_port(run_dir, home)
+        check(np.array_equal(_sv_predict(mx, home_port, "resnet", xq),
+                             refs[1]), "the respawned replica's answer "
+              "differs from the answer before the kill")
+        out["kill_counters"] = {k: stats["router"]["counters"].get(k, 0)
+                                for k in ("retries", "retry_ok",
+                                          "replica_errors", "rerouted")}
+        # -- the rolling swap under 4 clients --------------------------
+        stop, rows, fences = threading.Event(), [], []
+        threads = _fl_traffic(mx, port, xq, FL_SWAP_CLIENTS, stop, rows)
+        try:
+            time.sleep(0.5)
+            t_pub = time.perf_counter()
+            args2, aux2 = _sv_save_resnet(mx, symbol, seed + 102, res_dir, 2)
+
+            def rolled():
+                s = _fl_get(mx, port)
+                fences.append(sorted(r for r, v in s["replicas"].items()
+                                     if v.get("fenced")))
+                st = (s.get("rollout") or {}).get("state") or {}
+                return st.get("state") == "complete" and st.get("epoch") == 2
+
+            _sv_wait("the rollout of epoch 2", rolled)
+            out["rollout_s"] = time.perf_counter() - t_pub
+            time.sleep(0.3)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60)
+        statuses = collections.Counter(r[1] for r in rows)
+        check(set(statuses) == {200}, "answers during the rolling swap: %s"
+              % dict(statuses))
+        out["swap_requests"] = len(rows)
+        rollout = _fl_get(mx, port)["rollout"]
+        out["rollout"] = rollout
+        check(max(len(f) for f in fences) <= 1 and
+              rollout["state"]["done"] == [0, 1], "the rollout did not go "
+              "one replica at a time: fenced sets %s, %s" % (
+                  sorted(set(map(tuple, fences))), rollout))
+        out["fenced_seen"] = sorted(set(r for f in fences for r in f))
+        fresh = _fl_refs(torch, mx, symbol, args2, aux2, xq, (1,))[1]
+        deploy = []
+        for r in (0, 1):
+            rport = _fl_replica_port(run_dir, r)
+            check(np.array_equal(_sv_predict(mx, rport, "resnet", xq),
+                                 fresh), "replica %d after the rollout "
+                  "differs from a fresh Predictor on epoch 2" % r)
+            deploy.append(_fl_get(mx, rport)["deploy"]["resnet"])
+        check(all(d["promoted"] == 1 and d["rolled_back"] == 0
+                  for d in deploy), "the replicas' swaps: %s" % deploy)
+        # -- the drain -------------------------------------------------
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        exits, fenced = {}, {}
+        ports = [_fl_replica_port(run_dir, r) for r in (0, 1)]
+        while proc.poll() is None:
+            check(time.perf_counter() - t_term < SV_WAIT_S, "the fleet did "
+                  "not exit in %d s after SIGTERM" % SV_WAIT_S)
+            for r, pid in enumerate(pids):
+                now = round(time.perf_counter() - t_term, 2)
+                if r not in exits and not _fl_alive(pid):
+                    exits[r] = now
+                if r not in fenced and not _fl_serving(mx, ports[r]):
+                    fenced[r] = now
+            time.sleep(0.05)
+        rc = proc.returncode
+        out["drain_s"] = time.perf_counter() - t_term
+        out["replica_exit_s"] = [exits.get(r) for r in (0, 1)]
+        out["replica_draining_s"] = [fenced.get(r) for r in (0, 1)]
+    finally:
+        _fl_stop(proc)
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        log(text[-4000:])
+    check(rc == 0 and "replica exit codes {0: 0, 1: 0}" in text,
+          "the fleet exited %d after SIGTERM: %s" % (rc, text[-600:]))
+    launches, out["drained_batches"] = 0, []
+    for r in (0, 1):
+        with open(os.path.join(run_dir, "replica-%d.log" % r)) as f:
+            rtext = f.read()
+        check(rtext.count("mxserve: drained") == 1, "replica %d: %d drained "
+              "runs" % (r, rtext.count("mxserve: drained")))
+        n, batches = _fl_launch_check(
+            rtext, mlp_batches[r] if r != home else 0, 1,
+            "replica %d (%s run)" % (r, "respawned" if r == home else "first"))
+        launches += n
+        out["drained_batches"].append(batches)
+    out["launches"] = launches
+    return launches, out
+
+
+def phase_fl_workers(mx, tmp, bench, res_dir, mlp):
+    """The same fleet with two router workers on the public port
+    (``--workers 2``): concurrency 32 and the front end's CPU, then the
+    drain.  Returns the replicas' bn_act launches and the numbers."""
+    proc, port, ready_s, run_dir, log_path = _fl_start(
+        tmp, "fleet-w2", res_dir, mlp, workers=2, watch=False)
+    out = {"ready_s": ready_s}
+    try:
+        stats = _fl_get(mx, port)
+        groups = {"front": _fl_router_pids(mx, proc, port),
+                  "client": [os.getpid()],
+                  "replicas": [stats["replicas"][str(r)]["pid"]
+                               for r in (0, 1)]}
+        check(len(groups["front"]) == 3, "front-end processes %s"
+              % groups["front"])
+        out["c32"] = _fl_load(mx, bench, port, 32, FL_C32_S, groups,
+                              run_dir)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SV_WAIT_S)
+    finally:
+        _fl_stop(proc)
+    with open(log_path) as f:
+        text = f.read()
+    check(rc == 0 and "worker exit codes {0: 0, 1: 0}" in text
+          and "replica exit codes {0: 0, 1: 0}" in text,
+          "the sharded fleet exited %d: %s" % (rc, text[-600:]))
+    launches = 0
+    for r in (0, 1):
+        with open(os.path.join(run_dir, "replica-%d.log" % r)) as f:
+            launches += _fl_launch_check(f.read(), 0, 0,
+                                         "sharded replica %d" % r)[0]
+    return launches, out
+
+
+def fleet_paths(torch, mx, seed, card):
+    """The fleet slice on the card: ``fleet_main.py serve --device-sets
+    cuda:0 --replicas 2`` (two daemons co-tenant on the one H100 behind the
+    router), and, when the router's CPU bounds it, the same load through
+    ``--workers 2``.  Returns the replicas' bn_act launches (row 1)."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet-", dir=build_dir)
+    try:
+        bench = load_example("bench.py", "port_bench")
+        with mx.name.NameManager():
+            symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                          image_shape=IMAGE)
+        os.makedirs(os.path.join(tmp, "bench"))
+        mlp = bench._save_serving_models(os.path.join(tmp, "bench"))["mlp"]
+        res_dir = os.path.join(tmp, "resnet")
+        launches, out = phase_fl_fleet(torch, mx, seed, tmp, bench, symbol,
+                                       res_dir, mlp)
+        cpu = out["c32_router"][1]
+        sharded = None
+        if cpu["front"] / cpu["wall"] >= FL_ROUTER_BOUND:
+            n, sharded = phase_fl_workers(mx, tmp, bench, res_dir, mlp)
+            launches += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _fl_report(out, sharded, card)
+    return collections.Counter({"bn_act_fwd": launches})
+
+
+def _fl_report(out, sharded, card):
+    def load(key, res=None):
+        (qps, p50, p99, shed, errors), cpu = (res or out)[key]
+        return ("%.2f QPS, p50 %s ms, p99 %s ms, shed %d, errors %d, CPU s "
+                "%s" % (qps, p50, p99, shed, errors, json.dumps(cpu)))
+    log("fleet: 2 replicas on %s ready %.1f s after the spawn; card memory "
+        "used (MiB, nvidia-smi, every process) %s; per process: %s; MPS "
+        "daemons: %s; bucket answers distinct: %d of 3; on %s" % (
+            FL_DEVICE_SETS, out["ready_s"], json.dumps(out["card_mib"]),
+            out["apps"], out["mps"] or "none", out["buckets_distinct"],
+            card))
+    log("fleet parity: a quiet request through the router and on each "
+        "replica equals the smoke's Predictor at bucket 1, the MLP too; "
+        "bursts straight to each replica served buckets %s (%s requests), "
+        "every answer equal to that bucket's Predictor answer; dup_request "
+        "%s" % ([sorted(b[0]) for b in out["bursts"]],
+                [b[1] for b in out["bursts"]], json.dumps(out["dup"])))
+    p50r, p50d = out["c1_router"][0][1], out["c1_direct"][0][1]
+    log("fleet route overhead at concurrency 1 (resnet-50, x-npy): router "
+        "%s; direct %s; p50 difference %.3f ms" % (
+            load("c1_router"), load("c1_direct"), p50r - p50d))
+    qr, qd = out["c32_router"][0][0], out["c32_direct"][0][0]
+    log("fleet at concurrency 32: router %s, %s; one replica direct %s; "
+        "fleet / one replica = %.3f; CPU s over %.1f s idle (the --watch "
+        "poll hashes the newest epoch) %s; on %s" % (
+            load("c32_router"), json.dumps(out["c32_routed"]),
+            load("c32_direct"), qr / qd, FL_IDLE_S,
+            json.dumps(out["idle_cpu"]), card))
+    if sharded is not None:
+        log("fleet --workers 2 (no --watch) at concurrency 32: %s, ready "
+            "%.1f s; / the one-router fleet = %.3f" % (
+                load("c32", sharded), sharded["ready_s"],
+                sharded["c32"][0][0] / qr))
+    else:
+        log("fleet: the router used %s CPU s at concurrency 32, under %.1f a "
+            "second: no --workers 2 run" % (
+                json.dumps(out["c32_router"][1]), FL_ROUTER_BOUND))
+    log("fleet SIGKILL of the resnet home under %d clients: evicted %.2f s "
+        "after the kill, %d requests all 200 (%d retried: true), the respawn "
+        "rejoined %.2f s after the kill and answers the pre-kill bytes bit "
+        "for bit; router %s" % (
+            FL_KILL_CLIENTS, out["evict_s"], out["kill_requests"],
+            out["kill_retried"], out["rejoin_s"],
+            json.dumps(out["kill_counters"])))
+    log("fleet rolling swap under %d clients: epoch 2 on both replicas %.2f s "
+        "after the publish began, one at a time (fenced seen %s), %d requests "
+        "all 200; both replicas equal a fresh Predictor on epoch 2; %s" % (
+            FL_SWAP_CLIENTS, out["rollout_s"], out["fenced_seen"],
+            out["swap_requests"], json.dumps(out["rollout"])))
+    log("fleet drain: SIGTERM -> exit 0 in %.2f s (replicas draining at %s "
+        "s, gone at %s s), replicas 0 and 0; bn_act %d over the drained "
+        "runs' %s ResNet-50 batches (17 a forward: 3 warmup, the batches, a "
+        "staged validation and a probe a swap)" % (
+            out["drain_s"], out["replica_draining_s"], out["replica_exit_s"],
+            out["launches"], out["drained_batches"]))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -9550,7 +10190,8 @@ def main(argv=None):
                        ("data_service_paths", data_service_paths),
                        ("detection_paths", detection_paths),
                        ("resilience_paths", resilience_paths),
-                       ("serving_paths", serving_paths)):
+                       ("serving_paths", serving_paths),
+                       ("fleet_paths", fleet_paths)):
         extra += timed(name, path, torch, mx, seed, card)
     times["total"] = round(sum(times.values()), 1)
     log(json.dumps({"path_seconds": times}))

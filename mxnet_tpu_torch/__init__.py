@@ -8,7 +8,8 @@ the RecordIO image iterators), ``mx.recordio``, ``mx.image`` (``mx.img``),
 ``mx.image_det``, ``mx.dataflow`` (``mx.DevicePrefetchIter``), ``mx.engine``,
 ``mx.resilience`` (with ``mx.CheckpointManager``, ``mx.PreemptionHandler``,
 ``mx.StepWatchdog``), ``mx.serving`` (``ModelPool``, ``ServingFrontend``,
-the batcher and hot swap),
+the batcher and hot swap), ``mx.fleet`` (replica daemons behind one
+router),
 ``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
 ``mx.nd.contrib``), ``mx.rtc``, ``mx.mod`` (``mx.module``), ``mx.kv``
 (``mx.kvstore``), ``mx.metric``, ``mx.callback``, ``mx.cpu()``,
@@ -91,6 +92,9 @@ from .monitor import Monitor  # noqa: E402
 from . import torch_bridge  # noqa: E402
 from .torch_bridge import th  # noqa: E402
 from . import serving  # noqa: E402
+# the multi-replica serving fleet (torch-free; imported for the env
+# registry's completeness, like serving)
+from . import fleet  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -101,4 +105,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "random", "io", "engine", "recordio", "image", "img",
            "image_det", "dataflow", "DevicePrefetchIter", "lr_scheduler",
            "optimizer", "initializer", "parallel", "rnn", "contrib", "rtc", "mod", "module", "kv",
-           "kvstore", "metric", "callback", "executor_manager", "serving"]
+           "kvstore", "metric", "callback", "executor_manager", "serving",
+           "fleet"]

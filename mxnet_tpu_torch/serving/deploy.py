@@ -38,9 +38,10 @@ another model's swap, and a swapped model serves outputs bitwise equal
 to a fresh pool loaded directly from the new checkpoint — the swap
 installs the new epoch's exact bytes, not an approximation of them.
 
-The JAX package's fleet tier (``mxnet_tpu/fleet/deploy.py``, not ported
-yet) rolls this one replica at a time; ``tools/ckpt_fsck.py
---watch/--promote-gate`` reports with the same
+The fleet tier (``fleet/deploy.py``, :class:`~..fleet.RollingSwap`)
+rolls a verified epoch across a fleet one replica at a time, through
+each replica's ``POST /swap/<model>`` into this same swap path;
+``tools/ckpt_fsck.py --watch/--promote-gate`` reports with the same
 verifier, so fsck and deploy can never drift on what "healthy" means.
 """
 from __future__ import annotations

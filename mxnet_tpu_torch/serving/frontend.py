@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import signal
+import socket
 import threading
 import time
 import uuid
@@ -312,6 +313,18 @@ class _DedupCache(object):
             return {"entries": len(self._done),
                     "inflight": len(self._inflight),
                     "cap": self.cap, "ttl_s": self.ttl_s}
+
+
+class ServeHTTPServer(ThreadingHTTPServer):
+    """The daemon's HTTP server (and the fleet router's): a
+    ``ThreadingHTTPServer`` that listens with a backlog of
+    ``socket.SOMAXCONN`` (the kernel caps it at ``net.core.somaxconn``)
+    instead of socketserver's 5.  The accept loop waits for the GIL
+    behind handler and dispatcher threads, so a burst of new connections
+    (a load's 32 clients starting at once) overflowed 5 pending accepts,
+    and the kernel reset some of them mid-request."""
+
+    request_queue_size = socket.SOMAXCONN
 
 
 class ServingFrontend(object):
@@ -709,7 +722,7 @@ class ServingFrontend(object):
         class Handler(_Handler):
             fe = frontend
 
-        self._server = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._server = ServeHTTPServer((self.host, self.port), Handler)
         # handler threads must outlive shutdown() so drained requests
         # still get their responses written
         self._server.daemon_threads = False

@@ -554,8 +554,8 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 
 def test_new_modules_are_covered():
-    """The extension, input-pipeline, data-service, resilience and
-    serving slices' modules are among the sources the import check
+    """The extension, input-pipeline, data-service, resilience, serving
+    and fleet slices' modules are among the sources the import check
     walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
@@ -571,7 +571,10 @@ def test_new_modules_are_covered():
                 "module/module", "parallel/trainer", "serving/__init__",
                 "serving/batcher", "serving/pool", "serving/sequence",
                 "serving/aot", "serving/frontend", "serving/deploy",
-                "serving/serve_main"):
+                "serving/serve_main", "fleet/__init__", "fleet/manifest",
+                "fleet/view", "fleet/router", "fleet/controller",
+                "fleet/warm", "fleet/deploy", "fleet/autoscale",
+                "fleet/fleet_main"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 
