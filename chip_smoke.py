@@ -307,7 +307,23 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     replica 0, 17 ``bn_act`` launches a ResNet-50 forward in each drained
     run), and a ``--workers 2`` fleet at concurrency 32 when the router
     used 0.8 CPU s a second or more;
-29. logs every path's wall time (``<path>: %.1f s``, also written to
+29. runs the tools slice (``tools_paths``): ResNet-50 at batch 32 through
+    ``Module`` for 3 batches under ``profiler_set_state("run")`` in mode
+    ``all_xla`` (the profiler's overhead against 3 unprofiled batches;
+    the trace's ``bn_act`` kernels equal the launch counters, 50 + 50 a
+    batch, and ``get_op_stats`` puts each under its BatchNorm node or
+    that node's ``_backward_`` entry; ``dumps()``'s table), then the
+    same window twice more, logged: once without the profiler's warm-up
+    launches and once with them (launches without a kernel record, the
+    trace's ``bn_act`` kernels beside the counters); the graph
+    lint on ``gpu(0)`` (``SPMDTrainer.analyze`` of the standard MLP and
+    of ResNet-50: clean, 0 host syncs, 0 collectives, the analyze time),
+    one ResNet-50 step under ``MXTPU_ANALYZE=strict``, the step's peak
+    memory above resident, and its MFU against ``model_flops``; a strict ``ModelPool`` serving
+    ResNet-50 at bucket 32 after ``analyze``, equal to ``Predictor``;
+    and ``test_utils.check_consistency`` of a conv+BN+ReLU symbol on
+    ``[cpu(), gpu(0)]``, forward and backward, launching ``bn_act``;
+30. logs every path's wall time (``<path>: %.1f s``, also written to
     ``chiprun_out/smoke_times.json``), then prints a ``{"kernels":
     [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -791,7 +807,7 @@ def phase_serving(torch, mx, seed, card):
     compare_logits(np, _logits(mx, params, net, x2, gpu), ref,
                    "gpu fused vs cpu")
     before = ba.LAUNCHES
-    old = os.environ.get("MXTPU_FUSED_KERNELS")
+    old = os.environ.get("MXTPU_FUSED_KERNELS")  # mxlint: disable=env-direct-read (saved to restore)
     os.environ["MXTPU_FUSED_KERNELS"] = "0"
     try:
         unfused = _logits(mx, params, net, x2, gpu)
@@ -849,7 +865,7 @@ def phase_profile(torch, mx, net, params, card, what="resnet-50"):
     x = np.random.RandomState(5).standard_normal(shape).astype(np.float32)
 
     def bind(fused):
-        old = os.environ.get("MXTPU_FUSED_KERNELS")
+        old = os.environ.get("MXTPU_FUSED_KERNELS")  # mxlint: disable=env-direct-read (saved to restore)
         os.environ["MXTPU_FUSED_KERNELS"] = "1" if fused else "0"
         try:
             pred = mx.predict.Predictor(net, params, {"data": shape},
@@ -1136,7 +1152,7 @@ def phase_train_agreement(torch, mx, seed):
           "kernels, not (50, 50)" % (launched,))
     _compare_train(np, got, ref, exact, cpu_l2, "training gpu fused")
     before = (ba.LAUNCHES, ba.BWD_LAUNCHES)
-    old = os.environ.get("MXTPU_FUSED_KERNELS")
+    old = os.environ.get("MXTPU_FUSED_KERNELS")  # mxlint: disable=env-direct-read (saved to restore)
     os.environ["MXTPU_FUSED_KERNELS"] = "0"
     try:
         unfused = _executor_step(mx, symbol, weights, x, y, mx.gpu(0))
@@ -1961,7 +1977,7 @@ def phase_lm_agreement(torch, mx, seed):
     results = {}
     for fused in ("1", "0"):
         zero_lstm_counts(lc)
-        old = os.environ.get("MXTPU_FUSED_KERNELS")
+        old = os.environ.get("MXTPU_FUSED_KERNELS")  # mxlint: disable=env-direct-read (saved to restore)
         os.environ["MXTPU_FUSED_KERNELS"] = fused
         try:
             got = _executor_step(mx, symbol, weights, x, y, mx.gpu(0))
@@ -2624,7 +2640,7 @@ def phase_lc_agreement(torch, mx, seed):
     ref = _lc_grads(torch, mx, np_params, x, y, mx.cpu())
     for fused in ("1", "0"):
         before = fa.LAUNCHES
-        old = os.environ.get("MXTPU_FUSED_KERNELS")
+        old = os.environ.get("MXTPU_FUSED_KERNELS")  # mxlint: disable=env-direct-read (saved to restore)
         os.environ["MXTPU_FUSED_KERNELS"] = fused
         try:
             got = _lc_grads(torch, mx, np_params, x, y, mx.gpu(0))
@@ -4796,7 +4812,7 @@ REPAIR_TURN_FORWARDS = 4
 @contextlib.contextmanager
 def fused_kernels(value):
     """``MXTPU_FUSED_KERNELS=value`` while graphs are bound inside."""
-    old = os.environ.get("MXTPU_FUSED_KERNELS")
+    old = os.environ.get("MXTPU_FUSED_KERNELS")  # mxlint: disable=env-direct-read (saved to restore)
     os.environ["MXTPU_FUSED_KERNELS"] = value
     try:
         yield
@@ -5628,7 +5644,7 @@ def numpy_softmax_class(mx):
 def mirror_env(on):
     """``MXNET_BACKWARD_DO_MIRROR`` while executors and trainers are
     built inside."""
-    old = os.environ.get("MXNET_BACKWARD_DO_MIRROR")
+    old = os.environ.get("MXNET_BACKWARD_DO_MIRROR")  # mxlint: disable=env-direct-read (saved to restore)
     os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1" if on else "0"
     try:
         yield
@@ -6477,7 +6493,7 @@ def phase_decode_rates(torch, mx, train, seed, card):
     """Decode rate of each ImageRecordIter route into gpu(0), in img/s."""
     dev = mx.gpu(0)
     cores = os.cpu_count()
-    old = os.environ.get("MXNET_JPEG_DECODE_FAST")
+    old = os.environ.get("MXNET_JPEG_DECODE_FAST")  # mxlint: disable=env-direct-read (saved to restore)
     try:
         for threads in sorted({1, IN_THREADS, cores}):
             for dtype in ("float32", "uint8", "bfloat16"):
@@ -10140,6 +10156,431 @@ def _fl_report(out, sharded, card):
             out["launches"], out["drained_batches"]))
 
 
+# ---------------------------------------------------------------------------
+# the tools slice: profiler, graph lint, serving gate, check_consistency
+# ---------------------------------------------------------------------------
+
+#: Module batches under the profiler (and unprofiled ones beside them)
+TOOLS_PROFILED = 3
+#: warm-up launches of the profiled windows read after the gated one: a
+#: window with none beside one with the profiler's own
+TOOLS_WARMUPS = (0, None)
+#: steps timed for the MFU
+TOOLS_MFU_STEPS = 6
+
+
+def _bn_counts(ba):
+    return ba.LAUNCHES, ba.BWD_LAUNCHES
+
+
+def _bn_delta(ba, before):
+    return collections.Counter({"bn_act_fwd": ba.LAUNCHES - before[0],
+                                "bn_act_bwd": ba.BWD_LAUNCHES - before[1]})
+
+
+def _resnet50(mx):
+    with mx.name.NameManager():
+        return mx.models.get_symbol("resnet-50", num_classes=1000,
+                                    image_shape=IMAGE)
+
+
+@contextlib.contextmanager
+def _env(name, value):
+    old = os.environ.get(name)  # mxlint: disable=env-direct-read (saved to restore)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def _tools_module(torch, mx, seed):
+    """ResNet-50 bound through ``Module`` on ``gpu(0)``, one batch, its
+    BatchNorm node names and ``run(n)``: n batches, ms a batch."""
+    import numpy as np
+    symbol = _resnet50(mx)
+    bn_nodes = {n.name for n in symbol._nodes()
+                if n.op is not None and n.op.name == "BatchNorm"}
+    rs = np.random.RandomState(seed + 40)
+    it = mx.io.NDArrayIter(
+        rs.standard_normal((BATCH,) + IMAGE).astype(np.float32),
+        rs.randint(0, 1000, BATCH).astype(np.float32), batch_size=BATCH)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mx.random.seed(seed)
+    mod.init_params(initializer=mx.initializer.Xavier(
+        rnd_type="gaussian", factor_type="in", magnitude=2))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.01, "momentum": 0.9, "rescale_grad": 1.0 / BATCH})
+    batch = next(iter(it))
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    return bn_nodes, run
+
+
+def _tools_window(mx, run, trace_dir):
+    """One profiled window of ``TOOLS_PROFILED`` batches in mode
+    ``all_xla``: the counters' ``bn_act`` launches in it, ms a batch, the
+    trace's events and their attribution, and what the trace shows of
+    its own kernel records: ``lag_us``, the least start of a kernel less
+    the start of its launch (a kernel cannot start before its launch, so
+    a negative lag is the skew of the card's clock against the host's as
+    the trace maps them), and ``orphans``, the kernel launches with no
+    kernel record, each at ms from the window's start and end."""
+    from mxnet_tpu_torch import profiler
+    ba = mx.kernels.bn_act
+    profiler.profiler_set_config(mode="all_xla", trace_dir=trace_dir,
+                                 filename=trace_dir + ".json")
+    # -- the profiled path: counts read just before and just after ----------
+    at = _bn_counts(ba)
+    profiler.profiler_set_state("run")
+    try:
+        prof_ms = run(TOOLS_PROFILED)
+    finally:
+        profiler.profiler_set_state("stop")
+    fwd, bwd = ba.LAUNCHES - at[0], ba.BWD_LAUNCHES - at[1]
+    # ------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    with open(profiler.latest_device_trace()) as f:
+        events = json.load(f)["traceEvents"]
+    triples = profiler.attribute_trace(events)
+    parse_s = time.perf_counter() - t0
+    spans = [e for e in events if e.get("ph") == "X"]
+    start = min(e["ts"] for e in spans)
+    end = max(e["ts"] + e.get("dur", 0) for e in spans)
+    launches, done, ops, ext = {}, {}, {}, {}
+    for e in spans:
+        args = e.get("args") or {}
+        corr = args.get("correlation")
+        if e.get("cat") == "cpu_op" and "External id" in args:
+            ops.setdefault(args["External id"], e["ts"])
+        if corr is None:
+            continue
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                "LaunchKernel" in e["name"]:
+            launches[corr] = e["ts"]
+            ext[corr] = args.get("External id")
+        elif e.get("cat") == "kernel":
+            done[corr] = e["ts"]
+    lags = [done[c] - t for c, t in launches.items() if c in done]
+    orphans = sorted(t for c, t in launches.items() if c not in done)
+    # a launch record (CUPTI's clock) against the op that made it (the
+    # host's): below 0 where the launch seems to precede its own op
+    in_op = [t - ops[ext[c]] for c, t in launches.items()
+             if ext.get(c) in ops]
+    return {"fwd": fwd, "bwd": bwd, "prof_ms": prof_ms, "events": events,
+            "triples": triples, "parse_s": parse_s,
+            "n_fwd": sum("bn_act_fwd_kernel" in ev for _n, _u, ev in triples),
+            "n_bwd": sum("bn_act_bwd_kernel" in ev for _n, _u, ev in triples),
+            "lag_us": min(lags) if lags else None,
+            "in_op_us": min(in_op) if in_op else None,
+            "kernel_launches": len(launches),
+            "orphans": [(round((t - start) / 1e3, 3),
+                         round((end - t) / 1e3, 3)) for t in orphans]}
+
+
+def _log_tools_window(tag, w):
+    log("%s: bn_act %d / %d in the trace, %d / %d launches counted; %d "
+        "kernel launches, %d without a kernel record %s (ms from the "
+        "window's start, end); least launch-to-kernel lag %s us, least "
+        "launch less its op's start %s us" % (
+            tag, w["n_fwd"], w["n_bwd"], w["fwd"], w["bwd"],
+            w["kernel_launches"], len(w["orphans"]),
+            json.dumps(w["orphans"][:4] + w["orphans"][-2:]), w["lag_us"],
+            w["in_op_us"]))
+
+
+def phase_tools_profile(torch, mx, seed, card, tmp):
+    """ResNet-50 through ``Module`` under the profiler in mode
+    ``all_xla``: the trace's ``bn_act`` kernels against the counters, and
+    their attribution to BatchNorm nodes."""
+    from mxnet_tpu_torch import profiler
+    ba = mx.kernels.bn_act
+    before = _bn_counts(ba)
+    bn_nodes, run = _tools_module(torch, mx, seed)
+    run(2)                                  # warm-up, outside the trace
+    plain_ms = run(TOOLS_PROFILED)
+    w = _tools_window(mx, run, os.path.join(tmp, "trace"))
+    plain2_ms = run(TOOLS_PROFILED)
+    fwd, bwd, triples = w["fwd"], w["bwd"], w["triples"]
+    check(fwd == bwd == 50 * TOOLS_PROFILED,
+          "profiled fit: bn_act launches %d / %d, not %d each"
+          % (fwd, bwd, 50 * TOOLS_PROFILED))
+    _log_tools_window("tools profile", w)
+    check(not w["orphans"], "%d kernel launches without a kernel record "
+          "in the trace" % len(w["orphans"]))
+    stats = profiler.get_op_stats()
+    kinds = {"bn_act_fwd_kernel": ("", fwd), "bn_act_bwd_kernel":
+             ("_backward_", bwd)}
+    for kernel, (prefix, launches) in kinds.items():
+        owners = collections.Counter(node for node, _us, ev in triples
+                                     if kernel in ev)
+        n_trace = sum(owners.values())
+        stray = {k: v for k, v in owners.items()
+                 if not (k.startswith(prefix) and
+                         k[len(prefix):] in bn_nodes)}
+        log("tools profile: %s: %d in the trace, %d launches counted; "
+            "under %d distinct %sBatchNorm nodes; outside them: %s" % (
+                kernel, n_trace, launches, len(owners), prefix or "",
+                json.dumps(stray)))
+        check(n_trace == launches, "trace holds %d %s, counters %d"
+              % (n_trace, kernel, launches))
+        check(not stray, "%s attributed outside the BN nodes: %s"
+              % (kernel, stray))
+        for node in owners:
+            check(node in stats and stats[node]["total_us"] > 0,
+                  "get_op_stats lacks %s" % node)
+    busy = sum(us for _n, us, _e in triples)
+    unattr = sum(us for n, us, _e in triples if n == profiler.UNATTRIBUTED)
+    bn_us = sum(us for _n, us, ev in triples if "bn_act_" in ev)
+    prof_ms = w["prof_ms"]
+    log("tools profile: ResNet-50 Module batch %d: %.2f ms unprofiled "
+        "(%.2f ms after), %.2f ms profiled (x%.3f); device %.2f ms a batch "
+        "in %d kernels, %.1f%% unattributed, bn_act %.3f ms; %d nodes in "
+        "get_op_stats; trace parsed in %.2f s; on %s" % (
+            BATCH, plain_ms, plain2_ms, prof_ms,
+            prof_ms / ((plain_ms + plain2_ms) / 2), busy / 1e3 /
+            TOOLS_PROFILED, len(triples) // TOOLS_PROFILED,
+            100.0 * unattr / max(busy, 1e-9), bn_us / 1e3 / TOOLS_PROFILED,
+            len(stats), w["parse_s"], card))
+    for line in profiler.dumps().splitlines()[:14]:
+        log("tools dumps: " + line)
+    return _bn_delta(ba, before)
+
+
+def phase_tools_profile_windows(torch, mx, seed, card, tmp, windows,
+                                gap_s=0.0, warmups=None):
+    """The profiled fit's trace in this process, ``windows`` times with
+    ``gap_s`` seconds of unprofiled batches between: each window's
+    ``bn_act`` kernels against the counters, its launches without a
+    kernel record and its clock readings, logged (a reading: in a
+    process that has traced windows before, a trace can lose the kernel
+    records of its window's first launches unless the profiler warms
+    CUPTI up first).  ``warmups`` cycles ``profiler.WARMUP_LAUNCHES``
+    over the windows (None: the profiler's own)."""
+    from mxnet_tpu_torch import profiler
+    ba = mx.kernels.bn_act
+    warm0 = profiler.WARMUP_LAUNCHES
+    before = _bn_counts(ba)
+    _bn_nodes, run = _tools_module(torch, mx, seed)
+    run(2)
+    born = time.perf_counter()
+    for i in range(windows):
+        if i and gap_s:
+            t_end = time.perf_counter() + gap_s
+            while time.perf_counter() < t_end:
+                run(1)
+        warm = warmups[i % len(warmups)] if warmups else None
+        warm = warm0 if warm is None else warm
+        profiler.WARMUP_LAUNCHES = warm
+        try:
+            w = _tools_window(mx, run, os.path.join(tmp, "window-%d" % i))
+        finally:
+            profiler.WARMUP_LAUNCHES = warm0
+        check(w["fwd"] == w["bwd"] == 50 * TOOLS_PROFILED,
+              "profiled window: bn_act launches %d / %d" % (w["fwd"],
+                                                           w["bwd"]))
+        _log_tools_window("tools profile in-process window %d at %.0f s, %d "
+                    "warm-up launches" % (i, time.perf_counter() - born,
+                                          warm), w)
+    log("tools profile in-process: on %s" % card)
+    return _bn_delta(ba, before)
+
+
+def phase_tools_lint(torch, mx, seed, card):
+    """``SPMDTrainer.analyze`` on ``gpu(0)``, a strict-gated ResNet-50
+    step, the step's peak memory above resident, and MFU."""
+    import numpy as np
+    from mxnet_tpu_torch.analysis import fixtures
+    from mxnet_tpu_torch.contrib.flops import model_flops
+    ba = mx.kernels.bn_act
+    before = _bn_counts(ba)
+    mlp = fixtures.standard_mlp_trainer(ctx=mx.gpu(0))
+    t0 = time.perf_counter()
+    rep = mlp.analyze(*fixtures.standard_mlp_batch())
+    mlp_s = time.perf_counter() - t0
+    coll = sum(c["count"] for c in rep.stats["collectives"].values())
+    log("tools lint: standard MLP on gpu(0): %s; %d ops, %d host syncs, %d "
+        "collectives, %.3f s" % (
+            "clean" if rep.ok else rep.format_text(),
+            rep.stats["dispatched_ops"], rep.stats["host_syncs"], coll,
+            mlp_s))
+    check(rep.ok and rep.stats["host_syncs"] == 0 and coll == 0,
+          "MLP step lint: %s" % rep.format_text())
+    mlp.close()
+
+    tr = make_trainer(torch, mx, seed)
+    dev = mx.gpu(0).torch_device
+    rs = np.random.RandomState(seed + 41)
+    x = torch.from_numpy(rs.standard_normal((BATCH,) + IMAGE)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rs.randint(0, 1000, BATCH).astype(np.float32)) \
+        .to(dev)
+    w0 = {k: v.clone() for k, v in tr.params.items()}
+    times = []
+    for _ in range(2):          # the first pays cuDNN's autotuning
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = tr.analyze(x, y)
+        times.append(time.perf_counter() - t0)
+    coll = sum(c["count"] for c in rep.stats["collectives"].values())
+    log("tools lint: ResNet-50 step batch %d on gpu(0): %s; %d ops, %d host "
+        "syncs, %d collectives, kernel launches %s, plan %s; analyze %.2f s "
+        "(first %.2f s); on %s" % (
+            BATCH, "clean" if rep.ok else rep.format_text(),
+            rep.stats["dispatched_ops"], rep.stats["host_syncs"], coll,
+            json.dumps(rep.stats["kernel_launches"]),
+            json.dumps(rep.stats["plan_fusion"]), times[-1], times[0], card))
+    check(rep.ok and rep.stats["host_syncs"] == 0 and coll == 0,
+          "ResNet-50 step lint: %s" % rep.format_text())
+    check(rep.stats["kernel_launches"] == {"bn_act_bwd": 50,
+                                           "bn_act_fwd": 50},
+          "analyze saw launches %s" % rep.stats["kernel_launches"])
+    check(tr._num_update == 0 and all(torch.equal(v, w0[k])
+                                      for k, v in tr.params.items()),
+          "analyze moved the trainer")
+    ptrs = {k: v.data_ptr() for k, v in tr.params.items()}
+    with _env("MXTPU_ANALYZE", "strict"):
+        out = tr.step(x, y)[0]
+    torch.cuda.synchronize()
+    check(tr._num_update == 1 and len(tr._analyzed_keys) == 1
+          and bool(torch.isfinite(out).all()),
+          "strict-gated step did not train")
+    check(all(v.data_ptr() == ptrs[k] for k, v in tr.params.items()),
+          "params moved to new storage")
+    moved = sum(not torch.equal(v, w0[k]) for k, v in tr.params.items())
+    log("tools lint: MXTPU_ANALYZE=strict ResNet-50 step trained (%d of %d "
+        "params moved, storage kept)" % (moved, len(w0)))
+    check(moved == len(w0), "the strict step moved %d params" % moved)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    tr.step(x, y)
+    torch.cuda.synchronize()
+    log("tools lint: ResNet-50 step peak above resident %.1f MiB, resident "
+        "%.1f MiB; on %s" % (
+            (torch.cuda.max_memory_allocated() - resident) / 2 ** 20,
+            resident / 2 ** 20, card))
+
+    flops = model_flops(_resnet50(mx), data=(BATCH,) + IMAGE)
+    tr.step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TOOLS_MFU_STEPS):
+        tr.step(x, y)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TOOLS_MFU_STEPS
+    log("tools flops: ResNet-50 model_flops %d forward at batch %d (%.3f "
+        "GFLOP an image), %d a training step (3x); step %.2f ms -> %.2f "
+        "TFLOP/s, MFU %.4f of %.0f TFLOP/s float32 (TF32 off); on %s" % (
+            flops, BATCH, flops / BATCH / 1e9, 3 * flops, step_s * 1e3,
+            3 * flops / step_s / 1e12, 3 * flops / step_s / F32_FLOPS_PER_S,
+            F32_FLOPS_PER_S / 1e12, card))
+    check(tr.skipped_steps == 0, "skipped steps in the tools phase")
+    tr.close()
+    return _bn_delta(ba, before)
+
+
+def phase_tools_serving_gate(torch, mx, seed, card):
+    """A strict ``ModelPool`` serving ResNet-50 at bucket 32 after
+    ``analyze``, against ``Predictor``."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    before = _bn_counts(ba)
+    symbol = _resnet50(mx)
+    args, aux = draw_weights(symbol, (BATCH,) + IMAGE, seed + 42)
+    x = np.random.RandomState(seed + 43).standard_normal(
+        (BATCH,) + IMAGE).astype(np.float32)
+    with _env("MXTPU_ANALYZE", "strict"):
+        pool = mx.serving.ModelPool(ctx=mx.gpu(0))
+        pool.add("resnet-50", symbol, args, aux,
+                 sample_shapes={"data": IMAGE})
+        entry = pool.get("resnet-50")
+        t0 = time.perf_counter()
+        rep = entry.analyze(bucket=BATCH)
+        analyze_s = time.perf_counter() - t0
+        check(rep.ok and rep.stats["host_syncs"] == 0,
+              "serving lint: %s" % rep.format_text())
+        got = entry.forward({"data": x})[0]
+    check((("data", (BATCH,) + IMAGE),) in entry._analyzed,
+          "the strict gate did not lint the signature")
+    pred = mx.predict.Predictor(symbol, _with_prefixes(args, aux),
+                                {"data": x.shape}, ctx=mx.gpu(0))
+    want = pred.forward(data=x).get_output(0)
+    check(got.shape == (BATCH, 1000) and np.isfinite(got).all(),
+          "strict pool output %s" % (got.shape,))
+    same = bool(np.array_equal(got, want))
+    log("tools serving gate: MXTPU_ANALYZE=strict pool served ResNet-50 at "
+        "bucket %d after analyze (%s, %d ops, %d host syncs, launches %s, "
+        "%.2f s); output equal to Predictor bit for bit: %s; max |diff| "
+        "%.3g; on %s" % (
+            BATCH, "clean" if rep.ok else "findings",
+            rep.stats["dispatched_ops"], rep.stats["host_syncs"],
+            json.dumps(rep.stats["kernel_launches"]), analyze_s, same,
+            float(np.abs(got - want).max()), card))
+    check(float(np.abs(got - want).max()) <= 1e-5,
+          "strict pool disagrees with Predictor")
+    return _bn_delta(ba, before)
+
+
+def phase_tools_consistency(torch, mx, seed):
+    """``test_utils.check_consistency`` of conv+BN+ReLU on ``[cpu(),
+    gpu(0)]``, the training forward and backward."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    data = mx.sym.Variable("data")
+    net = mx.sym.Convolution(data, num_filter=16, kernel=(3, 3),
+                             pad=(1, 1), name="cc_conv")
+    net = mx.sym.BatchNorm(net, fix_gamma=False, name="cc_bn")
+    net = mx.sym.Activation(net, act_type="relu", name="cc_relu")
+    shapes = {"data": (4, 8, 16, 16)}
+    np.random.seed(seed + 44)
+    before = _bn_counts(ba)
+    for is_train in (False, True):
+        mx.test_utils.check_consistency(
+            net, [mx.cpu(), mx.gpu(0)], shapes=shapes, is_train=is_train,
+            rtol=1e-3, atol=1e-3)
+    delta = _bn_delta(ba, before)
+    log("tools check_consistency: conv+BN+ReLU %s on [cpu(), gpu(0)], "
+        "inference and training (outputs and every argument gradient "
+        "within rtol 1e-3, atol 1e-3); bn_act launches on gpu(0) %s"
+        % (shapes["data"], json.dumps(delta)))
+    check(delta["bn_act_fwd"] >= 1 and delta["bn_act_bwd"] >= 1,
+          "check_consistency launched no bn_act")
+    return delta
+
+
+def tools_paths(torch, mx, seed, card):
+    """The tools slice on the card (docstring item 29).  Returns every
+    ``bn_act`` launch of its paths (rows 1-2)."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tools-", dir=build_dir)
+    try:
+        counts = phase_tools_profile(torch, mx, seed, card, tmp)
+        counts += phase_tools_profile_windows(torch, mx, seed, card, tmp,
+                                              len(TOOLS_WARMUPS),
+                                              warmups=TOOLS_WARMUPS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts += phase_tools_lint(torch, mx, seed, card)
+    counts += phase_tools_serving_gate(torch, mx, seed, card)
+    counts += phase_tools_consistency(torch, mx, seed)
+    return counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -10191,7 +10632,8 @@ def main(argv=None):
                        ("detection_paths", detection_paths),
                        ("resilience_paths", resilience_paths),
                        ("serving_paths", serving_paths),
-                       ("fleet_paths", fleet_paths)):
+                       ("fleet_paths", fleet_paths),
+                       ("tools_paths", tools_paths)):
         extra += timed(name, path, torch, mx, seed, card)
     times["total"] = round(sum(times.values()), 1)
     log(json.dumps({"path_seconds": times}))

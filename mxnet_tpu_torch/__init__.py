@@ -13,7 +13,12 @@ router),
 ``mx.parallel``, ``mx.rnn``, ``mx.contrib`` (also as ``mx.sym.contrib`` /
 ``mx.nd.contrib``), ``mx.rtc``, ``mx.mod`` (``mx.module``), ``mx.kv``
 (``mx.kvstore``), ``mx.metric``, ``mx.callback``, ``mx.cpu()``,
-``mx.gpu(i)``, ``mx.current_context()``, ``mx.num_gpus()``, and the
+``mx.gpu(i)``, ``mx.current_context()``, ``mx.num_gpus()``, the tools
+(``mx.profiler`` with ``mx.profiler_set_config`` /
+``mx.profiler_set_state`` / ``mx.dump_profile``, ``mx.viz``
+(``mx.visualization``), ``mx.test_utils``, ``mx.libinfo``,
+``mx.analysis``, the linter; ``mxnet_tpu_torch.notebook`` and
+``mxnet_tpu_torch.contrib.flops`` on import), and the
 classes ``mx.NDArray``, ``mx.Symbol``, ``mx.Executor``, ``mx.Optimizer``.
 This package imports ``torch``, ``numpy`` and
 the standard library only; it never imports ``jax`` or ``mxnet_tpu``.
@@ -95,6 +100,14 @@ from . import serving  # noqa: E402
 # the multi-replica serving fleet (torch-free; imported for the env
 # registry's completeness, like serving)
 from . import fleet  # noqa: E402
+from . import profiler  # noqa: E402
+from .profiler import (profiler_set_config, profiler_set_state,  # noqa: E402
+                       dump_profile)
+from . import visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from . import libinfo  # noqa: E402
+from . import test_utils  # noqa: E402
+from . import analysis  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -106,4 +119,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "image_det", "dataflow", "DevicePrefetchIter", "lr_scheduler",
            "optimizer", "initializer", "parallel", "rnn", "contrib", "rtc", "mod", "module", "kv",
            "kvstore", "metric", "callback", "executor_manager", "serving",
-           "fleet"]
+           "fleet", "profiler", "profiler_set_config", "profiler_set_state",
+           "dump_profile", "visualization", "viz", "libinfo", "test_utils",
+           "analysis"]

@@ -233,6 +233,20 @@ def _build_eval(symbol, mirror_segments=0):
     return eval_fn
 
 
+#: open node-range requests (running device profiles): while above 0,
+#: every interpreted node runs inside
+#: ``torch.profiler.record_function(node.name)`` — the port's counterpart
+#: of the JAX executor's ``jax.named_scope(node.name)``, paid only while a
+#: profile runs
+_NODE_RANGES = [0]
+
+
+def node_ranges(on):
+    """Open (``True``) or close one request for per-node profiler ranges
+    (:mod:`~mxnet_tpu_torch.profiler` does, around a device trace)."""
+    _NODE_RANGES[0] = max(0, _NODE_RANGES[0] + (1 if on else -1))
+
+
 def _bind_variable(node, args, aux):
     if node.name in args:
         return args[node.name]
@@ -284,7 +298,11 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
                 call_attrs = dict(call_attrs, ctx=on)
             if node.op.needs_rng:
                 kw["rng"] = _random.node_generator(rng, ix, on)
-        out = fn(*ins, **call_attrs, **kw)
+        if _NODE_RANGES[0]:
+            with torch.profiler.record_function(node.name):
+                out = fn(*ins, **call_attrs, **kw)
+        else:
+            out = fn(*ins, **call_attrs, **kw)
         if not isinstance(out, (tuple, list)):
             out = (out,)
         env[id(node)] = tuple(out[:n_out])

@@ -309,19 +309,21 @@ class PrefetchingIter(DataIter):
         self._errors = [None] * self.n_iter
 
         def prefetch_func(self, i):
-            # slot i is a strict handshake: data_taken[i] / data_ready[i]
-            # give exactly one side the slot at any moment
+            # slot i is lock-free by design: data_taken[i]/data_ready[i]
+            # form a strict handshake — exactly one side owns the slot at
+            # any moment, and Event.set/wait provide the happens-before
+            # edge a lock would
             while True:
                 self.data_taken[i].wait()
                 if not self.started:
                     break
                 try:
-                    self.next_batch[i] = self._next_with_retry(i)
+                    self.next_batch[i] = self._next_with_retry(i)  # mxlint: disable=repo-shared-mutation
                 except StopIteration:
-                    self.next_batch[i] = None
+                    self.next_batch[i] = None  # mxlint: disable=repo-shared-mutation
                 except Exception as e:  # noqa: BLE001 — surfaced to consumer
-                    self._errors[i] = e
-                    self.next_batch[i] = None
+                    self._errors[i] = e  # mxlint: disable=repo-shared-mutation
+                    self.next_batch[i] = None  # mxlint: disable=repo-shared-mutation
                 self.data_taken[i].clear()
                 self.data_ready[i].set()
 
@@ -377,11 +379,11 @@ class PrefetchingIter(DataIter):
             e.wait()
         for i, err in enumerate(self._errors):
             if err is not None:
-                # the prefetch thread is parked (data_ready set, taken
-                # clear): the consumer owns the slot.  Release only the
-                # failed iterator's thread to refetch; healthy ones keep
-                # their in-flight batches
-                self._errors[i] = None
+                # safe without a lock: the prefetch thread is parked
+                # (data_ready set, taken clear), so the consumer owns the
+                # slot.  Release only the failed iterator's thread to
+                # refetch; healthy ones keep their in-flight batches
+                self._errors[i] = None  # mxlint: disable=repo-shared-mutation
                 self.data_ready[i].clear()
                 self.data_taken[i].set()
                 raise err

@@ -48,6 +48,7 @@ from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
            "load_library", "library_path", "BUILD_SECONDS", "ENV_FLASH_BLOCK",
+           "LAUNCH_HOOKS", "note_launch",
            "bn_act", "lstm_cell", "flash_attention", "roofline",
            "concat_fuse", "pool_act", "eltwise_chain", "augment"]
 
@@ -97,6 +98,26 @@ def enabled_kernels():
 def fused_enabled(name):
     """Whether the named fused kernel is used for graphs bound now."""
     return name in enabled_kernels()
+
+
+#: ``hook(kernel, grad_enabled, requires_grad)`` callables told of every
+#: hand-written kernel launch.  The kernels launch through ctypes, so no
+#: dispatch mode sees them: the graph lint's recorder
+#: (``analysis/graph_lint.record_step``) listens here
+LAUNCH_HOOKS = []
+
+
+def note_launch(kernel, *tensors):
+    """Report one launch of ``kernel`` on ``tensors`` to the hooks: grad
+    mode, and whether any input requires grad.  Costs one list test when
+    nothing listens."""
+    if not LAUNCH_HOOKS:
+        return
+    import torch
+    grad = torch.is_grad_enabled()
+    req = any(getattr(t, "requires_grad", False) for t in tensors)
+    for hook in list(LAUNCH_HOOKS):
+        hook(kernel, grad, req)
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ import ctypes
 import torch
 
 from ..ops.registry import register
+from . import note_launch
 
 __all__ = ["lstm_cell", "LSTMCellFn", "lstm_cell_fwd", "lstm_cell_bwd",
            "lstm_cell_plain", "lstm_cell_bwd_plain", "LAUNCHES",
@@ -212,6 +213,7 @@ def lstm_cell_fwd(gates, c_prev):
         raise RuntimeError("lstm_cell kernel launch failed: CUDA error %d"
                            % err)
     LAUNCHES += 1
+    note_launch("lstm_cell_fwd", gates, c_prev)
     return h, c
 
 
@@ -239,6 +241,7 @@ def lstm_cell_bwd(gates, c_prev, dh, dc):
         raise RuntimeError("lstm_cell backward kernel launch failed: CUDA "
                            "error %d" % err)
     BWD_LAUNCHES += 1
+    note_launch("lstm_cell_bwd", gates, c_prev, dh, dc)
     return dgates, dc_prev
 
 
@@ -520,6 +523,7 @@ def lstm_seq_fwd(xg, w_h2h, h0, c0, keep=False, route="persistent"):
                 (xg, w_h2h, h0, c0, hs, cs, gates, hT, cT), T, N, H,
                 xg.dtype, xg.device, plan)
     SEQ_LAUNCHES += 1
+    note_launch("lstm_seq_fwd", xg, w_h2h, h0, c0)
     ROUTE_LAUNCHES["persistent"] += 1
     if not keep:
         return SeqOut(hs, cs, hT, cT, None, None, None)
@@ -556,6 +560,7 @@ def lstm_seq_bwd(gates, c_prev, w_h2h, dhs, dhT, dcT, route="persistent"):
                 (gates, c_prev, w_h2h, dhs, dhT, dcT, dgates, dh0, dc0), T,
                 N, H, gates.dtype, gates.device, plan)
     SEQ_BWD_LAUNCHES += 1
+    note_launch("lstm_seq_bwd", gates, c_prev, w_h2h, dhs, dhT, dcT)
     ROUTE_LAUNCHES["persistent"] += 1
     return dgates, dh0, dc0
 

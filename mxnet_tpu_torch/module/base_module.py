@@ -9,7 +9,8 @@ python/mxnet/module/base_module.py: bind -> init_params -> init_optimizer
 (``checkpoint=``, ``resume=``, ``preemption_safe=``, ``watchdog=``, with
 the knobs ``MXTPU_RESUME``, ``MXTPU_ON_PREEMPT``, ``MXTPU_STEP_TIMEOUT``)
 and deferred train metrics on the fused route.  ``MXTPU_PROFILE_DIR``
-(step-trace capture) comes with the profiler slice and raises when set.
+captures a ``torch.profiler`` trace of steps 10-15 of the first epoch
+(``profiler.StepTraceCapture``).
 """
 from __future__ import annotations
 
@@ -19,20 +20,12 @@ import signal
 import time
 
 from .. import metric as metric_mod
-from ..base import MXNetError, register_env
+from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
 from ..ndarray import concatenate
 
 __all__ = ["BaseModule"]
-
-#: the JAX package's step-trace knob, registered so a setting is
-#: recognised and refused rather than silently ignored
-ENV_PROFILE_DIR = register_env(
-    "MXTPU_PROFILE_DIR", default=None,
-    doc="The JAX package's step-trace capture directory; comes with the "
-        "profiler slice of mxnet_tpu_torch (fit raises when it is set)")
-
 
 def _as_list(obj):
     if obj is None:
@@ -191,11 +184,6 @@ class BaseModule(object):
         from .. import resilience
         from ..resilience import (CheckpointManager, PreemptionHandler,
                                   StepWatchdog, faults, preempted_exit)
-        if str(get_env(ENV_PROFILE_DIR, "") or ""):
-            raise MXNetError(
-                "fit: MXTPU_PROFILE_DIR (step-trace capture) is not ported "
-                "yet (it comes with the profiler slice of mxnet_tpu_torch)")
-
         if checkpoint is not None and not hasattr(checkpoint, "restore"):
             checkpoint = CheckpointManager(checkpoint)
         if not resume and str(get_env(resilience.ENV_RESUME, "0")) == "1":
@@ -289,6 +277,7 @@ class BaseModule(object):
         # monitor thread its memory
         preempt = None
         wd = None
+        trace = None
         own_watchdog = False
         fused_trainer = self._deferred_metric_trainer()
         try:
@@ -310,6 +299,11 @@ class BaseModule(object):
                 wd.start()
                 if fused_trainer is not None:
                     fused_trainer.install_watchdog(wd)
+
+            # MXTPU_PROFILE_DIR: capture a torch.profiler trace of steps
+            # 10-15 of the first epoch (None when the env is unset)
+            from .. import profiler as _profiler
+            trace = _profiler.StepTraceCapture.from_env()
 
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
@@ -341,6 +335,8 @@ class BaseModule(object):
                         except StopIteration:
                             break
                         nbatch += 1
+                        if trace is not None:
+                            trace.on_batch(nbatch)
                         if monitor is not None:
                             monitor.tic()
                         self.forward_backward(data_batch)
@@ -367,6 +363,10 @@ class BaseModule(object):
                             self._save_preemption_checkpoint(
                                 checkpoint, epoch, nbatch + 1)
                             preempted_exit()
+
+                if trace is not None:
+                    trace.stop()  # epoch shorter than the window: close
+                    trace = None  # first epoch only
 
                 # one epoch of training is finished
                 for name, val in eval_metric.get_name_value():
@@ -414,6 +414,8 @@ class BaseModule(object):
                 checkpoint.wait()
             resilience.wait_checkpoints()
         finally:
+            if trace is not None:
+                trace.stop()    # a fit that raised inside the window
             if preempt is not None:
                 preempt.uninstall()
             if wd is not None:

@@ -1,0 +1,3 @@
+"""Notebook utilities (port of ``mxnet_tpu/notebook``; reference
+python/mxnet/notebook/)."""
+from . import callback  # noqa: F401

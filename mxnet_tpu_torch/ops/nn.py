@@ -69,7 +69,12 @@ def _fc_infer(attrs, in_shapes):
 
 @register("FullyConnected", input_names=_fc_inputs, infer_shape=_fc_infer)
 def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False):
-    """y = x @ W.T + b with the input flattened to 2D."""
+    """y = x @ W.T + b with the input flattened to 2D.  Mixed float
+    inputs promote, as ``jnp.dot`` does in the JAX package."""
+    if data.dtype != weight.dtype and data.is_floating_point() and \
+            weight.is_floating_point():
+        dt = torch.promote_types(data.dtype, weight.dtype)
+        data, weight = data.to(dt), weight.to(dt)
     out = torch.matmul(data.reshape(data.shape[0], -1), weight.t())
     if bias is not None:
         out = out + bias

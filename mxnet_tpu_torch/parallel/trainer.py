@@ -17,8 +17,13 @@ on the trainer's side stream (``dataflow.Uploader``); ``stage_batch``
 does that ahead of the step, and ``step``/``eval_step``/``forward_only``
 take the :class:`~mxnet_tpu_torch.io.StagedBatch` it makes without a
 copy.  The JAX package compiles the step into one XLA
-program that updates in place; here the step runs eagerly and makes new
-parameter tensors each step.
+program that updates its donated carries in place; here the step runs
+eagerly and writes each carry's new value into the carry's own storage
+(params, aux, optimizer state, the guard counters and a deferred
+metric's accumulators keep their ``data_ptr`` across steps), the port's
+counterpart of donation.  :meth:`SPMDTrainer.analyze` lints one step's
+dispatched work (``analysis/graph_lint.py``), and ``MXTPU_ANALYZE=1`` /
+``strict`` runs that lint at the first step of each input signature.
 
 ``remat=True`` (or ``MXNET_BACKWARD_DO_MIRROR=1``) runs the step's
 forward as checkpointed segments that the backward recomputes.
@@ -192,6 +197,11 @@ class SPMDTrainer(object):
         self._num_update = 0
         self._outputs = None
         self._uploader = None     # dataflow.Uploader, made at first upload
+        # MXTPU_ANALYZE: input signatures already linted, strict-mode
+        # refusals (sticky per signature), and the cached "off" answer
+        self._analyzed_keys = set()
+        self._refused = {}
+        self._analyze_off = False
 
     # -- setup ------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None):
@@ -328,23 +338,17 @@ class SPMDTrainer(object):
         if guard:
             finite = torch.isfinite(torch.cat(
                 [grads[n].reshape(-1) for n in self.param_names])).all()
-        new_params, new_state = {}, {}
+        # non-finite step: params, optimizer state and aux (BN moving
+        # stats from a poisoned batch) pass through unchanged
         for name in self.param_names:
             g = grads[name].to(params[name].dtype)
             w, s = self._apply_update(name, params[name], g,
                                       opt_state[name], lr, wd, t)
-            if guard:
-                # non-finite step: params AND optimizer state pass
-                # through unchanged
-                w = torch.where(finite, w, params[name])
-                s = tuple(torch.where(finite, sn, so)
-                          for sn, so in zip(s, opt_state[name]))
-            new_params[name] = w
-            new_state[name] = s
-        new_aux = dict(aux)
+            params[name] = self._carry(params[name], w, finite)
+            opt_state[name] = tuple(self._carry(so, sn, finite)
+                                    for sn, so in zip(s, opt_state[name]))
         for name, v in auxu.items():
-            # BN moving stats from a poisoned batch must not stick either
-            new_aux[name] = torch.where(finite, v, aux[name]) if guard else v
+            aux[name] = self._carry(aux[name], v, finite)
         if guard:
             acc = self._guard_acc
             total, consec, trips = acc[0], acc[1], acc[2]
@@ -353,19 +357,37 @@ class SPMDTrainer(object):
             if self.max_consecutive_bad_steps > 0:
                 trips = trips + (new_consec == self.max_consecutive_bad_steps
                                  ).to(trips.dtype)
-            self._guard_acc = torch.stack(
-                [torch.where(finite, total, total + 1), new_consec, trips])
+            else:
+                # stack's out= refuses an input that is a view of it
+                trips = trips.clone()
+            # the counters' own storage (the port's counterpart of the
+            # JAX package's donated carries)
+            torch.stack([torch.where(finite, total, total + 1), new_consec,
+                         trips], out=acc)
         outs = [o.detach() for o in outs]
         if self._metric_fn is not None:
             ds, dc = self._metric_fn(outs, data)
             s_acc, c_acc = self._metric_acc
-            s_new, c_new = s_acc + ds, c_acc + dc
-            if guard:
-                s_new = torch.where(finite, s_new, s_acc)
-                c_new = torch.where(finite, c_new, c_acc)
-            self._metric_acc = (s_new, c_new)
-        self.params, self.aux, self.opt_state = new_params, new_aux, new_state
+            # a guard-skipped step adds nothing
+            self._metric_acc = (self._carry(s_acc, s_acc + ds, finite),
+                                self._carry(c_acc, c_acc + dc, finite))
         return outs
+
+    def _carry(self, old, new, finite):
+        """One carry's value after the step: ``new``, or ``old`` where the
+        guard found the step non-finite (``finite`` is None without the
+        guard), written into ``old``'s storage (the port's counterpart of
+        the JAX package's ``DONATE_ARGNUMS``) unless the value changes the
+        carry's dtype or shape.  With the guard that is the one
+        ``where(..., out=old)`` kernel; without it, one copy a carry."""
+        if finite is not None:
+            fits = torch.result_type(new, old) == old.dtype and \
+                torch.broadcast_shapes(new.shape, old.shape) == old.shape
+            return torch.where(finite, new, old, out=old) if fits \
+                else torch.where(finite, new, old)
+        if new.dtype == old.dtype and new.shape == old.shape:
+            return old.copy_(new)
+        return new
 
     def stage_batch(self, *batch_arrays):
         """Place one batch (data and labels in ``input_names`` order:
@@ -481,9 +503,18 @@ class SPMDTrainer(object):
         data = self._resolve_batch(batch_arrays, train=True)
         if key is None:
             key = _random.next_seed()
+        if not self._analyze_off:
+            # MXTPU_ANALYZE: lint each new input signature BEFORE its
+            # first step — strict mode must refuse to train a step that
+            # violates the graph invariants
+            self._maybe_env_analyze(data, key)
         self._num_update += 1
-        lr = self.optimizer.lr if self.optimizer.lr_scheduler is None else \
-            self.optimizer.lr_scheduler(self._num_update)
+        return self._dispatch(data, key)
+
+    def _ensure_accumulators(self):
+        """The device-side guard counters and metric accumulators, made
+        at the first step (and after a metric fetch) — carries from then
+        on."""
         if self.step_guard and self._guard_acc is None:
             self._guard_acc = torch.zeros(3, dtype=torch.int32,
                                           device=self._device)
@@ -492,6 +523,16 @@ class SPMDTrainer(object):
             self._metric_acc = tuple(
                 torch.zeros((), dtype=torch.float32, device=self._device)
                 for _ in range(2))
+
+    def _dispatch(self, data, key):
+        """The step window: the device work of one step on a resolved
+        batch (forward, backward, guard, update, aux merge, metric) —
+        what :meth:`analyze` records.  The guard counters' one-step-late
+        read (:meth:`flush_step_guard`) and the batch's upload lie
+        outside it."""
+        lr = self.optimizer.lr if self.optimizer.lr_scheduler is None else \
+            self.optimizer.lr_scheduler(self._num_update)
+        self._ensure_accumulators()
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in self.params.items()}
         with torch.enable_grad():
@@ -606,6 +647,125 @@ class SPMDTrainer(object):
     def reset_metric(self):
         """Zero the device accumulators (epoch start)."""
         self._metric_acc = None
+
+    # -- static analysis (mxlint graph level) ------------------------------
+    def _carries(self):
+        """The step's carries, as the graph lint compares them."""
+        return {"params": self.params, "aux": self.aux,
+                "opt_state": self.opt_state,
+                "extras": {"guard": self._guard_acc,
+                           "metric": self._metric_acc}}
+
+    def _lint(self, data, key, inputs=(), min_donate_bytes=0):
+        """Record one step window on the resolved batch ``data`` and lint
+        it, then put every carry back as it was (values, storage and the
+        update counter): analysing a step trains nothing."""
+        from ..analysis import graph_lint
+        carries = self._carries()
+        saved = [(t, t.clone()) for _, t in graph_lint._flatten(carries)]
+        held = (dict(self.params), dict(self.aux), dict(self.opt_state),
+                self._guard_acc, self._metric_acc)
+        state = (self._num_update, self._guard_pending, self._outputs)
+
+        def window():
+            self._num_update += 1
+            return self._dispatch(data, key)
+
+        try:
+            rec = graph_lint.record_step(window, carries=self._carries,
+                                         inputs=list(inputs))
+        finally:
+            for d, old in zip((self.params, self.aux, self.opt_state),
+                              held[:3]):
+                d.clear()
+                d.update(old)
+            self._guard_acc, self._metric_acc = held[3], held[4]
+            with torch.no_grad():
+                for t, v in saved:
+                    t.copy_(v)
+            self._num_update, self._guard_pending, self._outputs = state
+        param_bytes = sum(v.numel() * v.element_size()
+                          for v in self.params.values())
+        report = graph_lint.lint_record(
+            rec, compute_dtype=self.compute_dtype, param_bytes=param_bytes,
+            expect_allgather=False, min_donate_bytes=min_donate_bytes,
+            platform=self._device.type)
+        # plan-fusion-parity: the mxfuse rewrite this step runs must keep
+        # the plain-plan monitored path intact
+        report.merge(graph_lint.audit_plan_fusion(self.symbol))
+        return report
+
+    def analyze(self, *batch_arrays, min_donate_bytes=0):
+        """Lint one step on an example batch (arrays in ``input_names``
+        order, or a StagedBatch) and return the
+        :class:`~mxnet_tpu_torch.analysis.report.Report`.
+
+        Runs one step window under the recorder
+        (``analysis.graph_lint.record_step``) and restores every carry
+        afterwards.  Checks: every param/opt-state/aux/guard/metric carry
+        keeps its storage (``min_donate_bytes=0`` — every carry, whatever
+        its size), no host sync inside the step, no hand-written kernel
+        outside an autograd.Function on a grad path, the collective audit
+        (``report.stats['collectives']``, zeros on one device), and dtype
+        drift under ``compute_dtype``.  The guard counters' one-step-late
+        read happens first, outside the window, as the JAX host's read
+        sits outside its jitted program."""
+        if self.params is None:
+            raise MXNetError(
+                "SPMDTrainer.analyze: bind() and init_params() first")
+        self.flush_step_guard()
+        self._ensure_accumulators()
+        data = self._resolve_batch(batch_arrays)
+        return self._lint(data, _random.peek_seed(),
+                          self._held_tensors(batch_arrays),
+                          min_donate_bytes=min_donate_bytes)
+
+    @staticmethod
+    def _held_tensors(batch_arrays):
+        out = []
+        for v in batch_arrays:
+            if isinstance(v, NDArray):
+                v = v._data
+            if isinstance(v, torch.Tensor):
+                out.append(v)
+        return out
+
+    def _maybe_env_analyze(self, data, key):
+        """MXTPU_ANALYZE=1|strict: graph-lint the step the first dispatch
+        of each input signature is about to run.  Findings log as
+        warnings; ``strict`` raises instead, refusing to train on a step
+        that leaks a host sync or a fresh carry buffer into every
+        iteration.  A refusal is sticky: a retry of the same signature
+        raises again."""
+        from ..analysis import ENV_ANALYZE
+        mode = str(get_env(ENV_ANALYZE, "") or "").strip().lower()
+        if mode in ("", "0", "off", "false", "no"):
+            # cache the "off" answer: the per-step signature hashing and
+            # env read are not worth paying when analysis is disabled
+            self._analyze_off = True
+            return
+        sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                           for k, v in data.items()))
+        if sig in self._refused:
+            raise MXNetError(self._refused[sig])
+        if sig in self._analyzed_keys:
+            return
+        self._ensure_accumulators()
+        report = self._lint(data, key)
+        if report.ok:
+            self._analyzed_keys.add(sig)
+            _LOG.info("MXTPU_ANALYZE: fused step is clean (%d ops, "
+                      "collectives %s)", report.stats["dispatched_ops"],
+                      report.stats.get("collectives"))
+            return
+        if mode == "strict":
+            msg = ("MXTPU_ANALYZE=strict: the fused step violates graph "
+                   "invariants:\n%s" % report.format_text())
+            self._refused[sig] = msg
+            raise MXNetError(msg)
+        self._analyzed_keys.add(sig)
+        _LOG.warning("MXTPU_ANALYZE: fused step has %d finding(s):\n%s",
+                     len(report.findings), report.format_text())
 
     def install_watchdog(self, watchdog):
         """Arm ``watchdog`` (``resilience.StepWatchdog``) around every step

@@ -32,6 +32,7 @@ import os
 import torch
 
 from .base import MXNetError
+from .kernels import note_launch
 from .ops.registry import OP_REGISTRY, fn_signature_info, register
 
 __all__ = ["register_kernel", "elementwise_cuda_kernel", "ElementwiseKernel",
@@ -189,6 +190,7 @@ class ElementwiseKernel(object):
             raise MXNetError("rtc elementwise kernel launch failed: CUDA "
                              "error %d" % err)
         LAUNCHES += 1
+        note_launch("rtc_elementwise", x)
         return y
 
     def __call__(self, x):

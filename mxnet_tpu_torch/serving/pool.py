@@ -36,8 +36,10 @@ Weight dtypes (``MXTPU_SERVE_DTYPE``), as the JAX package computes them:
 In both low-precision modes the float32 weights exist only during a
 forward (:class:`_CastForward`).
 
-``analyze()`` and ``MXTPU_ANALYZE`` need the graph linter, which the
-port does not have yet: both raise instead of serving unchecked.
+``analyze(bucket)`` lints one bucket's forward with the graph linter
+(``analysis/graph_lint.py``); with ``MXTPU_ANALYZE=1`` each new serving
+signature is linted before it serves and findings warn, with ``strict``
+they refuse it (sticky per signature).
 """
 from __future__ import annotations
 
@@ -57,19 +59,9 @@ ENV_SERVE_DTYPE = register_env(
         "at load time (weight-cast serving; inputs stay f32); `int8` "
         "quantizes dense/conv weights per output channel (symmetric "
         "scale, dequantized for each forward)")
-#: the JAX package's linter knob (``mxnet_tpu/analysis/__init__.py``)
-ENV_ANALYZE = register_env(
-    "MXTPU_ANALYZE",
-    doc="1 or 'strict' lints each newly compiled serving forward in the "
-        "JAX package; the port has no linter yet and refuses to serve "
-        "while it is set")
 
 _CASTABLE = ("float32", "float64")
 _DTYPES = ("float32", "bfloat16", "int8")
-
-_NO_LINTER = ("the port has no graph linter yet (mxnet_tpu/analysis is "
-              "still to be ported: ROADMAP.md queue 1, item 3)")
-
 
 def quantize_int8(weight):
     """Per-output-channel symmetric int8 quantization of one weight.
@@ -244,6 +236,8 @@ class PooledModel(object):
         self.sample_shapes = dict(sample_shapes) if sample_shapes else None
         self._pred = None
         self._cur_shapes = None
+        self._analyzed = set()      # signatures the gate found clean
+        self._refused = {}          # signature -> strict-mode message
         arg_names = self.symbol.list_arguments()
         #: data inputs = arguments with no loaded weight that aren't
         #: loss labels (labels are zero-filled by Predictor.reshape)
@@ -440,21 +434,99 @@ class PooledModel(object):
 
     # -- static analysis ---------------------------------------------------
     def analyze(self, bucket=1):
-        """Raises: the graph linter is not ported yet."""
-        raise MXNetError("model %r: analyze(bucket=%d): %s"
-                         % (self.name, int(bucket), _NO_LINTER))
+        """mxlint graph lint of this model's bucket-``bucket`` forward
+        (an inference forward obeys the same host-sync/dtype/kernel rules
+        as a training step, has no carries, and on one device shows NO
+        collectives).  The weights are the values the forward serves:
+        an int8 model's dequantized ``q * scale``, a bfloat16 model's
+        upcast.  Returns the :class:`~..analysis.report.Report`."""
+        import torch
+        from ..analysis import graph_lint
+        from ..executor import _build_eval
+        if self.sample_shapes is None:
+            raise MXNetError("model %r: declare sample_shapes before "
+                             "analyze()" % self.name)
+        dev = self.ctx.torch_device
+        eval_fn = _build_eval(self.symbol)
+
+        def served(params, scales=None):
+            out = {}
+            for k, v in params.items():
+                t = _tensor(v, dev)
+                s = (scales or {}).get(k)
+                # the int8 path serves dequantized weights, the bfloat16
+                # path upcast ones — lint the math that actually runs
+                out[k] = _CastForward._float(
+                    t, None if s is None else _tensor(s, dev)) \
+                    if s is not None or t.dtype == torch.bfloat16 else t
+            return out
+
+        params = served(self.arg_params, self._wt_scales)
+        auxs = served(self.aux_params)
+        shapes = {k: (int(bucket),) + tuple(s)
+                  for k, s in self.sample_shapes.items()}
+        arg_shapes, _, aux_shapes = self.symbol.infer_shape(**shapes)
+        for n, shp in zip(self.symbol.list_arguments(), arg_shapes):
+            if n not in params and n not in shapes:
+                params[n] = torch.zeros(shp, dtype=torch.float32, device=dev)
+        for n, shp in zip(self.symbol.list_auxiliary_states(), aux_shapes):
+            if n not in auxs:
+                auxs[n] = torch.zeros(shp, dtype=torch.float32, device=dev)
+        input_names = sorted(shapes)
+
+        def infer(*inputs):
+            merged = dict(params)
+            merged.update(zip(input_names, inputs))
+            with torch.no_grad():
+                outs, _ = eval_fn(merged, auxs, False, 0, device=dev)
+            return tuple(outs)
+
+        rs = np.random.RandomState(0)
+        args = [torch.from_numpy(rs.rand(*shapes[n]).astype(np.float32))
+                .to(dev) for n in input_names]
+        report = graph_lint.lint_step(infer, *args, expect_allgather=False)
+        # plan-fusion-parity: the served graph's mxfuse rewrite (the
+        # bn_fold serving default and the inference-trace pruning
+        # included) must keep the plain-plan monitored path intact
+        report.merge(graph_lint.audit_plan_fusion(self.symbol))
+        return report
 
     def _maybe_env_analyze(self, shapes):
-        """The ``MXTPU_ANALYZE`` gate: with the knob set, the JAX package
-        lints each new serving forward before it serves; the port cannot,
-        so it refuses rather than serve unchecked."""
+        """The ``MXTPU_ANALYZE`` gate, per new signature: warn (``1``) or
+        refuse to serve (``strict``) on findings."""
+        from ..analysis import ENV_ANALYZE
         mode = get_env(ENV_ANALYZE)
-        if not mode:
+        if not mode or str(mode).strip().lower() in ("0", "off", "false",
+                                                     "no"):
+            return
+        sig = tuple(sorted(shapes.items()))
+        if sig in self._refused:
+            # a strict refusal is STICKY: a retry of the same signature
+            # must not slip the violating forward into service
+            raise MXNetError(self._refused[sig])
+        if sig in self._analyzed:
             return
         bucket = next(iter(shapes.values()))[0]
-        raise MXNetError("MXTPU_ANALYZE=%s: serving forward %s@%s cannot be "
-                         "linted: %s" % (mode, self.name, bucket,
-                                         _NO_LINTER))
+        report = self.analyze(bucket=bucket)
+        if report.ok:
+            self._analyzed.add(sig)
+            _log().info("MXTPU_ANALYZE: serving forward %s@%s is clean",
+                        self.name, bucket)
+            return
+        text = report.format_text()
+        if str(mode).strip().lower() == "strict":
+            msg = ("MXTPU_ANALYZE=strict: serving forward %s@%s has "
+                   "findings:\n%s" % (self.name, bucket, text))
+            self._refused[sig] = msg
+            raise MXNetError(msg)
+        self._analyzed.add(sig)
+        _log().warning("MXTPU_ANALYZE: serving forward %s@%s has "
+                       "findings:\n%s", self.name, bucket, text)
+
+
+def _log():
+    import logging
+    return logging.getLogger(__name__)
 
 
 class ModelPool(object):

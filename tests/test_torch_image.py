@@ -616,7 +616,7 @@ def make_nvjpeg_fixture():
         for i, raw in enumerate(jpegs):
             w.write_idx(i, jmx.recordio.pack((0, float(i), i, 0), raw))
         w.close()
-        old = os.environ.get("MXNET_JPEG_DECODE_FAST")
+        old = os.environ.get("MXNET_JPEG_DECODE_FAST")  # mxlint: disable=env-direct-read (saved to restore)
         os.environ["MXNET_JPEG_DECODE_FAST"] = "0"
         try:
             it = jmx.io.ImageRecordIter(d + "/f.rec", (3, 48, 40),

@@ -554,9 +554,9 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 
 def test_new_modules_are_covered():
-    """The extension, input-pipeline, data-service, resilience, serving
-    and fleet slices' modules are among the sources the import check
-    walks."""
+    """The extension, input-pipeline, data-service, resilience, serving,
+    fleet and tools slices' modules are among the sources the import
+    check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
@@ -574,7 +574,13 @@ def test_new_modules_are_covered():
                 "serving/serve_main", "fleet/__init__", "fleet/manifest",
                 "fleet/view", "fleet/router", "fleet/controller",
                 "fleet/warm", "fleet/deploy", "fleet/autoscale",
-                "fleet/fleet_main"):
+                "fleet/fleet_main", "analysis/__init__", "analysis/report",
+                "analysis/ast_lint", "analysis/race_lint",
+                "analysis/contract_lint", "analysis/fixtures",
+                "analysis/graph_lint", "analysis/mxlint_main", "profiler",
+                "contrib/flops", "contrib/tensorboard", "visualization",
+                "test_utils", "notebook/__init__", "notebook/callback",
+                "libinfo"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 
@@ -585,3 +591,54 @@ def test_chip_smoke_refuses_without_cuda():
                          timeout=120, env=env)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_tools_run_with_jax_unimportable(tmp_path):
+    """The tools slice's modules import and run with JAX made
+    unimportable: the graph lint of the standard MLP step and a pooled
+    forward, the profiler's device trace with per-node stats, FLOP
+    accounting, the summary table, TensorBoard events, the test_utils
+    oracles, the notebook logger's module and libinfo."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch import profiler, test_utils, libinfo\n"
+        "from mxnet_tpu_torch.analysis import fixtures, graph_lint, "
+        "ast_lint, race_lint, contract_lint\n"
+        "from mxnet_tpu_torch.contrib import flops, tensorboard\n"
+        "import mxnet_tpu_torch.notebook.callback\n"
+        "tr = fixtures.standard_mlp_trainer(ctx=mx.cpu())\n"
+        "rep = tr.analyze(*fixtures.standard_mlp_batch())\n"
+        "assert rep.ok, rep.format_text()\n"
+        "sym = fixtures.standard_mlp_sym()\n"
+        "pool = mx.serving.ModelPool(ctx=mx.cpu())\n"
+        "args = {k: v.asnumpy() for k, v in tr.get_params()[0].items()}\n"
+        "pool.add('m', sym, args, {}, sample_shapes={'data': (32,)})\n"
+        "assert pool.get('m').analyze(bucket=2).ok\n"
+        "d = sys.argv[1]\n"
+        "profiler.profiler_set_config(mode='all_xla', "
+        "filename=d + '/p.json', trace_dir=d + '/t')\n"
+        "profiler.profiler_set_state('run')\n"
+        "tr.step(*fixtures.standard_mlp_batch())\n"
+        "profiler.profiler_set_state('stop')\n"
+        "st = profiler.get_op_stats()\n"
+        "assert 'fc1' in st and '_backward_fc1' in st, sorted(st)\n"
+        "assert flops.model_flops(sym, data=(64, 32)) > 0\n"
+        "assert mx.viz.print_summary(sym, shape={'data': (64, 32)}) > 0\n"
+        "w = tensorboard.SummaryWriter(d + '/tb')\n"
+        "w.add_scalar('x', 1.0)\n"
+        "w.close()\n"
+        "test_utils.check_consistency(sym, [mx.cpu(), mx.cpu(1)], "
+        "shapes={'data': (4, 32)})\n"
+        "assert libinfo.find_lib_path()\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
+        "print('ok tools')\n")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok tools")

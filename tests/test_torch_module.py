@@ -368,10 +368,10 @@ def test_module_reshape_keeps_params():
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """Several contexts, dist stores and step traces (MXTPU_PROFILE_DIR)
-    raise, naming the slice that brings them; the resilience options and
-    their knobs no longer do (tests/test_torch_resilience.py holds them
-    against the JAX package)."""
+    """Several contexts and dist stores raise, naming the slice that
+    brings them; the resilience options and their knobs no longer do
+    (tests/test_torch_resilience.py holds them against the JAX package),
+    nor do step traces (MXTPU_PROFILE_DIR: tests/test_torch_tools.py)."""
     net = mlp_sym(nh=8)
     X, y = make_blobs(64, 6, 3)
     it = tmx.io.NDArrayIter(X, y, batch_size=32)
@@ -381,9 +381,9 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     with pytest.raises(tmx.MXNetError, match="multi-GPU"):
         tmx.kvstore.create("dist_sync")
     monkeypatch.setenv("MXTPU_PROFILE_DIR", str(tmp_path / "trace"))
-    with pytest.raises(tmx.MXNetError, match="profiler slice"):
-        _module(net).fit(it, num_epoch=1)
+    _module(net).fit(it, num_epoch=1)
     monkeypatch.delenv("MXTPU_PROFILE_DIR")
+    it.reset()
     for i, kw in enumerate(({"checkpoint": str(tmp_path / "a")},
                             {"resume": True,
                              "checkpoint": str(tmp_path / "b")},

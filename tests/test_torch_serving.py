@@ -378,13 +378,16 @@ def test_pool_unknown_model_dtype_and_context():
 
 
 def test_analyze_and_env_gate_refuse_without_a_linter(monkeypatch):
+    """The port has its graph linter now: ``analyze`` returns a clean
+    report and the ``MXTPU_ANALYZE`` gate lints, then serves (it refused
+    while the linter was missing)."""
     pool, _, _, _, _ = port_pool()
     entry = pool.get("m")
-    with pytest.raises(MXNetError, match="linter"):
-        entry.analyze(bucket=2)
+    rep = entry.analyze(bucket=2)
+    assert rep.ok, rep.format_text()
     monkeypatch.setenv("MXTPU_ANALYZE", "1")
-    with pytest.raises(MXNetError, match="MXTPU_ANALYZE"):
-        entry.forward({"data": np.zeros((1, 32), "f")})
+    assert entry.forward({"data": np.zeros((1, 32), "f")})[0].shape == \
+        (1, 10)
     monkeypatch.delenv("MXTPU_ANALYZE")
     assert entry.forward({"data": np.zeros((1, 32), "f")})[0].shape == \
         (1, 10)

@@ -22,10 +22,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: top-level names of the JAX package the port does not have yet, each
 #: with the ROADMAP queue 1 item that brings it
 LATER = {
-    # item 3, the package's tools
-    "analysis": 3, "profiler": 3, "profiler_set_config": 3,
-    "profiler_set_state": 3, "dump_profile": 3, "visualization": 3,
-    "viz": 3, "test_utils": 3, "libinfo": 3,
     # item 4, several devices
     "distributed": 4,
 }
@@ -55,7 +51,10 @@ def test_public_names_match_jax_but_later_slices():
                  "image", "img", "image_det", "dataflow",
                  "DevicePrefetchIter", "engine", "native", "resilience",
                  "data_service", "CheckpointManager", "PreemptionHandler",
-                 "StepWatchdog", "serving", "fleet"):
+                 "StepWatchdog", "serving", "fleet", "analysis",
+                 "profiler", "profiler_set_config", "profiler_set_state",
+                 "dump_profile", "visualization", "viz", "test_utils",
+                 "libinfo"):
         assert hasattr(tmx, name), name
     assert tmx.rnd is tmx.random and tmx.mon is tmx.monitor
     assert tmx.img is tmx.image
