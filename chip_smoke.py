@@ -323,7 +323,28 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     ResNet-50 at bucket 32 after ``analyze``, equal to ``Predictor``;
     and ``test_utils.check_consistency`` of a conv+BN+ReLU symbol on
     ``[cpu(), gpu(0)]``, forward and backward, launching ``bn_act``;
-30. logs every path's wall time (``<path>: %.1f s``, also written to
+30. runs the data-parallel slice (``dist_paths``): ``tools/launch.py -n 2
+    python chip_smoke.py --dist-worker <phase>`` with no ``--platform``,
+    so both ranks share ``cuda:0`` and talk over gloo (each rank's
+    ``current_context()`` its card, the transport of each collective kind
+    printed); ResNet-50 at 32 images a rank (global 64), float32, through
+    ``SPMDTrainer`` under ``grad_sync`` allreduce, zero and zero3 (50 + 50
+    ``bn_act`` launches a step a rank in every tier; ms a step, params and
+    optimizer state a rank against allreduce's, peak memory, the
+    collectives' share of a step); the two-rank allreduce update after 1
+    and 3 steps against one process at batch 64 (within
+    ``GRAD_L2_FACTOR`` x the one process's fused-vs-unfused distance); a
+    batch-4 zero3 step of the ranks on the card against the same ranks on
+    the host; ``Module.fit`` of ResNet-50 with ``kvstore='dist_sync'``
+    (executor route) and ``'tpu'`` (fused), weights identical on the
+    ranks; bench.py's MLP under zero3 bit-identical to allreduce after 6
+    steps, a sharded-native save at step 3 and a SIGKILL of every rank in
+    step 4 (the launcher reports the failure), a resume whose digest
+    equals the undisturbed run's; and the preemption drill: SIGTERM to
+    rank 1 alone under ``fit(preemption_safe=True)``, both ranks saving at
+    the same boundary and leaving with 85, the resumed fit bit-identical
+    to an uninterrupted one;
+31. logs every path's wall time (``<path>: %.1f s``, also written to
     ``chiprun_out/smoke_times.json``), then prints a ``{"kernels":
     [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -6375,7 +6396,7 @@ IN_DET_SHAPE = (3, 300, 300)   # example/ssd's input
 IN_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
 IN_THREADS = 4
 IN_WARM = 2             # fit batches before the measured window
-IN_FIT_BATCHES = 5      # measured batches of each feed in each turn
+IN_FIT_BATCHES = 4      # measured batches of each feed in each turn
 IN_PROFILE_BATCHES = 4  # batches of each feed's traced window
 IN_RATE_BATCHES = 4     # batches a decode-rate run reads after one warm-up
 IN_UPLOAD_REPS = 20
@@ -7015,7 +7036,7 @@ def input_paths(torch, mx, seed, card):
 
 DS_WORKERS = (1, 2, 4)   # decode workers of the rate runs (the host has 8)
 DS_MARGIN = 16           # device_augment's crop margin: a 3x240x240 canvas
-DS_FIT_BATCHES = 4       # measured batches of each feed in each turn
+DS_FIT_BATCHES = 3       # measured batches of each feed in each turn
 DS_COMPARE_BATCHES = 4   # batches held byte for byte between two streams
 DS_AUG_REPS = 20         # augment calls in the traced window
 DS_SERVERS = 2           # loopback server processes of the network tier
@@ -10581,10 +10602,712 @@ def tools_paths(torch, mx, seed, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the data-parallel slice: two ranks on the one card (dist_paths)
+# ---------------------------------------------------------------------------
+
+#: ranks launched on the card (they share cuda:0 and talk over gloo)
+DIST_RANKS = 2
+#: ResNet-50 steps a tier: the first warms up, the rest are timed (the
+#: last with the collectives' host seconds counted), and the allreduce
+#: tier's params after the first and the last are held to one process at
+#: the global batch
+DIST_STEPS = 3
+DIST_TIERS = ("allreduce", "zero", "zero3")
+#: Module.fit batches a kvstore kind
+DIST_FIT_BATCHES = 2
+#: the zero3 drill on bench.py's MLP (bench.py:761-767): steps, the save
+DIST_MLP_STEPS, DIST_MLP_SAVE = 6, 3
+DIST_MLP_BATCH = 64
+#: the preemption drill: MLP fit batches an epoch, and the boundary (of
+#: the second epoch) where rank 1 alone gets SIGTERM
+DIST_PRE_BATCHES, DIST_PRE_AT = 4, 2
+#: a launch's time limit (seconds)
+DIST_LAUNCH_TIMEOUT = 420
+#: the seed of the ResNet-50 weights every tier and reference starts from
+DIST_SEED_INIT = 17
+
+
+def _dist_emit(tag, **rec):
+    print("DIST %s %s" % (tag, json.dumps(rec, sort_keys=True)), flush=True)
+
+
+def _dist_mlp(mx):
+    """bench.py's MLP (bench.py:761-767): 256 -> 1024 -> 1024 -> 10."""
+    with mx.name.NameManager():
+        data = mx.sym.Variable("data")
+        net = mx.sym.FullyConnected(data, num_hidden=1024, name="fc1")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=1024, name="fc2")
+        net = mx.sym.Activation(net, act_type="relu")
+        net = mx.sym.FullyConnected(net, num_hidden=10, name="fc3")
+        return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _dist_digest(arg, aux):
+    import hashlib
+    h = hashlib.sha256()
+    for d in (arg, aux):
+        for k in sorted(d):
+            h.update(d[k].asnumpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_host(tr):
+    arg, aux = tr.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()})
+
+
+def _dist_resnet_trainer(mx, sync, world, batch, ctx, args, aux):
+    mesh = mx.parallel.local_mesh() if world > 1 else None
+    tr = mx.parallel.SPMDTrainer(
+        _resnet50(mx), "sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                               "wd": 1e-4, "rescale_grad": 1.0 / (
+                                   batch * world)},
+        mesh=mesh, grad_sync=sync, ctx=ctx)
+    tr.bind([("data", (batch,) + IMAGE)], [("softmax_label", (batch,))])
+    if args is None:
+        mx.random.seed(DIST_SEED_INIT)
+        tr.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                             factor_type="in", magnitude=2))
+    else:
+        tr.init_params(None, arg_params=args, aux_params=aux)
+    return tr
+
+
+def _dist_tiers(torch, mx, seed, rank, world, init):
+    """ResNet-50 at 32 images a rank through SPMDTrainer under each
+    grad_sync: launches a step, ms a step, resident bytes, peak memory,
+    the collectives' share of a step.  The first tier draws seeded Xavier
+    weights; they and the allreduce params after the first and the last
+    of DIST_STEPS steps are returned for the one-process gate."""
+    import numpy as np
+    from mxnet_tpu_torch import distributed
+    ba = mx.kernels.bn_act
+    dev = distributed.device()
+    rs = np.random.RandomState(seed + 41)
+    glob = [(rs.standard_normal((BATCH * world,) + IMAGE).astype(np.float32),
+             rs.randint(0, 1000, BATCH * world).astype(np.float32))
+            for _ in range(DIST_STEPS)]
+    local = [(torch.from_numpy(x[rank * BATCH:(rank + 1) * BATCH]).to(dev),
+              torch.from_numpy(y[rank * BATCH:(rank + 1) * BATCH]).to(dev))
+             for x, y in glob]
+    finals = None
+    for sync in DIST_TIERS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = _dist_resnet_trainer(mx, sync, world, BATCH, mx.gpu(dev.index),
+                                  *(init or (None, None)))
+        if init is None:
+            # the first tier's seeded Xavier weights (rank 0's, broadcast)
+            # start every later run
+            init = _dist_host(tr)
+        spans, fwd, bwd, after = [], [], [], []
+        for i, (x, y) in enumerate(local[:DIST_STEPS]):
+            f0, b0 = ba.LAUNCHES, ba.BWD_LAUNCHES
+            # the last step also counts the collectives' host seconds
+            distributed.reset_stats()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tr.step(x, y)
+            torch.cuda.synchronize(dev)
+            spans.append(time.perf_counter() - t0)
+            fwd.append(ba.LAUNCHES - f0)
+            bwd.append(ba.BWD_LAUNCHES - b0)
+            if sync == "allreduce" and i in (0, DIST_STEPS - 1):
+                after.append(_dist_host(tr))
+        coll = {k: dict(v) for k, v in distributed.STATS.items()
+                if v["count"]}
+        share = sum(v["seconds"] for v in coll.values()) / spans[-1]
+        steady = [v * 1e3 for v in spans[1:]]
+        if sync == "allreduce":
+            finals = after
+        _dist_emit("tier", rank=rank, sync=sync, ms=steady,
+                   first_ms=spans[0] * 1e3,
+                   fwd=fwd, bwd=bwd, resident=tr.resident_bytes(),
+                   peak=torch.cuda.max_memory_allocated(dev),
+                   profiled_ms=spans[-1] * 1e3, coll_share=share,
+                   collectives=coll, tier=tr.zero3_tier,
+                   groups=len(tr._zero3_groups),
+                   skipped=tr.skipped_steps)
+        tr.close()
+        del tr
+    return glob, init, finals
+
+
+def _dist_update_l2(np, got, ref, init):
+    """Relative L2 of ``got``'s update (params minus ``init``) against
+    ``ref``'s, all params together, and the worst tensor's."""
+    dg = {k: got[k] - init[k] for k in init}
+    dr = {k: ref[k] - init[k] for k in init}
+    return (_rel_l2(np, dg, dr, sorted(dr)),
+            list(max((_rel_l2(np, dg, dr, [k]), k) for k in dr)))
+
+
+def _dist_one_process_gate(torch, mx, rank, world, init, glob, finals):
+    """Rank 0 steps one process at the global batch from the same weights
+    on the same batches, then twice more in other equally valid float32
+    orders: with MXTPU_FUSED_KERNELS=0, and with the batch's two halves
+    swapped (every reduction over the batch sums in another order); and
+    takes the first step's update in float64.  The first step: the
+    two-rank update lies within GRAD_L2_FACTOR x the one process's
+    relative L2 distance from float64 (at least AGREE_REL_TOL), the
+    smoke's gradient convention.  After the first and the last of
+    DIST_STEPS steps: the two-rank update lies within GRAD_L2_FACTOR x
+    the larger distance of the other orders from the one process (at
+    least AGREE_REL_TOL), in relative L2 over all params, and the moving
+    statistics too.  ReLU masks flip under another summation order and
+    the flips grow step by step (see GRAD_L2_FACTOR): after three steps
+    any two float32 orders are far apart."""
+    import numpy as np
+    from mxnet_tpu_torch import distributed
+    distributed.barrier("dist_gate")
+    if rank == 0:
+        dev = distributed.device()
+        n = BATCH * world
+        swap = np.concatenate([np.arange(n // 2, n), np.arange(n // 2)])
+        runs = {}
+        for name, fused, order in (("one", "1", None), ("plain", "0", None),
+                                   ("swapped", "1", swap)):
+            torch.cuda.empty_cache()
+            with _env("MXTPU_FUSED_KERNELS", fused):
+                tr = _dist_resnet_trainer(mx, "allreduce", 1, n,
+                                          mx.gpu(dev.index), *init)
+                hist = []
+                for i, (x, y) in enumerate(glob[:DIST_STEPS]):
+                    if order is not None:
+                        x, y = x[order], y[order]
+                    tr.step(torch.from_numpy(x).to(dev),
+                            torch.from_numpy(y).to(dev))
+                    if i in (0, DIST_STEPS - 1):
+                        hist.append(_dist_host(tr))
+                opt = tr.optimizer
+                tr.close()
+            runs[name] = hist
+        # the first step's update in float64 (the plain plan; the kernels
+        # take float32 and bfloat16): sgd from zero momentum moves each
+        # param by -lr (rescale_grad g + wd w)
+        torch.cuda.empty_cache()
+        with _env("MXTPU_FUSED_KERNELS", "0"):
+            ref = _executor_step(mx, _resnet50(mx), init,
+                                 glob[0][0].astype(np.float64),
+                                 glob[0][1].astype(np.float64),
+                                 mx.gpu(dev.index))
+        arg0 = init[0]
+        step64 = {k: arg0[k] - opt.lr * (
+            opt.rescale_grad * ref["grad:" + k]
+            + opt.wd * opt.wd_mult.get(k, 1.0) * arg0[k]) for k in arg0}
+        del ref
+        rec = {"f64": {
+            "two": _dist_update_l2(np, finals[0][0], step64, arg0)[0],
+            "one": _dist_update_l2(np, runs["one"][0][0], step64, arg0)[0]}}
+        for i, at in enumerate((1, DIST_STEPS)):
+            one, two = runs["one"][i], finals[i]
+            l2, worst = _dist_update_l2(np, two[0], one[0], arg0)
+            spread = {k: _dist_update_l2(np, runs[k][i][0], one[0], arg0)[0]
+                      for k in ("plain", "swapped")}
+            aux = _rel_l2(np, two[1], one[1], sorted(one[1]))
+            aux_spread = {k: _rel_l2(np, runs[k][i][1], one[1], sorted(one[1]))
+                          for k in ("plain", "swapped")}
+            rec["step%d" % at] = dict(update_l2=l2, worst=worst,
+                                      spread=spread, aux_l2=aux,
+                                      aux_spread=aux_spread)
+        _dist_emit("gate", rank=rank, **rec)
+    distributed.barrier("dist_gate_done")
+
+
+def _dist_cpu_agreement(torch, mx, seed, rank, world, init):
+    """One zero3 ResNet-50 step of the ranks at a global batch of
+    AGREE_BATCH on the card and on the host (the same gloo group, CPU
+    tensors), and on the card with MXTPU_FUSED_KERNELS=0 and with each
+    rank's rows reversed for the step's own conditioning: outputs and
+    moving statistics within AGREE_REL_TOL x max |cpu|, the update within
+    GRAD_L2_FACTOR x the larger distance of those two orders from the
+    card's step (at least AGREE_REL_TOL) in relative L2."""
+    import numpy as np
+    from mxnet_tpu_torch import distributed
+    dev = distributed.device()
+    n = AGREE_BATCH // world
+    rs = np.random.RandomState(seed + 43)
+    x = rs.standard_normal((AGREE_BATCH,) + IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, AGREE_BATCH).astype(np.float32)
+    x, y = x[rank * n:(rank + 1) * n], y[rank * n:(rank + 1) * n]
+    res = {}
+    swap = np.arange(n)[::-1].copy()
+    for name, ctx, fused, order in (
+            ("card", mx.gpu(dev.index), "1", None),
+            ("card_plain", mx.gpu(dev.index), "0", None),
+            ("card_swapped", mx.gpu(dev.index), "1", swap),
+            ("cpu", mx.cpu(), "1", None)):
+        xs, ys = (x, y) if order is None else (x[order], y[order])
+        with _env("MXTPU_FUSED_KERNELS", fused):
+            tr = _dist_resnet_trainer(mx, "zero3", world, n, ctx, *init)
+            out = tr.step(xs, ys)[0].float().cpu().numpy()
+            res[name] = (out,) + _dist_host(tr)
+            tr.close()
+    (oc, ac, xc), (oh, ah, xh) = res["card"], res["cpu"]
+    l2, worst = _dist_update_l2(np, ac, ah, init[0])
+    spread = max(_dist_update_l2(np, res[k][1], ac, init[0])[0]
+                 for k in ("card_plain", "card_swapped"))
+    _dist_emit("agree", rank=rank,
+               out_rel=float(np.abs(oc - oh).max() / np.abs(oh).max()),
+               update_l2=l2, worst=worst, spread=spread,
+               aux_rel=list(_worst_max_rel(np, xc, xh, sorted(xh))))
+
+
+def _dist_module_fits(torch, mx, seed, rank, world):
+    """ResNet-50 through Module.fit for DIST_FIT_BATCHES batches of 32 a
+    rank with kvstore 'dist_sync' (the executor route, the collective
+    store) and 'tpu' (the fused step over the mesh): launches a batch,
+    and rank 0's weights broadcast equal every rank's."""
+    import numpy as np
+    from mxnet_tpu_torch import distributed
+    ba = mx.kernels.bn_act
+    dev = distributed.device()
+    rs = np.random.RandomState(seed + 45)
+    X = rs.standard_normal((BATCH * world * DIST_FIT_BATCHES,) + IMAGE
+                           ).astype(np.float32)
+    Y = rs.randint(0, 1000, X.shape[0]).astype(np.float32)
+    for kind in ("dist_sync", "tpu"):
+        it = mx.io.NDArrayIter(X[rank::world], Y[rank::world],
+                               batch_size=BATCH)
+        mod = mx.mod.Module(_resnet50(mx), context=mx.gpu(dev.index))
+        mx.random.seed(seed)
+        f0, b0 = ba.LAUNCHES, ba.BWD_LAUNCHES
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, kvstore=kind, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+                initializer=mx.initializer.Xavier(rnd_type="gaussian",
+                                                  factor_type="in",
+                                                  magnitude=2))
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        fwd, bwd = ba.LAUNCHES - f0, ba.BWD_LAUNCHES - b0
+        arg, aux = mod.get_params()
+
+        def same(d):
+            ok = True
+            for k in sorted(d):
+                t = d[k]._data.to(dev)
+                ok &= bool(torch.equal(t, distributed.broadcast(t.clone())))
+            return ok
+        # the weights; the moving statistics agree on the fused route
+        # (global batch statistics) and not on the executor route, whose
+        # executors normalise each rank's own rows
+        _dist_emit("fit", rank=rank, kind=kind, fused=mod._fused is not None,
+                   fwd=fwd, bwd=bwd, wall_s=wall, identical=same(arg),
+                   aux_identical=same(aux))
+        del mod
+        torch.cuda.empty_cache()
+
+
+def _dist_mlp_trainer(mx, sync, world, ctx):
+    tr = mx.parallel.SPMDTrainer(
+        _dist_mlp(mx), "sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                               "rescale_grad": 1.0 / DIST_MLP_BATCH},
+        mesh=mx.parallel.local_mesh(), grad_sync=sync, ctx=ctx)
+    n = DIST_MLP_BATCH // world
+    tr.bind([("data", (n, 256))], [("softmax_label", (n,))])
+    mx.random.seed(33)
+    tr.init_params(mx.initializer.Xavier())
+    return tr
+
+
+def _dist_mlp_data(rank, world):
+    import numpy as np
+    rs = np.random.RandomState(0)
+    out = []
+    for _ in range(DIST_MLP_STEPS):
+        x = rs.standard_normal((DIST_MLP_BATCH, 256)).astype(np.float32)
+        y = rs.randint(0, 10, DIST_MLP_BATCH).astype(np.float32)
+        out.append((x[rank::world], y[rank::world]))
+    return out
+
+
+def _dist_zero3_drill(torch, mx, phase, rank, world, ckpt):
+    """The zero3 drill on bench.py's MLP: ``baseline`` holds zero3 to
+    allreduce bit for bit after DIST_MLP_STEPS steps and emits the
+    digest; ``kill`` saves sharded-native at DIST_MLP_SAVE and SIGKILLs
+    every rank inside the next step; ``resume`` restores and replays."""
+    from mxnet_tpu_torch import distributed
+    ctx = mx.gpu(distributed.device().index)
+    data = _dist_mlp_data(rank, world)
+    if phase == "baseline":
+        finals = {}
+        for sync in ("allreduce", "zero3"):
+            tr = _dist_mlp_trainer(mx, sync, world, ctx)
+            for x, y in data:
+                tr.step(x, y)
+            finals[sync] = tr.get_params()
+            if sync == "zero3":
+                local = list(tr.params["fc1_weight"].shape)
+                res = tr.resident_bytes()
+            tr.close()
+        a, z = finals["allreduce"][0], finals["zero3"][0]
+        diff = max(float(abs(a[k].asnumpy() - z[k].asnumpy()).max())
+                   for k in a)
+        _dist_emit("zero3", rank=rank, phase=phase, max_diff=diff,
+                   local_fc1=local, resident=res,
+                   digest=_dist_digest(*finals["zero3"]))
+        return
+    mgr = mx.resilience.CheckpointManager(ckpt)
+    tr = _dist_mlp_trainer(mx, "zero3", world, ctx)
+    with _env("MXTPU_CKPT_SHARDED", "1"):
+        if phase == "kill":
+            for x, y in data[:DIST_MLP_SAVE]:
+                tr.step(x, y)
+            t0 = time.perf_counter()
+            tr.save_checkpoint(mgr, DIST_MLP_SAVE)
+            _dist_emit("zero3", rank=rank, phase="saved",
+                       save_ms=(time.perf_counter() - t0) * 1e3,
+                       blobs=sorted(n for n in os.listdir(ckpt)
+                                    if ".params.s" in n))
+            tr.step(*data[DIST_MLP_SAVE])
+            os.kill(os.getpid(), signal.SIGKILL)
+        mx.random.seed(99)
+        t0 = time.perf_counter()
+        epoch = tr.restore(mgr)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    for x, y in data[DIST_MLP_SAVE:]:
+        tr.step(x, y)
+    _dist_emit("zero3", rank=rank, phase=phase, epoch=epoch,
+               restore_ms=restore_ms, digest=_dist_digest(*tr.get_params()))
+
+
+def _dist_preempt(torch, mx, phase, rank, world, ckpt):
+    """bench.py's MLP through Module.fit(kvstore='tpu', checkpoint=...,
+    preemption_safe=True): ``baseline`` runs 2 epochs undisturbed;
+    ``kill`` delivers SIGTERM to rank 1 alone (the ``preempt`` fault
+    point sends the real signal) at boundary DIST_PRE_AT of epoch 2 — both
+    ranks agree there, save and leave with 85; ``resume`` continues."""
+    import numpy as np
+    rs = np.random.RandomState(4)
+    n = DIST_MLP_BATCH * DIST_PRE_BATCHES
+    X = rs.standard_normal((n, 256)).astype(np.float32)
+    Y = rs.randint(0, 10, n).astype(np.float32)
+    it = mx.io.NDArrayIter(X[rank::world], Y[rank::world],
+                           batch_size=DIST_MLP_BATCH // world)
+    if phase == "kill" and rank == 1:
+        mx.resilience.faults.arm("preempt", times=1,
+                                 after=DIST_PRE_BATCHES + DIST_PRE_AT - 1)
+    mod = mx.mod.Module(_dist_mlp(mx))
+    mx.random.seed(21)
+    code = 0
+    t0 = time.perf_counter()
+    ends = []
+    try:
+        mod.fit(it, num_epoch=2, kvstore="tpu", optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.initializer.Xavier(), checkpoint=ckpt,
+                preemption_safe=True,
+                batch_end_callback=lambda p: ends.append(
+                    time.perf_counter() - t0))
+    except SystemExit as e:
+        code = e.code
+    wall = time.perf_counter() - t0
+    # rank 0 publishes the manifest: every rank reads it after the save
+    from mxnet_tpu_torch import distributed
+    distributed.barrier("dist_preempt_done")
+    rec = {"rank": rank, "phase": phase, "code": code, "wall_s": wall,
+           "batch_end_s": ends}
+    if code == 0:
+        rec["digest"] = _dist_digest(*mod.get_params())
+    if code:
+        entry = mx.resilience.CheckpointManager(ckpt).latest_entry() or {}
+        rec["step_state"] = {k: v for k, v in
+                             (entry.get("step_state") or {}).items()
+                             if k != "rng"}
+    _dist_emit("preempt", **rec)
+
+
+def dist_worker(phase):
+    """One rank of ``dist_paths`` (run by tools/launch.py): ``train``,
+    ``kill`` or ``resume``."""
+    import torch
+    torch.set_num_threads(4)
+    sys.path.insert(0, ROOT)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import distributed
+    rank, world = distributed.rank(), distributed.num_workers()
+    dev = distributed.device()
+    check(world == DIST_RANKS and dev is not None and dev.type == "cuda",
+          "rank %d: world %d, device %s" % (rank, world, dev))
+    check(mx.current_context() == mx.gpu(dev.index),
+          "rank %d: current_context() %s, not its card"
+          % (rank, mx.current_context()))
+    mx.kernels.build(["bn_act"])
+    ba = mx.kernels.bn_act
+    ba.LAUNCHES = ba.BWD_LAUNCHES = 0
+    tmp = os.environ["DIST_DIR"]  # mxlint: disable=env-direct-read (set by dist_paths)
+    seed = int(os.environ["DIST_SEED"])  # mxlint: disable=env-direct-read (set by dist_paths)
+    _dist_emit("rank", rank=rank, world=world, device=str(dev),
+               backend=distributed.backend(),
+               transports=dict(distributed.TRANSPORTS))
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t0, 2)
+    if phase == "train":
+        glob, init, finals = _dist_tiers(torch, mx, seed, rank, world, None)
+        mark("tiers")
+        _dist_one_process_gate(torch, mx, rank, world, init, glob, finals)
+        mark("gate")
+        _dist_cpu_agreement(torch, mx, seed, rank, world, init)
+        mark("agreement")
+        _dist_module_fits(torch, mx, seed, rank, world)
+        mark("fits")
+        _dist_zero3_drill(torch, mx, "baseline", rank, world, None)
+        mark("zero3")
+        _dist_preempt(torch, mx, "baseline", rank, world,
+                      os.path.join(tmp, "preempt_base"))
+        mark("preempt")
+        _dist_emit("marks", rank=rank, phase=phase, seconds=marks)
+    elif phase == "kill":
+        _dist_preempt(torch, mx, "kill", rank, world,
+                      os.path.join(tmp, "preempt"))
+        _dist_emit("launches", rank=rank, phase=phase, fwd=ba.LAUNCHES,
+                   bwd=ba.BWD_LAUNCHES)
+        _dist_zero3_drill(torch, mx, "kill", rank, world,
+                          os.path.join(tmp, "zero3"))
+    else:
+        _dist_zero3_drill(torch, mx, "resume", rank, world,
+                          os.path.join(tmp, "zero3"))
+        _dist_preempt(torch, mx, "resume", rank, world,
+                      os.path.join(tmp, "preempt"))
+    _dist_emit("launches", rank=rank, phase=phase, fwd=ba.LAUNCHES,
+               bwd=ba.BWD_LAUNCHES)
+    distributed.barrier("dist_worker_done")
+
+
+def _dist_launch(phase, tmp, seed, **env):
+    """``tools/launch.py -n DIST_RANKS python chip_smoke.py --dist-worker
+    phase`` (no --platform: every rank on the card) in a session of its
+    own, so a timeout kills every rank; returns (exit code, records by
+    tag, seconds)."""
+    wenv = {k: v for k, v in os.environ.items()  # mxlint: disable=env-direct-read (the children's environment)
+            if not k.startswith("MXTPU_")}
+    wenv.update(DIST_DIR=tmp, DIST_SEED=str(seed),
+                CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                PYTHONPATH=ROOT + os.pathsep + wenv.get("PYTHONPATH", ""))
+    wenv.update(env)
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
+           str(DIST_RANKS), sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+           "--dist-worker", phase]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=wenv, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DIST_LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise SmokeFailure("dist %s: no end in %d s:\n%s" % (
+            phase, DIST_LAUNCH_TIMEOUT, out[-3000:]))
+    secs = time.perf_counter() - t0
+    with open(os.path.join(tmp, "launch-%s.log" % phase), "w") as f:
+        f.write(out)
+    recs = collections.defaultdict(list)
+    for line in out.splitlines():
+        m = re.search(r"DIST (\w+) (\{.*\})$", line)
+        if m:
+            recs[m.group(1)].append(json.loads(m.group(2)))
+    return proc.returncode, recs, secs, out
+
+
+def dist_paths(torch, mx, seed, card):
+    """The data-parallel slice on the card: two ranks launched by
+    tools/launch.py share cuda:0 and talk over gloo.  Launch 1 trains
+    ResNet-50 at full width, 32 images a rank, under each grad_sync
+    (launches, ms a step, resident bytes, peak memory, the collectives'
+    share of a step, the transports), holds the allreduce update to one
+    process at the global batch and a batch-4 zero3 step to the host,
+    fits ResNet-50 through Module with 'dist_sync' and 'tpu' (identical
+    weights on both ranks), holds zero3 to allreduce bit for bit on
+    bench.py's MLP and runs the preemption drill's undisturbed fit.
+    Launch 2 preempts rank 1 alone (both ranks must save at the same
+    boundary and leave with 85), then saves the zero3 MLP sharded-native
+    and SIGKILLs every rank in the next step (the launcher must report
+    the failure).  Launch 3 resumes both: digests equal the undisturbed
+    runs'.  Returns the ranks' bn_act launches."""
+    import numpy as np
+    del np
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dist-", dir=build_dir)
+    fwd = bwd = 0
+    try:
+        rc, recs, secs, out = _dist_launch("train", tmp, seed)
+        check(rc == 0, "dist train launch exit %d:\n%s" % (rc, out[-4000:]))
+        ranks = sorted(recs["rank"], key=lambda r: r["rank"])
+        check(len(ranks) == DIST_RANKS
+              and all(r["device"] == "cuda:0" for r in ranks)
+              and all(r["backend"] == "gloo" for r in ranks),
+              "dist ranks: %s" % ranks)
+        log("dist: %d ranks on %s over %s, transports %s; launch 1 %.1f s "
+            "on %s" % (len(ranks), ranks[0]["device"], ranks[0]["backend"],
+                       json.dumps(ranks[0]["transports"]), secs, card))
+        tiers = collections.defaultdict(dict)
+        for t in recs["tier"]:
+            tiers[t["sync"]][t["rank"]] = t
+        full = {r: tiers["allreduce"][r]["resident"] for r in range(DIST_RANKS)}
+        for sync in DIST_TIERS:
+            for r in range(DIST_RANKS):
+                t = tiers[sync][r]
+                check(t["fwd"] == [50] * DIST_STEPS
+                      and t["bwd"] == [50] * DIST_STEPS,
+                      "dist %s rank %d: bn_act launches a step %s + %s"
+                      % (sync, r, t["fwd"], t["bwd"]))
+                check(t["skipped"] == 0, "dist %s: skipped steps" % sync)
+                frac = (t["resident"]["params"] + t["resident"]["opt_state"]) \
+                    / float(full[r]["params"] + full[r]["opt_state"])
+                if sync != "allreduce":
+                    check(frac < 0.55, "dist %s rank %d: resident %.3f of "
+                          "allreduce's" % (sync, r, frac))
+                log("dist %s rank %d: %s ms a step (first %.1f), bn_act "
+                    "%d + %d a step, params + optimizer state %d bytes "
+                    "(%.4f of allreduce's), peak %.2f GiB, the last step "
+                    "%.1f ms of which collectives %.3f (%s)%s" % (
+                        sync, r, " ".join("%.1f" % v for v in t["ms"]),
+                        t["first_ms"], t["fwd"][0], t["bwd"][0],
+                        t["resident"]["params"] + t["resident"]["opt_state"],
+                        frac, t["peak"] / 2 ** 30, t["profiled_ms"],
+                        t["coll_share"], json.dumps(t["collectives"]),
+                        (", %d gather groups" % t["groups"])
+                        if sync == "zero3" else ""))
+        gate = recs["gate"][0]
+        f64 = gate["f64"]
+        log("dist gate: the first step's update against float64 (relative "
+            "L2): two ranks %.3g, one process %.3g" % (f64["two"],
+                                                       f64["one"]))
+        check(f64["two"] <= max(AGREE_REL_TOL, GRAD_L2_FACTOR * f64["one"]),
+              "dist: the two-rank step is further from float64 than "
+              "GRAD_L2_FACTOR x one process's: %s" % f64)
+        for key in ("step1", "step%d" % DIST_STEPS):
+            g = gate[key]
+            log("dist gate %s: two-rank allreduce vs one process at batch %d: "
+                "update relative L2 %.3g (worst tensor %.3g %s); the one "
+                "process against itself unfused %.3g, with the halves "
+                "swapped %.3g; moving statistics %.3g (%.3g, %.3g)" % (
+                    key, BATCH * DIST_RANKS, g["update_l2"], g["worst"][0],
+                    g["worst"][1], g["spread"]["plain"],
+                    g["spread"]["swapped"], g["aux_l2"],
+                    g["aux_spread"]["plain"], g["aux_spread"]["swapped"]))
+            check(g["update_l2"] <= max(
+                AGREE_REL_TOL, GRAD_L2_FACTOR * max(g["spread"].values()))
+                and g["aux_l2"] <= max(
+                    AGREE_REL_TOL,
+                    GRAD_L2_FACTOR * max(g["aux_spread"].values())),
+                "dist: two ranks disagree with one process: %s" % gate)
+        for a in sorted(recs["agree"], key=lambda r: r["rank"]):
+            log("dist agreement rank %d: zero3 at batch %d on the card vs "
+                "the host: outputs %.3g of max, update relative L2 %.3g "
+                "(worst tensor %.3g %s; the card against itself in other "
+                "orders %.3g), "
+                "moving statistics %.3g (%s)" % (
+                    a["rank"], AGREE_BATCH, a["out_rel"], a["update_l2"],
+                    a["worst"][0], a["worst"][1], a["spread"],
+                    a["aux_rel"][0], a["aux_rel"][1]))
+            check(a["out_rel"] <= AGREE_REL_TOL
+                  and a["update_l2"] <= max(AGREE_REL_TOL,
+                                            GRAD_L2_FACTOR * a["spread"])
+                  and a["aux_rel"][0] <= AGREE_REL_TOL,
+                  "dist: card vs host zero3 step: %s" % a)
+        for f in sorted(recs["fit"], key=lambda r: (r["kind"], r["rank"])):
+            per = 50 * DIST_FIT_BATCHES
+            log("dist Module.fit kvstore %r rank %d: %s route, %d batches "
+                "in %.1f s, bn_act %d + %d, weights identical on the ranks: "
+                "%s (moving statistics: %s)" % (
+                    f["kind"], f["rank"],
+                    "fused" if f["fused"] else "executor",
+                    DIST_FIT_BATCHES, f["wall_s"], f["fwd"], f["bwd"],
+                    f["identical"], f["aux_identical"]))
+            check(f["identical"] and f["fwd"] == per and f["bwd"] == per
+                  and f["fused"] == (f["kind"] == "tpu"),
+                  "dist Module.fit: %s" % f)
+        z = {r["rank"]: r for r in recs["zero3"]}
+        check(all(z[r]["max_diff"] == 0.0 for r in z)
+              and len({z[r]["digest"] for r in z}) == 1,
+              "dist zero3 MLP vs allreduce: %s" % z)
+        base_digest = z[0]["digest"]
+        log("dist zero3 MLP: bit-identical to allreduce after %d steps on "
+            "both ranks, fc1_weight %s a rank, resident %s" % (
+                DIST_MLP_STEPS, z[0]["local_fc1"], json.dumps(z[0]["resident"])))
+        pre_base = {r["rank"]: r for r in recs["preempt"]}
+        check(len({p["digest"] for p in pre_base.values()}) == 1,
+              "dist preemption baseline digests differ")
+        for rec in recs["launches"]:
+            fwd += rec["fwd"]
+            bwd += rec["bwd"]
+
+        rc, recs, secs, out = _dist_launch("kill", tmp, seed)
+        check(rc != 0, "dist kill launch exited 0")
+        pre = sorted(recs["preempt"], key=lambda r: r["rank"])
+        check(len(pre) == DIST_RANKS and all(p["code"] == 85 for p in pre),
+              "dist preemption: exit codes %s" % pre)
+        saved = re.findall(r"\[worker (\d)\].*preemption: saved mid-epoch "
+                           r"checkpoint \(epoch (\d+), step (\d+)\)", out)
+        check(sorted(w for w, _, _ in saved) == ["0", "1"]
+              and len({(e, s) for _, e, s in saved}) == 1,
+              "dist preemption: saves %s" % saved)
+        log("dist preemption: SIGTERM to rank 1 alone; both ranks saved at "
+            "epoch %s step %s and left with 85 (%.1f s, %.1f s of fit); "
+            "manifest step_state %s" % (
+                saved[0][1], saved[0][2], pre[0]["wall_s"], pre[1]["wall_s"],
+                json.dumps(pre[0]["step_state"])))
+        kill = sorted([r for r in recs["zero3"] if r["phase"] == "saved"],
+                      key=lambda r: r["rank"])
+        check(len(kill) == DIST_RANKS and
+              "checkpoint-0003.params.s001-of-002" in kill[-1]["blobs"],
+              "dist zero3 kill: saves %s" % kill)
+        log("dist zero3 kill: sharded-native save at step %d (%s, %.1f / "
+            "%.1f ms), then SIGKILL of every rank in step %d: launch exit "
+            "%d (%.1f s)" % (DIST_MLP_SAVE, kill[-1]["blobs"],
+                              kill[0]["save_ms"], kill[1]["save_ms"],
+                              DIST_MLP_SAVE + 1, rc, secs))
+        for rec in recs["launches"]:
+            fwd += rec["fwd"]
+            bwd += rec["bwd"]
+
+        rc, recs, secs, out = _dist_launch("resume", tmp, seed,
+                                           MXTPU_RESUME="1")
+        check(rc == 0, "dist resume launch exit %d:\n%s" % (rc, out[-4000:]))
+        z = [r for r in recs["zero3"] if r["phase"] == "resume"]
+        check(len(z) == DIST_RANKS and all(
+            r["digest"] == base_digest and r["epoch"] == DIST_MLP_SAVE
+            for r in z), "dist zero3 resume: %s vs %s" % (z, base_digest))
+        pre = [r for r in recs["preempt"] if r["phase"] == "resume"]
+        check(len(pre) == DIST_RANKS and all(
+            p["code"] == 0 and p["digest"] == pre_base[0]["digest"]
+            for p in pre), "dist preemption resume: %s" % pre)
+        log("dist resume (%.1f s): zero3 MLP digest equals the undisturbed "
+            "run's on both ranks (restore %.1f / %.1f ms); the preempted fit "
+            "resumed bit-identical to the uninterrupted one" % (
+                secs, z[0]["restore_ms"], z[1]["restore_ms"]))
+        for rec in recs["launches"]:
+            fwd += rec["fwd"]
+            bwd += rec["bwd"]
+    finally:
+        keep = os.path.join(ROOT, "chiprun_out", "dist")
+        os.makedirs(keep, exist_ok=True)
+        for name in os.listdir(tmp):
+            if name.startswith("launch-"):
+                shutil.copy(os.path.join(tmp, name), keep)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("dist: bn_act launches over the ranks: %d forward, %d backward"
+        % (fwd, bwd))
+    return collections.Counter({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the weights, requests and batches")
+    parser.add_argument("--dist-worker", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -10597,6 +11320,9 @@ def main(argv=None):
         print("chip_smoke: cannot import mxnet_tpu_torch: %s" % e,
               file=sys.stderr)
         return 2
+    if args.dist_worker:
+        dist_worker(args.dist_worker)
+        return 0
     times = collections.OrderedDict()
 
     def timed(name, fn, *args):
@@ -10633,7 +11359,8 @@ def main(argv=None):
                        ("resilience_paths", resilience_paths),
                        ("serving_paths", serving_paths),
                        ("fleet_paths", fleet_paths),
-                       ("tools_paths", tools_paths)):
+                       ("tools_paths", tools_paths),
+                       ("dist_paths", dist_paths)):
         extra += timed(name, path, torch, mx, seed, card)
     times["total"] = round(sum(times.values()), 1)
     log(json.dumps({"path_seconds": times}))

@@ -3,7 +3,8 @@
 ``import mxnet_tpu_torch as mx`` gives the same surface as ``mxnet_tpu``
 for what has been ported: ``mx.nd``, ``mx.sym``, ``mx.predict``,
 ``mx.model``, ``mx.models``, ``mx.kernels``, ``mx.optimizer``,
-``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.io`` (with
+``mx.initializer``, ``mx.lr_scheduler``, ``mx.random``, ``mx.distributed``
+(the process group: one rank a device), ``mx.io`` (with
 the RecordIO image iterators), ``mx.recordio``, ``mx.image`` (``mx.img``),
 ``mx.image_det``, ``mx.dataflow`` (``mx.DevicePrefetchIter``), ``mx.engine``,
 ``mx.resilience`` (with ``mx.CheckpointManager``, ``mx.PreemptionHandler``,
@@ -33,6 +34,12 @@ from . import resilience
 from .resilience import CheckpointManager, PreemptionHandler, StepWatchdog
 from .context import (Context, cpu, current_context, gpu, num_gpus,
                       num_tpus, tpu)
+# Join the process group at import under tools/launch.py (the MXTPU_*
+# envs are set): each rank then owns one device, which becomes its
+# default context.  The analog of the reference consulting DMLC_ROLE at
+# import (python/mxnet/kvstore_server.py:58-68); a no-op unlaunched.
+from . import distributed
+distributed.initialize()
 from . import ops  # noqa: F401 — registers the ops before sym is built
 from . import operator  # registers Custom
 from . import ndarray
@@ -118,6 +125,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "random", "io", "engine", "recordio", "image", "img",
            "image_det", "dataflow", "DevicePrefetchIter", "lr_scheduler",
            "optimizer", "initializer", "parallel", "rnn", "contrib", "rtc", "mod", "module", "kv",
+           "distributed",
            "kvstore", "metric", "callback", "executor_manager", "serving",
            "fleet", "profiler", "profiler_set_config", "profiler_set_state",
            "dump_profile", "visualization", "viz", "libinfo", "test_utils",

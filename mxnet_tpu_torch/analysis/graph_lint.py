@@ -33,8 +33,11 @@ before and after it.  The rule ids are the JAX package's:
   record) in a step that declared replicated parameters;
   ``stats["collectives"]`` carries ``{count, bytes}`` for every kind, 0
   on one device.
-- ``graph-collective-schedule``: the zero3 schedule rule comes with the
-  multi-GPU slice; declaring a schedule raises until then.
+- ``graph-collective-schedule``: under a declared zero3 schedule the
+  recorded step must really be sharded: its all-gathers move the
+  sharded params' bytes (once in the forward, again where the backward
+  re-gathers), its gradients leave as reduce-scatters (one a group), and
+  no param-scale all-reduce appears.
 - ``plan-fusion-parity``: :func:`audit_plan_fusion` runs the port's plan
   optimizer (``mxfuse.optimize_plan``, ``live_entries``) over a symbol's
   node plan with the JAX package's four checks.
@@ -359,19 +362,96 @@ def audit_collectives(stats, param_bytes=None, expect_allgather=False,
         data={"all_gather": ag, "param_bytes": param_bytes})]
 
 
+#: platforms whose XLA pipeline rewrites all-reduce+slice into
+#: reduce-scatter (the JAX package's gspmd-tier note); the port's only
+#: tier is the manual one, which owes reduce-scatter everywhere
+RS_PLATFORMS = frozenset(("tpu", "gpu", "cuda", "rocm"))
+
+
 def audit_collective_schedule(stats, schedule, expect_gather_bytes=None,
-                              tolerance=0.25, platform=None):
-    """``graph-collective-schedule`` (the zero3 proof) comes with the
-    multi-GPU slice: no schedule -> no findings; a declared schedule
-    raises :class:`MXNetError` until then."""
-    del stats, expect_gather_bytes, tolerance, platform
+                              tolerance=0.25, platform=None,
+                              expect_groups=None):
+    """``graph-collective-schedule``: under a DECLARED fully-sharded
+    strategy the recorded step must actually be sharded (the JAX
+    package's rule, read from the dispatch record's ``_c10d_functional``
+    ops).
+
+    ``schedule`` is ``'zero3-manual'`` (None disables the rule; the
+    ``'zero3-gspmd'`` tier belongs to the model-parallel item and owes a
+    reduce-scatter only on :data:`RS_PLATFORMS`); ``expect_gather_bytes``
+    is the full compute-dtype bytes of every dp-sharded parameter (the
+    trainer computes it from base rules and shapes); ``expect_groups``
+    the gather groups.  The forward gathers every group once and the
+    backward re-gathers the groups whose values it saved, so checks:
+
+    - all-gather bytes within ``tolerance`` of one to two times the
+      expected bytes — less means params were left replicated (the
+      sharding never happened), more means gathers beyond the schedule;
+    - with ``expect_groups``: between one and two all-gathers a group,
+      and one reduce-scatter a group;
+    - no stray full all-reduce: all-reduce bytes at or above half the
+      expected gather bytes mean gradients left the backward as a full
+      all-reduce instead of reduce-scatter;
+    - at least one reduce-scatter.
+    """
     if not schedule:
         return []
-    from ..base import MXNetError
-    raise MXNetError(
-        "graph-collective-schedule: declared schedule %r cannot be "
-        "audited yet — the zero3 schedule rule comes with the multi-GPU "
-        "slice (ROADMAP.md queue 1, item 4)" % (schedule,))
+    findings = []
+    ag = stats.get("all-gather", {"count": 0, "bytes": 0})
+    rs = stats.get("reduce-scatter", {"count": 0, "bytes": 0})
+    ar = stats.get("all-reduce", {"count": 0, "bytes": 0})
+    expect = int(expect_gather_bytes or 0)
+    owes_rs = schedule == "zero3-manual" or (
+        schedule == "zero3-gspmd" and platform in RS_PLATFORMS)
+    if expect and ag["bytes"] < (1.0 - tolerance) * expect:
+        findings.append(Finding(
+            "graph-collective-schedule",
+            "declared %s but the recorded step all-gathers only %d "
+            "bytes/step of the >= %d expected for its sharded "
+            "parameters — the params were left replicated; the sharding "
+            "silently never happened" % (schedule, ag["bytes"], expect),
+            data={"all_gather": ag, "expect_gather_bytes": expect}))
+    if expect and ag["bytes"] > (2.0 + tolerance) * expect:
+        findings.append(Finding(
+            "graph-collective-schedule",
+            "declared %s but the recorded step all-gathers %d bytes/step, "
+            "more than a forward gather and a backward re-gather of the "
+            "%d sharded bytes" % (schedule, ag["bytes"], expect),
+            data={"all_gather": ag, "expect_gather_bytes": expect}))
+    if expect_groups:
+        if not expect_groups <= ag["count"] <= 2 * expect_groups:
+            findings.append(Finding(
+                "graph-collective-schedule",
+                "declared %s over %d gather groups but the recorded step "
+                "issued %d all-gathers (one a group in the forward, at "
+                "most one more in the backward)"
+                % (schedule, expect_groups, ag["count"]),
+                data={"all_gather": ag, "groups": expect_groups}))
+        if owes_rs and rs["count"] and rs["count"] != expect_groups:
+            findings.append(Finding(
+                "graph-collective-schedule",
+                "declared %s over %d gather groups but the gradients left "
+                "in %d reduce-scatters (one a group)"
+                % (schedule, expect_groups, rs["count"]),
+                data={"reduce_scatter": rs, "groups": expect_groups}))
+    if expect and ar["bytes"] >= 0.5 * expect and owes_rs:
+        findings.append(Finding(
+            "graph-collective-schedule",
+            "declared %s but a param-scale all-reduce (%d bytes/step) is "
+            "in the recorded schedule — gradients are leaving the "
+            "backward as a full all-reduce instead of reduce-scatter"
+            % (schedule, ar["bytes"]),
+            data={"all_reduce": ar, "expect_gather_bytes": expect,
+                  "platform": platform}))
+    if owes_rs and expect and not rs["count"]:
+        findings.append(Finding(
+            "graph-collective-schedule",
+            "declared %s but the recorded step contains no reduce-scatter "
+            "— the manual tier emits one per gather group by "
+            "construction, so the step was not built from the declared "
+            "formulation" % schedule,
+            data={"reduce_scatter": rs, "platform": platform}))
+    return findings
 
 
 def audit_plan_fusion(symbol):
@@ -486,7 +566,7 @@ def audit_plan_fusion(symbol):
 def lint_record(rec, compute_dtype=None, param_bytes=None,
                 expect_allgather=True, schedule=None,
                 expect_gather_bytes=None, min_donate_bytes=1 << 20,
-                platform=None):
+                platform=None, expect_groups=None):
     """Run every graph rule against one :class:`StepRecord`.  Returns a
     :class:`Report` whose ``stats["collectives"]`` always carries the
     audit tally, and ``stats["dispatched_ops"]``, ``stats["host_syncs"]``
@@ -510,7 +590,8 @@ def lint_record(rec, compute_dtype=None, param_bytes=None,
     rep.extend(audit_collectives(stats, param_bytes=param_bytes,
                                  expect_allgather=expect_allgather))
     rep.extend(audit_collective_schedule(
-        stats, schedule, expect_gather_bytes, platform=platform))
+        stats, schedule, expect_gather_bytes, platform=platform,
+        expect_groups=expect_groups))
     return rep
 
 

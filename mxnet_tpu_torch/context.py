@@ -118,9 +118,23 @@ def num_tpus():
     return num_gpus()
 
 
+#: the process's default device when a process group set one (each rank
+#: of ``distributed.initialize`` owns one device), else None
+_PROCESS_DEFAULT = None
+
+
+def set_process_default(ctx):
+    """Make ``ctx`` the default context of every thread that has not
+    entered a ``with ctx:`` scope (``distributed.initialize`` sets each
+    rank's device)."""
+    global _PROCESS_DEFAULT
+    _PROCESS_DEFAULT = None if ctx is None else Context(ctx)
+    Context._default_ctx.value = _PROCESS_DEFAULT or Context("gpu", 0)
+
+
 def current_context():
-    """The default context: ``gpu(0)`` unless a ``with ctx:`` scope says
-    otherwise."""
+    """The default context: ``gpu(0)`` (or this rank's device under a
+    process group) unless a ``with ctx:`` scope says otherwise."""
     if not hasattr(Context._default_ctx, "value"):
-        Context._default_ctx.value = Context("gpu", 0)
+        Context._default_ctx.value = _PROCESS_DEFAULT or Context("gpu", 0)
     return Context._default_ctx.value

@@ -252,9 +252,10 @@ def _scale_shift(data, gamma, beta, moving_mean, moving_var, eps, momentum,
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     if is_train and not use_global_stats:
+        from .. import distributed
         axes = (0,) + tuple(range(2, data.ndim))
-        mean = torch.mean(data, dim=axes)
-        var = torch.var(data, dim=axes, unbiased=False)
+        # the global batch's statistics inside a data-parallel step
+        mean, var = distributed.batch_stats(data, axes)
         new_mm = (moving_mean * momentum + mean * (1 - momentum)).detach()
         new_mv = (moving_var * momentum + var * (1 - momentum)).detach()
     else:

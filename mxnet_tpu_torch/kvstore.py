@@ -1,13 +1,12 @@
-"""KVStore — parameter synchronization in one process (port of
-``mxnet_tpu/kvstore.py:26-160``).
+"""KVStore — parameter synchronization (port of
+``mxnet_tpu/kvstore.py:26-175``).
 
 ``local``/``device`` aggregate gradients over the device copies of a key
 and, with an optimizer set, update on the store (the reference's
-kvstore_local.h).  ``tpu`` is the same one-process store with
-``num_workers`` 1 and rank 0, kept under the JAX package's name so that
-``fit.py``'s default (``--kv-store tpu``) reads the same in both
-packages: a Module given it takes the fused ``SPMDTrainer`` step.  The
-``dist*`` stores come with the multi-GPU slice and raise until then.
+kvstore_local.h).  ``tpu``, ``dist_sync`` and ``dist_device_sync`` make
+the collective store across processes (``kvstore_dist.KVStoreTPU``; one
+process is a world of one): a Module given ``tpu`` takes the fused
+``SPMDTrainer`` step, ``dist_sync`` the executor route with the store.
 """
 from __future__ import annotations
 
@@ -98,6 +97,11 @@ class KVStore(object):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
 
+    def _set_updater(self, updater):
+        """Install ``updater(key, grad, weight)`` as the store-side update
+        (the reference's MXKVStoreSetUpdater)."""
+        self._updater = updater
+
     def barrier(self):
         """A no-op in one process (reference KVStore::Barrier)."""
 
@@ -137,14 +141,14 @@ class KVStore(object):
 
 def create(name="local"):
     """Factory (reference src/kvstore/kvstore.cc name dispatch):
-    'local'/'device'/'tpu' give the in-process store; 'dist*' raises."""
+    'local'/'device' give the in-process store; 'dist_sync',
+    'dist_device_sync' and 'tpu' the collective store over the process
+    group ('dist_async' raises)."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
-    if "dist" in name:
-        raise MXNetError("kvstore %r is not ported yet (distributed stores "
-                         "come with the multi-GPU slice of mxnet_tpu_torch)"
-                         % name)
-    if name not in ("local", "device", "tpu") and \
-            not name.startswith("local"):
+    if "dist" in name or name == "tpu":
+        from .kvstore_dist import KVStoreTPU
+        return KVStoreTPU(name)
+    if name not in ("local", "device") and not name.startswith("local"):
         raise MXNetError("unknown kvstore type %r" % name)
     return KVStore(name)

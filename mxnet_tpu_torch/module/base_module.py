@@ -222,12 +222,6 @@ class BaseModule(object):
             raise MXNetError("fit(preemption_safe=True) needs checkpoint= "
                              "(there is nowhere to save the mid-epoch "
                              "state)")
-        if preemption_safe and resilience._world() > 1:
-            raise MXNetError(
-                "fit(preemption_safe=True) across %d processes needs every "
-                "rank to agree on the preemption flag at a step boundary: "
-                "not ported yet (it comes with the multi-GPU slice of "
-                "mxnet_tpu_torch)" % resilience._world())
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -359,7 +353,16 @@ class BaseModule(object):
                             # whole handler path is what gets tested
                             os.kill(os.getpid(), signal.SIGTERM)
                             time.sleep(0.05)  # let the handler run
-                        if preempt.triggered:
+                        triggered = preempt.triggered
+                        if resilience._world() > 1:
+                            # every rank takes the same branch at the
+                            # same boundary (any rank signaled => all
+                            # save) instead of one entering the
+                            # checkpoint gather while another enters the
+                            # next step's collectives
+                            from .. import distributed as _dist
+                            triggered = _dist.agree_flag(triggered)
+                        if triggered:
                             self._save_preemption_checkpoint(
                                 checkpoint, epoch, nbatch + 1)
                             preempted_exit()

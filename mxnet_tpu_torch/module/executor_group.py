@@ -1,14 +1,16 @@
-"""DataParallelExecutorGroup on one context (port of
+"""DataParallelExecutorGroup over one or several contexts (port of
 ``mxnet_tpu/module/executor_group.py:31-345``; reference
 python/mxnet/module/executor_group.py).
 
-Binds one executor over the group's context, copies each batch into its
-input arrays, runs forward/backward, and exposes the parameter, gradient
-and aux arrays as per-device lists (of one), the shape the kvstore
-helpers of ``model.py`` take.  Parameter NDArrays may be shared with
-another group (``shared_group``, BucketingModule's contract): sharing
-works by sharing the NDArray cells.  More than one context comes with the
-multi-GPU slice and raises until then.
+Binds one executor a context over its slice of the batch (``workload``
+weights the slices), copies each batch's slices into the executors'
+input arrays, runs forward/backward on each, and exposes the parameter,
+gradient and aux arrays as per-device lists, the shape the kvstore
+helpers of ``model.py`` take: the Module sums the gradients through the
+local kvstore (``push`` merges the device copies) and updates every
+copy.  Parameter NDArrays may be shared with another group
+(``shared_group``, BucketingModule's contract): sharing works by sharing
+the NDArray cells.
 """
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ import logging
 
 import torch
 
-from ..base import MXNetError
 from ..executor_manager import _split_input_slice
 from ..io import DataDesc
 from ..ndarray import concatenate, zeros as nd_zeros
@@ -37,11 +38,6 @@ class DataParallelExecutorGroup(object):
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
                  grad_req="write", state_names=None):
-        if len(contexts) != 1:
-            raise MXNetError(
-                "DataParallelExecutorGroup over %d contexts is not ported "
-                "yet (more than one device comes with the multi-GPU slice "
-                "of mxnet_tpu_torch)" % len(contexts))
         self.symbol = symbol
         self.contexts = contexts
         self.workload = workload if workload else [1] * len(contexts)

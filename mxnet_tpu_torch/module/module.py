@@ -39,9 +39,9 @@ from .executor_group import DataParallelExecutorGroup
 __all__ = ["Module"]
 
 
-def _later(what, slice_name):
-    raise MXNetError("Module: %s is not ported yet (it comes with the %s "
-                     "slice of mxnet_tpu_torch)" % (what, slice_name))
+def _next_item():
+    from ..parallel.mesh import NEXT_ITEM
+    return NEXT_ITEM
 
 
 class Module(BaseModule):
@@ -453,11 +453,12 @@ class Module(BaseModule):
             self._preload_opt_states = None
 
     def _maybe_init_fused(self, kvstore, optimizer):
-        """Build the fused SPMDTrainer for a 'tpu'/'dist' kvstore, or None
-        when the configuration needs the executor-group route (the JAX
-        package's reasons, module.py:445-531)."""
-        if kvstore is None or not ("tpu" in kvstore.type
-                                   or "dist" in kvstore.type):
+        """Build the fused SPMDTrainer for a 'tpu' kvstore (over the
+        process group's ``dp`` mesh when there are several workers), or
+        None when the configuration needs the executor-group route (the
+        JAX package's reasons, module.py:445-531); 'dist_sync' stores
+        take the executor route with the collective store."""
+        if kvstore is None or "tpu" not in kvstore.type:
             return None
         if not self.for_training:
             return None
@@ -485,11 +486,18 @@ class Module(BaseModule):
                 "(fused step unavailable with %s)", kvstore.type,
                 ", ".join(reasons))
             return None
-        if kvstore.num_workers > 1 or len(self._context) > 1:
-            _later("the fused step over several devices", "multi-GPU")
+        if len(self._context) > 1:
+            # one process over several devices is an in-process mesh,
+            # which comes with the model-parallel item
+            self.logger.info(
+                "kvstore '%s': %d contexts in one process take the "
+                "executor-group route (an in-process mesh comes with %s)",
+                kvstore.type, len(self._context), _next_item())
+            return None
 
-        from ..parallel import SPMDTrainer
-        trainer = SPMDTrainer(self._symbol, optimizer, mesh=None,
+        from ..parallel import SPMDTrainer, local_mesh
+        mesh = local_mesh() if kvstore.num_workers > 1 else None
+        trainer = SPMDTrainer(self._symbol, optimizer, mesh=mesh,
                               ctx=self._context[0])
         trainer.bind(self._data_shapes, self._label_shapes)
         trainer.init_params(None, self._arg_params, self._aux_params)

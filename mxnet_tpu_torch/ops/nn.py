@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register
+from .. import distributed as _dist
 from ..base import MXNetError
 
 
@@ -326,8 +327,9 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
         return torch.where(data >= 0, data, g * data)
     if act_type == "rrelu":
         if is_train:
-            s = torch.rand(data.shape, generator=rng, device=data.device,
-                           dtype=data.dtype) * (upper_bound - lower_bound) \
+            s = _dist.draw_rows(data.shape, lambda shp: torch.rand(
+                shp, generator=rng, device=data.device,
+                dtype=data.dtype)) * (upper_bound - lower_bound) \
                 + lower_bound
         else:
             s = (lower_bound + upper_bound) / 2.0
@@ -366,8 +368,8 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=0.001,
     if fix_gamma:
         gamma = torch.ones_like(gamma)
     if is_train and not use_global_stats:
-        mean = torch.mean(data, dim=axes)
-        var = torch.var(data, dim=axes, unbiased=False)
+        # the global batch's statistics inside a data-parallel step
+        mean, var = _dist.batch_stats(data, axes)
         # state, not a differentiable output (the JAX package's has_aux)
         new_moving_mean = (moving_mean * momentum
                            + mean * (1 - momentum)).detach()
@@ -678,8 +680,10 @@ def identity_attach_kl_sparse_reg(data, sparseness_target=0.1, penalty=0.001,
 # ---------------------------------------------------------------------------
 
 def _keep_mask(shape, keep, rng, device):
-    """Bernoulli(keep) mask drawn from the generator ``rng``."""
-    return torch.rand(shape, generator=rng, device=device) < keep
+    """Bernoulli(keep) mask drawn from the generator ``rng`` (this rank's
+    rows of the global batch's draw inside a data-parallel step)."""
+    return _dist.draw_rows(
+        shape, lambda s: torch.rand(s, generator=rng, device=device)) < keep
 
 
 @register("Dropout", needs_is_train=True, needs_rng=True, num_outputs=1)

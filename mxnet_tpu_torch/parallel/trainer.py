@@ -1,5 +1,5 @@
-"""SPMDTrainer — the fused training step, on one device (port of
-``mxnet_tpu/parallel/trainer.py:79-1314`` with ``mesh=None``).
+"""SPMDTrainer — the fused training step, on one device or data-parallel
+across processes (port of ``mxnet_tpu/parallel/trainer.py:79-1314``).
 
 One :meth:`SPMDTrainer.step` runs forward, backward (torch autograd over
 the executor's fused plan, the parameters the only leaves), the all-finite
@@ -10,20 +10,43 @@ tensor and are read one step late, at the next step's entry
 (:meth:`flush_step_guard`), as in the JAX package.
 
 Numerics match the JAX package's: gradients are summed over the batch
-(pass ``rescale_grad=1/batch``), weight decay follows the optimizer's
-per-name multipliers (gammas keep it), Adam's bias correction uses the
-applied-update count.  A batch reaches the device through pinned memory
-on the trainer's side stream (``dataflow.Uploader``); ``stage_batch``
-does that ahead of the step, and ``step``/``eval_step``/``forward_only``
-take the :class:`~mxnet_tpu_torch.io.StagedBatch` it makes without a
-copy.  The JAX package compiles the step into one XLA
-program that updates its donated carries in place; here the step runs
-eagerly and writes each carry's new value into the carry's own storage
-(params, aux, optimizer state, the guard counters and a deferred
+(pass ``rescale_grad=1/batch``, the global batch under a mesh), weight
+decay follows the optimizer's per-name multipliers (gammas keep it),
+Adam's bias correction uses the applied-update count.  A batch reaches
+the device through pinned memory on the trainer's side stream
+(``dataflow.Uploader``); ``stage_batch`` does that ahead of the step,
+and ``step``/``eval_step``/``forward_only`` take the
+:class:`~mxnet_tpu_torch.io.StagedBatch` it makes without a copy.  The
+step runs eagerly and writes each carry's new value into the carry's own
+storage (params, aux, optimizer state, the guard counters and a deferred
 metric's accumulators keep their ``data_ptr`` across steps), the port's
-counterpart of donation.  :meth:`SPMDTrainer.analyze` lints one step's
-dispatched work (``analysis/graph_lint.py``), and ``MXTPU_ANALYZE=1`` /
-``strict`` runs that lint at the first step of each input signature.
+counterpart of the JAX package's donation.  :meth:`SPMDTrainer.analyze`
+lints one step's dispatched work (``analysis/graph_lint.py``), and
+``MXTPU_ANALYZE=1`` / ``strict`` runs that lint at the first step of each
+input signature.
+
+A ``mesh`` (``parallel/mesh.py``: the process group's ranks on a ``dp``
+axis, one device a rank) makes the step data-parallel: every rank feeds
+its process-local batch, outputs stay process-local, and
+``grad_sync`` picks how parameters and gradients live:
+
+- ``allreduce``: replicated parameters, the gradients summed over ranks
+  in one bucketed all-reduce;
+- ``zero``: master parameters and optimizer state sharded over ``dp`` on
+  their first divisible dimension (indivisible ones stay replicated),
+  one gather block at step start, gradients reduce-scattered, each rank
+  updating its shard;
+- ``zero3``: the same shards, gathered a group at a time, re-gathered in
+  the backward instead of kept, gradients reduce-scattered per group
+  (``parallel/zero3.py``, the JAX package's ``manual`` tier).
+
+Under ``allreduce`` and ``zero`` BatchNorm normalises with the global
+batch's statistics, as the JAX package's global program does
+(``distributed.batch_stats``); under ``zero3`` each rank uses its own
+rows and the moving statistics are averaged over ranks, the JAX manual
+tier's semantics.  A stochastic op gives each rank its rows of the
+global batch's draw.  The guard's finite flag and a deferred metric's
+sums agree across ranks.
 
 ``remat=True`` (or ``MXNET_BACKWARD_DO_MIRROR=1``) runs the step's
 forward as checkpointed segments that the backward recomputes.
@@ -35,17 +58,20 @@ and the guard counters are then read every ``flush_interval`` steps
 only; a :class:`~mxnet_tpu_torch.resilience.StepWatchdog` is armed
 around each step (:meth:`SPMDTrainer.install_watchdog`); the fault
 points ``poison_grad`` (NaN in the first floating input) and
-``hang_step`` fire here; :meth:`SPMDTrainer.save_checkpoint` and
-:meth:`SPMDTrainer.restore` go through a
-:class:`~mxnet_tpu_torch.resilience.CheckpointManager`.  Arguments that
-belong to later slices of the port (a mesh, zero/zero3 gradient sync, a
-sharding plan, parameter shardings) raise :class:`MXNetError`.
+``hang_step`` fire here; :meth:`SPMDTrainer.save_checkpoint` (gathered,
+or sharded-native under ``MXTPU_CKPT_SHARDED=1``) and
+:meth:`SPMDTrainer.restore` (re-sharding at any world) go through a
+:class:`~mxnet_tpu_torch.resilience.CheckpointManager`.  A mesh axis or
+a sharding rule other than ``dp`` raises :class:`MXNetError`, naming the
+item that brings the model-parallel axes.
 """
 from __future__ import annotations
 
 import logging
 import math
 import pickle
+import re
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -60,21 +86,27 @@ from ..executor import (ENV_BACKWARD_DO_MIRROR, _build_eval,
 from ..io import DataDesc
 from ..ndarray import NDArray, tensor_from_numpy, zeros as nd_zeros
 from ..ops import tensor as T
+from .zero3 import Regather
 
 __all__ = ["SPMDTrainer", "SUPPORTED_OPTIMIZERS", "UPDATE_RANGE",
-           "DEFAULT_GUARD_FLUSH_INTERVAL", "diff_param_sets"]
+           "GRAD_SYNC_RANGE", "DEFAULT_GUARD_FLUSH_INTERVAL",
+           "diff_param_sets"]
 
 #: the ``torch.profiler.record_function`` range around each step's
 #: guard + optimizer update + aux merge
 UPDATE_RANGE = "SPMDTrainer.update"
+#: the range around a data-parallel step's gradient all-reduce
+GRAD_SYNC_RANGE = "SPMDTrainer.grad_sync"
 
 #: optimizers with an in-step update rule (_apply_update)
 SUPPORTED_OPTIMIZERS = ("sgd", "ccsgd", "adam", "rmsprop")
 
 ENV_GRAD_SYNC = register_env(
     "MXNET_GRAD_SYNC", default="allreduce",
-    doc="Gradient sync of the fused step: allreduce on one device here; "
-        "zero/zero3 come with the multi-GPU slice")
+    doc="Gradient sync for the fused dp step: allreduce (replicated "
+        "params), zero (sharded master and optimizer state, one gather "
+        "block at step start) or zero3 (fully sharded: grouped gathers, "
+        "backward re-gather, reduce-scatter gradients)")
 #: guard-counter read cadence (steps) while a deferred metric is
 #: installed and sets no interval of its own
 DEFAULT_GUARD_FLUSH_INTERVAL = 25
@@ -82,60 +114,111 @@ DEFAULT_GUARD_FLUSH_INTERVAL = 25
 _LOG = logging.getLogger(__name__)
 
 
-def _later(what, slice_name):
-    raise MXNetError("SPMDTrainer: %s is not ported yet (it comes with the "
-                     "%s slice of mxnet_tpu_torch)" % (what, slice_name))
+def _spec_for(name, shape, rules):
+    """A parameter's spec (a tuple of axis names or None) from regex
+    rules; default replicated (the empty tuple)."""
+    for pattern, spec in (rules or {}).items():
+        if re.match(pattern, name):
+            spec = (spec,) if isinstance(spec, str) else tuple(spec)
+            if len(spec) > len(shape):
+                raise MXNetError(
+                    "sharding spec %s has more axes than param %s%s"
+                    % (spec, name, shape))
+            return spec
+    return ()
 
 
 def diff_param_sets(saved_params, current_names, kind="parameter"):
-    """Problems list for a save->resume param-set change (the names part
-    of the JAX package's ``parallel/planner.py:diff_param_sets``): a param
-    ADDED to the model since the save or REMOVED from it must fail the
-    resume with names, never silently misload."""
-    saved, current = set(saved_params or ()), set(current_names)
-    problems = []
-    added = sorted(current - saved)
-    removed = sorted(saved - current)
-    if added:
-        problems.append(
-            "%s(s) %s exist in the model but not in the checkpoint "
-            "(added since the save)" % (kind, ", ".join(added)))
-    if removed:
-        problems.append(
-            "%s(s) %s exist in the checkpoint but not in the model "
-            "(removed since the save)" % (kind, ", ".join(removed)))
-    return problems
+    """Problems list for a save->resume param-set change over names only
+    (``planner.diff_param_sets`` on ``{name: {}}``): a param ADDED to the
+    model since the save or REMOVED from it must fail the resume with
+    names, never silently misload."""
+    from .planner import diff_param_sets as _diff
+    return _diff({n: {} for n in (saved_params or ())}, set(current_names),
+                 kind=kind)
 
 
 class SPMDTrainer(object):
-    """Fused training step for a Symbol + Optimizer on one device.
+    """Fused training step for a Symbol + Optimizer, on one device or over
+    a ``dp`` mesh of processes.
 
-    ``ctx`` is the device (the current context, ``gpu(0)`` by default);
-    ``input_transforms`` maps an input name to a torch function applied to
-    the batch inside the step."""
+    ``ctx`` is the device (the current context: ``gpu(0)`` by default,
+    this rank's device under a process group); ``input_transforms`` maps
+    an input name to a torch function applied to the batch inside the
+    step; ``plan`` is a :class:`~mxnet_tpu_torch.parallel.planner.
+    ShardingPlan` (or its doc) whose grad_sync, rules and compute dtype
+    apply where the arguments leave them unset."""
 
     def __init__(self, symbol, optimizer="sgd", optimizer_params=None,
                  mesh=None, data_axis="dp", param_shardings=None,
                  compute_dtype=None, remat=None, input_transforms=None,
                  grad_sync=None, step_guard=None,
                  max_consecutive_bad_steps=None, plan=None, ctx=None):
-        if mesh is not None:
-            _later("a device mesh", "multi-GPU")
+        from .. import distributed
+        from .mesh import model_parallel_error
+        # a plan supplies the policy; the derived artifacts (per-param
+        # specs, gather groups) are recomputed at bind() for this mesh,
+        # so a plan written at another world consumes cleanly
+        self._given_plan = None
+        self.sharding_plan = None   # descriptive plan, built at bind()
+        if plan is not None:
+            from .planner import ShardingPlan
+            if isinstance(plan, dict):
+                plan = ShardingPlan.from_doc(plan)
+            self._given_plan = plan
+            if grad_sync is None:
+                grad_sync = plan.grad_sync
+            if param_shardings is None and plan.param_shardings:
+                param_shardings = plan.param_shardings
+            if compute_dtype is None and plan.compute_dtype:
+                compute_dtype = plan.compute_dtype
         if grad_sync is None:
             grad_sync = get_env(ENV_GRAD_SYNC, "allreduce")
-        if grad_sync != "allreduce":
-            _later("grad_sync=%r" % (grad_sync,), "multi-GPU")
-        if plan is not None:
-            _later("a sharding plan", "multi-GPU")
-        if param_shardings:
-            _later("param_shardings", "multi-GPU")
+        if grad_sync not in ("allreduce", "zero", "zero3"):
+            raise MXNetError(
+                "grad_sync must be 'allreduce', 'zero' or 'zero3', "
+                "got %r" % (grad_sync,))
+        self.param_shardings = dict(param_shardings or {})
+        for pattern, spec in self.param_shardings.items():
+            spec = (spec,) if isinstance(spec, str) else tuple(spec)
+            if any(a is not None for a in spec):
+                raise model_parallel_error(
+                    "param_shardings rule %r -> %s" % (pattern, spec))
+        world = 1
+        if mesh is not None:
+            if data_axis not in mesh.shape:
+                raise MXNetError("mesh %s has no data axis %r"
+                                 % (dict(mesh.shape), data_axis))
+            for name, size in mesh.shape.items():
+                if name != data_axis and size > 1:
+                    raise model_parallel_error("mesh axis %r (size %d)"
+                                               % (name, size))
+            world = int(mesh.shape[data_axis])
+            if world != distributed.num_workers():
+                raise MXNetError(
+                    "SPMDTrainer: the mesh's %r axis has %d ranks but the "
+                    "process group has %d (one rank a device: launch with "
+                    "tools/launch.py -n %d)" % (data_axis, world,
+                                               distributed.num_workers(),
+                                               world))
+        self.mesh = mesh
+        self.grad_sync = grad_sync
+        self.data_axis = data_axis
+        self._world = world
+        self._rank = distributed.rank() if world > 1 else 0
+        # _zero: sharded master params and optimizer state (zero and
+        # zero3 share the placement and the gathering path)
+        self._zero = grad_sync in ("zero", "zero3") and world > 1
+        self._zero3 = grad_sync == "zero3" and self._zero
+        self.zero3_tier = None      # 'manual' at bind() under zero3
+        self._zero3_dims = {}       # param -> dp-sharded dim (zero, zero3)
+        self._zero3_groups = []     # plan-ordered gather groups
+        self._layouts = []          # one zero3.GatherLayout a group
+        self._gather = None         # shards -> full, differentiable
         if remat is None:
             remat = str(get_env(ENV_BACKWARD_DO_MIRROR, "0")) == "1"
         self.remat = bool(remat)
         self.symbol = symbol
-        self.mesh = None
-        self.grad_sync = "allreduce"
-        self.data_axis = data_axis
         self._ctx = Context(ctx) if ctx is not None else current_context()
         self._device = self._ctx.torch_device
         self.input_transforms = dict(input_transforms or {})
@@ -225,6 +308,8 @@ class SPMDTrainer(object):
         self.param_names = [n for n in self.arg_names
                             if n not in self.input_names]
         self.batch_size = data_shapes[0].shape[0]
+        # the batch every rank feeds, summed over the data axis
+        self.global_batch_size = self.batch_size * self._world
         # seed the per-name wd/lr multipliers now that param names are
         # known (zero wd for biases and betas), keeping multipliers the
         # user already set
@@ -235,12 +320,106 @@ class SPMDTrainer(object):
         self.optimizer.set_lr_mult({})
         self.optimizer.lr_mult.update(user_lr)
         self.optimizer.wd_mult.update(user_wd)
+        if self._zero:
+            self._plan_zero()
+        # the descriptive plan: what this trainer executes (world, mesh
+        # axes, per-param placement, gather groups); save_checkpoint
+        # persists it in the manifest
+        from .planner import ShardingPlan
+        self.sharding_plan = ShardingPlan.from_trainer(self)
         return self
+
+    def _param_spec(self, name, shape):
+        """A master param's (and its optimizer state's) spec: an explicit
+        rule wins; under zero/zero3 an otherwise replicated param shards
+        its first dp-divisible dimension over the data axis (indivisible
+        ones stay replicated)."""
+        spec = _spec_for(name, shape, self.param_shardings)
+        if self._zero and spec == ():
+            dp = self._world
+            for i, d in enumerate(shape):
+                if d % dp == 0 and d >= dp:
+                    axes = [None] * len(shape)
+                    axes[i] = self.data_axis
+                    return tuple(axes)
+        return spec
+
+    def _plan_zero(self):
+        """The sharded params (each with its dp dimension) and their
+        gather groups (bind time): zero3 gathers group by group in plan
+        order (``_choose_gather_groups``), zero in one block."""
+        from . import zero3 as z3
+        shardable = {}
+        for name in self.param_names:
+            entries = self._param_spec(name, self.arg_shapes[name])
+            dims = [i for i, e in enumerate(entries) if e == self.data_axis]
+            if len(dims) == 1:
+                shardable[name] = dims[0]
+        self._zero3_dims = shardable
+        if self._zero3:
+            self._zero3_groups = self._choose_gather_groups(shardable)
+            self.zero3_tier = "manual"
+        else:
+            self._zero3_groups = []
+        groups = self._zero3_groups if self._zero3 else (
+            [[n for g in z3.plan_gather_groups(self.symbol,
+                                               sorted(shardable))
+              for n in g]] if shardable else [])
+        self._layouts, self._gather = z3.make_manual_gather(
+            groups, shardable,
+            {n: tuple(self.arg_shapes[n]) for n in shardable}, self._world)
+
+    def _choose_gather_groups(self, shardable):
+        """zero3's gather groups: under ``MXTPU_ZERO3_GATHER_GROUP=auto``
+        a consumed plan's groups when they match this bind exactly, else
+        the planner's first-consumer/bucket-merged grouping; a number is
+        the manual override (N layers a group), which warns when the
+        planned grouping Pareto-dominates it on the memory model."""
+        from . import planner
+        from . import zero3 as z3
+        from .zero3 import ENV_ZERO3_GATHER_GROUP
+        names = sorted(shardable)
+        if not names:
+            return []
+        comm_itemsize = self.compute_dtype.itemsize \
+            if self.compute_dtype is not None else 4
+        shapes = {n: tuple(self.arg_shapes[n]) for n in names}
+        raw = str(get_env(ENV_ZERO3_GATHER_GROUP, "auto") or
+                  "auto").strip().lower()
+        given = self._given_plan
+        if raw in ("", "auto") and given is not None and \
+                given.gather_groups and given.world == self._world and \
+                sorted(n for g in given.gather_groups for n in g) == names:
+            return [list(g) for g in given.gather_groups]
+        planned = planner.derive_gather_groups(
+            self.symbol, names, shapes, itemsize=comm_itemsize)
+        if raw in ("", "auto"):
+            return planned
+        try:
+            group_layers = int(raw)
+        except (TypeError, ValueError):
+            _LOG.warning("MXTPU_ZERO3_GATHER_GROUP=%r is neither 'auto' nor "
+                         "an integer — using the planned grouping", raw)
+            return planned
+        manual = z3.plan_gather_groups(self.symbol, names, group_layers)
+        sizes = {n: int(np.prod(shapes[n])) * comm_itemsize for n in names}
+        mc = planner.group_cost(manual, sizes)
+        pc = planner.group_cost(planned, sizes)
+        if planner.dominates(pc, mc):
+            _LOG.warning(
+                "MXTPU_ZERO3_GATHER_GROUP=%d loses to the planned grouping "
+                "on the memory model: manual = %d collectives / %d peak "
+                "gathered bytes, planned = %d / %d — unset the knob (or set "
+                "it to 'auto') to take the planner's grouping",
+                group_layers, mc[0], mc[1], pc[0], pc[1])
+        return manual
 
     def init_params(self, initializer, arg_params=None, aux_params=None):
         """Allocate params and aux on the trainer's device: from
         ``arg_params``/``aux_params`` (NDArrays or numpy) where given,
-        else from ``initializer``; then zero optimizer state."""
+        else from ``initializer``; then zero optimizer state.  Across
+        ranks rank 0's values win (the reference's init-push), and a
+        sharded param keeps this rank's shard."""
         params, aux = {}, {}
         for name in self.param_names:
             arr = nd_zeros(self.arg_shapes[name], ctx=self._ctx)
@@ -256,9 +435,49 @@ class SPMDTrainer(object):
             elif initializer is not None:
                 initializer(name, arr)
             aux[name] = arr._data
-        self.params = params
-        self.aux = aux
+        params = self._broadcast(params)
+        self.params = {n: self._shard(n, v) for n, v in params.items()}
+        self.aux = self._broadcast(aux)
         self.opt_state = self._init_opt_state()
+
+    def _broadcast(self, values):
+        """``{name: tensor}`` with rank 0's values on every rank."""
+        if self._world == 1:
+            return dict(values)
+        from .. import distributed
+        names = list(values)
+        out = distributed.broadcast_tensors([values[n] for n in names])
+        return {n: t.contiguous() for n, t in zip(names, out)}
+
+    def _shard(self, name, full):
+        """This rank's shard of a full master value (the full value for a
+        replicated param)."""
+        d = self._zero3_dims.get(name)
+        if d is None:
+            return full
+        per = full.shape[d] // self._world
+        return full.narrow(d, self._rank * per, per).clone()
+
+    def _full(self, name, value):
+        """The full value of one master param or optimizer slot from this
+        rank's shard: one all-gather (every rank calls it together)."""
+        d = self._zero3_dims.get(name)
+        if d is None:
+            return value
+        from .. import distributed
+        g = distributed.all_gather(value.detach().movedim(d, 0).contiguous())
+        return g.movedim(0, d).contiguous()
+
+    def resident_bytes(self):
+        """``{"params", "opt_state", "aux"}``: bytes this rank holds for
+        each carry (a zero/zero3 rank holds about 1/world of the first
+        two)."""
+        def nbytes(ts):
+            return int(sum(t.numel() * t.element_size() for t in ts))
+        return {"params": nbytes(self.params.values()),
+                "opt_state": nbytes(t for s in self.opt_state.values()
+                                    for t in s),
+                "aux": nbytes(self.aux.values())}
 
     def _init_opt_state(self):
         state = {}
@@ -331,13 +550,30 @@ class SPMDTrainer(object):
         all-finite guard over the gradients, the optimizer update, the aux
         merge, the stacked int32[3] skip counters and a deferred metric's
         (sum, count), which a guard-skipped step leaves as they were —
-        device work only."""
+        device work only.  Across ranks the finite flag is ANDed where
+        each rank checked only its shards (zero, zero3), a metric's
+        deltas are summed (each rank saw its rows), and under zero3 the
+        per-rank BatchNorm moving statistics are averaged."""
+        from .. import distributed
         params, aux, opt_state = self.params, self.aux, self.opt_state
         guard = self.step_guard
+        dp = self._world > 1
+        if self._zero3 and auxu:
+            names = list(auxu)
+            flat = distributed.all_reduce(torch.cat(
+                [auxu[n].reshape(-1) for n in names])) / self._world
+            off = 0
+            for n in names:
+                k = auxu[n].numel()
+                auxu[n] = flat[off:off + k].reshape(auxu[n].shape)
+                off += k
         finite = None
         if guard:
             finite = torch.isfinite(torch.cat(
                 [grads[n].reshape(-1) for n in self.param_names])).all()
+            if dp and self._zero:
+                finite = distributed.all_reduce(
+                    finite.to(torch.int32).reshape(1))[0] == self._world
         # non-finite step: params, optimizer state and aux (BN moving
         # stats from a poisoned batch) pass through unchanged
         for name in self.param_names:
@@ -367,6 +603,11 @@ class SPMDTrainer(object):
         outs = [o.detach() for o in outs]
         if self._metric_fn is not None:
             ds, dc = self._metric_fn(outs, data)
+            if dp:
+                ds, dc = distributed.all_reduce(torch.stack(
+                    [torch.as_tensor(v, dtype=torch.float32,
+                                     device=self._device)
+                     for v in (ds, dc)]))
             s_acc, c_acc = self._metric_acc
             # a guard-skipped step adds nothing
             self._metric_acc = (self._carry(s_acc, s_acc + ds, finite),
@@ -500,6 +741,8 @@ class SPMDTrainer(object):
         self._steps_since_flush += 1
         if self._steps_since_flush >= max(1, self.flush_interval):
             self.flush_step_guard()
+        if self._zero3:
+            self._check_zero3_batch(batch_arrays)
         data = self._resolve_batch(batch_arrays, train=True)
         if key is None:
             key = _random.next_seed()
@@ -510,6 +753,27 @@ class SPMDTrainer(object):
             self._maybe_env_analyze(data, key)
         self._num_update += 1
         return self._dispatch(data, key)
+
+    def _check_zero3_batch(self, batch_arrays):
+        """grad_sync='zero3' shards the global batch evenly over the dp
+        axis: ranks whose batches differ in rows (an unpadded final
+        batch) fail with guidance before any collective of the step (one
+        host all-gather of the row count a step)."""
+        from .. import distributed
+        from ..io import StagedBatch
+        arrays = batch_arrays
+        if len(arrays) == 1 and isinstance(arrays[0], StagedBatch):
+            arrays = tuple(arrays[0].staged.values())
+        rows = [int(np.shape(v)[0]) if np.ndim(v) else 0 for v in arrays]
+        every = distributed.all_gather_object(rows[0] if rows else 0)
+        n = sum(every)
+        if len(set(every)) > 1 or n % self._world:
+            raise MXNetError(
+                "grad_sync='zero3': batch dim %d does not divide this "
+                "process's share (%d) of the dp axis (%d) — pad the final "
+                "batch (iterator default) or use grad_sync='zero' (rows per "
+                "rank: %s)" % (n, max(every) if every else 0, self._world,
+                               every))
 
     def _ensure_accumulators(self):
         """The device-side guard counters and metric accumulators, made
@@ -526,19 +790,38 @@ class SPMDTrainer(object):
 
     def _dispatch(self, data, key):
         """The step window: the device work of one step on a resolved
-        batch (forward, backward, guard, update, aux merge, metric) —
-        what :meth:`analyze` records.  The guard counters' one-step-late
-        read (:meth:`flush_step_guard`) and the batch's upload lie
-        outside it."""
+        batch (forward, backward, gradient sync, guard, update, aux
+        merge, metric) — what :meth:`analyze` records.  The guard
+        counters' one-step-late read and the batch's upload lie outside
+        it."""
+        from .. import distributed
         lr = self.optimizer.lr if self.optimizer.lr_scheduler is None else \
             self.optimizer.lr_scheduler(self._num_update)
         self._ensure_accumulators()
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in self.params.items()}
-        with torch.enable_grad():
+        regather = None
+        with torch.enable_grad(), distributed.dp_scope(
+                self._world, self._rank, sync_stats=not self._zero3):
             merged = self._xform(data)
-            merged.update(self._cast(leaves))
-            outs, auxu = self._eval(merged, self.aux, True, key)
+            # cast the shards to the compute dtype before they gather,
+            # so the collectives move compute-dtype bytes
+            full = dict(self._cast(leaves))
+            if self._zero:
+                shards = {n: full[n] for n in self._zero3_dims}
+                gathered = self._gather(shards)
+                if self._zero3:
+                    regather = Regather(self._layouts, shards, gathered)
+                full.update(gathered)
+                del shards, gathered
+            merged.update(full)
+            del full
+            with regather.hooks() if regather is not None \
+                    else nullcontext():
+                outs, auxu = self._eval(merged, self.aux, True, key)
+            # no gathered value outlives the forward but through
+            # autograd's saved tensors (re-gathered there under zero3)
+            del merged
             diff = [o for o in outs if o.requires_grad]
             grads = [None] * len(self.param_names)
             if diff:
@@ -547,6 +830,10 @@ class SPMDTrainer(object):
                     [torch.ones_like(o) for o in diff], allow_unused=True)
         grads = {n: (g if g is not None else torch.zeros_like(leaves[n]))
                  for n, g in zip(self.param_names, grads)}
+        if self._world > 1:
+            with torch.no_grad(), \
+                    torch.profiler.record_function(GRAD_SYNC_RANGE):
+                self._sync_replicated_grads(grads)
         # the named range lets a profile attribute the update's kernels
         with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
             outs = self._step_tail(outs, auxu, grads, lr,
@@ -556,6 +843,24 @@ class SPMDTrainer(object):
             self._guard_pending = True
         self._outputs = outs
         return outs
+
+    def _sync_replicated_grads(self, grads):
+        """Sum the replicated params' gradients over ranks in one bucket a
+        dtype (the sharded ones arrived reduce-scattered)."""
+        from .. import distributed
+        names = [n for n in self.param_names if n not in self._zero3_dims]
+        by_dtype = {}
+        for n in names:
+            by_dtype.setdefault(grads[n].dtype, []).append(n)
+        for dtype in sorted(by_dtype, key=str):
+            group = by_dtype[dtype]
+            flat = distributed.all_reduce(torch.cat(
+                [grads[n].reshape(-1) for n in group]))
+            off = 0
+            for n in group:
+                k = grads[n].numel()
+                grads[n] = flat[off:off + k].reshape(grads[n].shape)
+                off += k
 
     @property
     def skipped_steps(self):
@@ -688,12 +993,36 @@ class SPMDTrainer(object):
                           for v in self.params.values())
         report = graph_lint.lint_record(
             rec, compute_dtype=self.compute_dtype, param_bytes=param_bytes,
-            expect_allgather=False, min_donate_bytes=min_donate_bytes,
+            expect_allgather=self._zero, min_donate_bytes=min_donate_bytes,
+            schedule="zero3-manual" if self._zero3 else None,
+            expect_gather_bytes=self._zero3_expected_gather_bytes(),
+            expect_groups=len(self._zero3_groups) if self._zero3 else None,
             platform=self._device.type)
         # plan-fusion-parity: the mxfuse rewrite this step runs must keep
         # the plain-plan monitored path intact
         report.merge(graph_lint.audit_plan_fusion(self.symbol))
         return report
+
+    def _zero3_expected_gather_bytes(self):
+        """The gather traffic a correct zero3 forward moves: the full
+        compute-dtype bytes of every otherwise replicated param with a
+        dp-divisible dimension, from the base rules and shapes (never
+        from ``_param_spec``, so a broken sharding cannot lower the bar
+        it is held to)."""
+        if not self._zero3:
+            return None
+        dp = self._world
+        total = 0
+        for name in self.param_names:
+            shape = self.arg_shapes[name]
+            if _spec_for(name, shape, self.param_shardings) != ():
+                continue
+            if not any(d % dp == 0 and d >= dp for d in shape):
+                continue
+            item = self.compute_dtype.itemsize \
+                if self.compute_dtype is not None else 4
+            total += int(np.prod(shape)) * item
+        return total
 
     def analyze(self, *batch_arrays, min_donate_bytes=0):
         """Lint one step on an example batch (arrays in ``input_names``
@@ -777,17 +1106,25 @@ class SPMDTrainer(object):
         self.watchdog = watchdog
         if watchdog is not None:
             def _info(_self=self):
-                return ("trainer: step %d, grad_sync=%r, device=%s"
+                mesh = _self.mesh
+                return ("trainer: step %d, grad_sync=%r, mesh=%s, device=%s"
                         % (_self._num_update, _self.grad_sync,
+                           "none" if mesh is None else dict(mesh.shape),
                            _self._device))
             watchdog.info = _info
         return watchdog
 
     def _forward(self, batch_arrays, is_train, key):
+        from .. import distributed
         data = self._resolve_batch(batch_arrays)
-        with torch.no_grad():
+        with torch.no_grad(), distributed.dp_scope(
+                self._world, self._rank, sync_stats=not self._zero3):
             merged = self._xform(data)
-            merged.update(self._cast(self.params))
+            full = dict(self._cast(self.params))
+            if self._zero:
+                full.update(self._gather(
+                    {n: full[n] for n in self._zero3_dims}))
+            merged.update(full)
             outs, _ = self._eval(merged, self.aux, is_train, key)
         return outs
 
@@ -810,21 +1147,29 @@ class SPMDTrainer(object):
                 for o in (self._outputs or [])]
 
     def get_params(self):
-        """Copies of params and aux as host NDArrays (cpu context)."""
+        """Copies of params and aux as host NDArrays (cpu context).  Under
+        zero/zero3 a sharded param is gathered one at a time: every rank
+        calls this together."""
         self.flush_step_guard()
         host = cpu()
 
         def _copy(d):
-            return {k: NDArray._from_torch(v.detach().to("cpu", copy=True),
-                                           host) for k, v in d.items()}
-        return _copy(self.params), _copy(self.aux)
+            return {k: NDArray._from_torch(
+                self._full(k, v).detach().to("cpu", copy=True), host)
+                for k, v in d.items()}
+        return _copy(self.params), {
+            k: NDArray._from_torch(v.detach().to("cpu", copy=True), host)
+            for k, v in self.aux.items()}
 
     def set_params(self, arg_params, aux_params):
         """Replace parameter values, keeping optimizer state; names
-        missing from the given dicts keep their values."""
+        missing from the given dicts keep their values.  Across ranks
+        rank 0's given values win (every rank calls this together), and
+        a sharded param keeps this rank's shard."""
         self.flush_step_guard()
-        for current, given in ((self.params, arg_params),
-                               (self.aux, aux_params)):
+        for current, given, is_param in ((self.params, arg_params, True),
+                                         (self.aux, aux_params, False)):
+            placed = {}
             for name, v in (given or {}).items():
                 if name not in current:
                     continue
@@ -833,14 +1178,17 @@ class SPMDTrainer(object):
                 elif not isinstance(v, torch.Tensor):
                     v = tensor_from_numpy(np.asarray(v))
                 cur = current[name]
-                current[name] = v.to(cur.device, cur.dtype, copy=True)
+                placed[name] = v.to(cur.device, cur.dtype, copy=True)
+            placed = self._broadcast(placed)
+            for name, v in placed.items():
+                current[name] = self._shard(name, v) if is_param else v
 
     def get_states(self):
         """Serialized optimizer state (the ``Updater.get_states`` analog):
         a pickle of ``{"num_update", "states": {name: (numpy, ...)}}``, the
-        JAX package's format."""
+        JAX package's format, gathered under zero/zero3 (collective)."""
         self.flush_step_guard()
-        host = {k: tuple(v.detach().cpu().numpy() for v in s)
+        host = {k: tuple(self._full(k, v).cpu().numpy() for v in s)
                 for k, s in self.opt_state.items()}
         return pickle.dumps({"num_update": self._num_update,
                              "states": host})
@@ -849,9 +1197,10 @@ class SPMDTrainer(object):
         """Restore optimizer state from :meth:`get_states`'s format, or
         from an ``Updater`` blob (``{index_or_name: state}``, what the
         executor route of a Module saves), so a checkpoint resumes across
-        the two routes.  Restored state opens a fresh guard window: the
-        pending counters and the consecutive-bad count are dropped, the
-        lifetime skip total is kept."""
+        the two routes; a sharded param's slots keep this rank's shard.
+        Restored state opens a fresh guard window: the pending counters
+        and the consecutive-bad count are dropped, the lifetime skip
+        total is kept."""
         self._guard_pending = False
         self._guard_acc = None
         self._skip_base = self._skipped_steps
@@ -887,8 +1236,8 @@ class SPMDTrainer(object):
                     "optimizer state for unknown parameter %r" % (name,))
             p = self.params[name]
             placed[name] = tuple(
-                tensor_from_numpy(np.asarray(x)).to(p.device, p.dtype)
-                for x in s)
+                self._shard(name, tensor_from_numpy(np.asarray(x)).to(
+                    p.device, p.dtype)) for x in s)
         for name in self.param_names:
             placed.setdefault(name, self.opt_state[name])
         self.opt_state = placed
@@ -897,37 +1246,96 @@ class SPMDTrainer(object):
     def snapshot_params(self):
         """Checkpoint-ready host copies: ``(arg, aux)`` dicts of
         ``resilience._HostSnapshot`` values, one device-to-host copy per
-        tensor, which ``resilience.snapshot_params`` adopts without
-        another copy."""
+        tensor (sharded params gathered one at a time: collective), which
+        ``resilience.snapshot_params`` adopts without another copy."""
         from ..resilience import _HostSnapshot
         self.flush_step_guard()
-
-        def _snap(d):
-            return {k: _HostSnapshot(v.detach().to("cpu", copy=True))
-                    for k, v in d.items()}
-        return _snap(self.params), _snap(self.aux)
+        arg = {k: _HostSnapshot(self._full(k, v).detach().to("cpu",
+                                                             copy=True))
+               for k, v in self.params.items()}
+        aux = {k: _HostSnapshot(v.detach().to("cpu", copy=True))
+               for k, v in self.aux.items()}
+        return arg, aux
 
     def save_checkpoint(self, manager, step, blocking=None):
         """Checkpoint params and optimizer state through a
         :class:`~mxnet_tpu_torch.resilience.CheckpointManager` as epoch
-        ``step``.  ``blocking=None`` follows ``MXTPU_CKPT_ASYNC``: the
-        async path stalls the caller for the host copies only, the
-        manager's writer serializes, fsyncs and publishes (drain with
-        ``manager.wait()``).  One device holds every parameter, so this is
-        the gathered layout (``MXTPU_CKPT_SHARDED`` needs zero/zero3 over
-        several devices, as in the JAX package)."""
+        ``step``.  Every rank calls it: sharded params are gathered on
+        every rank (gather-on-save) and rank 0 writes.  ``blocking=None``
+        follows ``MXTPU_CKPT_ASYNC``: the async path stalls the caller
+        for the host copies only.  Under ``MXTPU_CKPT_SHARDED=1`` a
+        zero/zero3 trainer writes sharded-native blobs instead
+        (:meth:`save_checkpoint_sharded`, blocking by design)."""
+        from ..resilience import ENV_CKPT_SHARDED
+        if str(get_env(ENV_CKPT_SHARDED, "0")).strip().lower() in \
+                ("1", "true", "yes", "on") and self._zero and \
+                hasattr(manager, "save_sharded"):
+            return self.save_checkpoint_sharded(manager, step)
         arg_params, aux_params = self.snapshot_params()
         states = self.get_states()
+        plan_doc = self.sharding_plan.to_doc() \
+            if self.sharding_plan is not None else None
         return manager.save(step, self.symbol, arg_params, aux_params,
-                            optimizer_states=states, blocking=blocking)
+                            optimizer_states=states, blocking=blocking,
+                            plan=plan_doc)
+
+    def _sharded_ckpt_dims(self):
+        """param -> dp-shard dim of the sharded-native layout, or None for
+        a param that travels whole in shard 0's blob."""
+        return {name: self._zero3_dims.get(name)
+                for name in self.param_names}
+
+    def save_checkpoint_sharded(self, manager, step):
+        """Sharded-native checkpoint: each rank writes its own blob
+        (``prefix-0007.params.s001-of-002``) straight from its shards, no
+        gather; replicated params and the aux states ride in shard 0's
+        blob.  The blobs' payloads and names are the JAX package's, so
+        either package restores them at any world.  Peers write first,
+        then rank 0 writes its blob and publishes the manifest; every
+        rank returns after the publish."""
+        from .. import distributed
+        self.flush_step_guard()
+        world, me = self._world, self._rank
+        dims = self._sharded_ckpt_dims()
+        plan_doc = self.sharding_plan.to_doc() \
+            if self.sharding_plan is not None else None
+
+        def host(t):
+            return np.array(t.detach().cpu().numpy(), copy=True)
+
+        def payload(k):
+            if k != me:
+                return None
+            out = {"epoch": int(step), "shard": int(k),
+                   "world": int(world), "dims": dims,
+                   "num_update": self._num_update, "args": {}, "opt": {}}
+            for name, v in self.params.items():
+                if dims[name] is not None or k == 0:
+                    out["args"][name] = host(v)
+                    out["opt"][name] = tuple(host(x)
+                                             for x in self.opt_state[name])
+            if k == 0:
+                out["aux"] = {n: host(v) for n, v in self.aux.items()}
+            return pickle.dumps(out, protocol=4)
+
+        if me != 0:
+            manager.save_sharded(step, self.symbol, payload, world=world,
+                                 plan=plan_doc, rank=me)
+        distributed.barrier("ckpt_sharded_blobs")
+        if me == 0:
+            manager.save_sharded(step, self.symbol, payload, world=world,
+                                 plan=plan_doc, rank=0)
+        distributed.barrier("ckpt_sharded_publish")
+        return int(step)
 
     def restore(self, manager, epoch=None):
         """Resume params and optimizer state (with the update counter,
         inside the states blob) from the manager's newest (or given)
-        checkpoint; returns the restored epoch.  The parameter set must
-        match exactly: a parameter added or removed between save and
-        resume raises with names (use ``set_params`` for a deliberate
-        partial restore)."""
+        checkpoint; returns the restored epoch.  Elastic: a checkpoint
+        written at another world (gathered or sharded-native) re-shards
+        through ``set_params``.  The parameter set must match exactly: a
+        parameter added or removed between save and resume raises with
+        names (use ``set_params`` for a deliberate partial restore)."""
         _, arg_params, aux_params, states, epoch = manager.restore(epoch)
         problems = diff_param_sets(arg_params, self.param_names)
         problems += diff_param_sets(aux_params, self.aux_names,
@@ -939,6 +1347,17 @@ class SPMDTrainer(object):
                 "between save and resume — fix the symbol, or load "
                 "deliberately with set_params)"
                 % (epoch, "\n  ".join(problems)))
+        saved_plan = manager.plan(epoch) if hasattr(manager, "plan") \
+            else None
+        if saved_plan is not None and self.sharding_plan is not None:
+            saved_world = int(saved_plan.get("world", 1))
+            if saved_world != self.sharding_plan.world:
+                _LOG.info(
+                    "elastic resume: checkpoint epoch %d was written at "
+                    "world=%d (grad_sync=%r), restoring at world=%d — "
+                    "params re-shard through set_params placement",
+                    epoch, saved_world, saved_plan.get("grad_sync"),
+                    self.sharding_plan.world)
         self.set_params(arg_params, aux_params)
         if states is not None:
             self.set_states(states)

@@ -20,6 +20,13 @@ package's (``mxnet_tpu/analysis/``) on the CPU.
   warns and trains.
 - ``PooledModel.analyze`` is clean for an MLP and a narrow ResNet,
   float32, bfloat16 and int8.
+- Data parallel (two gloo ranks, ``tests/test_torch_zero3.py``'s
+  analysis worker): a zero3 step's collective schedule is clean (one
+  bucketed all-gather a group forward and backward, reduce-scatter
+  gradients, no param-scale all-reduce), a parameter left out of the
+  sharding is flagged ``graph-collective-schedule``, an allreduce step
+  shows no all-gather and a zero step gathers by design; ``analyze``
+  trains nothing.
 - The step writes its carries in place: every carry keeps its
   ``data_ptr`` across steps, the values are bit-equal to the
   out-of-place step (a test-local subclass that rebinds every carry), and
@@ -575,9 +582,36 @@ def test_collectives_recorded_and_allgather_flagged():
 
 
 def test_collective_schedule_waits_for_multi_gpu():
+    """The zero3 schedule rule (ported with the data-parallel slice):
+    no declared schedule, no findings; a declared one is held to its
+    gathered bytes, its reduce-scatters and the absence of a
+    param-scale all-reduce (the JAX package's rule on the same
+    stats)."""
+    from mxnet_tpu.analysis import graph_lint as jlint
     assert graph_lint.audit_collective_schedule({}, None) == []
-    with pytest.raises(MXNetError, match="multi-GPU"):
-        graph_lint.audit_collective_schedule({}, "zero3-gspmd", 1024)
+
+    def stats(ag, rs, ar, agn=2, rsn=1):
+        return {"all-gather": {"count": agn, "bytes": ag},
+                "reduce-scatter": {"count": rsn, "bytes": rs},
+                "all-reduce": {"count": 1, "bytes": ar}}
+
+    expect = 1 << 20
+    for st, clean in ((stats(2 * expect, expect // 2, 64), True),
+                      (stats(expect // 4, expect // 2, 64), False),
+                      (stats(2 * expect, 0, 64, rsn=0), False),
+                      (stats(2 * expect, expect // 2, expect), False)):
+        got = graph_lint.audit_collective_schedule(st, "zero3-manual",
+                                                   expect)
+        want = jlint.audit_collective_schedule(st, "zero3-manual", expect)
+        assert (not got) == clean == (not want), (st, got, want)
+        assert all(f.rule == "graph-collective-schedule" for f in got)
+    # group counts: one gather a group forward, at most one more backward
+    assert graph_lint.audit_collective_schedule(
+        stats(2 * expect, expect // 2, 64, agn=2, rsn=1), "zero3-manual",
+        expect, expect_groups=1) == []
+    assert graph_lint.audit_collective_schedule(
+        stats(2 * expect, expect // 2, 64, agn=5, rsn=1), "zero3-manual",
+        expect, expect_groups=2)
 
 
 # ---------------------------------------------------------------------------
@@ -774,3 +808,57 @@ def test_carries_in_place_with_the_abort_off():
     assert acc.tolist() == [1, 0, 0]
     assert [(p, t.data_ptr()) for p, t in _flat(tr)] == ptrs
     assert tr._num_update == 2
+
+
+# ---------------------------------------------------------------------------
+# data parallel: the zero3 schedule proof across two ranks
+# ---------------------------------------------------------------------------
+
+_DP = {}
+
+
+@pytest.fixture(scope="module")
+def dp_reports(tmp_path_factory):
+    if "r" not in _DP:
+        sys.path.insert(0, os.path.join(REPO, "tests"))
+        from test_torch_parallel import launch_workers
+        ranks = launch_workers(
+            os.path.join(REPO, "tests", "test_torch_zero3.py"), 2,
+            tmp_path_factory.mktemp("analysis_dp"), extra=["analysis"])
+        _DP["r"] = [{k: json.loads(str(v)) for k, v in r.items()}
+                    for r in ranks]
+    return _DP["r"]
+
+
+def test_zero3_schedule_is_clean(dp_reports):
+    for r in dp_reports:
+        rep = r["zero3"]
+        assert rep["ok"], rep["text"]
+        assert rep["unchanged"]
+        c = rep["collectives"]
+        assert c["reduce-scatter"]["count"] == rep["groups"]
+        assert rep["groups"] <= c["all-gather"]["count"] <= 2 * rep["groups"]
+        # forward gather and backward re-gather of every sharded byte
+        assert c["all-gather"]["bytes"] == 2 * rep["expect"]
+        assert c["all-reduce"]["bytes"] < 0.5 * rep["expect"]
+
+
+def test_zero3_param_left_out_of_sharding_is_flagged(dp_reports):
+    for r in dp_reports:
+        rep = r["left_out"]
+        assert not rep["ok"]
+        assert rep["rules"] == ["graph-collective-schedule"], rep["text"]
+
+
+def test_allreduce_step_shows_no_allgather(dp_reports):
+    for r in dp_reports:
+        rep = r["allreduce"]
+        assert rep["ok"], rep["text"]
+        c = rep["collectives"]
+        assert c["all-gather"]["count"] == 0
+        assert c["reduce-scatter"]["count"] == 0
+        assert c["all-reduce"]["count"] >= 1
+        zero = r["zero"]
+        assert zero["ok"], zero["text"]
+        assert zero["collectives"]["all-gather"]["count"] >= 1
+        assert zero["collectives"]["reduce-scatter"]["count"] >= 1

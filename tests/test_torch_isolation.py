@@ -555,8 +555,8 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 def test_new_modules_are_covered():
     """The extension, input-pipeline, data-service, resilience, serving,
-    fleet and tools slices' modules are among the sources the import
-    check walks."""
+    fleet, tools and data-parallel slices' modules are among the sources
+    the import check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
@@ -580,7 +580,9 @@ def test_new_modules_are_covered():
                 "analysis/graph_lint", "analysis/mxlint_main", "profiler",
                 "contrib/flops", "contrib/tensorboard", "visualization",
                 "test_utils", "notebook/__init__", "notebook/callback",
-                "libinfo"):
+                "libinfo", "distributed", "kvstore_dist",
+                "parallel/__init__", "parallel/mesh", "parallel/zero3",
+                "parallel/planner", "parallel/spmd_module"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 
@@ -642,3 +644,55 @@ def test_tools_run_with_jax_unimportable(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip().endswith("ok tools")
+
+
+def test_data_parallel_slice_runs_with_jax_unimportable():
+    """Two ranks under tools/launch.py --platform cpu with JAX and the JAX
+    package unimportable: each joins at import over gloo on the host, and
+    runs a zero3 step, a planner call, a dist_sync push and an
+    SPMDModule fit."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch import distributed as d\n"
+        "r, w = d.rank(), d.num_workers()\n"
+        "assert w == 2 and d.backend() == 'gloo' and "
+        "mx.current_context() == mx.cpu()\n"
+        "net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Variable("
+        "'data'), num_hidden=4, name='fc'), name='softmax')\n"
+        "mesh = mx.parallel.local_mesh()\n"
+        "tr = mx.parallel.SPMDTrainer(net, 'sgd', {'learning_rate': 0.1},"
+        " mesh=mesh, grad_sync='zero3')\n"
+        "tr.bind([('data', (4, 6))], [('softmax_label', (4,))])\n"
+        "tr.init_params(mx.initializer.Xavier())\n"
+        "tr.step(np.ones((4, 6), np.float32), np.zeros(4, np.float32))\n"
+        "assert tr.params['fc_weight'].shape == (2, 6)\n"
+        "p = mx.parallel.planner.plan(net, [('data', (8, 6))], "
+        "[('softmax_label', (8,))])\n"
+        "assert p.world == 2, p.to_json()\n"
+        "kv = mx.kv.create('dist_sync')\n"
+        "kv.init(0, mx.nd.zeros((3,)))\n"
+        "kv.push(0, mx.nd.ones((3,)) * (r + 1))\n"
+        "out = mx.nd.zeros((3,))\n"
+        "kv.pull(0, out=out)\n"
+        "assert out.asnumpy().tolist() == [3.0, 3.0, 3.0]\n"
+        "mod = mx.parallel.SPMDModule(net, mesh=mesh)\n"
+        "mod.fit(mx.io.NDArrayIter(np.ones((8, 6), np.float32), "
+        "np.zeros(8, np.float32), batch_size=4), num_epoch=1)\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
+        "print('ok dp rank', r)\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MXTPU_")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "launch.py"), "-n", "2",
+         "--platform", "cpu", sys.executable, "-c", code],
+        cwd=REPO, capture_output=True, text=True, timeout=240, env=env)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-2000:]
+    assert "ok dp rank 0" in res.stdout and "ok dp rank 1" in res.stdout

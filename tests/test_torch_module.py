@@ -368,18 +368,25 @@ def test_module_reshape_keeps_params():
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """Several contexts and dist stores raise, naming the slice that
-    brings them; the resilience options and their knobs no longer do
+    """``dist_async`` raises (no collective analog, as in the JAX
+    package); several contexts in one process take the executor-group
+    route (the fused step over an in-process mesh comes with the
+    model-parallel item) and the dist stores work as a world of one
+    (tests/test_torch_dist.py runs them across processes); the
+    resilience options and their knobs do not raise
     (tests/test_torch_resilience.py holds them against the JAX package),
     nor do step traces (MXTPU_PROFILE_DIR: tests/test_torch_tools.py)."""
     net = mlp_sym(nh=8)
     X, y = make_blobs(64, 6, 3)
     it = tmx.io.NDArrayIter(X, y, batch_size=32)
     mod = tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
-    with pytest.raises(tmx.MXNetError, match="multi-GPU"):
-        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
-    with pytest.raises(tmx.MXNetError, match="multi-GPU"):
-        tmx.kvstore.create("dist_sync")
+    mod.fit(it, num_epoch=1, kvstore="tpu")
+    assert mod._fused is None and len(mod._exec_group.execs) == 2
+    it.reset()
+    with pytest.raises(tmx.MXNetError, match="dist_async"):
+        tmx.kvstore.create("dist_async")
+    kv = tmx.kvstore.create("dist_sync")
+    assert (kv.rank, kv.num_workers, kv.get_num_dead_node()) == (0, 1, 0)
     monkeypatch.setenv("MXTPU_PROFILE_DIR", str(tmp_path / "trace"))
     _module(net).fit(it, num_epoch=1)
     monkeypatch.delenv("MXTPU_PROFILE_DIR")

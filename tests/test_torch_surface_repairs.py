@@ -20,11 +20,9 @@ import mxnet_tpu_torch as tmx
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: top-level names of the JAX package the port does not have yet, each
-#: with the ROADMAP queue 1 item that brings it
-LATER = {
-    # item 4, several devices
-    "distributed": 4,
-}
+#: with the ROADMAP queue 1 item that brings it (``distributed`` came
+#: with item 4's data-parallel half: none is left)
+LATER = {}
 
 
 def _public_names():

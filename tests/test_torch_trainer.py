@@ -177,11 +177,20 @@ def test_bfloat16_compute_step_matches_jax():
 
 
 def test_later_slice_arguments_raise(monkeypatch):
+    """The model-parallel axes raise, naming the item that brings them;
+    the data-parallel arguments of the multi-GPU slice are ported (on one
+    device a zero/zero3 trainer and a plan run the plain step)."""
+    import types
     sym = _symbol(tmx)
-    for kw in (dict(mesh=object()), dict(grad_sync="zero"),
-               dict(plan={}), dict(param_shardings={".*": ("tp",)})):
+    for kw in (dict(mesh=types.SimpleNamespace(shape={"dp": 1, "tp": 2})),
+               dict(param_shardings={".*": ("tp",)})):
         with pytest.raises(tmx.MXNetError, match="not ported yet"):
             tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(), **kw)
+    with pytest.raises(tmx.MXNetError, match="unsupported plan version"):
+        tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(), plan={})
+    for sync in ("zero", "zero3"):
+        tr = tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(), grad_sync=sync)
+        assert tr.grad_sync == sync and not tr._zero
     # remat (the mirror mode) is ported: it builds checkpointed segments
     assert tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(), remat=True) \
         ._eval.segments
