@@ -332,7 +332,7 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     ``bn_act`` launches a step a rank in every tier; ms a step, params and
     optimizer state a rank against allreduce's, peak memory, the
     collectives' share of a step); the two-rank allreduce update after 1
-    and 3 steps against one process at batch 64 (within
+    and 2 steps against one process at batch 64 (within
     ``GRAD_L2_FACTOR`` x the one process's fused-vs-unfused distance); a
     batch-4 zero3 step of the ranks on the card against the same ranks on
     the host; ``Module.fit`` of ResNet-50 with ``kvstore='dist_sync'``
@@ -344,7 +344,19 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     rank 1 alone under ``fit(preemption_safe=True)``, both ranks saving at
     the same boundary and leaving with 85, the resumed fit bit-identical
     to an uninterrupted one;
-31. logs every path's wall time (``<path>: %.1f s``, also written to
+31. runs the model-parallel axes inside one process
+    (``model_parallel_paths``), every mesh position a ``gpu(0)``
+    context: ResNet-50 at dp 2 x tp 2 through ``SPMDTrainer`` with
+    ``fc1_weight`` and the stage-4 conv weights sharded over ``tp`` (the
+    column form each took, 200 + 200 ``bn_act`` launches a step, ms a
+    step, the ruled params' storage a position, the first step's update
+    against one device's and against float64, the gathered params
+    through ``Predictor``); the long-context LM at the example's defaults
+    on dp 2 x sp 4 against one device's ``make_step``; ``pipeline_apply``
+    over pp 4 and its input gradient against the sequential
+    composition; ``moe_ffn`` over ep 8 against the dense mix, and its
+    dropped tokens at capacity factor 1.0;
+32. logs every path's wall time (``<path>: %.1f s``, also written to
     ``chiprun_out/smoke_times.json``), then prints a ``{"kernels":
     [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -358,6 +370,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -6396,8 +6409,8 @@ IN_DET_SHAPE = (3, 300, 300)   # example/ssd's input
 IN_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
 IN_THREADS = 4
 IN_WARM = 2             # fit batches before the measured window
-IN_FIT_BATCHES = 4      # measured batches of each feed in each turn
-IN_PROFILE_BATCHES = 4  # batches of each feed's traced window
+IN_FIT_BATCHES = 2      # measured batches of each feed in each turn
+IN_PROFILE_BATCHES = 2  # batches of each feed's traced window
 IN_RATE_BATCHES = 4     # batches a decode-rate run reads after one warm-up
 IN_UPLOAD_REPS = 20
 IN_SCORE_BATCHES = 8
@@ -7036,7 +7049,7 @@ def input_paths(torch, mx, seed, card):
 
 DS_WORKERS = (1, 2, 4)   # decode workers of the rate runs (the host has 8)
 DS_MARGIN = 16           # device_augment's crop margin: a 3x240x240 canvas
-DS_FIT_BATCHES = 3       # measured batches of each feed in each turn
+DS_FIT_BATCHES = 2       # measured batches of each feed in each turn
 DS_COMPARE_BATCHES = 4   # batches held byte for byte between two streams
 DS_AUG_REPS = 20         # augment calls in the traced window
 DS_SERVERS = 2           # loopback server processes of the network tier
@@ -8932,7 +8945,7 @@ SV_IDENTITY = (5, 8)    # rows, bucket of the bit-identity check
 SV_AGREE_BUCKET = 4     # the card against the port's CPU path
 SV_BF16_ATOL = 1e-2     # bfloat16 weights against float32, max |diff|
 SV_INT8_TOL = dict(atol=2e-2, rtol=5e-2)   # int8 against float32
-SV_LOAD_S = 2.5         # closed-loop seconds at each concurrency
+SV_LOAD_S = 1.5         # closed-loop seconds at each concurrency
 SV_CONCURRENCY = (1, 32)
 SV_SWAP_CLIENTS = 8     # concurrency while a new epoch is published
 SV_DRAIN_CLIENTS = 8    # requests in flight at SIGTERM
@@ -9558,8 +9571,8 @@ def serving_paths(torch, mx, seed, card):
 
 FL_DEVICE_SETS = "cuda:0"    # both replicas co-tenant on card 0
 FL_BUCKETS = (1, 8, 32)
-FL_C1_S = 2.5           # closed-loop seconds at concurrency 1
-FL_C32_S = 4.0          # and at concurrency 32
+FL_C1_S = 1.5           # closed-loop seconds at concurrency 1
+FL_C32_S = 2.5          # and at concurrency 32
 FL_KILL_CLIENTS = 8     # clients through the SIGKILL drill
 FL_SWAP_CLIENTS = 4     # clients through the rolling swap
 FL_BURSTS = 4           # most burst rounds to see buckets 8 and 32 served
@@ -10612,7 +10625,7 @@ DIST_RANKS = 2
 #: last with the collectives' host seconds counted), and the allreduce
 #: tier's params after the first and the last are held to one process at
 #: the global batch
-DIST_STEPS = 3
+DIST_STEPS = 2
 DIST_TIERS = ("allreduce", "zero", "zero3")
 #: Module.fit batches a kvstore kind
 DIST_FIT_BATCHES = 2
@@ -10758,7 +10771,7 @@ def _dist_one_process_gate(torch, mx, rank, world, init, glob, finals):
     the larger distance of the other orders from the one process (at
     least AGREE_REL_TOL), in relative L2 over all params, and the moving
     statistics too.  ReLU masks flip under another summation order and
-    the flips grow step by step (see GRAD_L2_FACTOR): after three steps
+    the flips grow step by step (see GRAD_L2_FACTOR): after a few steps
     any two float32 orders are far apart."""
     import numpy as np
     from mxnet_tpu_torch import distributed
@@ -11302,6 +11315,344 @@ def dist_paths(torch, mx, seed, card):
     return collections.Counter({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
 
 
+# ---------------------------------------------------------------------------
+# the model-parallel axes inside one process (model_parallel_paths)
+# ---------------------------------------------------------------------------
+
+#: ResNet-50 at dp 2 x tp 2 over [gpu(0)] * 4: the rules, the steps
+MP_RESNET_MESH = {"dp": 2, "tp": 2}
+MP_RESNET_RULES = {r"fc1_weight": ("tp", None),
+                   r"stage4_unit\d+_conv\d_weight": ("tp", None, None, None)}
+MP_RESNET_STEPS = 3
+#: the long-context LM at the example's defaults on its dp 2 x sp 4 mesh
+MP_LM_MESH = {"dp": 2, "sp": 4}
+MP_LM_STEPS = 3
+MP_LM_LOSS_TOL = 1e-4      # |loss - one device's| / one device's
+#: pipeline_apply: S stages of tanh(x @ w + b) at width d, batch, M
+MP_PP_STAGES, MP_PP_D, MP_PP_BATCH, MP_PP_MICRO = 4, 1024, 256, 8
+#: moe_ffn: E experts over ep E, d_model, d_hidden, tokens (B, S)
+MP_MOE_E, MP_MOE_D, MP_MOE_H, MP_MOE_TOKENS = 8, 512, 2048, (4, 512)
+MP_TOL = 1e-5              # relative to max |reference|: pp and moe results
+#: a capacity factor at which some tokens lose both experts
+MP_MOE_DROP_CF = 0.25
+
+
+def _mp_rel(torch, got, ref):
+    """max |got - ref| / max |ref|."""
+    top = float(ref.abs().max())
+    return float((got - ref).abs().max()) / (top if top > 0 else 1.0)
+
+
+def _mp_resnet(torch, mx, seed, card):
+    """ResNet-50 at global batch BATCH over a dp 2 x tp 2 mesh of
+    [gpu(0)] * 4 through SPMDTrainer with MP_RESNET_RULES: the tp form
+    each rule took, 50 + 50 bn_act launches a step a position (counts
+    zeroed just before each step, read just after), ms a step, the ruled
+    params' storage on a position (half the whole), the first step's
+    update against the one-device step (within GRAD_L2_FACTOR x the
+    one device's fused-vs-unfused distance) and against the float64
+    step (as dist_paths holds it), and the gathered params through
+    Predictor against the mesh's own forward of the same weights."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    dev = mx.gpu(0).torch_device
+    rs = np.random.RandomState(seed + 43)
+    glob = [(rs.standard_normal((BATCH,) + IMAGE).astype(np.float32),
+             rs.randint(0, 1000, BATCH).astype(np.float32))
+            for _ in range(MP_RESNET_STEPS)]
+    one = _dist_resnet_trainer(mx, "allreduce", 1, BATCH, mx.gpu(0), None,
+                               None)
+    init = _dist_host(one)
+    runs = {}
+    for name, fused in (("one", "1"), ("plain", "0")):
+        with _env("MXTPU_FUSED_KERNELS", fused):
+            tr = one if name == "one" else _dist_resnet_trainer(
+                mx, "allreduce", 1, BATCH, mx.gpu(0), *init)
+            x, y = glob[0]
+            tr.step(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+            runs[name] = _dist_host(tr)[0]
+            opt = tr.optimizer
+            tr.close()
+    del one
+    torch.cuda.empty_cache()
+    with _env("MXTPU_FUSED_KERNELS", "0"):
+        ref = _executor_step(mx, _resnet50(mx), init,
+                             glob[0][0].astype(np.float64),
+                             glob[0][1].astype(np.float64), mx.gpu(0))
+    arg0 = init[0]
+    step64 = {k: arg0[k] - opt.lr * (
+        opt.rescale_grad * ref["grad:" + k]
+        + opt.wd * opt.wd_mult.get(k, 1.0) * arg0[k]) for k in arg0}
+    del ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = mx.parallel.build_mesh(MP_RESNET_MESH, [mx.gpu(0)] * 4)
+    tr = mx.parallel.SPMDTrainer(
+        _resnet50(mx), "sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                               "wd": 1e-4, "rescale_grad": 1.0 / BATCH},
+        mesh=mesh, param_shardings=MP_RESNET_RULES, ctx=mx.gpu(0))
+    tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    tr.init_params(None, arg_params=init[0], aux_params=init[1])
+    ruled = sorted(tr.tp_forms)
+    log("mp resnet: tp forms %s" % json.dumps(
+        collections.Counter(tr.tp_forms.values())))
+    check(len(ruled) == 10 and set(tr.tp_forms.values()) == {"column"},
+          "mp resnet: the 10 ruled weights take the column form: %s"
+          % tr.tp_forms)
+    whole = sum(int(np.prod(tr.arg_shapes[n])) * 4 for n in ruled)
+    held = tr.resident_bytes(position=0, names=ruled)
+    log("mp resnet: ruled params %d bytes whole, %d held a position "
+        "(optimizer state %d)" % (whole, held["params"],
+                                  held["opt_state"]))
+    check(held["params"] * 2 == whole and held["opt_state"] * 2 == whole,
+          "mp resnet: a position holds half of the ruled params: %s of %d"
+          % (held, whole))
+    spans, fwd, bwd, first = [], [], [], None
+    for i, (x, y) in enumerate(glob):
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        torch.cuda.synchronize(dev)
+        # -- the main path: counts zeroed just before, read just after ----
+        ba.LAUNCHES = ba.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        outs = tr.step(xd, yd)
+        torch.cuda.synchronize(dev)
+        spans.append(time.perf_counter() - t0)
+        fwd.append(ba.LAUNCHES)
+        bwd.append(ba.BWD_LAUNCHES)
+        check(bool(torch.isfinite(outs[0]).all()),
+              "mp resnet: step %d outputs finite" % i)
+        if i == 0:
+            first = _dist_host(tr)[0]
+    log("mp resnet: bn_act launches a step %s forward, %s backward; ms a "
+        "step %s (first %.1f); peak %.2f GiB; %s" % (
+            fwd, bwd, ["%.1f" % (v * 1e3) for v in spans[1:]],
+            spans[0] * 1e3, torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            card))
+    per = 50 * mesh.size
+    check(fwd == [per] * MP_RESNET_STEPS and bwd == [per] * MP_RESNET_STEPS,
+          "mp resnet: %d + %d bn_act launches a step (50 + 50 a position): "
+          "%s, %s" % (per, per, fwd, bwd))
+    check(tr.skipped_steps == 0, "mp resnet: no guard-skipped step")
+    l2_one = _dist_update_l2(np, first, runs["one"], arg0)
+    spread = _dist_update_l2(np, runs["plain"], runs["one"], arg0)[0]
+    f64_mesh = _dist_update_l2(np, first, step64, arg0)[0]
+    f64_one = _dist_update_l2(np, runs["one"], step64, arg0)[0]
+    log("mp resnet: step 1 update vs one device %.3g (worst %s), one "
+        "device's fused-vs-unfused %.3g; vs float64: mesh %.3g, one device "
+        "%.3g" % (l2_one[0], l2_one[1], spread, f64_mesh, f64_one))
+    check(l2_one[0] <= GRAD_L2_FACTOR * max(spread, AGREE_REL_TOL),
+          "mp resnet: step 1 update %.3g from one device's (bound %.3g)"
+          % (l2_one[0], GRAD_L2_FACTOR * max(spread, AGREE_REL_TOL)))
+    check(f64_mesh <= GRAD_L2_FACTOR * max(f64_one, AGREE_REL_TOL),
+          "mp resnet: step 1 update %.3g from float64 (bound %.3g)"
+          % (f64_mesh, GRAD_L2_FACTOR * max(f64_one, AGREE_REL_TOL)))
+    # the gathered params through Predictor: the mesh's inference forward
+    # of the same weights
+    args, aux = tr.get_params()
+    x = torch.from_numpy(glob[0][0]).to(dev)
+    mine = tr.eval_step(x, torch.from_numpy(glob[0][1]).to(dev))[0]
+    pred = mx.predict.Predictor(_resnet50(mx), _with_prefixes(args, aux),
+                                {"data": x.shape}, ctx=mx.gpu(0))
+    got = torch.as_tensor(pred.forward(data=glob[0][0]).get_output(0)).to(
+        dev)
+    rel = _mp_rel(torch, got, mine)
+    log("mp resnet: Predictor of the gathered params vs the mesh's "
+        "forward: max |diff| / max %.3g" % rel)
+    check(rel <= AGREE_REL_TOL, "mp resnet: Predictor %.3g from the mesh's "
+          "forward" % rel)
+    tr.close()
+    return {"ms": [v * 1e3 for v in spans[1:]], "fwd": sum(fwd),
+            "bwd": sum(bwd)}
+
+
+def _mp_lm(torch, mx, seed, card):
+    """The long-context LM at the example's defaults on its dp 2 x sp 4
+    mesh over [gpu(0)] * 8 (the ring over sp), against the one-device
+    make_step on the same batches from the same weights: losses and the
+    updated params, ms a step."""
+    import numpy as np
+    lm = mx.models.long_context_lm
+    mesh = mx.parallel.build_mesh(MP_LM_MESH, [mx.gpu(0)] * 8)
+    p_one = _lc_params(torch, mx, seed, mx.gpu(0))
+    p_mesh = mx.parallel.collectives.tree_map(lambda t: t.clone(), p_one)
+    batches = _lc_batches(torch, mx, MP_LM_STEPS, LC_SEQ, seed + 71)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, prefix + k + "/") if isinstance(v, dict)
+                       else {prefix + k: np.array(v, copy=True)})
+        return out
+    start = flat(lm.params_to_numpy(p_one))
+    one = lm.make_step(None, LC_HEADS, LC_LAYERS, LC_LR)
+    on_mesh = lm.make_step(mesh, LC_HEADS, LC_LAYERS, LC_LR)
+    spans, losses = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lm_loss = on_mesh(p_mesh, x, y)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        _, lo = one(p_one, x, y)
+        losses.append((float(lm_loss), float(lo)))
+    got, ref = lm.params_to_numpy(p_mesh), lm.params_to_numpy(p_one)
+    got, ref = flat(got), flat(ref)
+    l2 = _dist_update_l2(np, got, ref, start)
+    worst_loss = max(abs(a - b) / abs(b) for a, b in losses)
+    log("mp lm: dp 2 x sp 4 losses %s vs one device's %s (worst rel "
+        "%.3g); update rel L2 %.3g (worst %s); ms a step %s (first %.1f); "
+        "%s" % (["%.5f" % a for a, _ in losses],
+                ["%.5f" % b for _, b in losses], worst_loss, l2[0], l2[1],
+                ["%.1f" % (v * 1e3) for v in spans[1:]], spans[0] * 1e3,
+                card))
+    check(all(np.isfinite(a) for a, _ in losses), "mp lm: finite losses")
+    check(worst_loss <= MP_LM_LOSS_TOL, "mp lm: losses %.3g from one "
+          "device's" % worst_loss)
+    check(l2[0] <= LC_GRAD_L2_TOL, "mp lm: params' update %.3g from one "
+          "device's (relative L2)" % l2[0])
+    return {"ms": [v * 1e3 for v in spans[1:]]}
+
+
+def _mp_pipeline(torch, mx, seed, card):
+    """pipeline_apply over pp 4 of [gpu(0)] * 4: S stages of tanh(x @ w +
+    b) at width MP_PP_D, batch MP_PP_BATCH, MP_PP_MICRO microbatches; the
+    result and the input's gradient against the sequential composition."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed + 75)
+    dev = mx.gpu(0).torch_device
+    d = MP_PP_D
+    per = [{"w": (torch.randn((d, d), generator=gen) / d ** 0.5).to(dev),
+            "b": (torch.randn((d,), generator=gen) * 0.1).to(dev)}
+           for _ in range(MP_PP_STAGES)]
+    x = torch.randn((MP_PP_BATCH, d), generator=gen).to(dev)
+    cot = torch.randn((MP_PP_BATCH, d), generator=gen).to(dev)
+    mesh = mx.parallel.build_mesh({"pp": MP_PP_STAGES},
+                                  [mx.gpu(0)] * MP_PP_STAGES)
+
+    def stage(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+    xs = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mx.parallel.pipeline_apply(
+        stage, mx.parallel.stack_stage_params(per), xs, mesh,
+        n_microbatch=MP_PP_MICRO)
+    (gx,) = torch.autograd.grad((out * cot).sum(), xs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    xr = x.clone().requires_grad_(True)
+    ref = xr
+    for p in per:
+        ref = stage(p, ref)
+    (gr,) = torch.autograd.grad((ref * cot).sum(), xr)
+    errs = (_mp_rel(torch, out.detach(), ref.detach()), _mp_rel(torch, gx, gr))
+    log("mp pipeline: S %d, d %d, batch %d, M %d: result %.3g, input "
+        "gradient %.3g (max |diff| / max), forward+backward %.1f ms; %s"
+        % (MP_PP_STAGES, d, MP_PP_BATCH, MP_PP_MICRO, errs[0], errs[1], ms,
+           card))
+    check(max(errs) <= MP_TOL, "mp pipeline: %.3g / %.3g from the "
+          "sequential composition" % errs)
+    return {"ms": ms}
+
+
+def _mp_moe_reference(torch, tok, params, every, cf):
+    """The top-2 mix at capacity factor ``cf``, computed here from the
+    JAX package's contract (not the port's routing): softmax gates, the
+    two largest renormalized, each choice's slot its rank among the
+    earlier tokens of that choice for that expert (the second choice's
+    after all kept first choices), a slot past ceil(cf * T * 2 / E)
+    dropped.  ``every`` (T, E, d) is every expert's FFN on every token.
+    Returns (mix (T, d), experts kept a token (T,), capacity)."""
+    T, E = tok.shape[0], params["w1"].shape[0]
+    cap = int(math.ceil(cf * T * 2 / E))
+    top, idx = torch.topk(torch.softmax(tok @ params["gate"], dim=-1), 2,
+                          dim=-1)
+    g = top / top.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    rows = torch.arange(T, device=tok.device)
+    prior = torch.zeros(E, device=tok.device)
+    mix = torch.zeros_like(tok)
+    kept = torch.zeros(T, dtype=torch.int64, device=tok.device)
+    for c in range(2):
+        onehot = torch.nn.functional.one_hot(idx[:, c], E).to(tok.dtype)
+        slot = (torch.cumsum(onehot, dim=0) - onehot + prior)[rows, idx[:, c]]
+        keep = slot < cap
+        prior = prior + (onehot * keep[:, None]).sum(dim=0)
+        mix = mix + every[rows, idx[:, c]] * (g[:, c] * keep)[:, None]
+        kept += keep.to(torch.int64)
+    return mix, kept, cap
+
+
+def _mp_moe(torch, mx, seed, card):
+    """moe_ffn with E experts over ep E of [gpu(0)] * E against the top-2
+    mix computed here (:func:`_mp_moe_reference`) at capacity factor E
+    (nothing drops), 1.0 and MP_MOE_DROP_CF, where some tokens must lose
+    both experts and get exactly zero rows."""
+    P = mx.parallel
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed + 80)
+    dev = mx.gpu(0).torch_device
+    E = MP_MOE_E
+    params = P.moe_init(gen, MP_MOE_D, MP_MOE_H, E, ctx=mx.gpu(0))
+    x = torch.randn(MP_MOE_TOKENS + (MP_MOE_D,), generator=gen).to(dev)
+    mesh = P.build_mesh({"ep": E}, [mx.gpu(0)] * E)
+    placed = P.collectives.shard_tree(params, mesh, P.moe_shardings("ep"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = P.moe_ffn(placed, x, capacity_factor=E)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    # every expert's FFN on every token
+    tok = x.reshape(-1, MP_MOE_D)
+    h = torch.relu(torch.einsum("td,edh->teh", tok, params["w1"])
+                   + params["b1"][None])
+    every = torch.einsum("teh,ehd->ted", h, params["w2"]) + params["b2"][None]
+    del h
+    errs, notes = [], []
+    for cf in (E, 1.0, MP_MOE_DROP_CF):
+        got = out if cf == E else P.moe_ffn(placed, x, capacity_factor=cf)
+        ref, kept, cap = _mp_moe_reference(torch, tok, params, every, cf)
+        got = got.reshape(-1, MP_MOE_D)
+        errs.append(_mp_rel(torch, got, ref))
+        both = kept == 0
+        zero = float(got[both].abs().max()) if bool(both.any()) else None
+        notes.append("capacity factor %g (capacity %d): %.3g, %d of %d "
+                     "tokens lost an expert, %d both (max |row| %s)"
+                     % (cf, cap, errs[-1], int((kept < 2).sum()),
+                        tok.shape[0], int(both.sum()), zero))
+    del every
+    log("mp moe: E %d over ep %d, d %d, h %d, tokens %s, %.1f ms at "
+        "capacity factor E; against the top-2 mix: %s; %s"
+        % (E, E, MP_MOE_D, MP_MOE_H, MP_MOE_TOKENS, ms, "; ".join(notes),
+           card))
+    check(max(errs) <= MP_TOL * 10, "mp moe: %s from the top-2 mix"
+          % ", ".join("%.3g" % e for e in errs))
+    check(int(both.sum()) > 0 and zero == 0.0,
+          "mp moe: at capacity factor %g tokens lose both experts (%d) "
+          "and get zero rows (max %s)" % (MP_MOE_DROP_CF, int(both.sum()),
+                                          zero))
+    return {"ms": ms}
+
+
+def model_parallel_paths(torch, mx, seed, card):
+    """The model-parallel axes inside one process on the card: every mesh
+    position a [gpu(0)] context, float32 with TF32 off.  ResNet-50 at dp
+    2 x tp 2 through SPMDTrainer, the long-context LM at dp 2 x sp 4,
+    pipeline_apply over pp 4 and moe_ffn over ep 8 (see each phase).
+    Returns the bn_act launches of the ResNet-50 steps."""
+    res = _mp_resnet(torch, mx, seed, card)
+    torch.cuda.empty_cache()
+    lm = _mp_lm(torch, mx, seed, card)
+    pp = _mp_pipeline(torch, mx, seed, card)
+    moe = _mp_moe(torch, mx, seed, card)
+    torch.cuda.empty_cache()
+    log(json.dumps({"model_parallel": {"resnet_dp2_tp2_ms": res["ms"],
+                                       "lm_dp2_sp4_ms": lm["ms"],
+                                       "pipeline_ms": pp["ms"],
+                                       "moe_ms": moe["ms"], "card": card}}))
+    return collections.Counter({"bn_act_fwd": res["fwd"],
+                                "bn_act_bwd": res["bwd"]})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -11360,7 +11711,8 @@ def main(argv=None):
                        ("serving_paths", serving_paths),
                        ("fleet_paths", fleet_paths),
                        ("tools_paths", tools_paths),
-                       ("dist_paths", dist_paths)):
+                       ("dist_paths", dist_paths),
+                       ("model_parallel_paths", model_parallel_paths)):
         extra += timed(name, path, torch, mx, seed, card)
     times["total"] = round(sum(times.values()), 1)
     log(json.dumps({"path_seconds": times}))

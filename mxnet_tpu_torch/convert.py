@@ -13,6 +13,12 @@ numpy.  Files carry weights too, through the shared ``.params`` format
 ``tree_from_numpy`` / ``tree_to_numpy`` carry a nested dict of arrays
 (the JAX long-context LM's params pytree, ``models/long_context_lm``)
 to plain tensors on a context and back.
+
+``shards_from_numpy`` lays numpy params over a mesh inside one process
+by ``param_shardings`` rules (``parallel/collectives.Sharded``: each
+position's part in its own storage, what ``SPMDTrainer.params`` holds on
+such a mesh; unruled params replicated), and ``shards_to_numpy`` puts
+placed shards back together as whole numpy arrays.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from .context import current_context
 from .ndarray import NDArray, tensor_from_numpy
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tree_from_numpy",
-           "tree_to_numpy"]
+           "tree_to_numpy", "shards_from_numpy", "shards_to_numpy"]
 
 
 def params_from_numpy(arrays, ctx=None):
@@ -77,3 +83,24 @@ def tree_to_numpy(tree):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def shards_from_numpy(arrays, mesh, rules=None):
+    """``{name: Sharded}``: each numpy array of ``arrays`` laid over the
+    in-process ``mesh`` by the first regex of ``rules`` (``{pattern:
+    spec}``, the ``param_shardings`` form) that matches its name, or
+    replicated (the trainer's rule matching)."""
+    from .parallel import collectives as C
+    from .parallel.trainer import _spec_for
+    out = {}
+    for name, value in arrays.items():
+        spec = C.P(*_spec_for(name, value.shape, rules))
+        out[name] = C.shard(tensor_from_numpy(value), mesh, spec)
+    return out
+
+
+def shards_to_numpy(placed):
+    """Whole numpy arrays from ``{name: Sharded}`` (or tensors)."""
+    from .parallel.collectives import Sharded
+    return tree_to_numpy({k: v.full() if isinstance(v, Sharded) else v
+                          for k, v in placed.items()})

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import sys
+import threading
 
 from .base import MXNetError, get_env, register_env
 
@@ -402,56 +403,65 @@ def allreduce_sum(x):
 # global batch's random rows
 # ---------------------------------------------------------------------------
 
-_DP = None   # (world, rank, sync_stats) inside a data-parallel step
+_DP = threading.local()   # .scope: (world, rank, sync_stats, allreduce)
+
+
+def _dp():
+    return getattr(_DP, "scope", None)
 
 
 @contextlib.contextmanager
-def dp_scope(world, me, sync_stats=True):
-    """Run a forward as one rank of a ``world``-way data-parallel step:
-    BatchNorm reduces its statistics over every rank's rows when
+def dp_scope(world, me, sync_stats=True, allreduce=None):
+    """Run a forward as one member of a ``world``-way data-parallel step:
+    BatchNorm reduces its statistics over every member's rows when
     ``sync_stats`` (the JAX package's allreduce and zero steps are one
-    global program), and stochastic ops keep this rank's rows of the
-    global batch's draw."""
-    global _DP
-    prev = _DP
-    _DP = (int(world), int(me), bool(sync_stats)) if world > 1 else None
+    global program), and stochastic ops keep this member's rows of the
+    global batch's draw.  Members are ranks, or the positions of an
+    in-process mesh, whose ``allreduce`` (a differentiable sum over the
+    ``dp`` axis) replaces the one over ranks.  The scope is the calling
+    thread's."""
+    prev = _dp()
+    _DP.scope = (int(world), int(me), bool(sync_stats),
+                 allreduce or allreduce_sum) if world > 1 else None
     try:
         yield
     finally:
-        _DP = prev
+        _DP.scope = prev
 
 
 def batch_stats(data, axes):
     """``(mean, biased var)`` of ``data`` over ``axes`` — over the global
     batch inside a :func:`dp_scope` with ``sync_stats``: the per-channel
-    sums, then the squared deviations, summed over ranks through a
+    sums, then the squared deviations, summed over the members through a
     differentiable all-reduce (equal local batches)."""
     import torch
-    if _DP is None or not _DP[2]:
+    scope = _dp()
+    if scope is None or not scope[2]:
         return (torch.mean(data, dim=axes),
                 torch.var(data, dim=axes, unbiased=False))
-    world = _DP[0]
+    world, reduce = scope[0], scope[3]
     count = (data.numel() // max(1, data.shape[1])) * world
     bshape = (1, -1) + (1,) * (data.ndim - 2)
     # the per-channel sums accumulate in float64 (a cast inside the
-    # reduction), so splitting the batch over ranks moves the statistics
-    # by rounding of the result only
+    # reduction), so splitting the batch over members moves the
+    # statistics by rounding of the result only
     f64 = torch.float64
-    mean = allreduce_sum(torch.sum(data, dim=axes, dtype=f64)) / count
+    mean = reduce(torch.sum(data, dim=axes, dtype=f64)) / count
     d = data - mean.to(data.dtype).reshape(bshape)
-    var = allreduce_sum(torch.sum(d * d, dim=axes, dtype=f64)) / count
+    var = reduce(torch.sum(d * d, dim=axes, dtype=f64)) / count
     return mean.to(data.dtype), var.to(data.dtype)
 
 
 def draw_rows(shape, draw):
-    """``draw(shape)`` for one rank: inside a :func:`dp_scope` the draw is
-    made at the global batch's shape (dim 0 times the world) and this
-    rank keeps its rows, so a stochastic op under dp masks each row as a
-    one-rank step at the global batch would."""
+    """``draw(shape)`` for one member: inside a :func:`dp_scope` the draw
+    is made at the global batch's shape (dim 0 times the world) and this
+    member keeps its rows, so a stochastic op under dp masks each row as
+    a one-member step at the global batch would."""
     shape = tuple(shape)
-    if _DP is None or not shape:
+    scope = _dp()
+    if scope is None or not shape:
         return draw(shape)
-    world, me, _ = _DP
+    world, me = scope[0], scope[1]
     n = shape[0]
     full = draw((n * world,) + shape[1:])
     return full[me * n:(me + 1) * n]

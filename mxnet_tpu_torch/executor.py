@@ -167,7 +167,45 @@ def _run_segments(segments, variables, out_refs, args, aux, rng, device):
     return [env[nid][i] for nid, i in out_refs], aux_updates
 
 
-def _build_eval(symbol, mirror_segments=0):
+def tp_consumers(plan, name, is_train=True):
+    """Where the variable ``name`` is read on one path of a fused plan:
+    ``(node, input position or None, override)`` for each entry that
+    reads it as an input or as an override's extra ref (None).  A
+    ``bn_fold`` site's conv refs are read at inference only."""
+    uses = []
+    for node, _a, _n, _x, _ix, override in plan:
+        if node.op is None:
+            continue
+        for pos, (src, _i) in enumerate(node.inputs):
+            if src.op is None and src.name == name:
+                uses.append((node, pos, override))
+        if override is not None:
+            if is_train and getattr(override[0], "folds_conv", False):
+                continue
+            for src, _i in override[1]:
+                if src.op is None and src.name == name:
+                    uses.append((node, None, override))
+    return uses
+
+
+def _apply_tp_forms(plan, tp_forms):
+    """``plan`` with the column/row overrides of ``tp_forms`` (param ->
+    (form, axis)) on the weights' consumer nodes."""
+    from .ops.nn import tp_layer
+    out = []
+    for entry in plan:
+        node, override = entry[0], entry[5]
+        if node.op is not None and override is None and \
+                node.op.name in ("FullyConnected", "Convolution") and \
+                len(node.inputs) > 1 and node.inputs[1][0].op is None:
+            got = tp_forms.get(node.inputs[1][0].name)
+            if got is not None:
+                entry = entry[:5] + ((tp_layer(node.op.name, *got), []),)
+        out.append(entry)
+    return out
+
+
+def _build_eval(symbol, mirror_segments=0, tp_forms=None):
     """Return ``eval_fn(args, aux, is_train, rng, device=None,
     monitor=None) -> (outputs, aux_updates)`` over name -> tensor dicts,
     interpreting the plan as the mxfuse passes rewrote it
@@ -187,12 +225,18 @@ def _build_eval(symbol, mirror_segments=0):
     graph, as that many checkpointed segments (``eval_fn.segments``; the
     memory mirror mode).  A ``monitor(node, outputs)`` callback runs the
     plain, unfused plan (``eval_fn.plain_plan``, every node) and sees each
-    node's outputs."""
+    node's outputs.
+
+    ``tp_forms`` (param -> (form, axis)) gives the training path the
+    tensor-parallel forms of ``ops.nn.tp_layer`` on those weights'
+    consumers (``column`` and ``row``; a mesh position runs the plan)."""
     from . import mxfuse
     from .kernels import fused_enabled
     out_refs = [(id(n), i) for n, i in symbol._outputs]
     plain_plan = _node_plan(symbol)
     fused_plan = mxfuse.optimize_plan(plain_plan, out_refs)
+    if tp_forms:
+        fused_plan = _apply_tp_forms(fused_plan, tp_forms)
     train_plan = mxfuse.live_entries(fused_plan, out_refs, is_train=True)
     infer_plan = mxfuse.live_entries(fused_plan, out_refs)
     segments = _segments(train_plan, out_refs, mirror_segments) \

@@ -106,6 +106,10 @@ def fused_enabled(name):
 #: (``analysis/graph_lint.record_step``) listens here
 LAUNCH_HOOKS = []
 
+#: held while a wrapper adds to its launch counter: the positions of an
+#: in-process mesh launch from threads of their own
+COUNT_LOCK = threading.Lock()
+
 
 def note_launch(kernel, *tensors):
     """Report one launch of ``kernel`` on ``tensors`` to the hooks: grad

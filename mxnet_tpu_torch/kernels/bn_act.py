@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from . import note_launch
+from . import COUNT_LOCK, note_launch
 
 __all__ = ["fused_bn_act", "fused_bn_act_plain", "fold_bn_into_conv",
            "NormAct", "norm_act", "norm_act_plain", "norm_act_bwd",
@@ -184,7 +184,8 @@ def norm_act(x, scale, shift, act_type=None):
                   _KERNEL_ACTS[act_type], stream)
     if err != 0:
         raise RuntimeError("bn_act kernel launch failed: CUDA error %d" % err)
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     note_launch("bn_act_fwd", x, scale, shift)
     return y
 
@@ -218,7 +219,8 @@ def norm_act_bwd(x, scale, shift, dy, act_type=None):
     if err != 0:
         raise RuntimeError("bn_act backward kernel launch failed: CUDA "
                            "error %d" % err)
-    BWD_LAUNCHES += 1
+    with COUNT_LOCK:
+        BWD_LAUNCHES += 1
     note_launch("bn_act_bwd", x, scale, shift, dy)
     sums = rows.sum(dim=1).to(scale.dtype)
     return dx, sums[0], sums[1]

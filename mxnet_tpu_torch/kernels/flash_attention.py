@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import get_env
-from . import note_launch
+from . import COUNT_LOCK, note_launch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "FlashAttentionFn", "online_update", "default_block", "flash_route",
@@ -293,9 +293,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None,
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed (route "
                            "%s): CUDA error %d" % (route, err))
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        ROUTE_LAUNCHES[route] += 1
     note_launch("flash_attention_fwd", q, k, v)
-    ROUTE_LAUNCHES[route] += 1
     return out
 
 

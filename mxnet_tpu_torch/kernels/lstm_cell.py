@@ -50,7 +50,7 @@ import ctypes
 import torch
 
 from ..ops.registry import register
-from . import note_launch
+from . import COUNT_LOCK, note_launch
 
 __all__ = ["lstm_cell", "LSTMCellFn", "lstm_cell_fwd", "lstm_cell_bwd",
            "lstm_cell_plain", "lstm_cell_bwd_plain", "LAUNCHES",
@@ -212,7 +212,8 @@ def lstm_cell_fwd(gates, c_prev):
     if err != 0:
         raise RuntimeError("lstm_cell kernel launch failed: CUDA error %d"
                            % err)
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     note_launch("lstm_cell_fwd", gates, c_prev)
     return h, c
 
@@ -240,7 +241,8 @@ def lstm_cell_bwd(gates, c_prev, dh, dc):
     if err != 0:
         raise RuntimeError("lstm_cell backward kernel launch failed: CUDA "
                            "error %d" % err)
-    BWD_LAUNCHES += 1
+    with COUNT_LOCK:
+        BWD_LAUNCHES += 1
     note_launch("lstm_cell_bwd", gates, c_prev, dh, dc)
     return dgates, dc_prev
 
@@ -500,7 +502,8 @@ def lstm_seq_fwd(xg, w_h2h, h0, c0, keep=False, route="persistent"):
         return lstm_seq_plain(xg, w_h2h, h0, c0, keep)
     _check_route(route)
     if route == "per_step":
-        ROUTE_LAUNCHES["per_step"] += 1
+        with COUNT_LOCK:
+            ROUTE_LAUNCHES["per_step"] += 1
         return _seq_loop(lstm_cell_fwd, xg, w_h2h, h0, c0, keep)
     T, N, H = _check_seq_args("forward", xg, w_h2h,
                               (("h0", h0), ("c0", c0)))
@@ -522,12 +525,14 @@ def lstm_seq_fwd(xg, w_h2h, h0, c0, keep=False, route="persistent"):
     _seq_launch(_kernels()["lstm_seq_fwd"], "forward",
                 (xg, w_h2h, h0, c0, hs, cs, gates, hT, cT), T, N, H,
                 xg.dtype, xg.device, plan)
-    SEQ_LAUNCHES += 1
+    with COUNT_LOCK:
+        SEQ_LAUNCHES += 1
+        ROUTE_LAUNCHES["persistent"] += 1
+        if keep:
+            SEQ_GATES_WRITTEN += 1
     note_launch("lstm_seq_fwd", xg, w_h2h, h0, c0)
-    ROUTE_LAUNCHES["persistent"] += 1
     if not keep:
         return SeqOut(hs, cs, hT, cT, None, None, None)
-    SEQ_GATES_WRITTEN += 1
     return SeqOut(hs, cs, hT, cT, gates, h_all[:-1], c_all[:-1])
 
 
@@ -546,7 +551,8 @@ def lstm_seq_bwd(gates, c_prev, w_h2h, dhs, dhT, dcT, route="persistent"):
         return lstm_seq_bwd_plain(gates, c_prev, w_h2h, dhs, dhT, dcT)
     _check_route(route)
     if route == "per_step":
-        ROUTE_LAUNCHES["per_step"] += 1
+        with COUNT_LOCK:
+            ROUTE_LAUNCHES["per_step"] += 1
         return _seq_bwd_loop(lstm_cell_bwd, gates, c_prev, w_h2h, dhs, dhT,
                              dcT)
     T, N, H = _check_seq_args(
@@ -559,9 +565,10 @@ def lstm_seq_bwd(gates, c_prev, w_h2h, dhs, dhT, dcT, route="persistent"):
     _seq_launch(_kernels()["lstm_seq_bwd"], "backward",
                 (gates, c_prev, w_h2h, dhs, dhT, dcT, dgates, dh0, dc0), T,
                 N, H, gates.dtype, gates.device, plan)
-    SEQ_BWD_LAUNCHES += 1
+    with COUNT_LOCK:
+        SEQ_BWD_LAUNCHES += 1
+        ROUTE_LAUNCHES["persistent"] += 1
     note_launch("lstm_seq_bwd", gates, c_prev, w_h2h, dhs, dhT, dcT)
-    ROUTE_LAUNCHES["persistent"] += 1
     return dgates, dh0, dc0
 
 

@@ -13,9 +13,13 @@ Parameters are a nested dict of plain tensors (the JAX params pytree):
 ``embed`` (vocab, d), ``pos`` (1, max_len, d) and ``l{i}`` -> ``qkv``,
 ``proj``, ``ff1``, ``ff2``.  On one device (no mesh, or a mesh whose
 ``sp`` axis has one device) attention is ``full_attention``, which takes
-the flash kernel for sequences above ``MXTPU_FLASH_BLOCK``; a mesh with
-``sp`` > 1 raises (the ring across devices comes with the multi-GPU
-slice).  ``params_from_numpy`` / ``params_to_numpy`` carry the JAX
+the flash kernel for sequences above ``MXTPU_FLASH_BLOCK``.  On a mesh
+inside one process (``parallel/mesh.py``, e.g. the example's dp 2 x sp 4
+over ``[gpu(0)] * 8``) the tokens are sharded ``('dp', 'sp')``, each
+position adds its sequence block's slice of ``pos``, attention is the
+ring over ``sp`` (``ring_attention_sharded``), the loss is the mean over
+the global tokens and the replicated parameters' gradients are summed
+over every position.  ``params_from_numpy`` / ``params_to_numpy`` carry the JAX
 pytree's arrays over (``convert.tree_from_numpy`` / ``tree_to_numpy``).
 """
 from __future__ import annotations
@@ -71,14 +75,38 @@ def _norm(z):
     return (z - mu) / torch.sqrt(var + 1e-5)
 
 
+def _token_spec(mesh):
+    from ..parallel.collectives import P
+    return P(*[a if a in mesh.shape else None for a in ("dp", "sp")])
+
+
+def _on_mesh(mesh):
+    """True when ``mesh`` is an in-process mesh whose positions this call
+    is not already running on."""
+    from ..parallel import collectives as C
+    return getattr(mesh, "in_process", False) and C.current(mesh) is None
+
+
 def apply_model(params, tokens, mesh, n_heads, n_layers):
-    """tokens (B, T) integer ids -> logits (B, T, V)."""
+    """tokens (B, T) integer ids -> logits (B, T, V).  On an in-process
+    mesh the tokens and logits are sharded ``('dp', 'sp')``; inside one
+    of its positions ``tokens`` is that position's block."""
+    from ..parallel import collectives as C
+    if _on_mesh(mesh):
+        from ..parallel.compat import shard_map
+        spec = _token_spec(mesh)
+        return shard_map(
+            lambda p, t: apply_model(p, t, mesh, n_heads, n_layers), mesh,
+            (C.P(), spec), C.P(*(tuple(spec) + (None,))))(params, tokens)
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device).long()
     B, T = tokens.shape
     D = embed.shape[1]
     hd = D // n_heads
-    x = embed[tokens] + params["pos"][:, :T]
+    # an sp block's positions start at j * T_block
+    off = C.axis_index("sp") * T if mesh is not None and "sp" in \
+        mesh.shape and C.current(mesh) is not None else 0
+    x = embed[tokens] + params["pos"][:, off:off + T]
     for i in range(n_layers):
         p = params["l%d" % i]
         qkv = _norm(x) @ p["qkv"]
@@ -106,18 +134,40 @@ def make_step(mesh, n_heads, n_layers, lr):
     gradients by torch autograd and plain SGD ``p -= lr * g``.  Unlike
     the JAX step (pure, with donated buffers) it updates the parameter
     tensors in place and returns the same dict; the loss is a 0-d tensor
-    on the device (no host sync inside the step)."""
+    on the device (no host sync inside the step).  On an in-process
+    ``mesh`` the step runs on every position (``compat.shard_map``) and
+    the loss is the psum of the positions' NLL sums over the global token
+    count."""
+    from ..parallel import collectives as C
+
+    def nll_sum(params, tokens, targets):
+        targets = torch.as_tensor(targets, device=params["embed"].device)
+        logits = apply_model(params, tokens, mesh, n_heads, n_layers)
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, targets.long()[..., None]).sum()
 
     def step(params, tokens, targets):
         leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        targets = torch.as_tensor(targets, device=leaves[0].device).long()
         with torch.enable_grad():
-            logits = apply_model(params, tokens, mesh, n_heads, n_layers)
-            logp = torch.log_softmax(logits, dim=-1)
-            nll = -logp.gather(-1, targets[..., None])[..., 0]
-            loss = nll.mean()
+            if _on_mesh(mesh):
+                from ..parallel.compat import shard_map
+                spec = _token_spec(mesh)
+                count = int(np.prod(np.shape(tokens)))
+                axes = tuple(mesh.axis_names)
+                # the global mean: every position's NLL sum, summed
+                loss = shard_map(
+                    lambda p, x, y: C.psum(nll_sum(p, x, y), axes) / count,
+                    mesh, (C.P(), spec, spec), C.P())(params, tokens,
+                                                      targets)
+            else:
+                targets = torch.as_tensor(targets, device=leaves[0].device)
+                logits = apply_model(params, tokens, mesh, n_heads,
+                                     n_layers)
+                logp = torch.log_softmax(logits, dim=-1)
+                nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+                loss = nll.mean()
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
             for p, g in zip(leaves, grads):

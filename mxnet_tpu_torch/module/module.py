@@ -454,7 +454,8 @@ class Module(BaseModule):
 
     def _maybe_init_fused(self, kvstore, optimizer):
         """Build the fused SPMDTrainer for a 'tpu' kvstore (over the
-        process group's ``dp`` mesh when there are several workers), or
+        process group's ``dp`` mesh when there are several workers, over
+        an in-process ``dp`` mesh of several distinct contexts), or
         None when the configuration needs the executor-group route (the
         JAX package's reasons, module.py:445-531); 'dist_sync' stores
         take the executor route with the collective store."""
@@ -486,17 +487,36 @@ class Module(BaseModule):
                 "(fused step unavailable with %s)", kvstore.type,
                 ", ".join(reasons))
             return None
+        from ..parallel import SPMDTrainer, build_mesh, local_mesh
         if len(self._context) > 1:
-            # one process over several devices is an in-process mesh,
-            # which comes with the model-parallel item
-            self.logger.info(
-                "kvstore '%s': %d contexts in one process take the "
-                "executor-group route (an in-process mesh comes with %s)",
-                kvstore.type, len(self._context), _next_item())
-            return None
-
-        from ..parallel import SPMDTrainer, local_mesh
-        mesh = local_mesh() if kvstore.num_workers > 1 else None
+            n = len(self._context)
+            if kvstore.num_workers > 1:
+                self.logger.info(
+                    "kvstore '%s': %d contexts in each of %d processes take "
+                    "the executor-group route (a mesh over ranks and "
+                    "contexts comes with %s)", kvstore.type, n,
+                    kvstore.num_workers, _next_item())
+                return None
+            # one process over several devices: ONE fused step
+            # dp-sharded over exactly those contexts (an in-process
+            # mesh); an indivisible batch, or a context given twice (the
+            # reference's idiom for oversubscribing one device), takes
+            # the executor-group route, as in the JAX package
+            if self._exec_group.batch_size % n:
+                self.logger.info(
+                    "kvstore '%s': batch %d not divisible by %d contexts; "
+                    "falling back to the executor-group path",
+                    kvstore.type, self._exec_group.batch_size, n)
+                return None
+            if len(set(self._context)) != n:
+                self.logger.info(
+                    "kvstore '%s': duplicate devices in context list; "
+                    "falling back to the executor-group path",
+                    kvstore.type)
+                return None
+            mesh = build_mesh({"dp": n}, list(self._context))
+        else:
+            mesh = local_mesh() if kvstore.num_workers > 1 else None
         trainer = SPMDTrainer(self._symbol, optimizer, mesh=mesh,
                               ctx=self._context[0])
         trainer.bind(self._data_shapes, self._label_shapes)

@@ -125,6 +125,42 @@ def convolution(data, weight, bias=None, kernel=(), stride=None, dilate=None,
 
 
 # ---------------------------------------------------------------------------
+# the tensor-parallel forms of FullyConnected and Convolution (a weight
+# sharded over the tp axis of a mesh inside one process)
+# ---------------------------------------------------------------------------
+
+def tp_layer(op_name, form, axis):
+    """The plan override of a ``FullyConnected`` or ``Convolution`` node
+    whose weight arrives as this mesh position's shard over ``axis``.
+
+    ``column``: the position computes its output channels from the whole
+    input, then an all-gather on the channel axis (backward: its own
+    slice; the input's gradient is psum'd over ``axis``).  ``row``: the
+    position's slice of the input channels, a local product, then a psum
+    (backward: identity; the input's gradient is all-gathered).  The bias
+    is added once, to the gathered or summed result."""
+    from ..parallel import collectives as C
+    base = fully_connected if op_name == "FullyConnected" else convolution
+
+    def tp_fn(data, weight, bias=None, is_train=False, **attrs):
+        del is_train
+        attrs.pop("no_bias", None)
+        if form == "column":
+            out = C.gather_from(base(C.copy_to(data, axis), weight, None,
+                                     **attrs), axis, 1)
+        else:
+            if op_name == "FullyConnected":
+                data = data.reshape(data.shape[0], -1)
+            out = C.reduce_from(base(C.scatter_to(data, axis, 1), weight,
+                                     None, **attrs), axis)
+        if bias is not None:
+            out = out + bias.reshape((1, -1) + (1,) * (out.dim() - 2))
+        return out
+    tp_fn.tp_form = form
+    return tp_fn
+
+
+# ---------------------------------------------------------------------------
 # Deconvolution — src/operator/deconvolution-inl.h
 # ---------------------------------------------------------------------------
 

@@ -324,6 +324,10 @@ class ShardingPlan(object):
                            [None if e is None else str(e)
                             for e in tuple(spec)],
                            trainer.grad_sync))
+        # an in-process mesh: the tensor-parallel form each rule took
+        for name, form in sorted(getattr(trainer, "tp_forms", {}).items()):
+            doc["decisions"].append(
+                "%s: tp form %s (ops.nn.tp_layer)" % (name, form))
         p = cls(doc)
         doc["bytes"] = p._byte_model()
         return p
@@ -522,14 +526,17 @@ class ShardingPlan(object):
 # ---------------------------------------------------------------------------
 
 def _refuse_model_parallel(rules):
-    """A rule naming any axis but ``dp`` needs the model-parallel axes."""
+    """Over the process group's ranks a rule naming any axis but ``dp``
+    needs the model-parallel axes across processes (an in-process mesh's
+    inventory, a context list, takes them)."""
     from .mesh import AXIS_DP, model_parallel_error
     for pattern, axes in (rules or {}).items():
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         other = [a for a in axes if a not in (None, AXIS_DP)]
         if other:
             raise model_parallel_error(
-                "a plan sharding %r over %s" % (pattern, other))
+                "a plan sharding %r over %s across the process group's "
+                "ranks" % (pattern, other))
 
 
 def plan(symbol, data_shapes, label_shapes=None, world=None, devices=None,
@@ -539,7 +546,9 @@ def plan(symbol, data_shapes, label_shapes=None, world=None, devices=None,
     """Choose a sharding plan for ``symbol`` on the given inventory.
 
     ``world``/``devices``: the device inventory (one of them; with
-    neither, the process group's world, and on the card its memory).  ``hbm_budget``: per-device byte budget (default
+    neither, the process group's world, and on the card its memory;
+    rules over ``tp`` need ``devices``, a context list: the inventory of
+    an in-process mesh).  ``hbm_budget``: per-device byte budget (default
     ``MXTPU_PLAN_HBM_BUDGET``; 0 = unconstrained).  ``grad_sync``
     pins the strategy and the planner only derives mesh/rules/groups.
 
@@ -607,7 +616,9 @@ def plan(symbol, data_shapes, label_shapes=None, world=None, devices=None,
     # explicit regex rules win, otherwise shard the first dp-divisible
     # dimension)
     rules = dict(param_shardings or {})
-    _refuse_model_parallel(rules)
+    from ..context import Context
+    if not (devices and all(isinstance(d, Context) for d in devices)):
+        _refuse_model_parallel(rules)
     params = {}
     for name in sorted(param_shapes):
         shape = param_shapes[name]

@@ -3,7 +3,9 @@
 
 Gives reference scripts (``mod.fit(train_iter, ...)``) the fused step,
 data-parallel across processes under a ``mesh`` (one rank a device; each
-rank feeds its own batch): forward_backward and update are one fused
+rank feeds its own batch) or over an in-process mesh (the global batch
+split over ``dp``, ``param_shardings`` rules over ``tp``):
+forward_backward and update are one fused
 step (update() is then a no-op), matching BaseModule.fit's call order.
 ``sharding_plan`` is the bound trainer's descriptive
 :class:`~mxnet_tpu_torch.parallel.planner.ShardingPlan`.
@@ -76,9 +78,11 @@ class SPMDModule(BaseModule):
         optimizer_params = dict(optimizer_params)
         batch = self._data_shapes[0][1][0] if not hasattr(
             self._data_shapes[0], "shape") else self._data_shapes[0].shape[0]
-        # gradients are summed over the global batch
+        # gradients are summed over the global batch: each rank's rows
+        # times the ranks (an in-process mesh's batch is already global)
         world = self._mesh.shape[self._data_axis] \
-            if self._mesh is not None else 1
+            if self._mesh is not None and \
+            not getattr(self._mesh, "in_process", False) else 1
         optimizer_params.setdefault("rescale_grad", 1.0 / (batch * world))
         self._trainer = SPMDTrainer(
             self._symbol, optimizer, optimizer_params,

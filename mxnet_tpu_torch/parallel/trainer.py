@@ -61,9 +61,24 @@ points ``poison_grad`` (NaN in the first floating input) and
 ``hang_step`` fire here; :meth:`SPMDTrainer.save_checkpoint` (gathered,
 or sharded-native under ``MXTPU_CKPT_SHARDED=1``) and
 :meth:`SPMDTrainer.restore` (re-sharding at any world) go through a
-:class:`~mxnet_tpu_torch.resilience.CheckpointManager`.  A mesh axis or
-a sharding rule other than ``dp`` raises :class:`MXNetError`, naming the
-item that brings the model-parallel axes.
+:class:`~mxnet_tpu_torch.resilience.CheckpointManager`.
+
+A mesh inside one process (``build_mesh`` over a context list, repeats
+allowed) runs the step on every position, one thread a position
+(``parallel/collectives.py``): the global batch splits over ``dp``, each
+``param_shardings`` rule over the ``tp`` axis places the param's shards
+and their optimizer state on their positions (``trainer.params[name]``
+is a ``collectives.Sharded`` reporting its spec), and the consumer of a
+ruled weight takes a tensor-parallel form (``ops.nn.tp_layer``; the
+plan's choice is in :attr:`SPMDTrainer.tp_forms` and the sharding plan's
+decisions): column-parallel for a weight split on dim 0, row-parallel
+for dim 1, otherwise the weight is gathered before use.  The positions'
+losses go into one backward; every param's gradient is then summed over
+``dp`` (a ``tp`` shard keeps its own).  ``get_params``, ``eval_step``
+and the gathered checkpoints give the whole arrays.  A model-parallel
+axis over the process group's ranks, and zero/zero3, sharded-native
+checkpoints, ``analyze`` or ``remat`` on an in-process mesh raise
+:class:`MXNetError`, naming the item of ROADMAP.md that brings them.
 """
 from __future__ import annotations
 
@@ -138,6 +153,30 @@ def diff_param_sets(saved_params, current_names, kind="parameter"):
                  kind=kind)
 
 
+class _PositionParts(object):
+    """Mesh position ``index``'s parts of a dict of ``Sharded`` values
+    (or of tuples of them, as optimizer state is), read and written by
+    name as the one-device step reads and writes its dicts."""
+
+    def __init__(self, tree, index):
+        self.tree = tree
+        self.index = index
+
+    def __getitem__(self, name):
+        v = self.tree[name]
+        if isinstance(v, tuple):
+            return tuple(x.parts[self.index] for x in v)
+        return v.parts[self.index]
+
+    def __setitem__(self, name, value):
+        v = self.tree[name]
+        if isinstance(v, tuple):
+            for x, part in zip(v, value):
+                x.parts[self.index] = part
+        else:
+            v.parts[self.index] = value
+
+
 class SPMDTrainer(object):
     """Fused training step for a Symbol + Optimizer, on one device or over
     a ``dp`` mesh of processes.
@@ -155,7 +194,7 @@ class SPMDTrainer(object):
                  grad_sync=None, step_guard=None,
                  max_consecutive_bad_steps=None, plan=None, ctx=None):
         from .. import distributed
-        from .mesh import model_parallel_error
+        from .mesh import ZERO3_ITEM, is_in_process, model_parallel_error
         # a plan supplies the policy; the derived artifacts (per-param
         # specs, gather groups) are recomputed at bind() for this mesh,
         # so a plan written at another world consumes cleanly
@@ -179,16 +218,40 @@ class SPMDTrainer(object):
                 "grad_sync must be 'allreduce', 'zero' or 'zero3', "
                 "got %r" % (grad_sync,))
         self.param_shardings = dict(param_shardings or {})
-        for pattern, spec in self.param_shardings.items():
-            spec = (spec,) if isinstance(spec, str) else tuple(spec)
-            if any(a is not None for a in spec):
-                raise model_parallel_error(
-                    "param_shardings rule %r -> %s" % (pattern, spec))
         world = 1
-        if mesh is not None:
-            if data_axis not in mesh.shape:
-                raise MXNetError("mesh %s has no data axis %r"
-                                 % (dict(mesh.shape), data_axis))
+        self._inproc = mesh is not None and is_in_process(mesh)
+        self._dp = 1                # the dp axis's size in process
+        self._tp_axis = "tp"
+        self.tp_forms = {}          # ruled param -> column / row / gather
+        if mesh is not None and data_axis not in mesh.shape:
+            raise MXNetError("mesh %s has no data axis %r"
+                             % (dict(mesh.shape), data_axis))
+        if self._inproc:
+            for name, size in mesh.shape.items():
+                if name not in (data_axis, self._tp_axis) and size > 1:
+                    raise MXNetError(
+                        "SPMDTrainer on an in-process mesh splits the batch "
+                        "over %r and params over %r; axis %r (size %d) has "
+                        "no role in the step (ring_attention, "
+                        "pipeline_apply and moe_ffn run the other axes)"
+                        % (data_axis, self._tp_axis, name, size))
+            if grad_sync in ("zero", "zero3"):
+                raise model_parallel_error(
+                    "grad_sync=%r on an in-process mesh" % grad_sync,
+                    ZERO3_ITEM)
+            if remat or (remat is None and str(get_env(
+                    ENV_BACKWARD_DO_MIRROR, "0")) == "1"):
+                raise model_parallel_error(
+                    "remat (the mirror mode) on an in-process mesh",
+                    ZERO3_ITEM)
+            self._dp = int(mesh.shape[data_axis])
+        elif mesh is not None:
+            for pattern, spec in self.param_shardings.items():
+                spec = (spec,) if isinstance(spec, str) else tuple(spec)
+                if any(a not in (None, data_axis) for a in spec):
+                    raise model_parallel_error(
+                        "param_shardings rule %r -> %s over the process "
+                        "group's ranks" % (pattern, spec))
             for name, size in mesh.shape.items():
                 if name != data_axis and size > 1:
                     raise model_parallel_error("mesh axis %r (size %d)"
@@ -219,6 +282,8 @@ class SPMDTrainer(object):
             remat = str(get_env(ENV_BACKWARD_DO_MIRROR, "0")) == "1"
         self.remat = bool(remat)
         self.symbol = symbol
+        if ctx is None and self._inproc:
+            ctx = mesh.contexts[0]
         self._ctx = Context(ctx) if ctx is not None else current_context()
         self._device = self._ctx.torch_device
         self.input_transforms = dict(input_transforms or {})
@@ -322,12 +387,62 @@ class SPMDTrainer(object):
         self.optimizer.wd_mult.update(user_wd)
         if self._zero:
             self._plan_zero()
+        if self._inproc:
+            self._bind_inproc()
         # the descriptive plan: what this trainer executes (world, mesh
         # axes, per-param placement, gather groups); save_checkpoint
         # persists it in the manifest
         from .planner import ShardingPlan
         self.sharding_plan = ShardingPlan.from_trainer(self)
         return self
+
+    def _bind_inproc(self):
+        """An in-process mesh's bind: the batch must split over ``dp``,
+        the rules may name ``tp`` only, and each ruled weight's consumer
+        takes its tensor-parallel form (column / row where the weight's
+        one training use is a plain FullyConnected or Convolution, gather
+        otherwise); the training plan is rebuilt with those forms."""
+        from ..executor import tp_consumers
+        from .mesh import model_parallel_error
+        if self.batch_size % self._dp:
+            raise MXNetError(
+                "SPMDTrainer: batch %d does not split over the %d "
+                "positions of the %r axis" % (self.batch_size, self._dp,
+                                              self.data_axis))
+        tp, tp_size = self._tp_axis, self.mesh.shape.get(self._tp_axis, 1)
+        forms, self._tp_dims = {}, {}
+        for name in self.param_names:
+            spec = _spec_for(name, self.arg_shapes[name],
+                             self.param_shardings)
+            axes = [tuple(e) if isinstance(e, (tuple, list)) else
+                    ((e,) if e is not None else ()) for e in spec]
+            if any(a != tp for ax in axes for a in ax):
+                raise model_parallel_error(
+                    "param_shardings rule %s for %s on an in-process mesh "
+                    "(rules name the %r axis)" % (spec, name, tp))
+            dims = [i for i, ax in enumerate(axes) if ax]
+            if not dims or tp_size == 1:
+                continue
+            if len(dims) > 1:
+                raise MXNetError("spec %s shards %s over %r twice"
+                                 % (spec, name, tp))
+            self._tp_dims[name] = dims[0]
+            uses = tp_consumers(self._eval.train_plan, name)
+            form = "gather"
+            if len(uses) == 1:
+                node, pos, override = uses[0]
+                attrs = node.op_attrs() if node.op is not None else {}
+                if pos == 1 and override is None and \
+                        node.op.name in ("FullyConnected", "Convolution") \
+                        and int(attrs.get("num_group", 1)) == 1 and \
+                        dims[0] in (0, 1):
+                    form = ("column", "row")[dims[0]]
+            forms[name] = form
+        self.tp_forms = forms
+        self._eval = _build_eval(
+            self.symbol, tp_forms={n: (f, tp) for n, f in forms.items()
+                                   if f != "gather"})
+        self._eval_plain = _build_eval(self.symbol)
 
     def _param_spec(self, name, shape):
         """A master param's (and its optimizer state's) spec: an explicit
@@ -438,6 +553,9 @@ class SPMDTrainer(object):
         params = self._broadcast(params)
         self.params = {n: self._shard(n, v) for n, v in params.items()}
         self.aux = self._broadcast(aux)
+        if self._inproc:
+            self.aux = {n: self._place(n, v, param=False)
+                        for n, v in self.aux.items()}
         self.opt_state = self._init_opt_state()
 
     def _broadcast(self, values):
@@ -449,9 +567,24 @@ class SPMDTrainer(object):
         out = distributed.broadcast_tensors([values[n] for n in names])
         return {n: t.contiguous() for n, t in zip(names, out)}
 
+    def _place(self, name, full, param=True):
+        """A whole value laid over the in-process mesh: a ruled param (or
+        its optimizer slot) by its rule, anything else replicated, each
+        position's part in its own storage."""
+        from . import collectives as C
+        spec = C.P()
+        if param and name in self._tp_dims:
+            axes = [None] * full.dim()
+            axes[self._tp_dims[name]] = self._tp_axis
+            spec = C.P(*axes)
+        return C.shard(full, self.mesh, spec)
+
     def _shard(self, name, full):
         """This rank's shard of a full master value (the full value for a
-        replicated param)."""
+        replicated param); on an in-process mesh, the value laid over
+        the positions."""
+        if self._inproc:
+            return self._place(name, full)
         d = self._zero3_dims.get(name)
         if d is None:
             return full
@@ -460,7 +593,11 @@ class SPMDTrainer(object):
 
     def _full(self, name, value):
         """The full value of one master param or optimizer slot from this
-        rank's shard: one all-gather (every rank calls it together)."""
+        rank's shard: one all-gather (every rank calls it together), or
+        the parts of an in-process mesh's positions put together."""
+        from .collectives import Sharded
+        if isinstance(value, Sharded):
+            return value.full()
         d = self._zero3_dims.get(name)
         if d is None:
             return value
@@ -468,33 +605,50 @@ class SPMDTrainer(object):
         g = distributed.all_gather(value.detach().movedim(d, 0).contiguous())
         return g.movedim(0, d).contiguous()
 
-    def resident_bytes(self):
+    def resident_bytes(self, position=0, names=None):
         """``{"params", "opt_state", "aux"}``: bytes this rank holds for
         each carry (a zero/zero3 rank holds about 1/world of the first
-        two)."""
+        two); on an in-process mesh, the storage bytes of ``position``'s
+        parts (a ``tp`` shard is 1/tp of its param).  ``names`` limits
+        the count to those params (and their slots)."""
+        from .collectives import Sharded
+
         def nbytes(ts):
-            return int(sum(t.numel() * t.element_size() for t in ts))
+            total = 0
+            for t in ts:
+                if isinstance(t, Sharded):
+                    t = t.parts[position]
+                    total += t.untyped_storage().nbytes()
+                else:
+                    total += t.numel() * t.element_size()
+            return int(total)
+        if names is not None:
+            return {"params": nbytes(self.params[n] for n in names),
+                    "opt_state": nbytes(t for n in names
+                                        for t in self.opt_state[n]),
+                    "aux": 0}
         return {"params": nbytes(self.params.values()),
                 "opt_state": nbytes(t for s in self.opt_state.values()
                                     for t in s),
                 "aux": nbytes(self.aux.values())}
 
     def _init_opt_state(self):
-        state = {}
+        """Zero optimizer slots a param (momentum; Adam's mean and var;
+        RMSProp's n), laid out as the param is."""
+        from .collectives import Sharded
         kind = type(self.optimizer).__name__.lower()
-        for name in self.param_names:
-            p = self.params[name]
-            if kind in ("sgd", "ccsgd") and \
-                    getattr(self.optimizer, "momentum", 0.0):
-                s = (torch.zeros_like(p),)
-            elif kind == "adam":
-                s = (torch.zeros_like(p), torch.zeros_like(p))
-            elif kind == "rmsprop":
-                s = (torch.zeros_like(p),)
-            else:
-                s = ()
-            state[name] = s
-        return state
+        if kind in ("sgd", "ccsgd"):
+            n = 1 if getattr(self.optimizer, "momentum", 0.0) else 0
+        else:
+            n = {"adam": 2, "rmsprop": 1}.get(kind, 0)
+
+        def zeros(p):
+            if isinstance(p, Sharded):
+                return Sharded([torch.zeros_like(t) for t in p.parts],
+                               p.mesh, p.spec, p.shape)
+            return torch.zeros_like(p)
+        return {name: tuple(zeros(self.params[name]) for _ in range(n))
+                for name in self.param_names}
 
     # -- the fused step ----------------------------------------------------
     def _apply_update(self, name, p, g, s, lr, wd, t):
@@ -545,19 +699,22 @@ class SPMDTrainer(object):
         tf = self.input_transforms
         return {k: (tf[k](v) if k in tf else v) for k, v in data.items()}
 
-    def _step_tail(self, outs, auxu, grads, lr, wd, t, data):
+    def _step_tail(self, outs, positions, lr, wd, t, data):
         """The epilogue of the step (the JAX package's :665-757): the
         all-finite guard over the gradients, the optimizer update, the aux
         merge, the stacked int32[3] skip counters and a deferred metric's
         (sum, count), which a guard-skipped step leaves as they were —
-        device work only.  Across ranks the finite flag is ANDed where
-        each rank checked only its shards (zero, zero3), a metric's
-        deltas are summed (each rank saw its rows), and under zero3 the
-        per-rank BatchNorm moving statistics are averaged."""
+        device work only.  ``positions`` holds one ``(params, opt_state,
+        aux, grads, auxu, device)`` a position updated (one off a mesh
+        inside the process); the guard's flag covers them all.  Across
+        ranks the finite flag is ANDed where each rank checked only its
+        shards (zero, zero3), a metric's deltas are summed (each rank saw
+        its rows), and under zero3 the per-rank BatchNorm moving
+        statistics are averaged."""
         from .. import distributed
-        params, aux, opt_state = self.params, self.aux, self.opt_state
         guard = self.step_guard
         dp = self._world > 1
+        auxu = positions[0][4]
         if self._zero3 and auxu:
             names = list(auxu)
             flat = distributed.all_reduce(torch.cat(
@@ -569,37 +726,29 @@ class SPMDTrainer(object):
                 off += k
         finite = None
         if guard:
-            finite = torch.isfinite(torch.cat(
-                [grads[n].reshape(-1) for n in self.param_names])).all()
+            flags = [torch.isfinite(torch.cat(
+                [pos[3][n].reshape(-1) for n in self.param_names])).all()
+                for pos in positions]
+            finite = flags[0] if len(flags) == 1 else torch.stack(
+                [f.to(self._device) for f in flags]).all()
             if dp and self._zero:
                 finite = distributed.all_reduce(
                     finite.to(torch.int32).reshape(1))[0] == self._world
         # non-finite step: params, optimizer state and aux (BN moving
         # stats from a poisoned batch) pass through unchanged
-        for name in self.param_names:
-            g = grads[name].to(params[name].dtype)
-            w, s = self._apply_update(name, params[name], g,
-                                      opt_state[name], lr, wd, t)
-            params[name] = self._carry(params[name], w, finite)
-            opt_state[name] = tuple(self._carry(so, sn, finite)
-                                    for sn, so in zip(s, opt_state[name]))
-        for name, v in auxu.items():
-            aux[name] = self._carry(aux[name], v, finite)
+        for params, opt_state, aux, grads, auxu, device in positions:
+            fin = None if finite is None else finite.to(device)
+            for name in self.param_names:
+                g = grads[name].to(params[name].dtype)
+                w, s = self._apply_update(name, params[name], g,
+                                          opt_state[name], lr, wd, t)
+                params[name] = self._carry(params[name], w, fin)
+                opt_state[name] = tuple(self._carry(so, sn, fin)
+                                        for sn, so in zip(s, opt_state[name]))
+            for name, v in auxu.items():
+                aux[name] = self._carry(aux[name], v, fin)
         if guard:
-            acc = self._guard_acc
-            total, consec, trips = acc[0], acc[1], acc[2]
-            new_consec = torch.where(finite, torch.zeros_like(consec),
-                                     consec + 1)
-            if self.max_consecutive_bad_steps > 0:
-                trips = trips + (new_consec == self.max_consecutive_bad_steps
-                                 ).to(trips.dtype)
-            else:
-                # stack's out= refuses an input that is a view of it
-                trips = trips.clone()
-            # the counters' own storage (the port's counterpart of the
-            # JAX package's donated carries)
-            torch.stack([torch.where(finite, total, total + 1), new_consec,
-                         trips], out=acc)
+            self._count_guard(finite)
         outs = [o.detach() for o in outs]
         if self._metric_fn is not None:
             ds, dc = self._metric_fn(outs, data)
@@ -613,6 +762,24 @@ class SPMDTrainer(object):
             self._metric_acc = (self._carry(s_acc, s_acc + ds, finite),
                                 self._carry(c_acc, c_acc + dc, finite))
         return outs
+
+    def _count_guard(self, finite):
+        """The int32[3] skip counters after a step whose gradients were
+        ``finite`` (a 0-d bool on the device), in their own storage."""
+        acc = self._guard_acc
+        total, consec, trips = acc[0], acc[1], acc[2]
+        new_consec = torch.where(finite, torch.zeros_like(consec),
+                                 consec + 1)
+        if self.max_consecutive_bad_steps > 0:
+            trips = trips + (new_consec == self.max_consecutive_bad_steps
+                             ).to(trips.dtype)
+        else:
+            # stack's out= refuses an input that is a view of it
+            trips = trips.clone()
+        # the counters' own storage (the port's counterpart of the
+        # JAX package's donated carries)
+        torch.stack([torch.where(finite, total, total + 1), new_consec,
+                     trips], out=acc)
 
     def _carry(self, old, new, finite):
         """One carry's value after the step: ``new``, or ``old`` where the
@@ -798,6 +965,8 @@ class SPMDTrainer(object):
         lr = self.optimizer.lr if self.optimizer.lr_scheduler is None else \
             self.optimizer.lr_scheduler(self._num_update)
         self._ensure_accumulators()
+        if self._inproc:
+            return self._dispatch_inproc(data, key, lr)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in self.params.items()}
         regather = None
@@ -836,13 +1005,118 @@ class SPMDTrainer(object):
                 self._sync_replicated_grads(grads)
         # the named range lets a profile attribute the update's kernels
         with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
-            outs = self._step_tail(outs, auxu, grads, lr,
-                                   self.optimizer.wd, self._num_update,
-                                   data)
+            outs = self._step_tail(
+                outs, [(self.params, self.opt_state, self.aux, grads, auxu,
+                        self._device)],
+                lr, self.optimizer.wd, self._num_update, data)
         if self.step_guard:
             self._guard_pending = True
         self._outputs = outs
         return outs
+
+    # -- the step on an in-process mesh --------------------------------------
+    def _position_scope(self, index):
+        """The data-parallel scope of one mesh position: BatchNorm's
+        statistics psum'd over ``dp`` (float64 sums), a stochastic op's
+        rows of the global draw."""
+        from .. import distributed
+        from . import collectives as C
+        axis = self.data_axis
+        return distributed.dp_scope(
+            self._dp, self.mesh.coords(index)[axis],
+            allreduce=lambda t: C.psum(t, axis))
+
+    def _split_batch(self, data):
+        from . import collectives as C
+        spec = C.P(self.data_axis)
+        return {k: C.shard(v, self.mesh, spec).parts for k, v in data.items()}
+
+    def _global_outputs(self, results):
+        """The global batch's outputs: the ``dp`` blocks of coordinate 0
+        of every other axis, concatenated (the tp copies agree)."""
+        from . import collectives as C
+        outs = [r[0] for r in results]
+        spec = C.P(self.data_axis)
+        return [C.unshard([o[k] for o in outs], self.mesh, spec,
+                          device=self._device)
+                for k in range(len(outs[0]))]
+
+    def _dispatch_inproc(self, data, key, lr):
+        """One step over the in-process mesh: every position's forward in
+        its own thread (collectives.run), ONE backward over the sum of the
+        positions' outputs, the gradients summed over ``dp`` (in position
+        order: a tp shard's over its dp group, a replicated param's
+        likewise; its tp copies agree), then each position updates its
+        parts.  The guard's finite flag covers every position."""
+        from . import collectives as C
+        mesh, n = self.mesh, self.mesh.size
+        batch = self._split_batch(data)
+        leaves = [{k: v.parts[i].detach().requires_grad_(True)
+                   for k, v in self.params.items()} for i in range(n)]
+        aux = [{k: v.parts[i] for k, v in self.aux.items()}
+               for i in range(n)]
+        tp = self._tp_axis
+        gathered = [nm for nm, f in self.tp_forms.items() if f == "gather"]
+
+        def position(i):
+            with self._position_scope(i):
+                merged = self._xform({k: v[i] for k, v in batch.items()})
+                full = dict(self._cast(leaves[i]))
+                for nm in gathered:
+                    full[nm] = C.gather_from(full[nm], tp,
+                                             self._tp_dims[nm])
+                merged.update(full)
+                return self._eval(merged, aux[i], True, key)
+
+        with torch.enable_grad():
+            results = C.run(mesh, position, [(i,) for i in range(n)])
+            diff = [o for outs, _ in results for o in outs
+                    if o.requires_grad]
+            flat = [leaves[i][nm] for i in range(n)
+                    for nm in self.param_names]
+            grads = [None] * len(flat)
+            if diff:
+                grads = torch.autograd.grad(
+                    diff, flat, [torch.ones_like(o) for o in diff],
+                    allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(v)
+                 for g, v in zip(grads, flat)]
+        k = len(self.param_names)
+        per = [dict(zip(self.param_names, grads[i * k:(i + 1) * k]))
+               for i in range(n)]
+        with torch.no_grad(), \
+                torch.profiler.record_function(GRAD_SYNC_RANGE):
+            self._sync_positions(per)
+        outs = self._global_outputs(results)
+        with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
+            devs = mesh.torch_devices
+            outs = self._step_tail(
+                outs, [(_PositionParts(self.params, i),
+                        _PositionParts(self.opt_state, i),
+                        _PositionParts(self.aux, i), per[i], results[i][1],
+                        devs[i]) for i in range(n)],
+                lr, self.optimizer.wd, self._num_update, data)
+        if self.step_guard:
+            self._guard_pending = True
+        self._outputs = outs
+        return outs
+
+    def _sync_positions(self, per):
+        """Sum every param's gradient over its ``dp`` group, one flat
+        bucket a position, added in coordinate order."""
+        from . import collectives as C
+        if self._dp == 1:
+            return
+        names = self.param_names
+        flats = [torch.cat([g[nm].reshape(-1) for nm in names])
+                 for g in per]
+        sums = C.psum_positions(flats, self.mesh, self.data_axis)
+        for grads, mine in zip(per, sums):
+            off = 0
+            for nm in names:
+                size = grads[nm].numel()
+                grads[nm] = mine[off:off + size].reshape(grads[nm].shape)
+                off += size
 
     def _sync_replicated_grads(self, grads):
         """Sum the replicated params' gradients over ranks in one bucket a
@@ -1042,6 +1316,10 @@ class SPMDTrainer(object):
         if self.params is None:
             raise MXNetError(
                 "SPMDTrainer.analyze: bind() and init_params() first")
+        if self._inproc:
+            from .mesh import ZERO3_ITEM, model_parallel_error
+            raise model_parallel_error("analyze() on an in-process mesh",
+                                       ZERO3_ITEM)
         self.flush_step_guard()
         self._ensure_accumulators()
         data = self._resolve_batch(batch_arrays)
@@ -1068,7 +1346,7 @@ class SPMDTrainer(object):
         raises again."""
         from ..analysis import ENV_ANALYZE
         mode = str(get_env(ENV_ANALYZE, "") or "").strip().lower()
-        if mode in ("", "0", "off", "false", "no"):
+        if mode in ("", "0", "off", "false", "no") or self._inproc:
             # cache the "off" answer: the per-step signature hashing and
             # env read are not worth paying when analysis is disabled
             self._analyze_off = True
@@ -1117,6 +1395,8 @@ class SPMDTrainer(object):
     def _forward(self, batch_arrays, is_train, key):
         from .. import distributed
         data = self._resolve_batch(batch_arrays)
+        if self._inproc:
+            return self._forward_inproc(data, is_train, key)
         with torch.no_grad(), distributed.dp_scope(
                 self._world, self._rank, sync_stats=not self._zero3):
             merged = self._xform(data)
@@ -1127,6 +1407,31 @@ class SPMDTrainer(object):
             merged.update(full)
             outs, _ = self._eval(merged, self.aux, is_train, key)
         return outs
+
+    def _forward_inproc(self, data, is_train, key):
+        """A forward over the in-process mesh with every param gathered
+        whole on each position (the plain plan: bn_fold and the other
+        passes see whole weights); outputs of the global batch."""
+        from . import collectives as C
+        mesh, n = self.mesh, self.mesh.size
+        batch = self._split_batch(data)
+        tp = self._tp_axis
+
+        def position(i):
+            with self._position_scope(i):
+                merged = self._xform({k: v[i] for k, v in batch.items()})
+                full = {}
+                for nm, v in self._cast({k: p.parts[i] for k, p in
+                                         self.params.items()}).items():
+                    full[nm] = C.gather_from(v, tp, self._tp_dims[nm]) \
+                        if nm in self._tp_dims else v
+                merged.update(full)
+                return self._eval_plain(
+                    merged, {k: a.parts[i] for k, a in self.aux.items()},
+                    is_train, key)
+        with torch.no_grad():
+            results = C.run(mesh, position, [(i,) for i in range(n)])
+        return self._global_outputs(results)
 
     def eval_step(self, *batch_arrays):
         """Inference-mode forward; outputs as tensors on the device."""
@@ -1157,9 +1462,7 @@ class SPMDTrainer(object):
             return {k: NDArray._from_torch(
                 self._full(k, v).detach().to("cpu", copy=True), host)
                 for k, v in d.items()}
-        return _copy(self.params), {
-            k: NDArray._from_torch(v.detach().to("cpu", copy=True), host)
-            for k, v in self.aux.items()}
+        return _copy(self.params), _copy(self.aux)
 
     def set_params(self, arg_params, aux_params):
         """Replace parameter values, keeping optimizer state; names
@@ -1181,7 +1484,11 @@ class SPMDTrainer(object):
                 placed[name] = v.to(cur.device, cur.dtype, copy=True)
             placed = self._broadcast(placed)
             for name, v in placed.items():
-                current[name] = self._shard(name, v) if is_param else v
+                if is_param:
+                    current[name] = self._shard(name, v)
+                else:
+                    current[name] = self._place(name, v, param=False) \
+                        if self._inproc else v
 
     def get_states(self):
         """Serialized optimizer state (the ``Updater.get_states`` analog):
@@ -1253,7 +1560,8 @@ class SPMDTrainer(object):
         arg = {k: _HostSnapshot(self._full(k, v).detach().to("cpu",
                                                              copy=True))
                for k, v in self.params.items()}
-        aux = {k: _HostSnapshot(v.detach().to("cpu", copy=True))
+        aux = {k: _HostSnapshot(self._full(k, v).detach().to("cpu",
+                                                             copy=True))
                for k, v in self.aux.items()}
         return arg, aux
 
@@ -1267,9 +1575,13 @@ class SPMDTrainer(object):
         zero/zero3 trainer writes sharded-native blobs instead
         (:meth:`save_checkpoint_sharded`, blocking by design)."""
         from ..resilience import ENV_CKPT_SHARDED
-        if str(get_env(ENV_CKPT_SHARDED, "0")).strip().lower() in \
-                ("1", "true", "yes", "on") and self._zero and \
-                hasattr(manager, "save_sharded"):
+        sharded = str(get_env(ENV_CKPT_SHARDED, "0")).strip().lower() in \
+            ("1", "true", "yes", "on")
+        if sharded and self._inproc:
+            from .mesh import ZERO3_ITEM, model_parallel_error
+            raise model_parallel_error(
+                "MXTPU_CKPT_SHARDED=1 on an in-process mesh", ZERO3_ITEM)
+        if sharded and self._zero and hasattr(manager, "save_sharded"):
             return self.save_checkpoint_sharded(manager, step)
         arg_params, aux_params = self.snapshot_params()
         states = self.get_states()

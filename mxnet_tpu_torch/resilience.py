@@ -477,9 +477,12 @@ def atomic_path(path, fault_point="checkpoint_write"):
     and ``os.replace`` onto ``path``.  A crash (or injected fault) at any
     point leaves the existing ``path`` byte-for-byte intact — the file is
     either the complete old version or the complete new one, never torn.
+    The temp name is the writer's process and thread, so two threads
+    publishing one path (a periodic dump and an explicit one) never
+    share a temp file.
     """
     path = os.fspath(path)
-    tmp = "%s.tmp.%d" % (path, os.getpid())
+    tmp = "%s.tmp.%d.%d" % (path, os.getpid(), threading.get_ident())
     try:
         yield tmp
         _fsync_path(tmp)

@@ -212,11 +212,19 @@ def test_ring_attention_without_mesh_is_full_attention(monkeypatch):
     jgot = JRA.ring_attention(*_jax(arrays, "float32"), mesh=None,
                               causal=True)
     np.testing.assert_allclose(_np(ref), np.asarray(jgot), **F32)
+    # sp over the process group's ranks raises, naming its item; an
+    # in-process mesh runs the ring (tests/test_torch_ring.py)
     two = types.SimpleNamespace(shape={"dp": 1, "sp": 2})
-    with pytest.raises(MXNetError, match="multi-GPU slice"):
+    with pytest.raises(MXNetError, match="across processes"):
         TRA.ring_attention(q, k, v, mesh=two, causal=True)
-    with pytest.raises(MXNetError, match="multi-GPU slice"):
+    with pytest.raises(MXNetError, match="across processes"):
         TRA.ring_attention_sharded(q, k, v, two)
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.parallel import build_mesh
+    ring = build_mesh({"sp": 2}, [cpu()] * 2)
+    np.testing.assert_allclose(
+        _np(TRA.ring_attention(q, k, v, mesh=ring, causal=True)), _np(ref),
+        rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("name,shape", [

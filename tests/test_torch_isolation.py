@@ -555,8 +555,8 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 def test_new_modules_are_covered():
     """The extension, input-pipeline, data-service, resilience, serving,
-    fleet, tools and data-parallel slices' modules are among the sources
-    the import check walks."""
+    fleet, tools, data-parallel and model-parallel slices' modules are
+    among the sources the import check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
@@ -582,7 +582,9 @@ def test_new_modules_are_covered():
                 "test_utils", "notebook/__init__", "notebook/callback",
                 "libinfo", "distributed", "kvstore_dist",
                 "parallel/__init__", "parallel/mesh", "parallel/zero3",
-                "parallel/planner", "parallel/spmd_module"):
+                "parallel/planner", "parallel/spmd_module",
+                "parallel/collectives", "parallel/compat",
+                "parallel/pipeline", "parallel/moe"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
 
 
@@ -696,3 +698,53 @@ def test_data_parallel_slice_runs_with_jax_unimportable():
         cwd=REPO, capture_output=True, text=True, timeout=240, env=env)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-2000:]
     assert "ok dp rank 0" in res.stdout and "ok dp rank 1" in res.stdout
+
+
+def test_model_parallel_slice_runs_with_jax_unimportable():
+    """The in-process meshes with JAX and the JAX package unimportable: a
+    dp x tp SPMDTrainer step, the ring over sp, pipeline_apply over pp
+    and moe_ffn over ep, every position a cpu() context."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxnet_tpu'] = None\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "import mxnet_tpu_torch as mx\n"
+        "P = mx.parallel\n"
+        "net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Variable("
+        "'data'), num_hidden=4, name='fc'), name='softmax')\n"
+        "mesh = P.build_mesh({'dp': 2, 'tp': 2}, [mx.cpu()] * 4)\n"
+        "tr = P.SPMDTrainer(net, 'sgd', {'learning_rate': 0.1}, mesh=mesh,"
+        " param_shardings={'fc_weight': ('tp', None)}, ctx=mx.cpu())\n"
+        "tr.bind([('data', (4, 6))], [('softmax_label', (4,))])\n"
+        "tr.init_params(mx.initializer.Xavier())\n"
+        "tr.step(np.ones((4, 6), np.float32), np.zeros(4, np.float32))\n"
+        "assert tr.tp_forms == {'fc_weight': 'column'}\n"
+        "assert tr.params['fc_weight'].parts[0].shape == (2, 6)\n"
+        "q = torch.randn(1, 8, 2, 4)\n"
+        "sp = P.build_mesh({'sp': 4}, [mx.cpu()] * 4)\n"
+        "r = P.ring_attention.ring_attention_sharded(q, q, q, sp, causal="
+        "True)\n"
+        "f = P.ring_attention.full_attention(q, q, q, causal=True)\n"
+        "assert float((r - f).abs().max()) < 1e-5\n"
+        "pp = P.build_mesh({'pp': 2}, [mx.cpu()] * 2)\n"
+        "w = [{'w': torch.eye(3) * 2}, {'w': torch.eye(3) * 3}]\n"
+        "y = P.pipeline_apply(lambda p, a: a @ p['w'], "
+        "P.stack_stage_params(w), torch.ones(4, 3), pp, n_microbatch=2)\n"
+        "assert torch.equal(y, torch.full((4, 3), 6.0))\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "mp = P.moe_init(g, 4, 8, 4, ctx=mx.cpu())\n"
+        "ep = P.build_mesh({'ep': 4}, [mx.cpu()] * 4)\n"
+        "x = torch.randn(2, 4, 4)\n"
+        "a = P.moe_ffn(P.collectives.shard_tree(mp, ep, P.moe_shardings()),"
+        " x, capacity_factor=4.0)\n"
+        "b = P.moe_ffn(mp, x, capacity_factor=4.0)\n"
+        "assert float((a - b).abs().max()) < 1e-5\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', "
+        "'mxnet_tpu.')) and sys.modules[m] is not None]\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")

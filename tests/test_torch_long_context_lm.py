@@ -151,11 +151,19 @@ def test_three_steps_match_example(monkeypatch):
 
 
 def test_mesh_with_sp_raises():
+    """sp over the process group's ranks raises, naming the item that
+    brings it; on an in-process mesh the model runs the ring
+    (tests/test_torch_ring.py holds it against the JAX example)."""
     params = tlm.params_from_numpy(_numpy_params(), tmx.cpu())
     x, _ = _batches(1)[0]
     mesh = types.SimpleNamespace(shape={"dp": 1, "sp": 4})
-    with pytest.raises(MXNetError, match="multi-GPU slice"):
+    with pytest.raises(MXNetError, match="across processes"):
         tlm.apply_model(params, torch.from_numpy(x), mesh, HEADS, LAYERS)
+    ring = tmx.parallel.build_mesh({"sp": 4}, [tmx.cpu()] * 4)
+    got = tlm.apply_model(params, torch.from_numpy(x), ring, HEADS, LAYERS)
+    ref = tlm.apply_model(params, torch.from_numpy(x), None, HEADS, LAYERS)
+    np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_params_carry_round_trip():

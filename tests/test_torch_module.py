@@ -369,9 +369,11 @@ def test_module_reshape_keeps_params():
 
 def test_unported_options_raise(tmp_path, monkeypatch):
     """``dist_async`` raises (no collective analog, as in the JAX
-    package); several contexts in one process take the executor-group
-    route (the fused step over an in-process mesh comes with the
-    model-parallel item) and the dist stores work as a world of one
+    package); several distinct contexts in one process take the fused
+    step over an in-process dp mesh, while repeated contexts and an
+    indivisible batch take the executor-group route, as in the JAX
+    package (tests/test_torch_tp.py holds the fused route against it);
+    the dist stores work as a world of one
     (tests/test_torch_dist.py runs them across processes); the
     resilience options and their knobs do not raise
     (tests/test_torch_resilience.py holds them against the JAX package),
@@ -381,7 +383,15 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     it = tmx.io.NDArrayIter(X, y, batch_size=32)
     mod = tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
     mod.fit(it, num_epoch=1, kvstore="tpu")
-    assert mod._fused is None and len(mod._exec_group.execs) == 2
+    assert mod._fused is not None and mod._fused.mesh.in_process
+    assert dict(mod._fused.mesh.shape) == {"dp": 2}
+    for ctxs, batch in (([tmx.cpu(0), tmx.cpu(0)], 32),
+                        ([tmx.cpu(0), tmx.cpu(1), tmx.cpu(2)], 32)):
+        it = tmx.io.NDArrayIter(X, y, batch_size=batch)
+        mod = tmx.mod.Module(net, context=ctxs)
+        mod.fit(it, num_epoch=1, kvstore="tpu")
+        assert mod._fused is None and len(mod._exec_group.execs) == \
+            len(ctxs)
     it.reset()
     with pytest.raises(tmx.MXNetError, match="dist_async"):
         tmx.kvstore.create("dist_async")

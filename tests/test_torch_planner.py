@@ -116,12 +116,21 @@ def test_diff_param_sets_equals_jax():
 
 
 def test_plan_needing_tp_raises_naming_the_next_item():
+    """tp over the process group's ranks raises, naming the item of the
+    model-parallel axes across processes; over a context list (an
+    in-process mesh) the plan equals the JAX package's."""
     sym, data, label = _sym(tmx, "mlp")
-    with pytest.raises(tmx.MXNetError, match="model-parallel axes"):
-        tplan.plan(sym, data, label, world=4,
-                   param_shardings={"fc1_weight": ("tp", None)})
-    with pytest.raises(tmx.MXNetError, match="model-parallel axes"):
+    rules = {"fc1_weight": ("tp", None)}
+    with pytest.raises(tmx.MXNetError, match="model-parallel axes across"):
+        tplan.plan(sym, data, label, world=4, param_shardings=rules)
+    with pytest.raises(tmx.MXNetError, match="model-parallel axes across"):
         tmx.parallel.build_mesh({"dp": 1, "tp": 2}, devices=[0, 1])
+    got = tplan.plan(sym, data, label, devices=[tmx.cpu()] * 4,
+                     param_shardings=rules).to_doc()
+    jsym, jdata, jlabel = _sym(jmx, "mlp")
+    want = jplan.plan(jsym, jdata, jlabel, world=4,
+                      param_shardings=rules).to_doc()
+    assert got == want
     with pytest.raises(tmx.MXNetError,
                        match="multiply to 4 but 1 devices"):
         tmx.parallel.build_mesh({"dp": 4})
