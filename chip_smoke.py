@@ -2784,7 +2784,7 @@ RTC_MODEL_SIZE = (32, 256, 56, 56)
 #: once from float, as the plain version does)
 RTC_F32_REL_TOL = 2e-6
 FT_LAYER = "flatten0"   # fine-tune.py's default --layer-before-fullc
-FT_BATCHES = 6          # batches of one fit epoch, per route
+FT_BATCHES = 4          # batches of one fit epoch, per route
 FT_SCORE_BATCHES = 2
 FT_LR = 0.01            # fine-tune.py:40-41: sgd, lr 0.01, mom 0, wd 0
 FT_AGREE_LR = 1.0       # the batch-4 check recovers gradients from one update
@@ -4826,7 +4826,7 @@ ZOO_MODELS = (("lenet", (1, 28, 28), 10), ("mlp", (1, 28, 28), 10),
               ("googlenet", IMAGE, 1000), ("mobilenet", IMAGE, 1000),
               ("resnext-50", IMAGE, 1000),
               ("inception-v3", (3, 299, 299), 1000))
-ZOO_TURN_FORWARDS = 2   # batch-32 forwards in each of a model's 4 turns
+ZOO_TURN_FORWARDS = 1   # batch-32 forwards in each of a model's 4 turns
 IBN_FORWARDS = 8        # Inception-BN batch-32 requests on the main path
 IBN_TRAIN_STEPS = 4     # distinct seeded batches, then IBN_FIXED_STEPS
 IBN_FIXED_STEPS = 6
@@ -5625,12 +5625,12 @@ def zoo_paths(torch, mx, seed, card):
 # autograd tape, and the mirror memory mode with Executor.close
 # ---------------------------------------------------------------------------
 
-EXT_BATCHES = 6          # Module.fit batches of each ResNet-50 head / monitor
+EXT_BATCHES = 4          # Module.fit batches of each ResNet-50 head / monitor
 EXT_MON_INTERVAL = 2     # monitor_weights.py's Monitor(interval, norm_stat)
 EXT_GRAD_REL_L2 = 1e-5   # heads, torch head and autograd against their twins
 EXT_CRIT_STEPS = 5       # TorchCriterion steps on one fixed batch
-EXT_FGSM_BATCHES = 3     # attack batches of each route in each turn
-EXT_MIRROR_STEPS = 3     # SPMDTrainer steps in each mirror turn
+EXT_FGSM_BATCHES = 2     # attack batches of each route in each turn
+EXT_MIRROR_STEPS = 2     # SPMDTrainer steps in each mirror turn
 EXT_MIRROR_BATCH = 4     # the mirror-on against mirror-off gradient check
 EXT_MIRROR_REL_L2 = 1e-6
 # example/memcost/inception_memcost.py's trainer: sgd lr 0.1, Xavier,
@@ -6411,9 +6411,9 @@ IN_THREADS = 4
 IN_WARM = 2             # fit batches before the measured window
 IN_FIT_BATCHES = 2      # measured batches of each feed in each turn
 IN_PROFILE_BATCHES = 2  # batches of each feed's traced window
-IN_RATE_BATCHES = 4     # batches a decode-rate run reads after one warm-up
-IN_UPLOAD_REPS = 20
-IN_SCORE_BATCHES = 8
+IN_RATE_BATCHES = 2     # batches a decode-rate run reads after one warm-up
+IN_UPLOAD_REPS = 10
+IN_SCORE_BATCHES = 4
 IN_SEED = 90
 #: nvJPEG against the JAX package's exact libjpeg decode (another IDCT and
 #: chroma upsampling): mean and largest absolute difference in levels
@@ -7051,7 +7051,7 @@ DS_WORKERS = (1, 2, 4)   # decode workers of the rate runs (the host has 8)
 DS_MARGIN = 16           # device_augment's crop margin: a 3x240x240 canvas
 DS_FIT_BATCHES = 2       # measured batches of each feed in each turn
 DS_COMPARE_BATCHES = 4   # batches held byte for byte between two streams
-DS_AUG_REPS = 20         # augment calls in the traced window
+DS_AUG_REPS = 10         # augment calls in the traced window
 DS_SERVERS = 2           # loopback server processes of the network tier
 DS_SERVER_WORKERS = 2    # decode workers in each server
 DS_RESIZE_REL_TOL = 1e-5  # the resize branch, card against CPU, x max|out|
@@ -8345,7 +8345,7 @@ RS_STEP_TIMEOUT = 10    # seconds: MXTPU_STEP_TIMEOUT of the hang drill
 RS_TERM_AFTER = (1, 2)  # SIGTERM once (epoch 1, nbatch 2) is done: batch 3
 RS_DROP_PREEMPT = 5     # the Dropout net's in-band SIGTERM: boundary 6
 RS_METRIC_BATCHES = 3   # batches of each deferred/blocking turn
-RS_COUNT_STEPS = 3      # steps of each device-to-host count
+RS_COUNT_STEPS = 2      # steps of each device-to-host count
 RS_CHAIN_TIMEOUT = 420  # seconds the supervised chain may take
 RS_TERM_SLACK_S = 1.0   # SIGTERM-to-exit beyond one step and the save
 
@@ -8945,7 +8945,7 @@ SV_IDENTITY = (5, 8)    # rows, bucket of the bit-identity check
 SV_AGREE_BUCKET = 4     # the card against the port's CPU path
 SV_BF16_ATOL = 1e-2     # bfloat16 weights against float32, max |diff|
 SV_INT8_TOL = dict(atol=2e-2, rtol=5e-2)   # int8 against float32
-SV_LOAD_S = 1.5         # closed-loop seconds at each concurrency
+SV_LOAD_S = 1.0         # closed-loop seconds at each concurrency
 SV_CONCURRENCY = (1, 32)
 SV_SWAP_CLIENTS = 8     # concurrency while a new epoch is published
 SV_DRAIN_CLIENTS = 8    # requests in flight at SIGTERM
@@ -9571,13 +9571,13 @@ def serving_paths(torch, mx, seed, card):
 
 FL_DEVICE_SETS = "cuda:0"    # both replicas co-tenant on card 0
 FL_BUCKETS = (1, 8, 32)
-FL_C1_S = 1.5           # closed-loop seconds at concurrency 1
-FL_C32_S = 2.5          # and at concurrency 32
+FL_C1_S = 1.0           # closed-loop seconds at concurrency 1
+FL_C32_S = 1.5          # and at concurrency 32
 FL_KILL_CLIENTS = 8     # clients through the SIGKILL drill
 FL_SWAP_CLIENTS = 4     # clients through the rolling swap
 FL_BURSTS = 4           # most burst rounds to see buckets 8 and 32 served
 FL_ROUTER_BOUND = 0.8   # router CPU s per s past which --workers 2 runs too
-FL_IDLE_S = 1.5         # an idle window: what the front end costs unloaded
+FL_IDLE_S = 1.0         # an idle window: what the front end costs unloaded
 FL_ENV = {"MXTPU_FLEET_HEARTBEAT_S": "0.3", "MXTPU_FLEET_EVICT_S": "1.2",
           "MXTPU_FLEET_SPILL_QUEUE": "4", "MXTPU_SERVE_MAX_WAIT_MS": "2"}
 FLEET_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "fleet", "fleet_main.py")
@@ -11323,7 +11323,7 @@ def dist_paths(torch, mx, seed, card):
 MP_RESNET_MESH = {"dp": 2, "tp": 2}
 MP_RESNET_RULES = {r"fc1_weight": ("tp", None),
                    r"stage4_unit\d+_conv\d_weight": ("tp", None, None, None)}
-MP_RESNET_STEPS = 3
+MP_RESNET_STEPS = 2
 #: the long-context LM at the example's defaults on its dp 2 x sp 4 mesh
 MP_LM_MESH = {"dp": 2, "sp": 4}
 MP_LM_STEPS = 3
@@ -11335,6 +11335,23 @@ MP_MOE_E, MP_MOE_D, MP_MOE_H, MP_MOE_TOKENS = 8, 512, 2048, (4, 512)
 MP_TOL = 1e-5              # relative to max |reference|: pp and moe results
 #: a capacity factor at which some tokens lose both experts
 MP_MOE_DROP_CF = 0.25
+#: zero and zero3 on the mesh (_mp_zero): part, mesh, rules, grad_sync,
+#: remat; a position's predicted share of params + momentum a part, the
+#: gate on it, and the steps each trainer takes
+MP_ZERO_PARTS = (("a", {"dp": 4}, None, "allreduce", False),
+                 ("a", {"dp": 4}, None, "zero", False),
+                 ("a", {"dp": 4}, None, "zero3", False),
+                 ("b", MP_RESNET_MESH, MP_RESNET_RULES, "zero", False),
+                 ("b", MP_RESNET_MESH, MP_RESNET_RULES, "zero3", False),
+                 ("c", MP_RESNET_MESH, MP_RESNET_RULES, "zero3", True))
+MP_ZERO_SHARE = {"a": 0.25, "b": 0.50, "c": 0.50}
+MP_ZERO_SHARE_TOL = 0.02
+MP_ZERO_STEPS = 2
+#: a zero tier's first update against the same mesh's allreduce where
+#: their semantics match (zero; zero3's gspmd tier, with remat or
+#: without): the same sums in the same order, so relative L2 <= 1e-6
+#: (max-pool's backward adds with atomics: bit-equality not promised)
+MP_ZERO_SAME_TOL = 1e-6
 
 
 def _mp_rel(torch, got, ref):
@@ -11462,7 +11479,222 @@ def _mp_resnet(torch, mx, seed, card):
           "forward" % rel)
     tr.close()
     return {"ms": [v * 1e3 for v in spans[1:]], "fwd": sum(fwd),
-            "bwd": sum(bwd)}
+            "bwd": sum(bwd), "init": init, "batches": glob,
+            "step64": step64, "first": first, "spread": spread,
+            "f64_one": f64_one, "lr": opt.lr, "wd": opt.wd,
+            "rescale": opt.rescale_grad,
+            "wd_mult": dict(opt.wd_mult)}
+
+
+def _mp_zero_trainer(mx, axes, rules, sync, remat, init):
+    import numpy as np
+    mesh = mx.parallel.build_mesh(axes, [mx.gpu(0)] * int(
+        np.prod(list(axes.values()))))
+    tr = mx.parallel.SPMDTrainer(
+        _resnet50(mx), "sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                               "wd": 1e-4, "rescale_grad": 1.0 / BATCH},
+        mesh=mesh, param_shardings=rules, grad_sync=sync, remat=remat,
+        ctx=mx.gpu(0))
+    tr.bind([("data", (BATCH,) + IMAGE)], [("softmax_label", (BATCH,))])
+    tr.init_params(None, arg_params=init[0], aux_params=init[1])
+    return tr
+
+
+def _mp_zero_manual64(np, mx, base):
+    """The first update of zero3's manual tier at dp 4 in float64: each
+    position's rows through their own BatchNorm statistics (four
+    executor steps of BATCH / 4 rows), the gradients summed."""
+    arg0 = base["init"][0]
+    x, y = base["batches"][0]
+    n = BATCH // 4
+    grads = None
+    with _env("MXTPU_FUSED_KERNELS", "0"):
+        for k in range(4):
+            ref = _executor_step(mx, _resnet50(mx), base["init"],
+                                 x[k * n:(k + 1) * n].astype(np.float64),
+                                 y[k * n:(k + 1) * n].astype(np.float64),
+                                 mx.gpu(0))
+            part = {k2: ref["grad:" + k2] for k2 in arg0}
+            grads = part if grads is None else {
+                k2: grads[k2] + part[k2] for k2 in arg0}
+            del ref
+    return {k: arg0[k] - base["lr"] * (
+        base["rescale"] * grads[k]
+        + base["wd"] * base["wd_mult"].get(k, 1.0) * arg0[k]) for k in arg0}
+
+
+def _mp_zero(torch, mx, seed, card, base):
+    """zero and zero3 on the in-process mesh: ResNet-50 at global batch
+    BATCH over [gpu(0)] * 4 from _mp_resnet's weights and batches, under
+    model_parallel_paths' deterministic cuDNN.  Parts (MP_ZERO_PARTS):
+    (a) dp 4 under allreduce, zero and zero3 (the manual tier); (b) dp 2
+    x tp 2 with MP_RESNET_RULES under zero and zero3 (the gspmd tier);
+    (c) (b)'s zero3 with remat; (d) analyze of (a)'s and (b)'s zero3,
+    and a sharded-native checkpoint of (a)'s zero3 restored onto (b)'s
+    zero3 trainer.  Each trainer: 50 + 50 bn_act launches a step a
+    position (100 + 50 with remat, whose backward recomputes the
+    forward; counts zeroed just before each step, read just after), ms
+    a step, a position's params + momentum against the whole (within
+    MP_ZERO_SHARE_TOL of MP_ZERO_SHARE under zero and zero3), peak
+    memory, and the first update against the float64 step within
+    GRAD_L2_FACTOR x the one device's distance (_mp_resnet's gate) and,
+    under zero and zero3's gspmd tier, against the same mesh's allreduce
+    update within MP_ZERO_SAME_TOL (dp 4's allreduce against dp 2 x tp
+    2's within _mp_resnet's gate); the manual tier's per-position
+    statistics are held to their own float64 step (_mp_zero_manual64)
+    instead of allreduce's."""
+    import pickle
+    import numpy as np
+    ba = mx.kernels.bn_act
+    dev = mx.gpu(0).torch_device
+    arg0 = base["init"][0]
+    whole = sum(int(v.size) * 4 for v in arg0.values())
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in base["batches"][:MP_ZERO_STEPS]]
+    ckpt = os.path.join(ROOT, "mxnet_tpu_torch", "_build", "mp_zero_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # the same mesh's allreduce update: (a)'s own allreduce trainer runs
+    # first (and is held to _mp_resnet's dp 2 x tp 2 allreduce update)
+    firsts = {"a": base["first"], "b": base["first"], "c": base["first"]}
+    manual64 = None
+    fwd_all = bwd_all = 0
+    out = {}
+    saved = None
+    for part, axes, rules, sync, remat in MP_ZERO_PARTS:
+        label = "mp zero (%s) %s %s%s" % (
+            part, "x".join("%s%d" % kv for kv in axes.items()), sync,
+            " remat" if remat else "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = _mp_zero_trainer(mx, axes, rules, sync, remat,
+                              base["init"])
+        n = tr.mesh.size
+        held = tr.resident_bytes(position=0)
+        share = (held["params"] + held["opt_state"]) / (2.0 * whole)
+        spans, fwd, bwd = [], [], []
+        for i, (x, y) in enumerate(batches):
+            torch.cuda.synchronize(dev)
+            # -- the main path: counts zeroed just before, read after
+            ba.LAUNCHES = ba.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            outs = tr.step(x, y)
+            torch.cuda.synchronize(dev)
+            spans.append(time.perf_counter() - t0)
+            fwd.append(ba.LAUNCHES)
+            bwd.append(ba.BWD_LAUNCHES)
+            check(bool(torch.isfinite(outs[0]).all()),
+                  "%s: step %d outputs finite" % (label, i))
+            if i == 0:
+                first = _dist_host(tr)[0]
+        fwd_all += sum(fwd)
+        bwd_all += sum(bwd)
+        log("%s: tier %s, bn_act launches a step %s forward, %s "
+            "backward; ms a step %.1f (first %.1f); a position holds "
+            "%d + %d bytes of params + momentum, %.4f of the whole; "
+            "peak %.2f GiB; %s" % (
+                label, tr.zero3_tier, fwd, bwd, spans[-1] * 1e3,
+                spans[0] * 1e3, held["params"], held["opt_state"],
+                share, torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                card))
+        # remat: the backward recomputes every segment's forward, so
+        # each BatchNorm site launches its forward kernel twice
+        per = 50 * n * (2 if remat else 1)
+        check(fwd == [per] * len(batches) and
+              bwd == [50 * n] * len(batches),
+              "%s: %d + 50 bn_act launches a step a position: %s, %s"
+              % (label, per // n, fwd, bwd))
+        check(tr.skipped_steps == 0, "%s: no guard-skipped step" % label)
+        if sync != "allreduce":
+            want = MP_ZERO_SHARE[part]
+            check(abs(share - want) <= MP_ZERO_SHARE_TOL,
+                  "%s: a position holds %.4f of params + momentum "
+                  "(predicted %.2f)" % (label, share, want))
+        manual = tr.zero3_tier == "manual"
+        # allreduce at dp 4 is held to dp 2 x tp 2's allreduce (another
+        # mesh: _mp_resnet's gate); a zero tier to its own mesh's
+        bound = GRAD_L2_FACTOR * max(base["spread"], AGREE_REL_TOL) \
+            if sync == "allreduce" else MP_ZERO_SAME_TOL
+        f64_bound = GRAD_L2_FACTOR * max(base["f64_one"], AGREE_REL_TOL)
+        if manual:
+            if manual64 is None:
+                manual64 = _mp_zero_manual64(np, mx, base)
+            f64 = _dist_update_l2(np, first, manual64, arg0)[0]
+            log("%s: step 1 update vs its own float64 step (per-"
+                "position statistics) %.3g (bound %.3g)"
+                % (label, f64, f64_bound))
+        else:
+            f64 = _dist_update_l2(np, first, base["step64"], arg0)[0]
+            l2 = _dist_update_l2(np, first, firsts[part], arg0)
+            same = all(np.array_equal(first[k], firsts[part][k])
+                       for k in arg0)
+            log("%s: step 1 update vs the mesh's allreduce %.3g "
+                "(worst %s, bit-equal %s; bound %.3g), vs float64 "
+                "%.3g (bound %.3g)" % (label, l2[0], l2[1], same,
+                                       bound, f64, f64_bound))
+            check(l2[0] <= bound, "%s: step 1 update %.3g from the "
+                  "mesh's allreduce (bound %.3g)" % (label, l2[0],
+                                                    bound))
+        check(f64 <= f64_bound, "%s: step 1 update %.3g from float64 "
+              "(bound %.3g)" % (label, f64, f64_bound))
+        row = {"tier": tr.zero3_tier, "ms": spans[-1] * 1e3,
+               "share": share, "fwd": fwd, "bwd": bwd,
+               "peak": torch.cuda.max_memory_allocated(dev)}
+        if sync == "zero3" and not remat:
+            # (d): analyze on the mesh; (a)'s zero3 saves, (b)'s
+            # restores
+            x, y = batches[0]
+            t0 = time.perf_counter()
+            rep = tr.analyze(x, y)
+            coll = rep.stats["data_axis_collectives"]
+            log("%s: analyze ok %s in %.1f s, dp collectives %s, "
+                "expected gather %d bytes, owed all-reduce %d bytes; "
+                "findings %s" % (
+                    label, rep.ok, time.perf_counter() - t0,
+                    json.dumps({k: v for k, v in coll.items()
+                                if v["count"]}),
+                    *tr._zero3_schedule_bytes(),
+                    [f.rule for f in rep.findings]))
+            check(rep.ok and coll["all-gather"]["count"] > 0 and
+                  coll["reduce-scatter"]["count"] > 0,
+                  "%s: analyze ok with all-gathers and reduce-"
+                  "scatters: %s" % (label, rep.format_text()))
+            row["analyze"] = {k: v for k, v in coll.items()
+                              if v["count"]}
+            mgr = mx.resilience.CheckpointManager(ckpt)
+            if part == "a":
+                with _env("MXTPU_CKPT_SHARDED", "1"):
+                    tr.save_checkpoint(mgr, 1)
+                entry = mgr.entry(1)
+                check(entry["format"] == 2 and
+                      entry["shard_set"]["world"] == 4,
+                      "%s: a sharded-native entry of 4 blobs" % label)
+                saved = (_dist_host(tr), tr.get_states())
+            else:
+                check(tr.restore(mgr) == 1, "%s: restored" % label)
+                got = _dist_host(tr)
+                a_states = pickle.loads(saved[1])
+                b_states = pickle.loads(tr.get_states())
+                equal = all(
+                    np.array_equal(got[j][k], saved[0][j][k])
+                    for j in (0, 1) for k in saved[0][j]) and \
+                    a_states["num_update"] == b_states["num_update"] \
+                    and all(np.array_equal(np.asarray(s),
+                                           np.asarray(t))
+                            for k, v in a_states["states"].items()
+                            for s, t in zip(v, b_states["states"][k]))
+                log("%s: the dp 4 sharded-native checkpoint restored "
+                    "onto dp 2 x tp 2: params, aux, momentum and "
+                    "num_update bit-equal %s" % (label, equal))
+                check(equal, "%s: sharded-native dp 4 checkpoint "
+                      "restored bit-equal onto dp 2 x tp 2" % label)
+                row["restored_bit_equal"] = equal
+        if sync == "allreduce":
+            firsts[part] = first
+        out["%s_%s%s" % (part, sync, "_remat" if remat else "")] = row
+        tr.close()
+        del tr
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"parts": out, "fwd": fwd_all, "bwd": bwd_all}
 
 
 def _mp_lm(torch, mx, seed, card):
@@ -11636,21 +11868,33 @@ def _mp_moe(torch, mx, seed, card):
 def model_parallel_paths(torch, mx, seed, card):
     """The model-parallel axes inside one process on the card: every mesh
     position a [gpu(0)] context, float32 with TF32 off.  ResNet-50 at dp
-    2 x tp 2 through SPMDTrainer, the long-context LM at dp 2 x sp 4,
-    pipeline_apply over pp 4 and moe_ffn over ep 8 (see each phase).
-    Returns the bn_act launches of the ResNet-50 steps."""
-    res = _mp_resnet(torch, mx, seed, card)
+    2 x tp 2 through SPMDTrainer, zero and zero3 on the mesh (_mp_zero),
+    the long-context LM at dp 2 x sp 4, pipeline_apply over pp 4 and
+    moe_ffn over ep 8 (see each phase).  Returns the bn_act launches of
+    the ResNet-50 steps."""
+    # deterministic cuDNN, so that the zero tiers' updates can equal the
+    # same mesh's allreduce update bit for bit
+    with _deterministic_cudnn(torch):
+        res = _mp_resnet(torch, mx, seed, card)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        zero = _mp_zero(torch, mx, seed, card, res)
+        zero_s = time.perf_counter() - t0
+    log("mp zero: %.1f s" % zero_s)
+    del res["init"], res["batches"], res["step64"], res["first"]
     torch.cuda.empty_cache()
     lm = _mp_lm(torch, mx, seed, card)
     pp = _mp_pipeline(torch, mx, seed, card)
     moe = _mp_moe(torch, mx, seed, card)
     torch.cuda.empty_cache()
     log(json.dumps({"model_parallel": {"resnet_dp2_tp2_ms": res["ms"],
+                                       "zero": zero["parts"],
+                                       "zero_seconds": zero_s,
                                        "lm_dp2_sp4_ms": lm["ms"],
                                        "pipeline_ms": pp["ms"],
                                        "moe_ms": moe["ms"], "card": card}}))
-    return collections.Counter({"bn_act_fwd": res["fwd"],
-                                "bn_act_bwd": res["bwd"]})
+    return collections.Counter({"bn_act_fwd": res["fwd"] + zero["fwd"],
+                                "bn_act_bwd": res["bwd"] + zero["bwd"]})
 
 
 def main(argv=None):

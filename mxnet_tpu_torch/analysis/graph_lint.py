@@ -30,9 +30,11 @@ before and after it.  The rule ids are the JAX package's:
   ``torch.autograd.Function`` (whose ``forward`` runs with grad mode
   off), so autograd has no backward for it.
 - ``graph-collective-allgather``: all-gather traffic (``c10d`` ops in the
-  record) in a step that declared replicated parameters;
-  ``stats["collectives"]`` carries ``{count, bytes}`` for every kind, 0
-  on one device.
+  record, and the collectives of a mesh inside one process, which
+  report to ``parallel.collectives.COLLECTIVE_HOOKS``: one position's
+  bytes a collective, forward and backward) in a step that declared
+  replicated parameters; ``stats["collectives"]`` carries ``{count,
+  bytes}`` for every kind, 0 on one device.
 - ``graph-collective-schedule``: under a declared zero3 schedule the
   recorded step must really be sharded: its all-gathers move the
   sharded params' bytes (once in the forward, again where the backward
@@ -105,30 +107,41 @@ class StepRecord(object):
     """What one step dispatched: ``ops`` (``[(op, [input dtypes])]`` for
     the compute ops), ``syncs`` (``[(what, file, line)]``), ``launches``
     (``[(kernel, grad_enabled, requires_grad)]``), ``collectives``
-    (``{kind: {count, bytes}}``), ``n_ops`` (every dispatched op), the
-    step's ``result``, and the carries' and inputs' storage before and
-    after (``donation``)."""
+    (``{kind: {count, bytes}}``), ``by_axis`` (the same tally a tuple of
+    mesh axes, for the collectives of a mesh inside one process),
+    ``n_ops`` (every dispatched op), the step's ``result``, and the
+    carries' and inputs' storage before and after (``donation``)."""
 
     def __init__(self):
         self.ops = []
         self.syncs = []
         self.launches = []
-        self.collectives = {k: {"count": 0, "bytes": 0}
-                            for k in COLLECTIVE_OPS}
+        self.collectives = _tally()
+        self.by_axis = {}
         self.n_ops = 0
         self.result = None
         self.donation = []
         self.written_inputs = []
 
 
+def _tally():
+    return {k: {"count": 0, "bytes": 0} for k in COLLECTIVE_OPS}
+
+
 def _flatten(obj, path=""):
     """``[(path, tensor)]`` over nested dicts/tuples/lists of tensors, with
-    ``keystr``-like paths (``['params']['fc1_weight']``, ``[0]``)."""
+    ``keystr``-like paths (``['params']['fc1_weight']``, ``[0]``); a
+    value laid over an in-process mesh (``collectives.Sharded``) gives
+    its positions' parts."""
     import torch
     if isinstance(obj, torch.Tensor):
         return [(path, obj)]
     out = []
-    if isinstance(obj, dict):
+    parts = getattr(obj, "parts", None)
+    if isinstance(parts, list):
+        for i, v in enumerate(parts):
+            out += _flatten(v, "%s.parts[%d]" % (path, i))
+    elif isinstance(obj, dict):
         for k, v in obj.items():
             out += _flatten(v, "%s[%r]" % (path, k))
     elif isinstance(obj, (tuple, list)):
@@ -203,6 +216,7 @@ def record_step(fn, *args, carries=None, inputs=None, **kwargs):
     ``args``); the step must not write into them."""
     import torch
     from .. import kernels
+    from ..parallel import collectives
 
     rec = StepRecord()
 
@@ -220,7 +234,14 @@ def record_step(fn, *args, carries=None, inputs=None, **kwargs):
     def hook(name, grad_enabled, requires_grad):
         rec.launches.append((name, grad_enabled, requires_grad))
 
+    def on_collective(kind, nbytes, axes):
+        for slots in (rec.collectives,
+                      rec.by_axis.setdefault(axes, _tally())):
+            slots[kind]["count"] += 1
+            slots[kind]["bytes"] += nbytes
+
     kernels.LAUNCH_HOOKS.append(hook)
+    collectives.COLLECTIVE_HOOKS.append(on_collective)
     try:
         with _make_mode(rec):
             rec.result = fn(*args, **kwargs)
@@ -230,6 +251,7 @@ def record_step(fn, *args, carries=None, inputs=None, **kwargs):
                 break
     finally:
         kernels.LAUNCH_HOOKS.remove(hook)
+        collectives.COLLECTIVE_HOOKS.remove(on_collective)
     after = dict((p, t) for p, t in _flatten(read()))
     for path, t, storage in before:
         now = after.get(path)
@@ -331,11 +353,15 @@ def audit_donation(rec, min_bytes=1 << 20):
     return findings
 
 
-def collective_stats(rec):
+def collective_stats(rec, axes=None):
     """``{kind: {"count": n, "bytes": b}}`` for every collective kind
     (zeros included): the c10d ops the step dispatched, bytes summed over
-    their outputs."""
-    return {k: dict(v) for k, v in rec.collectives.items()}
+    their outputs, and an in-process mesh's collectives; with ``axes``
+    (a tuple of mesh axes), only the in-process collectives over those
+    axes."""
+    tally = rec.collectives if axes is None else \
+        rec.by_axis.get(tuple(axes), _tally())
+    return {k: dict(v) for k, v in tally.items()}
 
 
 def audit_collectives(stats, param_bytes=None, expect_allgather=False,
@@ -362,36 +388,36 @@ def audit_collectives(stats, param_bytes=None, expect_allgather=False,
         data={"all_gather": ag, "param_bytes": param_bytes})]
 
 
-#: platforms whose XLA pipeline rewrites all-reduce+slice into
-#: reduce-scatter (the JAX package's gspmd-tier note); the port's only
-#: tier is the manual one, which owes reduce-scatter everywhere
-RS_PLATFORMS = frozenset(("tpu", "gpu", "cuda", "rocm"))
-
-
 def audit_collective_schedule(stats, schedule, expect_gather_bytes=None,
                               tolerance=0.25, platform=None,
-                              expect_groups=None):
+                              expect_groups=None, allreduce_bytes=0):
     """``graph-collective-schedule``: under a DECLARED fully-sharded
     strategy the recorded step must actually be sharded (the JAX
-    package's rule, read from the dispatch record's ``_c10d_functional``
-    ops).
+    package's rule, read from the dispatch record: the
+    ``_c10d_functional`` ops across processes, the data axis's
+    collectives on a mesh inside one process).
 
-    ``schedule`` is ``'zero3-manual'`` (None disables the rule; the
-    ``'zero3-gspmd'`` tier belongs to the model-parallel item and owes a
-    reduce-scatter only on :data:`RS_PLATFORMS`); ``expect_gather_bytes``
-    is the full compute-dtype bytes of every dp-sharded parameter (the
-    trainer computes it from base rules and shapes); ``expect_groups``
-    the gather groups.  The forward gathers every group once and the
-    backward re-gathers the groups whose values it saved, so checks:
+    ``schedule`` is ``'zero3-manual'`` or ``'zero3-gspmd'`` (None
+    disables the rule; both tiers of the port write the gradients'
+    reduce-scatter explicitly, so both owe one on every platform);
+    ``expect_gather_bytes`` is the full compute-dtype bytes of every
+    dp-sharded parameter (the trainer computes it from base rules and
+    shapes); ``expect_groups`` the gather groups; ``allreduce_bytes``
+    the gradient bytes the declared plan all-reduces by design (params
+    that explicit rules or indivisible shapes keep out of the dp shards,
+    from the same base rules).  The forward gathers every group once and
+    the backward re-gathers the groups whose values it saved, so
+    checks:
 
     - all-gather bytes within ``tolerance`` of one to two times the
       expected bytes — less means params were left replicated (the
       sharding never happened), more means gathers beyond the schedule;
     - with ``expect_groups``: between one and two all-gathers a group,
       and one reduce-scatter a group;
-    - no stray full all-reduce: all-reduce bytes at or above half the
-      expected gather bytes mean gradients left the backward as a full
-      all-reduce instead of reduce-scatter;
+    - no stray full all-reduce: all-reduce bytes beyond
+      ``allreduce_bytes`` at or above half the expected gather bytes
+      mean gradients left the backward as a full all-reduce instead of
+      reduce-scatter;
     - at least one reduce-scatter.
     """
     if not schedule:
@@ -401,8 +427,7 @@ def audit_collective_schedule(stats, schedule, expect_gather_bytes=None,
     rs = stats.get("reduce-scatter", {"count": 0, "bytes": 0})
     ar = stats.get("all-reduce", {"count": 0, "bytes": 0})
     expect = int(expect_gather_bytes or 0)
-    owes_rs = schedule == "zero3-manual" or (
-        schedule == "zero3-gspmd" and platform in RS_PLATFORMS)
+    owes_rs = schedule in ("zero3-manual", "zero3-gspmd")
     if expect and ag["bytes"] < (1.0 - tolerance) * expect:
         findings.append(Finding(
             "graph-collective-schedule",
@@ -434,7 +459,8 @@ def audit_collective_schedule(stats, schedule, expect_gather_bytes=None,
                 "in %d reduce-scatters (one a group)"
                 % (schedule, expect_groups, rs["count"]),
                 data={"reduce_scatter": rs, "groups": expect_groups}))
-    if expect and ar["bytes"] >= 0.5 * expect and owes_rs:
+    if expect and ar["bytes"] - int(allreduce_bytes or 0) >= 0.5 * expect \
+            and owes_rs:
         findings.append(Finding(
             "graph-collective-schedule",
             "declared %s but a param-scale all-reduce (%d bytes/step) is "
@@ -566,11 +592,16 @@ def audit_plan_fusion(symbol):
 def lint_record(rec, compute_dtype=None, param_bytes=None,
                 expect_allgather=True, schedule=None,
                 expect_gather_bytes=None, min_donate_bytes=1 << 20,
-                platform=None, expect_groups=None):
+                platform=None, expect_groups=None, data_axes=None,
+                allreduce_bytes=0):
     """Run every graph rule against one :class:`StepRecord`.  Returns a
     :class:`Report` whose ``stats["collectives"]`` always carries the
     audit tally, and ``stats["dispatched_ops"]``, ``stats["host_syncs"]``
-    and ``stats["kernel_launches"]`` the record's counts."""
+    and ``stats["kernel_launches"]`` the record's counts.  With
+    ``data_axes`` (a mesh inside one process) the all-gather and
+    schedule rules read the collectives over those axes only
+    (``stats["data_axis_collectives"]``): a ``tp`` form's activation
+    collectives are no parameter traffic."""
     rep = Report(tool="mxlint.graph")
     rep.extend(audit_donation(rec, min_bytes=min_donate_bytes))
     rep.extend(find_callbacks(rec))
@@ -587,11 +618,20 @@ def lint_record(rec, compute_dtype=None, param_bytes=None,
     for name, _g, _r in rec.launches:
         launches[name] = launches.get(name, 0) + 1
     rep.stats["kernel_launches"] = dict(sorted(launches.items()))
-    rep.extend(audit_collectives(stats, param_bytes=param_bytes,
+    sched = stats
+    if data_axes is not None:
+        sched = collective_stats(rec, data_axes)
+        rep.stats["data_axis_collectives"] = sched
+    rep.extend(audit_collectives(sched, param_bytes=param_bytes,
                                  expect_allgather=expect_allgather))
     rep.extend(audit_collective_schedule(
-        stats, schedule, expect_gather_bytes, platform=platform,
-        expect_groups=expect_groups))
+        sched, schedule, expect_gather_bytes, platform=platform,
+        expect_groups=expect_groups, allreduce_bytes=allreduce_bytes))
+    if schedule:
+        rep.stats["schedule"] = {
+            "declared": schedule,
+            "expect_gather_bytes": int(expect_gather_bytes or 0),
+            "platform": platform}
     return rep
 
 

@@ -24,6 +24,8 @@ writes the same gradients again.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 import torch.utils.checkpoint
@@ -94,14 +96,16 @@ def mirror_segments_for(symbol, force=False):
 
 class _Segment(object):
     """One mirror segment of the training plan: its op ``entries``, the
-    node ids whose outputs leave it (``live_out``) and the merged-group
-    memo keys it hands on (``memo_out``), both in a fixed order."""
-    __slots__ = ("entries", "live_out", "memo_out")
+    node ids whose outputs leave it (``live_out``), the merged-group
+    memo keys it hands on (``memo_out``), both in a fixed order, and the
+    ids of the variables its entries read (``reads``)."""
+    __slots__ = ("entries", "live_out", "memo_out", "reads")
 
-    def __init__(self, entries, live_out, memo_out):
+    def __init__(self, entries, live_out, memo_out, reads):
         self.entries = entries
         self.live_out = live_out
         self.memo_out = memo_out
+        self.reads = frozenset(reads)
 
 
 def _segments(entries, out_refs, n_segments):
@@ -115,6 +119,7 @@ def _segments(entries, out_refs, n_segments):
     size = max(1, -(-len(ops) // max(1, n_segments)))
     chunks = [ops[i:i + size] for i in range(0, len(ops), size)]
     produced, last_use, groups = {}, {}, {}
+    reads = [set() for _ in chunks]
     for ci, chunk in enumerate(chunks):
         for node, _a, _n, _x, _ix, override in chunk:
             produced[id(node)] = ci
@@ -125,6 +130,8 @@ def _segments(entries, out_refs, n_segments):
                     groups.setdefault(override[0].group, []).append(ci)
             for src, _idx in refs:
                 last_use[id(src)] = max(last_use.get(id(src), -1), ci)
+                if src.op is None:
+                    reads[ci].add(id(src))
     for nid, _i in out_refs:
         last_use[nid] = len(chunks)
     segs = []
@@ -133,37 +140,49 @@ def _segments(entries, out_refs, n_segments):
                     if pc <= ci < last_use.get(nid, -1)]
         memo_out = [key for key, cis in groups.items()
                     if min(cis) <= ci < max(cis)]
-        segs.append(_Segment(chunk, live_out, memo_out))
+        segs.append(_Segment(chunk, live_out, memo_out, reads[ci]))
     return segs
 
 
-def _run_segments(segments, variables, out_refs, args, aux, rng, device):
+def _run_segments(segments, variables, out_refs, args, aux, rng, device,
+                  segment_scope=None):
     """The training forward as checkpointed segments
     (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
     each segment from its boundary values instead of keeping its
     activations.  Each segment's aux updates are the ones its first run
     returns; a recompute's are dropped with the rest of its return
-    value."""
-    var_env = {id(node): (_bind_variable(node, args, aux),)
-               for node, *_rest in variables}
+    value.  Every run binds the variables its entries read from ``args``
+    anew (a mapping may hand a recompute a re-gathered value instead of
+    keeping the first run's alive).  ``segment_scope()``, where given, is
+    called once a segment and returns None or an object whose
+    ``scope()`` wraps every run of that segment (a mesh position's
+    ``collectives.SegmentTape``, which the recompute replays)."""
     aux_updates = {}
     carry_ids, carry_vals, memo_keys, memo_vals = [], [], [], []
     for seg in segments:
-        def run(vals, mvals, _seg=seg, _ids=carry_ids, _keys=memo_keys):
-            env = dict(var_env)
-            env.update(zip(_ids, vals))
-            memo = {k: v for k, v in zip(_keys, mvals) if v is not None}
-            seg_aux = {}
-            _run_plan_nodes(_seg.entries, env, args, aux, True, seg_aux,
-                            rng, device, memo=memo)
-            return ([env[i] for i in _seg.live_out],
-                    [memo.get(k) for k in _seg.memo_out], seg_aux)
+        tape = segment_scope() if segment_scope is not None else None
+
+        def run(vals, mvals, _seg=seg, _ids=carry_ids, _keys=memo_keys,
+                _tape=tape):
+            with _tape.scope() if _tape is not None else nullcontext():
+                env = {id(node): (_bind_variable(node, args, aux),)
+                       for node, *_rest in variables
+                       if id(node) in _seg.reads}
+                env.update(zip(_ids, vals))
+                memo = {k: v for k, v in zip(_keys, mvals) if v is not None}
+                seg_aux = {}
+                _run_plan_nodes(_seg.entries, env, args, aux, True, seg_aux,
+                                rng, device, memo=memo)
+                return ([env[i] for i in _seg.live_out],
+                        [memo.get(k) for k in _seg.memo_out], seg_aux)
         carry_vals, memo_vals, seg_aux = torch.utils.checkpoint.checkpoint(
             run, carry_vals, memo_vals, use_reentrant=False)
         aux_updates.update(seg_aux)
         carry_ids, memo_keys = seg.live_out, seg.memo_out
-    env = dict(var_env)
-    env.update(zip(carry_ids, carry_vals))
+    env = dict(zip(carry_ids, carry_vals))
+    wanted = {nid for nid, _i in out_refs}
+    env.update((id(node), (_bind_variable(node, args, aux),))
+               for node, *_rest in variables if id(node) in wanted)
     return [env[nid][i] for nid, i in out_refs], aux_updates
 
 
@@ -205,7 +224,8 @@ def _apply_tp_forms(plan, tp_forms):
     return out
 
 
-def _build_eval(symbol, mirror_segments=0, tp_forms=None):
+def _build_eval(symbol, mirror_segments=0, tp_forms=None,
+                segment_scope=None):
     """Return ``eval_fn(args, aux, is_train, rng, device=None,
     monitor=None) -> (outputs, aux_updates)`` over name -> tensor dicts,
     interpreting the plan as the mxfuse passes rewrote it
@@ -223,7 +243,8 @@ def _build_eval(symbol, mirror_segments=0, tp_forms=None):
 
     ``mirror_segments`` > 1 runs the training path, when torch records a
     graph, as that many checkpointed segments (``eval_fn.segments``; the
-    memory mirror mode).  A ``monitor(node, outputs)`` callback runs the
+    memory mirror mode), each run inside ``segment_scope`` as
+    :func:`_run_segments` takes it.  A ``monitor(node, outputs)`` callback runs the
     plain, unfused plan (``eval_fn.plain_plan``, every node) and sees each
     node's outputs.
 
@@ -256,7 +277,7 @@ def _build_eval(symbol, mirror_segments=0, tp_forms=None):
         elif is_train:
             if segments is not None and torch.is_grad_enabled():
                 return _run_segments(segments, variables, out_refs, args,
-                                     aux, rng, device)
+                                     aux, rng, device, segment_scope)
             chunk = train_plan
         elif fold:
             if device not in folded:
@@ -367,10 +388,10 @@ class Executor(object):
     ``group2ctx`` maps ``ctx_group`` attributes to contexts; a map that
     places every node on the executor's own device binds a plain executor,
     as in the JAX package, and one over several devices raises (it comes
-    with the multi-GPU slice).  ``shared_exec`` is taken and, as in the
-    JAX package, shares nothing.  With ``MXNET_BACKWARD_DO_MIRROR=1`` the
-    training forward runs as checkpointed segments
-    (:func:`mirror_segments_for`)."""
+    with ROADMAP.md queue 1, item 4, sub-item 6).  ``shared_exec`` is
+    taken and, as in the JAX package, shares nothing.  With
+    ``MXNET_BACKWARD_DO_MIRROR=1`` the training forward runs as
+    checkpointed segments (:func:`mirror_segments_for`)."""
 
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None, shared_exec=None):
@@ -768,8 +789,8 @@ def _placement(symbol, group2ctx, ctx):
     if len(devices) > 1:
         raise MXNetError(
             "group2ctx places nodes on %d devices (%s); model parallelism "
-            "over several devices is not ported yet (it comes with the "
-            "multi-GPU slice of mxnet_tpu_torch)"
+            "over several devices is not ported yet (it comes with "
+            "ROADMAP.md queue 1, item 4, sub-item 6)"
             % (len(devices), ", ".join(sorted(str(d) for d in devices))))
     return {}
 

@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import torch
 
+from . import COUNT_LOCK
+
 __all__ = ["make_group_member", "MERGED_BODIES"]
 
 #: merged group bodies computed (one per group per forward) since the
@@ -96,7 +98,8 @@ def make_group_member(member_ix, n_members, conv_attrs, act_type,
         else:
             x = xs[0]
         attrs["num_filter"] = offsets[-1]
-        MERGED_BODIES += 1
+        with COUNT_LOCK:
+            MERGED_BODIES += 1
         if not is_train and do_fold:
             # inference: fold each member's frozen stats into ITS slice of
             # the merged weights — the BN leaves the forward

@@ -218,7 +218,8 @@ def _staged(t, route):
     if route != "rowwise" and (t.shape[-1] * t.element_size()) % 16 == 0 \
             and not vector_aligned(t):
         t = t.clone(memory_format=torch.contiguous_format)
-        ALIGN_COPIES += 1
+        with COUNT_LOCK:
+            ALIGN_COPIES += 1
     return t
 
 

@@ -16,8 +16,10 @@ Two routes, as in the JAX package:
   It falls back to the executor route for the JAX package's reasons.
 
 Parameters kept by the module (``get_params``) are host (``cpu()``)
-NDArrays, as in the reference.  Several contexts, ``dist`` stores and
-Monitor taps come with later slices and raise until then.
+NDArrays, as in the reference.  Several contexts in one process take
+one fused step over an in-process ``dp`` mesh (``kvstore='tpu'``) or the
+executor group; ``dist`` stores run the module across processes; a
+Monitor keeps the executor-group route, whose executors it taps.
 """
 from __future__ import annotations
 

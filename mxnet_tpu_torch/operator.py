@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .kernels import COUNT_LOCK
 from .ops.registry import register as _register_op
 
 __all__ = ["CustomOp", "CustomOpProp", "register", "get_prop", "PythonOp",
@@ -238,7 +239,8 @@ def _to_host(tensors):
             staged.append(t.to("cpu", non_blocking=True))
         else:
             staged.append(t.clone())
-        HOST_COUNTS["bytes_to_host"] += t.numel() * t.element_size()
+        with COUNT_LOCK:
+            HOST_COUNTS["bytes_to_host"] += t.numel() * t.element_size()
     if cuda is not None:
         torch.cuda.current_stream(cuda).synchronize()
     return [s.numpy() for s in staged]
@@ -246,7 +248,8 @@ def _to_host(tensors):
 
 def _to_device(array, device, dtype):
     t = torch.from_numpy(np.ascontiguousarray(array))
-    HOST_COUNTS["bytes_to_device"] += t.numel() * t.element_size()
+    with COUNT_LOCK:
+        HOST_COUNTS["bytes_to_device"] += t.numel() * t.element_size()
     return t.to(device, dtype)
 
 
@@ -269,7 +272,8 @@ class _CustomRun(object):
         self.keep_out = [n_out + n_in + i in deps for i in range(n_out)]
 
     def forward(self, tensors):
-        HOST_COUNTS["forward"] += 1
+        with COUNT_LOCK:
+            HOST_COUNTS["forward"] += 1
         data_in = tensors[:self.n_in]
         self.device = data_in[0].device if data_in else torch.device("cpu")
         self.in_meta = [(tuple(t.shape), _host_dtype(t), t.dtype,
@@ -301,7 +305,8 @@ class _CustomRun(object):
         return torch.from_numpy(np.zeros((), typ)).dtype
 
     def backward(self, grads, needs):
-        HOST_COUNTS["backward"] += 1
+        with COUNT_LOCK:
+            HOST_COUNTS["backward"] += 1
         kept = [g for g, keep in zip(grads, self.keep_ograd) if keep]
         host = iter(_to_host(kept))
         ograds = [next(host) if keep else np.zeros(s, t)

@@ -31,6 +31,20 @@ port's counterpart for a mesh over a context list
 
 Every output is a new tensor in its position's storage: with repeated
 contexts ``t.to(device)`` would otherwise hand two positions one buffer.
+
+A step over the mesh is reproducible from run to run: :func:`shard`
+places a tensor that requires grad through ONE autograd node whose
+backward adds the positions' gradients in position order, and the
+rendezvous' node over all positions is always made by position 0's
+thread (autograd orders ready nodes by a per-thread sequence number, so
+a node made by whichever thread came last would reorder the backward's
+sums).  Every collective reports its kind and the bytes one position
+moves to :data:`COLLECTIVE_HOOKS` (the graph lint's recorder listens
+there, as it does to ``kernels.LAUNCH_HOOKS``), in the forward and in
+the backward.  Inside a checkpointed segment (the mirror mode) each
+collective's output is kept on the segment's :class:`SegmentTape`, and
+the backward's recompute, which runs on autograd's thread where no
+position waits at a rendezvous, replays it.
 """
 from __future__ import annotations
 
@@ -44,7 +58,28 @@ from ..base import MXNetError
 __all__ = ["P", "Sharded", "shard", "unshard", "run", "current",
            "axis_index", "axis_size", "psum", "all_gather", "psum_scatter",
            "ppermute", "all_to_all", "copy_to", "reduce_from", "gather_from",
-           "scatter_to", "tree_map", "shard_tree", "unshard_tree"]
+           "scatter_to", "tree_map", "shard_tree", "unshard_tree",
+           "psum_positions", "all_gather_positions", "COLLECTIVE_HOOKS",
+           "note_collective", "SegmentTape", "segment_tape"]
+
+#: ``hook(kind, nbytes, axes)`` callables told of every collective over
+#: the mesh: the JAX package's HLO kind (``all-gather``, ``all-reduce``,
+#: ``reduce-scatter``, ``all-to-all``, ``collective-permute``), the bytes
+#: one position receives, once a collective (not once a position), and
+#: the tuple of mesh axes it runs over
+COLLECTIVE_HOOKS = []
+
+
+def note_collective(kind, outs, axes=()):
+    """Report one collective of ``kind`` over ``axes`` whose per-position
+    outputs are ``outs`` to the hooks (one list test when nothing
+    listens)."""
+    if not COLLECTIVE_HOOKS or kind is None:
+        return
+    first = next((t for t in outs if t is not None), None)
+    nbytes = 0 if first is None else first.numel() * first.element_size()
+    for hook in list(COLLECTIVE_HOOKS):
+        hook(kind, int(nbytes), tuple(axes))
 
 
 class P(tuple):
@@ -144,12 +179,52 @@ def _check_spec(shape, spec, mesh):
                                            spec))
 
 
+def _block_of(t, mesh, index, spec):
+    """Position ``index``'s block of ``t`` by ``spec`` (a view)."""
+    coords = mesh.coords(index)
+    blk = t
+    for d, entry in enumerate(spec):
+        axes = _axes_of(entry)
+        if axes:
+            k, n = _block(mesh, coords, axes)
+            size = t.shape[d] // n
+            blk = blk.narrow(d, k * size, size)
+    return blk
+
+
+def _place_blocks(t, mesh, spec):
+    return [_fresh(_block_of(t, mesh, i, spec), ctx.torch_device).contiguous()
+            for i, ctx in enumerate(mesh.contexts)]
+
+
+class _ShardFn(torch.autograd.Function):
+    """:func:`shard` of a tensor that requires grad: one node over every
+    position's block, whose backward adds the positions' gradients into
+    the whole in position order (the same sums, in the same order, on
+    every run)."""
+
+    @staticmethod
+    def forward(ctx, mesh, spec, t):
+        ctx.mesh, ctx.spec = mesh, spec
+        ctx.meta = (t.shape, t.dtype, t.device)
+        return tuple(_place_blocks(t, mesh, spec))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        shape, dtype, device = ctx.meta
+        full = torch.zeros(shape, dtype=dtype, device=device)
+        for i, g in enumerate(gs):
+            if g is not None:
+                _block_of(full, ctx.mesh, i, ctx.spec).add_(g.to(device))
+        return None, None, full
+
+
 def shard(t, mesh, spec=None):
     """Place ``t`` (a tensor or numpy array) on the in-process ``mesh``
     by ``spec``: each position gets its block, a copy in its own storage
     on its context's device.  Differentiable: the gradient of ``t`` is
     the sum of the positions' gradients (a replicated input's copies
-    each contribute)."""
+    each contribute), added in position order by one node."""
     if isinstance(t, Sharded):
         if t.mesh is mesh and t.spec == _spec(spec):
             return t
@@ -158,17 +233,10 @@ def shard(t, mesh, spec=None):
         t = torch.as_tensor(np.asarray(t))
     spec = _spec(spec)
     _check_spec(t.shape, spec, mesh)
-    parts = []
-    for i, ctx in enumerate(mesh.contexts):
-        coords = mesh.coords(i)
-        blk = t
-        for d, entry in enumerate(spec):
-            axes = _axes_of(entry)
-            if axes:
-                k, n = _block(mesh, coords, axes)
-                size = t.shape[d] // n
-                blk = blk.narrow(d, k * size, size)
-        parts.append(_fresh(blk, ctx.torch_device).contiguous())
+    if torch.is_grad_enabled() and t.requires_grad:
+        parts = list(_ShardFn.apply(mesh, spec, t))
+    else:
+        parts = _place_blocks(t, mesh, spec)
     return Sharded(parts, mesh, spec, t.shape)
 
 
@@ -286,8 +354,11 @@ class _Aborted(MXNetError):
 
 
 class _Rendezvous(object):
-    """All N positions hand in one item; the last to arrive computes every
-    position's result from all the items, and each takes its own."""
+    """All N positions hand in one item; once all have arrived position
+    0 computes every position's result from all the items (always the
+    same thread, so the autograd node it makes takes its place in the
+    backward's order from that thread's sequence), and each takes its
+    own."""
 
     def __init__(self, n):
         self.n = n
@@ -298,15 +369,23 @@ class _Rendezvous(object):
         self.result = None
         self.broken = None
 
+    def _aborted(self):
+        return _Aborted("another mesh position failed: %s" % (self.broken,))
+
     def exchange(self, index, key, item, combine):
         with self.cond:
             if self.broken is not None:
-                raise _Aborted("another mesh position failed: %s"
-                               % (self.broken,))
+                raise self._aborted()
             gen = self.generation
             self.items[index] = (key, item)
             self.arrived += 1
             if self.arrived == self.n:
+                self.cond.notify_all()
+            if index == 0:
+                while self.arrived < self.n and self.broken is None:
+                    self.cond.wait()
+                if self.arrived < self.n:
+                    raise self._aborted()
                 items, self.items = self.items, [None] * self.n
                 self.arrived = 0
                 keys = {k for k, _ in items}
@@ -324,8 +403,7 @@ class _Rendezvous(object):
                 while self.generation == gen and self.broken is None:
                     self.cond.wait()
                 if self.generation == gen:
-                    raise _Aborted("another mesh position failed: %s"
-                                   % (self.broken,))
+                    raise self._aborted()
             ok, value = self.result
             if not ok:
                 raise value
@@ -440,11 +518,11 @@ class _CollectiveFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op, *xs):
         ctx.op = op
-        return tuple(op.fwd(list(xs)))
+        return tuple(op.run_fwd(list(xs)))
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None,) + tuple(ctx.op.bwd(list(gs)))
+        return (None,) + tuple(ctx.op.run_bwd(list(gs)))
 
 
 def _chunks(t, n, dim):
@@ -461,12 +539,27 @@ def _sum_to(ts, device):
 
 class _Op(object):
     """A collective over the groups of one axis: ``fwd``/``bwd`` map the
-    list of every position's tensor to every position's output."""
+    list of every position's tensor to every position's output;
+    ``kinds`` names what each direction moves (None: a local copy or
+    slice), which ``run_fwd``/``run_bwd`` report."""
 
-    def __init__(self, groups, devices, **kw):
+    kinds = (None, None)
+
+    def __init__(self, groups, devices, axes=(), **kw):
         self.groups = groups
         self.devices = devices
+        self.axes = tuple(axes)
         self.kw = kw
+
+    def run_fwd(self, xs):
+        out = self.fwd(xs)
+        note_collective(self.kinds[0], out, self.axes)
+        return out
+
+    def run_bwd(self, gs):
+        out = self.bwd(gs)
+        note_collective(self.kinds[1], out, self.axes)
+        return out
 
     def _each(self, xs, per_group):
         out = [None] * len(xs)
@@ -515,6 +608,8 @@ class _Op(object):
 
 
 class _PSum(_Op):
+    kinds = ("all-reduce", "all-reduce")
+
     def fwd(self, xs):
         return self._psum(xs)
 
@@ -523,6 +618,8 @@ class _PSum(_Op):
 
 
 class _AllGather(_Op):
+    kinds = ("all-gather", "reduce-scatter")
+
     def fwd(self, xs):
         return self._gather(xs, self.kw["dim"], self.kw["tiled"])
 
@@ -531,6 +628,8 @@ class _AllGather(_Op):
 
 
 class _PSumScatter(_Op):
+    kinds = ("reduce-scatter", "all-gather")
+
     def fwd(self, xs):
         return self._scatter_sum(xs, self.kw["dim"], self.kw["tiled"])
 
@@ -539,6 +638,8 @@ class _PSumScatter(_Op):
 
 
 class _PPermute(_Op):
+    kinds = ("collective-permute", "collective-permute")
+
     def _move(self, xs, pairs):
         out = [None] * len(xs)
         for g in self.groups:
@@ -555,6 +656,8 @@ class _PPermute(_Op):
 
 
 class _AllToAll(_Op):
+    kinds = ("all-to-all", "all-to-all")
+
     def _swap(self, xs, split, concat):
         def go(ts, g):
             n = len(g)
@@ -572,6 +675,8 @@ class _AllToAll(_Op):
 
 
 class _CopyTo(_Op):
+    kinds = (None, "all-reduce")
+
     def fwd(self, xs):
         return self._copy(xs)
 
@@ -580,6 +685,8 @@ class _CopyTo(_Op):
 
 
 class _ReduceFrom(_Op):
+    kinds = ("all-reduce", None)
+
     def fwd(self, xs):
         return self._psum(xs)
 
@@ -588,6 +695,8 @@ class _ReduceFrom(_Op):
 
 
 class _GatherFrom(_Op):
+    kinds = ("all-gather", None)
+
     def fwd(self, xs):
         return self._gather(xs, self.kw["dim"])
 
@@ -596,6 +705,8 @@ class _GatherFrom(_Op):
 
 
 class _ScatterTo(_Op):
+    kinds = (None, "all-gather")
+
     def fwd(self, xs):
         return self._own_slice(xs, self.kw["dim"])
 
@@ -604,19 +715,94 @@ class _ScatterTo(_Op):
 
 
 def _collective(cls, x, axis, **kw):
-    frame = _frame()
-    mesh = frame.mesh
     axes = _axes_of(axis)
     key = (cls.__name__, axes, tuple(sorted((k, repr(v))
                                             for k, v in kw.items())))
+    replay = getattr(_LOCAL, "replay", None)
+    if replay is not None:
+        return replay.take(key)
+    frame = _frame()
+    mesh = frame.mesh
 
     def combine(xs):
-        op = cls(mesh.groups(axes), mesh.torch_devices, **kw)
+        op = cls(mesh.groups(axes), mesh.torch_devices, axes, **kw)
         if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
             return list(_CollectiveFn.apply(op, *xs))
         with torch.no_grad():
-            return op.fwd(xs)
-    return frame.rendezvous.exchange(frame.index, key, x, combine)
+            return op.run_fwd(xs)
+    out = frame.rendezvous.exchange(frame.index, key, x, combine)
+    tape = getattr(_LOCAL, "tape", None)
+    if tape is not None:
+        tape.keep(key, out)
+    return out
+
+
+class SegmentTape(object):
+    """The collectives of one mesh position's checkpointed segment (the
+    mirror mode, ``executor._run_segments``).  The segment's first run,
+    in the position's thread, keeps each collective's output; the
+    backward's recompute of the segment runs on autograd's thread, where
+    no other position waits at a rendezvous, so it re-enters the
+    position (its frame and data-parallel scope) and replays the kept
+    outputs in order instead: the recomputed values are the first run's.
+    Use :meth:`scope` around every run of the segment."""
+
+    def __init__(self, frame):
+        from .. import distributed
+        self.frame = frame
+        self.dp_scope = distributed._dp()
+        self.items = None
+        self.at = 0
+
+    def keep(self, key, out):
+        self.items.append((key, out.detach(), out.requires_grad))
+
+    def take(self, key):
+        if self.at >= len(self.items) or self.items[self.at][0] != key:
+            raise MXNetError(
+                "a checkpointed segment's recompute called the collective "
+                "%s where its first run called %s" % (
+                    key, self.items[self.at][0]
+                    if self.at < len(self.items) else "none"))
+        _, t, grad = self.items[self.at]
+        self.at += 1
+        t = t.detach()
+        return t.requires_grad_(True) if grad else t
+
+    def scope(self):
+        import contextlib
+        from .. import distributed
+
+        @contextlib.contextmanager
+        def first():
+            self.items = []
+            prev = getattr(_LOCAL, "tape", None)
+            _LOCAL.tape = self
+            try:
+                yield
+            finally:
+                _LOCAL.tape = prev
+
+        @contextlib.contextmanager
+        def again():
+            self.at = 0
+            prev = (getattr(_LOCAL, "replay", None),
+                    getattr(_LOCAL, "frame", None), distributed._dp())
+            _LOCAL.replay, _LOCAL.frame = self, self.frame
+            distributed._DP.scope = self.dp_scope
+            try:
+                yield
+            finally:
+                _LOCAL.replay, _LOCAL.frame = prev[0], prev[1]
+                distributed._DP.scope = prev[2]
+        return first() if self.items is None else again()
+
+
+def segment_tape():
+    """A :class:`SegmentTape` for a segment run by a mesh position, or
+    None outside :func:`run`."""
+    frame = getattr(_LOCAL, "frame", None)
+    return None if frame is None else SegmentTape(frame)
 
 
 def psum(x, axis):
@@ -628,8 +814,19 @@ def psum_positions(xs, mesh, axis):
     """:func:`psum` from outside :func:`run`, by a caller that holds
     every position's tensor (``xs``, in position order): every
     position's sum over ``axis``, in storage of its own."""
-    return _PSum(mesh.groups(_axes_of(axis)), mesh.torch_devices).fwd(
+    axes = _axes_of(axis)
+    return _PSum(mesh.groups(axes), mesh.torch_devices, axes).run_fwd(
         list(xs))
+
+
+def all_gather_positions(xs, mesh, axis, dim=0):
+    """:func:`all_gather` from outside :func:`run` (``xs`` every
+    position's block, in position order): every position's gathered
+    whole, in storage of its own, as one collective and no rendezvous
+    (the backward re-gather of ``parallel/zero3.py``)."""
+    axes = _axes_of(axis)
+    return _AllGather(mesh.groups(axes), mesh.torch_devices, axes,
+                      dim=int(dim), tiled=True).run_fwd(list(xs))
 
 
 def all_gather(x, axis, dim=0, tiled=True):

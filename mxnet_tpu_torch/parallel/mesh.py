@@ -23,7 +23,7 @@ from ..base import MXNetError
 
 __all__ = ["Mesh", "build_mesh", "default_mesh", "local_mesh", "AXIS_DP",
            "AXIS_TP", "AXIS_SP", "AXIS_PP", "AXIS_EP", "NEXT_ITEM",
-           "ZERO3_ITEM", "is_in_process"]
+           "is_in_process"]
 
 AXIS_DP = "dp"
 AXIS_TP = "tp"
@@ -34,9 +34,6 @@ AXIS_EP = "ep"
 #: where the model-parallel axes across processes are queued
 NEXT_ITEM = ("the model-parallel axes across processes (ROADMAP.md queue "
              "1, item 4, sub-item 9)")
-#: where zero/zero3 composed with the model-parallel axes is queued
-ZERO3_ITEM = ("the zero3 gspmd tier on an in-process mesh (ROADMAP.md "
-              "queue 1, item 4, sub-item 5)")
 
 
 def model_parallel_error(what, item=NEXT_ITEM):

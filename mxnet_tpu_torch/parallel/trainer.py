@@ -75,10 +75,23 @@ decisions): column-parallel for a weight split on dim 0, row-parallel
 for dim 1, otherwise the weight is gathered before use.  The positions'
 losses go into one backward; every param's gradient is then summed over
 ``dp`` (a ``tp`` shard keeps its own).  ``get_params``, ``eval_step``
-and the gathered checkpoints give the whole arrays.  A model-parallel
-axis over the process group's ranks, and zero/zero3, sharded-native
-checkpoints, ``analyze`` or ``remat`` on an in-process mesh raise
-:class:`MXNetError`, naming the item of ROADMAP.md that brings them.
+and the gathered checkpoints give the whole arrays.
+
+``zero`` and ``zero3`` on an in-process mesh shard every otherwise
+replicated param over the positions of ``dp`` (an explicit ``tp`` rule
+keeps its spec): each position gathers its groups as one bucketed
+``collectives.all_gather`` a group, whose transpose hands each position
+its shard of the dp-summed gradient (one reduce-scatter a group), and
+updates its shard.  ``zero3_tier`` is the JAX package's choice:
+``manual`` on a pure-``dp`` mesh, where BatchNorm uses each position's
+rows and the moving statistics are averaged over ``dp`` (the JAX
+package's ``shard_map`` body), and ``gspmd`` with a ``tp`` axis, where
+statistics are the global batch's, as under ``allreduce`` and ``zero``.
+Under zero3 the backward re-gathers (``zero3.MeshRegather``).
+``remat``, ``analyze``, ``MXTPU_ANALYZE`` and sharded-native
+checkpoints (one blob a ``dp`` shard) work there too.  A model-parallel
+axis over the process group's ranks raises :class:`MXNetError`, naming
+the item of ROADMAP.md that brings it.
 """
 from __future__ import annotations
 
@@ -194,7 +207,7 @@ class SPMDTrainer(object):
                  grad_sync=None, step_guard=None,
                  max_consecutive_bad_steps=None, plan=None, ctx=None):
         from .. import distributed
-        from .mesh import ZERO3_ITEM, is_in_process, model_parallel_error
+        from .mesh import is_in_process, model_parallel_error
         # a plan supplies the policy; the derived artifacts (per-param
         # specs, gather groups) are recomputed at bind() for this mesh,
         # so a plan written at another world consumes cleanly
@@ -235,15 +248,6 @@ class SPMDTrainer(object):
                         "no role in the step (ring_attention, "
                         "pipeline_apply and moe_ffn run the other axes)"
                         % (data_axis, self._tp_axis, name, size))
-            if grad_sync in ("zero", "zero3"):
-                raise model_parallel_error(
-                    "grad_sync=%r on an in-process mesh" % grad_sync,
-                    ZERO3_ITEM)
-            if remat or (remat is None and str(get_env(
-                    ENV_BACKWARD_DO_MIRROR, "0")) == "1"):
-                raise model_parallel_error(
-                    "remat (the mirror mode) on an in-process mesh",
-                    ZERO3_ITEM)
             self._dp = int(mesh.shape[data_axis])
         elif mesh is not None:
             for pattern, spec in self.param_shardings.items():
@@ -271,9 +275,9 @@ class SPMDTrainer(object):
         self._rank = distributed.rank() if world > 1 else 0
         # _zero: sharded master params and optimizer state (zero and
         # zero3 share the placement and the gathering path)
-        self._zero = grad_sync in ("zero", "zero3") and world > 1
+        self._zero = grad_sync in ("zero", "zero3") and self._dp_world > 1
         self._zero3 = grad_sync == "zero3" and self._zero
-        self.zero3_tier = None      # 'manual' at bind() under zero3
+        self.zero3_tier = None      # 'manual' / 'gspmd' at bind() (zero3)
         self._zero3_dims = {}       # param -> dp-sharded dim (zero, zero3)
         self._zero3_groups = []     # plan-ordered gather groups
         self._layouts = []          # one zero3.GatherLayout a group
@@ -351,6 +355,12 @@ class SPMDTrainer(object):
         self._refused = {}
         self._analyze_off = False
 
+    @property
+    def _dp_world(self):
+        """The data axis's size: its positions on a mesh inside one
+        process, its ranks across processes."""
+        return self._dp if self._inproc else self._world
+
     # -- setup ------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None):
         data_shapes = [d if isinstance(d, DataDesc) else DataDesc(d[0], d[1])
@@ -389,6 +399,14 @@ class SPMDTrainer(object):
             self._plan_zero()
         if self._inproc:
             self._bind_inproc()
+            if self._zero3:
+                # the JAX package's choice (trainer.py:346-348): manual on
+                # a pure-dp mesh with batch-leading outputs
+                leading = all(sh and sh[0] == self.batch_size
+                              for sh in self.out_shapes)
+                self.zero3_tier = "manual" if (
+                    tuple(self.mesh.axis_names) == (self.data_axis,)
+                    and leading and self._zero3_dims) else "gspmd"
         # the descriptive plan: what this trainer executes (world, mesh
         # axes, per-param placement, gather groups); save_checkpoint
         # persists it in the manifest
@@ -439,9 +457,13 @@ class SPMDTrainer(object):
                     form = ("column", "row")[dims[0]]
             forms[name] = form
         self.tp_forms = forms
+        from .collectives import segment_tape
         self._eval = _build_eval(
             self.symbol, tp_forms={n: (f, tp) for n, f in forms.items()
-                                   if f != "gather"})
+                                   if f != "gather"},
+            mirror_segments=mirror_segments_for(self.symbol,
+                                                force=self.remat),
+            segment_scope=segment_tape)
         self._eval_plain = _build_eval(self.symbol)
 
     def _param_spec(self, name, shape):
@@ -451,7 +473,7 @@ class SPMDTrainer(object):
         ones stay replicated)."""
         spec = _spec_for(name, shape, self.param_shardings)
         if self._zero and spec == ():
-            dp = self._world
+            dp = self._dp_world
             for i, d in enumerate(shape):
                 if d % dp == 0 and d >= dp:
                     axes = [None] * len(shape)
@@ -462,7 +484,9 @@ class SPMDTrainer(object):
     def _plan_zero(self):
         """The sharded params (each with its dp dimension) and their
         gather groups (bind time): zero3 gathers group by group in plan
-        order (``_choose_gather_groups``), zero in one block."""
+        order (``_choose_gather_groups``), zero in one block.  On an
+        in-process mesh each group is one ``zero3.GatherLayout`` that a
+        position gathers over ``dp`` (``gather_mesh``)."""
         from . import zero3 as z3
         shardable = {}
         for name in self.param_names:
@@ -480,9 +504,13 @@ class SPMDTrainer(object):
             [[n for g in z3.plan_gather_groups(self.symbol,
                                                sorted(shardable))
               for n in g]] if shardable else [])
+        shapes = {n: tuple(self.arg_shapes[n]) for n in shardable}
+        if self._inproc:
+            self._layouts = [z3.GatherLayout(g, shardable, shapes, self._dp)
+                             for g in groups]
+            return
         self._layouts, self._gather = z3.make_manual_gather(
-            groups, shardable,
-            {n: tuple(self.arg_shapes[n]) for n in shardable}, self._world)
+            groups, shardable, shapes, self._world)
 
     def _choose_gather_groups(self, shardable):
         """zero3's gather groups: under ``MXTPU_ZERO3_GATHER_GROUP=auto``
@@ -503,7 +531,7 @@ class SPMDTrainer(object):
                   "auto").strip().lower()
         given = self._given_plan
         if raw in ("", "auto") and given is not None and \
-                given.gather_groups and given.world == self._world and \
+                given.gather_groups and given.world == self._dp_world and \
                 sorted(n for g in given.gather_groups for n in g) == names:
             return [list(g) for g in given.gather_groups]
         planned = planner.derive_gather_groups(
@@ -569,14 +597,18 @@ class SPMDTrainer(object):
 
     def _place(self, name, full, param=True):
         """A whole value laid over the in-process mesh: a ruled param (or
-        its optimizer slot) by its rule, anything else replicated, each
-        position's part in its own storage."""
+        its optimizer slot) by its rule, a zero/zero3 param over ``dp``
+        on its shard dimension, anything else replicated, each position's
+        part in its own storage."""
         from . import collectives as C
         spec = C.P()
-        if param and name in self._tp_dims:
-            axes = [None] * full.dim()
-            axes[self._tp_dims[name]] = self._tp_axis
-            spec = C.P(*axes)
+        dims = ((self._tp_dims, self._tp_axis),
+                (self._zero3_dims, self.data_axis))
+        for where, axis in dims if param else ():
+            if name in where:
+                axes = [None] * full.dim()
+                axes[where[name]] = axis
+                spec = C.P(*axes)
         return C.shard(full, self.mesh, spec)
 
     def _shard(self, name, full):
@@ -715,7 +747,7 @@ class SPMDTrainer(object):
         guard = self.step_guard
         dp = self._world > 1
         auxu = positions[0][4]
-        if self._zero3 and auxu:
+        if self._zero3 and auxu and dp:
             names = list(auxu)
             flat = distributed.all_reduce(torch.cat(
                 [auxu[n].reshape(-1) for n in names])) / self._world
@@ -932,6 +964,15 @@ class SPMDTrainer(object):
         if len(arrays) == 1 and isinstance(arrays[0], StagedBatch):
             arrays = tuple(arrays[0].staged.values())
         rows = [int(np.shape(v)[0]) if np.ndim(v) else 0 for v in arrays]
+        if self._inproc:
+            n = rows[0] if rows else 0
+            if n % self._dp:
+                raise MXNetError(
+                    "grad_sync='zero3': batch dim %d does not divide over "
+                    "the %d positions of the dp axis — pad the final batch "
+                    "(iterator default) or use grad_sync='zero'"
+                    % (n, self._dp))
+            return
         every = distributed.all_gather_object(rows[0] if rows else 0)
         n = sum(every)
         if len(set(every)) > 1 or n % self._world:
@@ -1017,13 +1058,15 @@ class SPMDTrainer(object):
     # -- the step on an in-process mesh --------------------------------------
     def _position_scope(self, index):
         """The data-parallel scope of one mesh position: BatchNorm's
-        statistics psum'd over ``dp`` (float64 sums), a stochastic op's
-        rows of the global draw."""
+        statistics psum'd over ``dp`` (float64 sums), except on zero3's
+        manual tier, where each position uses its own rows; a stochastic
+        op's rows of the global draw."""
         from .. import distributed
         from . import collectives as C
         axis = self.data_axis
         return distributed.dp_scope(
             self._dp, self.mesh.coords(index)[axis],
+            sync_stats=self.zero3_tier != "manual",
             allreduce=lambda t: C.psum(t, axis))
 
     def _split_batch(self, data):
@@ -1041,32 +1084,73 @@ class SPMDTrainer(object):
                           device=self._device)
                 for k in range(len(outs[0]))]
 
+    def _position_params(self, i, params):
+        """Position ``i``'s whole params for its forward from its parts
+        ``params`` (compute dtype): ``tp`` gather forms gathered over
+        ``tp``, and under zero/zero3 each group's ``dp`` shards gathered
+        by one collective.  Returns ``(full, shards)``, ``shards`` the
+        cast dp shards the groups were gathered from."""
+        from . import collectives as C
+        full = dict(self._cast(params))
+        for nm, form in self.tp_forms.items():
+            if form == "gather":
+                full[nm] = C.gather_from(full[nm], self._tp_axis,
+                                         self._tp_dims[nm])
+        shards = {nm: full[nm] for nm in self._zero3_dims}
+        for lay in self._layouts:
+            full.update(lay.gather_mesh(shards, self.data_axis))
+        return full, shards
+
+    def _segment_reads(self):
+        """{param: how many checkpointed segments read it} (remat)."""
+        segs = getattr(self._eval, "segments", None) or ()
+        ids = {id(e[0]): e[0].name for e in self._eval.train_plan
+               if e[0].op is None}
+        out = {}
+        for seg in segs:
+            for nid in seg.reads:
+                if nid in ids:
+                    out[ids[nid]] = out.get(ids[nid], 0) + 1
+        return out
+
     def _dispatch_inproc(self, data, key, lr):
         """One step over the in-process mesh: every position's forward in
         its own thread (collectives.run), ONE backward over the sum of the
         positions' outputs, the gradients summed over ``dp`` (in position
         order: a tp shard's over its dp group, a replicated param's
-        likewise; its tp copies agree), then each position updates its
-        parts.  The guard's finite flag covers every position."""
+        likewise; its tp copies agree; under zero/zero3 a dp shard's
+        arrives reduce-scattered by its group's all-gather), then each
+        position updates its parts.  Under zero3 the backward re-gathers
+        the groups whose values it saved (``zero3.MeshRegather``), and on
+        the manual tier the BatchNorm moving statistics are averaged over
+        ``dp``.  The guard's finite flag covers every position."""
         from . import collectives as C
+        from .zero3 import MeshRegather
         mesh, n = self.mesh, self.mesh.size
         batch = self._split_batch(data)
         leaves = [{k: v.parts[i].detach().requires_grad_(True)
                    for k, v in self.params.items()} for i in range(n)]
         aux = [{k: v.parts[i] for k, v in self.aux.items()}
                for i in range(n)]
-        tp = self._tp_axis
-        gathered = [nm for nm, f in self.tp_forms.items() if f == "gather"]
+        regather = MeshRegather(self._layouts, mesh, self.data_axis,
+                                self._segment_reads()) \
+            if self._zero3 and self._layouts else None
 
         def position(i):
             with self._position_scope(i):
                 merged = self._xform({k: v[i] for k, v in batch.items()})
-                full = dict(self._cast(leaves[i]))
-                for nm in gathered:
-                    full[nm] = C.gather_from(full[nm], tp,
-                                             self._tp_dims[nm])
+                full, shards = self._position_params(i, leaves[i])
                 merged.update(full)
-                return self._eval(merged, aux[i], True, key)
+                del full
+                if regather is None:
+                    return self._eval(merged, aux[i], True, key)
+                regather.register(i, shards, merged)
+                merged = regather.args(i, merged)
+                with regather.hooks(i):
+                    res = self._eval(merged, aux[i], True, key)
+                # no gathered value outlives the forward but as a handle
+                merged.drop()
+                return res
 
         with torch.enable_grad():
             results = C.run(mesh, position, [(i,) for i in range(n)])
@@ -1086,14 +1170,22 @@ class SPMDTrainer(object):
                for i in range(n)]
         with torch.no_grad(), \
                 torch.profiler.record_function(GRAD_SYNC_RANGE):
-            self._sync_positions(per)
+            self._sum_over_dp(per, [nm for nm in self.param_names
+                                    if nm not in self._zero3_dims])
+            auxu = [r[1] for r in results]
+            if self.zero3_tier == "manual":
+                # each position saw its own rows: the moving statistics
+                # are the positions' mean (the JAX manual tier's pmean)
+                auxu = [{k: v / self._dp for k, v in a.items()} for a in
+                        self._sum_over_dp([dict(a) for a in auxu],
+                                          list(auxu[0]))]
         outs = self._global_outputs(results)
         with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
             devs = mesh.torch_devices
             outs = self._step_tail(
                 outs, [(_PositionParts(self.params, i),
                         _PositionParts(self.opt_state, i),
-                        _PositionParts(self.aux, i), per[i], results[i][1],
+                        _PositionParts(self.aux, i), per[i], auxu[i],
                         devs[i]) for i in range(n)],
                 lr, self.optimizer.wd, self._num_update, data)
         if self.step_guard:
@@ -1101,22 +1193,23 @@ class SPMDTrainer(object):
         self._outputs = outs
         return outs
 
-    def _sync_positions(self, per):
-        """Sum every param's gradient over its ``dp`` group, one flat
-        bucket a position, added in coordinate order."""
+    def _sum_over_dp(self, values, names):
+        """Every position's ``{name: tensor}`` in ``values`` with ``names``
+        summed over its ``dp`` group, in place: one flat bucket a
+        position, added in coordinate order."""
         from . import collectives as C
-        if self._dp == 1:
-            return
-        names = self.param_names
-        flats = [torch.cat([g[nm].reshape(-1) for nm in names])
-                 for g in per]
+        if self._dp == 1 or not names:
+            return values
+        flats = [torch.cat([v[nm].reshape(-1) for nm in names])
+                 for v in values]
         sums = C.psum_positions(flats, self.mesh, self.data_axis)
-        for grads, mine in zip(per, sums):
+        for v, mine in zip(values, sums):
             off = 0
             for nm in names:
-                size = grads[nm].numel()
-                grads[nm] = mine[off:off + size].reshape(grads[nm].shape)
+                size = v[nm].numel()
+                v[nm] = mine[off:off + size].reshape(v[nm].shape)
                 off += size
+        return values
 
     def _sync_replicated_grads(self, grads):
         """Sum the replicated params' gradients over ranks in one bucket a
@@ -1240,10 +1333,15 @@ class SPMDTrainer(object):
         it, then put every carry back as it was (values, storage and the
         update counter): analysing a step trains nothing."""
         from ..analysis import graph_lint
+        from .collectives import Sharded
         carries = self._carries()
         saved = [(t, t.clone()) for _, t in graph_lint._flatten(carries)]
         held = (dict(self.params), dict(self.aux), dict(self.opt_state),
                 self._guard_acc, self._metric_acc)
+        # an in-process mesh's carries: every position's part list
+        parts = [(v, list(v.parts)) for d in held[:3] for vs in d.values()
+                 for v in (vs if isinstance(vs, tuple) else (vs,))
+                 if isinstance(v, Sharded)]
         state = (self._num_update, self._guard_pending, self._outputs)
 
         def window():
@@ -1259,44 +1357,65 @@ class SPMDTrainer(object):
                 d.clear()
                 d.update(old)
             self._guard_acc, self._metric_acc = held[3], held[4]
+            for v, old in parts:
+                v.parts[:] = old
             with torch.no_grad():
                 for t, v in saved:
                     t.copy_(v)
             self._num_update, self._guard_pending, self._outputs = state
-        param_bytes = sum(v.numel() * v.element_size()
+        param_bytes = sum(int(np.prod(v.shape)) * v.dtype.itemsize
                           for v in self.params.values())
+        gather, owed = self._zero3_schedule_bytes()
         report = graph_lint.lint_record(
             rec, compute_dtype=self.compute_dtype, param_bytes=param_bytes,
             expect_allgather=self._zero, min_donate_bytes=min_donate_bytes,
-            schedule="zero3-manual" if self._zero3 else None,
-            expect_gather_bytes=self._zero3_expected_gather_bytes(),
+            schedule="zero3-%s" % self.zero3_tier if self._zero3 else None,
+            expect_gather_bytes=gather if self._zero3 else None,
             expect_groups=len(self._zero3_groups) if self._zero3 else None,
-            platform=self._device.type)
+            platform=self._device.type,
+            data_axes=(self.data_axis,) if self._inproc else None,
+            allreduce_bytes=owed)
         # plan-fusion-parity: the mxfuse rewrite this step runs must keep
         # the plain-plan monitored path intact
         report.merge(graph_lint.audit_plan_fusion(self.symbol))
         return report
 
     def _zero3_expected_gather_bytes(self):
-        """The gather traffic a correct zero3 forward moves: the full
-        compute-dtype bytes of every otherwise replicated param with a
-        dp-divisible dimension, from the base rules and shapes (never
-        from ``_param_spec``, so a broken sharding cannot lower the bar
-        it is held to)."""
+        """The gather traffic a correct zero3 forward moves
+        (:meth:`_zero3_schedule_bytes`); None off zero3."""
+        return self._zero3_schedule_bytes()[0] if self._zero3 else None
+
+    def _zero3_schedule_bytes(self):
+        """``(gather, owed all-reduce)`` bytes of a correct zero3 step, in
+        one pass over the base rules and shapes (never ``_param_spec``, so
+        a broken sharding cannot lower the bar it is held to).  A param
+        that no rule names and that has a dp-divisible dimension is
+        gathered: its full bytes count in the compute dtype.  Any other
+        param's gradient is summed over ``dp`` by design on an in-process
+        mesh: its float32 master's bytes at its per-position size count
+        as owed (0 across processes, where the schedule rule owes
+        nothing beyond the gathers)."""
         if not self._zero3:
-            return None
-        dp = self._world
-        total = 0
+            return 0, 0
+        dp = self._dp_world
+        master = 4      # the masters and their gradients are float32
+        comm = self.compute_dtype.itemsize \
+            if self.compute_dtype is not None else master
+        gather = owed = 0
         for name in self.param_names:
             shape = self.arg_shapes[name]
-            if _spec_for(name, shape, self.param_shardings) != ():
-                continue
-            if not any(d % dp == 0 and d >= dp for d in shape):
-                continue
-            item = self.compute_dtype.itemsize \
-                if self.compute_dtype is not None else 4
-            total += int(np.prod(shape)) * item
-        return total
+            size = int(np.prod(shape))
+            spec = _spec_for(name, shape, self.param_shardings)
+            if spec == () and any(d % dp == 0 and d >= dp for d in shape):
+                gather += size * comm
+            elif self._inproc:
+                split = 1
+                for entry in spec:
+                    for a in ((entry,) if isinstance(entry, str) else
+                              tuple(entry or ())):
+                        split *= int(self.mesh.shape.get(a, 1))
+                owed += size * master // split
+        return gather, owed
 
     def analyze(self, *batch_arrays, min_donate_bytes=0):
         """Lint one step on an example batch (arrays in ``input_names``
@@ -1316,10 +1435,6 @@ class SPMDTrainer(object):
         if self.params is None:
             raise MXNetError(
                 "SPMDTrainer.analyze: bind() and init_params() first")
-        if self._inproc:
-            from .mesh import ZERO3_ITEM, model_parallel_error
-            raise model_parallel_error("analyze() on an in-process mesh",
-                                       ZERO3_ITEM)
         self.flush_step_guard()
         self._ensure_accumulators()
         data = self._resolve_batch(batch_arrays)
@@ -1346,7 +1461,7 @@ class SPMDTrainer(object):
         raises again."""
         from ..analysis import ENV_ANALYZE
         mode = str(get_env(ENV_ANALYZE, "") or "").strip().lower()
-        if mode in ("", "0", "off", "false", "no") or self._inproc:
+        if mode in ("", "0", "off", "false", "no"):
             # cache the "off" answer: the per-step signature hashing and
             # env read are not worth paying when analysis is disabled
             self._analyze_off = True
@@ -1420,11 +1535,12 @@ class SPMDTrainer(object):
         def position(i):
             with self._position_scope(i):
                 merged = self._xform({k: v[i] for k, v in batch.items()})
-                full = {}
-                for nm, v in self._cast({k: p.parts[i] for k, p in
-                                         self.params.items()}).items():
-                    full[nm] = C.gather_from(v, tp, self._tp_dims[nm]) \
-                        if nm in self._tp_dims else v
+                full = self._cast({k: p.parts[i] for k, p in
+                                   self.params.items()})
+                for nm in self._tp_dims:
+                    full[nm] = C.gather_from(full[nm], tp, self._tp_dims[nm])
+                for lay in self._layouts:
+                    full.update(lay.gather_mesh(full, self.data_axis))
                 merged.update(full)
                 return self._eval_plain(
                     merged, {k: a.parts[i] for k, a in self.aux.items()},
@@ -1577,10 +1693,6 @@ class SPMDTrainer(object):
         from ..resilience import ENV_CKPT_SHARDED
         sharded = str(get_env(ENV_CKPT_SHARDED, "0")).strip().lower() in \
             ("1", "true", "yes", "on")
-        if sharded and self._inproc:
-            from .mesh import ZERO3_ITEM, model_parallel_error
-            raise model_parallel_error(
-                "MXTPU_CKPT_SHARDED=1 on an in-process mesh", ZERO3_ITEM)
         if sharded and self._zero and hasattr(manager, "save_sharded"):
             return self.save_checkpoint_sharded(manager, step)
         arg_params, aux_params = self.snapshot_params()
@@ -1604,10 +1716,13 @@ class SPMDTrainer(object):
         blob.  The blobs' payloads and names are the JAX package's, so
         either package restores them at any world.  Peers write first,
         then rank 0 writes its blob and publishes the manifest; every
-        rank returns after the publish."""
+        rank returns after the publish.  On an in-process mesh one blob
+        a ``dp`` shard (``world`` the dp size), each from the parts of
+        the position at that ``dp`` coordinate and coordinate 0 of every
+        other axis; a ``tp``-ruled param travels whole in shard 0's."""
         from .. import distributed
         self.flush_step_guard()
-        world, me = self._world, self._rank
+        world, me = self._dp_world, self._rank
         dims = self._sharded_ckpt_dims()
         plan_doc = self.sharding_plan.to_doc() \
             if self.sharding_plan is not None else None
@@ -1615,21 +1730,34 @@ class SPMDTrainer(object):
         def host(t):
             return np.array(t.detach().cpu().numpy(), copy=True)
 
+        def value(name, v, k):
+            if not self._inproc:
+                return v
+            if dims[name] is None:
+                return self._full(name, v)
+            return v.parts[self.mesh.groups(self.data_axis)[0][k]]
+
         def payload(k):
-            if k != me:
+            if k != me and not self._inproc:
                 return None
             out = {"epoch": int(step), "shard": int(k),
                    "world": int(world), "dims": dims,
                    "num_update": self._num_update, "args": {}, "opt": {}}
             for name, v in self.params.items():
                 if dims[name] is not None or k == 0:
-                    out["args"][name] = host(v)
-                    out["opt"][name] = tuple(host(x)
-                                             for x in self.opt_state[name])
+                    out["args"][name] = host(value(name, v, k))
+                    out["opt"][name] = tuple(
+                        host(value(name, x, k))
+                        for x in self.opt_state[name])
             if k == 0:
-                out["aux"] = {n: host(v) for n, v in self.aux.items()}
+                out["aux"] = {n: host(self._full(n, v))
+                              for n, v in self.aux.items()}
             return pickle.dumps(out, protocol=4)
 
+        if self._inproc:
+            manager.save_sharded(step, self.symbol, payload, world=world,
+                                 plan=plan_doc, rank=0)
+            return int(step)
         if me != 0:
             manager.save_sharded(step, self.symbol, payload, world=world,
                                  plan=plan_doc, rank=me)

@@ -13,6 +13,16 @@ tensors by ``torch.autograd.graph.saved_tensors_hooks``
 (:class:`Regather`): a saved view of a gathered parameter is stored as a
 handle, and its first unpack in the backward gathers the group again.
 
+On a mesh inside one process (``build_mesh`` over a context list) a
+group gathers as ONE bucketed ``collectives.all_gather`` over ``dp`` in
+each position's thread (every member moved to its shard dimension
+first and flattened), whose transpose is ``psum_scatter``: one
+reduce-scatter a group in the backward
+(:meth:`GatherLayout.gather_mesh`).  The backward runs on autograd's
+thread, where no position waits at a rendezvous, so :class:`MeshRegather`
+re-gathers a group for every position at once, as one collective over
+the positions' shards (:func:`collectives.all_gather_positions`).
+
 Group boundaries come from the executor plan's topological order
 (``executor._node_plan``): a parameter belongs to the plan position of
 its first consuming node.  :func:`first_consumer_order` and
@@ -28,7 +38,7 @@ from ..base import register_env
 
 __all__ = ["ENV_ZERO3_GATHER_GROUP", "first_consumer_order",
            "plan_gather_groups", "GatherLayout", "make_manual_gather",
-           "Regather"]
+           "Regather", "MeshRegather"]
 
 ENV_ZERO3_GATHER_GROUP = register_env(
     "MXTPU_ZERO3_GATHER_GROUP", default="auto",
@@ -149,6 +159,43 @@ class GatherLayout(object):
         return out
 
 
+    # -- the in-process mesh form: one bucket a group ---------------------
+    def _moved(self, n):
+        """Member ``n``'s full shape with its shard dimension first."""
+        d, shape = self.shard_dim[n], list(self.shapes[n])
+        return [shape[d]] + shape[:d] + shape[d + 1:]
+
+    def mesh_bucket(self, shards):
+        """A position's flat bucket: every member's shard with its shard
+        dimension moved first, flattened, in ``names`` order."""
+        import torch
+        return torch.cat([(shards[n].movedim(self.shard_dim[n], 0)
+                           if self.shard_dim[n] else shards[n]).reshape(-1)
+                          for n in self.names])
+
+    def mesh_unbucket(self, flat):
+        """``{name: full}`` from a gathered bucket (the positions' buckets
+        concatenated in coordinate order): each member its own storage."""
+        mat = flat.reshape(self.world, -1)
+        full, off = {}, 0
+        for n in self.names:
+            size = int(np.prod(self.shapes[n])) // self.world
+            d = self.shard_dim[n]
+            v = mat[:, off:off + size].reshape(self._moved(n))
+            full[n] = v.movedim(0, d).contiguous() if d else v
+            off += size
+        return full
+
+    def gather_mesh(self, shards, axis):
+        """``{name: full}`` in a mesh position's thread: one
+        ``collectives.all_gather`` of the group's bucket over ``axis``,
+        differentiable (the shards' gradients leave as one psum_scatter,
+        summed in coordinate order)."""
+        from . import collectives as C
+        return self.mesh_unbucket(C.all_gather(self.mesh_bucket(shards),
+                                              axis))
+
+
 def _gather_fn():
     import torch
 
@@ -255,3 +302,137 @@ class Regather(object):
         import torch
         return torch.autograd.graph.saved_tensors_hooks(self.pack,
                                                         self.unpack)
+
+
+class MeshRegather(object):
+    """:class:`Regather` over an in-process mesh.  Each position's forward
+    runs with ``hooks(index)``: a saved tensor that views one of that
+    position's gathered values is stored as a handle.  The backward's
+    first unpack of a group re-gathers it for EVERY position at once from
+    the positions' shards (one collective, no rendezvous: the backward
+    has no position threads), and each position's copy is dropped after
+    its last handle.  Under the mirror mode (checkpointed segments) the
+    segments' recomputes read the gathered values through :meth:`args`,
+    which re-gathers what the forward no longer holds.
+
+    ``layouts``: one :class:`GatherLayout` a group; ``mesh``, ``axis``:
+    the mesh and its data axis; ``reads``: {name: how many checkpointed
+    segments read it} (the mirror mode; a position's re-gathered copy is
+    dropped after them).  Each position hands its shards and gathered
+    values to :meth:`register` before its forward."""
+
+    def __init__(self, layouts, mesh, axis, reads=None):
+        import threading
+        self.layouts = layouts
+        self.mesh = mesh
+        self.axis = axis
+        n = mesh.size
+        self.shards = [None] * n
+        self.where = [{} for _ in range(n)]
+        self.group_of = {nm: gi for gi, lay in enumerate(layouts)
+                         for nm in lay.names}
+        reads = reads or {}
+        # a position's outstanding readers of a group: the segments'
+        # recomputes that bind its names, and the saved-tensor handles
+        # (counted as the forward packs them)
+        self.left = [[sum(int(reads.get(nm, 0)) for nm in lay.names)] * n
+                     for lay in layouts]
+        self.cache = {}     # group -> every position's gathered values
+        self.lock = threading.Lock()
+        self.regathers = 0
+
+    def register(self, index, shards, full):
+        """Position ``index``'s shards and the values its forward
+        gathered from them (its own thread calls this before the
+        forward)."""
+        self.shards[index] = {nm: shards[nm].detach()
+                              for nm in self.group_of}
+        self.where[index] = {full[nm].untyped_storage().data_ptr():
+                             (gi, nm) for nm, gi in self.group_of.items()}
+
+    def _gather(self, gi):
+        """Every position's gathered group ``gi`` (one collective)."""
+        from . import collectives as C
+        lay = self.layouts[gi]
+        outs = C.all_gather_positions(
+            [lay.mesh_bucket({nm: s[nm] for nm in lay.names})
+             for s in self.shards], self.mesh, self.axis)
+        self.regathers += 1
+        return [lay.mesh_unbucket(o) for o in outs]
+
+    def _take(self, gi, index, name):
+        """Position ``index``'s re-gathered ``name`` of group ``gi`` for
+        one reader: the group is gathered for every position at the
+        first reader that finds no copy, and a position's copy dropped
+        after its last reader."""
+        with self.lock:
+            full = self.cache.get(gi)
+            if full is None or full[index] is None:
+                full = self.cache[gi] = self._gather(gi)
+            out = full[index][name]
+            self.left[gi][index] -= 1
+            if self.left[gi][index] <= 0:
+                full[index] = None
+                if all(f is None for f in full):
+                    del self.cache[gi]
+        return out
+
+    def _pack(self, index, t):
+        import torch
+        if not isinstance(t, torch.Tensor) or t.layout != torch.strided:
+            return t
+        hit = self.where[index].get(t.untyped_storage().data_ptr())
+        if hit is None:
+            return t
+        gi, name = hit
+        self.left[gi][index] += 1
+        return ("zero3-regather", gi, name, index, tuple(t.shape),
+                t.stride(), t.storage_offset())
+
+    def _unpack(self, h):
+        if not (isinstance(h, tuple) and h and h[0] == "zero3-regather"):
+            return h
+        _, gi, name, index, size, stride, offset = h
+        return self._take(gi, index, name).as_strided(size, stride, offset)
+
+    def hooks(self, index):
+        """The saved-tensor hooks of position ``index``'s forward."""
+        import torch
+        return torch.autograd.graph.saved_tensors_hooks(
+            lambda t: self._pack(index, t), self._unpack)
+
+    def args(self, index, merged):
+        """``merged`` (position ``index``'s argument dict) as a mapping
+        that re-gathers a group's value once the forward dropped it
+        (:meth:`drop`): what a checkpointed segment's recompute binds."""
+        return _RegatherArgs(merged, self, index)
+
+    def fetch(self, index, name):
+        """Position ``index``'s re-gathered ``name`` (requires grad, as
+        the forward's gathered value did)."""
+        return self._take(self.group_of[name], index,
+                          name).detach().requires_grad_(True)
+
+
+class _RegatherArgs(dict):
+    """A position's argument dict whose gathered entries, once dropped,
+    are re-gathered on read (``MeshRegather.args``)."""
+
+    def __init__(self, merged, regather, index):
+        dict.__init__(self, merged)
+        self._regather = regather
+        self._index = index
+
+    def drop(self):
+        """Drop the gathered values (after the forward)."""
+        for name in self._regather.group_of:
+            dict.pop(self, name, None)
+
+    def __contains__(self, name):
+        return dict.__contains__(self, name) or \
+            name in self._regather.group_of
+
+    def __missing__(self, name):
+        if name in self._regather.group_of:
+            return self._regather.fetch(self._index, name)
+        raise KeyError(name)

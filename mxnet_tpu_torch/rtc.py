@@ -32,7 +32,7 @@ import os
 import torch
 
 from .base import MXNetError
-from .kernels import note_launch
+from .kernels import COUNT_LOCK, note_launch
 from .ops.registry import OP_REGISTRY, fn_signature_info, register
 
 __all__ = ["register_kernel", "elementwise_cuda_kernel", "ElementwiseKernel",
@@ -189,7 +189,8 @@ class ElementwiseKernel(object):
         if err != 0:
             raise MXNetError("rtc elementwise kernel launch failed: CUDA "
                              "error %d" % err)
-        LAUNCHES += 1
+        with COUNT_LOCK:
+            LAUNCHES += 1
         note_launch("rtc_elementwise", x)
         return y
 

@@ -612,6 +612,31 @@ def test_collective_schedule_waits_for_multi_gpu():
     assert graph_lint.audit_collective_schedule(
         stats(2 * expect, expect // 2, 64, agn=5, rsn=1), "zero3-manual",
         expect, expect_groups=2)
+    # the gspmd tier with an all-reduce the plan owes by design (ruled
+    # and indivisible params on an in-process mesh): the port's rule
+    # subtracts it before the half-expected bound, and owes a
+    # reduce-scatter on every platform; the JAX rule (gpu: bound and
+    # reduce-scatter owed; cpu: neither) departs exactly there
+    owed = 3 * expect // 4
+    for st, platform, port_clean, jax_clean in (
+            (stats(2 * expect, expect // 2, 64), "gpu", True, True),
+            (stats(2 * expect, expect // 2, owed + 64), "gpu", True, False),
+            (stats(2 * expect, expect // 2, owed + expect // 2), "gpu",
+             False, False),
+            (stats(expect // 4, expect // 2, owed), "gpu", False, False),
+            (stats(2 * expect, 0, owed, rsn=0), "cpu", False, True)):
+        got = graph_lint.audit_collective_schedule(
+            st, "zero3-gspmd", expect, platform=platform,
+            allreduce_bytes=owed)
+        want = jlint.audit_collective_schedule(st, "zero3-gspmd", expect,
+                                               platform=platform)
+        assert (not got, not want) == (port_clean, jax_clean), \
+            (st, platform, got, want)
+        if platform == "gpu":
+            # with nothing owed the two rules agree
+            plain = graph_lint.audit_collective_schedule(
+                st, "zero3-gspmd", expect, platform=platform)
+            assert (not plain) == jax_clean, (st, plain, want)
 
 
 # ---------------------------------------------------------------------------

@@ -164,3 +164,50 @@ def test_trainer_adopts_a_plan():
     assert tr.sharding_plan.world == 1 and not tr._zero3_dims
     x = np.random.RandomState(0).standard_normal((64, 256)).astype("f")
     tr.step(x, np.zeros(64, "f"))
+
+
+def test_plan_explain_reads_the_ports_mesh_plans(tmp_path, monkeypatch):
+    """The unedited ``tools/plan_explain.py --check --devices N`` on what
+    the port's zero3 trainer over an in-process dp 4 mesh writes: its
+    plan JSON, a gather-on-save checkpoint directory and a
+    sharded-native one (``MXTPU_CKPT_SHARDED=1``).  Each explains the
+    manual tier and its gather group, fits 4 devices (exit 0) and not 3
+    (exit 1: batch 64 does not split three ways)."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = tmx.sym.Variable("data")
+    net = tmx.sym.FullyConnected(data, num_hidden=64, name="fc1")
+    net = tmx.sym.Activation(net, act_type="relu")
+    net = tmx.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    net = tmx.sym.SoftmaxOutput(net, name="softmax")
+    mesh = tmx.parallel.build_mesh({"dp": 4}, [tmx.cpu()] * 4)
+    tr = tmx.parallel.SPMDTrainer(net, "sgd", {"momentum": 0.9}, mesh=mesh,
+                                  grad_sync="zero3", ctx=tmx.cpu())
+    tr.bind([("data", (64, 10))], [("softmax_label", (64,))])
+    tr.init_params(tmx.initializer.Xavier())
+    rs = np.random.RandomState(0)
+    tr.step(rs.rand(64, 10).astype("f"), rs.randint(0, 4, 64).astype("f"))
+    targets = [str(tmp_path / "plan.json"), str(tmp_path / "gathered"),
+               str(tmp_path / "sharded")]
+    tr.sharding_plan.save(targets[0])
+    tr.save_checkpoint(tmx.resilience.CheckpointManager(targets[1]), 1)
+    monkeypatch.setenv("MXTPU_CKPT_SHARDED", "1")
+    tr.save_checkpoint(tmx.resilience.CheckpointManager(targets[2]), 1)
+    entry = tmx.resilience.CheckpointManager(targets[2]).entry(1)
+    assert entry["format"] == 2 and entry["shard_set"]["world"] == 4
+    group = ", ".join(tr._zero3_groups[0])
+    for target in targets:
+        for n, rc, verdict in ((4, 0, "FITS"), (3, 1, "DOES NOT FIT")):
+            res = subprocess.run(
+                [sys.executable, os.path.join(repo, "tools",
+                                              "plan_explain.py"),
+                 target, "--check", "--devices", str(n)],
+                capture_output=True, text=True, timeout=120, cwd=repo)
+            assert res.returncode == rc, (target, n, res.stdout, res.stderr)
+            assert "grad_sync='zero3' tier=manual" in res.stdout
+            assert "gather groups (1," in res.stdout
+            assert "[0] %s (" % group in res.stdout
+            assert "%s on %d device(s)" % (verdict, n) in res.stdout
+    tr.close()
