@@ -124,8 +124,10 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     ``clip(x + eps * sign(g), 0, 1)``, forward, accuracy): 50 + 50
     ``bn_act`` forward (two training forwards) and 50 backward launches
     per batch, a cross-entropy that rises, the input gradient of one
-    batch against a float64 CPU run (relative L2 and signs), ms per batch
-    and its split, idle share, peak memory;
+    batch's first 4 rows, from the same ``Module`` reshaped to batch 4,
+    against a float64 CPU run (relative L2 and signs), ms per batch and
+    its split, idle share,
+    peak memory;
 19. steps each optimizer written in NDArray arithmetic on the card
     against the CPU (bit for bit; SGLD by its noise's moments), and times
     the NDArray layer's dispatch beside the same torch calls;
@@ -208,9 +210,10 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     ``Module.fit(kvstore='tpu')`` fed by the example's train iterator
     (process route), the same without ``pad`` (native route), that
     through ``DevicePrefetchIter(stage=module)`` and the same batches in
-    an ``NDArrayIter``, in turns (48 + 48 ``bn_act`` launches a step, ms
-    a batch, idle share); scores ResNet-50 through ``Module.score`` from
-    the val iterator (img/s, host-to-device copy share); and holds each
+    an ``NDArrayIter``, one after another (48 + 48 ``bn_act`` launches a
+    step, ms a batch, idle share); scores ResNet-50 through
+    ``Module.score`` from the val iterator (img/s, host-to-device copy
+    share); and holds each
     route's batches on the card against the CPU path's (the nvJPEG
     backend against the committed fixture of libjpeg's decode), a staged
     batch against its bytes, an Inception-BN batch-4 step fed a
@@ -230,10 +233,11 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     (``data_service/server_main.py``, 2 workers each) on loopback and
     holds their device-augmented stream against the local service's byte
     for byte; trains Inception-BN through ``Module.fit(kvstore='tpu')``
-    fed in turns by held batches, the local service host-augmented, with
-    ``device_augment``, that through ``DevicePrefetchIter(stage=module)``
-    and the network tier with ``device_augment`` (48 + 48 ``bn_act``
-    launches a step, ms a batch, idle share);
+    fed one after another by held batches, the local service
+    host-augmented, with ``device_augment``, that through
+    ``DevicePrefetchIter(stage=module)`` and the network tier with
+    ``device_augment`` (48 + 48 ``bn_act`` launches a step, ms a batch,
+    idle share);
 25. runs the rest of the op library through the examples that use it
     (``detection_paths``), each example file loaded with its
     ``mxnet_tpu`` imports bound to the port (``load_example``): SSD-512
@@ -356,7 +360,24 @@ Needs one CUDA device (an H100: the kernels build for sm_90a) and
     over pp 4 and its input gradient against the sequential
     composition; ``moe_ffn`` over ep 8 against the dense mix, and its
     dropped tokens at capacity factor 1.0;
-32. logs every path's wall time (``<path>: %.1f s``, also written to
+32. runs the region drill and ``group2ctx`` across devices
+    (``region_paths``): ``region/region_main.py storm --context gpu(0)``
+    (two data servers; the elastic zero3 trainer at world 2 on ``gpu(0)``
+    positions, resized to 4; two replicas co-tenant on ``cuda:0`` behind
+    two router workers; closed-loop clients; the JAX package's STORM
+    schedule and epochs), gated on the report's eight checks, the
+    storm's counted events and both replicas serving epoch 16, with each
+    role's bring-up, the trainer's ms a batch at world 2 and 4, the
+    resize-to-resumed time, ``freshness_ms`` and the clients' counts; then
+    the example's model-parallel LSTM (``lstm_ctx_group.build`` at its
+    defaults) with ``embed`` and ``layer1`` on ``cpu()`` and ``layer0``
+    and ``out`` on ``gpu(0)``: 16 + 16 ``lstm_cell`` launches a step, the
+    loss and every gradient against the same graph on ``gpu(0)`` alone
+    and against float64, within 3x the CPU float32 run's own error (a
+    gradient leaf scaled by 1.01 must fail that gate), a falling nll, ms
+    a step placed and on one device, and the bytes that cross each
+    boundary a step;
+33. logs every path's wall time (``<path>: %.1f s``, also written to
     ``chiprun_out/smoke_times.json``), then prints a ``{"kernels":
     [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 
@@ -370,6 +391,7 @@ import collections
 import contextlib
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -4167,16 +4189,26 @@ def phase_fgsm_resnet(torch, mx, seed, card):
             cls, us / 1e3 / PROFILE_STEPS))
     check(by_class.get("bn_act_fwd", 0) > 0 and
           by_class.get("bn_act_bwd", 0) > 0, "fgsm profile: no bn_act time")
-    # the input gradient of one attack batch against the CPU path
-    x_np, y_np, g_card, x_adv_card = agree
+    # the input gradient of one attack batch's first AGREE_BATCH rows from
+    # the timed Module itself, reshaped to that batch (the agreement batch
+    # of every other training gate here; at batch 32 the two CPU runs took
+    # 40 s of the smoke on the H100's host), against the CPU at that batch
+    x_np, y_np, g_main, x_adv_card = agree
+    x4, y4 = x_np[:AGREE_BATCH], y_np[:AGREE_BATCH]
+    mod.reshape([("data", (AGREE_BATCH,) + IMAGE)],
+                [("softmax_label", (AGREE_BATCH,))])
+    mod.forward(mx.io.DataBatch([mx.nd.array(x4, ctx=gpu)],
+                                [mx.nd.array(y4, ctx=gpu)]), is_train=True)
+    mod.backward()
+    g_card = mod.get_input_grads()[0].asnumpy()
     del mod, xs, ys
     gc.collect()
     torch.cuda.empty_cache()
     host = mx.cpu()
     weights = (w_args, w_aux)
-    g32 = _executor_step(mx, symbol, weights, x_np, y_np, host)["grad:data"]
-    g64 = _executor_step(mx, symbol, weights, x_np.astype(np.float64),
-                         y_np.astype(np.float64), host)["grad:data"]
+    g32 = _executor_step(mx, symbol, weights, x4, y4, host)["grad:data"]
+    g64 = _executor_step(mx, symbol, weights, x4.astype(np.float64),
+                         y4.astype(np.float64), host)["grad:data"]
     keys = ["g"]
     cpu_l2 = _rel_l2(np, {"g": g32}, {"g": g64}, keys)
     card_l2 = _rel_l2(np, {"g": g_card.astype(np.float64)}, {"g": g64}, keys)
@@ -4188,10 +4220,11 @@ def phase_fgsm_resnet(torch, mx, seed, card):
         flips[floor] = tuple(
             int((np.sign(g)[decided] != np.sign(g64)[decided]).sum())
             for g in (g_card, g32)) + (int(decided.sum()),)
-    log("fgsm batch %d input gradient vs the float64 CPU run: relative L2 "
-        "%.3g (bound %.3g; CPU float32 %.3g); sign flips where |g| > "
-        "floor x max |g|, card / CPU float32 of elements: %s" % (
-            FGSM_AGREE_BATCH, card_l2, bound, cpu_l2, ", ".join(
+    log("fgsm batch %d, its first %d rows: input gradient vs the float64 "
+        "CPU run: relative L2 %.3g (bound %.3g; CPU float32 %.3g); sign "
+        "flips where |g| > floor x max |g|, card / CPU float32 of "
+        "elements: %s" % (
+            FGSM_AGREE_BATCH, AGREE_BATCH, card_l2, bound, cpu_l2, ", ".join(
                 "%g: %d / %d of %d" % ((f,) + flips[f]) for f in flips)))
     check(card_l2 <= bound, "fgsm input gradient disagrees with the CPU")
     # float32 itself flips signs against float64 here (ReLU masks that
@@ -4203,7 +4236,7 @@ def phase_fgsm_resnet(torch, mx, seed, card):
           "%d)" % (card_flips, cpu_flips))
     # the perturbation in NDArray ops on the card is exactly the float32
     # arithmetic of the card's own gradient signs
-    x_adv_ref = np.clip(x_np + np.float32(FGSM_EPS) * np.sign(g_card), 0, 1)
+    x_adv_ref = np.clip(x_np + np.float32(FGSM_EPS) * np.sign(g_main), 0, 1)
     check(np.array_equal(x_adv_card, x_adv_ref),
           "fgsm: x_adv is not clip(x + eps sign(g), 0, 1) of the card's g")
     return launches
@@ -4673,29 +4706,64 @@ def phase_bucketing_agreement(torch, mx, seed, run, batches, fused, what):
                                                                 LM_BATCH))
 
 
+class CopyCounter(object):
+    """Copies between devices while entered, over the aten calls of a
+    ``TorchDispatchMode`` (autograd's backward runs under it too):
+    ``bytes`` and ``count``, Counters keyed ``src->dst`` (``cpu->cuda:0``,
+    ``cuda:0->cpu``).  A copy is a call named ``*copy*`` whose result lies
+    on another device than one of its inputs, counted at the result's
+    bytes; a scalar read of a card value (``.item()``) counts as a copy of
+    its one element to the host."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        self.bytes = collections.Counter()
+        self.count = collections.Counter()
+        nbytes, count = self.bytes, self.count
+
+        def record(src, dst, n):
+            key = "%s->%s" % (src, dst)
+            nbytes[key] += n
+            count[key] += 1
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = str(func)
+                ins = [a for a in args if isinstance(a, torch.Tensor)]
+                if "_local_scalar_dense" in name and ins and ins[0].is_cuda:
+                    record(ins[0].device, "cpu", ins[0].element_size())
+                elif "copy" in name and isinstance(out, torch.Tensor):
+                    src = [t for t in ins if t.device != out.device]
+                    if src:
+                        record(src[0].device, out.device,
+                               out.numel() * out.element_size())
+                return out
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def dtoh(self):
+        """``(count, bytes)`` of the copies from the card to the host."""
+        keys = [k for k in self.bytes
+                if k.startswith("cuda") and k.endswith("->cpu")]
+        return (sum(self.count[k] for k in keys),
+                sum(self.bytes[k] for k in keys))
+
+
 def dtoh_bytes(torch, fn):
     """Bytes copied from the card to the host while ``fn()`` runs, two
-    ways: ``(ops, trace)``.  ``ops`` sums, over the aten calls of a
-    TorchDispatchMode, the results of the copies whose source lies on
-    the card and whose result lies on the host, and the scalar reads of
-    card values; ``trace`` sums the memcpy events of a torch.profiler
-    trace of the same call (None when it holds none: a trace in a
-    process that ran many before it can miss them)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    counted = []
-
-    class CountCopies(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = str(func)
-            ins = [a for a in args if isinstance(a, torch.Tensor)]
-            if "_local_scalar_dense" in name and ins and ins[0].is_cuda:
-                counted.append(ins[0].element_size())
-            elif "copy" in name and isinstance(out, torch.Tensor) \
-                    and not out.is_cuda and any(t.is_cuda for t in ins):
-                counted.append(out.numel() * out.element_size())
-            return out
-
+    ways: ``(ops, trace)``.  ``ops`` is a CopyCounter's sum of the copies
+    whose source lies on the card and whose result lies on the host, and
+    of the scalar reads of card values; ``trace`` sums the memcpy events
+    of a torch.profiler trace of the same call (None when it holds none:
+    a trace in a process that ran many before it can miss them)."""
+    copies = CopyCounter(torch)
     torch.cuda.synchronize()
     build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
@@ -4706,7 +4774,7 @@ def dtoh_bytes(torch, fn):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            with CountCopies():
+            with copies:
                 fn()
             torch.cuda.synchronize()
         prof.export_chrome_trace(path)
@@ -4716,7 +4784,7 @@ def dtoh_bytes(torch, fn):
         os.remove(path)
     sizes = [int((e.get("args") or {}).get("bytes", 0)) for e in events
              if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
-    return sum(counted), (sum(sizes) if sizes else None)
+    return copies.dtoh()[1], (sum(sizes) if sizes else None)
 
 
 def phase_perplexity_copy(torch, mx, run, batches, what):
@@ -5691,25 +5759,11 @@ def mirror_env(on):
 
 def dtoh_ops(torch, fn):
     """Device-to-host copies and scalar reads of card values while
-    ``fn()`` runs, counted over its aten calls: ``(count, bytes)``."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    counted = []
-
-    class CountCopies(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = str(func)
-            ins = [a for a in args if isinstance(a, torch.Tensor)]
-            if "_local_scalar_dense" in name and ins and ins[0].is_cuda:
-                counted.append(ins[0].element_size())
-            elif "copy" in name and isinstance(out, torch.Tensor) \
-                    and not out.is_cuda and any(t.is_cuda for t in ins):
-                counted.append(out.numel() * out.element_size())
-            return out
-    with CountCopies():
+    ``fn()`` runs, counted by a CopyCounter: ``(count, bytes)``."""
+    with CopyCounter(torch) as copies:
         fn()
     torch.cuda.synchronize()
-    return len(counted), sum(counted)
+    return copies.dtoh()
 
 
 def _ext_data(seed, n):
@@ -6410,6 +6464,7 @@ IN_MEAN = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
 IN_THREADS = 4
 IN_WARM = 2             # fit batches before the measured window
 IN_FIT_BATCHES = 2      # measured batches of each feed in each turn
+IN_FEED_ORDER = "abcd"  # one turn of the four feeds (two turns, ABBA, before)
 IN_PROFILE_BATCHES = 2  # batches of each feed's traced window
 IN_RATE_BATCHES = 2     # batches a decode-rate run reads after one warm-up
 IN_UPLOAD_REPS = 10
@@ -6692,10 +6747,11 @@ def _traced(torch, run):
 
 def phase_ibn_feeds(torch, mx, train, seed, card):
     """Inception-BN trained through Module.fit(kvstore='tpu') at batch 32,
-    fed four ways in turns: (a) the example's train iterator (process
-    route), (b) the same without pad (native route), (c) (b) through
-    DevicePrefetchIter(stage=module), (d) the same decoded batches in an
-    NDArrayIter.  ms a batch, idle share and bn_act launches a step."""
+    fed four ways in turn (``IN_FEED_ORDER``): (a) the example's train
+    iterator (process route), (b) the same without pad (native route),
+    (c) (b) through DevicePrefetchIter(stage=module), (d) the same decoded
+    batches in an NDArrayIter.  ms a batch, idle share and bn_act
+    launches a step."""
     import numpy as np
     net, mod = _in_module(torch, mx, seed + 1)
     per = zoo_report(mx, net, (BATCH,) + IMAGE)["bn_act_calls_train"]
@@ -6729,7 +6785,7 @@ def phase_ibn_feeds(torch, mx, train, seed, card):
     # one iterator a feed for every fit: each fit's epoch end resets it
     feeds = {which: feed(which) for which in "abcd"}
     try:
-        for which in ("a", "b", "c", "d", "d", "c", "b", "a"):
+        for which in IN_FEED_ORDER:
             ms, (fwd, bwd) = _in_fit(torch, mx, mod, feeds[which][0],
                                      batches, IN_FIT_BATCHES)
             check(fwd == bwd == per * batches, "feed (%s): bn_act launches "
@@ -6749,12 +6805,13 @@ def phase_ibn_feeds(torch, mx, train, seed, card):
     for which in "abcd":
         (ms, _), busy, htod, kernels = traced[which]
         wall = ms * IN_PROFILE_BATCHES
-        log("inception-bn fit, feed (%s) %s: %s ms a batch (two turns of %d "
-            "batches, batch %d); traced window %.2f ms a batch, device busy "
-            "%.2f ms, idle share %.3f, host-to-device copies %.3f ms a "
+        log("inception-bn fit, feed (%s) %s: %s ms a batch (%d turn(s) of "
+            "%d batches, batch %d); traced window %.2f ms a batch, device "
+            "busy %.2f ms, idle share %.3f, host-to-device copies %.3f ms a "
             "batch, %.0f kernels a batch; %d + %d bn_act launches a step; "
             "on %s" % (which, names[which], " / ".join(
-                "%.2f" % v for v in times[which]), IN_FIT_BATCHES, BATCH, ms,
+                "%.2f" % v for v in times[which]), len(times[which]),
+                IN_FIT_BATCHES, BATCH, ms,
                 busy / IN_PROFILE_BATCHES, 1 - busy / wall,
                 htod / IN_PROFILE_BATCHES, kernels / IN_PROFILE_BATCHES,
                 per, per, card))
@@ -7050,6 +7107,7 @@ def input_paths(torch, mx, seed, card):
 DS_WORKERS = (1, 2, 4)   # decode workers of the rate runs (the host has 8)
 DS_MARGIN = 16           # device_augment's crop margin: a 3x240x240 canvas
 DS_FIT_BATCHES = 2       # measured batches of each feed in each turn
+DS_FEED_ORDER = "defgh"  # one turn of the five feeds (two, ABBA, before)
 DS_COMPARE_BATCHES = 4   # batches held byte for byte between two streams
 DS_AUG_REPS = 10         # augment calls in the traced window
 DS_SERVERS = 2           # loopback server processes of the network tier
@@ -7325,7 +7383,8 @@ def phase_ds_network(torch, mx, train, seed, card, servers):
 
 def phase_ds_feeds(torch, mx, train, seed, card, servers):
     """Inception-BN trained through Module.fit(kvstore='tpu') at batch 32,
-    fed in turns: (d) held batches in an NDArrayIter, (e) the local service
+    fed in turn (``DS_FEED_ORDER``): (d) held batches in an NDArrayIter,
+    (e) the local service
     host-augmented, (f) the local service with device_augment, (g) (f)
     through DevicePrefetchIter(stage=module), (h) the network tier with
     device_augment.  ms a batch, idle share, bn_act launches a step."""
@@ -7372,7 +7431,7 @@ def phase_ds_feeds(torch, mx, train, seed, card, servers):
         # one untimed fit first, so that no timed turn is the phase's
         # first fit of the module
         _in_fit(torch, mx, mod, feeds["d"][0], batches, DS_FIT_BATCHES)
-        for which in ("d", "e", "f", "g", "h", "h", "g", "f", "e", "d"):
+        for which in DS_FEED_ORDER:
             aug = feeds[which][1][-1]._dev_aug if which != "d" else None
             calls = aug.calls if aug is not None else 0
             ms, (fwd, bwd) = _in_fit(torch, mx, mod, feeds[which][0],
@@ -7400,12 +7459,13 @@ def phase_ds_feeds(torch, mx, train, seed, card, servers):
     for which in "defgh":
         (ms, _), busy, htod, kernels = traced[which]
         wall = ms * IN_PROFILE_BATCHES
-        log("inception-bn fit, feed (%s) %s: %s ms a batch (two turns of %d "
-            "batches, batch %d); traced window %.2f ms a batch, device busy "
-            "%.2f ms, idle share %.3f, host-to-device copies %.3f ms a "
+        log("inception-bn fit, feed (%s) %s: %s ms a batch (%d turn(s) of "
+            "%d batches, batch %d); traced window %.2f ms a batch, device "
+            "busy %.2f ms, idle share %.3f, host-to-device copies %.3f ms a "
             "batch, %.0f kernels a batch; %d + %d bn_act launches a step; "
             "on %s" % (which, names[which], " / ".join(
-                "%.2f" % v for v in times[which]), DS_FIT_BATCHES, BATCH, ms,
+                "%.2f" % v for v in times[which]), len(times[which]),
+                DS_FIT_BATCHES, BATCH, ms,
                 busy / IN_PROFILE_BATCHES, 1 - busy / wall,
                 htod / IN_PROFILE_BATCHES, kernels / IN_PROFILE_BATCHES,
                 per, per, card))
@@ -7495,11 +7555,21 @@ def load_example(relpath, name, siblings=None):
 
 def example_modules():
     """The examples' modules on the port: ``symbol_ssd``, ``train_ssd``,
-    ``rcnn_target`` (registers its two Custom ops), ``train_rcnn`` and
-    ``toy_ctc``."""
+    ``rcnn_target`` (registers its two Custom ops), ``train_rcnn``,
+    ``toy_ctc`` and ``lstm_ctx_group`` (whose import-time
+    ``logging.basicConfig`` is undone)."""
     ssd = load_example("example/ssd/symbol_ssd.py", "port_symbol_ssd")
     target = load_example("example/rcnn/rcnn_target.py", "port_rcnn_target")
+    root = logging.getLogger()
+    saved = (root.level, list(root.handlers))
+    try:
+        ctx_group = load_example("example/model-parallel-lstm/"
+                                 "lstm_ctx_group.py", "port_lstm_ctx_group")
+    finally:
+        root.setLevel(saved[0])
+        root.handlers[:] = saved[1]
     return {
+        "lstm_ctx_group": ctx_group,
         "symbol_ssd": ssd,
         "train_ssd": load_example("example/ssd/train_ssd.py",
                                   "port_train_ssd", {"symbol_ssd": ssd}),
@@ -9736,7 +9806,9 @@ def _fl_load(mx, bench, port, conc, seconds, groups, run_dir):
 
 def _fl_traffic(mx, port, x, clients, stop, rows):
     """``clients`` threads sending ``x`` (ResNet-50, x-npy) until ``stop``;
-    each answer's (time, status, retried) goes to ``rows``."""
+    each answer's (time, status, retried, error) goes to ``rows``: status
+    -1 is a request that raised in the client, ``error`` its repr and how
+    long it had run."""
     import threading
 
     def worker():
@@ -9744,12 +9816,14 @@ def _fl_traffic(mx, port, x, clients, stop, rows):
         try:
             while not stop.is_set():
                 t0 = time.perf_counter()
+                err = None
                 try:
                     status, payload = cli.predict("resnet", x, npy=True)
                     retried = payload.get("retried") is True
-                except Exception:  # noqa: BLE001 — a dropped connection
+                except Exception as e:  # noqa: BLE001 — a dropped connection
                     status, retried = -1, False
-                rows.append((t0, status, retried))
+                    err = "%r after %.3f s" % (e, time.perf_counter() - t0)
+                rows.append((t0, status, retried, err))
         finally:
             cli.close()
 
@@ -9967,8 +10041,8 @@ def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
                 t.join(60)
             cli.close()
         statuses = collections.Counter(r[1] for r in rows)
-        check(set(statuses) == {200}, "answers through the SIGKILL: %s"
-              % dict(statuses))
+        check(set(statuses) == {200}, "answers through the SIGKILL: %s; "
+              "errors %s" % (dict(statuses), [r[3] for r in rows if r[3]]))
         out["kill_requests"] = len(rows)
         out["kill_retried"] = sum(1 for r in rows if r[2])
         check(out["kill_retried"] >= 1, "the SIGKILL was never "
@@ -10008,8 +10082,9 @@ def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
             for t in threads:
                 t.join(60)
         statuses = collections.Counter(r[1] for r in rows)
-        check(set(statuses) == {200}, "answers during the rolling swap: %s"
-              % dict(statuses))
+        check(set(statuses) == {200}, "answers during the rolling swap: "
+              "%s; errors %s" % (dict(statuses),
+                                 [r[3] for r in rows if r[3]]))
         out["swap_requests"] = len(rows)
         rollout = _fl_get(mx, port)["rollout"]
         out["rollout"] = rollout
@@ -11897,6 +11972,373 @@ def model_parallel_paths(torch, mx, seed, card):
                                 "bn_act_bwd": res["bwd"] + zero["bwd"]})
 
 
+# ---------------------------------------------------------------------------
+# the region drill and group2ctx across devices (region_paths)
+# ---------------------------------------------------------------------------
+
+REGION_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "region", "region_main.py")
+RG_CONTEXT = "gpu(0)"   # the trainer's positions and the replicas' card
+#: the drill's own timeouts, well inside this script's limit (the storm's
+#: spec is otherwise the JAX package's preset: schedule, epochs, roles)
+RG_SPEC = {"bringup_timeout_s": 240, "settle_timeout_s": 240}
+RG_DRILL_S = 420        # the longest the whole drill may take
+RG_EVENTS = ("kill:data#0", "resize:trainer", "arm:trainer:rot_checkpoint",
+             "kill:replica#1")
+#: the region's bring-up milestones (its stderr lines), in order
+RG_MILESTONES = (("dataset", "region: dataset:"),
+                 ("data", "region: data#%d listening"),
+                 ("trainer", "region: trainer published verified epoch"),
+                 ("fleet", "region: fleet router on port"),
+                 ("serving", "region: trainer released (go)"),
+                 ("up", "region: region is up"),
+                 ("resize", "region: STORM fired resize:trainer"))
+#: example/model-parallel-lstm/lstm_ctx_group.py's defaults
+RG_LSTM = {"seq_len": 16, "num_layers": 2, "num_hidden": 64, "vocab": 100}
+RG_LSTM_BATCH = 16
+RG_LSTM_LR = 0.5
+RG_LSTM_STEPS = 3
+RG_LSTM_FLOOR = 1e-5    # the placed LSTM's agreement floor: float32 rounding
+                        # over 16 steps at hidden 64 is about 1e-7
+RG_GROUPS = {"embed": "cpu", "layer0": "gpu", "layer1": "cpu", "out": "gpu"}
+
+
+def _rg_drill(torch, tmp):
+    """``region_main.py storm --context gpu(0)`` as a subprocess: its
+    report, its stderr lines stamped with their arrival (wall clock) and
+    the trainer's timing lines."""
+    import threading
+    run_dir = os.path.join(tmp, "region")
+    spec = os.path.join(tmp, "region-spec.json")
+    report = os.path.join(tmp, "region-report.json")
+    with open(spec, "w") as f:
+        json.dump(RG_SPEC, f)
+    env = dict(os.environ)
+    for k in ("MXTPU_FAULTS", "MXTPU_RESUME", "CUDA_VISIBLE_DEVICES"):
+        env.pop(k, None)
+    t0 = time.time()
+    # its own process group: every process of the region goes with it
+    proc = subprocess.Popen(
+        [sys.executable, REGION_MAIN, "storm", "--context", RG_CONTEXT,
+         "--spec", spec, "--run-dir", run_dir, "--report", report],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=tmp, start_new_session=True)
+    lines = []
+
+    def drain(stream, out):
+        for line in stream:
+            out.append((time.time(), line.rstrip("\n")))
+    stdout = []
+    readers = [threading.Thread(target=drain, args=(proc.stderr, lines),
+                                daemon=True),
+               threading.Thread(target=drain, args=(proc.stdout, stdout),
+                                daemon=True)]
+    for r in readers:
+        r.start()
+    try:
+        rc = proc.wait(timeout=RG_DRILL_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        for r in readers:
+            r.join(timeout=10)
+    elapsed = time.time() - t0
+    keep = os.path.join(ROOT, "chiprun_out", "region")
+    os.makedirs(keep, exist_ok=True)
+    with open(os.path.join(keep, "region.err"), "w") as f:
+        f.write("\n".join("%.3f %s" % (t - t0, ln) for t, ln in lines))
+    for name in ("trainer.log", "fleet.log"):
+        if os.path.exists(os.path.join(run_dir, name)):
+            shutil.copy(os.path.join(run_dir, name), keep)
+    check(rc == 0 and os.path.exists(report),
+          "region storm exited %s after %.1f s (chiprun_out/region/): %s"
+          % (rc, elapsed, " | ".join(ln for _t, ln in lines[-12:])))
+    with open(report) as f:
+        doc = json.load(f)
+    times = []
+    with open(os.path.join(run_dir, "trainer.log")) as f:
+        for ln in f:
+            if ln.startswith("REGION_TRAINER_TIMES "):
+                times.append(json.loads(ln[len("REGION_TRAINER_TIMES "):]))
+    return doc, lines, times, stdout, t0, elapsed
+
+
+def _rg_bringup(lines, t0, data_servers):
+    """Seconds from the drill's start to each milestone, and each role's
+    own bring-up (from the milestone before it)."""
+    at = {}
+    for name, prefix in RG_MILESTONES:
+        if name == "data":
+            prefix = prefix % (data_servers - 1)
+        hit = [t for t, ln in lines if ln.startswith(prefix)]
+        at[name] = hit[0] - t0 if hit else None
+    check(all(v is not None for v in at.values()),
+          "region storm: milestones missing from its log: %s" % at)
+    roles = {"dataset": at["dataset"],
+             "data_servers": at["data"] - at["dataset"],
+             "trainer_first_publish": at["trainer"] - at["data"],
+             "fleet_router": at["fleet"] - at["trainer"],
+             "replicas_serving": at["serving"] - at["fleet"]}
+    return at, roles
+
+
+def _rg_storm(torch, tmp):
+    """(a) of region_paths: the STORM drill on the card, gated as the JAX
+    package's test_region_storm_drill gates it."""
+    import numpy as np
+    doc, lines, times, stdout, t0, elapsed = _rg_drill(torch, tmp)
+    checks = doc["checks"]
+    stats = doc["stats"]
+    events = stats["events"]
+    log("region storm: report ok=%s after %.1f s; checks %s"
+        % (doc["ok"], elapsed, json.dumps(checks, sort_keys=True)))
+    log("region storm: events %s" % json.dumps(events, sort_keys=True))
+    check(doc["ok"] and len(checks) == 8 and all(checks.values()),
+          "region storm: checks failed: %s" % checks)
+    for label in RG_EVENTS:
+        check(events.get(label) == 1,
+              "region storm: event %s counted %s times, not once"
+              % (label, events.get(label)))
+    epochs = doc["spec"]["epochs"]
+    check(stats["served_epochs"] == {"0": epochs, "1": epochs},
+          "region storm: served epochs %s, not %d on both replicas"
+          % (stats["served_epochs"], epochs))
+    check(stats["clients"]["dropped"] == 0 and
+          events.get("client_retry:502", 0) == 0,
+          "region storm: clients dropped %s, 502s retried %s"
+          % (stats["clients"]["dropped"], events.get("client_retry:502")))
+    check(stats["trainer"]["world"] == 4, "region storm: the resize did not "
+          "land (world %s)" % stats["trainer"]["world"])
+    check(events.get("data_reconnect", 0) >= 1 and
+          events.get("publish_rejected", 0) >= 1,
+          "region storm: no data reconnect or no rejected publish: %s"
+          % events)
+    check(stats["freshness_ms"] is not None,
+          "region storm: no freshness_ms")
+    report = [ln for _t, ln in stdout if ln.startswith("REGION_REPORT ")]
+    check(report and json.loads(report[-1][len("REGION_REPORT "):]) == doc,
+          "region storm: REGION_REPORT line missing or unlike --report")
+    at, roles = _rg_bringup(lines, t0, doc["spec"]["data_servers"])
+    step_ms = {}
+    for w in (2, 4):
+        ms = [r["step_ms"] for r in times
+              if r.get("event") == "epoch" and r["world"] == w]
+        check(ms, "region storm: no timed epoch at world %d" % w)
+        # the first epoch of a process holds its CUDA set-up
+        step_ms[w] = float(np.median(ms[1:] if len(ms) > 1 else ms))
+    resumed = [r["wall"] for r in times if r.get("event") == "resumed"]
+    check(resumed, "region storm: the trainer never resumed")
+    resize_s = resumed[0] - (t0 + at["resize"])
+    clients = stats["clients"]
+    out = {"elapsed_s": elapsed, "bringup_s": roles,
+           "milestones_s": at, "step_ms": {"world2": step_ms[2],
+                                           "world4": step_ms[4]},
+           "resize_to_resumed_s": resize_s,
+           "freshness_ms": stats["freshness_ms"],
+           "clients": {"requests": clients["requests"],
+                       "ok": clients["ok"],
+                       "retries": doc["client_retries"]},
+           "rollouts": events.get("rollouts")}
+    log("region storm: %.1f s; bring-up %s; trainer ms a batch world 2 "
+        "%.3f, world 4 %.3f; resize to resumed %.2f s; freshness_ms %s; "
+        "clients %d requests, %d ok, %d retries"
+        % (elapsed, json.dumps({k: round(v, 2) for k, v in roles.items()}),
+           step_ms[2], step_ms[4], resize_s, stats["freshness_ms"],
+           clients["requests"], clients["ok"], doc["client_retries"]))
+    return out
+
+
+def _rg_lstm_run(torch, mx, build, ctx, group2ctx, init, x, y, dtype,
+                 crossings=None):
+    """The example's loop (its ``main`` without the device query) from the
+    weights ``init``: per step the nll of the labels, every gradient
+    (float64 numpy) and the step's host ms, after a device sync."""
+    import numpy as np
+    net = build(**RG_LSTM)
+    shapes = {"data": x.shape, "softmax_label": y.shape}
+    if dtype == np.float32:
+        ex = net.simple_bind(ctx, group2ctx=group2ctx, **shapes)
+    else:
+        arg_shapes, _, _ = net.infer_shape(**shapes)
+        names = net.list_arguments()
+
+        def arr(v):
+            return mx.nd.array(v, ctx=ctx, dtype=dtype)
+        ex = net.bind(ctx, {n: arr(init[n] if n in init else np.zeros(s))
+                            for n, s in zip(names, arg_shapes)},
+                      args_grad={n: arr(np.zeros(s))
+                                 for n, s in zip(names, arg_shapes)},
+                      group2ctx=group2ctx)
+    for k, v in init.items():
+        ex.arg_dict[k][:] = v
+    ex.arg_dict["data"][:] = x
+    ex.arg_dict["softmax_label"][:] = y
+    steps = []
+    for _ in range(RG_LSTM_STEPS):
+        t0 = time.perf_counter()
+        with crossings if crossings is not None else contextlib.nullcontext():
+            out = ex.forward(is_train=True)[0]
+            ex.backward()
+        for name in init:
+            w, g = ex.arg_dict[name], ex.grad_dict[name]
+            w._data = w._data - RG_LSTM_LR / x.size * g._data
+        if ctx.device_type == "gpu" or group2ctx:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        p = out.asnumpy().astype(np.float64)
+        nll = -np.log(np.maximum(p[np.arange(p.shape[0]),
+                                   y.reshape(-1).astype(int)], 1e-12)).mean()
+        steps.append({"nll": nll, "ms": ms, "grads": {
+            k: ex.grad_dict[k].asnumpy().astype(np.float64) for k in init}})
+    return ex, steps
+
+
+def _rg_lstm_agree(np, placed, single, plain, exact, names):
+    """The placed LSTM's agreement, a row a step.  The yardstick is the
+    CPU float32 run's own error against float64 (``plain`` against
+    ``exact``), which holds neither card run: the placed run's nll and
+    gradients are held against ``gpu(0)`` alone (``single``) and against
+    float64, all gradients together and each tensor alone, each within
+    max(RG_LSTM_FLOOR, GRAD_L2_FACTOR x the CPU float32 run's error on
+    the same quantity).  ``failed`` names what did not hold."""
+    rows = []
+    for p, s, c, e in zip(placed, single, plain, exact):
+        def rel(a, b):
+            return abs(a["nll"] - b["nll"]) / abs(b["nll"])
+        loss_spread = rel(c, e)
+        loss_bound = max(RG_LSTM_FLOOR, GRAD_L2_FACTOR * loss_spread)
+        spread = _rel_l2(np, c["grads"], e["grads"], names)
+        bound = max(RG_LSTM_FLOOR, GRAD_L2_FACTOR * spread)
+        row = {"loss": (rel(p, s), rel(p, e)), "loss_spread": loss_spread,
+               "loss_bound": loss_bound,
+               "grads": (_rel_l2(np, p["grads"], s["grads"], names),
+                         _rel_l2(np, p["grads"], e["grads"], names)),
+               "spread": spread, "bound": bound, "failed": [],
+               "worst_key": "", "worst_share": 0.0}
+        if max(row["loss"]) > loss_bound:
+            row["failed"].append("nll")
+        if max(row["grads"]) > bound:
+            row["failed"].append("gradients")
+        for k in names:
+            k_bound = max(RG_LSTM_FLOOR, GRAD_L2_FACTOR * _rel_l2(
+                np, c["grads"], e["grads"], [k]))
+            k_err = max(_rel_l2(np, p["grads"], s["grads"], [k]),
+                        _rel_l2(np, p["grads"], e["grads"], [k]))
+            if k_err / k_bound > row["worst_share"]:
+                row["worst_key"], row["worst_share"] = k, k_err / k_bound
+            if k_err > k_bound:
+                row["failed"].append(k)
+        rows.append(row)
+    return rows
+
+
+def _rg_lstm(torch, mx, seed, card):
+    """(b) of region_paths: the example's model-parallel LSTM over
+    ``cpu()`` and ``gpu(0)``.  Returns its lstm_cell launches."""
+    import numpy as np
+    lc = mx.kernels.lstm_cell
+    build = example_modules()["lstm_ctx_group"].build
+    ctx_of = {"cpu": mx.cpu(), "gpu": mx.gpu(0)}
+    group2ctx = {g: ctx_of[k] for g, k in RG_GROUPS.items()}
+    net = build(**RG_LSTM)
+    rs = np.random.RandomState(seed + 220)
+    arg_shapes, _, _ = net.infer_shape(
+        data=(RG_LSTM_BATCH, RG_LSTM["seq_len"]),
+        softmax_label=(RG_LSTM_BATCH, RG_LSTM["seq_len"]))
+    init = {n: rs.uniform(-0.08, 0.08, s).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    toks = rs.randint(1, RG_LSTM["vocab"],
+                      size=(RG_LSTM_BATCH, RG_LSTM["seq_len"] + 1))
+    x, y = toks[:, :-1].astype("f"), toks[:, 1:].astype("f")
+
+    # -- the main path: counts zeroed just before, read just after ---------
+    crossings = CopyCounter(torch)
+    zero_lstm_counts(lc)
+    ex, placed = _rg_lstm_run(torch, mx, build, group2ctx["embed"],
+                              group2ctx, init, x, y, np.float32, crossings)
+    counts = lstm_counts(lc)
+    # ----------------------------------------------------------------------
+    check(len({str(c) for c in ex._placement.values()}) == 2,
+          "placed LSTM: placement %s" % set(ex._placement.values()))
+    n = RG_LSTM["seq_len"] * RG_LSTM_STEPS
+    log("placed LSTM: %d steps launched %s LSTM kernels (expected cell "
+        "%d + %d: layer0 on gpu(0))" % (RG_LSTM_STEPS, counts, n, n))
+    check(counts == {"cell": (n, n), "seq": (0, 0), "gates": 0},
+          "placed LSTM launched %s LSTM kernels" % (counts,))
+    one, single = _rg_lstm_run(torch, mx, build, mx.gpu(0), None, init, x,
+                               y, np.float32)
+    _ex, plain = _rg_lstm_run(torch, mx, build, mx.cpu(), None, init, x, y,
+                              np.float32)
+    _ex, exact = _rg_lstm_run(torch, mx, build, mx.cpu(), None, init,
+                              x.astype(np.float64), y.astype(np.float64),
+                              np.float64)
+    names = sorted(init)
+    rows = _rg_lstm_agree(np, placed, single, plain, exact, names)
+    for i, r in enumerate(rows):
+        log("placed LSTM step %d: nll placed %.6f, gpu(0) %.6f, float64 "
+            "%.6f: rel %.3g / %.3g against gpu(0) / float64 (bound %.3g = "
+            "max(%g, %g x the CPU float32 run's %.3g)); %d gradients, "
+            "relative L2 %.3g / %.3g (bound %.3g = max(%g, %g x the CPU "
+            "float32 run's %.3g)); worst tensor %s %.3g of its bound"
+            % (i, placed[i]["nll"], single[i]["nll"], exact[i]["nll"],
+               r["loss"][0], r["loss"][1], r["loss_bound"], RG_LSTM_FLOOR,
+               GRAD_L2_FACTOR, r["loss_spread"], len(names), r["grads"][0],
+               r["grads"][1], r["bound"], RG_LSTM_FLOOR, GRAD_L2_FACTOR,
+               r["spread"], r["worst_key"], r["worst_share"]))
+        check(not r["failed"], "placed LSTM step %d disagrees with gpu(0) "
+              "alone or with float64: %s" % (i, r["failed"]))
+        for k in names:
+            check(np.isfinite(placed[i]["grads"][k]).all(),
+                  "placed LSTM: %s not finite" % k)
+    # the gate itself: one gradient leaf of the placed run scaled by 1.01
+    # in one step must fail it
+    for k in names:
+        if not np.any(exact[-1]["grads"][k]):
+            continue            # scaling a zero gradient changes nothing
+        bent = [dict(p, grads=dict(p["grads"])) for p in placed]
+        bent[-1]["grads"][k] = bent[-1]["grads"][k] * 1.01
+        bad = _rg_lstm_agree(np, bent, single, plain, exact, names)
+        check(bad[-1]["failed"], "placed LSTM: the gate passes %s scaled "
+              "by 1.01" % k)
+    worst = {"loss": max(max(r["loss"]) for r in rows),
+             "grads": max(max(r["grads"]) for r in rows),
+             "bound": max(r["bound"] for r in rows)}
+    nll = [p["nll"] for p in placed]
+    check(nll[-1] < nll[0], "placed LSTM: the nll does not fall: %s" % nll)
+    per_step = {k: v // RG_LSTM_STEPS for k, v in crossings.bytes.items()}
+    check(per_step.get("cpu->cuda:0") and per_step.get("cuda:0->cpu"),
+          "placed LSTM: no copy crossed a boundary: %s" % per_step)
+    placed_ms = float(np.median([p["ms"] for p in placed[1:]]))
+    single_ms = float(np.median([s["ms"] for s in single[1:]]))
+    log("placed LSTM: ms a step placed %.2f, gpu(0) alone %.2f; bytes a "
+        "step across boundaries %s; nll %s (%s)"
+        % (placed_ms, single_ms, json.dumps(per_step), nll, card))
+    return {"launches": counts["cell"], "placed_ms": placed_ms,
+            "single_ms": single_ms, "boundary_bytes": per_step,
+            "nll": nll, "worst": worst}
+
+
+def region_paths(torch, mx, seed, card):
+    """The region drill on the card (_rg_storm) and the example's
+    model-parallel LSTM over cpu() and gpu(0) (_rg_lstm).  Returns the
+    placed LSTM's lstm_cell launches."""
+    tmp = tempfile.mkdtemp(prefix="mxt-region-")
+    try:
+        storm = _rg_storm(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lstm = _rg_lstm(torch, mx, seed, card)
+    log(json.dumps({"region": {"storm": storm, "placed_lstm": {
+        k: v for k, v in lstm.items() if k != "launches"}, "card": card}}))
+    return collections.Counter({"lstm_cell_fwd": lstm["launches"][0],
+                                "lstm_cell_bwd": lstm["launches"][1]})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -11956,7 +12398,8 @@ def main(argv=None):
                        ("fleet_paths", fleet_paths),
                        ("tools_paths", tools_paths),
                        ("dist_paths", dist_paths),
-                       ("model_parallel_paths", model_parallel_paths)):
+                       ("model_parallel_paths", model_parallel_paths),
+                       ("region_paths", region_paths)):
         extra += timed(name, path, torch, mx, seed, card)
     times["total"] = round(sum(times.values()), 1)
     log(json.dumps({"path_seconds": times}))

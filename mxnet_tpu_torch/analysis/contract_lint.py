@@ -544,10 +544,11 @@ def repo_registry():
     """The declared registry of the port's cross-process JSON surfaces:
     the JAX package's registry with its files replaced by the port's
     (``mxnet_tpu_torch/...``, the fleet CLI ``fleet/fleet_main.py``, the
-    port's parity tests ``tests/test_torch_*.py``).  The region drill's
-    surfaces (``tools/region.py``: its trainer status, ``RegionSpec``,
-    ``/region/stats``, and its reads of the router's ``/stats``) come with
-    the multi-GPU slice, which brings the sharded trainer it drives.
+    region drill ``region/region_main.py`` with its trainer
+    ``region/trainer_main.py``, the port's parity tests
+    ``tests/test_torch_*.py``).  The trainer's status file is a real
+    producer here (``trainer_main.write_status``), where the JAX package's
+    trainer is a generated script whose keys the registry declares.
 
     Declaring a new surface: name the producer and consumer functions as
     ``(repo-relative file, qualname)`` pairs, run
@@ -562,6 +563,9 @@ def repo_registry():
     F = P + "serving/frontend.py"
     RES = P + "resilience.py"
     CLI = P + "fleet/fleet_main.py"
+    REG = P + "region/region_main.py"
+    TRN = P + "region/trainer_main.py"
+    T_REGION = "tests/test_torch_region.py"
     T_FLEET = "tests/test_torch_fleet.py"
     T_DRILL = "tests/test_torch_fleet_drill.py"
     T_SERVE = "tests/test_torch_serving.py"
@@ -584,8 +588,9 @@ def repo_registry():
                        (T_FLEET, "*")],
             # the doc doubles as a live debugging surface (`cat
             # run/fleet-view.json`); these two annotate it for humans.
-            # `models` is read by the region drill, which comes with the
-            # multi-GPU slice
+            # `models` names what the front end routes for that reader
+            # too (the JAX package's fleet tests assert it; no port code
+            # routes by it)
             unread_ok=("heartbeat_s", "evict_s", "models"),
         ),
         Surface(
@@ -664,22 +669,28 @@ def repo_registry():
             producers=[(R, "FleetRouter.stats_payload"),
                        (P + "fleet/deploy.py", "RollingSwap.stats"),
                        (P + "fleet/deploy.py", "RollingSwap.__init__")],
-            consumers=[(T_FLEET, "*"), (T_DRILL, "*"), (SMOKE, "*")],
+            consumers=[(REG, "Region._poll_once"),
+                       (REG, "Region._fire"),
+                       (REG, "Region.stats_payload"),
+                       (REG, "Region._replica_epochs"),
+                       (T_FLEET, "*"), (T_DRILL, "*"), (T_REGION, "*"),
+                       (SMOKE, "*")],
             # the per-replica table and view block are the operator's
             # triage surface (why is this replica slow/evicted/dead);
             # machine consumers key off healthy/epochs/restarts instead.
             # the brownout block (slo_ms/pressure_ms next to the
             # machine-read `active` bit) shows an operator how close
             # the fleet is to shedding — and WHY it already is.  The
-            # rollout block, the model table, queue depth and view
-            # freshness are what the region drill reads; it comes with
-            # the multi-GPU slice
+            # model table, the per-model queue depth and the rollout's
+            # `watching` flag are operator forensics too (the JAX
+            # package's chaos and fleet tests assert them; the port's
+            # drills and the region gate on epochs, restarts and the
+            # rollout counters instead)
             unread_ok=("age_s", "draining", "est_wait_ms",
                        "forward_errors", "heartbeat_age_s", "inflight",
                        "last_rc", "probe_retries", "read_errors",
                        "replicas_total", "pressure_ms", "slo_ms",
-                       "polls", "rollouts", "watching", "queue_depth",
-                       "freshness_ms", "models"),
+                       "watching", "queue_depth", "models"),
         ),
         Surface(
             "fleet-manifest",
@@ -691,6 +702,42 @@ def repo_registry():
                        (P + "fleet/manifest.py", "FleetManifest.serve_argv"),
                        (CLI, "_cmd_serve"),
                        (CLI, "_serve_sharded")],
+        ),
+        Surface(
+            "trainer-status",
+            "The region trainer's status file (REGION_STATUS_FILE): "
+            "written by trainer_main.write_status after every publish, "
+            "read by the region daemon.",
+            producers=[(TRN, "write_status")],
+            consumers=[(REG, "Region._trainer_status"),
+                       (REG, "Region._reconnect_total"),
+                       (REG, "Region.stats_payload"),
+                       (T_REGION, "*")],
+        ),
+        Surface(
+            "region-spec",
+            "RegionSpec: the declarative region topology every "
+            "region_main.py phase reads.",
+            kind="attrs", attr_base="spec",
+            producers=[(REG, "RegionSpec")],
+            consumers=[(REG, "*")],
+        ),
+        Surface(
+            "region-stats",
+            "The region daemon's /region/stats payload: the drill "
+            "scoreboard (consumed by the drill tests, the chip smoke "
+            "and operators).",
+            producers=[(REG, "Region.stats_payload")],
+            consumers=[(REG, "Region.report"), (T_REGION, "*"),
+                       (SMOKE, "*")],
+            # /region/stats IS the drill scoreboard: the composed-drill
+            # report embeds it wholesale and operators read it raw; the
+            # harness asserts only the gating keys (trainer progress,
+            # served epochs, rollout verdicts)
+            unread_ok=("batches", "data_reconnects", "fired", "fleet",
+                       "first_served_epoch", "healthy", "labels",
+                       "polls", "published_epoch", "roles", "rollouts",
+                       "scheduled", "storm", "window_s"),
         ),
         Surface(
             "ckpt-manifest",

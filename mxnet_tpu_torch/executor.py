@@ -225,7 +225,7 @@ def _apply_tp_forms(plan, tp_forms):
 
 
 def _build_eval(symbol, mirror_segments=0, tp_forms=None,
-                segment_scope=None):
+                segment_scope=None, placement=None):
     """Return ``eval_fn(args, aux, is_train, rng, device=None,
     monitor=None) -> (outputs, aux_updates)`` over name -> tensor dicts,
     interpreting the plan as the mxfuse passes rewrote it
@@ -250,11 +250,38 @@ def _build_eval(symbol, mirror_segments=0, tp_forms=None,
 
     ``tp_forms`` (param -> (form, axis)) gives the training path the
     tensor-parallel forms of ``ops.nn.tp_layer`` on those weights'
-    consumers (``column`` and ``row``; a mesh position runs the plan)."""
+    consumers (``column`` and ``row``; a mesh position runs the plan).
+
+    ``placement`` (id(node) -> :class:`Context`) is ``group2ctx`` model
+    parallelism over several devices (``mxnet_tpu/executor.py:105-200``):
+    every path interprets the plain plan node by node, each node's inputs
+    moved to its group's device first (``Tensor.to``, whose backward
+    carries the gradient back across the boundary), with no mxfuse pass,
+    no constant folding and no mirror segments."""
     from . import mxfuse
     from .kernels import fused_enabled
     out_refs = [(id(n), i) for n, i in symbol._outputs]
     plain_plan = _node_plan(symbol)
+    if placement:
+        if mirror_segments and mirror_segments > 1:
+            import logging
+            logging.warning(
+                "MXNET_BACKWARD_DO_MIRROR ignored: group2ctx placement "
+                "runs per-op eagerly, which checkpointed segments cannot "
+                "wrap")
+        devices = {k: c.torch_device for k, c in placement.items()}
+
+        def placed_fn(args, aux, is_train, rng, device=None, monitor=None):
+            env, aux_updates = {}, {}
+            _run_plan_nodes(plain_plan, env, args, aux, is_train,
+                            aux_updates, rng, device, monitor=monitor,
+                            placement=devices)
+            return [env[nid][i] for nid, i in out_refs], aux_updates
+        placed_fn.plan = placed_fn.plain_plan = plain_plan
+        placed_fn.train_plan = placed_fn.infer_plan = plain_plan
+        placed_fn.segments = None
+        placed_fn.out_refs = out_refs
+        return placed_fn
     fused_plan = mxfuse.optimize_plan(plain_plan, out_refs)
     if tp_forms:
         fused_plan = _apply_tp_forms(fused_plan, tp_forms)
@@ -320,20 +347,28 @@ def _bind_variable(node, args, aux):
     raise MXNetError("unbound variable %r" % node.name)
 
 
+def _moved(x, dev):
+    return x if x is None or x.device == dev else x.to(dev)
+
+
 def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
-                    device, memo=None, monitor=None):
+                    device, memo=None, monitor=None, placement=None):
     """Interpret a slice of the node plan against ``env`` (id -> outputs
     tuple); ``rng`` is the forward's integer seed, ``device`` the one
     nodes without tensor inputs create their results on.  An override
     that sets ``uses_memo`` gets the run's ``memo`` dict (a new one unless
     given), where a merged ``concat_fuse`` group keeps the body its
     members slice.  ``monitor(node, outputs)`` sees every op node's
-    outputs."""
+    outputs.  ``placement`` (id(node) -> torch device) moves each
+    variable and each op's inputs to that node's device first."""
     from .mxfuse import dead_inputs
     memo = {} if memo is None else memo
     for node, call_attrs, n_out, aux_var_names, ix, override in chunk:
         if node.op is None:
-            env[id(node)] = (_bind_variable(node, args, aux),)
+            val = _bind_variable(node, args, aux)
+            if placement is not None:
+                val = _moved(val, placement[id(node)])
+            env[id(node)] = (val,)
             continue
         kw = {}
         if node.op.needs_is_train or override is not None:
@@ -357,6 +392,9 @@ def _run_plan_nodes(chunk, env, args, aux, is_train, aux_updates, rng,
         else:
             fn = node.op.fn
             ins = [env[id(src)][idx] for src, idx in node.inputs]
+        if placement is not None:
+            device = placement[id(node)]
+            ins = [_moved(x, device) for x in ins]
         if not ins or node.op.needs_rng:
             on = next((t.device for t in ins if t is not None), device)
             if not ins and "ctx" in fn_signature_info(fn)[0]:
@@ -385,11 +423,14 @@ class Executor(object):
     are (shared with the caller, as in the JAX package); anything else is
     copied onto the context.
 
-    ``group2ctx`` maps ``ctx_group`` attributes to contexts; a map that
-    places every node on the executor's own device binds a plain executor,
-    as in the JAX package, and one over several devices raises (it comes
-    with ROADMAP.md queue 1, item 4, sub-item 6).  ``shared_exec`` is
-    taken and, as in the JAX package, shares nothing.  With
+    ``group2ctx`` maps ``ctx_group`` attributes to contexts.  A map that
+    places every node on the executor's own context binds a plain
+    executor, as in the JAX package; one over several contexts
+    (``cpu(0)`` and ``cpu(1)`` are two, as they are in the JAX package)
+    places each node on its group's context and interprets the plain plan
+    node by node (:func:`_build_eval`'s ``placement``); an output's
+    NDArray carries its group's context.  ``shared_exec`` is taken and,
+    as in the JAX package, shares nothing.  With
     ``MXNET_BACKWARD_DO_MIRROR=1`` the training forward runs as
     checkpointed segments (:func:`mirror_segments_for`)."""
 
@@ -416,7 +457,10 @@ class Executor(object):
             n for n in arg_names
             if self.grad_req.get(n, "null") != "null" and n in self.grad_dict)
         self._eval = _build_eval(symbol,
-                                 mirror_segments=mirror_segments_for(symbol))
+                                 mirror_segments=mirror_segments_for(symbol),
+                                 placement=self._placement)
+        self._out_ctx = [self._placement.get(id(n), self._ctx)
+                         for n, _i in symbol._outputs]
         self._outputs = None      # list[NDArray]
         self._graph = None        # (outputs, leaves) of the last train forward
         self._grads = None        # name -> gradient tensor, once computed
@@ -511,8 +555,8 @@ class Executor(object):
         return self._outputs
 
     def _set_outputs(self, outs):
-        self._outputs = [NDArray._from_torch(o.detach(), self._ctx)
-                         for o in outs]
+        self._outputs = [NDArray._from_torch(o.detach(), c)
+                         for o, c in zip(outs, self._out_ctx)]
 
     def _train_forward(self, args, aux, rng, monitor=None):
         """The plan in train mode with the ``_diff_names`` arguments as
@@ -552,7 +596,8 @@ class Executor(object):
     def _apply_aux(self, auxu):
         for name, arr in auxu.items():
             if name in self.aux_dict:
-                self.aux_dict[name]._data = arr.detach()
+                dst = self.aux_dict[name]
+                dst._data = _moved(arr.detach(), dst._data.device)
 
     #: ops whose backward supplies its OWN head gradient (their backward
     #: ignores the incoming one) — loss layers, which need no entry in a
@@ -771,28 +816,21 @@ class Executor(object):
 
 
 def _placement(symbol, group2ctx, ctx):
-    """The device of each node under ``group2ctx`` when it spans more than
-    one: empty when every node lands on ``ctx``'s device (a plain
-    executor, as in the JAX package); several devices raise."""
+    """id(node) -> the :class:`Context` of each node under ``group2ctx``
+    (its ``ctx_group``'s, else the bind context ``ctx``), as the JAX
+    executor resolves it (``mxnet_tpu/executor.py:382-395``); empty when
+    every node lands on one context (a plain executor)."""
     if not group2ctx:
         return {}
-
-    def device(c):      # the host is one device, whatever its id
-        c = c if isinstance(c, Context) else Context(c)
-        return "cpu" if c.device_type == "cpu" else str(c)
-    devices = {device(ctx)}
+    placement = {}
     for node in symbol._nodes():
         grp = node.attrs.get("ctx_group")
-        target = group2ctx.get(grp) if grp else None
-        if target is not None:
-            devices.add(device(target))
-    if len(devices) > 1:
-        raise MXNetError(
-            "group2ctx places nodes on %d devices (%s); model parallelism "
-            "over several devices is not ported yet (it comes with "
-            "ROADMAP.md queue 1, item 4, sub-item 6)"
-            % (len(devices), ", ".join(sorted(str(d) for d in devices))))
-    return {}
+        c = group2ctx.get(grp) if grp else None
+        placement[id(node)] = ctx if c is None else \
+            (c if isinstance(c, Context) else Context(c))
+    if len(set(placement.values())) <= 1:
+        return {}
+    return placement
 
 
 def _as_bound(v, ctx):

@@ -1709,7 +1709,6 @@ class CheckpointManager(object):
             entry["step_state"] = dict(step_state)
         if plan is not None:
             entry["plan"] = dict(plan)
-        self._update_manifest(entry)
         # the generic promote-drill points stay meaningful under the
         # sharded layout: "the params artifact" of a format-2 entry is
         # its blob set, so rot/truncate_checkpoint damage blob 0
@@ -1721,8 +1720,9 @@ class CheckpointManager(object):
                          truncate=True)
         # promote-path chaos points, one consume PER SHARD in index
         # order — arm(point, times=1, after=k) targets exactly blob k.
-        # Damage lands AFTER the manifest vouches for the bytes: the
-        # verification layer, not the filesystem, must catch it.
+        # The manifest vouches for the intact bytes: the verification
+        # layer, not the filesystem, must catch it.  As above, the damage
+        # lands before the entry is published.
         for k in range(world):
             path = self.shard_blob_path(epoch, k, world)
             if faults.consume("rot_shard"):
@@ -1733,10 +1733,11 @@ class CheckpointManager(object):
                 try:
                     os.remove(path)
                     _LOG.warning(
-                        "fault injection: deleted shard blob %r after "
-                        "its manifest entry was published", path)
+                        "fault injection: deleted shard blob %r under "
+                        "its manifest entry", path)
                 except OSError:  # pragma: no cover — injection only
                     pass
+        self._update_manifest(entry)
         _LOG.info("CheckpointManager: saved epoch %d as %d sharded "
                   "blob(s) (peak host %d bytes of %d total)",
                   epoch, world, peak, total)
@@ -1833,16 +1834,20 @@ class CheckpointManager(object):
             entry["step_state"] = step_state
         if plan is not None:
             entry["plan"] = plan
-        self._update_manifest(entry)
-        # promote-path chaos points: damage the params file AFTER the
-        # manifest vouches for it — exactly the bit-rot / torn-copy
+        # promote-path chaos points: the manifest vouches for bytes the
+        # params file no longer holds — exactly the bit-rot / torn-copy
         # shape the digest verification (verify_promotion, restore)
         # exists to catch.  A consumer that trusts the manifest entry
         # without re-verifying the bytes would walk straight onto them.
+        # The damage lands before the entry is published (it records the
+        # intact bytes), so no reader sees the publish undamaged: a
+        # watcher verifying between the two would pass it, and its
+        # replicas would then refuse it
         if faults.consume("rot_checkpoint"):
             _damage_file(self.params_path(epoch), truncate=False)
         if faults.consume("truncate_checkpoint"):
             _damage_file(self.params_path(epoch), truncate=True)
+        self._update_manifest(entry)
         _LOG.info("CheckpointManager: saved epoch %d to %s", epoch,
                   self.params_path(epoch))
 
@@ -2315,7 +2320,8 @@ def _host_nd(value):
 def _damage_file(path, truncate):
     """Deterministically damage an on-disk file (the ``rot_checkpoint``
     / ``truncate_checkpoint`` fault points): flip one mid-file byte, or
-    cut the file to half its length.  Both leave the manifest's record
+    cut the file to half its length, before the manifest entry that
+    records its intact bytes is published.  Both leave that record
     stale — the verification layer, not the filesystem, must catch it."""
     try:
         size = os.path.getsize(path)
@@ -2327,8 +2333,7 @@ def _damage_file(path, truncate):
                 b = f.read(1) or b"\x00"
                 f.seek(size // 2)
                 f.write(bytes([b[0] ^ 0xFF]))
-        _LOG.warning("fault injection: %s %r after its manifest entry "
-                     "was published",
+        _LOG.warning("fault injection: %s %r under its manifest entry",
                      "truncated" if truncate else "rotted one byte of",
                      path)
     except OSError as e:  # pragma: no cover — injection plumbing only

@@ -256,6 +256,57 @@ def test_contract_registry_names_the_ports_files():
     assert all(os.path.isfile(os.path.join(REPO, r)) for r in refs)
 
 
+#: the region drill's surfaces and its reads of the router's /stats
+REGION_SURFACES = ("trainer-status", "region-spec", "region-stats",
+                   "router-stats")
+REGION_FILES = {j_contract: ["tools/region.py"],
+                t_contract: ["mxnet_tpu_torch/region/region_main.py",
+                             "mxnet_tpu_torch/region/trainer_main.py"]}
+
+
+def _region_findings(lint, drift=None, files=None):
+    surfaces = [s for s in lint.repo_registry() if s.name in REGION_SURFACES]
+    assert sorted(s.name for s in surfaces) == sorted(REGION_SURFACES)
+    paths = [os.path.join(REPO, f) for f in (files or REGION_FILES[lint])]
+    overrides = None
+    if drift is not None:
+        with open(paths[0]) as f:
+            src = f.read()
+        assert drift[0] in src
+        overrides = {paths[0]: src.replace(*drift)}
+    rep = lint.lint_paths(paths, surfaces=surfaces, overrides=overrides)
+    return [(f.rule, f.severity, f.message) for f in rep.findings]
+
+
+@pytest.mark.parametrize("drift", [
+    None,
+    ('"served_epochs": epochs,', '"served": epochs,'),
+    ("        self.clients = 4\n", "        self.client_count = 4\n")])
+def test_region_surfaces_match_jax(drift):
+    """trainer-status, region-spec, region-stats and the region's reads
+    of router-stats: the port's level over region_main.py and
+    trainer_main.py reports what the JAX level reports over
+    tools/region.py, clean and with the same drift in each."""
+    got = _region_findings(t_contract, drift)
+    want = _region_findings(j_contract, drift)
+    assert got == want
+    assert bool(got) == (drift is not None)
+
+
+def test_trainer_status_is_a_real_producer():
+    """The port's trainer writes the status file in a module the lint
+    reads (the JAX package's is a generated script): a renamed key is an
+    error at the region's reader."""
+    got = _region_findings(
+        t_contract, ('"reconnects": reconnects(it),',
+                     '"reconnect": reconnects(it),'),
+        files=["mxnet_tpu_torch/region/trainer_main.py",
+               "mxnet_tpu_torch/region/region_main.py"])
+    errors = [m for _r, sev, m in got if sev == "error"]
+    assert len(errors) == 1 and "Region._reconnect_total reads " \
+        "'reconnects'" in errors[0], got
+
+
 def test_view_export_regression_fixture_flags_every_supervision_key():
     overrides = t_fix.pr18_broken_router_source()
     rel, = overrides

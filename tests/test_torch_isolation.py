@@ -555,8 +555,8 @@ def test_examples_run_on_the_port_with_jax_unimportable():
 
 def test_new_modules_are_covered():
     """The extension, input-pipeline, data-service, resilience, serving,
-    fleet, tools, data-parallel and model-parallel slices' modules are
-    among the sources the import check walks."""
+    fleet, tools, data-parallel, model-parallel and region slices'
+    modules are among the sources the import check walks."""
     names = {os.path.relpath(p, REPO) for p in _sources()}
     for mod in ("autograd", "operator", "monitor", "torch_bridge",
                 "contrib/autograd", "recordio", "image", "image_det",
@@ -584,8 +584,44 @@ def test_new_modules_are_covered():
                 "parallel/__init__", "parallel/mesh", "parallel/zero3",
                 "parallel/planner", "parallel/spmd_module",
                 "parallel/collectives", "parallel/compat",
-                "parallel/pipeline", "parallel/moe"):
+                "parallel/pipeline", "parallel/moe", "region/__init__",
+                "region/supervisor", "region/region_main",
+                "region/trainer_main", "region/dataset_main"):
         assert "mxnet_tpu_torch/%s.py" % mod in names, mod
+
+
+def test_region_main_imports_with_torch_and_jax_unimportable(tmp_path):
+    """The region's orchestrator, its Supervisor and its dataset builder
+    load through the stub package with torch, jax and the JAX package
+    unimportable; the builder writes the drill's .rec there."""
+    region_dir = os.path.join(REPO, "mxnet_tpu_torch", "region")
+    rec, idx = str(tmp_path / "r.rec"), str(tmp_path / "r.idx")
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, %r)\n"
+        "import region_main\n"
+        "spec = region_main.RegionSpec('storm')\n"
+        "assert spec.router_workers == 2 and spec.devices == 2\n"
+        "assert len(region_main.resilience.parse_fault_schedule("
+        "spec.schedule)) == 5\n"
+        "assert region_main.Supervisor.__module__ == "
+        "'mxnet_tpu_torch.region.supervisor'\n"
+        "sys.path.insert(0, %r)\n"
+        "import dataset_main\n"
+        "assert dataset_main.main([%r, %r, '5']) == 0\n"
+        "from mxnet_tpu_torch import recordio\n"
+        "r = recordio.MXIndexedRecordIO(%r, %r, 'r')\n"
+        "h, _img = recordio.unpack(r.read_idx(4))\n"
+        "assert h.label == 4.0 and len(r.keys) == 5\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'mxnet_tpu')]\n"
+        "print('ok')\n" % (region_dir, region_dir, rec, idx, idx, rec))
+    env = dict(os.environ, PYTHONPATH=_poisoned_path(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split()[-1] == "ok"
 
 
 def test_chip_smoke_refuses_without_cuda():
