@@ -11110,6 +11110,229 @@ def _dist_preempt(torch, mx, phase, rank, world, ckpt):
     _dist_emit("preempt", **rec)
 
 
+#: the model-parallel axes across the two ranks (_dist_mp): name ->
+#: (mesh axes, the rank of each position, grad_sync, remat); the ranks'
+#: positions are all on cuda:0.  (a) tp over the ranks, one position a
+#: rank; (b) dp 2 x tp 2 with every tp group across the ranks and dp in
+#: each process; (c) the JAX package's layout, dp across the ranks and
+#: tp in each process
+DMP_CASES = (("a_tp_ranks", {"dp": 1, "tp": 2}, [0, 1], "allreduce",
+              False),
+             ("b_hybrid", {"dp": 2, "tp": 2}, [0, 1, 0, 1], "allreduce",
+              False),
+             ("b_hybrid_zero3", {"dp": 2, "tp": 2}, [0, 1, 0, 1], "zero3",
+              False),
+             ("b_hybrid_zero3_remat", {"dp": 2, "tp": 2}, [0, 1, 0, 1],
+              "zero3", True),
+             ("c_jax_layout", {"dp": 2, "tp": 2}, [0, 0, 1, 1], "allreduce",
+              False))
+DMP_STEPS = 2
+#: (d) the LM's dp 2 x sp 4 with every sp ring over both ranks, (e) the
+#: pipeline's pp 4 and MoE's ep 8, positions alternating between ranks
+DMP_LM_OWNERS = [0, 1] * 4
+DMP_PP_OWNERS = [0, 1] * 2
+DMP_MOE_OWNERS = [0, 1] * 4
+
+
+def _dmp_mesh(mx, axes, owners):
+    from mxnet_tpu_torch import distributed
+    dev = distributed.device()
+    if len(owners) == distributed.num_workers():
+        return mx.parallel.build_mesh(axes, list(owners))
+    return mx.parallel.build_mesh(axes, [(r, mx.gpu(dev.index))
+                                         for r in owners])
+
+
+def _dmp_stats(distributed):
+    """The collectives since the last ``reset_stats`` by kind, each with
+    its transport."""
+    return {k: dict(v, transport=distributed.TRANSPORTS.get(k, "native"))
+            for k, v in distributed.STATS.items() if v["count"]}
+
+
+def _dmp_refs(torch, mx, rank, init, x, y):
+    """Rank 0's references for the first update at the global batch: one
+    device's fused and unfused float32 steps and the float64 step."""
+    import numpy as np
+    from mxnet_tpu_torch import distributed
+    if rank != 0:
+        return None
+    dev = distributed.device()
+    runs = {}
+    for name, fused in (("one", "1"), ("plain", "0")):
+        with _env("MXTPU_FUSED_KERNELS", fused):
+            tr = _dist_resnet_trainer(mx, "allreduce", 1, BATCH,
+                                      mx.gpu(dev.index), *init)
+            tr.step(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+            runs[name] = _dist_host(tr)[0]
+            opt = tr.optimizer
+            tr.close()
+    torch.cuda.empty_cache()
+    with _env("MXTPU_FUSED_KERNELS", "0"):
+        ref = _executor_step(mx, _resnet50(mx), init, x.astype(np.float64),
+                             y.astype(np.float64), mx.gpu(dev.index))
+    arg0 = init[0]
+    runs["step64"] = {k: arg0[k] - opt.lr * (
+        opt.rescale_grad * ref["grad:" + k]
+        + opt.wd * opt.wd_mult.get(k, 1.0) * arg0[k]) for k in arg0}
+    del ref
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _dist_mp(torch, mx, seed, rank, world, init):
+    """The model-parallel axes across the two ranks on the card (both on
+    cuda:0 over gloo): ResNet-50 at global batch BATCH from the tiers'
+    weights through SPMDTrainer with MP_RESNET_RULES on DMP_CASES,
+    DMP_STEPS steps each (each rank fed the rows of its dp coordinates),
+    under deterministic cuDNN; then the long-context LM, the pipeline
+    and MoE on meshes over both ranks.  Gates (rank 0): (a), (b)'s
+    allreduce and (c) hold their first update to one device's and to
+    float64 as _mp_resnet does; (b)'s zero3, with and without remat,
+    equal (b)'s allreduce within MP_ZERO_SAME_TOL, a position holds
+    MP_ZERO_SHARE['b'] of params + momentum, and analyze() is clean;
+    every step launches 50 + 50 bn_act kernels a position (100 + 50
+    with remat); the LM, pipeline and MoE gates are model_parallel_
+    paths'.  Emits ms a step, the collectives across the ranks of a step
+    by kind (count, bytes, host seconds, transport; every cross-rank
+    exchange is one all_gather), bn_act launches and peak memory."""
+    import numpy as np
+    from mxnet_tpu_torch import distributed
+    ba = mx.kernels.bn_act
+    dev = distributed.device()
+    card = os.environ.get("DIST_CARD", "")  # mxlint: disable=env-direct-read (set by dist_paths)
+    rs = np.random.RandomState(seed + 45)
+    glob = [(rs.standard_normal((BATCH,) + IMAGE).astype(np.float32),
+             rs.randint(0, 1000, BATCH).astype(np.float32))
+            for _ in range(DMP_STEPS)]
+    t_all = time.perf_counter()
+    with _deterministic_cudnn(torch):
+        refs = _dmp_refs(torch, mx, rank, init, *glob[0])
+        distributed.barrier("dmp_refs")
+        firsts = {}
+        for name, axes, owners, sync, remat in DMP_CASES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            mesh = _dmp_mesh(mx, axes, owners)
+            held = sorted({mesh.coords(i)["dp"] for i in mesh.local})
+            per = BATCH // axes["dp"]
+            rows = np.concatenate([np.arange(d * per, (d + 1) * per)
+                                   for d in held])
+            tr = mx.parallel.SPMDTrainer(
+                _resnet50(mx), "sgd", {"learning_rate": 0.1,
+                                       "momentum": 0.9, "wd": 1e-4,
+                                       "rescale_grad": 1.0 / BATCH},
+                mesh=mesh, param_shardings=MP_RESNET_RULES, grad_sync=sync,
+                remat=remat, ctx=mx.gpu(dev.index))
+            tr.bind([("data", (len(rows),) + IMAGE)],
+                    [("softmax_label", (len(rows),))])
+            tr.init_params(None, arg_params=init[0], aux_params=init[1])
+            spans, fwd, bwd, exch = [], [], [], None
+            for i, (x, y) in enumerate(glob):
+                xd = torch.from_numpy(x[rows]).to(dev)
+                yd = torch.from_numpy(y[rows]).to(dev)
+                distributed.reset_stats()
+                f0, b0 = ba.LAUNCHES, ba.BWD_LAUNCHES
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                outs = tr.step(xd, yd)
+                torch.cuda.synchronize(dev)
+                spans.append(time.perf_counter() - t0)
+                fwd.append(ba.LAUNCHES - f0)
+                bwd.append(ba.BWD_LAUNCHES - b0)
+                exch = _dmp_stats(distributed)
+                check(bool(torch.isfinite(outs[0]).all()) and
+                      outs[0].shape[0] == len(rows),
+                      "dist mp %s: step %d outputs" % (name, i))
+                if i == 0:
+                    firsts[name] = _dist_host(tr)[0]
+            res = tr.resident_bytes()
+            whole = sum(int(np.prod(tr.arg_shapes[n])) * 4
+                        for n in tr.param_names)
+            rec = {"rank": rank, "name": name, "ms": [v * 1e3 for v in
+                                                      spans[1:]],
+                   "first_ms": spans[0] * 1e3, "fwd": fwd, "bwd": bwd,
+                   "local": len(mesh.local), "exchanges": exch,
+                   "peak": torch.cuda.max_memory_allocated(dev),
+                   "share": (res["params"] + res["opt_state"]) /
+                   float(2 * whole), "tier": tr.zero3_tier,
+                   "forms": sorted(set(tr.tp_forms.values())),
+                   "skipped": tr.skipped_steps}
+            if sync == "zero3" and not remat:
+                x, y = glob[0]
+                rep = tr.analyze(torch.from_numpy(x[rows]).to(dev),
+                                 torch.from_numpy(y[rows]).to(dev))
+                rec["analyze_ok"] = rep.ok
+                rec["analyze"] = rep.format_text()[-800:]
+            tr.close()
+            del tr
+            _dist_emit("mp", **rec)
+            per_pos = 100 if remat else 50
+            check(fwd == [per_pos * len(mesh.local)] * DMP_STEPS and
+                  bwd == [50 * len(mesh.local)] * DMP_STEPS,
+                  "dist mp %s rank %d: bn_act launches %s + %s"
+                  % (name, rank, fwd, bwd))
+            check(rec["skipped"] == 0 and exch["all_gather"]["count"] > 0,
+                  "dist mp %s: %s" % (name, rec))
+            if sync == "zero3":
+                check(abs(rec["share"] - MP_ZERO_SHARE["b"]) <=
+                      MP_ZERO_SHARE_TOL and rec.get("analyze_ok", True),
+                      "dist mp %s: %s" % (name, rec))
+        if rank == 0:
+            arg0 = init[0]
+            spread = _dist_update_l2(np, refs["plain"], refs["one"], arg0)[0]
+            f64_one = _dist_update_l2(np, refs["one"], refs["step64"],
+                                      arg0)[0]
+            gate = {"spread": spread, "f64_one": f64_one}
+            for name, _, _, sync, _ in DMP_CASES:
+                first = firsts[name]
+                if sync == "allreduce":
+                    l2 = _dist_update_l2(np, first, refs["one"], arg0)
+                    f64 = _dist_update_l2(np, first, refs["step64"],
+                                          arg0)[0]
+                    gate[name] = {"one": l2[0], "worst": l2[1], "f64": f64}
+                    check(l2[0] <= GRAD_L2_FACTOR * max(spread,
+                                                        AGREE_REL_TOL)
+                          and f64 <= GRAD_L2_FACTOR * max(f64_one,
+                                                          AGREE_REL_TOL),
+                          "dist mp %s: first update %s (one device's "
+                          "spread %.3g, float64 %.3g)" % (name, gate[name],
+                                                         spread, f64_one))
+                else:
+                    same = _dist_update_l2(np, first, firsts["b_hybrid"],
+                                           arg0)
+                    gate[name] = {"same": same[0], "worst": same[1]}
+                    check(same[0] <= MP_ZERO_SAME_TOL,
+                          "dist mp %s: %.3g from the mesh's allreduce"
+                          % (name, same[0]))
+            _dist_emit("mp_gate", **gate)
+        del refs, firsts
+        torch.cuda.empty_cache()
+        resnet_s = time.perf_counter() - t_all
+        t0 = time.perf_counter()
+        distributed.reset_stats()
+        lm = _mp_lm(torch, mx, seed, card, mesh=_dmp_mesh(
+            mx, MP_LM_MESH, DMP_LM_OWNERS), steps=DMP_STEPS,
+            tag="dist mp rank %d" % rank)
+        lm["exchanges"] = _dmp_stats(distributed)
+        lm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        distributed.reset_stats()
+        pp = _mp_pipeline(torch, mx, seed, card, mesh=_dmp_mesh(
+            mx, {"pp": MP_PP_STAGES}, DMP_PP_OWNERS),
+            tag="dist mp rank %d" % rank)
+        pp["exchanges"] = _dmp_stats(distributed)
+        distributed.reset_stats()
+        moe = _mp_moe(torch, mx, seed, card, mesh=_dmp_mesh(
+            mx, {"ep": MP_MOE_E}, DMP_MOE_OWNERS),
+            tag="dist mp rank %d" % rank)
+        moe["exchanges"] = _dmp_stats(distributed)
+        ppmoe_s = time.perf_counter() - t0
+    _dist_emit("mp_axes", rank=rank, lm=lm, pp=pp, moe=moe,
+               seconds={"resnet": resnet_s, "lm": lm_s,
+                        "pp_moe": ppmoe_s})
+
+
 def dist_worker(phase):
     """One rank of ``dist_paths`` (run by tools/launch.py): ``train``,
     ``kill`` or ``resume``."""
@@ -11152,6 +11375,8 @@ def dist_worker(phase):
         _dist_preempt(torch, mx, "baseline", rank, world,
                       os.path.join(tmp, "preempt_base"))
         mark("preempt")
+        _dist_mp(torch, mx, seed, rank, world, init)
+        mark("model_parallel")
         _dist_emit("marks", rank=rank, phase=phase, seconds=marks)
     elif phase == "kill":
         _dist_preempt(torch, mx, "kill", rank, world,
@@ -11206,6 +11431,55 @@ def _dist_launch(phase, tmp, seed, **env):
     return proc.returncode, recs, secs, out
 
 
+def _dist_mp_report(recs, card):
+    """dist_paths' lines and checks of _dist_mp's records; returns the
+    bn_act launches of its steps over the ranks."""
+    names = [c[0] for c in DMP_CASES]
+    got = {(r["name"], r["rank"]): r for r in recs["mp"]}
+    check(len(got) == len(names) * DIST_RANKS and recs["mp_gate"]
+          and len(recs["mp_axes"]) == DIST_RANKS,
+          "dist mp: records %s" % sorted(got))
+    fwd = bwd = 0
+    for name in names:
+        for r in range(DIST_RANKS):
+            t = got[(name, r)]
+            fwd += sum(t["fwd"])
+            bwd += sum(t["bwd"])
+            e = t["exchanges"]
+            log("dist mp %s rank %d (%d positions, forms %s%s): %s ms a "
+                "step (first %.1f), bn_act %d + %d a step, collectives "
+                "across the ranks a step (each cross-rank exchange an "
+                "all_gather) %s; a position's params + momentum %.4f of "
+                "the whole; peak %.2f GiB; %s" % (
+                    name, r, t["local"], ",".join(t["forms"]),
+                    ", zero3 %s" % t["tier"] if t["tier"] else "",
+                    " ".join("%.1f" % v for v in t["ms"]), t["first_ms"],
+                    t["fwd"][-1], t["bwd"][-1], "; ".join(
+                        "%s %d, %.1f MB, %.3f s of host time, transport %s"
+                        % (k, v["count"], v["bytes"] / 1e6, v["seconds"],
+                           v["transport"]) for k, v in sorted(e.items())),
+                    t["share"], t["peak"] / 2 ** 30, card))
+            check(t["skipped"] == 0 and e["all_gather"]["count"] > 0
+                  and t.get("analyze_ok", True),
+                  "dist mp %s rank %d: %s" % (name, r, t))
+    gate = recs["mp_gate"][0]
+    log("dist mp gate: one device's fused-vs-unfused spread %.3g, its "
+        "float64 distance %.3g; %s" % (
+            gate["spread"], gate["f64_one"], json.dumps(
+                {n: gate[n] for n in names})))
+    for a in sorted(recs["mp_axes"], key=lambda r: r["rank"]):
+        log("dist mp rank %d: lm dp 2 x sp 4 %s ms a step (first %.1f), "
+            "losses %.3g, update %.3g, exchanges %s; pipeline %.1f ms, "
+            "exchanges %s; moe %.1f ms, exchanges %s; seconds %s" % (
+                a["rank"], " ".join("%.1f" % v for v in a["lm"]["ms"]),
+                a["lm"]["first_ms"], a["lm"]["loss_rel"],
+                a["lm"]["update_l2"], json.dumps(a["lm"]["exchanges"]),
+                a["pp"]["ms"], json.dumps(a["pp"]["exchanges"]),
+                a["moe"]["ms"], json.dumps(a["moe"]["exchanges"]),
+                json.dumps(a["seconds"])))
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def dist_paths(torch, mx, seed, card):
     """The data-parallel slice on the card: two ranks launched by
     tools/launch.py share cuda:0 and talk over gloo.  Launch 1 trains
@@ -11228,7 +11502,8 @@ def dist_paths(torch, mx, seed, card):
     tmp = tempfile.mkdtemp(prefix="dist-", dir=build_dir)
     fwd = bwd = 0
     try:
-        rc, recs, secs, out = _dist_launch("train", tmp, seed)
+        rc, recs, secs, out = _dist_launch("train", tmp, seed,
+                                           DIST_CARD=card)
         check(rc == 0, "dist train launch exit %d:\n%s" % (rc, out[-4000:]))
         ranks = sorted(recs["rank"], key=lambda r: r["rank"])
         check(len(ranks) == DIST_RANKS
@@ -11327,6 +11602,7 @@ def dist_paths(torch, mx, seed, card):
         pre_base = {r["rank"]: r for r in recs["preempt"]}
         check(len({p["digest"] for p in pre_base.values()}) == 1,
               "dist preemption baseline digests differ")
+        mp = _dist_mp_report(recs, card)
         for rec in recs["launches"]:
             fwd += rec["fwd"]
             bwd += rec["bwd"]
@@ -11385,8 +11661,9 @@ def dist_paths(torch, mx, seed, card):
             if name.startswith("launch-"):
                 shutil.copy(os.path.join(tmp, name), keep)
         shutil.rmtree(tmp, ignore_errors=True)
-    log("dist: bn_act launches over the ranks: %d forward, %d backward"
-        % (fwd, bwd))
+    log("dist: bn_act launches over the ranks: %d forward, %d backward "
+        "(%d + %d of them on the meshes across the ranks)"
+        % (fwd, bwd, mp["fwd"], mp["bwd"]))
     return collections.Counter({"bn_act_fwd": fwd, "bn_act_bwd": bwd})
 
 
@@ -11401,7 +11678,7 @@ MP_RESNET_RULES = {r"fc1_weight": ("tp", None),
 MP_RESNET_STEPS = 2
 #: the long-context LM at the example's defaults on its dp 2 x sp 4 mesh
 MP_LM_MESH = {"dp": 2, "sp": 4}
-MP_LM_STEPS = 3
+MP_LM_STEPS = 2
 MP_LM_LOSS_TOL = 1e-4      # |loss - one device's| / one device's
 #: pipeline_apply: S stages of tanh(x @ w + b) at width d, batch, M
 MP_PP_STAGES, MP_PP_D, MP_PP_BATCH, MP_PP_MICRO = 4, 1024, 256, 8
@@ -11421,7 +11698,7 @@ MP_ZERO_PARTS = (("a", {"dp": 4}, None, "allreduce", False),
                  ("c", MP_RESNET_MESH, MP_RESNET_RULES, "zero3", True))
 MP_ZERO_SHARE = {"a": 0.25, "b": 0.50, "c": 0.50}
 MP_ZERO_SHARE_TOL = 0.02
-MP_ZERO_STEPS = 2
+MP_ZERO_STEPS = 1
 #: a zero tier's first update against the same mesh's allreduce where
 #: their semantics match (zero; zero3's gspmd tier, with remat or
 #: without): the same sums in the same order, so relative L2 <= 1e-6
@@ -11772,17 +12049,19 @@ def _mp_zero(torch, mx, seed, card, base):
     return {"parts": out, "fwd": fwd_all, "bwd": bwd_all}
 
 
-def _mp_lm(torch, mx, seed, card):
+def _mp_lm(torch, mx, seed, card, mesh=None, steps=MP_LM_STEPS, tag="mp"):
     """The long-context LM at the example's defaults on its dp 2 x sp 4
-    mesh over [gpu(0)] * 8 (the ring over sp), against the one-device
+    mesh over [gpu(0)] * 8 (the ring over sp; or ``mesh``, which may
+    span ranks: every rank runs the same steps), against the one-device
     make_step on the same batches from the same weights: losses and the
     updated params, ms a step."""
     import numpy as np
     lm = mx.models.long_context_lm
-    mesh = mx.parallel.build_mesh(MP_LM_MESH, [mx.gpu(0)] * 8)
+    if mesh is None:
+        mesh = mx.parallel.build_mesh(MP_LM_MESH, [mx.gpu(0)] * 8)
     p_one = _lc_params(torch, mx, seed, mx.gpu(0))
     p_mesh = mx.parallel.collectives.tree_map(lambda t: t.clone(), p_one)
-    batches = _lc_batches(torch, mx, MP_LM_STEPS, LC_SEQ, seed + 71)
+    batches = _lc_batches(torch, mx, steps, LC_SEQ, seed + 71)
 
     def flat(tree, prefix=""):
         out = {}
@@ -11806,24 +12085,27 @@ def _mp_lm(torch, mx, seed, card):
     got, ref = flat(got), flat(ref)
     l2 = _dist_update_l2(np, got, ref, start)
     worst_loss = max(abs(a - b) / abs(b) for a, b in losses)
-    log("mp lm: dp 2 x sp 4 losses %s vs one device's %s (worst rel "
+    log("%s lm: dp 2 x sp 4 losses %s vs one device's %s (worst rel "
         "%.3g); update rel L2 %.3g (worst %s); ms a step %s (first %.1f); "
-        "%s" % (["%.5f" % a for a, _ in losses],
+        "%s" % (tag, ["%.5f" % a for a, _ in losses],
                 ["%.5f" % b for _, b in losses], worst_loss, l2[0], l2[1],
                 ["%.1f" % (v * 1e3) for v in spans[1:]], spans[0] * 1e3,
                 card))
-    check(all(np.isfinite(a) for a, _ in losses), "mp lm: finite losses")
-    check(worst_loss <= MP_LM_LOSS_TOL, "mp lm: losses %.3g from one "
-          "device's" % worst_loss)
-    check(l2[0] <= LC_GRAD_L2_TOL, "mp lm: params' update %.3g from one "
-          "device's (relative L2)" % l2[0])
-    return {"ms": [v * 1e3 for v in spans[1:]]}
+    check(all(np.isfinite(a) for a, _ in losses), "%s lm: finite losses"
+          % tag)
+    check(worst_loss <= MP_LM_LOSS_TOL, "%s lm: losses %.3g from one "
+          "device's" % (tag, worst_loss))
+    check(l2[0] <= LC_GRAD_L2_TOL, "%s lm: params' update %.3g from one "
+          "device's (relative L2)" % (tag, l2[0]))
+    return {"ms": [v * 1e3 for v in spans[1:]], "first_ms": spans[0] * 1e3,
+            "loss_rel": worst_loss, "update_l2": l2[0]}
 
 
-def _mp_pipeline(torch, mx, seed, card):
-    """pipeline_apply over pp 4 of [gpu(0)] * 4: S stages of tanh(x @ w +
-    b) at width MP_PP_D, batch MP_PP_BATCH, MP_PP_MICRO microbatches; the
-    result and the input's gradient against the sequential composition."""
+def _mp_pipeline(torch, mx, seed, card, mesh=None, tag="mp"):
+    """pipeline_apply over pp 4 of [gpu(0)] * 4 (or ``mesh``, which may
+    span ranks): S stages of tanh(x @ w + b) at width MP_PP_D, batch
+    MP_PP_BATCH, MP_PP_MICRO microbatches; the result and the input's
+    gradient against the sequential composition."""
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed + 75)
     dev = mx.gpu(0).torch_device
@@ -11833,8 +12115,9 @@ def _mp_pipeline(torch, mx, seed, card):
            for _ in range(MP_PP_STAGES)]
     x = torch.randn((MP_PP_BATCH, d), generator=gen).to(dev)
     cot = torch.randn((MP_PP_BATCH, d), generator=gen).to(dev)
-    mesh = mx.parallel.build_mesh({"pp": MP_PP_STAGES},
-                                  [mx.gpu(0)] * MP_PP_STAGES)
+    if mesh is None:
+        mesh = mx.parallel.build_mesh({"pp": MP_PP_STAGES},
+                                      [mx.gpu(0)] * MP_PP_STAGES)
 
     def stage(p, a):
         return torch.tanh(a @ p["w"] + p["b"])
@@ -11853,13 +12136,13 @@ def _mp_pipeline(torch, mx, seed, card):
         ref = stage(p, ref)
     (gr,) = torch.autograd.grad((ref * cot).sum(), xr)
     errs = (_mp_rel(torch, out.detach(), ref.detach()), _mp_rel(torch, gx, gr))
-    log("mp pipeline: S %d, d %d, batch %d, M %d: result %.3g, input "
+    log("%s pipeline: S %d, d %d, batch %d, M %d: result %.3g, input "
         "gradient %.3g (max |diff| / max), forward+backward %.1f ms; %s"
-        % (MP_PP_STAGES, d, MP_PP_BATCH, MP_PP_MICRO, errs[0], errs[1], ms,
-           card))
-    check(max(errs) <= MP_TOL, "mp pipeline: %.3g / %.3g from the "
-          "sequential composition" % errs)
-    return {"ms": ms}
+        % (tag, MP_PP_STAGES, d, MP_PP_BATCH, MP_PP_MICRO, errs[0], errs[1],
+           ms, card))
+    check(max(errs) <= MP_TOL, "%s pipeline: %.3g / %.3g from the "
+          "sequential composition" % ((tag,) + errs))
+    return {"ms": ms, "errs": list(errs)}
 
 
 def _mp_moe_reference(torch, tok, params, every, cf):
@@ -11889,8 +12172,9 @@ def _mp_moe_reference(torch, tok, params, every, cf):
     return mix, kept, cap
 
 
-def _mp_moe(torch, mx, seed, card):
-    """moe_ffn with E experts over ep E of [gpu(0)] * E against the top-2
+def _mp_moe(torch, mx, seed, card, mesh=None, tag="mp"):
+    """moe_ffn with E experts over ep E of [gpu(0)] * E (or ``mesh``,
+    which may span ranks) against the top-2
     mix computed here (:func:`_mp_moe_reference`) at capacity factor E
     (nothing drops), 1.0 and MP_MOE_DROP_CF, where some tokens must lose
     both experts and get exactly zero rows."""
@@ -11901,7 +12185,8 @@ def _mp_moe(torch, mx, seed, card):
     E = MP_MOE_E
     params = P.moe_init(gen, MP_MOE_D, MP_MOE_H, E, ctx=mx.gpu(0))
     x = torch.randn(MP_MOE_TOKENS + (MP_MOE_D,), generator=gen).to(dev)
-    mesh = P.build_mesh({"ep": E}, [mx.gpu(0)] * E)
+    if mesh is None:
+        mesh = P.build_mesh({"ep": E}, [mx.gpu(0)] * E)
     placed = P.collectives.shard_tree(params, mesh, P.moe_shardings("ep"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -11927,17 +12212,17 @@ def _mp_moe(torch, mx, seed, card):
                      % (cf, cap, errs[-1], int((kept < 2).sum()),
                         tok.shape[0], int(both.sum()), zero))
     del every
-    log("mp moe: E %d over ep %d, d %d, h %d, tokens %s, %.1f ms at "
+    log("%s moe: E %d over ep %d, d %d, h %d, tokens %s, %.1f ms at "
         "capacity factor E; against the top-2 mix: %s; %s"
-        % (E, E, MP_MOE_D, MP_MOE_H, MP_MOE_TOKENS, ms, "; ".join(notes),
-           card))
-    check(max(errs) <= MP_TOL * 10, "mp moe: %s from the top-2 mix"
-          % ", ".join("%.3g" % e for e in errs))
+        % (tag, E, E, MP_MOE_D, MP_MOE_H, MP_MOE_TOKENS, ms,
+           "; ".join(notes), card))
+    check(max(errs) <= MP_TOL * 10, "%s moe: %s from the top-2 mix"
+          % (tag, ", ".join("%.3g" % e for e in errs)))
     check(int(both.sum()) > 0 and zero == 0.0,
-          "mp moe: at capacity factor %g tokens lose both experts (%d) "
-          "and get zero rows (max %s)" % (MP_MOE_DROP_CF, int(both.sum()),
-                                          zero))
-    return {"ms": ms}
+          "%s moe: at capacity factor %g tokens lose both experts (%d) "
+          "and get zero rows (max %s)" % (tag, MP_MOE_DROP_CF,
+                                          int(both.sum()), zero))
+    return {"ms": ms, "errs": errs}
 
 
 def model_parallel_paths(torch, mx, seed, card):

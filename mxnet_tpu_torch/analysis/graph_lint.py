@@ -13,7 +13,11 @@ before and after it.  The rule ids are the JAX package's:
 - ``graph-callback``: a host sync inside the step window — a scalar read
   (``aten::_local_scalar_dense``: ``.item()``, ``float()``, ``bool()`` on
   a tensor), ``aten::is_nonzero``, or a copy from the device to the CPU.
-  Each one stalls the host until the device drains, every step.
+  Each one stalls the host until the device drains, every step.  A
+  collective's own transport copies (gloo's staging of CUDA tensors
+  through host memory, a cross-rank exchange's header read:
+  ``distributed.transport_scope``) are counted apart, in
+  ``stats["transport_syncs"]``.
 - ``graph-donation-missing``: a carry (params, aux, optimizer state, the
   guard counters, the metric accumulators) whose value after the step
   lives in other storage than before it — the step allocated a fresh
@@ -30,9 +34,12 @@ before and after it.  The rule ids are the JAX package's:
   ``torch.autograd.Function`` (whose ``forward`` runs with grad mode
   off), so autograd has no backward for it.
 - ``graph-collective-allgather``: all-gather traffic (``c10d`` ops in the
-  record, and the collectives of a mesh inside one process, which
-  report to ``parallel.collectives.COLLECTIVE_HOOKS``: one position's
-  bytes a collective, forward and backward) in a step that declared
+  record, and the collectives of a mesh of positions, inside one
+  process or across ranks, which report to
+  ``parallel.collectives.COLLECTIVE_HOOKS``: one position's bytes a
+  collective, forward and backward; a rank-spanning collective's
+  exchange is also in the record as the ``all_gather`` it dispatches)
+  in a step that declared
   replicated parameters; ``stats["collectives"]`` carries ``{count,
   bytes}`` for every kind, 0 on one device.
 - ``graph-collective-schedule``: under a declared zero3 schedule the
@@ -115,6 +122,7 @@ class StepRecord(object):
     def __init__(self):
         self.ops = []
         self.syncs = []
+        self.transport_syncs = []
         self.launches = []
         self.collectives = _tally()
         self.by_axis = {}
@@ -131,8 +139,8 @@ def _tally():
 def _flatten(obj, path=""):
     """``[(path, tensor)]`` over nested dicts/tuples/lists of tensors, with
     ``keystr``-like paths (``['params']['fc1_weight']``, ``[0]``); a
-    value laid over an in-process mesh (``collectives.Sharded``) gives
-    its positions' parts."""
+    value laid over a mesh (``collectives.Sharded``) gives its local
+    positions' parts (another rank's hold None)."""
     import torch
     if isinstance(obj, torch.Tensor):
         return [(path, obj)]
@@ -161,6 +169,7 @@ def _nbytes(t):
 def _make_mode(rec):
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
+    from ..distributed import in_transport
 
     cpu = torch.device("cpu")
 
@@ -187,8 +196,12 @@ def _make_mode(rec):
                     dst = list(tensors([out]))
                     if ins and dst and ins[0].device != cpu and \
                             dst[0].device == cpu:
-                        rec.syncs.append(("copy %s->cpu" % ins[0].device,)
-                                         + _user_frame())
+                        what = ("copy %s->cpu" % ins[0].device,) + \
+                            _user_frame()
+                        if in_transport():
+                            rec.transport_syncs.append(what)
+                        else:
+                            rec.syncs.append(what)
                 elif name in COMPUTE_OPS:
                     rec.ops.append((name, sorted({
                         _dtype_name(t.dtype) for t in tensors(args)
@@ -598,8 +611,9 @@ def lint_record(rec, compute_dtype=None, param_bytes=None,
     :class:`Report` whose ``stats["collectives"]`` always carries the
     audit tally, and ``stats["dispatched_ops"]``, ``stats["host_syncs"]``
     and ``stats["kernel_launches"]`` the record's counts.  With
-    ``data_axes`` (a mesh inside one process) the all-gather and
-    schedule rules read the collectives over those axes only
+    ``data_axes`` (a mesh of positions, inside one process or across
+    ranks) the all-gather and schedule rules read the collectives over
+    those axes only
     (``stats["data_axis_collectives"]``): a ``tp`` form's activation
     collectives are no parameter traffic."""
     rep = Report(tool="mxlint.graph")
@@ -614,6 +628,7 @@ def lint_record(rec, compute_dtype=None, param_bytes=None,
     rep.stats["collectives"] = stats
     rep.stats["dispatched_ops"] = rec.n_ops
     rep.stats["host_syncs"] = len(rec.syncs)
+    rep.stats["transport_syncs"] = len(rec.transport_syncs)
     launches = {}
     for name, _g, _r in rec.launches:
         launches[name] = launches.get(name, 0) + 1

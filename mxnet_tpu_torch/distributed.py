@@ -33,6 +33,12 @@ dispatch record sees each one.
   BatchNorm takes its statistics over the global batch
   (:func:`batch_stats`) and a stochastic op draws the global batch's
   rows and keeps this rank's (:func:`draw_rows`).
+- For meshes across ranks: :func:`make_subgroups` (one process group a
+  set of ranks a mesh's collectives join, made by every rank in one
+  order), :func:`subgroup`, :func:`global_devices` (every rank's
+  ``(rank, Context)`` positions, rank-major) and :func:`transport_scope`
+  (a collective's own device-host copies, which the graph lint counts
+  apart from the step's host syncs).
 - Heartbeats over the process group's store: :func:`start_heartbeat`,
   :func:`heartbeat_ages`, :func:`num_dead_nodes`,
   :func:`heartbeat_supported`, measured on the observer's clock as in the
@@ -52,7 +58,8 @@ __all__ = ["initialize", "is_initialized", "rank", "num_workers",
            "TRANSPORTS", "all_gather", "reduce_scatter", "all_reduce",
            "allreduce_sum", "broadcast_tensors", "dp_scope", "batch_stats",
            "draw_rows", "start_heartbeat", "heartbeat_ages",
-           "num_dead_nodes", "heartbeat_supported"]
+           "num_dead_nodes", "heartbeat_supported", "make_subgroups",
+           "subgroup", "global_devices", "transport_scope", "in_transport"]
 
 _INITIALIZED = False
 
@@ -262,20 +269,67 @@ def all_gather_object(obj):
     return out
 
 
+_SUBGROUPS = {}      # sorted rank tuple -> process group
+
+
+def make_subgroups(rank_sets):
+    """One process group for each rank set (a tuple of two or more ranks)
+    not made yet, made in sorted order.  ``torch.distributed.new_group``
+    is collective over the whole process group: every rank must call
+    this with the same sets (a mesh's, at build time), including the sets
+    it is not in, or the ranks hang.  The set of every rank is the
+    process group itself."""
+    import datetime
+    dist = _dist()
+    world = tuple(range(num_workers()))
+    for ranks in sorted({tuple(sorted(r)) for r in rank_sets}):
+        if len(ranks) < 2 or ranks in _SUBGROUPS:
+            continue
+        _SUBGROUPS[ranks] = dist.group.WORLD if ranks == world else \
+            dist.new_group(list(ranks), timeout=datetime.timedelta(
+                seconds=COLLECTIVE_TIMEOUT))
+
+
+def subgroup(ranks):
+    """The process group over ``ranks`` (made by :func:`make_subgroups`)."""
+    ranks = tuple(sorted(ranks))
+    if ranks not in _SUBGROUPS:
+        raise MXNetError("no process group over ranks %s (a mesh makes "
+                         "its groups when it is built)" % (ranks,))
+    return _SUBGROUPS[ranks]
+
+
+def global_devices(contexts=None):
+    """Every rank's ``(rank, Context)`` positions in rank-major order (the
+    JAX package's ``sorted(jax.devices(), key=(process_index, id))``):
+    each rank's ``contexts`` (its own device when None), gathered from
+    every rank (collective).  Outside a process group, this process's
+    contexts at rank 0."""
+    from .context import Context, current_context
+    mine = [Context(c) for c in (contexts if contexts is not None
+                                 else [current_context()])]
+    every = all_gather_object([(c.device_type, c.device_id) for c in mine])
+    return [(r, Context(t, i)) for r, cs in enumerate(every)
+            for t, i in cs]
+
+
 # ---------------------------------------------------------------------------
 # collectives over the device group (functional ops, so the graph lint's
 # dispatch record sees them)
 # ---------------------------------------------------------------------------
 
-def _group_name():
-    return _dist().group.WORLD.group_name
+def _group_name(group=None):
+    return (group if group is not None else _dist().group.WORLD).group_name
 
 
-def _raw(kind, x, root=0):
-    """One functional collective on ``x`` as it lies (no transport)."""
+def _raw(kind, x, root=0, group=None):
+    """One functional collective on ``x`` as it lies (no transport), over
+    ``group`` (the whole process group when None)."""
     import torch
     F = torch.ops._c10d_functional
-    world, name = num_workers(), _group_name()
+    name = _group_name(group)
+    world = num_workers() if group is None else \
+        _dist().get_world_size(group)
     x = x.contiguous()
     if kind == "all_reduce":
         out = F.all_reduce(x, "sum", name)
@@ -306,19 +360,45 @@ def reset_stats():
 reset_stats()
 
 
-def _collective(kind, x, root=0):
-    """Run collective ``kind`` on ``x`` through its transport: a CUDA
-    tensor whose kind gloo cannot run on the card goes through a pinned
-    host buffer, and the result comes back to ``x``'s device."""
+_TRANSPORT = threading.local()
+
+
+@contextlib.contextmanager
+def transport_scope():
+    """Marks the calling thread's copies between the device and the host
+    as a collective's transport (a gloo collective on CUDA tensors
+    stages through pinned host memory; a cross-rank exchange reads its
+    header): the graph lint counts them as transport syncs, not as the
+    step's own host syncs."""
+    prev = getattr(_TRANSPORT, "on", False)
+    _TRANSPORT.on = True
+    try:
+        yield
+    finally:
+        _TRANSPORT.on = prev
+
+
+def in_transport():
+    """True inside :func:`transport_scope` on the calling thread."""
+    return getattr(_TRANSPORT, "on", False)
+
+
+def _collective(kind, x, root=0, group=None):
+    """Run collective ``kind`` on ``x`` over ``group`` (the whole process
+    group when None) through its transport: a CUDA tensor whose kind
+    gloo cannot run on the card goes through a pinned host buffer, and
+    the result comes back to ``x``'s device."""
     import time
     t0 = time.perf_counter()
     if not x.is_cuda or TRANSPORTS.get(kind, "native") == "native":
-        out = _raw(kind, x, root)
+        out = _raw(kind, x, root, group)
     else:
         import torch
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x)
-        out = _raw(kind, host, root).to(x.device, non_blocking=True)
+        with transport_scope():
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
+            out = _raw(kind, host, root, group).to(x.device,
+                                                   non_blocking=True)
     st = STATS[kind]
     st["count"] += 1
     st["bytes"] += out.numel() * out.element_size()

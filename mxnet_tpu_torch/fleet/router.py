@@ -125,7 +125,7 @@ class _ReplicaView(object):
     + forwarding outcomes)."""
 
     __slots__ = ("id", "addr", "last_ok", "stats", "inflight", "probes",
-                 "probe_retries", "errors")
+                 "probe_retries", "errors", "draining")
 
     def __init__(self, rid):
         self.id = rid
@@ -136,6 +136,7 @@ class _ReplicaView(object):
         self.probes = 0
         self.probe_retries = 0      # jittered second tries (GETs only)
         self.errors = 0
+        self.draining = False       # the last probe found it draining
 
 
 class FleetRouter(object):
@@ -181,6 +182,9 @@ class FleetRouter(object):
         self._static = None
         self._view = None
         self._views = {}
+        #: rid -> the forward connections awaiting its answer
+        #: (``_abort_evicted``)
+        self._inflight = {}
         if isinstance(endpoints, FleetViewReader):
             self._view = endpoints      # worker: snapshot-fed, no probe
         elif hasattr(endpoints, "ports"):
@@ -296,6 +300,7 @@ class FleetRouter(object):
                 # would otherwise bounce 503s off it for evict_s)
                 with self._lock:
                     view.last_ok = None
+                    view.draining = True
                 return "draining"
             conn.request("GET", "/stats")
             resp = conn.getresponse()
@@ -309,6 +314,7 @@ class FleetRouter(object):
         with self._lock:
             view.addr = addr
             view.last_ok = time.monotonic()
+            view.draining = False
             if stats is not None:
                 view.stats = stats
         return "ok"
@@ -368,8 +374,35 @@ class FleetRouter(object):
                 + self.PROBE_RETRY_JITTER_S
             for t in threads:
                 t.join(timeout=max(0.0, deadline - time.monotonic()))
+        self._abort_evicted()
         self._update_outliers()
         return self.healthy()
+
+    def _abort_evicted(self):
+        """Fail now the in-flight forwards to every replica the heartbeat
+        has evicted (a draining replica answers what it holds and keeps
+        them).  A SIGKILLed replica whose process is still tearing down
+        its CUDA context, or a wedged one, holds its sockets open without
+        answering, for up to the forward's ``request_timeout`` — as long
+        as a client waits, so the keyed resend came too late; shutting
+        the socket down turns the forward into ``ReplicaDead`` and the
+        resend goes out at eviction."""
+        now = time.monotonic()
+        with self._lock:
+            doomed = []
+            for rid, conns in self._inflight.items():
+                view = self._views.get(rid)
+                if view is None or view.draining or not conns:
+                    continue
+                if view.last_ok is None or now - view.last_ok > self.evict_s:
+                    doomed.extend(conns)
+        for conn in doomed:
+            sock = getattr(conn, "sock", None)
+            if sock is not None:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
 
     def _update_outliers(self):
         """Feed the gray-failure detector one pass (controller/static
@@ -613,8 +646,15 @@ class FleetRouter(object):
                 conn = self._connection(rid, addr, fresh=True)
                 conn.request(method, path, body=body,
                              headers=headers or {})
-            resp = conn.getresponse()
-            data = resp.read()
+            # the heartbeat fails it if the replica is evicted meanwhile
+            with self._lock:
+                self._inflight.setdefault(rid, set()).add(conn)
+            try:
+                resp = conn.getresponse()
+                data = resp.read()
+            finally:
+                with self._lock:
+                    self._inflight.get(rid, set()).discard(conn)
             ctype = resp.getheader("Content-Type") or "application/json"
             return resp.status, data, ctype
         except Exception as e:  # noqa: BLE001 — transport-level loss

@@ -81,16 +81,19 @@ def _token_spec(mesh):
 
 
 def _on_mesh(mesh):
-    """True when ``mesh`` is an in-process mesh whose positions this call
-    is not already running on."""
+    """True when ``mesh`` is a mesh of positions (over contexts, ranks or
+    both) whose positions this call is not already running on."""
     from ..parallel import collectives as C
-    return getattr(mesh, "in_process", False) and C.current(mesh) is None
+    from ..parallel.mesh import Mesh
+    return isinstance(mesh, Mesh) and C.current(mesh) is None
 
 
 def apply_model(params, tokens, mesh, n_heads, n_layers):
-    """tokens (B, T) integer ids -> logits (B, T, V).  On an in-process
-    mesh the tokens and logits are sharded ``('dp', 'sp')``; inside one
-    of its positions ``tokens`` is that position's block."""
+    """tokens (B, T) integer ids -> logits (B, T, V).  On a mesh the
+    tokens and logits are sharded ``('dp', 'sp')`` (every rank of a
+    rank-spanning mesh passes the global tokens and gets the global
+    logits); inside one of its positions ``tokens`` is that position's
+    block."""
     from ..parallel import collectives as C
     if _on_mesh(mesh):
         from ..parallel.compat import shard_map
@@ -134,8 +137,10 @@ def make_step(mesh, n_heads, n_layers, lr):
     gradients by torch autograd and plain SGD ``p -= lr * g``.  Unlike
     the JAX step (pure, with donated buffers) it updates the parameter
     tensors in place and returns the same dict; the loss is a 0-d tensor
-    on the device (no host sync inside the step).  On an in-process
-    ``mesh`` the step runs on every position (``compat.shard_map``) and
+    on the device (no host sync inside the step).  On a ``mesh`` (inside
+    one process, or over ranks: every rank passes the global tokens and
+    holds the whole params) the step runs on every position
+    (``compat.shard_map``) and
     the loss is the psum of the positions' NLL sums over the global token
     count."""
     from ..parallel import collectives as C

@@ -41,11 +41,6 @@ from .executor_group import DataParallelExecutorGroup
 __all__ = ["Module"]
 
 
-def _next_item():
-    from ..parallel.mesh import NEXT_ITEM
-    return NEXT_ITEM
-
-
 class Module(BaseModule):
     """Module over a Symbol (reference module.py:Module)."""
 
@@ -492,23 +487,20 @@ class Module(BaseModule):
         from ..parallel import SPMDTrainer, build_mesh, local_mesh
         if len(self._context) > 1:
             n = len(self._context)
-            if kvstore.num_workers > 1:
+            world = kvstore.num_workers
+            # several devices: ONE fused step dp-sharded over exactly
+            # those contexts (in every process under a process group: a
+            # mesh over ranks x contexts, the JAX package's processes x
+            # local devices); an indivisible global batch, or a context
+            # given twice (the reference's idiom for oversubscribing one
+            # device), takes the executor-group route, as in the JAX
+            # package
+            if (self._exec_group.batch_size * world) % (n * world):
                 self.logger.info(
-                    "kvstore '%s': %d contexts in each of %d processes take "
-                    "the executor-group route (a mesh over ranks and "
-                    "contexts comes with %s)", kvstore.type, n,
-                    kvstore.num_workers, _next_item())
-                return None
-            # one process over several devices: ONE fused step
-            # dp-sharded over exactly those contexts (an in-process
-            # mesh); an indivisible batch, or a context given twice (the
-            # reference's idiom for oversubscribing one device), takes
-            # the executor-group route, as in the JAX package
-            if self._exec_group.batch_size % n:
-                self.logger.info(
-                    "kvstore '%s': batch %d not divisible by %d contexts; "
-                    "falling back to the executor-group path",
-                    kvstore.type, self._exec_group.batch_size, n)
+                    "kvstore '%s': global batch %d not divisible by %d "
+                    "devices; falling back to the executor-group path",
+                    kvstore.type, self._exec_group.batch_size * world,
+                    n * world)
                 return None
             if len(set(self._context)) != n:
                 self.logger.info(
@@ -516,7 +508,18 @@ class Module(BaseModule):
                     "falling back to the executor-group path",
                     kvstore.type)
                 return None
-            mesh = build_mesh({"dp": n}, list(self._context))
+            if world > 1:
+                from .. import distributed
+                devices = distributed.global_devices(self._context)
+                if len(devices) != n * world:
+                    self.logger.info(
+                        "kvstore '%s': the ranks hold different numbers "
+                        "of contexts; falling back to the executor-group "
+                        "path", kvstore.type)
+                    return None
+                mesh = build_mesh({"dp": n * world}, devices)
+            else:
+                mesh = build_mesh({"dp": n}, list(self._context))
         else:
             mesh = local_mesh() if kvstore.num_workers > 1 else None
         trainer = SPMDTrainer(self._symbol, optimizer, mesh=mesh,

@@ -1,15 +1,16 @@
 """Parallel training (port of ``mxnet_tpu/parallel``).
 
-- mesh.py: meshes over the process group (the ``dp`` axis) or inside one
-  process over a context list (any of dp/tp/sp/pp/ep)
+- mesh.py: meshes over the process group's ranks, a context list inside
+  one process, or (rank, Context) pairs (any of dp/tp/sp/pp/ep)
 - collectives.py: shards and explicit, differentiable collectives
-  between the positions of an in-process mesh (one thread a position)
-- compat.py: ``shard_map`` over an in-process mesh
+  between a mesh's positions (one thread a position in the process that
+  holds it; one exchange a collective across ranks)
+- compat.py: ``shard_map`` over a mesh
 - planner.py: mxplan — the sharding planner and the serializable
   ShardingPlan checkpoints persist for elastic resume
 - trainer.py: SPMDTrainer — the fused step on one device, data-parallel
-  across processes (allreduce / zero / zero3), or over an in-process
-  dp x tp mesh (``param_shardings`` rules)
+  across processes (allreduce / zero / zero3), or over a dp x tp mesh of
+  positions, in one process or across ranks (``param_shardings`` rules)
 - zero3.py: grouped gathers, backward re-gather, reduce-scatter gradients
 - spmd_module.py: SPMDModule — the Module API over SPMDTrainer
 - ring_attention.py: attention, the ring over ``sp`` on a mesh

@@ -1,13 +1,14 @@
 """Mixture-of-Experts with expert parallelism over the ``ep`` axis of a
-mesh inside one process (port of ``mxnet_tpu/parallel/moe.py``).
+mesh (port of ``mxnet_tpu/parallel/moe.py``).
 
 GShard-style top-2 routed FFN: a gating matmul scores tokens, each token
 goes to its top experts within a per-expert capacity, the expert FFNs run
 as one batched (E, C, d) product, and the combine weights re-mix the
 expert outputs.  The JAX package places the params with
 :func:`moe_shardings` and lets GSPMD partition the einsums; the port
-does the partition itself when the params are placed on an in-process
-mesh (``collectives.shard_tree(params, mesh, moe_shardings())``):
+does the partition itself when the params are placed on a mesh
+(``moe_init(..., mesh=mesh)`` or ``collectives.shard_tree(params, mesh,
+moe_shardings())``; over ranks too):
 
 - each position holds E / ep experts and runs only theirs;
 - tokens replicated: every position routes every token (the same
@@ -37,11 +38,18 @@ __all__ = ["moe_init", "moe_ffn", "moe_shardings"]
 
 
 def moe_init(generator, d_model, d_hidden, num_experts, dtype=torch.float32,
-             ctx=None):
+             ctx=None, mesh=None, axis="ep"):
     """Parameters: gate (d, E), w1 (E, d, h), b1 (E, h), w2 (E, h, d),
     b2 (E, d); normal draws from ``generator`` (a ``torch.Generator``)
     scaled by 1/sqrt(d_model) (gate, w1) and 1/sqrt(d_hidden) (w2), on
-    ``ctx``'s device (``current_context()`` when None)."""
+    ``ctx``'s device (``current_context()`` when None).  With ``mesh``
+    each expert goes to the device of the position that owns it over
+    ``axis`` (:func:`moe_shardings`; every rank of a rank-spanning mesh
+    draws the same values and keeps its positions' experts)."""
+    if mesh is not None:
+        return C.shard_tree(moe_init(generator, d_model, d_hidden,
+                                     num_experts, dtype, ctx), mesh,
+                            moe_shardings(axis))
     dev = (ctx if ctx is not None else current_context()).torch_device
     s1 = 1.0 / np.sqrt(d_model)
     s2 = 1.0 / np.sqrt(d_hidden)
@@ -139,7 +147,7 @@ def _experts(params, expert_in, activation):
 
 
 def _placed(params):
-    """The in-process mesh the params are placed on, or None."""
+    """The mesh the params are placed on, or None."""
     w1 = params["w1"]
     return w1.mesh if isinstance(w1, C.Sharded) else None
 
@@ -148,7 +156,7 @@ def moe_ffn(params, x, capacity_factor=2.0, activation=torch.relu,
             axis="ep", batch_axis=None):
     """Top-2 MoE FFN.  x: (B, S, d) -> (B, S, d).
 
-    With params placed on an in-process mesh (:func:`moe_shardings` over
+    With params placed on a mesh (:func:`moe_shardings` over
     ``axis``) the experts run on their positions; ``batch_axis`` None
     keeps ``x`` replicated, a mesh axis shards its batch dimension
     there."""

@@ -525,20 +525,6 @@ class ShardingPlan(object):
 # prescriptive planning
 # ---------------------------------------------------------------------------
 
-def _refuse_model_parallel(rules):
-    """Over the process group's ranks a rule naming any axis but ``dp``
-    needs the model-parallel axes across processes (an in-process mesh's
-    inventory, a context list, takes them)."""
-    from .mesh import AXIS_DP, model_parallel_error
-    for pattern, axes in (rules or {}).items():
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        other = [a for a in axes if a not in (None, AXIS_DP)]
-        if other:
-            raise model_parallel_error(
-                "a plan sharding %r over %s across the process group's "
-                "ranks" % (pattern, other))
-
-
 def plan(symbol, data_shapes, label_shapes=None, world=None, devices=None,
          hbm_budget=None, optimizer="sgd", optimizer_params=None,
          compute_dtype=None, param_shardings=None, grad_sync=None,
@@ -547,8 +533,9 @@ def plan(symbol, data_shapes, label_shapes=None, world=None, devices=None,
 
     ``world``/``devices``: the device inventory (one of them; with
     neither, the process group's world, and on the card its memory;
-    rules over ``tp`` need ``devices``, a context list: the inventory of
-    an in-process mesh).  ``hbm_budget``: per-device byte budget (default
+    ``devices`` may be contexts, ranks or ``(rank, Context)`` pairs: the
+    inventory is ranks x contexts, and rules may name any axis over
+    it).  ``hbm_budget``: per-device byte budget (default
     ``MXTPU_PLAN_HBM_BUDGET``; 0 = unconstrained).  ``grad_sync``
     pins the strategy and the planner only derives mesh/rules/groups.
 
@@ -616,9 +603,6 @@ def plan(symbol, data_shapes, label_shapes=None, world=None, devices=None,
     # explicit regex rules win, otherwise shard the first dp-divisible
     # dimension)
     rules = dict(param_shardings or {})
-    from ..context import Context
-    if not (devices and all(isinstance(d, Context) for d in devices)):
-        _refuse_model_parallel(rules)
     params = {}
     for name in sorted(param_shapes):
         shape = param_shapes[name]

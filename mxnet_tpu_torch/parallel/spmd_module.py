@@ -23,6 +23,19 @@ from .trainer import SPMDTrainer
 __all__ = ["SPMDModule"]
 
 
+def _batch_factor(mesh, axis):
+    """The global batch over one process's rows: the ranks of a
+    one-rank-a-position ``dp`` mesh, the dp coordinates over this
+    process's on a mesh of positions (1 on a mesh inside one process)."""
+    if mesh is None:
+        return 1
+    if not getattr(mesh, "over_ranks", False) or any(
+            size > 1 for name, size in mesh.shape.items() if name != axis):
+        held = {mesh.coords(i)[axis] for i in mesh.local}
+        return mesh.shape[axis] // max(1, len(held))
+    return mesh.shape[axis]
+
+
 class SPMDModule(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging, mesh=None,
@@ -80,10 +93,8 @@ class SPMDModule(BaseModule):
             self._data_shapes[0], "shape") else self._data_shapes[0].shape[0]
         # gradients are summed over the global batch: each rank's rows
         # times the ranks (an in-process mesh's batch is already global)
-        world = self._mesh.shape[self._data_axis] \
-            if self._mesh is not None and \
-            not getattr(self._mesh, "in_process", False) else 1
-        optimizer_params.setdefault("rescale_grad", 1.0 / (batch * world))
+        optimizer_params.setdefault("rescale_grad", 1.0 / (
+            batch * _batch_factor(self._mesh, self._data_axis)))
         self._trainer = SPMDTrainer(
             self._symbol, optimizer, optimizer_params,
             mesh=self._mesh if self._mesh is not None else None,

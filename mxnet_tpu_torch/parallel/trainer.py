@@ -63,9 +63,12 @@ or sharded-native under ``MXTPU_CKPT_SHARDED=1``) and
 :meth:`SPMDTrainer.restore` (re-sharding at any world) go through a
 :class:`~mxnet_tpu_torch.resilience.CheckpointManager`.
 
-A mesh inside one process (``build_mesh`` over a context list, repeats
-allowed) runs the step on every position, one thread a position
-(``parallel/collectives.py``): the global batch splits over ``dp``, each
+Any other mesh (``build_mesh`` over a context list, repeats allowed; or
+over ranks and ``(rank, Context)`` pairs with a ``tp`` axis or ``tp``
+rules, several positions a rank) runs the step on every position, one
+thread a position in the process that holds it
+(``parallel/collectives.py``; the positions' step): the batch splits
+over ``dp``, each
 ``param_shardings`` rule over the ``tp`` axis places the param's shards
 and their optimizer state on their positions (``trainer.params[name]``
 is a ``collectives.Sharded`` reporting its spec), and the consumer of a
@@ -89,9 +92,18 @@ package's ``shard_map`` body), and ``gspmd`` with a ``tp`` axis, where
 statistics are the global batch's, as under ``allreduce`` and ``zero``.
 Under zero3 the backward re-gathers (``zero3.MeshRegather``).
 ``remat``, ``analyze``, ``MXTPU_ANALYZE`` and sharded-native
-checkpoints (one blob a ``dp`` shard) work there too.  A model-parallel
-axis over the process group's ranks raises :class:`MXNetError`, naming
-the item of ROADMAP.md that brings it.
+checkpoints (one blob a ``dp`` shard) work there too.
+
+Where the positions' mesh spans ranks, rank 0's initial values win
+(``init_params`` and ``set_params`` broadcast them), each rank's
+``step`` takes its LOCAL rows: the rows of its positions' ``dp``
+coordinates, in coordinate order (ranks whose positions share a ``dp``
+coordinate must be fed the same rows), and returns the outputs of those
+rows.  The collectives join the ranks (``collectives._exchange``), so
+the step computes what the in-process mesh of the same shape does, bit
+for bit; the guard's flag and a deferred metric's sums span every rank,
+``get_params``, ``get_states`` and the checkpoints are collective
+(every rank calls them) and rank 0 writes.
 """
 from __future__ import annotations
 
@@ -207,7 +219,6 @@ class SPMDTrainer(object):
                  grad_sync=None, step_guard=None,
                  max_consecutive_bad_steps=None, plan=None, ctx=None):
         from .. import distributed
-        from .mesh import is_in_process, model_parallel_error
         # a plan supplies the policy; the derived artifacts (per-param
         # specs, gather groups) are recomputed at bind() for this mesh,
         # so a plan written at another world consumes cleanly
@@ -232,13 +243,28 @@ class SPMDTrainer(object):
                 "got %r" % (grad_sync,))
         self.param_shardings = dict(param_shardings or {})
         world = 1
-        self._inproc = mesh is not None and is_in_process(mesh)
-        self._dp = 1                # the dp axis's size in process
         self._tp_axis = "tp"
-        self.tp_forms = {}          # ruled param -> column / row / gather
         if mesh is not None and data_axis not in mesh.shape:
             raise MXNetError("mesh %s has no data axis %r"
                              % (dict(mesh.shape), data_axis))
+        # the positions' step: any mesh but the one-rank-a-position
+        # data-parallel form (ranks, no other axis, no rule beyond dp)
+        self._inproc = mesh is not None and not (
+            getattr(mesh, "over_ranks", False)
+            and all(size == 1 for name, size in mesh.shape.items()
+                    if name != data_axis)
+            and all(a in (None, data_axis) for spec in
+                    self.param_shardings.values() for a in
+                    ((spec,) if isinstance(spec, str) else tuple(spec))))
+        self._spans = self._inproc and getattr(mesh, "spans_ranks", False)
+        self._dp = 1                # the dp axis's size (positions' step)
+        self._local_dp = [0]        # this process's dp coordinates
+        self.tp_forms = {}          # ruled param -> column / row / gather
+        if self._spans and mesh.ranks != list(range(
+                distributed.num_workers())):
+            raise MXNetError(
+                "SPMDTrainer: the mesh's ranks %s are not the process "
+                "group's %d" % (mesh.ranks, distributed.num_workers()))
         if self._inproc:
             for name, size in mesh.shape.items():
                 if name not in (data_axis, self._tp_axis) and size > 1:
@@ -249,17 +275,9 @@ class SPMDTrainer(object):
                         "pipeline_apply and moe_ffn run the other axes)"
                         % (data_axis, self._tp_axis, name, size))
             self._dp = int(mesh.shape[data_axis])
+            self._local_dp = sorted({mesh.coords(i)[data_axis]
+                                     for i in mesh.local})
         elif mesh is not None:
-            for pattern, spec in self.param_shardings.items():
-                spec = (spec,) if isinstance(spec, str) else tuple(spec)
-                if any(a not in (None, data_axis) for a in spec):
-                    raise model_parallel_error(
-                        "param_shardings rule %r -> %s over the process "
-                        "group's ranks" % (pattern, spec))
-            for name, size in mesh.shape.items():
-                if name != data_axis and size > 1:
-                    raise model_parallel_error("mesh axis %r (size %d)"
-                                               % (name, size))
             world = int(mesh.shape[data_axis])
             if world != distributed.num_workers():
                 raise MXNetError(
@@ -272,7 +290,7 @@ class SPMDTrainer(object):
         self.grad_sync = grad_sync
         self.data_axis = data_axis
         self._world = world
-        self._rank = distributed.rank() if world > 1 else 0
+        self._rank = distributed.rank() if world > 1 or self._spans else 0
         # _zero: sharded master params and optimizer state (zero and
         # zero3 share the placement and the gathering path)
         self._zero = grad_sync in ("zero", "zero3") and self._dp_world > 1
@@ -287,7 +305,7 @@ class SPMDTrainer(object):
         self.remat = bool(remat)
         self.symbol = symbol
         if ctx is None and self._inproc:
-            ctx = mesh.contexts[0]
+            ctx = mesh.contexts[mesh.local[0]]
         self._ctx = Context(ctx) if ctx is not None else current_context()
         self._device = self._ctx.torch_device
         self.input_transforms = dict(input_transforms or {})
@@ -357,8 +375,8 @@ class SPMDTrainer(object):
 
     @property
     def _dp_world(self):
-        """The data axis's size: its positions on a mesh inside one
-        process, its ranks across processes."""
+        """The data axis's size: its positions on the positions' step, its
+        ranks on the one-rank-a-position data-parallel step."""
         return self._dp if self._inproc else self._world
 
     # -- setup ------------------------------------------------------------
@@ -383,8 +401,11 @@ class SPMDTrainer(object):
         self.param_names = [n for n in self.arg_names
                             if n not in self.input_names]
         self.batch_size = data_shapes[0].shape[0]
-        # the batch every rank feeds, summed over the data axis
-        self.global_batch_size = self.batch_size * self._world
+        # the batch every rank feeds, summed over the data axis (the
+        # positions' step: this process's rows of its dp coordinates)
+        self.global_batch_size = self.batch_size * self._world if \
+            not self._inproc else \
+            self.batch_size // len(self._local_dp) * self._dp
         # seed the per-name wd/lr multipliers now that param names are
         # known (zero wd for biases and betas), keeping multipliers the
         # user already set
@@ -415,18 +436,18 @@ class SPMDTrainer(object):
         return self
 
     def _bind_inproc(self):
-        """An in-process mesh's bind: the batch must split over ``dp``,
-        the rules may name ``tp`` only, and each ruled weight's consumer
+        """The positions' bind: this process's rows must split over its
+        ``dp`` coordinates, the rules may name ``tp`` only, and each ruled
+        weight's consumer
         takes its tensor-parallel form (column / row where the weight's
         one training use is a plain FullyConnected or Convolution, gather
         otherwise); the training plan is rebuilt with those forms."""
         from ..executor import tp_consumers
-        from .mesh import model_parallel_error
-        if self.batch_size % self._dp:
+        if self.batch_size % len(self._local_dp):
             raise MXNetError(
                 "SPMDTrainer: batch %d does not split over the %d "
-                "positions of the %r axis" % (self.batch_size, self._dp,
-                                              self.data_axis))
+                "coordinates of the %r axis this process holds"
+                % (self.batch_size, len(self._local_dp), self.data_axis))
         tp, tp_size = self._tp_axis, self.mesh.shape.get(self._tp_axis, 1)
         forms, self._tp_dims = {}, {}
         for name in self.param_names:
@@ -435,8 +456,8 @@ class SPMDTrainer(object):
             axes = [tuple(e) if isinstance(e, (tuple, list)) else
                     ((e,) if e is not None else ()) for e in spec]
             if any(a != tp for ax in axes for a in ax):
-                raise model_parallel_error(
-                    "param_shardings rule %s for %s on an in-process mesh "
+                raise MXNetError(
+                    "param_shardings rule %s for %s on a mesh of positions "
                     "(rules name the %r axis)" % (spec, name, tp))
             dims = [i for i, ax in enumerate(axes) if ax]
             if not dims or tp_size == 1:
@@ -588,7 +609,7 @@ class SPMDTrainer(object):
 
     def _broadcast(self, values):
         """``{name: tensor}`` with rank 0's values on every rank."""
-        if self._world == 1:
+        if self._world == 1 and not self._spans:
             return dict(values)
         from .. import distributed
         names = list(values)
@@ -637,13 +658,16 @@ class SPMDTrainer(object):
         g = distributed.all_gather(value.detach().movedim(d, 0).contiguous())
         return g.movedim(0, d).contiguous()
 
-    def resident_bytes(self, position=0, names=None):
+    def resident_bytes(self, position=None, names=None):
         """``{"params", "opt_state", "aux"}``: bytes this rank holds for
         each carry (a zero/zero3 rank holds about 1/world of the first
-        two); on an in-process mesh, the storage bytes of ``position``'s
-        parts (a ``tp`` shard is 1/tp of its param).  ``names`` limits
-        the count to those params (and their slots)."""
+        two); on the positions' step, the storage bytes of ``position``'s
+        parts (this process's first position by default; a ``tp`` shard
+        is 1/tp of its param).  ``names`` limits the count to those
+        params (and their slots)."""
         from .collectives import Sharded
+        if position is None:
+            position = self.mesh.local[0] if self._inproc else 0
 
         def nbytes(ts):
             total = 0
@@ -676,8 +700,8 @@ class SPMDTrainer(object):
 
         def zeros(p):
             if isinstance(p, Sharded):
-                return Sharded([torch.zeros_like(t) for t in p.parts],
-                               p.mesh, p.spec, p.shape)
+                return Sharded([None if t is None else torch.zeros_like(t)
+                                for t in p.parts], p.mesh, p.spec, p.shape)
             return torch.zeros_like(p)
         return {name: tuple(zeros(self.params[name]) for _ in range(n))
                 for name in self.param_names}
@@ -763,9 +787,10 @@ class SPMDTrainer(object):
                 for pos in positions]
             finite = flags[0] if len(flags) == 1 else torch.stack(
                 [f.to(self._device) for f in flags]).all()
-            if dp and self._zero:
+            if (dp and self._zero) or self._spans:
+                n = distributed.num_workers()
                 finite = distributed.all_reduce(
-                    finite.to(torch.int32).reshape(1))[0] == self._world
+                    finite.to(torch.int32).reshape(1))[0] == n
         # non-finite step: params, optimizer state and aux (BN moving
         # stats from a poisoned batch) pass through unchanged
         for params, opt_state, aux, grads, auxu, device in positions:
@@ -783,8 +808,9 @@ class SPMDTrainer(object):
             self._count_guard(finite)
         outs = [o.detach() for o in outs]
         if self._metric_fn is not None:
-            ds, dc = self._metric_fn(outs, data)
-            if dp:
+            ds, dc = self._metric_fn(outs, data) if self._owns_rows() \
+                else (0.0, 0.0)
+            if dp or self._spans:
                 ds, dc = distributed.all_reduce(torch.stack(
                     [torch.as_tensor(v, dtype=torch.float32,
                                      device=self._device)
@@ -794,6 +820,25 @@ class SPMDTrainer(object):
             self._metric_acc = (self._carry(s_acc, s_acc + ds, finite),
                                 self._carry(c_acc, c_acc + dc, finite))
         return outs
+
+    def _owns_rows(self):
+        """Whether this process's rows count in a deferred metric: on a
+        rank-spanning mesh its ``dp`` coordinates' rows count on the
+        lowest rank that holds them (a mesh whose ranks share a
+        coordinate holds them alike on each)."""
+        if not self._spans:
+            return True
+        mesh, axis = self.mesh, self.data_axis
+        first = {}
+        for i in range(mesh.size):
+            d = mesh.coords(i)[axis]
+            first[d] = min(first.get(d, mesh.rank_of[i]), mesh.rank_of[i])
+        mine = [first[d] == self._rank for d in self._local_dp]
+        if any(mine) and not all(mine):
+            raise MXNetError(
+                "SPMDTrainer: a deferred metric on a mesh whose ranks hold "
+                "some dp coordinates alike and others apart")
+        return all(mine)
 
     def _count_guard(self, finite):
         """The int32[3] skip counters after a step whose gradients were
@@ -966,12 +1011,13 @@ class SPMDTrainer(object):
         rows = [int(np.shape(v)[0]) if np.ndim(v) else 0 for v in arrays]
         if self._inproc:
             n = rows[0] if rows else 0
-            if n % self._dp:
+            k = len(self._local_dp)
+            if n % k:
                 raise MXNetError(
                     "grad_sync='zero3': batch dim %d does not divide over "
-                    "the %d positions of the dp axis — pad the final batch "
-                    "(iterator default) or use grad_sync='zero'"
-                    % (n, self._dp))
+                    "the %d coordinates of the dp axis this process holds "
+                    "— pad the final batch (iterator default) or use "
+                    "grad_sync='zero'" % (n, k))
             return
         every = distributed.all_gather_object(rows[0] if rows else 0)
         n = sum(every)
@@ -1070,19 +1116,44 @@ class SPMDTrainer(object):
             allreduce=lambda t: C.psum(t, axis))
 
     def _split_batch(self, data):
-        from . import collectives as C
-        spec = C.P(self.data_axis)
-        return {k: C.shard(v, self.mesh, spec).parts for k, v in data.items()}
+        """``{name: [part a position]}``: this process's rows split over
+        its ``dp`` coordinates in order, each local position's block in
+        its own storage (None for another rank's positions)."""
+        from .collectives import _fresh
+        mesh, k = self.mesh, len(self._local_dp)
+        devs = mesh.torch_devices
+        out = {}
+        for name, v in data.items():
+            rows = v.shape[0] // k
+            parts = [None] * mesh.size
+            for i in mesh.local:
+                j = self._local_dp.index(mesh.coords(i)[self.data_axis])
+                parts[i] = _fresh(v.narrow(0, j * rows, rows),
+                                  devs[i]).contiguous()
+            out[name] = parts
+        return out
+
+    def _row_owners(self):
+        """The position whose outputs stand for each of this process's dp
+        coordinates: coordinate 0 of every other axis where it is local,
+        else the lowest local position (the tp copies agree)."""
+        mesh, axis = self.mesh, self.data_axis
+        picks = []
+        for d in self._local_dp:
+            held = [i for i in mesh.local if mesh.coords(i)[axis] == d]
+            zero = [i for i in held if not any(
+                v for a, v in mesh.coords(i).items() if a != axis)]
+            picks.append((zero or held)[0])
+        return picks
 
     def _global_outputs(self, results):
-        """The global batch's outputs: the ``dp`` blocks of coordinate 0
-        of every other axis, concatenated (the tp copies agree)."""
-        from . import collectives as C
-        outs = [r[0] for r in results]
-        spec = C.P(self.data_axis)
-        return [C.unshard([o[k] for o in outs], self.mesh, spec,
-                          device=self._device)
-                for k in range(len(outs[0]))]
+        """This process's rows' outputs: its ``dp`` coordinates' blocks in
+        order (on a mesh inside one process, the global batch's)."""
+        picks = [results[i][0] for i in self._row_owners()]
+        dev = self._device
+        return [torch.cat([o[k].to(dev) for o in picks], 0)
+                if len(picks) > 1 else picks[0][k].to(dev)
+                for k in range(len(picks[0]))]
 
     def _position_params(self, i, params):
         """Position ``i``'s whole params for its forward from its parts
@@ -1114,24 +1185,29 @@ class SPMDTrainer(object):
         return out
 
     def _dispatch_inproc(self, data, key, lr):
-        """One step over the in-process mesh: every position's forward in
-        its own thread (collectives.run), ONE backward over the sum of the
-        positions' outputs, the gradients summed over ``dp`` (in position
-        order: a tp shard's over its dp group, a replicated param's
-        likewise; its tp copies agree; under zero/zero3 a dp shard's
-        arrives reduce-scattered by its group's all-gather), then each
-        position updates its parts.  Under zero3 the backward re-gathers
-        the groups whose values it saved (``zero3.MeshRegather``), and on
-        the manual tier the BatchNorm moving statistics are averaged over
-        ``dp``.  The guard's finite flag covers every position."""
+        """One step of the positions: every local position's forward in
+        its own thread (collectives.run), ONE backward over the sum of
+        the positions' outputs (with the exchanges' last token on a
+        rank-spanning mesh), the gradients summed over ``dp`` (in
+        position order: a tp shard's over its dp group, a replicated
+        param's likewise; its tp copies agree; under zero/zero3 a dp
+        shard's arrives reduce-scattered by its group's all-gather), then
+        each position updates its parts.  Under zero3 the backward
+        re-gathers the groups whose values it saved
+        (``zero3.MeshRegather``), and on the manual tier the BatchNorm
+        moving statistics are averaged over ``dp``.  The guard's finite
+        flag covers every position."""
         from . import collectives as C
         from .zero3 import MeshRegather
         mesh, n = self.mesh, self.mesh.size
+        local = mesh.local
         batch = self._split_batch(data)
-        leaves = [{k: v.parts[i].detach().requires_grad_(True)
-                   for k, v in self.params.items()} for i in range(n)]
-        aux = [{k: v.parts[i] for k, v in self.aux.items()}
-               for i in range(n)]
+        leaves = [None] * n
+        aux = [None] * n
+        for i in local:
+            leaves[i] = {k: v.parts[i].detach().requires_grad_(True)
+                         for k, v in self.params.items()}
+            aux[i] = {k: v.parts[i] for k, v in self.aux.items()}
         regather = MeshRegather(self._layouts, mesh, self.data_axis,
                                 self._segment_reads()) \
             if self._zero3 and self._layouts else None
@@ -1152,33 +1228,39 @@ class SPMDTrainer(object):
                 merged.drop()
                 return res
 
-        with torch.enable_grad():
+        with torch.enable_grad(), C.chain(mesh):
             results = C.run(mesh, position, [(i,) for i in range(n)])
-            diff = [o for outs, _ in results for o in outs
-                    if o.requires_grad]
-            flat = [leaves[i][nm] for i in range(n)
-                    for nm in self.param_names]
+            roots = [o for i in local for o in results[i][0]
+                     if o.requires_grad]
+            token = C.last_token(mesh)
+            if token is not None:
+                # every rank's backward runs the exchanges in one order
+                roots.append(token)
+            flat = [leaves[i][nm] for i in local for nm in self.param_names]
             grads = [None] * len(flat)
-            if diff:
+            if roots:
                 grads = torch.autograd.grad(
-                    diff, flat, [torch.ones_like(o) for o in diff],
+                    roots, flat, [torch.ones_like(o) for o in roots],
                     allow_unused=True)
         grads = [g if g is not None else torch.zeros_like(v)
                  for g, v in zip(grads, flat)]
         k = len(self.param_names)
-        per = [dict(zip(self.param_names, grads[i * k:(i + 1) * k]))
-               for i in range(n)]
+        per = [None] * n
+        for j, i in enumerate(local):
+            per[i] = dict(zip(self.param_names, grads[j * k:(j + 1) * k]))
         with torch.no_grad(), \
                 torch.profiler.record_function(GRAD_SYNC_RANGE):
             self._sum_over_dp(per, [nm for nm in self.param_names
                                     if nm not in self._zero3_dims])
-            auxu = [r[1] for r in results]
+            auxu = [None if r is None else r[1] for r in results]
             if self.zero3_tier == "manual":
                 # each position saw its own rows: the moving statistics
                 # are the positions' mean (the JAX manual tier's pmean)
-                auxu = [{k: v / self._dp for k, v in a.items()} for a in
-                        self._sum_over_dp([dict(a) for a in auxu],
-                                          list(auxu[0]))]
+                names = list(auxu[local[0]])
+                auxu = [None if a is None else {nm: v / self._dp for nm, v
+                                                in a.items()} for a in
+                        self._sum_over_dp([None if a is None else dict(a)
+                                           for a in auxu], names)]
         outs = self._global_outputs(results)
         with torch.no_grad(), torch.profiler.record_function(UPDATE_RANGE):
             devs = mesh.torch_devices
@@ -1186,7 +1268,7 @@ class SPMDTrainer(object):
                 outs, [(_PositionParts(self.params, i),
                         _PositionParts(self.opt_state, i),
                         _PositionParts(self.aux, i), per[i], auxu[i],
-                        devs[i]) for i in range(n)],
+                        devs[i]) for i in local],
                 lr, self.optimizer.wd, self._num_update, data)
         if self.step_guard:
             self._guard_pending = True
@@ -1194,16 +1276,20 @@ class SPMDTrainer(object):
         return outs
 
     def _sum_over_dp(self, values, names):
-        """Every position's ``{name: tensor}`` in ``values`` with ``names``
-        summed over its ``dp`` group, in place: one flat bucket a
-        position, added in coordinate order."""
+        """Every local position's ``{name: tensor}`` in ``values`` (a list
+        a position, None for another rank's) with ``names`` summed over
+        its ``dp`` group, in place: one flat bucket a position, added in
+        coordinate order."""
         from . import collectives as C
         if self._dp == 1 or not names:
             return values
-        flats = [torch.cat([v[nm].reshape(-1) for nm in names])
+        flats = [None if v is None else
+                 torch.cat([v[nm].reshape(-1) for nm in names])
                  for v in values]
         sums = C.psum_positions(flats, self.mesh, self.data_axis)
         for v, mine in zip(values, sums):
+            if v is None:
+                continue
             off = 0
             for nm in names:
                 size = v[nm].numel()
@@ -1524,9 +1610,9 @@ class SPMDTrainer(object):
         return outs
 
     def _forward_inproc(self, data, is_train, key):
-        """A forward over the in-process mesh with every param gathered
-        whole on each position (the plain plan: bn_fold and the other
-        passes see whole weights); outputs of the global batch."""
+        """A forward of the positions with every param gathered whole on
+        each (the plain plan: bn_fold and the other passes see whole
+        weights); outputs of this process's rows."""
         from . import collectives as C
         mesh, n = self.mesh, self.mesh.size
         batch = self._split_batch(data)
@@ -1730,15 +1816,31 @@ class SPMDTrainer(object):
         def host(t):
             return np.array(t.detach().cpu().numpy(), copy=True)
 
-        def value(name, v, k):
+        # the whole values travel in shard 0's blob: gathered here, on
+        # every rank in one order (collective on a rank-spanning mesh)
+        whole, aux = {}, None
+        if self._inproc:
+            for name, v in self.params.items():
+                if dims[name] is None:
+                    whole[name] = self._full(name, v)
+                    for j, x in enumerate(self.opt_state[name]):
+                        whole[(name, j)] = self._full(name, x)
+            aux = {n: host(self._full(n, v)) for n, v in self.aux.items()}
+        source = self.mesh.groups(self.data_axis)[0] if self._inproc \
+            else None
+
+        def value(name, v, k, j=None):
             if not self._inproc:
                 return v
             if dims[name] is None:
-                return self._full(name, v)
-            return v.parts[self.mesh.groups(self.data_axis)[0][k]]
+                return whole[name if j is None else (name, j)]
+            return v.parts[source[k]]
 
         def payload(k):
-            if k != me and not self._inproc:
+            if not self._inproc and k != me:
+                return None
+            if self._inproc and \
+                    self.mesh.rank_of[source[k]] != distributed.rank():
                 return None
             out = {"epoch": int(step), "shard": int(k),
                    "world": int(world), "dims": dims,
@@ -1747,14 +1849,14 @@ class SPMDTrainer(object):
                 if dims[name] is not None or k == 0:
                     out["args"][name] = host(value(name, v, k))
                     out["opt"][name] = tuple(
-                        host(value(name, x, k))
-                        for x in self.opt_state[name])
+                        host(value(name, x, k, j))
+                        for j, x in enumerate(self.opt_state[name]))
             if k == 0:
-                out["aux"] = {n: host(self._full(n, v))
-                              for n, v in self.aux.items()}
+                out["aux"] = aux if aux is not None else {
+                    n: host(self._full(n, v)) for n, v in self.aux.items()}
             return pickle.dumps(out, protocol=4)
 
-        if self._inproc:
+        if self._inproc and not self._spans:
             manager.save_sharded(step, self.symbol, payload, world=world,
                                  plan=plan_doc, rank=0)
             return int(step)

@@ -13,15 +13,17 @@ tensors by ``torch.autograd.graph.saved_tensors_hooks``
 (:class:`Regather`): a saved view of a gathered parameter is stored as a
 handle, and its first unpack in the backward gathers the group again.
 
-On a mesh inside one process (``build_mesh`` over a context list) a
-group gathers as ONE bucketed ``collectives.all_gather`` over ``dp`` in
-each position's thread (every member moved to its shard dimension
-first and flattened), whose transpose is ``psum_scatter``: one
-reduce-scatter a group in the backward
-(:meth:`GatherLayout.gather_mesh`).  The backward runs on autograd's
+On a mesh of positions (``build_mesh`` over a context list, or over
+ranks and contexts) a group gathers as ONE bucketed
+``collectives.all_gather`` over ``dp`` in each position's thread
+(every member moved to its shard dimension first and flattened), whose
+transpose is ``psum_scatter``: one reduce-scatter a group in the
+backward (:meth:`GatherLayout.gather_mesh`).  The backward runs on autograd's
 thread, where no position waits at a rendezvous, so :class:`MeshRegather`
-re-gathers a group for every position at once, as one collective over
-the positions' shards (:func:`collectives.all_gather_positions`).
+re-gathers a group for every position of the process at once, as one
+collective over the positions' shards
+(:func:`collectives.all_gather_positions`; one exchange with the other
+ranks where ``dp`` spans ranks).
 
 Group boundaries come from the executor plan's topological order
 (``executor._node_plan``): a parameter belongs to the plan position of
@@ -355,10 +357,11 @@ class MeshRegather(object):
         from . import collectives as C
         lay = self.layouts[gi]
         outs = C.all_gather_positions(
-            [lay.mesh_bucket({nm: s[nm] for nm in lay.names})
+            [None if s is None else
+             lay.mesh_bucket({nm: s[nm] for nm in lay.names})
              for s in self.shards], self.mesh, self.axis)
         self.regathers += 1
-        return [lay.mesh_unbucket(o) for o in outs]
+        return [None if o is None else lay.mesh_unbucket(o) for o in outs]
 
     def _take(self, gi, index, name):
         """Position ``index``'s re-gathered ``name`` of group ``gi`` for

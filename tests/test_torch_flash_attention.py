@@ -26,7 +26,6 @@ import torch
 from mxnet_tpu.kernels import flash_attention as JFA
 from mxnet_tpu.kernels import roofline as jroof
 from mxnet_tpu.parallel import ring_attention as JRA
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import flash_attention as TFA
 from mxnet_tpu_torch.kernels import roofline as troof
 from mxnet_tpu_torch.parallel import ring_attention as TRA
@@ -212,13 +211,8 @@ def test_ring_attention_without_mesh_is_full_attention(monkeypatch):
     jgot = JRA.ring_attention(*_jax(arrays, "float32"), mesh=None,
                               causal=True)
     np.testing.assert_allclose(_np(ref), np.asarray(jgot), **F32)
-    # sp over the process group's ranks raises, naming its item; an
-    # in-process mesh runs the ring (tests/test_torch_ring.py)
-    two = types.SimpleNamespace(shape={"dp": 1, "sp": 2})
-    with pytest.raises(MXNetError, match="across processes"):
-        TRA.ring_attention(q, k, v, mesh=two, causal=True)
-    with pytest.raises(MXNetError, match="across processes"):
-        TRA.ring_attention_sharded(q, k, v, two)
+    # a mesh with sp > 1 runs the ring (in process here; over ranks in
+    # tests/test_torch_rank_mesh.py)
     from mxnet_tpu_torch.context import cpu
     from mxnet_tpu_torch.parallel import build_mesh
     ring = build_mesh({"sp": 2}, [cpu()] * 2)

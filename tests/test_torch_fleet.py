@@ -451,6 +451,45 @@ def test_router_hedged_path_still_absorbs_dead_replica(monkeypatch):
     assert both(scenario) == ([[200, True, None]], {"replica_errors": 0})
 
 
+def test_router_eviction_fails_in_flight_forwards_into_the_resend():
+    """A replica that stops answering (a SIGKILLed daemon still tearing
+    down its CUDA context keeps its sockets open; or a wedged one) holds
+    the forwards in flight to it until the router's request_timeout,
+    as long as a client waits.  The port's heartbeat fails them when it
+    evicts the replica: the keyed resend answers 200 from the other
+    replica within the eviction window (the JAX router waits out the
+    timeout; the fleet drill on the H100 lost a request to it)."""
+    with Fakes(2) as fakes:
+        router = _mk_router(PORT, fakes)
+        router.probe()
+        home = router.route("a")[0]
+        other = 1 - home
+        fakes[home].predict_delay_s = 20.0
+        stop = threading.Event()
+
+        def heartbeat():
+            while not stop.wait(router.heartbeat_s):
+                router.probe()
+        beat = threading.Thread(target=heartbeat, daemon=True)
+        try:
+            tic = time.monotonic()
+            beat.start()
+            # the home stops answering its probes as the predict goes out
+            fakes[home].fail_healthz = 10 ** 6
+            status, data, _ = router.proxy_predict("a", BODY, JSON_CT)
+            took = time.monotonic() - tic
+        finally:
+            stop.set()
+            beat.join(timeout=5)
+        payload = json.loads(data.decode())
+        assert status == 200 and payload.get("retried") is True, payload
+        assert payload["fake"] == fakes[other].port, payload
+        assert took < 5.0, took
+        counters = _counters(router, "retries", "retry_ok", "replica_errors")
+        assert counters == {"retries": 1, "retry_ok": 1,
+                            "replica_errors": 0}, counters
+
+
 def test_router_brownout_sheds_low_priority_and_flooder_first(monkeypatch):
     monkeypatch.setenv("MXTPU_FLEET_BROWNOUT_MS", "100")
 

@@ -15,11 +15,9 @@ import os
 import types
 
 import numpy as np
-import pytest
 import torch
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import flash_attention as TFA
 from mxnet_tpu_torch.models import long_context_lm as tlm
 
@@ -151,14 +149,11 @@ def test_three_steps_match_example(monkeypatch):
 
 
 def test_mesh_with_sp_raises():
-    """sp over the process group's ranks raises, naming the item that
-    brings it; on an in-process mesh the model runs the ring
-    (tests/test_torch_ring.py holds it against the JAX example)."""
+    """On a mesh with sp the model runs the ring (tests/test_torch_ring.py
+    holds it against the JAX example, tests/test_torch_rank_mesh.py runs
+    it over ranks)."""
     params = tlm.params_from_numpy(_numpy_params(), tmx.cpu())
     x, _ = _batches(1)[0]
-    mesh = types.SimpleNamespace(shape={"dp": 1, "sp": 4})
-    with pytest.raises(MXNetError, match="across processes"):
-        tlm.apply_model(params, torch.from_numpy(x), mesh, HEADS, LAYERS)
     ring = tmx.parallel.build_mesh({"sp": 4}, [tmx.cpu()] * 4)
     got = tlm.apply_model(params, torch.from_numpy(x), ring, HEADS, LAYERS)
     ref = tlm.apply_model(params, torch.from_numpy(x), None, HEADS, LAYERS)

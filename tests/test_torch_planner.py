@@ -116,17 +116,17 @@ def test_diff_param_sets_equals_jax():
 
 
 def test_plan_needing_tp_raises_naming_the_next_item():
-    """tp over the process group's ranks raises, naming the item of the
-    model-parallel axes across processes; over a context list (an
-    in-process mesh) the plan equals the JAX package's."""
+    """A plan with tp rules equals the JAX package's, over a context list
+    (an in-process mesh) and over a world of ranks alike (the inventory is
+    ranks x contexts; tests/test_torch_hybrid_mesh.py plans over a real
+    process group)."""
     sym, data, label = _sym(tmx, "mlp")
     rules = {"fc1_weight": ("tp", None)}
-    with pytest.raises(tmx.MXNetError, match="model-parallel axes across"):
-        tplan.plan(sym, data, label, world=4, param_shardings=rules)
-    with pytest.raises(tmx.MXNetError, match="model-parallel axes across"):
-        tmx.parallel.build_mesh({"dp": 1, "tp": 2}, devices=[0, 1])
+    over_ranks = tplan.plan(sym, data, label, world=4,
+                            param_shardings=rules).to_doc()
     got = tplan.plan(sym, data, label, devices=[tmx.cpu()] * 4,
                      param_shardings=rules).to_doc()
+    assert over_ranks == got
     jsym, jdata, jlabel = _sym(jmx, "mlp")
     want = jplan.plan(jsym, jdata, jlabel, world=4,
                       param_shardings=rules).to_doc()

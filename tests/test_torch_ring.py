@@ -18,7 +18,6 @@ import jax
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu.parallel import ring_attention as JRA
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import long_context_lm as tlm
 from mxnet_tpu_torch.parallel import ring_attention as TRA
 
@@ -64,14 +63,6 @@ def test_ring_gradients_match_full_attention():
                                **RING)
     for a, b in zip(g, r):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **RING)
-
-
-def test_ring_over_ranks_raises_naming_the_item():
-    import types
-    q, k, v = (torch.from_numpy(a) for a in _qkv(9))
-    ranks = types.SimpleNamespace(shape={"dp": 1, "sp": 2})
-    with pytest.raises(MXNetError, match="sub-item 9"):
-        TRA.ring_attention(q, k, v, mesh=ranks, causal=True)
 
 
 def _example():

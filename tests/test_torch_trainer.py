@@ -177,20 +177,12 @@ def test_bfloat16_compute_step_matches_jax():
 
 
 def test_later_slice_arguments_raise(monkeypatch):
-    """The model-parallel axes over the process group's ranks raise,
-    naming the item that brings them (an in-process mesh runs them:
-    tests/test_torch_tp.py); without a mesh a tp rule places nothing, as
-    in the JAX package; the data-parallel arguments of the multi-GPU
-    slice are ported (on one device a zero/zero3 trainer and a plan run
-    the plain step)."""
-    import types
+    """Without a mesh a tp rule places nothing, as in the JAX package
+    (the model-parallel axes run on meshes in process and over ranks:
+    tests/test_torch_tp.py, tests/test_torch_hybrid_mesh.py); the
+    data-parallel arguments of the multi-GPU slice are ported (on one
+    device a zero/zero3 trainer and a plan run the plain step)."""
     sym = _symbol(tmx)
-    ranks = types.SimpleNamespace(shape={"dp": 1, "tp": 2})
-    for kw in (dict(mesh=ranks),
-               dict(mesh=types.SimpleNamespace(shape={"dp": 1}),
-                    param_shardings={".*": ("tp",)})):
-        with pytest.raises(tmx.MXNetError, match="not ported yet"):
-            tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(), **kw)
     tr = tmx.parallel.SPMDTrainer(sym, ctx=tmx.cpu(),
                                   param_shardings={".*": ("tp",)})
     assert tr.mesh is None and not tr._inproc
