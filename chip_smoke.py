@@ -9021,9 +9021,16 @@ SV_SWAP_CLIENTS = 8     # concurrency while a new epoch is published
 SV_DRAIN_CLIENTS = 8    # requests in flight at SIGTERM
 SV_SEQ_BUCKETS = (8, 16, 32)
 SV_SEQ_LENS = (5, 16, 29)   # one /predict_seq request at each bucket
-SV_STEP_TIMEOUT = 10    # MXTPU_STEP_TIMEOUT of the watchdog drill
+SV_STEP_TIMEOUT = 5     # MXTPU_STEP_TIMEOUT of the watchdog drill
 SV_WAIT_S = 240         # the longest any one wait of the phase may take
 SERVE_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "serving", "serve_main.py")
+#: the serving daemon's cold warmup (no store), which the fleet's warm
+#: store line reports beside the replicas' warmup from the store
+_SV_COLD = {}
+#: fleet processes started ahead of their phase (the warm store's
+#: builder, the ``--workers 2`` fleet): ``fleet_paths`` and ``main`` stop
+#: any still running when they end
+_BACKGROUND = []
 #: the watchdog drill's child: serve_main.py, with the injected fault
 #: dropped on the supervisor's relaunch (MXTPU_RESUME=1), as a respawn does
 SV_CHILD = """
@@ -9483,11 +9490,14 @@ def phase_sv_daemon(torch, mx, seed, card, tmp, res_dir, symbol, bench):
     check(counts["bn_act_bwd"] == counts["lstm_seq_bwd"] == 0,
           "daemon ran a backward: %s" % counts)
     out.update(counts=counts, batches=dict(batches))
+    cold = re.findall(r"mxserve: warmup_s=([0-9.]+)", text)
+    if cold:
+        _SV_COLD.update(warmup_s=float(cold[0]), what="resnet-50, mlp and "
+                        "lm over buckets %s, no store" % (list(SV_BUCKETS),))
     log("serving daemon: ready in %.1f s (resnet-50 directory, mlp, lm; "
         "warmup over %s: %s s); a quiet request of each image model equals "
         "the unbatched Predictor bit for bit" % (
-            out["ready_s"], list(SV_BUCKETS),
-            re.findall(r"mxserve: warmup_s=([0-9.]+)", text)))
+            out["ready_s"], list(SV_BUCKETS), cold))
     for (model, conc), (qps, p50, p99, shed, errors) in sorted(load.items()):
         log("serving daemon load: %s (%s bodies) concurrency %d: %.2f QPS, "
             "p50 %s ms, p99 %s ms, shed %d, errors %d, on %s" % (
@@ -9606,21 +9616,157 @@ def phase_sv_watchdog(torch, mx, seed, card, sup, paths):
     return counts["bn_act_fwd"], {"restart_s": restart_s}
 
 
+#: the portable archive, called by a process that imports only torch
+#: and numpy (``mxnet_tpu_torch`` and JAX made unimportable), on the card
+#: and on the host, float32 without TF32 as the port computes it:
+#: ``child.py <archive> <inputs.npy> <out prefix>``
+SV_PORTABLE_CHILD = r"""
+import sys, time
+for name in ("mxnet_tpu_torch", "mxnet_tpu", "jax"):
+    sys.modules[name] = None
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+x = torch.from_numpy(np.load(sys.argv[2]))
+for dev in ("cuda:0", "cpu"):
+    t0 = time.perf_counter()
+    m = torch.export.load(sys.argv[1]).module().to(dev)
+    with torch.no_grad():
+        y = m(x.to(dev))[0]
+    np.save("%s-%s.npy" % (sys.argv[3], dev.split(":")[0]), y.cpu().numpy())
+    print("PORTABLE %s %.3f" % (dev, time.perf_counter() - t0), flush=True)
+"""
+
+
+#: ``predict.export_compiled`` of the serving checkpoint's ResNet-50 at
+#: batch 32, traced on the host: ``export.py <ckpt dir> <archive>``
+SV_PORTABLE_EXPORT = r"""
+import sys, time
+sys.path.insert(0, %(root)r)
+import mxnet_tpu_torch as mx
+symbol, args, aux, _states, _epoch = mx.resilience.CheckpointManager(
+    sys.argv[1]).restore()
+t0 = time.perf_counter()
+mx.predict.export_compiled(symbol, args, aux, {"data": %(shape)r},
+                           fname=sys.argv[2])
+print("EXPORT %%.3f" %% (time.perf_counter() - t0), flush=True)
+"""
+
+
+def start_sv_portable(seed, tmp, res_dir):
+    """In the background, beside the pool and the daemon: a process
+    exports the serving checkpoint with ``export_compiled``, then the
+    torch-only child runs the archive.  Returns what
+    :func:`phase_sv_portable` reads."""
+    import threading
+    import numpy as np
+    job = {"path": os.path.join(tmp, "resnet50-b%d.pt2" % BATCH),
+           "x": np.random.RandomState(seed + 95).standard_normal(
+               (BATCH,) + IMAGE).astype(np.float32),
+           "log": os.path.join(tmp, "portable.log"), "procs": [],
+           "rcs": []}
+    np.save(os.path.join(tmp, "portable-x.npy"), job["x"])
+    scripts = {}
+    for name, text in (("export", SV_PORTABLE_EXPORT % {
+            "root": ROOT, "shape": (BATCH,) + IMAGE}),
+            ("child", SV_PORTABLE_CHILD)):
+        scripts[name] = os.path.join(tmp, "portable_%s.py" % name)
+        with open(scripts[name], "w") as f:
+            f.write(text)
+    cmds = [[sys.executable, scripts["export"], res_dir, job["path"]],
+            [sys.executable, scripts["child"], job["path"],
+             os.path.join(tmp, "portable-x.npy"),
+             os.path.join(tmp, "portable-y")]]
+
+    def work():
+        with open(job["log"], "w") as f:
+            for cmd in cmds:
+                proc = subprocess.Popen(cmd, cwd=tmp, env=_sv_env(), stdout=f,
+                                        stderr=subprocess.STDOUT,
+                                        start_new_session=True)
+                job["procs"].append(proc)
+                job["rcs"].append(proc.wait())
+                if job["rcs"][-1] != 0:
+                    return
+
+    job["t0"] = time.perf_counter()
+    job["thread"] = threading.Thread(target=work, name="sv-portable")
+    job["thread"].start()
+    return job
+
+
+def phase_sv_portable(torch, mx, seed, card, tmp, symbol, args, aux, job):
+    """The portable archive against the smoke's ``Predictor`` on the card:
+    loaded here by ``load_compiled`` on ``cuda:0``, and by the torch-only
+    child on ``cuda:0`` and on the host, each within 1e-3 x max."""
+    import numpy as np
+    ba = mx.kernels.bn_act
+    x = job["x"]
+    job["thread"].join(SV_WAIT_S)
+    child_s = time.perf_counter() - job["t0"]
+    with open(job["log"]) as f:
+        text = f.read()
+    if job["rcs"] != [0, 0]:
+        log(text[-4000:])
+    check(job["rcs"] == [0, 0], "the portable export and its torch-only "
+          "child exited %s" % job["rcs"])
+    pred = mx.predict.Predictor(symbol, _with_prefixes(args, aux),
+                                {"data": x.shape}, ctx=mx.gpu(0))
+    ref = pred.forward(data=x).get_output(0)
+    del pred
+    bound = 1e-3 * float(np.abs(ref).max())
+    t0 = time.perf_counter()
+    fn = mx.predict.load_compiled(job["path"])
+    before = ba.LAUNCHES
+    y = fn(torch.from_numpy(x).to("cuda:0"))[0]
+    torch.cuda.synchronize()
+    here_s = time.perf_counter() - t0
+    check(y.is_cuda and ba.LAUNCHES == before, "the portable program ran "
+          "on %s with %d bn_act launches (its graph holds aten ops only)"
+          % (y.device, ba.LAUNCHES - before))
+    diffs = {"load_compiled cuda:0": float(np.abs(y.cpu().numpy()
+                                                  - ref).max())}
+    del fn, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in ("cuda", "cpu"):
+        got = np.load(os.path.join(tmp, "portable-y-%s.npy" % dev))
+        check(got.shape == ref.shape, "child %s output %s" % (dev, got.shape))
+        diffs["child " + dev] = float(np.abs(got - ref).max())
+    check(all(d <= bound for d in diffs.values()), "the portable archive "
+          "against the card's Predictor: max |diff| %s, bound %.3g"
+          % (diffs, bound))
+    log("serving portable: export_compiled of resnet-50 at batch %d (traced "
+        "on the host, a process of its own) %s s, %d bytes; load_compiled "
+        "+ a forward on cuda:0 %.2f s; the torch-only child "
+        "(mxnet_tpu_torch unimportable) %s; both processes %.1f s in all "
+        "beside the pool and the daemon; max |diff| against the card's "
+        "Predictor %s (bound 1e-3 x %.3g); on %s" % (
+            BATCH, " ".join(ln.split()[1] for ln in text.splitlines()
+                            if ln.startswith("EXPORT")),
+            os.path.getsize(job["path"]), here_s,
+            " ".join(ln for ln in text.splitlines()
+                     if ln.startswith("PORTABLE")), child_s,
+            json.dumps(diffs), bound / 1e-3, card))
+
+
 def serving_paths(torch, mx, seed, card):
-    """The serving slice on the card: the pool in process, then the
-    daemon (load, sequences, hot swap, drain) and the watchdog drill as
-    child processes.  Returns the serving launches of rows 1 and 3."""
+    """The serving slice on the card: the pool in process, the portable
+    archive, then the daemon (load, sequences, hot swap, drain) and the
+    watchdog drill as child processes.  Returns the serving launches of
+    rows 1 and 3."""
     build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="serving-", dir=build_dir)
-    sup = None
+    sup = portable = None
     try:
         bench = load_example("bench.py", "port_bench")
         with mx.name.NameManager():
             symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
                                           image_shape=IMAGE)
         res_dir = os.path.join(tmp, "resnet")
-        _sv_save_resnet(mx, symbol, seed, res_dir, 1)
+        args, aux = _sv_save_resnet(mx, symbol, seed, res_dir, 1)
+        portable = start_sv_portable(seed, tmp, res_dir)
         pool_fwd, _ = phase_sv_pool(torch, mx, seed, card, res_dir, symbol)
         gc.collect()
         torch.cuda.empty_cache()
@@ -9628,9 +9774,15 @@ def serving_paths(torch, mx, seed, card):
         counts, _ = phase_sv_daemon(torch, mx, seed, card, tmp, res_dir,
                                     symbol, bench)
         drill_fwd, _ = phase_sv_watchdog(torch, mx, seed, card, sup, paths)
+        phase_sv_portable(torch, mx, seed, card, tmp, symbol, args, aux,
+                          portable)
     finally:
         if sup is not None:
             _sv_stop(sup)
+        if portable is not None:
+            for proc in portable["procs"]:
+                _sv_stop(proc)
+            portable["thread"].join(SV_WAIT_S)
         shutil.rmtree(tmp, ignore_errors=True)
     return collections.Counter({
         "bn_act_fwd": pool_fwd + counts["bn_act_fwd"] + drill_fwd,
@@ -9653,30 +9805,50 @@ FL_ENV = {"MXTPU_FLEET_HEARTBEAT_S": "0.3", "MXTPU_FLEET_EVICT_S": "1.2",
 FLEET_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "fleet", "fleet_main.py")
 
 
-def _fl_start(tmp, name, res_dir, mlp, workers=1, watch=True, **env):
+def _fl_model_flags(res_dir, mlp):
+    """The manifest's flags: ResNet-50 (a checkpoint directory) and the
+    MLP on card 0 at ``FL_BUCKETS``."""
+    prefix, epoch, sample = mlp
+    return ["--device-sets", FL_DEVICE_SETS,
+            "--buckets", ",".join(map(str, FL_BUCKETS)),
+            "--model", "resnet=%s" % res_dir,
+            "--model", "mlp=%s:%d" % (prefix, epoch),
+            "--input-shape", "resnet:data=%s" % ",".join(map(str, IMAGE)),
+            "--input-shape", "mlp:data=%s" % ",".join(map(str, sample))]
+
+
+def _fl_start(tmp, name, res_dir, mlp, workers=1, watch=True,
+              warm_store=None, wait=True, **env):
     """``fleet_main.py serve`` with two replicas on card 0 serving the
-    ResNet-50 directory and the MLP; returns (process, public port,
-    seconds from spawn to the port file, run directory, log path)."""
+    ResNet-50 directory and the MLP, warmed from ``warm_store`` when
+    given; returns (process, public port, seconds from spawn to the port
+    file, run directory, log path), or with ``wait=False`` what
+    :func:`_fl_wait` takes."""
     run_dir = os.path.join(tmp, name)
     port_file = os.path.join(tmp, name + ".port")
     log_path = os.path.join(tmp, name + ".log")
-    prefix, epoch, sample = mlp
-    cmd = [sys.executable, FLEET_MAIN, "serve", "--replicas", "2",
-           "--device-sets", FL_DEVICE_SETS,
-           "--buckets", ",".join(map(str, FL_BUCKETS)),
-           "--model", "resnet=%s" % res_dir,
-           "--model", "mlp=%s:%d" % (prefix, epoch),
-           "--input-shape", "resnet:data=%s" % ",".join(map(str, IMAGE)),
-           "--input-shape", "mlp:data=%s" % ",".join(map(str, sample)),
-           "--workers", str(workers), "--run-dir", run_dir, "--port", "0",
-           "--port-file", port_file]
+    cmd = [sys.executable, FLEET_MAIN, "serve", "--replicas", "2"] + \
+        _fl_model_flags(res_dir, mlp) + [
+            "--workers", str(workers), "--run-dir", run_dir, "--port", "0",
+            "--port-file", port_file]
     if watch:
         cmd.append("--watch")
+    if warm_store:
+        cmd += ["--warm-store", warm_store]
     t0 = time.perf_counter()
     with open(log_path, "w") as f:
         proc = subprocess.Popen(cmd, env=_sv_env(**dict(FL_ENV, **env)),
                                 stdout=f, stderr=subprocess.STDOUT,
                                 start_new_session=True)
+    spawned = (proc, t0, run_dir, log_path, port_file)
+    return _fl_wait(spawned) if wait else spawned
+
+
+def _fl_wait(spawned):
+    """Wait for a fleet started by :func:`_fl_spawn` (or inside
+    :func:`_fl_start`) to write its port file: the returns of
+    :func:`_fl_start`."""
+    proc, t0, run_dir, log_path, port_file = spawned
     try:
         port = _sv_wait_port(port_file, proc, log_path)
     except SmokeFailure:
@@ -9904,16 +10076,17 @@ def _fl_bursts(mx, port, x, refs):
 
 def _fl_launch_check(text, extra_batches, swaps, what):
     """The drained replica's launch line against its ResNet-50 forwards:
-    3 warmup buckets + its batches (less ``extra_batches`` of the MLP) +
-    a staged validation and a probe per swap.  Returns its bn_act
-    launches."""
+    the warmup's (one validation call of the smallest bucket's loaded
+    program, the replicas warm from the store) + its batches (less
+    ``extra_batches`` of the MLP) + a staged validation and a probe per
+    swap.  Returns its bn_act launches."""
     counts = _sv_line(text, "launches")
     batches = _sv_line(text, "stats")["batches"] - extra_batches
-    fwd = len(FL_BUCKETS) + batches + 2 * swaps
+    fwd = 1 + batches + 2 * swaps
     check(counts["bn_act_fwd"] == 17 * fwd, "%s: %d bn_act launches, "
-          "expected 17 x %d ResNet-50 forwards (%d warmup, %d batches, %d "
-          "swaps)" % (what, counts["bn_act_fwd"], fwd, len(FL_BUCKETS),
-                      batches, swaps))
+          "expected 17 x %d ResNet-50 forwards (1 validation of the loaded "
+          "programs, %d batches, %d swaps)" % (
+              what, counts["bn_act_fwd"], fwd, batches, swaps))
     check(counts["bn_act_bwd"] == 0, "%s ran a backward: %s" % (what,
                                                                 counts))
     return counts["bn_act_fwd"], batches
@@ -9925,24 +10098,131 @@ def _fl_stop(proc):
         proc.wait()
 
 
-def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
-    """The fleet's main path on the card: bring-up, parity, route
-    overhead, scale-out at concurrency 32, the SIGKILL drill, the
-    ``dup_request`` collapse, the rolling swap under traffic and the
-    drain.  Returns the drained replicas' bn_act launches and the
-    numbers."""
+def _fl_start_build(tmp, res_dir, mlp):
+    """``fleet_main.py warmup``: the warm store's builder (one daemon run
+    exporting every (model, bucket) program under replica 0's device
+    env), started in the background; returns (process, store, start
+    time in the host's Unix seconds, stdout path, log path)."""
+    store = os.path.join(tmp, "store")
+    out_path = os.path.join(tmp, "warm-build.json")
+    log_path = os.path.join(tmp, "warm-build.log")
+    cmd = [sys.executable, FLEET_MAIN, "warmup"] + \
+        _fl_model_flags(res_dir, mlp) + ["--warm-store", store]
+    t0 = time.time()
+    with open(out_path, "w") as out_f, open(log_path, "w") as log_f:
+        proc = subprocess.Popen(cmd, env=_sv_env(), stdout=out_f,
+                                stderr=log_f, start_new_session=True)
+    return proc, store, t0, out_path, log_path
+
+
+def _fl_finish_build(build, param_bytes):
+    """Wait for the builder; check its store (a weight-free ``.exec`` a
+    (model, bucket), each under a tenth of its model's parameter bytes)
+    and return the numbers."""
+    proc, store, t0, out_path, log_path = build
+    try:
+        rc = proc.wait(timeout=SV_WAIT_S)
+    finally:
+        _fl_stop(proc)
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        log(text[-4000:])
+    check(rc == 0, "fleet_main.py warmup exited %s" % rc)
+    with open(out_path) as f:
+        marker = json.load(f)
+    aot_dir = os.path.join(store, "aot")
+    sizes = {}
+    for model, nbytes in sorted(param_bytes.items()):
+        sizes[model] = {}
+        for b in FL_BUCKETS:
+            path = os.path.join(aot_dir, "%s-b%d.exec" % (model, b))
+            check(os.path.exists(path), "the warm store lacks %s" % path)
+            sizes[model][b] = os.path.getsize(path)
+            check(sizes[model][b] < 0.1 * nbytes, "%s: %d bytes, not under "
+                  "a tenth of the model's %d parameter bytes" % (
+                      path, sizes[model][b], nbytes))
+    # the builder's wall time: from its spawn to its marker's write
+    return {"store": store, "builder_s": marker["built_unix"] - t0,
+            "builder_warmup_s": marker["warmup_s"], "exec_bytes": sizes,
+            "param_bytes": param_bytes}
+
+
+def _fl_param_bytes(mx, params):
+    return sum(int(v._data.numel()) * v._data.element_size()
+               for d in params for v in d.values())
+
+
+def _fl_warm_check(text, runs, what):
+    """A replica log's daemon runs each warmed both models from the
+    store, every bucket (no executor warmup); returns their warmup_s."""
+    n = len(FL_BUCKETS)
+    for model in ("resnet", "mlp"):
+        got = text.count("mxserve: warmed %r from the AOT store (%d/%d "
+                         "buckets)" % (model, n, n))
+        check(got == runs, "%s: %d of %d runs warmed %r from the store"
+              % (what, got, runs, model))
+        check("mxserve: warmed %r over buckets" % model not in text,
+              "%s fell back from the store to the bucket warmup of %r"
+              % (what, model))
+    warm = [float(v) for v in re.findall(r"mxserve: warmup_s=([0-9.]+)",
+                                         text)]
+    check(len(warm) == runs, "%s: %d warmup_s lines for %d runs"
+          % (what, len(warm), runs))
+    return warm
+
+
+def fleet_prepare(torch, mx, seed):
+    """The fleet's inputs (ResNet-50 published as epoch 1 of a
+    checkpoint directory, bench.py's MLP) and the warm store's builder,
+    started in the background: ``main`` calls this before
+    ``serving_paths`` so that the build overlaps that path's waits."""
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet-", dir=build_dir)
+    bench = load_example("bench.py", "port_bench")
+    with mx.name.NameManager():
+        symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
+                                      image_shape=IMAGE)
+    os.makedirs(os.path.join(tmp, "bench"))
+    mlp = bench._save_serving_models(os.path.join(tmp, "bench"))["mlp"]
+    res_dir = os.path.join(tmp, "resnet")
+    args1, aux1 = _sv_save_resnet(mx, symbol, seed + 100, res_dir, 1)
+    build = _fl_start_build(tmp, res_dir, mlp)
+    _BACKGROUND.append(build[0])
+    return {"tmp": tmp, "bench": bench, "symbol": symbol, "mlp": mlp,
+            "res_dir": res_dir, "args1": args1, "aux1": aux1,
+            "build": build}
+
+
+def phase_fl_fleet(torch, mx, seed, prep):
+    """The fleet's main path on the card: bring-up from the warm store,
+    parity, route overhead, scale-out at concurrency 32, the SIGKILL
+    drill, the ``dup_request`` collapse, the rolling swap under traffic
+    and the drain.  When the router's CPU bounds it at concurrency 32,
+    the ``--workers 2`` fleet is started before the drills, so that its
+    bring-up overlaps them.  Returns the drained replicas' bn_act
+    launches and the numbers."""
     import threading
     import numpy as np
-    args1, aux1 = _sv_save_resnet(mx, symbol, seed + 100, res_dir, 1)
+    tmp, bench, symbol, mlp, res_dir = (prep[k] for k in (
+        "tmp", "bench", "symbol", "mlp", "res_dir"))
+    args1, aux1 = prep["args1"], prep["aux1"]
     rs = np.random.RandomState(seed + 101)
     xq = rs.standard_normal(IMAGE).astype(np.float32)
     refs = _fl_refs(torch, mx, symbol, args1, aux1, xq)
-    out = {"buckets_distinct": len({r.tobytes() for r in refs.values()})}
+    out = {"buckets_distinct": len({r.tobytes() for r in refs.values()}),
+           "w2": None}
+    _m, margs0, maux0 = mx.model.load_checkpoint(mlp[0], mlp[1])
+    out["warm"] = _fl_finish_build(prep["build"], {
+        "resnet": _fl_param_bytes(mx, (args1, aux1)),
+        "mlp": _fl_param_bytes(mx, (margs0, maux0))})
     gc.collect()
     torch.cuda.empty_cache()
     mem = out["card_mib"] = {"smoke_alone": _fl_card_mib()}
     proc, port, out["ready_s"], run_dir, log_path = _fl_start(
-        tmp, "fleet", res_dir, mlp, MXTPU_FAULTS="dup_request:1")
+        tmp, "fleet", res_dir, mlp, warm_store=out["warm"]["store"],
+        MXTPU_FAULTS="dup_request:1")
     try:
         stats = _fl_get(mx, port)
         pids = [stats["replicas"][str(r)]["pid"] for r in (0, 1)]
@@ -10017,6 +10297,12 @@ def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
         out["c32_direct"] = _fl_load(mx, bench, home_port, 32, FL_C32_S,
                                      groups, run_dir)
         mem["loaded"] = _fl_card_mib()
+        cpu = out["c32_router"][1]
+        if cpu["front"] / cpu["wall"] >= FL_ROUTER_BOUND:
+            out["w2"] = _fl_start(tmp, "fleet-w2", res_dir, mlp, workers=2,
+                                  watch=False, warm_store=out["warm"]["store"],
+                                  wait=False)
+            _BACKGROUND.append(out["w2"][0])
         # -- SIGKILL the ResNet-50 home under 8 clients ----------------
         victim = pids[home]
         stop, rows = threading.Event(), []
@@ -10130,12 +10416,16 @@ def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
         log(text[-4000:])
     check(rc == 0 and "replica exit codes {0: 0, 1: 0}" in text,
           "the fleet exited %d after SIGTERM: %s" % (rc, text[-600:]))
-    launches, out["drained_batches"] = 0, []
+    launches, out["drained_batches"], out["warm"]["replica_warmup_s"] = \
+        0, [], []
     for r in (0, 1):
         with open(os.path.join(run_dir, "replica-%d.log" % r)) as f:
             rtext = f.read()
         check(rtext.count("mxserve: drained") == 1, "replica %d: %d drained "
               "runs" % (r, rtext.count("mxserve: drained")))
+        # the SIGKILLed home's respawn warmed from the store as well
+        out["warm"]["replica_warmup_s"].append(_fl_warm_check(
+            rtext, 2 if r == home else 1, "replica %d" % r))
         n, batches = _fl_launch_check(
             rtext, mlp_batches[r] if r != home else 0, 1,
             "replica %d (%s run)" % (r, "respawned" if r == home else "first"))
@@ -10145,12 +10435,12 @@ def phase_fl_fleet(torch, mx, seed, tmp, bench, symbol, res_dir, mlp):
     return launches, out
 
 
-def phase_fl_workers(mx, tmp, bench, res_dir, mlp):
+def phase_fl_workers(mx, bench, spawned):
     """The same fleet with two router workers on the public port
-    (``--workers 2``): concurrency 32 and the front end's CPU, then the
-    drain.  Returns the replicas' bn_act launches and the numbers."""
-    proc, port, ready_s, run_dir, log_path = _fl_start(
-        tmp, "fleet-w2", res_dir, mlp, workers=2, watch=False)
+    (``--workers 2``, started by :func:`phase_fl_fleet`): concurrency 32
+    and the front end's CPU, then the drain.  Returns the replicas'
+    bn_act launches and the numbers."""
+    proc, port, ready_s, run_dir, log_path = _fl_wait(spawned)
     out = {"ready_s": ready_s}
     try:
         stats = _fl_get(mx, port)
@@ -10174,36 +10464,32 @@ def phase_fl_workers(mx, tmp, bench, res_dir, mlp):
     launches = 0
     for r in (0, 1):
         with open(os.path.join(run_dir, "replica-%d.log" % r)) as f:
-            launches += _fl_launch_check(f.read(), 0, 0,
-                                         "sharded replica %d" % r)[0]
+            rtext = f.read()
+        _fl_warm_check(rtext, 1, "sharded replica %d" % r)
+        launches += _fl_launch_check(rtext, 0, 0,
+                                     "sharded replica %d" % r)[0]
     return launches, out
 
 
-def fleet_paths(torch, mx, seed, card):
-    """The fleet slice on the card: ``fleet_main.py serve --device-sets
-    cuda:0 --replicas 2`` (two daemons co-tenant on the one H100 behind the
-    router), and, when the router's CPU bounds it, the same load through
-    ``--workers 2``.  Returns the replicas' bn_act launches (row 1)."""
-    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="fleet-", dir=build_dir)
+def fleet_paths(torch, mx, seed, card, prepared=None):
+    """The fleet slice on the card: ``fleet_main.py warmup`` builds the
+    warm store (:func:`fleet_prepare`, unless ``main`` started it
+    already), ``fleet_main.py serve --device-sets cuda:0 --replicas 2``
+    (two daemons co-tenant on the one H100 behind the router, warmed from
+    the store), and, when the router's CPU bounds it, the same load
+    through ``--workers 2``.  Returns the replicas' bn_act launches (row
+    1)."""
+    prep = prepared or fleet_prepare(torch, mx, seed)
     try:
-        bench = load_example("bench.py", "port_bench")
-        with mx.name.NameManager():
-            symbol = mx.models.get_symbol("resnet-50", num_classes=1000,
-                                          image_shape=IMAGE)
-        os.makedirs(os.path.join(tmp, "bench"))
-        mlp = bench._save_serving_models(os.path.join(tmp, "bench"))["mlp"]
-        res_dir = os.path.join(tmp, "resnet")
-        launches, out = phase_fl_fleet(torch, mx, seed, tmp, bench, symbol,
-                                       res_dir, mlp)
-        cpu = out["c32_router"][1]
+        launches, out = phase_fl_fleet(torch, mx, seed, prep)
         sharded = None
-        if cpu["front"] / cpu["wall"] >= FL_ROUTER_BOUND:
-            n, sharded = phase_fl_workers(mx, tmp, bench, res_dir, mlp)
+        if out["w2"] is not None:
+            n, sharded = phase_fl_workers(mx, prep["bench"], out["w2"])
             launches += n
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for proc in _BACKGROUND:
+            _fl_stop(proc)
+        shutil.rmtree(prep["tmp"], ignore_errors=True)
     _fl_report(out, sharded, card)
     return collections.Counter({"bn_act_fwd": launches})
 
@@ -10257,10 +10543,23 @@ def _fl_report(out, sharded, card):
         "all 200; both replicas equal a fresh Predictor on epoch 2; %s" % (
             FL_SWAP_CLIENTS, out["rollout_s"], out["fenced_seen"],
             out["swap_requests"], json.dumps(out["rollout"])))
+    warm = out["warm"]
+    log("fleet warm store: cold warmup_s %s (serving_paths' daemon: %s); "
+        "the builder's warmup_s %.3f (fleet_main.py warmup %.1f s of wall, "
+        "beside serving_paths); the replicas' warmup_s from the "
+        "store %s (replica 0, replica 1; the SIGKILLed home's respawn "
+        "included); .exec bytes by bucket %s against parameter bytes %s; "
+        "on %s" % (
+            _SV_COLD.get("warmup_s"), _SV_COLD.get("what"),
+            warm["builder_warmup_s"], warm["builder_s"],
+            json.dumps(warm["replica_warmup_s"]),
+            json.dumps(warm["exec_bytes"]), json.dumps(warm["param_bytes"]),
+            card))
     log("fleet drain: SIGTERM -> exit 0 in %.2f s (replicas draining at %s "
         "s, gone at %s s), replicas 0 and 0; bn_act %d over the drained "
-        "runs' %s ResNet-50 batches (17 a forward: 3 warmup, the batches, a "
-        "staged validation and a probe a swap)" % (
+        "runs' %s ResNet-50 batches (17 a forward: 1 validation of the "
+        "loaded programs, the batches, a staged validation and a probe a "
+        "swap)" % (
             out["drain_s"], out["replica_draining_s"], out["replica_exit_s"],
             out["launches"], out["drained_batches"]))
 
@@ -11126,7 +11425,9 @@ DMP_CASES = (("a_tp_ranks", {"dp": 1, "tp": 2}, [0, 1], "allreduce",
               "zero3", True),
              ("c_jax_layout", {"dp": 2, "tp": 2}, [0, 0, 1, 1], "allreduce",
               False))
-DMP_STEPS = 2
+#: ResNet-50 steps a trainer (the gates read the first update); the LM's
+DMP_STEPS = 1
+DMP_LM_STEPS = 2
 #: (d) the LM's dp 2 x sp 4 with every sp ring over both ranks, (e) the
 #: pipeline's pp 4 and MoE's ep 8, positions alternating between ranks
 DMP_LM_OWNERS = [0, 1] * 4
@@ -11312,7 +11613,7 @@ def _dist_mp(torch, mx, seed, rank, world, init):
         t0 = time.perf_counter()
         distributed.reset_stats()
         lm = _mp_lm(torch, mx, seed, card, mesh=_dmp_mesh(
-            mx, MP_LM_MESH, DMP_LM_OWNERS), steps=DMP_STEPS,
+            mx, MP_LM_MESH, DMP_LM_OWNERS), steps=DMP_LM_STEPS,
             tag="dist mp rank %d" % rank)
         lm["exchanges"] = _dmp_stats(distributed)
         lm_s = time.perf_counter() - t0
@@ -11447,14 +11748,15 @@ def _dist_mp_report(recs, card):
             bwd += sum(t["bwd"])
             e = t["exchanges"]
             log("dist mp %s rank %d (%d positions, forms %s%s): %s ms a "
-                "step (first %.1f), bn_act %d + %d a step, collectives "
+                "step after the first (first %.1f), bn_act %d + %d a step, "
+                "collectives "
                 "across the ranks a step (each cross-rank exchange an "
                 "all_gather) %s; a position's params + momentum %.4f of "
                 "the whole; peak %.2f GiB; %s" % (
                     name, r, t["local"], ",".join(t["forms"]),
                     ", zero3 %s" % t["tier"] if t["tier"] else "",
-                    " ".join("%.1f" % v for v in t["ms"]), t["first_ms"],
-                    t["fwd"][-1], t["bwd"][-1], "; ".join(
+                    " ".join("%.1f" % v for v in t["ms"]) or "no step",
+                    t["first_ms"], t["fwd"][-1], t["bwd"][-1], "; ".join(
                         "%s %d, %.1f MB, %.3f s of host time, transport %s"
                         % (k, v["count"], v["bytes"] / 1e6, v["seconds"],
                            v["transport"]) for k, v in sorted(e.items())),
@@ -12671,21 +12973,36 @@ def main(argv=None):
     extra, rows = timed("finetune_paths", finetune_paths, torch, mx, rtc,
                         seed, card)
     kernels += rows
-    for name, path in (("nd_paths", nd_paths),
-                       ("bucketing_paths", bucketing_paths),
-                       ("zoo_paths", zoo_paths),
-                       ("extension_paths", extension_paths),
-                       ("input_paths", input_paths),
-                       ("data_service_paths", data_service_paths),
-                       ("detection_paths", detection_paths),
-                       ("resilience_paths", resilience_paths),
-                       ("serving_paths", serving_paths),
-                       ("fleet_paths", fleet_paths),
-                       ("tools_paths", tools_paths),
-                       ("dist_paths", dist_paths),
-                       ("model_parallel_paths", model_parallel_paths),
-                       ("region_paths", region_paths)):
-        extra += timed(name, path, torch, mx, seed, card)
+    prepared = {}
+
+    def fleet_after_serving(torch, mx, seed, card):
+        return fleet_paths(torch, mx, seed, card, prepared=prepared["fleet"])
+
+    try:
+        for name, path in (("nd_paths", nd_paths),
+                           ("bucketing_paths", bucketing_paths),
+                           ("zoo_paths", zoo_paths),
+                           ("extension_paths", extension_paths),
+                           ("input_paths", input_paths),
+                           ("data_service_paths", data_service_paths),
+                           ("detection_paths", detection_paths),
+                           ("resilience_paths", resilience_paths),
+                           ("fleet_prepare", None),
+                           ("serving_paths", serving_paths),
+                           ("fleet_paths", fleet_after_serving),
+                           ("tools_paths", tools_paths),
+                           ("dist_paths", dist_paths),
+                           ("model_parallel_paths", model_parallel_paths),
+                           ("region_paths", region_paths)):
+            if path is None:
+                # the fleet's warm store builds beside serving_paths
+                prepared["fleet"] = timed(name, fleet_prepare, torch, mx,
+                                          seed)
+                continue
+            extra += timed(name, path, torch, mx, seed, card)
+    finally:
+        for proc in _BACKGROUND:
+            _sv_stop(proc)
     times["total"] = round(sum(times.values()), 1)
     log(json.dumps({"path_seconds": times}))
     for row in kernels:

@@ -25,8 +25,9 @@ over several:
   dedup + bucket bit-stability make it safe), hedging, brownout, the
   ``dup_request`` fault point, SIGTERM drain that fences new work then
   drains every replica, and fleet-level p50/p99/shed on ``/stats``.
-- :mod:`.warm` — the AOT warm store's marker; building one raises in
-  the port (no compiled forward to store yet).
+- :mod:`.warm` — the AOT warm store: one ``--warmup-only
+  --export-aot`` daemon run exports every (model, bucket) program, and
+  every replica (respawns included) warms from it.
 - :mod:`.view` — the shared fleet view that shards the front end: ONE
   controller-side prober publishes manifest + health + the fenced set
   into an atomic JSON snapshot with a generation counter; N

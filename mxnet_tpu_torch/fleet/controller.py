@@ -26,8 +26,8 @@ Each replica writes its port file and its log under the run directory
 (``replica-<i>.port``, ``replica-<i>.log``); a respawn appends to the
 same log, so the daemon's drain lines (``mxserve: launches {...}``)
 of every drained run are there.  ``warm_store`` is exported to every
-replica as ``MXTPU_COMPILE_CACHE``; the port's daemons cannot load a
-compiled forward from it yet and warm each bucket's executor instead.
+replica as ``MXTPU_COMPILE_CACHE``, so each daemon's ``--warmup`` (a
+respawn's too) loads its bucket programs from the store.
 Host cores are partitioned only among ``cpu`` replicas.
 """
 from __future__ import annotations

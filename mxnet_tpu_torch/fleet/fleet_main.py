@@ -31,11 +31,12 @@ each checkpoint-directory model across the replicas one at a time
 (``fleet/deploy.py``).  The ``router-worker`` subcommand is the worker
 binary (spawned by ``serve``, not run by hand).
 
-The warm store: the port has no compiled forward to store yet, so
-``warmup`` and ``serve --warm-store <unbuilt store>`` exit 1 with the
-reason before any replica is spawned; a store the JAX package built is
-passed on as every replica's ``MXTPU_COMPILE_CACHE`` (the daemons take
-their fallback and warm each bucket).
+The warm store: ``warmup --warm-store DIR`` builds it (one daemon run
+that exports every (model, bucket) program, ``fleet/warm.py``), and
+``serve --warm-store DIR`` builds it when it is absent, then passes it
+to every replica as ``MXTPU_COMPILE_CACHE``: each replica, respawns
+included, warms from the stored programs.  A failed build exits 1 with
+the daemon's stderr tail before any replica is spawned.
 
 Exits: ``serve`` runs until SIGTERM/SIGINT, which fences new work on the
 public port, drains the router's in-flight forwards, forwards the drain
@@ -118,8 +119,8 @@ def _add_manifest_flags(p):
                         "(replica i -> card set i mod the set count)")
     p.add_argument("--warm-store", default=None,
                    help="AOT warm store directory (MXTPU_COMPILE_CACHE "
-                        "for every replica); the port cannot build one "
-                        "yet, so an unbuilt store is an error")
+                        "for every replica; `serve` builds it when "
+                        "missing)")
 
 
 def _log(msg):
@@ -345,8 +346,7 @@ def main(argv=None):
                     "(the JAX package's tools/fleet.py)")
     sub = parser.add_subparsers(dest="cmd")
 
-    p_warm = sub.add_parser("warmup", help="build the AOT warm store "
-                            "(not possible in the port yet: exits 1)")
+    p_warm = sub.add_parser("warmup", help="build the AOT warm store")
     _add_manifest_flags(p_warm)
     p_warm.add_argument("--force", action="store_true",
                         help="rebuild even if the store marker exists")

@@ -35,6 +35,7 @@ kernel's own tiles do not depend on it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import logging
@@ -48,7 +49,8 @@ from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
            "load_library", "library_path", "BUILD_SECONDS", "ENV_FLASH_BLOCK",
-           "LAUNCH_HOOKS", "note_launch",
+           "LAUNCH_HOOKS", "note_launch", "portable_trace", "portable",
+           "refuse_export",
            "bn_act", "lstm_cell", "flash_attention", "roofline",
            "concat_fuse", "pool_act", "eltwise_chain", "augment"]
 
@@ -122,6 +124,39 @@ def note_launch(kernel, *tensors):
     req = any(getattr(t, "requires_grad", False) for t in tensors)
     for hook in list(LAUNCH_HOOKS):
         hook(kernel, grad, req)
+
+
+_PORTABLE = threading.local()
+
+
+@contextlib.contextmanager
+def portable_trace():
+    """Scope in which every kernel wrapper takes its plain version, on
+    any device: ``predict.export_compiled`` traces inside it, so the
+    portable program holds only aten ops and loads in a process that
+    imports torch alone.  Serving never enters it."""
+    prev = getattr(_PORTABLE, "on", False)
+    _PORTABLE.on = True
+    try:
+        yield
+    finally:
+        _PORTABLE.on = prev
+
+
+def portable():
+    """Whether this thread is inside :func:`portable_trace`."""
+    return getattr(_PORTABLE, "on", False)
+
+
+def refuse_export(kernel):
+    """Raise when a kernel without a registered op is reached by
+    ``torch.export`` outside :func:`portable_trace`: its ctypes launch
+    cannot be traced into a stored program."""
+    import torch
+    if torch.compiler.is_exporting():
+        raise MXNetError(
+            "the %s kernel is not a registered op: a program that launches "
+            "it cannot be exported to the AOT store" % kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ and returns:
   plain torch (as in the JAX package, :191-204, cast to the data's
   dtype); the elementwise pass ``act(x * scale + shift)`` is
   :class:`NormAct`, a ``torch.autograd.Function`` (the JAX package's
-  ``custom_vjp``, :151-161).  Its forward is :func:`norm_act`, its
-  backward :func:`norm_act_bwd`.  On a CUDA tensor both are the
+  ``custom_vjp``, :151-161).  Its forward is :func:`norm_act`, which
+  calls the registered op ``torch.ops.mxt.bn_act_fwd`` (so an exported
+  program holds the kernel call), its backward :func:`norm_act_bwd`.  On a CUDA tensor both are the
   hand-written CUDA kernels of ``csrc/bn_act.cu`` (replacing the Pallas
   ``fwd_kernel`` and ``bwd_kernel``, ``mxnet_tpu/kernels/bn_act.py:
   109-149``), for every shape: the TPU's ``H*W % 128 == 0 and C % 8 ==
@@ -35,7 +36,7 @@ import ctypes
 
 import torch
 
-from . import COUNT_LOCK, note_launch
+from . import COUNT_LOCK, note_launch, portable
 
 __all__ = ["fused_bn_act", "fused_bn_act_plain", "fold_bn_into_conv",
            "NormAct", "norm_act", "norm_act_plain", "norm_act_bwd",
@@ -162,17 +163,10 @@ def _check_cuda_args(act_type, x, channel_vecs, same_shape=()):
     return x.shape[0], c, m
 
 
-def norm_act(x, scale, shift, act_type=None):
-    """The forward kernel's wrapper: ``act(x * scale + shift)``.
-
-    A CPU tensor takes :func:`norm_act_plain`.  A CUDA tensor launches
-    ``csrc/bn_act.cu`` on the current stream, or raises: it must be a
-    contiguous float32/bfloat16 tensor of rank >= 2 with ``scale`` and
-    ``shift`` of shape (C,), same dtype and device.  The output is a new
-    tensor; nothing synchronises."""
+def _launch_fwd(x, scale, shift, act_type):
+    """Launch ``csrc/bn_act.cu``'s forward on CUDA tensors (raises on
+    tensors the kernel does not take) and count the launch."""
     global LAUNCHES
-    if not x.is_cuda:
-        return norm_act_plain(x, scale, shift, act_type)
     n, c, m = _check_cuda_args(act_type, x, (("scale", scale),
                                              ("shift", shift)))
     fwd, _ = _kernels()
@@ -188,6 +182,52 @@ def norm_act(x, scale, shift, act_type=None):
         LAUNCHES += 1
     note_launch("bn_act_fwd", x, scale, shift)
     return y
+
+
+def _bn_act_fwd_plain(x, scale, shift, act_type):
+    return norm_act_plain(x, scale, shift, act_type or None)
+
+
+def _bn_act_fwd_cuda(x, scale, shift, act_type):
+    return _launch_fwd(x, scale, shift, act_type or None)
+
+
+def _bn_act_fwd_fake(x, scale, shift, act_type):
+    return torch.empty_like(x)
+
+
+#: ``torch.ops.mxt.bn_act_fwd``: the forward kernel as a registered op,
+#: so an exported program (``serving/aot.py``) calls the kernel where the
+#: eager plan does.  A CUDA tensor takes the kernel, every other device
+#: the plain version, a fake tensor ``empty_like``; ``act_type`` "" means
+#: no activation.  Registered through ``torch.library.Library`` (a
+#: definition, two kernels and a fake), not the ``custom_op`` decorator,
+#: whose Python autograd layers cost several times as much host time a
+#: call (``tools/bn_act_dispatch.py``; PERF.md §6).
+_LIB = torch.library.Library("mxt", "DEF")
+_LIB.define("bn_act_fwd(Tensor x, Tensor scale, Tensor shift, str act_type) "
+            "-> Tensor")
+_LIB.impl("bn_act_fwd", _bn_act_fwd_plain, "CompositeExplicitAutograd")
+_LIB.impl("bn_act_fwd", _bn_act_fwd_cuda, "CUDA")
+torch.library.register_fake("mxt::bn_act_fwd", _bn_act_fwd_fake, lib=_LIB)
+
+
+def norm_act(x, scale, shift, act_type=None):
+    """The forward kernel's wrapper: ``act(x * scale + shift)``, through
+    ``torch.ops.mxt.bn_act_fwd``.
+
+    A CPU tensor takes :func:`norm_act_plain`.  A CUDA tensor launches
+    ``csrc/bn_act.cu`` on the current stream, or raises: it must be a
+    contiguous float32/bfloat16 tensor of rank >= 2 with ``scale`` and
+    ``shift`` of shape (C,), same dtype and device.  The output is a new
+    tensor; nothing synchronises.  Inside :func:`~.portable_trace` (the
+    portable export) every tensor takes the plain version, so the traced
+    graph holds no ``mxt`` op."""
+    if act_type not in _KERNEL_ACTS:
+        raise ValueError("bn_act kernel: unsupported act_type %r" % act_type)
+    if portable():
+        return norm_act_plain(x, scale, shift, act_type)
+    return torch.ops.mxt.bn_act_fwd(x, scale, shift, act_type or "")
 
 
 def norm_act_bwd(x, scale, shift, dy, act_type=None):

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import get_env
-from . import COUNT_LOCK, note_launch
+from . import COUNT_LOCK, note_launch, portable, refuse_export
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "FlashAttentionFn", "online_update", "default_block", "flash_route",
@@ -269,9 +269,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None,
     output is a new contiguous tensor; nothing synchronises."""
     global LAUNCHES
     scale = _scale(scale, q.shape[-1])
-    if not q.is_cuda:
+    if not q.is_cuda or portable():
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_k=block)
+    refuse_export("flash_attention")
     _check_cuda_args(q, k, v)
     B, Tq, H, D = q.shape
     auto = flash_route(q.dtype, D)

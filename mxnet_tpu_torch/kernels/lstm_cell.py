@@ -50,7 +50,7 @@ import ctypes
 import torch
 
 from ..ops.registry import register
-from . import COUNT_LOCK, note_launch
+from . import COUNT_LOCK, note_launch, portable, refuse_export
 
 __all__ = ["lstm_cell", "LSTMCellFn", "lstm_cell_fwd", "lstm_cell_bwd",
            "lstm_cell_plain", "lstm_cell_bwd_plain", "LAUNCHES",
@@ -198,8 +198,9 @@ def lstm_cell_fwd(gates, c_prev):
     float32/bfloat16 gates (..., 4H) and c_prev (..., H) of one dtype and
     device.  The outputs are new tensors; nothing synchronises."""
     global LAUNCHES
-    if not gates.is_cuda:
+    if not gates.is_cuda or portable():
         return lstm_cell_plain(gates, c_prev)
+    refuse_export("lstm_cell")
     rows, hidden = _check_cuda_args(gates, c_prev)
     fwd = _kernels()["lstm_cell_fwd"]
     h = torch.empty_like(c_prev)
@@ -498,8 +499,9 @@ def lstm_seq_fwd(xg, w_h2h, h0, c0, keep=False, route="persistent"):
     of ``addmm`` and :func:`lstm_cell_fwd` (one cell-kernel launch a
     step)."""
     global SEQ_LAUNCHES, SEQ_GATES_WRITTEN
-    if not xg.is_cuda:
+    if not xg.is_cuda or portable():
         return lstm_seq_plain(xg, w_h2h, h0, c0, keep)
+    refuse_export("lstm_seq")
     _check_route(route)
     if route == "per_step":
         with COUNT_LOCK:
@@ -574,9 +576,10 @@ def lstm_seq_bwd(gates, c_prev, w_h2h, dhs, dhT, dcT, route="persistent"):
 
 def _route(xg, route):
     """The route a sequence on ``xg``'s device takes: ``None`` on the CPU
-    (the plain versions), else ``route``, :data:`SEQ_ROUTE`, or
-    :func:`lstm_seq_route`'s pick, checked."""
-    if not xg.is_cuda:
+    (the plain versions, also inside :func:`~.portable_trace`), else
+    ``route``, :data:`SEQ_ROUTE`, or :func:`lstm_seq_route`'s pick,
+    checked."""
+    if not xg.is_cuda or portable():
         return None
     route = route or SEQ_ROUTE or lstm_seq_route(
         xg.shape[1], xg.shape[2] // 4, xg.dtype)

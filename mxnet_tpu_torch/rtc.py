@@ -43,6 +43,10 @@ __all__ = ["register_kernel", "elementwise_cuda_kernel", "ElementwiseKernel",
 #: caller last reset it); incremented only where a kernel is launched
 LAUNCHES = 0
 
+#: names of the ops :func:`register_kernel` made (no exported program
+#: can hold one: ``serving/aot.refuse_unexportable``)
+REGISTERED = set()
+
 _TEMPLATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                          "rtc_elementwise.cu")
 _MARKER = "/*@MXT_RTC_BODY@*/"
@@ -303,6 +307,7 @@ def register_kernel(name, fn=None, *, input_names=("data",), num_outputs=1,
         register(name, input_names=input_names, num_outputs=num_outputs,
                  infer_shape=infer_shape, needs_rng=needs_rng,
                  **opdef_kw)(wrapped)
+        REGISTERED.add(name)
         _inject(name)
         return f
     if fn is not None:

@@ -11,7 +11,8 @@
   ``tools/supervise.py`` relaunch), weighted-fair tenant queueing.
 - :mod:`.sequence` — bucketed SEQUENCE serving (``/predict_seq``).
 - :mod:`.deploy` — hot swap of verified new checkpoint epochs.
-- :mod:`.aot` — the AOT store's layout, meta check and fallback.
+- :mod:`.aot` — the AOT store: one weight-free ``torch.export`` program
+  per (model, bucket), its meta check and its fallback.
 
 ``python mxnet_tpu_torch/serving/serve_main.py`` is the daemon (the JAX
 package's ``tools/serve.py`` with a ``--context`` flag).

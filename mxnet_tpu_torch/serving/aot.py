@@ -1,35 +1,49 @@
-"""AOT executable store (port of ``mxnet_tpu/serving/aot.py``): its
-layout, its meta check and its fallback.
+"""AOT program store (port of ``mxnet_tpu/serving/aot.py``): one
+serialized, weight-free forward per (model, bucket), so a fresh or
+respawned replica loads its bucket programs instead of warming them.
 
-The JAX package serializes one weight-free COMPILED forward per (model,
-bucket) with ``jax.experimental.serialize_executable``, so a respawned
-replica loads its bucket programs instead of tracing them.  The port has
-no compiled forward yet: its ``Predictor`` runs the eager plan, and
-``predict.export_compiled`` (a ``torch.export`` program) is still to be
-ported.  So this module keeps what carries over —
+The JAX package stores the compiled XLA executable
+(``jax.experimental.serialize_executable``).  The port's forward is the
+eager plan, so its counterpart is a ``torch.export`` ``ExportedProgram``
+of that plan's inference path (:func:`build_forward`): the same aten ops
+and the same kernel calls the ``Predictor`` runs — the ``bn_act``
+forward kernel appears as ``torch.ops.mxt.bn_act_fwd``, its registered
+op — so a loaded program answers bit for bit as the eager plan does.
+Nothing is compiled further (no Inductor, no CUDA graph): the arithmetic
+stays the eager plan's.
 
-- the store's layout (``<MXTPU_COMPILE_CACHE>/aot/``)::
+Programs are WEIGHT-FREE: they take the parameters as call arguments
+(``infer(param_list, aux_list, *inputs)``, params, auxs and inputs each
+in sorted-name order) and the pool passes its one device-resident copy,
+so a program is a few hundred KB whatever the model's size.  The
+program's example inputs (the pool's weights at export) are dropped
+before it is saved.  ``PooledModel.export_aot`` traces one program with
+a symbolic batch dimension and writes it for every bucket (a loader
+reads it once); a plan that fixes the batch gets one program a bucket.
 
-      <model>.json            meta: sample shapes, dtype, param/aux names,
-                              param digest, platform, buckets
-      <model>-b<bucket>.exec  the serialized executable
-      <model>-b<bucket>.tree  its (in_tree, out_tree)
+Store layout (``<MXTPU_COMPILE_CACHE>/aot/``)::
 
-- :func:`entry_meta` and :func:`params_digest`, which give the JAX
-  package's dict for the same model;
-- :meth:`AotStore.verify` and the fallback: a store whose meta does not
-  match (another model, dtype or parameter set, a JAX-built store whose
-  platform is ``cpu`` or ``tpu`` and which has no ``runtime`` key) or
-  whose artifact cannot be loaded warns and returns nothing, and the
-  daemon warms the bucket executors the usual way —
+    <model>.json            meta: sample shapes, dtype, param/aux names,
+                            param digest, platform, runtime, buckets
+    <model>-b<bucket>.exec  the program (``torch.export.save``)
+    <model>-b<bucket>.tree  its call signature, JSON: param, aux, input
+                            and output names
 
-while :meth:`AotStore.save`, :func:`build_forward` and
-``PooledModel.export_aot`` raise :class:`~..base.MXNetError`: an empty
-artifact that a later load would "succeed" on must never be written.
-The port's platform is ``cuda:<device name>`` or ``cpu``.
+A meta mismatch (another model, dtype or parameter set, another card, a
+JAX-built store: platform ``cpu``/``tpu`` and no ``runtime`` key) or an
+artifact that does not load warns and returns nothing, and the daemon
+warms the bucket executors the usual way.  The platform is
+``cuda:<device name>`` or ``cpu``: a store built under the replicas'
+device env loads on every replica of that fleet.  A graph with a
+``Custom`` op (a host round trip) or an rtc op cannot be exported:
+:func:`refuse_unexportable` names them and the exporters raise before
+anything is written.  Loading a store needs the ``mxt`` ops registered,
+which importing this package does.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 
@@ -37,17 +51,13 @@ import numpy as np
 
 from ..base import MXNetError
 
-__all__ = ["AotStore", "aot_dir_for_cache"]
+__all__ = ["AotStore", "aot_dir_for_cache", "build_forward", "dev_array",
+           "graph_fills", "eval_closure", "refuse_unexportable"]
 
 _META_VERSION = 1
 
 #: the runtime a store's artifacts are for; a JAX-built meta has none
 RUNTIME = "mxnet_tpu_torch"
-
-_NO_COMPILED = ("the port has no compiled forward to store yet: "
-                "predict.export_compiled and the compiled step are still "
-                "to be ported (ROADMAP.md queue 1, item 5); serve with "
-                "--warmup, which warms each bucket's executor")
 
 
 def aot_dir_for_cache(cache_dir):
@@ -69,14 +79,130 @@ def platform_of(ctx):
     return "cuda:%s" % torch.cuda.get_device_name(ctx.device_id)
 
 
-class AotStore(object):
-    """One directory of serialized compiled forwards.  ``platform`` is
-    what a loadable store must have been built for (the pool passes
-    :func:`platform_of` its context)."""
+def dev_array(v, device):
+    """NDArray -> its tensor, anything else -> a tensor of its values, on
+    ``device`` (no copy when it is there already).  The one unwrap rule
+    every serving forward builder shares."""
+    import torch
+    from ..ndarray import NDArray
+    if isinstance(v, NDArray):
+        return v._data.to(device)
+    return torch.from_numpy(np.ascontiguousarray(v)).to(device)
 
-    def __init__(self, directory, platform="cpu"):
+
+def graph_fills(symbol, shapes, known_args, known_auxs):
+    """The Predictor.reshape allocation rule, shared by every serving
+    forward builder: args absent from the blob AND the inputs (loss
+    labels at inference) and missing aux states are zero-filled at their
+    inferred shapes.  Returns ``(fills, aux_fills)`` as ``{name: shape}``
+    dicts."""
+    arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+    known = set(known_args) | set(shapes)
+    fills = {n: tuple(s)
+             for n, s in zip(symbol.list_arguments(), arg_shapes)
+             if n not in known}
+    aux_fills = {n: tuple(s)
+                 for n, s in zip(symbol.list_auxiliary_states(),
+                                 aux_shapes)
+                 if n not in known_auxs}
+    return fills, aux_fills
+
+
+def eval_closure(eval_fn, fills, aux_fills, input_names, device):
+    """The shared body of every serving forward: merge params +
+    zero-filled args, zero-filled missing aux, run the eval graph in
+    inference mode with rng 0 on ``device`` (the caller holds
+    ``torch.no_grad()``: a grad-mode switch inside a traced program
+    would become nodes of its own).  ``run(params_dict,
+    aux_dict, inputs_tuple) -> tuple(outputs)``.  Stored bfloat16
+    weights are upcast to float32 where the plan reads them, as the
+    pool's bfloat16 ``Predictor`` path does.  The fills are made from the
+    first input (``new_zeros``), so a traced program names no device for
+    them."""
+    import torch
+
+    def served(d):
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+                for k, v in d.items()}
+
+    def run(params, auxs, inputs):
+        like = inputs[0]
+        merged = served(params)
+        merged.update({n: like.new_zeros(s, dtype=torch.float32)
+                       for n, s in fills.items()})
+        merged.update(zip(input_names, inputs))
+        full_aux = served(auxs)
+        full_aux.update({n: like.new_zeros(s, dtype=torch.float32)
+                         for n, s in aux_fills.items()})
+        outs, _ = eval_fn(merged, full_aux, False, 0, device=device)
+        return tuple(outs)
+
+    return run
+
+
+def refuse_unexportable(symbol, what):
+    """Raise :class:`MXNetError` naming the nodes no exported program can
+    hold — ``Custom`` ops (the user's numpy code on the host) and rtc ops
+    (a ctypes launch of a generated kernel) — before anything is traced
+    or written."""
+    from .. import rtc
+    bad = ["%s (%s)" % (node.name, node.op.name) for node in symbol._nodes()
+           if node.op is not None and (node.op.name == "Custom"
+                                       or node.op.name in rtc.REGISTERED)]
+    if bad:
+        raise MXNetError("%s: the graph holds op(s) that cannot be exported "
+                         "to a program: %s" % (what, ", ".join(bad)))
+
+
+@contextlib.contextmanager
+def no_stack_traces():
+    """Trace without recording each node's Python stack
+    (``torch.fx.config.do_not_emit_stack_traces``): a stored program
+    does not need them, and recording them is a large share of an
+    export's time."""
+    import torch.fx.config as fx_config
+    prev = getattr(fx_config, "do_not_emit_stack_traces", False)
+    fx_config.do_not_emit_stack_traces = True
+    try:
+        yield
+    finally:
+        fx_config.do_not_emit_stack_traces = prev
+
+
+def strip_example_inputs(ep):
+    """Drop a program's example inputs: ``torch.export.save`` would store
+    them, and a weight-free program's are the weights."""
+    ep._example_inputs = None
+    return ep
+
+
+def save_program(ep):
+    """An ``ExportedProgram`` -> the bytes ``torch.export.save`` writes."""
+    import torch
+    buf = io.BytesIO()
+    torch.export.save(strip_example_inputs(ep), buf)
+    return buf.getvalue()
+
+
+def load_program(blob):
+    """:func:`save_program` bytes -> ``ExportedProgram``."""
+    import torch
+    return torch.export.load(io.BytesIO(blob))
+
+
+class AotStore(object):
+    """One directory of serialized forwards.  ``platform`` is what a
+    loadable store must have been built for (the pool passes
+    :func:`platform_of` its context); ``device`` is where
+    :meth:`load` puts the program's tensors."""
+
+    def __init__(self, directory, platform="cpu", device=None):
         self.dir = directory
         self.platform = platform
+        self.device = device
+        #: sha256 of an ``.exec`` -> its loaded module: buckets that hold
+        #: one batch-dynamic program load it once
+        self._loaded = {}
 
     def _base(self, model, bucket):
         return os.path.join(self.dir, "%s-b%d" % (model, int(bucket)))
@@ -96,11 +222,27 @@ class AotStore(object):
         return sorted(int(b) for b in (doc or {}).get("buckets", []))
 
     # -- build side --------------------------------------------------------
-    def save(self, model, bucket, compiled, meta):
-        """Raises: there is no compiled forward to serialize (module
-        docstring)."""
-        raise MXNetError("AotStore.save(%r, bucket %d): %s"
-                         % (model, int(bucket), _NO_COMPILED))
+    def save(self, model, bucket, blob, meta, signature):
+        """Write one program (``.exec``: the bytes :func:`save_program`
+        made) and its call ``signature`` (``.tree``), and record/refresh
+        the model's meta doc (``meta``: sample_shapes/dtype/param_names/
+        aux_names/param_digest)."""
+        from ..resilience import atomic_write
+        os.makedirs(self.dir, exist_ok=True)
+        base = self._base(model, bucket)
+        atomic_write(base + ".exec", blob)
+        atomic_write(base + ".tree", json.dumps(signature, sort_keys=True))
+        doc = self.meta(model) or {}
+        doc.update(meta)
+        doc["meta_version"] = _META_VERSION
+        doc["platform"] = self.platform
+        doc["runtime"] = RUNTIME
+        buckets = set(int(b) for b in doc.get("buckets", []))
+        buckets.add(int(bucket))
+        doc["buckets"] = sorted(buckets)
+        atomic_write(self._meta_path(model),
+                     json.dumps(doc, indent=2, sort_keys=True))
+        return base
 
     # -- load side ---------------------------------------------------------
     def verify(self, model, meta):
@@ -128,21 +270,77 @@ class AotStore(object):
         return doc
 
     def load(self, model, bucket):
-        """One executable -> callable, or None: this package has no
-        loader for compiled forwards yet (module docstring), so the
-        caller always falls back."""
-        _log().warning("AOT store %s: cannot load %s-b%d (%s) — falling "
-                       "back to the bucket warmup", self.dir, model,
-                       int(bucket), _NO_COMPILED)
-        return None
+        """One program -> callable ``(param_list, aux_list, *inputs) ->
+        tuple(outputs)`` on :attr:`device`, or None (missing, corrupt or
+        foreign: the caller falls back)."""
+        import hashlib
+        base = self._base(model, bucket)
+        try:
+            with open(base + ".tree") as f:
+                json.load(f)
+            with open(base + ".exec", "rb") as f:
+                blob = f.read()
+            digest = hashlib.sha256(blob).hexdigest()
+            module = self._loaded.get(digest)
+            if module is None:
+                module = load_program(blob).module()
+                if self.device is not None:
+                    module = module.to(self.device)
+                self._loaded[digest] = module
+            return module
+        except Exception as e:  # noqa: BLE001 — stale/foreign artifact
+            _log().warning("AOT store %s: cannot load %s-b%d (%s: %s) — "
+                           "falling back to the bucket warmup",
+                           self.dir, model, int(bucket), type(e).__name__,
+                           e)
+            return None
 
 
-def build_forward(symbol, arg_params, aux_params, sample_shapes,
-                  bucket):
-    """Raises: the port has no compiled forward to build (module
-    docstring)."""
-    raise MXNetError("build_forward(bucket %d): %s"
-                     % (int(bucket), _NO_COMPILED))
+def build_forward(symbol, arg_params, aux_params, sample_shapes, bucket,
+                  device, dynamic_batch=False):
+    """The canonical AOT forward for one bucket: a weight-free
+    ``ExportedProgram`` of ``infer(param_list, aux_list, *inputs)``,
+    params, auxs and inputs in sorted-name order, traced on ``device``
+    with the params as example inputs (never as constants).  With
+    ``dynamic_batch`` the inputs' batch dimension is symbolic (traced at
+    ``bucket`` rows), so one program serves every bucket: the same aten
+    ops on each bucket's concrete shapes.  Returns ``(program,
+    (param_list, aux_list), signature)``.  The math is the same
+    ``executor._build_eval`` inference plan the Predictor runs."""
+    import torch
+    from ..executor import _build_eval
+
+    refuse_unexportable(symbol, "build_forward(bucket %d)" % int(bucket))
+    eval_fn = _build_eval(symbol)
+    pnames = sorted(arg_params)
+    anames = sorted(aux_params)
+    pv = [dev_array(arg_params[n], device) for n in pnames]
+    av = [dev_array(aux_params[n], device) for n in anames]
+    input_names = sorted(sample_shapes)
+    shapes = {k: (int(bucket),) + tuple(s)
+              for k, s in sample_shapes.items()}
+    fills, aux_fills = graph_fills(symbol, shapes, arg_params, aux_params)
+    run = eval_closure(eval_fn, fills, aux_fills, input_names, device)
+
+    class Infer(torch.nn.Module):
+        def forward(self, params, auxv, *inputs):
+            return run(dict(zip(pnames, params)), dict(zip(anames, auxv)),
+                       inputs)
+
+    xs = tuple(torch.zeros(shapes[n], dtype=torch.float32, device=device)
+               for n in input_names)
+    dynamic = None
+    if dynamic_batch:
+        batch = torch.export.Dim("batch", min=1, max=1 << 16)
+        dynamic = ([None] * len(pv), [None] * len(av),
+                   tuple({0: batch} for _ in input_names))
+    with torch.no_grad(), no_stack_traces():
+        program = torch.export.export(Infer(), (pv, av) + xs,
+                                      dynamic_shapes=dynamic, strict=False)
+    signature = {"params": pnames, "auxs": anames, "inputs": input_names,
+                 "outputs": symbol.list_outputs(),
+                 "dynamic_batch": bool(dynamic_batch)}
+    return program, (pv, av), signature
 
 
 def _dtype_name(v):

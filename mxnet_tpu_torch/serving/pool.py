@@ -221,9 +221,10 @@ class PooledModel(object):
         #: for every other dtype; filled by ``_cast``)
         self._wt_scales = {}
         self._lowp = None
-        #: bucket -> loaded AOT forward: always empty in the port (no
-        #: compiled forward exists yet; serving/aot.py)
+        #: bucket -> loaded AOT program (serving/aot.py), and the device
+        #: param/aux lists it is called with
         self._aot = {}
+        self._aot_args = None
         self.arg_params = self._cast(arg_params or {})
         self.aux_params = self._cast(aux_params or {})
         #: checkpoint provenance: the epoch currently served (None for
@@ -286,7 +287,11 @@ class PooledModel(object):
         new_sig = self._cur_shapes != shapes
         if new_sig:
             self._maybe_env_analyze(shapes)
-        if self.dtype not in (None, "", "float32"):
+        aot_fn = self._aot_forward_for(shapes)
+        if aot_fn is not None:
+            outs = self._aot_call(aot_fn, inputs)
+            self._cur_shapes = shapes
+        elif self.dtype not in (None, "", "float32"):
             if self._lowp is None:
                 self._lowp = _CastForward(self)
                 new_sig = True
@@ -396,7 +401,8 @@ class PooledModel(object):
 
     def _install(self, arg_params, aux_params, wt_scales):
         """Point every serving path at these (already-cast) params: the
-        Predictor's bound executors, or the low-precision device stage."""
+        Predictor's bound executors, the low-precision device stage, and
+        the loaded AOT programs' call-time param lists."""
         self.arg_params = arg_params
         self.aux_params = aux_params
         self._wt_scales = wt_scales
@@ -404,33 +410,137 @@ class PooledModel(object):
             self._pred.set_params(self._blob())
         if self._lowp is not None:
             self._lowp.refresh(self)
+        if self._aot_args is not None:
+            self._aot_args = self._aot_param_lists()
 
-    # -- AOT executable store (serving/aot.py) ------------------------------
+    # -- AOT program store (serving/aot.py) ---------------------------------
+    def _aot_param_lists(self):
+        """The loaded programs' call-time ``(param_list, aux_list)``: this
+        model's device-resident tensors in sorted-name order."""
+        from .aot import dev_array
+        dev = self.ctx.torch_device
+        return ([dev_array(self.arg_params[n], dev)
+                 for n in sorted(self.arg_params)],
+                [dev_array(self.aux_params[n], dev)
+                 for n in sorted(self.aux_params)])
+
+    def _aot_forward_for(self, shapes):
+        """The loaded AOT program for these batch shapes when they are
+        exactly a loaded bucket's, or None (the Predictor path).  A
+        program runs the Predictor's aten ops on each bucket's concrete
+        shapes, so the bucket bit-stability contract is unchanged."""
+        if not self._aot or self.sample_shapes is None:
+            return None
+        b = next(iter(shapes.values()))[0]
+        fn = self._aot.get(b)
+        if fn is None:
+            return None
+        want = {k: (b,) + tuple(s) for k, s in self.sample_shapes.items()}
+        return fn if shapes == want else None
+
+    def _aot_call(self, fn, inputs):
+        """One forward through a loaded program -> per-output numpy."""
+        import torch
+        dev = self.ctx.torch_device
+        pv, av = self._aot_args
+        xs = [torch.from_numpy(np.ascontiguousarray(inputs[n],
+                                                    dtype=np.float32))
+              .to(dev) for n in sorted(inputs)]
+        with torch.no_grad():
+            outs = fn(pv, av, *xs)
+        return [o.cpu().numpy() for o in outs[:len(self.output_names)]]
+
     def export_aot(self, buckets, store_dir):
-        """Raises: the port has no compiled forward to export
-        (serving/aot.py)."""
+        """Export this model's forward for every bucket into
+        ``store_dir`` (the fleet warm-store build; weight-free programs,
+        see serving/aot.py): one batch-dynamic program written for each
+        bucket, or, when the plan fixes the batch, one program a
+        bucket.  int8 pools keep their in-process path (the
+        dequantizing forward is built per process) and refuse; a graph
+        with a ``Custom`` or rtc op refuses too, before anything is
+        written."""
         from . import aot
-        raise MXNetError("model %r: export_aot: %s"
-                         % (self.name, aot._NO_COMPILED))
+        if self.sample_shapes is None:
+            raise MXNetError("model %r: declare sample_shapes before "
+                             "export_aot()" % self.name)
+        if self._wt_scales:
+            raise MXNetError("model %r: int8 pools cannot export AOT "
+                             "programs (the dequantizing forward is built "
+                             "in-process)" % self.name)
+        aot.refuse_unexportable(self.symbol,
+                                "model %r: export_aot" % self.name)
+        dev = self.ctx.torch_device
+        store = aot.AotStore(store_dir, aot.platform_of(self.ctx), dev)
+        meta = aot.entry_meta(self)
+        buckets = sorted(int(b) for b in buckets)
+        from torch._dynamo.exc import UserError
+        try:
+            # one batch-dynamic program serves every bucket
+            program, _, signature = aot.build_forward(
+                self.symbol, self.arg_params, self.aux_params,
+                self.sample_shapes, buckets[-1], dev, dynamic_batch=True)
+            programs = dict.fromkeys(buckets, (aot.save_program(program),
+                                               signature))
+        except UserError as e:      # the plan fixes the batch
+            _log().info("model %r: no batch-dynamic program (%s: %s); one "
+                        "program a bucket", self.name, type(e).__name__, e)
+            programs = {}
+            for b in buckets:
+                program, _, signature = aot.build_forward(
+                    self.symbol, self.arg_params, self.aux_params,
+                    self.sample_shapes, b, dev)
+                programs[b] = (aot.save_program(program), signature)
+        for b, (blob, signature) in programs.items():
+            store.save(self.name, b, blob, meta, signature)
+        return store
 
     def load_aot(self, store_dir, buckets=None):
-        """Load this model's compiled forwards from an AOT store ->
-        number of buckets loaded.  Always 0 in the port: a store that
-        does not verify (absent, another model or dtype, a foreign
-        platform or runtime) or whose artifacts cannot be loaded warns,
-        and the caller falls back to :meth:`warmup`."""
+        """Load this model's programs from an AOT store -> number of
+        buckets loaded (0 = nothing usable: an absent store, another
+        model, dtype or parameter set, a foreign platform or runtime, or
+        an int8 pool; the caller falls back to :meth:`warmup`).  One
+        loaded program is validated with a real call, so a corrupt store
+        surfaces at bring-up, not at the first request."""
         from . import aot
         if self._wt_scales:
             return 0                    # int8: in-process path only
-        store = aot.AotStore(store_dir, aot.platform_of(self.ctx))
+        store = aot.AotStore(store_dir, aot.platform_of(self.ctx),
+                             self.ctx.torch_device)
         if store.verify(self.name, aot.entry_meta(self)) is None:
             return 0
         have = store.buckets(self.name)
         wanted = sorted(int(b) for b in buckets) if buckets else have
+        loaded = {}
         for b in wanted:
-            if b in have:
-                store.load(self.name, b)    # warns: nothing it can load
-        return 0
+            if b not in have:
+                continue
+            fn = store.load(self.name, b)
+            if fn is not None:
+                loaded[b] = fn
+        if not loaded:
+            return 0
+        prev_args = self._aot_args
+        if self._aot_args is None:
+            self._aot_args = self._aot_param_lists()
+        # fault-in + integrity: one real forward through the smallest
+        # loaded bucket (a program that cannot run must not serve)
+        b0 = min(loaded)
+        rs = np.random.RandomState(0)
+        try:
+            xs = {k: rs.rand(b0, *self.sample_shapes[k]).astype(np.float32)
+                  for k in sorted(self.sample_shapes)}
+            outs = self._aot_call(loaded[b0], xs)
+            if np.shape(outs[0])[0] != b0:
+                raise MXNetError("wrong validation output shape")
+        except Exception as e:  # noqa: BLE001 — stale/corrupt store
+            _log().warning("AOT store %s: validation call failed for "
+                           "%r (%s: %s) — falling back to the bucket "
+                           "warmup", store_dir, self.name,
+                           type(e).__name__, e)
+            self._aot_args = prev_args
+            return 0
+        self._aot.update(loaded)
+        return len(loaded)
 
     # -- static analysis ---------------------------------------------------
     def analyze(self, bucket=1):

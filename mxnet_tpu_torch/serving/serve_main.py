@@ -25,11 +25,15 @@ kernel launch counters of the whole run on one stderr line,
 ``mxserve: launches {...}``, and the batches dispatched on the next,
 ``mxserve: stats {...}``, then exit 0); a wedged forward is killed by
 the StepWatchdog (``MXTPU_STEP_TIMEOUT``, exit 87) so
-``tools/supervise.py`` can relaunch the daemon.  The port has no compiled
-forward to store yet (``serving/aot.py``): ``--warmup`` checks the AOT
-store under ``MXTPU_COMPILE_CACHE``, falls back, and warms each bucket's
-executor; ``--export-aot`` exits with an error.  Serving knobs:
-``MXTPU_SERVE_*`` or the equivalent flags below.
+``tools/supervise.py`` can relaunch the daemon.
+
+The AOT store (``serving/aot.py``) lives under ``MXTPU_COMPILE_CACHE``:
+``--warmup-only --export-aot`` is its builder (a weight-free
+``torch.export`` program for each (model, bucket) into ``<cache>/aot/``,
+no serving); ``--warmup`` loads each model's programs from it and warms
+through the executors only the buckets the store lacks.  Either prints
+``mxserve: warmup_s=<s>``.  Serving knobs: ``MXTPU_SERVE_*`` or the
+equivalent flags below.
 """
 import argparse
 import json
@@ -151,9 +155,10 @@ def main(argv=None):
                              "`mxserve: warmup_s=<s>`, exit 0 WITHOUT "
                              "serving")
     parser.add_argument("--export-aot", action="store_true",
-                        help="build the AOT store: not possible in the "
-                             "port yet (no compiled forward); exits with "
-                             "an error")
+                        help="build the AOT store under "
+                             "MXTPU_COMPILE_CACHE: export every (model, "
+                             "bucket) forward (with --warmup-only: the "
+                             "warm-store builder)")
     args = parser.parse_args(argv)
     if not args.model:
         parser.error("at least one --model is required")
@@ -171,9 +176,10 @@ def main(argv=None):
     except MXNetError as e:
         sys.stderr.write("mxserve: %s\n" % e)
         return 2
-    if args.export_aot:
-        from mxnet_tpu_torch.serving import aot
-        sys.stderr.write("mxserve: --export-aot: %s\n" % aot._NO_COMPILED)
+    from mxnet_tpu_torch.base import ENV_COMPILE_CACHE, get_env
+    if args.export_aot and not get_env(ENV_COMPILE_CACHE):
+        sys.stderr.write("mxserve: --export-aot needs MXTPU_COMPILE_CACHE "
+                         "set (the store is <cache>/aot)\n")
         return 2
 
     pool = ModelPool(ctx=ctx, dtype=args.dtype)
@@ -197,10 +203,9 @@ def main(argv=None):
     frontend.install_signal_handlers()
     frontend.start()
 
-    if args.warmup or args.warmup_only:
+    if args.warmup or args.warmup_only or args.export_aot:
         import time as _time
 
-        from mxnet_tpu_torch.base import ENV_COMPILE_CACHE, get_env
         from mxnet_tpu_torch.serving.aot import aot_dir_for_cache
 
         cache_dir = get_env(ENV_COMPILE_CACHE)
@@ -215,13 +220,26 @@ def main(argv=None):
                 sys.stderr.write("mxserve: cannot warm %r — no "
                                  "--input-shape declared\n" % name)
                 continue
-            loaded = entry.load_aot(aot_dir, buckets) if aot_dir else 0
-            if loaded < len(buckets):
-                # no store, or one this package cannot load (always, for
-                # now): warm each bucket's executor
-                entry.warmup(buckets)
-                sys.stderr.write("mxserve: warmed %r over buckets %s\n"
+            if args.export_aot:
+                # the store BUILDER: export each bucket's program (no
+                # executor warmup: this process does not serve them)
+                entry.export_aot(buckets, aot_dir)
+                sys.stderr.write("mxserve: exported AOT programs for %r "
+                                 "over buckets %s\n"
                                  % (name, list(buckets)))
+                continue
+            loaded = entry.load_aot(aot_dir, buckets) if aot_dir else 0
+            if loaded:
+                sys.stderr.write("mxserve: warmed %r from the AOT store "
+                                 "(%d/%d buckets)\n"
+                                 % (name, loaded, len(buckets)))
+            missing = [b for b in buckets if b not in entry._aot]
+            if missing:
+                # no store, a partial one or a meta mismatch: warm the
+                # executors of what the store lacks
+                entry.warmup(missing)
+                sys.stderr.write("mxserve: warmed %r over buckets %s\n"
+                                 % (name, missing))
         sys.stderr.write("mxserve: warmup_s=%.3f\n"
                          % (_time.monotonic() - tic))
     if args.warmup_only:

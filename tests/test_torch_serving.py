@@ -875,21 +875,6 @@ def test_aot_store_falls_back_with_a_warning(tmp_path, caplog, case):
         (2, 10)
 
 
-def test_aot_export_raises_and_writes_nothing(tmp_path):
-    from mxnet_tpu_torch.serving import aot
-    pool, sym, _, _, _ = port_pool()
-    entry = pool.get("m")
-    store = str(tmp_path / "aot")
-    with pytest.raises(MXNetError, match="item 5"):
-        entry.export_aot([1], store)
-    with pytest.raises(MXNetError, match="compiled forward"):
-        aot.AotStore(store).save("m", 1, None, aot.entry_meta(entry))
-    with pytest.raises(MXNetError, match="compiled forward"):
-        aot.build_forward(sym, {}, {}, {"data": (32,)}, 1)
-    assert not os.path.exists(store)
-    assert aot.aot_dir_for_cache("/c") == os.path.join("/c", "aot")
-
-
 # ---------------------------------------------------------------------------
 # hot swap (serving/deploy.py)
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ request bit-equal to the unbatched ``Predictor``, JSON and x-npy bodies,
 ``/predict_seq``, ``/stats``, 404/400), a SIGTERM drain that answers
 every accepted request and exits 0 with the launch-counter line, a hot
 swap under ``--watch``, the refusals (a gpu context without CUDA,
-``--export-aot``, a JAX-built AOT store), and the watchdog drill under
+``--export-aot`` without a cache, a JAX-built AOT store), and the watchdog drill under
 ``tools/supervise.py`` (a hung forward exits 87 with a dump, the relaunch
 answers 200, a SIGTERM to the supervisor gives 0).
 
@@ -312,8 +312,9 @@ def test_daemon_watch_hot_swaps_a_new_epoch(tmp_path):
 
 def test_daemon_refusals(tmp_path):
     """A gpu context without CUDA exits 2 (never a silent host run);
-    ``--export-aot`` exits 2 and writes no store; ``--warmup-only``
-    against a JAX-built AOT store warns, falls back and exits 0."""
+    ``--export-aot`` without ``MXTPU_COMPILE_CACHE`` exits 2 and writes
+    no store; ``--warmup-only`` against a JAX-built AOT store warns,
+    falls back and exits 0."""
     _, _, _, prefix = _save_pair(tmp_path)
     wrapper = tmp_path / "w.py"
     wrapper.write_text(WRAPPER % {"main": SERVE_MAIN})
@@ -328,10 +329,11 @@ def test_daemon_refusals(tmp_path):
     cache = tmp_path / "cache"
     res = subprocess.run(base + ["--context", "cpu", "--export-aot",
                                  "--warmup-only"],
-                         env=dict(env, MXTPU_COMPILE_CACHE=str(cache)),
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 2 and "item 5" in res.stderr
-    assert not cache.exists()
+                         env=env, cwd=str(tmp_path), capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 2
+    assert "--export-aot needs MXTPU_COMPILE_CACHE" in res.stderr
+    assert not (tmp_path / "aot").exists()
     store = cache / "aot"
     store.mkdir(parents=True)
     (store / "net.json").write_text(json.dumps(
