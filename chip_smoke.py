@@ -564,9 +564,27 @@ def device_ms(torch, fn, iters=20, reps=5):
 #: the static kernels under mxnet_tpu_torch/csrc/ (rtc_elementwise.cu is the
 #: template the rtc bodies are rendered into, built per body)
 KERNEL_SOURCES = ["bn_act", "flash_attention", "lstm_cell"]
+#: sources whose nvcc main() lets run on beside resnet_paths, which
+#: launches none of them (the flash kernel's build is the longest);
+#: await_builds joins them before the next path
+DEFERRED_SOURCES = ("flash_attention",)
+#: (thread, names, errors) of each build phase_setup left running
+_DEFERRED = []
 
 
-def phase_setup(torch, mx, rtc):
+def _log_ptxas(mx, names, sources):
+    for n in names:
+        with open(mx.kernels.library_path(n, sources.get(n)) + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log("  ptxas %s: %s" % (n, line.strip()))
+
+
+def phase_setup(torch, mx, rtc, defer=()):
+    """The card's name and limit, the kernels' build (one nvcc a source,
+    all started together; the ``defer`` sources build in a thread that
+    :func:`await_builds` joins) and the TF32 flags.  Returns the card."""
+    import threading
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -577,24 +595,32 @@ def phase_setup(torch, mx, rtc):
     log("torch %s, CUDA %s, device %s, %d device(s)" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
         torch.cuda.device_count()))
-    names = KERNEL_SOURCES
+    names = [n for n in KERNEL_SOURCES if n not in defer]
     # the rtc bodies rendered into the template build in the same nvcc
     # batch (one process per source, all started together)
     sources = {k.name: k.source for k in rtc.values()}
+    if defer:
+        errors = []
+
+        def build_deferred():
+            try:
+                mx.kernels.build(list(defer))
+            except Exception as e:  # noqa: BLE001 — await_builds raises it
+                errors.append(e)
+        thread = threading.Thread(target=build_deferred, daemon=True)
+        thread.start()
+        _DEFERRED.append((thread, list(defer), errors))
     t0 = time.perf_counter()
     mx.kernels.build(names + sorted(sources), sources=sources)
-    log("kernel build: %s and rtc bodies %s in %.2f s wall (%s)" % (
+    log("kernel build: %s and rtc bodies %s in %.2f s wall (%s)%s" % (
         ", ".join(names), ", ".join(sorted(rtc)), time.perf_counter() - t0,
         ", ".join("%s %.2f s" % (n, mx.kernels.BUILD_SECONDS[n])
-                  for n in names)))
+                  for n in names),
+        "; %s building on" % ", ".join(defer) if defer else ""))
     for tag, k in sorted(rtc.items()):
         log("rtc body %s (%s) built in %.2f s: %s" % (
             tag, k.name, mx.kernels.BUILD_SECONDS[k.name], k.body))
-    for n in names + sorted(sources):
-        with open(mx.kernels.library_path(n, sources.get(n)) + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  ptxas %s: %s" % (n, line.strip()))
+    _log_ptxas(mx, names + sorted(sources), sources)
     mx.gpu(0).torch_device    # resolving a gpu context pins f32 numerics
     log("tf32: cudnn.allow_tf32=%s cuda.matmul.allow_tf32=%s" % (
         torch.backends.cudnn.allow_tf32,
@@ -602,6 +628,19 @@ def phase_setup(torch, mx, rtc):
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, "TF32 left on")
     return card
+
+
+def await_builds(mx):
+    """Join the builds :func:`phase_setup` left running (raising what one
+    raised) and log them as it logs its own."""
+    while _DEFERRED:
+        thread, names, errors = _DEFERRED.pop()
+        thread.join()
+        if errors:
+            raise errors[0]
+        log("kernel build (beside resnet_paths): %s" % ", ".join(
+            "%s %.2f s" % (n, mx.kernels.BUILD_SECONDS[n]) for n in names))
+        _log_ptxas(mx, names, {})
 
 
 def bn_act_sites(mx, symbol, data_shape):
@@ -2597,6 +2636,163 @@ def phase_lc_serving(torch, mx, params, seed, card):
     return launches
 
 
+#: forwards through each loaded program of the in-process AOT phases
+AOT_FORWARDS = 3
+#: aten ops that only a kernel's plain version puts in a stored program:
+#: the LSTM cell's activations, the flash loop's (or the exact softmax's)
+#: exponentials and row maxima, the rtc silu's exponential
+AOT_PLAIN_OPS = {
+    "lstm": ("aten.sigmoid.default", "aten.tanh.default"),
+    "flash": ("aten.exp.default", "aten.amax.default",
+              "aten._softmax.default", "aten.softmax.int"),
+    "rtc": ("aten.exp.default", "aten.sigmoid.default")}
+
+
+def _aot_graph_check(mx, path, want, plain, what):
+    """The stored program at ``path`` calls each ``mxt`` op of ``want``
+    as many times as it gives, and holds none of the aten ops ``plain``
+    (a kernel's plain version inside a program built on the card).
+    Returns its ``mxt`` calls and node count."""
+    from mxnet_tpu_torch.serving import aot
+    with open(path, "rb") as f:
+        graph = aot.load_program(f.read()).graph
+    ops = collections.Counter(str(n.target) for n in graph.nodes
+                              if n.op == "call_function")
+    got = {k: ops["mxt.%s.default" % k] for k in want}
+    check(got == want, "%s: mxt calls %s, expected %s" % (what, got, want))
+    bad = {k: ops[k] for k in plain if ops[k]}
+    check(not bad, "%s: a kernel's plain version inside the program: %s"
+          % (what, bad))
+    return {"mxt": got, "nodes": sum(ops.values()),
+            "bytes": os.path.getsize(path)}
+
+
+def _routes_since(before, now):
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def phase_aot_attention(torch, mx, seed, card):
+    """``contrib.Attention`` at ATT_SHAPE, causal, through the AOT store
+    on gpu(0): ``export_aot([1, 4])`` in one pool, ``load_aot`` in a
+    fresh one; each forward through the loaded program launches one
+    ``flash_attention_fwd`` (route named) and equals the ``Predictor``
+    bit for bit; the stored graph holds the op and no plain version.
+    Returns the flash launches of those forwards."""
+    import numpy as np
+    fa = mx.kernels.flash_attention
+    names = ("query", "key", "value")
+    sym = mx.sym.contrib.Attention(*(mx.sym.Variable(n) for n in names),
+                                   num_heads=ATT_HEADS, causal=True,
+                                   name="att")
+    shapes = {n: ATT_SHAPE[1:] for n in names}
+    batch = ATT_SHAPE[0]
+    build_dir = os.path.join(ROOT, "mxnet_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="aot-att-", dir=build_dir)
+    rs = np.random.RandomState(seed + 92)
+    feed = {n: rs.standard_normal(ATT_SHAPE).astype(np.float32)
+            for n in names}
+    try:
+        t0 = time.perf_counter()
+        mx.serving.ModelPool(ctx=mx.gpu(0)).add(
+            "att", sym, {}, {}, sample_shapes=shapes).export_aot([1, batch],
+                                                                 store)
+        export_s = time.perf_counter() - t0
+        graph = _aot_graph_check(
+            mx, os.path.join(store, "att-b%d.exec" % batch),
+            {"flash_attention_fwd": 1}, AOT_PLAIN_OPS["flash"],
+            "the attention program")
+        entry = mx.serving.ModelPool(ctx=mx.gpu(0)).add(
+            "att", sym, {}, {}, sample_shapes=shapes)
+        t0 = time.perf_counter()
+        loaded = entry.load_aot(store)
+        load_s = time.perf_counter() - t0
+        check(loaded == 2, "the attention store loaded %d of 2 buckets"
+              % loaded)
+        ref = mx.predict.Predictor(sym.tojson(), {},
+                                   {n: ATT_SHAPE for n in names},
+                                   ctx=mx.gpu(0)).forward(**feed).get_output(0)
+        # -- the main path: counts zeroed just before, read just after ----
+        routes = dict(fa.ROUTE_LAUNCHES)
+        fa.LAUNCHES = 0
+        got = [entry.forward(feed)[0] for _ in range(AOT_FORWARDS)]
+        launches = fa.LAUNCHES
+        routes = _routes_since(routes, fa.ROUTE_LAUNCHES)
+        # -----------------------------------------------------------------
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    check(launches == AOT_FORWARDS and entry._pred is None,
+          "the loaded attention program: %d flash launches over %d "
+          "forwards (Predictor path used: %s)" % (
+              launches, AOT_FORWARDS, entry._pred is not None))
+    check(all(np.array_equal(g, ref) for g in got), "the loaded attention "
+          "program differs from the Predictor")
+    log("aot attention: export_aot([1, %d]) %.1f s (%d bytes, %d nodes, "
+        "mxt %s), load_aot %.1f s in a fresh pool; %d forwards at %s through "
+        "the loaded program: %d flash launches (routes %s), bit-equal to the "
+        "Predictor; on %s" % (
+            batch, export_s, graph["bytes"], graph["nodes"],
+            json.dumps(graph["mxt"]), load_s, AOT_FORWARDS, ATT_SHAPE,
+            launches, json.dumps(routes), card))
+    return launches
+
+
+def phase_aot_rtc(torch, mx, net, module, X, tmp, card):
+    """The fine-tune's scoring symbol (its ``rtc_silu`` op, 17 ``bn_act``
+    sites) through the AOT store on gpu(0): exported at bucket BATCH with
+    the fitted module's params, loaded in a fresh pool; each forward
+    through the loaded program launches 1 rtc and 17 ``bn_act_fwd`` and
+    equals the ``Predictor`` bit for bit; the stored graph holds those
+    ops and no plain version.  Returns the rtc and bn_act launches of
+    those forwards."""
+    import numpy as np
+    args, auxs = module.get_params()
+    store = os.path.join(tmp, "aot-ft")
+    shapes = {"data": IMAGE}
+
+    def entry_of():
+        return mx.serving.ModelPool(ctx=mx.gpu(0)).add(
+            "ft", net, args, auxs, sample_shapes=shapes)
+
+    t0 = time.perf_counter()
+    entry_of().export_aot([BATCH], store)
+    export_s = time.perf_counter() - t0
+    graph = _aot_graph_check(
+        mx, os.path.join(store, "ft-b%d.exec" % BATCH),
+        {"rtc_elementwise": 1, "bn_act_fwd": 17}, AOT_PLAIN_OPS["rtc"],
+        "the fine-tune program")
+    entry = entry_of()
+    t0 = time.perf_counter()
+    loaded = entry.load_aot(store)
+    load_s = time.perf_counter() - t0
+    check(loaded == 1, "the fine-tune store loaded %d of 1 bucket" % loaded)
+    x = X[:BATCH]
+    ref = mx.predict.Predictor(net, _with_prefixes(args, auxs),
+                               {"data": (BATCH,) + IMAGE},
+                               ctx=mx.gpu(0)).forward(data=x).get_output(0)
+    ba = mx.kernels.bn_act
+    # -- the main path: counts zeroed just before, read just after --------
+    mx.rtc.LAUNCHES = 0
+    ba.LAUNCHES = 0
+    got = [entry.forward({"data": x})[0] for _ in range(AOT_FORWARDS)]
+    rtc_n, bn_n = mx.rtc.LAUNCHES, ba.LAUNCHES
+    # ---------------------------------------------------------------------
+    check(rtc_n == AOT_FORWARDS and bn_n == 17 * AOT_FORWARDS
+          and entry._pred is None, "the loaded fine-tune program: %d rtc and "
+          "%d bn_act launches over %d forwards (Predictor path used: %s)" % (
+              rtc_n, bn_n, AOT_FORWARDS, entry._pred is not None))
+    check(all(np.array_equal(g, ref) for g in got), "the loaded fine-tune "
+          "program differs from the Predictor")
+    log("aot rtc: the fine-tune's scoring symbol export_aot([%d]) %.1f s "
+        "(%d bytes, %d nodes, mxt %s), load_aot %.1f s in a fresh pool; %d "
+        "forwards through the loaded program: %d rtc and %d bn_act launches, "
+        "bit-equal to the Predictor; on %s" % (
+            BATCH, export_s, graph["bytes"], graph["nodes"],
+            json.dumps(graph["mxt"]), load_s, AOT_FORWARDS, rtc_n, bn_n,
+            card))
+    return rtc_n, bn_n
+
+
 def phase_attention_op(torch, mx, seed, card):
     """``mx.sym.contrib.Attention`` at ATT_SHAPE, causal, through
     ``simple_bind`` -> ``forward(is_train=True)`` -> ``backward()`` and
@@ -2748,6 +2944,7 @@ def long_context_paths(torch, mx, seed, card):
                               card, "lc train seq %d" % LC_MAX_LEN)
     served = phase_lc_serving(torch, mx, params, seed, card)
     op = phase_attention_op(torch, mx, seed, card)
+    op += phase_aot_attention(torch, mx, seed, card)
     phase_lc_agreement(torch, mx, seed)
     step = lm.make_step(None, LC_HEADS, LC_LAYERS, LC_LR)
     counts = profile_steps(
@@ -3384,6 +3581,8 @@ def finetune_paths(torch, mx, rtc, seed, card):
                                    "fine-tune fused module")
         served += _ft_score_predict(torch, mx, local, X, y,
                                     "fine-tune executor module")
+        aot_rtc, aot_bn = phase_aot_rtc(torch, mx, net, fused, X, tmp, card)
+        served += aot_rtc
         host = mx.cpu()
         start_nd = {k: mx.nd.array(v, ctx=host) for k, v in start.items()}
         del local
@@ -3401,6 +3600,7 @@ def finetune_paths(torch, mx, rtc, seed, card):
         torch.cuda.empty_cache()
         extra = phase_nag_fit(torch, mx, net, arg_params, aux_params, X, y,
                               tmp, seed, card)
+        extra["bn_act_fwd"] += aot_bn
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_launches = main_fit_launches + served
@@ -9801,20 +10001,37 @@ FL_BURSTS = 4           # most burst rounds to see buckets 8 and 32 served
 FL_ROUTER_BOUND = 0.8   # router CPU s per s past which --workers 2 runs too
 FL_IDLE_S = 1.0         # an idle window: what the front end costs unloaded
 FL_ENV = {"MXTPU_FLEET_HEARTBEAT_S": "0.3", "MXTPU_FLEET_EVICT_S": "1.2",
-          "MXTPU_FLEET_SPILL_QUEUE": "4", "MXTPU_SERVE_MAX_WAIT_MS": "2"}
+          "MXTPU_FLEET_SPILL_QUEUE": "4", "MXTPU_SERVE_MAX_WAIT_MS": "2",
+          "MXTPU_SERVE_SEQ_BUCKETS": str(LM_SEQ)}
 FLEET_MAIN = os.path.join(ROOT, "mxnet_tpu_torch", "fleet", "fleet_main.py")
 
 
-def _fl_model_flags(res_dir, mlp):
-    """The manifest's flags: ResNet-50 (a checkpoint directory) and the
-    MLP on card 0 at ``FL_BUCKETS``."""
+#: the fleet's models; each replica run warms every one from the store
+FL_MODELS = ("resnet", "mlp", "lm")
+#: the /predict_seq request each replica answers (length bucket LM_SEQ)
+FL_SEQ_LEN = 29
+
+
+def _fl_lm_dir(tmp):
+    """The full-width LM's checkpoint directory in the fleet's tmp."""
+    return os.path.join(tmp, "lm")
+
+
+def _fl_model_flags(res_dir, mlp, lm_dir):
+    """The manifest's flags: ResNet-50 (a checkpoint directory), the MLP
+    and the full-width LM (a checkpoint directory; its tokens and its
+    label both declared, so its programs enter the store) on card 0 at
+    ``FL_BUCKETS``."""
     prefix, epoch, sample = mlp
     return ["--device-sets", FL_DEVICE_SETS,
             "--buckets", ",".join(map(str, FL_BUCKETS)),
             "--model", "resnet=%s" % res_dir,
             "--model", "mlp=%s:%d" % (prefix, epoch),
+            "--model", "lm=%s" % lm_dir,
             "--input-shape", "resnet:data=%s" % ",".join(map(str, IMAGE)),
-            "--input-shape", "mlp:data=%s" % ",".join(map(str, sample))]
+            "--input-shape", "mlp:data=%s" % ",".join(map(str, sample)),
+            "--input-shape", "lm:data=%d" % LM_SEQ,
+            "--input-shape", "lm:softmax_label=%d" % LM_SEQ]
 
 
 def _fl_start(tmp, name, res_dir, mlp, workers=1, watch=True,
@@ -9828,7 +10045,7 @@ def _fl_start(tmp, name, res_dir, mlp, workers=1, watch=True,
     port_file = os.path.join(tmp, name + ".port")
     log_path = os.path.join(tmp, name + ".log")
     cmd = [sys.executable, FLEET_MAIN, "serve", "--replicas", "2"] + \
-        _fl_model_flags(res_dir, mlp) + [
+        _fl_model_flags(res_dir, mlp, _fl_lm_dir(tmp)) + [
             "--workers", str(workers), "--run-dir", run_dir, "--port", "0",
             "--port-file", port_file]
     if watch:
@@ -10074,22 +10291,29 @@ def _fl_bursts(mx, port, x, refs):
     return seen, sent
 
 
-def _fl_launch_check(text, extra_batches, swaps, what):
-    """The drained replica's launch line against its ResNet-50 forwards:
-    the warmup's (one validation call of the smallest bucket's loaded
-    program, the replicas warm from the store) + its batches (less
-    ``extra_batches`` of the MLP) + a staged validation and a probe per
-    swap.  Returns its bn_act launches."""
+def _fl_launch_check(text, extra_batches, swaps, what, lm_batches=0):
+    """The drained replica's launch line against its forwards through the
+    loaded programs.  ResNet-50: the warmup's (one validation call of the
+    smallest bucket's program) + its batches (less ``extra_batches`` of
+    the MLP and the LM) + a staged validation and a probe per swap, 17
+    ``bn_act`` each.  The LM: its validation call + ``lm_batches``, 2
+    persistent ``lstm_seq`` each.  Returns the bn_act launches, the
+    ResNet-50 batches and the lstm_seq launches."""
     counts = _sv_line(text, "launches")
-    batches = _sv_line(text, "stats")["batches"] - extra_batches
+    batches = _sv_line(text, "stats")["batches"] - extra_batches - lm_batches
     fwd = 1 + batches + 2 * swaps
     check(counts["bn_act_fwd"] == 17 * fwd, "%s: %d bn_act launches, "
           "expected 17 x %d ResNet-50 forwards (1 validation of the loaded "
           "programs, %d batches, %d swaps)" % (
               what, counts["bn_act_fwd"], fwd, batches, swaps))
-    check(counts["bn_act_bwd"] == 0, "%s ran a backward: %s" % (what,
-                                                                counts))
-    return counts["bn_act_fwd"], batches
+    seq = LM_LAYERS * (1 + lm_batches)
+    check(counts["lstm_seq_fwd"] == seq, "%s: %d lstm_seq launches, "
+          "expected %d (%d a forward of the LM's loaded programs: 1 "
+          "validation, %d batches)" % (what, counts["lstm_seq_fwd"], seq,
+                                       LM_LAYERS, lm_batches))
+    check(counts["bn_act_bwd"] == counts["lstm_seq_bwd"] == 0,
+          "%s ran a backward: %s" % (what, counts))
+    return counts["bn_act_fwd"], batches, counts["lstm_seq_fwd"]
 
 
 def _fl_stop(proc):
@@ -10107,7 +10331,8 @@ def _fl_start_build(tmp, res_dir, mlp):
     out_path = os.path.join(tmp, "warm-build.json")
     log_path = os.path.join(tmp, "warm-build.log")
     cmd = [sys.executable, FLEET_MAIN, "warmup"] + \
-        _fl_model_flags(res_dir, mlp) + ["--warm-store", store]
+        _fl_model_flags(res_dir, mlp, _fl_lm_dir(tmp)) + ["--warm-store",
+                                                           store]
     t0 = time.time()
     with open(out_path, "w") as out_f, open(log_path, "w") as log_f:
         proc = subprocess.Popen(cmd, env=_sv_env(), stdout=out_f,
@@ -10154,10 +10379,10 @@ def _fl_param_bytes(mx, params):
 
 
 def _fl_warm_check(text, runs, what):
-    """A replica log's daemon runs each warmed both models from the
+    """A replica log's daemon runs each warmed every model from the
     store, every bucket (no executor warmup); returns their warmup_s."""
     n = len(FL_BUCKETS)
-    for model in ("resnet", "mlp"):
+    for model in FL_MODELS:
         got = text.count("mxserve: warmed %r from the AOT store (%d/%d "
                          "buckets)" % (model, n, n))
         check(got == runs, "%s: %d of %d runs warmed %r from the store"
@@ -10170,6 +10395,57 @@ def _fl_warm_check(text, runs, what):
     check(len(warm) == runs, "%s: %d warmup_s lines for %d runs"
           % (what, len(warm), runs))
     return warm
+
+
+def _fl_lm_graphs(mx, store):
+    """Each stored LM program (one a bucket: its init-state fills carry
+    the batch) calls ``mxt.lstm_seq_fwd`` once a layer and holds no cell
+    of the plain recurrence."""
+    return {b: _aot_graph_check(
+        mx, os.path.join(store, "aot", "lm-b%d.exec" % b),
+        {"lstm_seq_fwd": LM_LAYERS}, AOT_PLAIN_OPS["lstm"],
+        "the LM's bucket-%d program" % b) for b in FL_BUCKETS}
+
+
+def _fl_predict_seq(torch, mx, seed, prep, run_dir):
+    """One ``/predict_seq`` of FL_SEQ_LEN tokens (length bucket LM_SEQ)
+    straight to each replica's port (the router forwards no
+    ``/predict_seq``): it runs through the replica's loaded bucket-1 LM
+    program and must equal the smoke's ``Predictor`` on the padded input
+    on gpu(0) bit for bit."""
+    import numpy as np
+    rs = np.random.RandomState(seed + 104)
+    toks = rs.randint(0, LM_VOCAB, FL_SEQ_LEN)
+    shape = (1, LM_SEQ)
+    padded = np.concatenate([toks, np.repeat(toks[-1:], LM_SEQ - FL_SEQ_LEN)]
+                            ).astype(np.float32)[None]
+    pred = mx.predict.Predictor(prep["lm_sym"],
+                                _with_prefixes(prep["lm_args"], {}),
+                                {"data": shape, "softmax_label": shape},
+                                ctx=mx.gpu(0))
+    ref = pred.forward(data=padded, softmax_label=np.zeros(shape, np.float32)
+                       ).get_output(0)[:FL_SEQ_LEN]
+    del pred
+    # the replicas' launch lines count persistent launches: the route the
+    # op picks at the request's batch bucket
+    route = mx.kernels.lstm_cell.lstm_seq_route(1, LM_HIDDEN, torch.float32)
+    check(route == "persistent", "lstm_seq_route(1, %d) is %s" % (LM_HIDDEN,
+                                                                route))
+    for r in (0, 1):
+        cli = mx.serving.ServeClient("127.0.0.1", _fl_replica_port(run_dir, r),
+                                     timeout=60)
+        try:
+            status, payload = cli.predict_seq("lm", toks.tolist())
+        finally:
+            cli.close()
+        check(status == 200 and payload["bucket"] == LM_SEQ,
+              "replica %d: /predict_seq of %d tokens: %s %s" % (
+                  r, FL_SEQ_LEN, status, str(payload)[:300]))
+        got = np.asarray(payload["outputs"][0], np.float32)
+        check(got.shape == ref.shape and np.array_equal(got, ref),
+              "replica %d: the LM's /predict_seq answer differs from the "
+              "smoke's Predictor" % r)
+    return {"route": route, "tokens": FL_SEQ_LEN, "bucket": LM_SEQ}
 
 
 def fleet_prepare(torch, mx, seed):
@@ -10188,21 +10464,22 @@ def fleet_prepare(torch, mx, seed):
     mlp = bench._save_serving_models(os.path.join(tmp, "bench"))["mlp"]
     res_dir = os.path.join(tmp, "resnet")
     args1, aux1 = _sv_save_resnet(mx, symbol, seed + 100, res_dir, 1)
+    lm_sym, lm_args = _sv_save_lm(mx, seed + 103, _fl_lm_dir(tmp))
     build = _fl_start_build(tmp, res_dir, mlp)
     _BACKGROUND.append(build[0])
     return {"tmp": tmp, "bench": bench, "symbol": symbol, "mlp": mlp,
             "res_dir": res_dir, "args1": args1, "aux1": aux1,
-            "build": build}
+            "lm_sym": lm_sym, "lm_args": lm_args, "build": build}
 
 
 def phase_fl_fleet(torch, mx, seed, prep):
     """The fleet's main path on the card: bring-up from the warm store,
     parity, route overhead, scale-out at concurrency 32, the SIGKILL
-    drill, the ``dup_request`` collapse, the rolling swap under traffic
-    and the drain.  When the router's CPU bounds it at concurrency 32,
+    drill, the ``dup_request`` collapse, the rolling swap under traffic,
+    one ``/predict_seq`` of the LM on each replica and the drain.  When the router's CPU bounds it at concurrency 32,
     the ``--workers 2`` fleet is started before the drills, so that its
-    bring-up overlaps them.  Returns the drained replicas' bn_act
-    launches and the numbers."""
+    bring-up overlaps them.  Returns the drained replicas' bn_act and
+    lstm_seq launches and the numbers."""
     import threading
     import numpy as np
     tmp, bench, symbol, mlp, res_dir = (prep[k] for k in (
@@ -10216,7 +10493,9 @@ def phase_fl_fleet(torch, mx, seed, prep):
     _m, margs0, maux0 = mx.model.load_checkpoint(mlp[0], mlp[1])
     out["warm"] = _fl_finish_build(prep["build"], {
         "resnet": _fl_param_bytes(mx, (args1, aux1)),
-        "mlp": _fl_param_bytes(mx, (margs0, maux0))})
+        "mlp": _fl_param_bytes(mx, (margs0, maux0)),
+        "lm": _fl_param_bytes(mx, (prep["lm_args"], {}))})
+    out["lm_graph"] = _fl_lm_graphs(mx, out["warm"]["store"])
     gc.collect()
     torch.cuda.empty_cache()
     mem = out["card_mib"] = {"smoke_alone": _fl_card_mib()}
@@ -10389,6 +10668,8 @@ def phase_fl_fleet(torch, mx, seed, prep):
             deploy.append(_fl_get(mx, rport)["deploy"]["resnet"])
         check(all(d["promoted"] == 1 and d["rolled_back"] == 0
                   for d in deploy), "the replicas' swaps: %s" % deploy)
+        # -- the LM through each replica's loaded programs -------------
+        out["lm_seq"] = _fl_predict_seq(torch, mx, seed, prep, run_dir)
         # -- the drain -------------------------------------------------
         t_term = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
@@ -10416,8 +10697,8 @@ def phase_fl_fleet(torch, mx, seed, prep):
         log(text[-4000:])
     check(rc == 0 and "replica exit codes {0: 0, 1: 0}" in text,
           "the fleet exited %d after SIGTERM: %s" % (rc, text[-600:]))
-    launches, out["drained_batches"], out["warm"]["replica_warmup_s"] = \
-        0, [], []
+    launches, seq, out["drained_batches"] = 0, 0, []
+    out["warm"]["replica_warmup_s"] = []
     for r in (0, 1):
         with open(os.path.join(run_dir, "replica-%d.log" % r)) as f:
             rtext = f.read()
@@ -10426,20 +10707,23 @@ def phase_fl_fleet(torch, mx, seed, prep):
         # the SIGKILLed home's respawn warmed from the store as well
         out["warm"]["replica_warmup_s"].append(_fl_warm_check(
             rtext, 2 if r == home else 1, "replica %d" % r))
-        n, batches = _fl_launch_check(
+        n, batches, lm_n = _fl_launch_check(
             rtext, mlp_batches[r] if r != home else 0, 1,
-            "replica %d (%s run)" % (r, "respawned" if r == home else "first"))
+            "replica %d (%s run)" % (r, "respawned" if r == home else "first"),
+            lm_batches=1)
         launches += n
+        seq += lm_n
         out["drained_batches"].append(batches)
-    out["launches"] = launches
-    return launches, out
+    out["launches"], out["seq_launches"] = launches, seq
+    return collections.Counter({"bn_act_fwd": launches,
+                                "lstm_seq_fwd": seq}), out
 
 
 def phase_fl_workers(mx, bench, spawned):
     """The same fleet with two router workers on the public port
     (``--workers 2``, started by :func:`phase_fl_fleet`): concurrency 32
     and the front end's CPU, then the drain.  Returns the replicas'
-    bn_act launches and the numbers."""
+    bn_act and lstm_seq launches and the numbers."""
     proc, port, ready_s, run_dir, log_path = _fl_wait(spawned)
     out = {"ready_s": ready_s}
     try:
@@ -10461,13 +10745,13 @@ def phase_fl_workers(mx, bench, spawned):
     check(rc == 0 and "worker exit codes {0: 0, 1: 0}" in text
           and "replica exit codes {0: 0, 1: 0}" in text,
           "the sharded fleet exited %d: %s" % (rc, text[-600:]))
-    launches = 0
+    launches = collections.Counter()
     for r in (0, 1):
         with open(os.path.join(run_dir, "replica-%d.log" % r)) as f:
             rtext = f.read()
         _fl_warm_check(rtext, 1, "sharded replica %d" % r)
-        launches += _fl_launch_check(rtext, 0, 0,
-                                     "sharded replica %d" % r)[0]
+        n, _, lm_n = _fl_launch_check(rtext, 0, 0, "sharded replica %d" % r)
+        launches.update({"bn_act_fwd": n, "lstm_seq_fwd": lm_n})
     return launches, out
 
 
@@ -10477,21 +10761,21 @@ def fleet_paths(torch, mx, seed, card, prepared=None):
     already), ``fleet_main.py serve --device-sets cuda:0 --replicas 2``
     (two daemons co-tenant on the one H100 behind the router, warmed from
     the store), and, when the router's CPU bounds it, the same load
-    through ``--workers 2``.  Returns the replicas' bn_act launches (row
-    1)."""
+    through ``--workers 2``.  Returns the replicas' bn_act and lstm_seq
+    launches (rows 1 and 3)."""
     prep = prepared or fleet_prepare(torch, mx, seed)
     try:
         launches, out = phase_fl_fleet(torch, mx, seed, prep)
         sharded = None
         if out["w2"] is not None:
             n, sharded = phase_fl_workers(mx, prep["bench"], out["w2"])
-            launches += n
+            launches.update(n)
     finally:
         for proc in _BACKGROUND:
             _fl_stop(proc)
         shutil.rmtree(prep["tmp"], ignore_errors=True)
     _fl_report(out, sharded, card)
-    return collections.Counter({"bn_act_fwd": launches})
+    return launches
 
 
 def _fl_report(out, sharded, card):
@@ -10555,6 +10839,18 @@ def _fl_report(out, sharded, card):
             json.dumps(warm["replica_warmup_s"]),
             json.dumps(warm["exec_bytes"]), json.dumps(warm["param_bytes"]),
             card))
+    lm = out["lm_seq"]
+    log("fleet LM (vocab %d, width %d, %d layers): the builder's programs by "
+        "bucket %s against %d parameter bytes; every replica run warmed "
+        "'lm' from the store (%d/%d buckets); /predict_seq of %d tokens "
+        "(length bucket %d, batch bucket 1, lstm_seq route %s) on each "
+        "replica equals the smoke's Predictor bit for bit; lstm_seq %d over "
+        "the drained runs (%d a forward: 1 validation + 1 request a run); "
+        "on %s" % (
+            LM_VOCAB, LM_HIDDEN, LM_LAYERS, json.dumps(out["lm_graph"]),
+            warm["param_bytes"]["lm"], len(FL_BUCKETS), len(FL_BUCKETS),
+            lm["tokens"], lm["bucket"], lm["route"], out["seq_launches"],
+            LM_LAYERS, card))
     log("fleet drain: SIGTERM -> exit 0 in %.2f s (replicas draining at %s "
         "s, gone at %s s), replicas 0 and 0; bn_act %d over the drained "
         "runs' %s ResNet-50 batches (17 a forward: 1 validation of the "
@@ -12964,9 +13260,13 @@ def main(argv=None):
                 json.dump(times, f, indent=1)
 
     rtc = timed("setup_rtc", rtc_kernels, torch, mx)
-    card = timed("setup", phase_setup, torch, mx, rtc)
+    card = timed("setup", phase_setup, torch, mx, rtc, DEFERRED_SOURCES)
     seed = args.seed
-    kernels = timed("resnet_paths", resnet_paths, torch, mx, seed, card)
+    try:
+        kernels = timed("resnet_paths", resnet_paths, torch, mx, seed, card)
+    finally:
+        # the deferred nvcc ends before anything else runs, or the script
+        timed("setup_deferred", await_builds, mx)
     kernels += timed("lm_paths", lm_paths, torch, mx, seed, card)
     kernels += timed("long_context_paths", long_context_paths, torch, mx,
                      seed, card)

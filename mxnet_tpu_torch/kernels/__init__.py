@@ -32,6 +32,15 @@ the hash over the rendered text and the flags.
 JAX package does) is the routing threshold of ``full_attention`` and the
 key-block length of the plain flash attention and its backward; the CUDA
 kernel's own tiles do not depend on it.
+
+**Registered ops.** Every forward kernel that inference reaches is an op
+of the one ``mxt`` library (:func:`define_op`): ``bn_act_fwd``,
+``lstm_seq_fwd``, ``lstm_cell_fwd``, ``flash_attention_fwd`` and
+``rtc_elementwise`` (``rtc.py``).  The eager plan calls the op, so a
+``torch.export`` program of the plan holds it, and a loaded program
+launches the kernel as the plan does.  Launch counters and
+:func:`note_launch` are fed inside the CUDA kernels only: a trace counts
+nothing.  The backward kernels stay direct launches.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ from ..base import ENV_FUSED_KERNELS, MXNetError, get_env, register_env
 __all__ = ["KNOWN_KERNELS", "enabled_kernels", "fused_enabled", "build",
            "load_library", "library_path", "BUILD_SECONDS", "ENV_FLASH_BLOCK",
            "LAUNCH_HOOKS", "note_launch", "portable_trace", "portable",
-           "refuse_export",
+           "define_op",
            "bn_act", "lstm_cell", "flash_attention", "roofline",
            "concat_fuse", "pool_act", "eltwise_chain", "augment"]
 
@@ -148,15 +157,31 @@ def portable():
     return getattr(_PORTABLE, "on", False)
 
 
-def refuse_export(kernel):
-    """Raise when a kernel without a registered op is reached by
-    ``torch.export`` outside :func:`portable_trace`: its ctypes launch
-    cannot be traced into a stored program."""
+_MXT = []
+
+
+def define_op(schema, plain, cuda, fake):
+    """Define ``torch.ops.mxt.<name>`` from ``schema`` on the one ``mxt``
+    library (torch allows one definition library a namespace): ``plain``
+    is its CompositeExplicitAutograd kernel (every device but CUDA),
+    ``cuda`` its CUDA kernel (the hand-written kernel's launch), ``fake``
+    its shape function under ``FakeTensorMode`` and on ``meta`` tensors.
+    An exported program (``serving/aot.py``) holds the op and calls the
+    kernel where the eager plan does.  Registered through
+    ``torch.library.Library`` (a definition, two kernels and a fake), not
+    the ``custom_op`` decorator, whose Python autograd layers cost several
+    times as much host time a call (``tools/bn_act_dispatch.py``; PERF.md
+    §6).  Returns the op's overload packet."""
     import torch
-    if torch.compiler.is_exporting():
-        raise MXNetError(
-            "the %s kernel is not a registered op: a program that launches "
-            "it cannot be exported to the AOT store" % kernel)
+    if not _MXT:
+        _MXT.append(torch.library.Library("mxt", "DEF"))
+    lib = _MXT[0]
+    name = schema.split("(", 1)[0]
+    lib.define(schema)
+    lib.impl(name, plain, "CompositeExplicitAutograd")
+    lib.impl(name, cuda, "CUDA")
+    torch.library.register_fake("mxt::" + name, fake, lib=lib)
+    return getattr(torch.ops.mxt, name)
 
 
 # ---------------------------------------------------------------------------

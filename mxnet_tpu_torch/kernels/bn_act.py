@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from . import COUNT_LOCK, note_launch, portable
+from . import COUNT_LOCK, define_op, note_launch, portable
 
 __all__ = ["fused_bn_act", "fused_bn_act_plain", "fold_bn_into_conv",
            "NormAct", "norm_act", "norm_act_plain", "norm_act_bwd",
@@ -196,20 +196,13 @@ def _bn_act_fwd_fake(x, scale, shift, act_type):
     return torch.empty_like(x)
 
 
-#: ``torch.ops.mxt.bn_act_fwd``: the forward kernel as a registered op,
-#: so an exported program (``serving/aot.py``) calls the kernel where the
-#: eager plan does.  A CUDA tensor takes the kernel, every other device
-#: the plain version, a fake tensor ``empty_like``; ``act_type`` "" means
-#: no activation.  Registered through ``torch.library.Library`` (a
-#: definition, two kernels and a fake), not the ``custom_op`` decorator,
-#: whose Python autograd layers cost several times as much host time a
-#: call (``tools/bn_act_dispatch.py``; PERF.md §6).
-_LIB = torch.library.Library("mxt", "DEF")
-_LIB.define("bn_act_fwd(Tensor x, Tensor scale, Tensor shift, str act_type) "
-            "-> Tensor")
-_LIB.impl("bn_act_fwd", _bn_act_fwd_plain, "CompositeExplicitAutograd")
-_LIB.impl("bn_act_fwd", _bn_act_fwd_cuda, "CUDA")
-torch.library.register_fake("mxt::bn_act_fwd", _bn_act_fwd_fake, lib=_LIB)
+#: ``torch.ops.mxt.bn_act_fwd``: the forward kernel as a registered op
+#: (:func:`~mxnet_tpu_torch.kernels.define_op`), so an exported program
+#: (``serving/aot.py``) calls the kernel where the eager plan does.  A
+#: CUDA tensor takes the kernel, every other device the plain version, a
+#: fake tensor ``empty_like``; ``act_type`` "" means no activation.
+define_op("bn_act_fwd(Tensor x, Tensor scale, Tensor shift, str act_type) "
+          "-> Tensor", _bn_act_fwd_plain, _bn_act_fwd_cuda, _bn_act_fwd_fake)
 
 
 def norm_act(x, scale, shift, act_type=None):

@@ -27,6 +27,11 @@ in the JAX package.
   autograd, as ``_fp_bwd`` recomputes through the lax tier.  The JAX
   package has no backward kernel, and neither has the port.
 - :func:`flash_attention` — the routed public function.
+- ``torch.ops.mxt.flash_attention_fwd`` — the forward as a registered op
+  (``kernels.define_op``): the eager forward and a ``torch.export``
+  program of it call the op, whose CUDA kernel is
+  :func:`flash_attention_fwd` and whose other devices take the plain
+  version.
 
 Numerics: the streaming softmax reassociates the sum of exponentials, so
 parity with the exact softmax of ``parallel.ring_attention.full_attention``
@@ -43,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import get_env
-from . import COUNT_LOCK, note_launch, portable, refuse_export
+from . import COUNT_LOCK, define_op, note_launch, portable
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "FlashAttentionFn", "online_update", "default_block", "flash_route",
@@ -272,7 +277,6 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None,
     if not q.is_cuda or portable():
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_k=block)
-    refuse_export("flash_attention")
     _check_cuda_args(q, k, v)
     B, Tq, H, D = q.shape
     auto = flash_route(q.dtype, D)
@@ -302,6 +306,39 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, block=None,
     return out
 
 
+def _op_plain(q, k, v, causal, scale, block):
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                 block_k=block)
+
+
+def _op_cuda(q, k, v, causal, scale, block):
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                               block=block)
+
+
+def _op_fake(q, k, v, causal, scale, block):
+    # the kernel and the plain version both write a new contiguous tensor
+    return q.new_empty(q.shape)
+
+
+#: ``torch.ops.mxt.flash_attention_fwd(q, k, v, causal, scale, block)``:
+#: the forward kernel as a registered op (``kernels.define_op``).  A CUDA
+#: tensor runs :func:`flash_attention_fwd` (the route, the staging copies
+#: and their count decided inside, from the call's own tensors), every
+#: other device :func:`flash_attention_plain` with ``block`` as its key
+#: block
+define_op("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+          "float scale, int block) -> Tensor", _op_plain, _op_cuda, _op_fake)
+
+
+def _forward(q, k, v, causal, scale, block):
+    """The forward through the op (the plain version inside
+    :func:`~.portable_trace`)."""
+    if portable():
+        return _op_plain(q, k, v, causal, scale, block)
+    return torch.ops.mxt.flash_attention_fwd(q, k, v, causal, scale, block)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with the JAX package's recompute backward: the
     forward is the kernel and saves q, k, v only; the backward runs
@@ -313,8 +350,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale, block):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale, ctx.block = causal, scale, block
-        return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                   block=block)
+        return _forward(q, k, v, causal, scale, block)
 
     @staticmethod
     def backward(ctx, grad):
@@ -327,10 +363,13 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block=None):
-    """Flash attention through :class:`FlashAttentionFn`: the CUDA kernel
-    for CUDA tensors, the plain version for CPU ones.  ``scale`` 0 or None
+    """Flash attention through :class:`FlashAttentionFn` when a gradient
+    is wanted, else through the forward op alone: the CUDA kernel for
+    CUDA tensors, the plain version for CPU ones.  ``scale`` 0 or None
     means ``1/sqrt(D)``; ``block`` (default ``MXTPU_FLASH_BLOCK``) is the
     plain version's and the backward's key block."""
-    scale = _scale(scale, q.shape[-1])
-    return FlashAttentionFn.apply(q, k, v, bool(causal), float(scale),
-                                  int(block or default_block()))
+    args = (q, k, v, bool(causal), float(_scale(scale, q.shape[-1])),
+            int(block or default_block()))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(*args)
+    return _forward(*args)

@@ -41,6 +41,15 @@ b`` and the cell, ``mxnet_tpu/ops/nn.py:927-931, 1030-1032``) is
 versions (the forward op for op the per-step loop over
 :func:`lstm_cell_plain`; the backward a reverse loop over
 :func:`lstm_cell_bwd_plain` and the products), which CPU tensors take.
+
+The inference forwards are registered ops (``kernels.define_op``):
+``torch.ops.mxt.lstm_cell_fwd(gates, c_prev) -> (h, c)`` and
+``torch.ops.mxt.lstm_seq_fwd(xg, w_h2h, h0, c0, route) -> (hs, hT, cT)``
+(route "" picks on the card from the call's own shapes).  The eager
+no-grad paths and :class:`LSTMCellFn` call them, so a ``torch.export``
+program of the ``RNN`` op or of the unrolled cells holds them; the
+training form of the recurrence (:class:`LSTMSeqFn`, which keeps the
+residuals) and the backward kernels launch directly.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ import ctypes
 import torch
 
 from ..ops.registry import register
-from . import COUNT_LOCK, note_launch, portable, refuse_export
+from . import COUNT_LOCK, define_op, note_launch, portable
 
 __all__ = ["lstm_cell", "LSTMCellFn", "lstm_cell_fwd", "lstm_cell_bwd",
            "lstm_cell_plain", "lstm_cell_bwd_plain", "LAUNCHES",
@@ -190,17 +199,10 @@ def _check_cuda_args(gates, c_prev, cell_shaped=()):
     return c_prev.numel() // hidden, hidden
 
 
-def lstm_cell_fwd(gates, c_prev):
-    """The forward kernel's wrapper: ``(h, c)``.
-
-    A CPU tensor takes :func:`lstm_cell_plain`.  A CUDA tensor launches
-    ``csrc/lstm_cell.cu`` on the current stream, or raises: contiguous
-    float32/bfloat16 gates (..., 4H) and c_prev (..., H) of one dtype and
-    device.  The outputs are new tensors; nothing synchronises."""
+def _launch_cell_fwd(gates, c_prev):
+    """Launch ``csrc/lstm_cell.cu``'s cell forward on CUDA tensors (raises
+    on tensors the kernel does not take) and count the launch."""
     global LAUNCHES
-    if not gates.is_cuda or portable():
-        return lstm_cell_plain(gates, c_prev)
-    refuse_export("lstm_cell")
     rows, hidden = _check_cuda_args(gates, c_prev)
     fwd = _kernels()["lstm_cell_fwd"]
     h = torch.empty_like(c_prev)
@@ -217,6 +219,32 @@ def lstm_cell_fwd(gates, c_prev):
         LAUNCHES += 1
     note_launch("lstm_cell_fwd", gates, c_prev)
     return h, c
+
+
+def _cell_fake(gates, c_prev):
+    return torch.empty_like(c_prev), torch.empty_like(c_prev)
+
+
+#: ``torch.ops.mxt.lstm_cell_fwd(gates, c_prev) -> (h, c)``: the cell's
+#: forward kernel as a registered op (``kernels.define_op``): a CUDA
+#: tensor launches the kernel, every other device takes
+#: :func:`lstm_cell_plain`
+define_op("lstm_cell_fwd(Tensor gates, Tensor c_prev) -> (Tensor, Tensor)",
+          lstm_cell_plain, _launch_cell_fwd, _cell_fake)
+
+
+def lstm_cell_fwd(gates, c_prev):
+    """The forward kernel's wrapper: ``(h, c)``, through
+    ``torch.ops.mxt.lstm_cell_fwd``.
+
+    A CPU tensor takes :func:`lstm_cell_plain`.  A CUDA tensor launches
+    ``csrc/lstm_cell.cu`` on the current stream, or raises: contiguous
+    float32/bfloat16 gates (..., 4H) and c_prev (..., H) of one dtype and
+    device.  The outputs are new tensors; nothing synchronises.  Inside
+    :func:`~.portable_trace` every tensor takes the plain version."""
+    if portable():
+        return lstm_cell_plain(gates, c_prev)
+    return torch.ops.mxt.lstm_cell_fwd(gates, c_prev)
 
 
 def lstm_cell_bwd(gates, c_prev, dh, dc):
@@ -265,9 +293,14 @@ class LSTMCellFn(torch.autograd.Function):
 
 
 def lstm_cell(gates, c_prev):
-    """The fused cell: ``(h, c)`` through :class:`LSTMCellFn` — the CUDA
-    kernels for CUDA tensors, their plain versions for CPU ones."""
-    return LSTMCellFn.apply(gates.contiguous(), c_prev.contiguous())
+    """The fused cell: ``(h, c)`` through :class:`LSTMCellFn` when a
+    gradient is wanted, else the forward op alone — the CUDA kernels for
+    CUDA tensors, their plain versions for CPU ones."""
+    gates, c_prev = gates.contiguous(), c_prev.contiguous()
+    if torch.is_grad_enabled() and (gates.requires_grad
+                                    or c_prev.requires_grad):
+        return LSTMCellFn.apply(gates, c_prev)
+    return lstm_cell_fwd(gates, c_prev)
 
 
 # ---------------------------------------------------------------------------
@@ -501,12 +534,11 @@ def lstm_seq_fwd(xg, w_h2h, h0, c0, keep=False, route="persistent"):
     global SEQ_LAUNCHES, SEQ_GATES_WRITTEN
     if not xg.is_cuda or portable():
         return lstm_seq_plain(xg, w_h2h, h0, c0, keep)
-    refuse_export("lstm_seq")
     _check_route(route)
     if route == "per_step":
         with COUNT_LOCK:
             ROUTE_LAUNCHES["per_step"] += 1
-        return _seq_loop(lstm_cell_fwd, xg, w_h2h, h0, c0, keep)
+        return _seq_loop(_launch_cell_fwd, xg, w_h2h, h0, c0, keep)
     T, N, H = _check_seq_args("forward", xg, w_h2h,
                               (("h0", h0), ("c0", c0)))
     plan = _plan_for(N, H, xg.dtype, "forward")
@@ -574,17 +606,52 @@ def lstm_seq_bwd(gates, c_prev, w_h2h, dhs, dhT, dcT, route="persistent"):
     return dgates, dh0, dc0
 
 
-def _route(xg, route):
-    """The route a sequence on ``xg``'s device takes: ``None`` on the CPU
-    (the plain versions, also inside :func:`~.portable_trace`), else
-    ``route``, :data:`SEQ_ROUTE`, or :func:`lstm_seq_route`'s pick,
-    checked."""
-    if not xg.is_cuda or portable():
-        return None
+def _pick_route(xg, route):
+    """``route``, else :data:`SEQ_ROUTE`, else :func:`lstm_seq_route`'s
+    pick for ``xg``'s (N, H, dtype), checked."""
     route = route or SEQ_ROUTE or lstm_seq_route(
         xg.shape[1], xg.shape[2] // 4, xg.dtype)
     _check_route(route)
     return route
+
+
+def _route(xg, route):
+    """The route a sequence on ``xg``'s device takes: ``None`` on the CPU
+    (the plain versions, also inside :func:`~.portable_trace`), else
+    :func:`_pick_route`'s."""
+    if not xg.is_cuda or portable():
+        return None
+    return _pick_route(xg, route)
+
+
+def _seq_op_plain(xg, w_h2h, h0, c0, route):
+    out = lstm_seq_plain(xg, w_h2h, h0, c0)
+    return out.hs, out.hT, out.cT
+
+
+def _seq_op_cuda(xg, w_h2h, h0, c0, route):
+    # the route is resolved here, from the shapes the call really has:
+    # a program traced with a symbolic batch names none
+    out = lstm_seq_fwd(xg, w_h2h, h0, c0,
+                       route=_pick_route(xg, route or None))
+    return out.hs, out.hT, out.cT
+
+
+def _seq_op_fake(xg, w_h2h, h0, c0, route):
+    T, N, G = xg.shape
+    new = lambda *shape: xg.new_empty(shape)  # noqa: E731
+    return new(T, N, G // 4), new(N, G // 4), new(N, G // 4)
+
+
+#: ``torch.ops.mxt.lstm_seq_fwd(xg, w_h2h, h0, c0, route) -> (hs, hT,
+#: cT)``: the recurrence's inference forward as a registered op
+#: (``kernels.define_op``; no residuals: what a stored program needs).  A
+#: CUDA tensor runs :func:`lstm_seq_fwd` on ``route``, or, when it is "",
+#: on :data:`SEQ_ROUTE` or :func:`lstm_seq_route`'s pick; every other
+#: device takes :func:`lstm_seq_plain`
+define_op("lstm_seq_fwd(Tensor xg, Tensor w_h2h, Tensor h0, Tensor c0, "
+          "str route) -> (Tensor, Tensor, Tensor)", _seq_op_plain,
+          _seq_op_cuda, _seq_op_fake)
 
 
 class LSTMSeqFn(torch.autograd.Function):
@@ -622,13 +689,15 @@ def lstm_seq(xg, w_h2h, h0, c0, route=None):
     or, when none is named, :data:`SEQ_ROUTE` or :func:`lstm_seq_route`'s
     pick; on the CPU the plain versions.  Through :class:`LSTMSeqFn` when
     a gradient is wanted; otherwise the forward alone, which writes no
-    residuals."""
+    residuals, through ``torch.ops.mxt.lstm_seq_fwd`` (the route picked
+    inside the op, so a traced program holds the pick's rule, not its
+    result)."""
     args = tuple(t.contiguous() for t in (xg, w_h2h, h0, c0))
-    route = _route(args[0], route)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return LSTMSeqFn.apply(*args, route)
-    out = lstm_seq_fwd(*args, route=route)
-    return out.hs, out.hT, out.cT
+        return LSTMSeqFn.apply(*args, _route(args[0], route))
+    if portable():
+        return _seq_op_plain(*args, route)
+    return torch.ops.mxt.lstm_seq_fwd(*args, route or "")
 
 
 # ---------------------------------------------------------------------------

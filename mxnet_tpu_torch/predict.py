@@ -211,9 +211,11 @@ def _device_free(ep):
     """Make an exported graph name no device: drop the
     ``_assert_tensor_metadata`` checks that ``.to(dtype)`` leaves (each
     names the trace's device and computes nothing), and rebuild factory
-    calls from the first input (``aten.new_zeros`` and kin), so the
-    program runs wherever its inputs and buffers are.  Any other node
-    that names a device raises."""
+    calls from the first input (``aten.new_zeros`` and kin; an
+    ``arange(end)``, which the plain flash attention's positions make, as
+    the running sum of ``new_ones`` less one, exact in its integer
+    dtype), so the program runs wherever its inputs and buffers are.
+    Any other node that names a device raises."""
     import torch
     graph = ep.graph_module.graph
     first = next(n for n in graph.nodes if n.op == "placeholder"
@@ -229,6 +231,20 @@ def _device_free(ep):
             continue
         base = getattr(getattr(node.target, "_overloadpacket", None),
                        "__name__", "")
+        if node.target is aten.arange.default and \
+                node.kwargs.get("dtype") in (None, torch.int64):
+            with graph.inserting_before(node):
+                ones = graph.call_function(
+                    aten.new_ones.default, (first, [node.args[0]]),
+                    {"dtype": torch.int64})
+                total = graph.call_function(aten.cumsum.default, (ones, 0))
+                repl = graph.call_function(aten.sub.Tensor, (total, 1))
+            for made in (ones, total, repl):
+                # each is the arange's shape and dtype
+                made.meta = dict(node.meta)
+            node.replace_all_uses_with(repl)
+            graph.erase_node(node)
+            continue
         if base not in _FACTORIES:
             raise MXNetError("export_compiled: node %s (%s) names the "
                              "device %s; the portable program must not"
@@ -269,8 +285,8 @@ def export_compiled(symbol, arg_params, aux_params, input_shapes,
     its buffers, so one archive serves every platform of ``platforms``
     (default ``("cpu", "cuda")``).  Arguments absent from the params and
     the inputs (loss labels) and missing aux states are zero-filled, the
-    ``Predictor.reshape`` rule.  A graph with a ``Custom`` or rtc op
-    raises :class:`MXNetError` naming it.
+    ``Predictor.reshape`` rule.  A graph with a ``Custom`` op raises
+    :class:`MXNetError` naming it; an rtc op traces its ``plain``.
 
     input_shapes: {input_name: shape}.  Returns the bytes (also written
     to ``fname`` when given).

@@ -21,6 +21,19 @@ kernel language:
   makes it a ``torch.autograd.Function``.
 - :class:`MXRtc` — the reference's class shape (name/inputs/outputs +
   ``push``), over a kernel callable.
+
+The kernel is the registered op ``torch.ops.mxt.rtc_elementwise(Tensor
+x, str key) -> Tensor`` (``kernels.define_op``).  Each
+:class:`ElementwiseKernel` enters the process-wide table :data:`KERNELS`
+under its key, the sha256 of its body text (:func:`body_key`); the op's
+CUDA kernel launches the table's kernel for the key, its other devices
+take that kernel's ``plain``, and a key the table lacks raises, naming
+it.  So a ``torch.export`` program of a graph with an rtc op holds the op
+and its key, and it loads only in a process that has registered the same
+body: elsewhere ``serving/aot.AotStore.load`` warns, naming the key, and
+returns nothing, and the daemon warms its executors the usual way — the
+store's contract for a foreign artifact, not a kernel fallback (the
+executors still launch the kernel).
 """
 from __future__ import annotations
 
@@ -32,20 +45,20 @@ import os
 import torch
 
 from .base import MXNetError
-from .kernels import COUNT_LOCK, note_launch
+from .kernels import COUNT_LOCK, define_op, note_launch, portable
 from .ops.registry import OP_REGISTRY, fn_signature_info, register
 
 __all__ = ["register_kernel", "elementwise_cuda_kernel", "ElementwiseKernel",
-           "MXRtc", "on_gpu", "render", "vector_split", "LAUNCHES",
-           "VECTOR_BYTES"]
+           "MXRtc", "on_gpu", "render", "vector_split", "body_key",
+           "LAUNCHES", "KERNELS", "VECTOR_BYTES"]
 
 #: launches of rtc elementwise kernels since the process started (or the
 #: caller last reset it); incremented only where a kernel is launched
 LAUNCHES = 0
 
-#: names of the ops :func:`register_kernel` made (no exported program
-#: can hold one: ``serving/aot.refuse_unexportable``)
-REGISTERED = set()
+#: body key (:func:`body_key`) -> the :class:`ElementwiseKernel` that
+#: ``torch.ops.mxt.rtc_elementwise`` runs for it in this process
+KERNELS = {}
 
 _TEMPLATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                          "rtc_elementwise.cu")
@@ -103,6 +116,41 @@ def render(body):
     return template.replace(_MARKER, body)
 
 
+def body_key(body):
+    """The key of an elementwise body in :data:`KERNELS` and in the
+    ``torch.ops.mxt.rtc_elementwise`` calls of a stored program: the
+    sha256 of its text."""
+    return hashlib.sha256(body.encode()).hexdigest()
+
+
+def _registered(key):
+    kernel = KERNELS.get(key)
+    if kernel is None:
+        raise MXNetError(
+            "rtc elementwise kernel %s is not registered in this process "
+            "(make elementwise_cuda_kernel(body) of the same body first)"
+            % key)
+    return kernel
+
+
+def _op_plain(x, key):
+    return _registered(key)._plain(x)
+
+
+def _op_cuda(x, key):
+    return _registered(key)._launch(x)
+
+
+def _op_fake(x, key):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+#: ``torch.ops.mxt.rtc_elementwise(x, key)``: the body registered under
+#: ``key`` over ``x`` (see the module docstring)
+define_op("rtc_elementwise(Tensor x, str key) -> Tensor", _op_plain,
+          _op_cuda, _op_fake)
+
+
 class _NoReverse(torch.autograd.Function):
     """The kernel's output for an input that requires grad: the forward
     is the kernel, the backward raises (a hand-written body has no reverse
@@ -110,7 +158,7 @@ class _NoReverse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernel):
-        return kernel._apply(x)
+        return torch.ops.mxt.rtc_elementwise(x, kernel.key)
 
     @staticmethod
     def backward(ctx, g):
@@ -130,12 +178,16 @@ class ElementwiseKernel(object):
         #: the library's name in ``kernels.build``/``load_library``; the
         #: library itself is keyed by a hash of the rendered source (the
         #: template's bytes and the body) and the nvcc flags
-        self.name = "rtc_" + hashlib.sha256(body.encode()).hexdigest()[:12]
+        self.key = body_key(body)
+        self.name = "rtc_" + self.key[:12]
         #: seconds this kernel's build took (0.0: the library was already
         #: built or loaded), None until the first CUDA call
         self.build_seconds = None
         self._lib = None
         self._fns = {}
+        # the newest kernel of a body with a plain version answers for it
+        if plain is not None or self.key not in KERNELS:
+            KERNELS[self.key] = self
 
     def build(self):
         """Build (or find) and load the library; returns the seconds the
@@ -158,24 +210,26 @@ class ElementwiseKernel(object):
             self._fns[dtype] = fn
         return fn
 
-    def _apply(self, x):
+    def _plain(self, x):
+        """The op's kernel on a device other than CUDA: ``plain``."""
+        if self.plain is None:
+            raise MXNetError(
+                "elementwise_cuda_kernel: a CPU call needs plain= (a "
+                "function on tensors computing the body's function); "
+                "the CUDA body runs only on a CUDA tensor")
+        with torch.no_grad():
+            y = self.plain(x)
+        if tuple(y.shape) != tuple(x.shape):
+            raise MXNetError("elementwise_cuda_kernel: plain returned "
+                             "shape %s for input %s"
+                             % (tuple(y.shape), tuple(x.shape)))
+        y = y.to(x.dtype)
+        # an op's output is never its input
+        return y.clone() if y is x else y
+
+    def _launch(self, x):
+        """The op's CUDA kernel: launch the body on ``x`` and count it."""
         global LAUNCHES
-        if x.device.type == "meta":
-            # shape inference: the output has the input's shape and dtype
-            return torch.empty_like(x)
-        if not x.is_cuda:
-            if self.plain is None:
-                raise MXNetError(
-                    "elementwise_cuda_kernel: a CPU call needs plain= (a "
-                    "function on tensors computing the body's function); "
-                    "the CUDA body runs only on a CUDA tensor")
-            with torch.no_grad():
-                y = self.plain(x)
-            if tuple(y.shape) != tuple(x.shape):
-                raise MXNetError("elementwise_cuda_kernel: plain returned "
-                                 "shape %s for input %s"
-                                 % (tuple(y.shape), tuple(x.shape)))
-            return y.to(x.dtype)
         if x.dtype not in _ENTRIES:
             raise MXNetError("elementwise_cuda_kernel: dtype %s is not "
                              "supported (float32, bfloat16, float16, "
@@ -203,10 +257,13 @@ class ElementwiseKernel(object):
         element.  A CUDA tensor launches the kernel (built on first use)
         on the current stream, or raises; a CPU tensor takes ``plain``.
         The output has no reverse mode: backpropagating through it raises
-        (register the op with a ``vjp``)."""
+        (register the op with a ``vjp``).  Inside
+        ``kernels.portable_trace()`` every tensor takes ``plain``."""
+        if portable() or (self.plain is None and x.device.type == "cpu"):
+            return self._plain(x)
         if torch.is_grad_enabled() and x.requires_grad:
             return _NoReverse.apply(x, self)
-        return self._apply(x)
+        return torch.ops.mxt.rtc_elementwise(x, self.key)
 
 
 def elementwise_cuda_kernel(body, plain=None):
@@ -307,7 +364,6 @@ def register_kernel(name, fn=None, *, input_names=("data",), num_outputs=1,
         register(name, input_names=input_names, num_outputs=num_outputs,
                  infer_shape=infer_shape, needs_rng=needs_rng,
                  **opdef_kw)(wrapped)
-        REGISTERED.add(name)
         _inject(name)
         return f
     if fn is not None:

@@ -6,9 +6,11 @@ The JAX package stores the compiled XLA executable
 (``jax.experimental.serialize_executable``).  The port's forward is the
 eager plan, so its counterpart is a ``torch.export`` ``ExportedProgram``
 of that plan's inference path (:func:`build_forward`): the same aten ops
-and the same kernel calls the ``Predictor`` runs — the ``bn_act``
-forward kernel appears as ``torch.ops.mxt.bn_act_fwd``, its registered
-op — so a loaded program answers bit for bit as the eager plan does.
+and the same kernel calls the ``Predictor`` runs — every forward kernel
+appears as its registered op (``torch.ops.mxt.bn_act_fwd``,
+``lstm_seq_fwd``, ``lstm_cell_fwd``, ``flash_attention_fwd``,
+``rtc_elementwise``; ``kernels.define_op``) — so a loaded program
+answers bit for bit as the eager plan does.
 Nothing is compiled further (no Inductor, no CUDA graph): the arithmetic
 stays the eager plan's.
 
@@ -35,10 +37,15 @@ artifact that does not load warns and returns nothing, and the daemon
 warms the bucket executors the usual way.  The platform is
 ``cuda:<device name>`` or ``cpu``: a store built under the replicas'
 device env loads on every replica of that fleet.  A graph with a
-``Custom`` op (a host round trip) or an rtc op cannot be exported:
-:func:`refuse_unexportable` names them and the exporters raise before
-anything is written.  Loading a store needs the ``mxt`` ops registered,
-which importing this package does.
+``Custom`` op (a host round trip) cannot be exported, as in the JAX
+store (which cannot pickle a host callback): :func:`refuse_unexportable`
+names its nodes and the exporters raise before anything is written.
+Loading a store needs the ``mxt`` ops registered, which importing this
+package does; a program that holds an rtc op loads only in a process
+that has registered the same body (``rtc.KERNELS``): elsewhere
+:meth:`AotStore.load` warns, naming the key, and returns nothing, and the
+daemon warms its executors the usual way (a foreign artifact, not a
+kernel fallback: the executors launch the kernel).
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ import numpy as np
 from ..base import MXNetError
 
 __all__ = ["AotStore", "aot_dir_for_cache", "build_forward", "dev_array",
-           "graph_fills", "eval_closure", "refuse_unexportable"]
+           "graph_fills", "eval_closure", "refuse_unexportable",
+           "unregistered_rtc_keys"]
 
 _META_VERSION = 1
 
@@ -142,16 +150,24 @@ def eval_closure(eval_fn, fills, aux_fills, input_names, device):
 
 def refuse_unexportable(symbol, what):
     """Raise :class:`MXNetError` naming the nodes no exported program can
-    hold — ``Custom`` ops (the user's numpy code on the host) and rtc ops
-    (a ctypes launch of a generated kernel) — before anything is traced
-    or written."""
-    from .. import rtc
+    hold — ``Custom`` ops (the user's numpy code on the host) — before
+    anything is traced or written."""
     bad = ["%s (%s)" % (node.name, node.op.name) for node in symbol._nodes()
-           if node.op is not None and (node.op.name == "Custom"
-                                       or node.op.name in rtc.REGISTERED)]
+           if node.op is not None and node.op.name == "Custom"]
     if bad:
         raise MXNetError("%s: the graph holds op(s) that cannot be exported "
                          "to a program: %s" % (what, ", ".join(bad)))
+
+
+def unregistered_rtc_keys(program):
+    """The ``torch.ops.mxt.rtc_elementwise`` keys an ``ExportedProgram``
+    calls that this process has not registered (``rtc.KERNELS``)."""
+    import torch
+    from .. import rtc
+    op = torch.ops.mxt.rtc_elementwise.default
+    return sorted({n.args[1] for n in program.graph.nodes
+                   if n.op == "call_function" and n.target is op
+                   and n.args[1] not in rtc.KERNELS})
 
 
 @contextlib.contextmanager
@@ -272,7 +288,8 @@ class AotStore(object):
     def load(self, model, bucket):
         """One program -> callable ``(param_list, aux_list, *inputs) ->
         tuple(outputs)`` on :attr:`device`, or None (missing, corrupt or
-        foreign: the caller falls back)."""
+        foreign — an rtc body this process has not registered included:
+        the caller falls back)."""
         import hashlib
         base = self._base(model, bucket)
         try:
@@ -283,7 +300,13 @@ class AotStore(object):
             digest = hashlib.sha256(blob).hexdigest()
             module = self._loaded.get(digest)
             if module is None:
-                module = load_program(blob).module()
+                program = load_program(blob)
+                missing = unregistered_rtc_keys(program)
+                if missing:
+                    raise MXNetError(
+                        "the program calls rtc elementwise kernel(s) this "
+                        "process has not registered: %s" % ", ".join(missing))
+                module = program.module()
                 if self.device is not None:
                     module = module.to(self.device)
                 self._loaded[digest] = module

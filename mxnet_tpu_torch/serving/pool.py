@@ -455,10 +455,12 @@ class PooledModel(object):
         ``store_dir`` (the fleet warm-store build; weight-free programs,
         see serving/aot.py): one batch-dynamic program written for each
         bucket, or, when the plan fixes the batch, one program a
-        bucket.  int8 pools keep their in-process path (the
+        bucket (the LM's init-state fills carry the batch).  Every
+        forward kernel is a registered ``mxt`` op, so the programs of
+        LSTM, attention and rtc graphs launch their kernels as the
+        ``Predictor`` does.  int8 pools keep their in-process path (the
         dequantizing forward is built per process) and refuse; a graph
-        with a ``Custom`` or rtc op refuses too, before anything is
-        written."""
+        with a ``Custom`` op refuses too, before anything is written."""
         from . import aot
         if self.sample_shapes is None:
             raise MXNetError("model %r: declare sample_shapes before "
@@ -498,9 +500,13 @@ class PooledModel(object):
         """Load this model's programs from an AOT store -> number of
         buckets loaded (0 = nothing usable: an absent store, another
         model, dtype or parameter set, a foreign platform or runtime, or
-        an int8 pool; the caller falls back to :meth:`warmup`).  One
-        loaded program is validated with a real call, so a corrupt store
-        surfaces at bring-up, not at the first request."""
+        an int8 pool, an rtc body this process has not registered; the
+        caller falls back to :meth:`warmup`).  One loaded program is
+        validated with a real call, so a corrupt store surfaces at
+        bring-up, not at the first request: its outputs must have the
+        shapes ``symbol.infer_shape`` gives at that bucket (a time-major
+        LM answers (T * b, V) rows; the JAX package's check of the first
+        output's leading dim against the bucket refuses it)."""
         from . import aot
         if self._wt_scales:
             return 0                    # int8: in-process path only
@@ -530,8 +536,13 @@ class PooledModel(object):
             xs = {k: rs.rand(b0, *self.sample_shapes[k]).astype(np.float32)
                   for k in sorted(self.sample_shapes)}
             outs = self._aot_call(loaded[b0], xs)
-            if np.shape(outs[0])[0] != b0:
-                raise MXNetError("wrong validation output shape")
+            _, want, _ = self.symbol.infer_shape(
+                **{k: v.shape for k, v in xs.items()})
+            got = [tuple(np.shape(o)) for o in outs]
+            if got != [tuple(s) for s in want]:
+                raise MXNetError("wrong validation output shape: %s, the "
+                                 "graph gives %s at bucket %d"
+                                 % (got, want, b0))
         except Exception as e:  # noqa: BLE001 — stale/corrupt store
             _log().warning("AOT store %s: validation call failed for "
                            "%r (%s: %s) — falling back to the bucket "

@@ -15,7 +15,8 @@ site (conv -> BN -> relu) and one ``bn_act`` site (pool -> BN -> relu).
 - the exported graph calls ``torch.ops.mxt.bn_act_fwd`` once a
   ``fused_bn_act`` site;
 - int8 pools refuse, bfloat16 pools match their ``Predictor`` path;
-- ``Custom`` and rtc ops refuse export and nothing is written;
+- ``Custom`` ops refuse export and nothing is written (rtc graphs
+  export: ``tests/test_torch_aot_kernels.py``);
 - the daemon and the fleet warm from the store, with JAX unimportable;
 - the portable archive agrees with the JAX package's ``export_compiled``
   and runs in a process where ``mxnet_tpu_torch`` cannot be imported.
@@ -296,7 +297,7 @@ def test_bfloat16_pool_program_equals_its_predictor_path(tmp_path, kind):
 
 
 # ---------------------------------------------------------------------------
-# (f) unexportable ops
+# (f) unexportable ops: Custom (a host callback, as in the JAX store)
 # ---------------------------------------------------------------------------
 
 def _custom_sym():
@@ -323,23 +324,10 @@ def _custom_sym():
         return tmx.sym.SoftmaxOutput(net, name="softmax")
 
 
-def _rtc_sym():
-    if "aot_test_twice" not in tmx.rtc.REGISTERED:
-        twice = tmx.rtc.elementwise_cuda_kernel("out = 2.0f * in;",
-                                                plain=lambda x: 2 * x)
-        tmx.rtc.register_kernel("aot_test_twice")(lambda data: twice(data))
-    with tmx.name.NameManager():
-        data = tmx.sym.Variable("data")
-        net = tmx.sym.FullyConnected(data, num_hidden=4, name="fc")
-        net = tmx.sym.aot_test_twice(net, name="twice")
-        return tmx.sym.SoftmaxOutput(net, name="softmax")
-
-
-@pytest.mark.parametrize("which", ["custom", "rtc"])
+@pytest.mark.parametrize("which", ["custom"])
 def test_unexportable_ops_refuse_and_write_nothing(tmp_path, which):
-    sym = _custom_sym() if which == "custom" else _rtc_sym()
-    want = "dbl (Custom)" if which == "custom" else \
-        "twice (aot_test_twice)"
+    sym = _custom_sym()
+    want = "dbl (Custom)"
     rs = np.random.RandomState(0)
     args = {"fc_weight": rs.rand(4, 5).astype("f"),
             "fc_bias": np.zeros(4, "f")}
